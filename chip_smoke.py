@@ -5,6 +5,7 @@ Runs from the repository root:
     python3 chip_smoke.py                      # full size, on the card
     python3 chip_smoke.py --rows 4000000       # a shorter query phase
     python3 chip_smoke.py --device cpu --rows 200000   # CPU rehearsal
+    python3 chip_smoke.py --parent DIR         # also time DIR's kernels
 
 Phases (any failure exits non-zero):
 1. probe: a CUDA device is required; prints its name, count and
@@ -12,8 +13,11 @@ Phases (any failure exits non-zero):
 2. build: compiles every kernel of ``spark_rapids_tpu_torch/csrc`` with
    nvcc and prints each one's registers and shared memory;
 3. kernels: each kernel against its plain torch version on the card at
-   the main path's shapes, timed with CUDA events beside its byte bound
-   (3.35 TB/s), the plain version and a one-call PyTorch yardstick;
+   the main path's shapes (B1: the exchange's split and the ids alone;
+   B2: the table core's reduce stage and the TPU kernel's raw rows),
+   device-timed behind a sleep kernel (``time_cuda``) beside its byte
+   bound (3.35 TB/s), its host cost per call, the plain version and a
+   one-call PyTorch yardstick where one exists;
 4. query: the headline query of ``bench.py`` (filter, project, group-by
    with sum/count/max, hash exchange, broadcast join, project) through
    the port's session at 64M rows in 4 partitions, twice in exact mode
@@ -21,7 +25,8 @@ Phases (any failure exits non-zero):
    against a numpy computation of the same query from the same seed;
    before it, the query's variable-mode sums are reduced through the
    table-reduce kernel in f32 and in f64 rows, and the groups that miss
-   the variable-mode limit are counted for each.
+   the variable-mode limit are counted for each.  Each mode's warm run
+   is profiled; the exact one must call none of STAGE_REPLACED_OPS.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -57,56 +62,138 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call, by CUDA events after warm-up."""
+def time_cuda(fn, iters: int = 20, warmup: int = 3, queued: bool = True):
+    """(device ms per call, host ms per call), after warm-up.
+
+    The host ms is the wall time of enqueueing one call.  With ``queued``
+    the calls wait behind a sleep kernel that outlasts their enqueueing, so
+    the CUDA events around them time the device alone (a call that is
+    cheaper on the device than on the host is not timed at the host's
+    rate).  A function that synchronises inside (a host read), or one
+    whose calls overflow the device's launch queue (the plain versions,
+    a hundred small launches each), cannot queue: pass ``queued=False``
+    and its events include the host."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    end.record()
+    host_s = (time.perf_counter() - t0) / iters
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    if not queued:
+        ev[1].record()
+        for _ in range(iters):
+            fn()
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ev[1].elapsed_time(ev[2]) / iters, host_s * 1e3
+    sleep_s = 2 * host_s * iters + 1e-3
+    for _ in range(4):
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(int(sleep_s * 2e9))      # cycles, clock <= 2 GHz
+        ev[1].record()
+        for _ in range(iters):
+            fn()
+        ev[2].record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) / 1e3 > enqueue_s:
+            return ev[1].elapsed_time(ev[2]) / iters, host_s * 1e3
+        sleep_s *= 2
+    raise RuntimeError("the calls outlasted every sleep: not device-timed")
 
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def kernel_entry(name: str, source: str, replaces: str, shape: str,
+                 err: float, timed, plain_ms: float, nbytes: int,
+                 library_ms=None, **extra):
+    ms, host_ms = timed
+    return {"name": name, "route": "cuda",
+            "source": f"spark_rapids_tpu_torch/csrc/{source}",
+            "replaces": f"spark_rapids_tpu/kernels/pallas_ops.py:{replaces}",
+            "shape": shape, "max_abs_err": err, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": library_ms, **extra}
+
+
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def check_hash_partition(rng, n: int, num_words: int, parts: int):
+def random_words(rng, n: int, num_words: int):
+    import torch
+    return [torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                          dtype=np.int64,
+                                          endpoint=True)).cuda()
+            for _ in range(num_words)]
+
+
+def check_hash_ids(ops, rng, n: int, num_words: int, parts: int,
+                   fast_mod=None):
+    """B1's ids alone (the TPU kernel's function); ``fast_mod`` None is a
+    wrapper without that argument (the parent checkout's kernel)."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops
-    words = [torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
-                                           dtype=np.int64,
-                                           endpoint=True)).cuda()
-             for _ in range(num_words)]
-    got = cuda_ops.hash_partition_ids(words, parts)
-    want = cuda_ops.hash_partition_ids_plain(words, parts)
+    words = random_words(rng, n, num_words)
+    kw = {} if fast_mod is None else {"fast_mod": fast_mod}
+    got = ops.hash_partition_ids(words, parts, **kw)
     torch.cuda.synchronize()
-    check(torch.equal(got, want),
-          f"hash_partition_ids differs from its plain version at n={n}")
-    ms = time_cuda(lambda: cuda_ops.hash_partition_ids(words, parts))
-    plain = time_cuda(lambda: cuda_ops.hash_partition_ids_plain(words,
-                                                                parts))
-    nbytes = n * 8 * num_words + n * 4
-    return {"name": "hash_partition_ids", "route": "cuda",
-            "source": "spark_rapids_tpu_torch/csrc/hash_partition.cu",
-            "replaces": "spark_rapids_tpu/kernels/pallas_ops.py:37",
-            "shape": f"{n} rows x {num_words} word(s) -> {parts} parts",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": None}
+    check(torch.equal(got, cuda_ops.hash_partition_ids_plain(words, parts)),
+          f"hash_partition_ids {kw} differs from its plain version, n={n}")
+    design = {None: "parent kernel", False: "64-bit % by a runtime divisor",
+              True: "Barrett modulo"}[fast_mod]
+    return kernel_entry(
+        "hash_partition_ids", "hash_partition.cu", "37",
+        f"ids {n} rows x {num_words} word(s) -> {parts} parts ({design})",
+        0.0, time_cuda(lambda: ops.hash_partition_ids(words, parts, **kw)),
+        time_cuda(lambda: cuda_ops.hash_partition_ids_plain(words, parts),
+                  iters=5, queued=False)[0],
+        n * 8 * num_words + n * 4)
+
+
+def check_hash_split(rng, n: int, num_words: int, parts: int,
+                     live_frac: float):
+    """B1 redesigned: the exchange's split against a stable sort of the
+    ids + bincount, bit for bit."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    words = random_words(rng, n, num_words)
+    live = torch.from_numpy(rng.random(n) < live_frac).cuda()
+    perm, counts = cuda_ops.hash_split(words, live, parts)
+    want_perm, want_counts = cuda_ops.hash_split_plain(words, live, parts)
+    torch.cuda.synchronize()
+    check(torch.equal(perm, want_perm) and torch.equal(counts, want_counts),
+          f"hash_split differs from sort + bincount at n={n}, {parts} parts")
+
+    def sort_path():      # the split before: ids kernel, stable sort, bincount
+        key = torch.where(live, cuda_ops.hash_partition_ids(
+            words, parts, fast_mod=False).to(torch.int64), parts)
+        torch.sort(key, stable=True)
+        torch.bincount(key, minlength=parts + 1)
+    key = torch.where(live, cuda_ops.hash_partition_ids_plain(
+        words, parts).to(torch.int64), parts)
+    return kernel_entry(
+        "hash_partition_ids", "hash_partition.cu", "37",
+        f"split {n} rows x {num_words} word(s) -> {parts} parts, "
+        f"{live_frac:.0%} live", 0.0,
+        time_cuda(lambda: cuda_ops.hash_split(words, live, parts)),
+        time_cuda(lambda: cuda_ops.hash_split_plain(words, live, parts),
+                  iters=5, queued=False)[0],
+        n * 8 * num_words + n + n * 8 + (parts + 1) * 8,
+        design="counting-sort split",
+        sort_path_ms=time_cuda(sort_path, iters=5, queued=False)[0],
+        sort_ms=time_cuda(lambda: torch.sort(key, stable=True))[0])
 
 
 def bench_like_reduce_rows(rng, n: int, table: int, k: int, m: int,
                            sum_dt):
-    """Bucket ids and rows shaped like the headline query's partial
+    """Bucket ids and raw rows shaped like the headline query's partial
     aggregate: ~1000 keys, ~23% rows dead (bucket ``table``), a count
     row, sum rows of magnitude up to 1e5 and max rows in [0, 1)."""
     import torch
@@ -128,13 +215,15 @@ def bench_like_reduce_rows(rng, n: int, table: int, k: int, m: int,
     return t(bucket).cuda(), sums_t, maxs_t
 
 
-def check_table_reduce(rng, n: int, table: int, k: int, m: int, sum_dt):
+def check_table_reduce(ops, rng, n: int, table: int, k: int, m: int, sum_dt,
+                       design: str):
+    """B2 as the TPU kernel's function: raw sum and max rows."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops
     bucket, sums, maxs = bench_like_reduce_rows(rng, n, table, k, m,
                                                 sum_dt)
     rtol = B2_SUM_RTOL[np.dtype(sum_dt).name]
-    s_got, m_got = cuda_ops.table_reduce(bucket, sums, maxs, table)
+    s_got, m_got = ops.table_reduce(bucket, sums, maxs, table)
     s_want, m_want = cuda_ops.table_reduce_plain(bucket, sums, maxs, table)
     torch.cuda.synchronize()
     check(torch.equal(s_got[0], s_want[0]),
@@ -154,13 +243,9 @@ def check_table_reduce(rng, n: int, table: int, k: int, m: int, sum_dt):
     max_err = float(torch.cat([(s_got - s_want).abs().float().flatten(),
                                (m_got - m_want).abs().nan_to_num().flatten()
                                ]).max())
-    ms = time_cuda(lambda: cuda_ops.table_reduce(bucket, sums, maxs, table))
-    plain = time_cuda(lambda: cuda_ops.table_reduce_plain(bucket, sums,
-                                                          maxs, table))
 
     # the yardstick: index_add_ / scatter_reduce_ along dim 0 of
-    # [n, rows] (torch's fast layout; transposed outside the timing), and
-    # along dim 1 of the kernel's own [rows, n] layout
+    # [n, rows] (torch's fast layout; transposed outside the timing)
     sums_t, maxs_t = sums.T.contiguous(), maxs.T.contiguous()
     b_m = b64[:, None].expand(-1, m)
 
@@ -170,25 +255,158 @@ def check_table_reduce(rng, n: int, table: int, k: int, m: int, sum_dt):
         if m:
             mo = torch.full((table + 1, m), float("-inf"), device="cuda")
             mo.scatter_reduce_(0, b_m, maxs_t, "amax")
-
-    def library_dim1():
-        out = torch.zeros(k, table + 1, dtype=sums.dtype, device="cuda")
-        out.index_add_(1, b64, sums)
-        if m:
-            mo = torch.full((m, table + 1), float("-inf"), device="cuda")
-            mo.scatter_reduce_(1, b64.expand(m, -1), maxs, "amax")
-    lib = time_cuda(library)
-    lib_dim1 = time_cuda(library_dim1)
     es = sums.element_size()
-    nbytes = n * 4 + k * (n + table) * es + m * (n + table) * 4
-    return {"name": "table_reduce", "route": "cuda",
-            "source": "spark_rapids_tpu_torch/csrc/table_reduce.cu",
-            "replaces": "spark_rapids_tpu/kernels/pallas_ops.py:128",
-            "shape": f"{n} rows, table {table}, {k} {sums.dtype} sum + "
-                     f"{m} max rows",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": lib, "library_dim1_ms": lib_dim1}
+    return kernel_entry(
+        "table_reduce", "table_reduce.cu", "128",
+        f"raw rows: {n} rows, table {table}, {k} {sums.dtype} sum + {m} max "
+        f"rows ({design})", max_err,
+        time_cuda(lambda: ops.table_reduce(bucket, sums, maxs, table)),
+        time_cuda(lambda: cuda_ops.table_reduce_plain(bucket, sums, maxs,
+                                                      table),
+                  iters=5, queued=False)[0],
+        n * 4 + k * (n + table) * es + m * (n + table) * 4,
+        time_cuda(library)[0])
+
+
+def query_stage_inputs(rng, n: int, table: int, stage: str):
+    """The table stage's inputs at one of the headline query's shapes,
+    built by the table core's own code (``TpuHashAggregate._stage_col``):
+    ``partial`` (count(*), sum(z), max(x) over n input rows, exact),
+    ``final`` (the merge of partial buffers: sum, count, max) or
+    ``variable`` (the partial in variable float mode)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.exec.tpu_aggregate import TpuHashAggregate
+    from spark_rapids_tpu_torch.kernels.cuda_ops import StageCol
+    keys = rng.integers(0, 1000, n)
+    if stage == "final":       # partial tables: ~1000 live groups of 4096
+        live = np.zeros(n, bool)
+        live[np.arange(n) % table < 1000] = True
+        keys = np.arange(n) % table
+    else:
+        live = rng.random(n) >= 0.23
+    x = rng.random(n)
+    z = x * rng.random(n) + rng.integers(-100_000, 100_000, n)
+    t = torch.from_numpy
+    bucket = t(np.where(live, keys + 1, table).astype(np.int32)).cuda()
+    live_t = t(live).cuda()
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+
+    def col(v):
+        return Column(T.FLOAT64, t(v).cuda(), ones)
+    kinds = {"partial": ("fsum64", "fmax64"), "variable": ("fsumv", "fmax"),
+             "final": ("fsum64", "icount", "fmax64")}[stage]
+    cols = [StageCol("count")]
+    for kind, c in zip(kinds, [col(z), col(x)] if stage != "final" else
+                       [col(z * 60), Column(T.INT64, t(rng.integers(
+                           0, 60_000, n)).cuda(), ones), col(x)]):
+        sc, _ = TpuHashAggregate._stage_col(kind, c, live_t)
+        cols.append(sc)
+    return bucket, cols
+
+
+def check_table_stage(rng, n: int, table: int, stage: str):
+    """B2 redesigned: the table core's whole reduce stage against its
+    plain version.  Integer tables bit for bit; f64 value sums (variable
+    mode) within B2_SUM_RTOL of the bucket's sum of |v|."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    bucket, cols = query_stage_inputs(rng, n, table, stage)
+    got = cuda_ops.table_stage(bucket, table, cols)
+    want = cuda_ops.table_stage_plain(bucket, table, cols)
+    torch.cuda.synchronize()
+    err = 0.0
+    for c, g, w in zip(cols, got, want):
+        for a, b in zip(g, w):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"table_stage {c.kind}: {a.dtype}{list(a.shape)} against "
+                  f"{b.dtype}{list(b.shape)}")
+            if a.dtype == torch.float64 and c.kind == "fsumv":
+                mag = cuda_ops.table_stage_plain(
+                    bucket, table, [cuda_ops.StageCol(
+                        "fsumv", c.data.abs(), c.valid)])[0][1]
+                d = (a - b).abs()
+                check(bool((d <= B2_SUM_RTOL["float64"] * mag).all()),
+                      "table_stage f64 sums outside tolerance")
+                err = max(err, float(d.max()))
+            else:
+                check(torch.equal(a.nan_to_num(), b.nan_to_num()) and
+                      torch.equal(a.isnan(), b.isnan()) if
+                      a.is_floating_point() else torch.equal(a, b),
+                      f"table_stage {c.kind} table differs from its plain "
+                      f"version")
+    in_bytes = n * 4 + sum(t.numel() * t.element_size() for c in cols
+                           for t in (c.data, c.valid) if t is not None)
+    out_bytes = sum(t.numel() * t.element_size() for g in got for t in g)
+    return kernel_entry(
+        "table_reduce", "table_reduce.cu", "128",
+        f"stage {stage}: {n} rows, table {table}, kinds "
+        f"{[c.kind for c in cols]}", err,
+        time_cuda(lambda: cuda_ops.table_stage(bucket, table, cols)),
+        time_cuda(lambda: cuda_ops.table_stage_plain(bucket, table, cols),
+                  iters=5, queued=False)[0],
+        in_bytes + out_bytes, design="whole reduce stage")
+
+
+def load_parent_ops(path: str):
+    """``kernels/cuda_ops`` of another checkout of the repo (the parent
+    commit), imported as a package of its own; it builds its kernels into
+    that checkout's build/kernels."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+    pkg = Path(path).resolve() / "spark_rapids_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_port.kernels.cuda_ops")
+
+
+def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
+    """Phase 3: every kernel against its plain version at the main path's
+    shapes (and the sizes an exchange of whole batches will give B1).
+    Returns each kernel's main-path entry; prints every entry."""
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    checks = [
+        # B1: the split at the main path's shape (a partial table of 4096
+        # slots, ~1000 live), at a whole batch, and at the partition limit
+        lambda: check_hash_split(rng, 4096, 1, 8, 0.25),
+        lambda: check_hash_split(rng, big, 1, 8, 1.0),
+        lambda: check_hash_split(rng, big, 1, 1, 0.9),
+        lambda: check_hash_split(rng, big, 2, cuda_ops.SPLIT_MAX_PARTS, 0.9),
+        # B1's ids alone: the 64-bit modulo against the Barrett modulo
+        lambda: check_hash_ids(cuda_ops, rng, 4096, 1, 8, fast_mod=False),
+        lambda: check_hash_ids(cuda_ops, rng, big, 1, 8, fast_mod=False),
+        lambda: check_hash_ids(cuda_ops, rng, big, 1, 8, fast_mod=True),
+        # B2: the stage at the query's shapes, then the TPU kernel's raw rows
+        lambda: check_table_stage(rng, big, 4096, "partial"),
+        lambda: check_table_stage(rng, 4 * 4096, 4096, "final"),
+        lambda: check_table_stage(rng, big, 4096, "variable"),
+        lambda: check_table_stage(rng, big // 4, 1 << 14, "partial"),
+        lambda: check_table_reduce(cuda_ops, rng, big, 4096, 7, 0,
+                                   np.float32, "stage kernel"),
+        lambda: check_table_reduce(cuda_ops, rng, big, 4096, 5, 1,
+                                   np.float64, "stage kernel"),
+    ]
+    if parent:
+        old = load_parent_ops(parent)
+        old.build_all()
+        checks += [
+            lambda: check_hash_ids(old, rng, 4096, 1, 8),
+            lambda: check_hash_ids(old, rng, big, 1, 8),
+            lambda: check_table_reduce(old, rng, big, 4096, 7, 0,
+                                       np.float32, "parent kernel"),
+            lambda: check_table_reduce(old, rng, big, 4096, 5, 1,
+                                       np.float64, "parent kernel")]
+    entries = []
+    for measure in checks:
+        entries.append(measure())
+        print("kernel", json.dumps(entries[-1]), flush=True)
+    return {"hash_partition_ids": entries[0], "table_reduce": entries[7]}
 
 
 # -- phase 4: the headline query ---------------------------------------------
@@ -327,9 +545,16 @@ def run_query(session, data, dim, parts: int, device: str):
     return df, times, tables, launches
 
 
-def profile_query(df) -> None:
+# torch ops the table core's reduce stage and the exchange's split no
+# longer run: the table_stage and hash_split kernels took their work
+STAGE_REPLACED_OPS = ("aten::scatter_reduce_", "aten::index_add_",
+                      "aten::scatter_add_", "aten::bincount")
+
+
+def profile_query(df) -> set:
     """One more warm run under torch.profiler: device time by op and the
-    device's busy share of the (profiled) wall time."""
+    device's busy share of the (profiled) wall time.  Returns the names
+    of the ops the run called."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -339,17 +564,20 @@ def profile_query(df) -> None:
         df.to_arrow()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    names = {e.key for e in averages}
+    events = [e for e in averages
               if getattr(e, "self_device_time_total", 0) > 0]
     dev_us = sum(e.self_device_time_total for e in events)
     if not events:
         print("profile: the profiler saw no device time")
-        return
+        return names
     print(f"profile: wall {wall_us / 1e3:.3f} ms (profiled), device busy "
           f"{dev_us / 1e3:.3f} ms = {100 * dev_us / wall_us:.1f}% of wall")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    return names
 
 
 def main(argv=None) -> int:
@@ -357,6 +585,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=64_000_000)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: also time its "
+                         "kernels at the raw-row shapes with this timer")
     args = ap.parse_args(argv)
 
     import torch
@@ -385,18 +616,7 @@ def main(argv=None) -> int:
                     print(f"  {name}: {line.strip()}")
 
         # 3. kernels against their plain versions
-        rng = np.random.default_rng(args.seed)
-        kernels = {}
-        for n in (4096, 4 << 20):
-            r = check_hash_partition(rng, n, 1, 8)
-            print("kernel", json.dumps(r))
-            kernels.setdefault("hash_partition_ids", r)
-        # the query's rows: exact mode 7 f32 count/flag rows; variable
-        # mode 5 f64 sum rows and 1 max row
-        for k, m, dt in ((7, 0, np.float32), (5, 1, np.float64)):
-            r = check_table_reduce(rng, 4 << 20, 4096, k, m, dt)
-            print("kernel", json.dumps(r))
-            kernels.setdefault("table_reduce", r)
+        kernels = kernel_phase(np.random.default_rng(args.seed), args.parent)
 
     # 4. the headline query
     t0 = time.perf_counter()
@@ -430,7 +650,10 @@ def main(argv=None) -> int:
             else None
         results[mode] = launches[0]
         if args.device == "cuda":
-            profile_query(df)
+            ops = profile_query(df)
+            left = [o for o in STAGE_REPLACED_OPS if o in ops]
+            check(variable or not left,
+                  f"exact query still runs {left} beside the kernels")
         print(f"query {mode} on {args.device}: {tables[0].num_rows} groups; "
               f"cold "
               f"{times[0]:.4f}s warm {times[1]:.4f}s; warm "

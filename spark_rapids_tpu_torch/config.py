@@ -15,6 +15,9 @@ BATCH_SIZE_ROWS = "spark.rapids.tpu.sql.batchSizeRows"
 AGG_TABLE_SIZE = "spark.rapids.tpu.sql.agg.tableSize"
 SHUFFLE_PARTITIONS = "spark.rapids.tpu.sql.shuffle.partitions"
 
+#: the hash split's partition limit (kernels/cuda_ops.SPLIT_MAX_PARTS)
+MAX_SHUFFLE_PARTITIONS = 4096
+
 _DEFAULTS: Dict[str, Any] = {
     # Float sums/max may accumulate in an order that varies from run to
     # run (exact mode is deterministic).  Default off, as in Spark.
@@ -45,6 +48,10 @@ class TpuConf:
                            f"supported: {sorted(_DEFAULTS)}")
         self._settings = {k: _coerce(_DEFAULTS[k], v)
                           for k, v in settings.items()}
+        parts = self.get(SHUFFLE_PARTITIONS)
+        if not 1 <= parts <= MAX_SHUFFLE_PARTITIONS:
+            raise ValueError(f"{SHUFFLE_PARTITIONS} = {parts}: the hash "
+                             f"split takes 1..{MAX_SHUFFLE_PARTITIONS}")
 
     def get(self, key: str):
         return self._settings.get(key, _DEFAULTS[key])

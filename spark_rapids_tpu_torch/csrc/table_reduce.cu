@@ -1,202 +1,464 @@
-// Bucket-table reduce: the reduce stage of the group-by table core.
+// Table stage: the whole reduce stage of the group-by table core, one launch
+// per batch.
 //
 // Replaces the TPU kernels `_table_reduce_kernel` / `_table_reduce_tpu_32`
 // in spark_rapids_tpu/kernels/pallas_ops.py (pallas_call at :206; entry
-// point `table_reduce`).  Reduces k "sum" rows and m f32 "max" rows of n
-// values into `table` buckets by an int32 bucket id; bucket `table` is the
-// dead slot and is dropped (as is any id outside [0, table)).  Empty
-// buckets come out 0 (sums) and -inf (maxes); a NaN in a max row wins its
-// bucket, as XLA's max does.
+// point `table_reduce`) together with the XLA segment ops that sit beside
+// them in spark_rapids_tpu/exec/tpu_aggregate.py (the chunk-lane
+// segment_sum and the two-stage u32 segment_max).  The TPU kernel reduced
+// f32 rows that the caller had built in device memory; on Hopper the
+// building costs more than the reduce, so this kernel reads each
+// aggregate's raw input column (and its validity) and computes every
+// per-bucket table the finish of the table core reads, in registers.
 //
-// Sum rows are f32, as on the TPU, or f64: one type per call, and the sum
-// table is kept and returned in that type.  The TPU has no f64 ALU, so its
-// variable-float mode summed values in f32.  Hopper adds f64 natively, so
-// the port's variable mode passes its value rows in f64 and the sums stay
-// in the kernel: f32 rows miss the 2e-5 relative limit of the headline
-// query at 64M rows (chip_smoke.py prints the count), because its values
-// (up to 1e5) cancel to group totals near zero.  Exact mode passes only
-// count and flag rows, which are exact in f32.
+// Rows are reduced into `table` buckets by an int32 bucket id; an id outside
+// [0, table) (the dead slot `table`) is dropped.  A "piece" is one input
+// column with one row kind; each kind has fixed sub-rows (the per-bucket
+// tables it writes):
+//   COUNT   [u32 count of valid rows]              (no column: count rows)
+//   ICOUNT  [i64 sum]                              (the final count merge)
+//   FSUM64  [u32 cnt, nan, +inf, -inf, 15 x i32 chunk lanes]
+//             each finite f64 splits into f32 hi + f32 lo; each component
+//             into signed 8-bit chunks on a 120-bit window anchored at the
+//             batch's largest exponent `emax`, a device scalar the kernel
+//             reads (the arithmetic of kernels/aggregate.part_chunk_lanes)
+//   FMAX64  [u32 cnt, non-NaN cnt, u64 max of flip32(hi) << 32 | flip32(lo)]
+//             (-0.0 -> 0.0; equals the two-stage u32 max bit for bit)
+//   FSUMV   [u32 cnt, f64 sum]                     (variable float mode)
+//   FMAX    [u32 cnt, non-NaN cnt, u32 max of flip32(f32(v))]
+//   SUM32, SUM64, MAX32: the TPU kernel's own raw f32/f64 sum rows and f32
+//             max rows (canonical NaN wins, as XLA's max).
+// Every table starts at zero bits: zero is the identity of every add, and
+// of every ordered max word (an empty bucket's max word is 0).  The
+// wrapper decodes the f32 max words.
 //
-// What bounds it on the H100: bytes.  Each row reads 4 bytes of bucket id
-// and 4 or 8 per reduce row; the outputs are (k+m) x table values.  The
-// TPU kernel carried its accumulators from grid step to grid step in the
-// output block; Hopper's blocks run in parallel and in no order, so here
-// every block owns a private table in shared memory, reduces its slice of
-// rows into it with shared-memory atomics (adds, and the ordered-int
-// trick for max), and flushes it to the global table with global atomics.
-// Global traffic is then one read of the inputs plus one flush per block,
-// instead of one global atomic per value.  When the rows' tables exceed
-// what one block may hold, the rows (and, past the buckets of one row,
-// the bucket range) split into groups along gridDim.y, each group with its
-// own shared table.  Zero sum values and -inf max values are identities
-// and are skipped.
+// What bounds it on the H100: bytes.  The exact partial aggregate of the
+// headline query reads, per row, 4 B bucket + 8 B z + 8 B x + 1 B per
+// validity mask = 22 B (23 B with the live mask the bucket already
+// carries), so 4194304 rows are ~92-96 MB: ~0.029 ms at 3.35 TB/s.  The
+// tables are small (table x 96 B) and stay in shared memory.
 //
-// Order: atomics reorder additions from run to run, so sums of fractional
-// values vary in their last bits; rows of integer values (counts, flags)
-// stay exact while a bucket holds fewer than 2^24 rows.  Max is
-// order-independent.
+// Design:
+// - Each block keeps a private copy of its tables in shared memory and
+//   reduces its rows into it with shared-memory atomics; at the end it
+//   flushes the non-zero slots with global atomics into tables zeroed by
+//   one cudaMemsetAsync (no init kernel).  Integer atomics and the u64 max
+//   do not depend on order, so exact mode is byte-identical run to run.
+// - Budget: the headline exact partial needs 7 count/flag rows x 4 B +
+//   15 lanes x 4 B + 1 u64 x 8 B = 96 B per bucket, 393,216 B at table
+//   4096: more than the 232,448 B one block may hold.  The wrapper packs
+//   the sub-rows into groups that each fit (two groups of 48 B per
+//   bucket there, ~196 KB each) and the groups run along gridDim.y.  A
+//   group reads only the columns of its sub-rows: the exact partial reads
+//   bucket + z + z's mask in one group and bucket + z + x + both masks in
+//   the other, 35 B per row, so the y-split re-reads ~13 B per row
+//   (bound with re-reads ~0.044 ms).  Tables wider than one group also
+//   split their bucket range along gridDim.y.
+// - Bytes in flight: each thread takes 4 consecutive rows per iteration
+//   with 16-byte vector loads (bucket int4, values 2 x 16 B, masks 4 B)
+//   and issues every load of the iteration before its atomics.
+// - A max only issues its atomic when the value beats the slot's current
+//   word, so the common case is one shared load.
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
-__device__ __forceinline__ float canon_nan(float v) {
-  return isnan(v) ? __int_as_float(0x7fc00000) : v;
-}
+#define TS_MAX_PIECES 48
+#define TS_MAX_GROUPS 32
+#define TS_GROUP_PIECES 4
+#define TS_THREADS 512
+// shared bytes left to the kernel's static arrays (the pieces of its group)
+#define TS_STATIC_RESERVE 1024
+#define CH_LANES 15
+#define CH_W0 88
 
-// Max of floats with integer atomics: non-negative floats order like
-// signed ints, negative floats reverse-order like unsigned ints.  NaNs
-// must be canonical (+qNaN), which then orders above +inf.
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  if (__float_as_int(v) >= 0)
-    atomicMax((int*)addr, __float_as_int(v));
-  else
-    atomicMin((unsigned int*)addr, __float_as_uint(v));
-}
+enum {
+  K_COUNT = 0, K_ICOUNT, K_FSUM64, K_FMAX64, K_FSUMV, K_FMAX, K_SUM32,
+  K_SUM64, K_MAX32
+};
+enum { OP_ADD32 = 0, OP_ADD64, OP_ADDF32, OP_ADDF64, OP_MAX32, OP_MAX64 };
 
-template <typename S>
-__global__ void table_reduce_init(S* __restrict__ sum_out, int nsum,
-                                  float* __restrict__ max_out, int nmax,
-                                  int table) {
-  long long ns = (long long)nsum * table, nm = (long long)nmax * table;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < ns + nm; i += (long long)gridDim.x * blockDim.x) {
-    if (i < ns)
-      sum_out[i] = S(0);
-    else
-      max_out[i - ns] = -CUDART_INF_F;
+// One column with one kind, and the sub-rows [lo, hi) of the kind that its
+// group reduces.  Global rows: 32-bit sub-row j at out32 row g32 + j; the
+// kind's one 64-bit sub-row (always its last) at out64 row g64.  Shared:
+// sub-row j at byte smem + (j - lo) * 4 * stride.
+struct Piece {
+  const void* data;
+  const unsigned char* valid;   // bool[n], or null: every row valid
+  const long long* emax;        // FSUM64: device scalar, else null
+  int kind, lo, hi, g32, g64, smem;
+};
+struct Group {
+  int first, count, bytes;      // pieces [first, first + count)
+};
+struct Plan {
+  Piece piece[TS_MAX_PIECES];
+  Group group[TS_MAX_GROUPS];
+  int ngroups;
+  int chunk;    // buckets per y-block
+  int stride;   // shared slots per sub-row: chunk rounded up to even
+};
+
+__device__ __forceinline__ int sub_op(int kind, int j) {
+  switch (kind) {
+    case K_ICOUNT: return OP_ADD64;
+    case K_FMAX64: return j == 2 ? OP_MAX64 : OP_ADD32;
+    case K_FSUMV: return j == 1 ? OP_ADDF64 : OP_ADD32;
+    case K_FMAX: return j == 2 ? OP_MAX32 : OP_ADD32;
+    case K_SUM32: return OP_ADDF32;
+    case K_SUM64: return OP_ADDF64;
+    case K_MAX32: return OP_MAX32;
+    default: return OP_ADD32;   // COUNT, FSUM64
   }
 }
 
-// The shared table holds rows_per_group rows of bucket_chunk slots of S;
-// a max row keeps its f32 values in the front of its slots.
-template <typename S>
-__global__ void table_reduce_kernel(const int* __restrict__ bucket,
-                                    const S* __restrict__ sums, int nsum,
-                                    const float* __restrict__ maxs, int nmax,
-                                    int n, int table, int rows_per_group,
-                                    int bucket_chunk, S* __restrict__ sum_out,
-                                    float* __restrict__ max_out) {
-  extern __shared__ __align__(8) unsigned char sh_raw[];
-  S* sh = reinterpret_cast<S*>(sh_raw);
-  // blockIdx.y selects one (row group, bucket chunk) pair
-  const int nbc = (table + bucket_chunk - 1) / bucket_chunk;
-  const int r0 = (blockIdx.y / nbc) * rows_per_group;
-  const int b0 = (blockIdx.y % nbc) * bucket_chunk;
-  int r1 = r0 + rows_per_group;
-  if (r1 > nsum + nmax) r1 = nsum + nmax;
-  int bw = table - b0;
-  if (bw > bucket_chunk) bw = bucket_chunk;
-  const int nr = r1 - r0;
-  for (int j = threadIdx.x; j < nr * bw; j += blockDim.x) {
-    const int rr = j / bw;
-    if (r0 + rr < nsum)
-      sh[j] = S(0);
-    else
-      reinterpret_cast<float*>(sh + (long long)rr * bw)[j % bw] =
-          -CUDART_INF_F;
+__device__ __forceinline__ bool wide_input(int kind) {
+  return kind != K_SUM32 && kind != K_MAX32;
+}
+
+// f32 -> u32 whose unsigned order is the float order (canonical NaN above
+// +inf, -0.0 below 0.0)
+__device__ __forceinline__ unsigned flip32(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u >> 31) ? ~u : (u | 0x80000000u);
+}
+
+struct Slot {
+  unsigned char* sh;   // shared byte address of sub-row lo, this bucket's
+  int lo, hi, step;    // step: bytes between sub-rows (4 * stride)
+  __device__ __forceinline__ bool has(int j) const { return j >= lo && j < hi; }
+  template <typename T>
+  __device__ __forceinline__ T* at(int j, int slot) const {
+    return reinterpret_cast<T*>(sh + (j - lo) * step) + slot;
+  }
+  __device__ __forceinline__ void add32(int j, int slot, int v) const {
+    if (has(j)) atomicAdd(at<int>(j, slot), v);
+  }
+  __device__ __forceinline__ void add64(int j, int slot,
+                                        unsigned long long v) const {
+    if (has(j)) atomicAdd(at<unsigned long long>(j, slot), v);
+  }
+  __device__ __forceinline__ void addf32(int j, int slot, float v) const {
+    if (has(j)) atomicAdd(at<float>(j, slot), v);
+  }
+  __device__ __forceinline__ void addf64(int j, int slot, double v) const {
+    if (has(j)) atomicAdd(at<double>(j, slot), v);
+  }
+  __device__ __forceinline__ void max32(int j, int slot, unsigned v) const {
+    if (!has(j)) return;
+    unsigned* a = at<unsigned>(j, slot);
+    if (v > *(volatile unsigned*)a) atomicMax(a, v);
+  }
+  __device__ __forceinline__ void max64(int j, int slot,
+                                        unsigned long long v) const {
+    if (!has(j)) return;
+    unsigned long long* a = at<unsigned long long>(j, slot);
+    if (v > *(volatile unsigned long long*)a) atomicMax(a, v);
+  }
+};
+
+// One f32 component's signed 8-bit chunks into the lanes (sub-rows 4..18)
+// on the window anchored at emax: value = sig * 2^(e-150); window bit 0
+// weighs 2^(emax-150-CH_W0).  A chunk past the top lane lands in it, as in
+// the plain version (the fit flag excludes such batches).
+__device__ __forceinline__ void add_chunks(const Slot& s, int slot, float f,
+                                           int emax) {
+  const unsigned u = __float_as_uint(f);
+  int e = (u >> 23) & 0xFF;
+  const unsigned m = u & 0x7FFFFFu;
+  const unsigned sig = e > 0 ? (m | 0x800000u) : m;
+  if (e < 1) e = 1;
+  const int p = CH_W0 - (emax - e);
+  if (p < 0 || sig == 0) return;
+  const unsigned l32 = sig << (p & 7);
+  const int q = p >> 3;
+  const int sgn = (u >> 31) ? -1 : 1;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int c = (int)((l32 >> (8 * k)) & 0xFFu);
+    if (c) s.add32(4 + min(q + k, CH_LANES - 1), slot, c * sgn);
+  }
+}
+
+// One valid row of one piece into its bucket's shared slots.
+__device__ __forceinline__ void apply(int kind, const Slot& s, int slot,
+                                      unsigned long long raw, int emax) {
+  switch (kind) {
+    case K_COUNT:
+      s.add32(0, slot, 1);
+      break;
+    case K_ICOUNT:
+      if (raw) s.add64(0, slot, raw);
+      break;
+    case K_FSUM64: {
+      const double v = __longlong_as_double((long long)raw);
+      s.add32(0, slot, 1);
+      if (isnan(v)) {
+        s.add32(1, slot, 1);
+      } else if (isinf(v)) {
+        s.add32(v > 0 ? 2 : 3, slot, 1);
+      } else {
+        const float hi = __double2float_rn(v);
+        const float lo = __double2float_rn(v - (double)hi);
+        add_chunks(s, slot, hi, emax);
+        add_chunks(s, slot, lo, emax);
+      }
+      break;
+    }
+    case K_FMAX64: {
+      double v = __longlong_as_double((long long)raw);
+      if (v == 0.0) v = 0.0;
+      s.add32(0, slot, 1);
+      if (!isnan(v)) {
+        s.add32(1, slot, 1);
+        const float hi = __double2float_rn(v);
+        const float lo = isfinite(v) ? __double2float_rn(v - (double)hi)
+                                     : 0.0f;
+        s.max64(2, slot, ((unsigned long long)flip32(hi) << 32) |
+                             flip32(lo));
+      }
+      break;
+    }
+    case K_FSUMV: {
+      const double v = __longlong_as_double((long long)raw);
+      s.add32(0, slot, 1);
+      if (v != 0.0) s.addf64(1, slot, v);
+      break;
+    }
+    case K_FMAX: {
+      double v = __longlong_as_double((long long)raw);
+      if (v == 0.0) v = 0.0;
+      s.add32(0, slot, 1);
+      if (!isnan(v)) {
+        s.add32(1, slot, 1);
+        s.max32(2, slot, flip32(__double2float_rn(v)));
+      }
+      break;
+    }
+    case K_SUM32: {
+      const float v = __uint_as_float((unsigned)raw);
+      if (v != 0.0f) s.addf32(0, slot, v);
+      break;
+    }
+    case K_SUM64: {
+      const double v = __longlong_as_double((long long)raw);
+      if (v != 0.0) s.addf64(0, slot, v);
+      break;
+    }
+    case K_MAX32: {
+      float v = __uint_as_float((unsigned)raw);
+      if (isnan(v)) v = __int_as_float(0x7fc00000);
+      s.max32(0, slot, flip32(v));
+      break;
+    }
+  }
+}
+
+// Rows [i, i + V) of one piece: raw value bits and validity.  `full`: all
+// V rows exist and the pointers are aligned for vector loads.
+template <int V>
+__device__ __forceinline__ void load_piece(const Piece& p, long long i,
+                                           long long n, bool full,
+                                           unsigned long long* raw,
+                                           bool* ok) {
+  const bool wide = wide_input(p.kind);
+  if (V == 4 && full) {
+    if (p.data != nullptr) {
+      if (wide) {
+        const ulonglong2* d =
+            reinterpret_cast<const ulonglong2*>(
+                static_cast<const unsigned long long*>(p.data) + i);
+        const ulonglong2 a = __ldg(d), b = __ldg(d + 1);
+        raw[0] = a.x; raw[1] = a.y; raw[2] = b.x; raw[3] = b.y;
+      } else {
+        const uint4 a = __ldg(reinterpret_cast<const uint4*>(
+            static_cast<const unsigned*>(p.data) + i));
+        raw[0] = a.x; raw[1] = a.y; raw[2] = a.z; raw[3] = a.w;
+      }
+    }
+    if (p.valid != nullptr) {
+      const uchar4 v = *reinterpret_cast<const uchar4*>(p.valid + i);
+      ok[0] = v.x; ok[1] = v.y; ok[2] = v.z; ok[3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) ok[k] = true;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const long long r = i + k;
+    const bool in = r < n;
+    ok[k] = in && (p.valid == nullptr || p.valid[r]);
+    if (in && p.data != nullptr)
+      raw[k] = wide ? __ldg(static_cast<const unsigned long long*>(p.data) + r)
+                    : __ldg(static_cast<const unsigned*>(p.data) + r);
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(TS_THREADS)
+table_stage_kernel(const int* __restrict__ bucket, long long n, int table,
+                   const Plan plan, unsigned long long* __restrict__ out64,
+                   unsigned* __restrict__ out32) {
+  extern __shared__ __align__(16) unsigned char sh[];
+  __shared__ Piece sp[TS_GROUP_PIECES];
+  __shared__ int semax[TS_GROUP_PIECES];
+  const int nch = (table + plan.chunk - 1) / plan.chunk;
+  const int gi = blockIdx.y / nch;
+  const int b0 = (blockIdx.y % nch) * plan.chunk;
+  const int bw = min(plan.chunk, table - b0);
+  const int step = 4 * plan.stride;
+  const int np = plan.group[gi].count;
+  const int bytes = plan.group[gi].bytes;
+  if (threadIdx.x < np) {
+    const Piece p = plan.piece[plan.group[gi].first + threadIdx.x];
+    sp[threadIdx.x] = p;
+    semax[threadIdx.x] = p.emax != nullptr ? (int)*p.emax : 0;
+  }
+  for (int i = threadIdx.x * 8; i < bytes; i += blockDim.x * 8)
+    *reinterpret_cast<unsigned long long*>(sh + i) = 0ull;
+  __syncthreads();
+
+  const long long stride = (long long)gridDim.x * blockDim.x * V;
+  for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+       i < n; i += stride) {
+    const bool full = i + V <= n;
+    int slot[V];
+    if (V == 4 && full) {
+      const int4 b = __ldg(reinterpret_cast<const int4*>(bucket + i));
+      slot[0] = b.x; slot[1] = b.y; slot[2] = b.z; slot[3] = b.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        slot[k] = i + k < n ? __ldg(bucket + i + k) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      slot[k] -= b0;
+      if ((unsigned)slot[k] >= (unsigned)bw) slot[k] = -1;
+    }
+    unsigned long long raw[TS_GROUP_PIECES][V];
+    bool ok[TS_GROUP_PIECES][V];
+#pragma unroll
+    for (int q = 0; q < TS_GROUP_PIECES; ++q)
+      if (q < np) load_piece<V>(sp[q], i, n, full, raw[q], ok[q]);
+#pragma unroll
+    for (int q = 0; q < TS_GROUP_PIECES; ++q) {
+      if (q >= np) continue;
+      const Slot s{sh + sp[q].smem, sp[q].lo, sp[q].hi, step};
+      const int kind = sp[q].kind;
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (slot[k] >= 0 && ok[q][k]) apply(kind, s, slot[k], raw[q][k],
+                                             semax[q]);
+    }
   }
   __syncthreads();
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int b = __ldg(bucket + i) - b0;
-    if (b < 0 || b >= bw) continue;
-    for (int r = r0; r < r1; ++r) {
-      S* row = sh + (long long)(r - r0) * bw;
-      if (r < nsum) {
-        const S v = __ldg(sums + (long long)r * n + i);
-        if (v != S(0)) atomicAdd(row + b, v);
-      } else {
-        const float v = canon_nan(__ldg(maxs + (long long)(r - nsum) * n + i));
-        if (v != -CUDART_INF_F)
-          atomic_max_float(reinterpret_cast<float*>(row) + b, v);
+
+  // flush the non-zero slots
+  for (int q = 0; q < np; ++q) {
+    const Piece& p = sp[q];
+    for (int j = p.lo; j < p.hi; ++j) {
+      const int op = sub_op(p.kind, j);
+      const unsigned char* row = sh + p.smem + (j - p.lo) * step;
+      const long long g = op == OP_ADD64 || op == OP_ADDF64 || op == OP_MAX64
+                              ? (long long)p.g64 * table + b0
+                              : (long long)(p.g32 + j) * table + b0;
+      for (int t = threadIdx.x; t < bw; t += blockDim.x) {
+        switch (op) {
+          case OP_ADD32:
+          case OP_ADDF32:
+          case OP_MAX32: {
+            const unsigned v = reinterpret_cast<const unsigned*>(row)[t];
+            if (v == 0u) break;
+            if (op == OP_ADD32) atomicAdd(out32 + g + t, v);
+            else if (op == OP_MAX32) atomicMax(out32 + g + t, v);
+            else atomicAdd(reinterpret_cast<float*>(out32 + g + t),
+                           __uint_as_float(v));
+            break;
+          }
+          default: {
+            const unsigned long long v =
+                reinterpret_cast<const unsigned long long*>(row)[t];
+            if (v == 0ull) break;
+            if (op == OP_ADD64) atomicAdd(out64 + g + t, v);
+            else if (op == OP_MAX64) atomicMax(out64 + g + t, v);
+            else atomicAdd(reinterpret_cast<double*>(out64 + g + t),
+                           __longlong_as_double((long long)v));
+          }
+        }
       }
     }
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < nr * bw; j += blockDim.x) {
-    const int rr = j / bw;
-    const int r = r0 + rr;
-    const int b = b0 + j % bw;
-    if (r < nsum) {
-      const S v = sh[j];
-      if (v != S(0)) atomicAdd(sum_out + (long long)r * table + b, v);
-    } else {
-      const float v = reinterpret_cast<float*>(sh + (long long)rr * bw)[j % bw];
-      if (v != -CUDART_INF_F)
-        atomic_max_float(max_out + (long long)(r - nsum) * table + b, v);
-    }
-  }
 }
 
-template <typename S>
-static int launch(const int* bucket, const S* sums, int nsum,
-                  const float* maxs, int nmax, int n, int table, S* sum_out,
-                  float* max_out, cudaStream_t s) {
-  const int rows = nsum + nmax;
-  int dev = 0, smem_max = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // a block's shared table: rows_per_group rows of bucket_chunk buckets
-  int bucket_chunk = table;
-  if ((long long)table * (long long)sizeof(S) > smem_max)
-    bucket_chunk = smem_max / (int)sizeof(S);
-  const long long row_bytes = (long long)bucket_chunk * sizeof(S);
-  int rows_per_group = (int)(smem_max / row_bytes);
-  if (rows_per_group > rows) rows_per_group = rows;
-  const int groups = ((rows + rows_per_group - 1) / rows_per_group) *
-                     ((table + bucket_chunk - 1) / bucket_chunk);
-  const size_t smem = (size_t)rows_per_group * row_bytes;
-  const int threads = 512;
-
-  long long init_n = (long long)rows * table;
-  int init_blocks = (int)((init_n + 255) / 256);
-  if (init_blocks > 4096) init_blocks = 4096;
-  table_reduce_init<S><<<init_blocks, 256, 0, s>>>(sum_out, nsum, max_out,
-                                                   nmax, table);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n == 0) return (int)err;
-
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(table_reduce_kernel<S>,
+template <int V>
+static int launch(const int* bucket, long long n, int table, const Plan& plan,
+                  unsigned long long* out64, unsigned* out32,
+                  cudaStream_t s) {
+  static int smem_optin = 0, sms = 0, cached_smem = -1, cached_per_sm = 1;
+  cudaError_t err;
+  if (smem_optin == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&smem_optin,
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaFuncSetAttribute(table_stage_kernel<V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               smem_optin - TS_STATIC_RESERVE);
     if (err != cudaSuccess) return (int)err;
   }
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, table_reduce_kernel<S>, threads, smem);
-  if (per_sm < 1) per_sm = 1;
-  long long gx = (long long)per_sm * sms / groups;
-  if (gx < 1) gx = 1;
-  const long long need = ((long long)n + threads - 1) / threads;
+  int smem = 0;
+  for (int g = 0; g < plan.ngroups; ++g)
+    smem = plan.group[g].bytes > smem ? plan.group[g].bytes : smem;
+  if (smem != cached_smem) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &cached_per_sm, table_stage_kernel<V>, TS_THREADS, smem);
+    if (cached_per_sm < 1) cached_per_sm = 1;
+    cached_smem = smem;
+  }
+  const int nch = (table + plan.chunk - 1) / plan.chunk;
+  const int groups = plan.ngroups * nch;
+  long long gx = (long long)cached_per_sm * sms / groups;
+  // a block's shared init and flush cost about table slots; give each
+  // block at least 8 row iterations
+  const long long need = (n + (long long)TS_THREADS * V * 8 - 1) /
+                         ((long long)TS_THREADS * V * 8);
   if (gx > need) gx = need;
+  if (gx < 1) gx = 1;
   dim3 grid((unsigned)gx, (unsigned)groups);
-  table_reduce_kernel<S><<<grid, threads, smem, s>>>(
-      bucket, sums, nsum, maxs, nmax, n, table, rows_per_group, bucket_chunk,
-      sum_out, max_out);
+  table_stage_kernel<V><<<grid, TS_THREADS, smem, s>>>(bucket, n, table, plan,
+                                                      out64, out32);
   return (int)cudaGetLastError();
 }
 
-// bucket: int32[n]; sums: S[nsum, n] with S = double when sum_f64 is
-// nonzero, else float; maxs: f32[nmax, n] (row-major, contiguous);
-// sum_out: S[nsum, table]; max_out: f32[nmax, table].  Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int table_reduce(const void* bucket, const void* sums, int nsum,
-                            int sum_f64, const void* maxs, int nmax, int n,
-                            int table, void* sum_out, void* max_out,
-                            void* stream) {
-  if (nsum < 0 || nmax < 0 || n < 0 || table < 1)
+// bucket: int32[n]; plan: the pieces and groups (kernels/cuda_ops.py builds
+// it); vec: 4 when bucket, every column (16 B) and every mask (4 B) are
+// aligned for vector loads, else 1.  out: one buffer of out_bytes, zeroed
+// here, whose first part is out64 (u64 rows) and the rest out32 (u32 rows),
+// each [rows, table].  Launches on `stream`; returns cudaGetLastError().
+extern "C" int table_stage(const void* bucket, long long n, int table,
+                           const Plan* plan, int vec, void* out64,
+                           void* out32, long long out_bytes, void* stream) {
+  if (n < 0 || table < 1 || plan->ngroups < 1 ||
+      plan->ngroups > TS_MAX_GROUPS || plan->chunk < 1 ||
+      plan->stride < plan->chunk || (plan->stride & 1))
     return (int)cudaErrorInvalidValue;
-  if (nsum + nmax == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (sum_f64)
-    return launch<double>((const int*)bucket, (const double*)sums, nsum,
-                          (const float*)maxs, nmax, n, table,
-                          (double*)sum_out, (float*)max_out, s);
-  return launch<float>((const int*)bucket, (const float*)sums, nsum,
-                       (const float*)maxs, nmax, n, table, (float*)sum_out,
-                       (float*)max_out, s);
+  cudaError_t err = cudaMemsetAsync(out64, 0, (size_t)out_bytes, s);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  if (vec == 4)
+    return launch<4>((const int*)bucket, n, table, *plan,
+                     (unsigned long long*)out64, (unsigned*)out32, s);
+  return launch<1>((const int*)bucket, n, table, *plan,
+                   (unsigned long long*)out64, (unsigned*)out32, s);
+}
+
+extern "C" int table_stage_smem_limit(void) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return v - TS_STATIC_RESERVE;
 }
 
 extern "C" const char* error_string(int code) {

@@ -3,24 +3,28 @@
 Counterpart of ``spark_rapids_tpu/exec/tpu_aggregate.py``.  Each batch
 first tries the sort-free table core (``_table_core``): fold the staged
 filter/project chain into a live mask, pack the keys into bucket ids
-(``table_bucket``), reduce every sum and max row in one ``table_reduce``
-kernel launch, then build the group directory (``table_compact``).  Beside the
-kernel, as in the reference, sit the torch ops of exact float mode:
+(``table_bucket``), reduce every aggregate's input column in one
+``table_stage`` kernel launch, then build the group directory
+(``table_compact``) and finish each aggregate from its [table] tables.
+The kernel computes, per row, what the reference builds as separate
+arrays beside its reduce kernel:
 
 - exact f64 sums: each value splits into its two f32 components, each
   component into signed 8-bit chunks on a 120-bit window anchored at the
-  batch's largest exponent; the i32 chunk lanes reduce by integer
-  scatter-add, which is order-independent, so exact mode is
-  deterministic on the card, and recombine per bucket in f64;
-- exact f64 max: a two-stage u32 max over the (hi, lo) order words.
+  batch's largest exponent; the i32 chunk lanes add with integer
+  atomics, which are order-independent, so exact mode is deterministic
+  on the card, and recombine per bucket in f64 after the launch;
+- exact f64 max: one u64 order word per row (the reference's two-stage
+  u32 max in one 64-bit max).
 
-A device fit flag says whether the batch fit the table; its value is
-read per batch, and a batch that did not fit runs the sort path
-(``groupby_plan`` and the ``seg_*`` reductions).
+The batch's largest exponent and the fit conditions stay torch ops
+before the launch.  A device fit flag says whether the batch fit the
+table; its value is read per batch, and a batch that did not fit runs
+the sort path (``groupby_plan`` and the ``seg_*`` reductions).
 
-Variable float mode (``variableFloatAgg.enabled``) reduces its value
-sums in the kernel as f64 rows (the kernel's atomics reorder additions
-from run to run) and its maxes as an f32 row.
+Variable float mode (``variableFloatAgg.enabled``) sums its values in
+the kernel in f64 (the atomics reorder additions from run to run) and
+takes its maxes in f32.
 """
 from __future__ import annotations
 
@@ -36,87 +40,13 @@ from ..expr import core as ec
 from ..expr import aggregates as ea
 from ..kernels import aggregate as agg_k
 from ..kernels import canon
+from ..kernels.aggregate import CH_W0, chunk_recombine, f32_exp, unflip32
 from ..kernels.basic import SIGN64
-from ..kernels.cuda_ops import table_reduce
+from ..kernels.cuda_ops import StageCol, table_stage
 from ..plan.logical import AggExpr
 from .tpu_basic import TpuExec, apply_ops_masked
 
 PARTIAL, FINAL = "partial", "final"
-
-# -- exact f64 sums on 32-bit chunk lanes ------------------------------------
-CH_B = 8          # bits per chunk lane
-CH_LANES = 15     # window = 120 bits
-CH_W0 = 88        # max chunk position (top term bit 88+23 < 120)
-_MASK32 = 0xFFFFFFFF
-
-
-def _f32_bits(f: torch.Tensor) -> torch.Tensor:
-    """u32 bits of an f32 tensor, zero-extended into int64."""
-    return f.view(torch.int32).to(torch.int64) & _MASK32
-
-
-def _flip32(f: torch.Tensor) -> torch.Tensor:
-    """f32 -> u32 (in int64) whose order is the float order (NaNs must
-    be masked out by the caller)."""
-    u = _f32_bits(f)
-    neg = (u >> 31) != 0
-    return torch.where(neg, (~u) & _MASK32, u | 0x80000000)
-
-
-def _unflip32(w: torch.Tensor) -> torch.Tensor:
-    neg = (w & 0x80000000) == 0
-    u = torch.where(neg, (~w) & _MASK32, w & 0x7FFFFFFF)
-    u = torch.where(u >= (1 << 31), u - (1 << 32), u)
-    return u.to(torch.int32).view(torch.float32)
-
-
-def _pow2_f64(k: torch.Tensor) -> torch.Tensor:
-    """2^k as f64 from an integer tensor, k in the normal range."""
-    return ((k + 1023) << 52).view(torch.float64)
-
-
-def _f32_exp(f: torch.Tensor):
-    """(biased exponent clamped >= 1, 24-bit significand, negative)."""
-    u = _f32_bits(f)
-    neg = (u >> 31) != 0
-    e = (u >> 23) & 0xFF
-    m = u & 0x7FFFFF
-    sig = torch.where(e > 0, m | (1 << 23), m)
-    return e.clamp(min=1), sig, neg
-
-
-def _part_chunk_lanes(f: torch.Tensor, ok: torch.Tensor, emax: torch.Tensor,
-                      lanes: torch.Tensor) -> None:
-    """Add one f32 component's signed 8-bit chunks into ``lanes``
-    (int32[n, CH_LANES]) on the window anchored at ``emax``: value =
-    sig * 2^(e-150), window bit 0 weighs 2^(emax-150-CH_W0).  Exact for
-    terms inside the window; the fit flag excludes wider spreads."""
-    ee, sig, neg = _f32_exp(f)
-    p = CH_W0 - (emax - ee)
-    keep = ok & (p >= 0) & (sig != 0)
-    pc = p.clamp(min=0)
-    off = pc & 7
-    q = pc >> 3
-    l32 = sig << off                         # <= 2^31
-    sgn = torch.where(neg, -1, 1)
-    for k in range(4):
-        ck = torch.where(keep, ((l32 >> (CH_B * k)) & 0xFF) * sgn, 0)
-        lanes.scatter_add_(1, (q + k).clamp(max=CH_LANES - 1)[:, None],
-                           ck.to(torch.int32)[:, None])
-
-
-def _chunk_recombine(lanes: torch.Tensor, emax: torch.Tensor) -> torch.Tensor:
-    """[G, CH_LANES] lane sums + batch emax -> per-group f64 totals; the
-    scale splits into two in-range powers of two, as in the reference."""
-    lanes = lanes.to(torch.float64)
-    out = torch.zeros(lanes.shape[0], dtype=torch.float64,
-                      device=lanes.device)
-    for L in range(CH_LANES):
-        k = CH_B * L + emax - (CH_W0 + 150)
-        k1 = torch.div(k, 2, rounding_mode="floor")
-        out = out + (lanes[:, L] * _pow2_f64(k1)) * _pow2_f64(k - k1)
-    return out
-
 
 def buffer_schema(group_exprs, aggs: List[AggExpr]) -> Schema:
     """Schema of partial-aggregation output: keys + flattened buffers."""
@@ -280,6 +210,35 @@ class TpuHashAggregate(TpuExec):
                 return None
         return descs
 
+    @staticmethod
+    def _stage_col(kind: str, c: Column, live: torch.Tensor):
+        """(the stage's input column for one aggregate, its fit flag)."""
+        valid = c.validity.contiguous()
+        if kind in ("count", "icount"):
+            data = c.data.to(torch.int64).contiguous() \
+                if kind == "icount" else None
+            return StageCol(kind, data, valid), True
+        v = c.data.to(torch.float64).contiguous()
+        ok = live & valid
+        if kind == "fsumv":
+            return StageCol(kind, v, valid), True
+        if kind == "fsum64":
+            okf = ok & torch.isfinite(v)
+            hi32 = torch.where(okf, v, 0.0).to(torch.float32)
+            # a finite f64 beyond f32 range cannot sit on the lanes
+            fit = torch.where(okf, torch.isfinite(hi32), True).all()
+            ehi, sighi, _ = f32_exp(hi32)
+            contrib = okf & (sighi != 0)
+            emax = torch.where(contrib, ehi, 0).max()
+            emin = torch.where(contrib, ehi, 255).min()
+            # exponent spread beyond the window -> exact sort path
+            fit = fit & ((emax - emin) <= CH_W0 - 25)
+            return StageCol(kind, v, valid, emax), fit
+        # fmax, fmax64: a finite f64 whose f32 overflows would alias inf
+        fit = torch.where(ok & torch.isfinite(v),
+                          torch.isfinite(v.to(torch.float32)), True).all()
+        return StageCol(kind, v, valid), fit
+
     def _table_core(self, batch: ColumnarBatch, update: bool):
         """(buffer batch of capacity ``table``, device fit flag), or None
         when this aggregate cannot use the table path at all."""
@@ -290,7 +249,7 @@ class TpuHashAggregate(TpuExec):
                 not all(_key_ok(e.dtype()) for e in keys):
             return None
         cap = batch.capacity
-        # f32 count rows are exact below 2^24 rows; i32 chunk lanes hold
+        # u32 count rows are exact below 2^24 rows; i32 chunk lanes hold
         # |lane sum| <= 510 per row below 2^31, so at most 2^22 rows
         if cap > (1 << 24) or ("fsum64" in descs and cap > (1 << 22)):
             return None
@@ -304,107 +263,27 @@ class TpuHashAggregate(TpuExec):
         kwords = [canon.value_words(c)[0] for c in kcols]
         bucket, fit, mins, cards = agg_k.table_bucket(
             kwords, [c.validity for c in kcols], live, table)
-        bucket_l = bucket.to(torch.int64)
         icols = [[ec.eval_as_column(e, b) for e in bs] for bs in inputs]
 
-        # value sums need f64 rows; count and flag rows are exact in f32
-        row_dt = torch.float64 if "fsumv" in descs else torch.float32
-
-        def as_row(mask):
-            return mask.to(row_dt)
-
-        sum_rows, max_rows = [as_row(live)], []
-        srow_of = {"ones": 0}
-        side = []            # per agg: results reduced beside the kernel
-
-        def add_sum(tag, row):
-            if tag not in srow_of:
-                srow_of[tag] = len(sum_rows)
-                sum_rows.append(row)
-
-        def scatter_table(dtype, vals, reduce="sum", init=0):
-            out = torch.full((table + 1,), init, dtype=dtype, device=dev)
-            if reduce == "sum":
-                return out.index_add_(0, bucket_l, vals)
-            return out.scatter_reduce_(0, bucket_l, vals, reduce,
-                                       include_self=True)
-
+        # the stage's inputs: column 0 counts the live rows (dead rows sit
+        # in the dropped bucket ``table``); one column per distinct
+        # (kind, input) of the aggregates
+        cols, col_of, slots = [StageCol("count")], {}, []
         for ai, kind in enumerate(descs):
             c = icols[ai][0] if icols[ai] else None
-            dk = repr(inputs[ai][0]) if inputs[ai] else ("*", ai)
-            ok = live & c.validity if c is not None else live
-            if kind == "count":
-                if c is not None:
-                    add_sum(("cnt", dk), as_row(ok))
-                side.append(None)
-            elif kind == "icount":
-                side.append(scatter_table(
-                    torch.int64, torch.where(ok, c.data, 0)))
-            elif kind == "fsumv":
-                v = c.data.to(torch.float64)
-                add_sum(("cnt", dk), as_row(ok))
-                add_sum(("sum", dk), torch.where(ok, v, 0.0))
-                side.append(None)
-            elif kind == "fsum64":
-                v = c.data.to(torch.float64)
-                fin = torch.isfinite(v)
-                okf = ok & fin
-                add_sum(("cnt", dk), as_row(ok))
-                add_sum(("nan", dk), as_row(ok & torch.isnan(v)))
-                add_sum(("pinf", dk), as_row(ok & (v == float("inf"))))
-                add_sum(("ninf", dk), as_row(ok & (v == float("-inf"))))
-                vq = torch.where(okf, v, 0.0)
-                hi32 = vq.to(torch.float32)
-                # a finite f64 beyond f32 range cannot sit on the lanes
-                fit = fit & torch.where(okf, torch.isfinite(hi32), True).all()
-                lo32 = (vq - hi32.to(torch.float64)).to(torch.float32)
-                ehi, sighi, _ = _f32_exp(hi32)
-                contrib = okf & (sighi != 0)
-                emax = torch.where(contrib, ehi, 0).max()
-                emin = torch.where(contrib, ehi, 255).min()
-                # exponent spread beyond the window -> exact sort path
-                fit = fit & ((emax - emin) <= CH_W0 - 25)
-                lanes = torch.zeros(cap, CH_LANES, dtype=torch.int32,
-                                    device=dev)
-                _part_chunk_lanes(hi32, contrib, emax, lanes)
-                _part_chunk_lanes(lo32, okf, emax, lanes)
-                lane_tab = torch.zeros(table + 1, CH_LANES,
-                                       dtype=torch.int32, device=dev)
-                lane_tab.index_add_(0, bucket_l, lanes)
-                side.append((lane_tab, emax))
-            elif kind in ("fmax", "fmax64"):
-                v = c.data.to(torch.float64)
-                # Spark order: NaN greatest, -0.0 == 0.0
-                v = torch.where(v == 0.0, 0.0, v)
-                nan = torch.isnan(v)
-                okn = ok & ~nan
-                add_sum(("cnt", dk), as_row(ok))
-                add_sum(("nn", dk), as_row(okn))
-                hi32 = v.to(torch.float32)
-                # a finite f64 whose f32 overflows would alias real inf
-                fit = fit & torch.where(ok & torch.isfinite(v),
-                                        torch.isfinite(hi32), True).all()
-                if kind == "fmax":
-                    side.append(("row", len(max_rows)))
-                    max_rows.append(torch.where(okn, hi32, float("-inf")))
-                else:
-                    lo32 = torch.where(torch.isfinite(v),
-                                       v - hi32.to(torch.float64),
-                                       0.0).to(torch.float32)
-                    whi = torch.where(okn, _flip32(hi32), 0)
-                    mm1 = scatter_table(torch.int64, whi, "amax")
-                    win = okn & (whi == mm1[bucket_l])
-                    wlo = torch.where(win, _flip32(lo32), 0)
-                    mm2 = scatter_table(torch.int64, wlo, "amax")
-                    side.append(("two", mm1, mm2))
+            if c is None:                       # count(*)
+                slots.append(0)
+                continue
+            dk = (kind, repr(inputs[ai][0]))
+            if dk not in col_of:
+                sc, col_fit = self._stage_col(kind, c, live)
+                fit = fit & col_fit
+                col_of[dk] = len(cols)
+                cols.append(sc)
+            slots.append(col_of[dk])
+        tabs = table_stage(bucket, table, cols)
 
-        n = bucket.shape[0]
-        sums_in = torch.stack(sum_rows)
-        maxs_in = torch.stack(max_rows) if max_rows else \
-            torch.empty(0, n, dtype=torch.float32, device=dev)
-        sums, maxs = table_reduce(bucket, sums_in, maxs_in, table)
-
-        present, order, ng = agg_k.table_compact(sums[0], table)
+        present, order, ng = agg_k.table_compact(tabs[0][0], table)
         live_g = torch.arange(table, device=dev) < ng
 
         def compact(tab):
@@ -426,45 +305,32 @@ class TpuHashAggregate(TpuExec):
             out_cols.append(Column(dt, data, (digit > 0) & live_g))
 
         for ai, kind in enumerate(descs):
-            dk = repr(inputs[ai][0]) if inputs[ai] else ("*", ai)
-            s = side[ai]
-            if kind == "count":
-                cnt = sums[srow_of[("cnt", dk)] if icols[ai] else 0]
-                data = torch.where(live_g, compact(cnt), 0.0)
+            t = tabs[slots[ai]]
+            if kind in ("count", "icount"):
+                data = torch.where(live_g, compact(t[0]), 0)
                 out_cols.append(Column(T.INT64, data.to(torch.int64),
                                        torch.ones_like(live_g)))
                 continue
-            if kind == "icount":
-                data = torch.where(live_g, compact(s[:table]), 0)
-                out_cols.append(Column(T.INT64, data,
-                                       torch.ones_like(live_g)))
-                continue
-            cntv = compact(sums[srow_of[("cnt", dk)]])
+            cntv = compact(t[0])
             valid = (cntv > 0) & live_g
             if kind == "fsumv":
-                out_cols.append(Column(T.FLOAT64,
-                                       compact(sums[srow_of[("sum", dk)]]),
-                                       valid))
+                out_cols.append(Column(T.FLOAT64, compact(t[1]), valid))
             elif kind == "fsum64":
-                lane_tab, emax = s
-                ssum = _chunk_recombine(compact(lane_tab[:table]), emax)
-                nanv = compact(sums[srow_of[("nan", dk)]])
-                pinf = compact(sums[srow_of[("pinf", dk)]])
-                ninf = compact(sums[srow_of[("ninf", dk)]])
+                ssum = chunk_recombine(t[4][:, order], cols[slots[ai]].emax)
+                nanv, pinf, ninf = (compact(x) for x in t[1:4])
                 ssum = torch.where(pinf > 0, float("inf"), ssum)
                 ssum = torch.where(ninf > 0, float("-inf"), ssum)
                 ssum = torch.where((nanv > 0) | ((pinf > 0) & (ninf > 0)),
                                    float("nan"), ssum)
                 out_cols.append(Column(T.FLOAT64, ssum, valid))
             else:
-                nnv = compact(sums[srow_of[("nn", dk)]])
-                if s[0] == "row":
-                    m = compact(maxs[s[1]]).to(torch.float64)
+                nnv = compact(t[1])
+                if kind == "fmax":
+                    m = compact(t[2]).to(torch.float64)
                 else:
-                    w1 = compact(s[1][:table])
-                    w2 = compact(s[2][:table])
-                    m = _unflip32(w1).to(torch.float64) + \
-                        _unflip32(w2).to(torch.float64)
+                    w = compact(t[2])
+                    m = unflip32(w >> 32).to(torch.float64) + \
+                        unflip32(w).to(torch.float64)
                 # any NaN in the group wins
                 m = torch.where(cntv > nnv, float("nan"), m)
                 dt = self.aggs[ai].func.buffer_dtypes()[0]

@@ -10,7 +10,8 @@ integer sums are prefix sums with boundary gathers.
 Table path helpers: ``table_bucket`` packs small-range keys into
 mixed-radix bucket ids below ``table`` (no sort), ``table_compact``
 turns per-bucket counts into the group directory.  The reduce between
-them is the ``table_reduce`` kernel (kernels/cuda_ops.py).
+them is the ``table_stage`` kernel (kernels/cuda_ops.py); the f32 bit
+helpers and the exact-sum chunk lanes below are its plain arithmetic.
 """
 from __future__ import annotations
 
@@ -162,3 +163,85 @@ def table_compact(counts: torch.Tensor, table: int):
     num_groups = present.sum()
     order = torch.argsort((~present).to(torch.int8), stable=True)
     return present, order, num_groups
+
+
+# ---------------------------------------------------------------------------
+# Exact f64 sums on 32-bit chunk lanes and ordered f32 words.  A finite f64
+# splits into two f32 components; each component splits into signed 8-bit
+# chunks on a 120-bit window anchored at the batch's largest exponent, and
+# the i32 lane sums recombine per bucket in f64.
+# ---------------------------------------------------------------------------
+CH_B = 8          # bits per chunk lane
+CH_LANES = 15     # window = 120 bits
+CH_W0 = 88        # max chunk position (top term bit 88+23 < 120)
+_MASK32 = 0xFFFFFFFF
+
+
+def f32_bits(f: torch.Tensor) -> torch.Tensor:
+    """u32 bits of an f32 tensor, zero-extended into int64."""
+    return f.view(torch.int32).to(torch.int64) & _MASK32
+
+
+def flip32(f: torch.Tensor) -> torch.Tensor:
+    """f32 -> u32 (in int64) whose order is the float order (canonical
+    NaN above +inf, -0.0 below 0.0)."""
+    u = f32_bits(f)
+    neg = (u >> 31) != 0
+    return torch.where(neg, (~u) & _MASK32, u | 0x80000000)
+
+
+def unflip32(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``flip32``: u32 words (any integer dtype) -> f32."""
+    w = w.to(torch.int64) & _MASK32
+    neg = (w & 0x80000000) == 0
+    u = torch.where(neg, (~w) & _MASK32, w & 0x7FFFFFFF)
+    u = torch.where(u >= (1 << 31), u - (1 << 32), u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def _pow2_f64(k: torch.Tensor) -> torch.Tensor:
+    """2^k as f64 from an integer tensor, k in the normal range."""
+    return ((k + 1023) << 52).view(torch.float64)
+
+
+def f32_exp(f: torch.Tensor):
+    """(biased exponent clamped >= 1, 24-bit significand, negative)."""
+    u = f32_bits(f)
+    neg = (u >> 31) != 0
+    e = (u >> 23) & 0xFF
+    m = u & 0x7FFFFF
+    sig = torch.where(e > 0, m | (1 << 23), m)
+    return e.clamp(min=1), sig, neg
+
+
+def part_chunk_lanes(f: torch.Tensor, ok: torch.Tensor, emax: torch.Tensor,
+                     lanes: torch.Tensor) -> None:
+    """Add one f32 component's signed 8-bit chunks into ``lanes``
+    (int32[n, CH_LANES]) on the window anchored at ``emax``: value =
+    sig * 2^(e-150), window bit 0 weighs 2^(emax-150-CH_W0).  Exact for
+    terms inside the window; the fit flag excludes wider spreads."""
+    ee, sig, neg = f32_exp(f)
+    p = CH_W0 - (emax - ee)
+    keep = ok & (p >= 0) & (sig != 0)
+    pc = p.clamp(min=0)
+    off = pc & 7
+    q = pc >> 3
+    l32 = sig << off                         # <= 2^31
+    sgn = torch.where(neg, -1, 1)
+    for k in range(4):
+        ck = torch.where(keep, ((l32 >> (CH_B * k)) & 0xFF) * sgn, 0)
+        lanes.scatter_add_(1, (q + k).clamp(max=CH_LANES - 1)[:, None],
+                           ck.to(torch.int32)[:, None])
+
+
+def chunk_recombine(lanes: torch.Tensor, emax: torch.Tensor) -> torch.Tensor:
+    """[CH_LANES, G] lane sums + batch emax -> per-group f64 totals; the
+    scale splits into two in-range powers of two, as in the reference."""
+    lanes = lanes.to(torch.float64)
+    out = torch.zeros(lanes.shape[1], dtype=torch.float64,
+                      device=lanes.device)
+    for L in range(CH_LANES):
+        k = CH_B * L + emax - (CH_W0 + 150)
+        k1 = torch.div(k, 2, rounding_mode="floor")
+        out = out + (lanes[L] * _pow2_f64(k1)) * _pow2_f64(k - k1)
+    return out

@@ -13,17 +13,19 @@ torch version beside it; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .basic import hash_to_partition, hash_words
+from .aggregate import CH_LANES, flip32, part_chunk_lanes, unflip32
+from .basic import SIGN64, hash_to_partition, hash_words
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -98,6 +100,47 @@ def build_all(names: Sequence[str] = None) -> Dict[str, str]:
     return reports
 
 
+class _Piece(ctypes.Structure):
+    """``Piece`` of csrc/table_reduce.cu."""
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("emax", ctypes.c_void_p), ("kind", ctypes.c_int),
+                ("lo", ctypes.c_int), ("hi", ctypes.c_int),
+                ("g32", ctypes.c_int), ("g64", ctypes.c_int),
+                ("smem", ctypes.c_int)]
+
+
+class _Group(ctypes.Structure):
+    _fields_ = [("first", ctypes.c_int), ("count", ctypes.c_int),
+                ("bytes", ctypes.c_int)]
+
+
+STAGE_MAX_PIECES = 48          # TS_MAX_PIECES
+STAGE_MAX_GROUPS = 32          # TS_MAX_GROUPS
+STAGE_GROUP_PIECES = 4         # TS_GROUP_PIECES
+
+
+class _Plan(ctypes.Structure):
+    _fields_ = [("piece", _Piece * STAGE_MAX_PIECES),
+                ("group", _Group * STAGE_MAX_GROUPS),
+                ("ngroups", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("stride", ctypes.c_int)]
+
+
+_VP, _I, _LL, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_uint64)
+_SIGNATURES = {
+    "hash_partition": {
+        "hash_partition_ids": [ctypes.POINTER(_VP), _I, _I, _I, _I, _U64,
+                               _VP, _VP],
+        "hash_split": [ctypes.POINTER(_VP), _I, _VP, _I, _I, _U64, _I, _I,
+                       _VP, _VP, _VP, _VP, _VP]},
+    "table_reduce": {
+        "table_stage": [_VP, _LL, _I, ctypes.POINTER(_Plan), _I, _VP, _VP,
+                        _LL, _VP],
+        "table_stage_smem_limit": []},
+}
+
+
 def _load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
@@ -108,19 +151,9 @@ def _load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(lib_path(name)))
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
-            if name == "hash_partition":
-                lib.hash_partition_ids.argtypes = [
-                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p]
-                lib.hash_partition_ids.restype = ctypes.c_int
-            else:
-                lib.table_reduce.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p]
-                lib.table_reduce.restype = ctypes.c_int
+            for fn, args in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
     return _LIBS[name]
 
@@ -145,19 +178,13 @@ def _check_contiguous(tensors: Sequence[torch.Tensor], what: str) -> None:
         raise ValueError(f"{what}: inputs must be contiguous")
 
 
-# -- B1: hash-partition ids -------------------------------------------------
+# -- B1: hash-partition ids, and the split by them --------------------------
 
-def hash_partition_ids_plain(words: List[torch.Tensor],
-                             num_parts: int) -> torch.Tensor:
-    """Plain torch version of the hash-partition kernel."""
-    return hash_to_partition(hash_words(words), num_parts)
+#: most partitions ``hash_split`` takes (u16 ids; HS_MAX_PARTS)
+SPLIT_MAX_PARTS = 4096
 
 
-def hash_partition_ids(words: List[torch.Tensor],
-                       num_parts: int) -> torch.Tensor:
-    """Partition id of every row: murmur-style mix over the 64-bit key
-    words (int64 bit patterns), then unsigned ``% num_parts``."""
-    what = "hash_partition_ids"
+def _check_words(words: List[torch.Tensor], what: str) -> int:
     if not words or len(words) > _MAX_WORDS:
         raise ValueError(f"{what}: 1..{_MAX_WORDS} key words, got "
                          f"{len(words)}")
@@ -165,11 +192,33 @@ def hash_partition_ids(words: List[torch.Tensor],
     if any(w.dtype != torch.int64 or w.dim() != 1 or w.shape[0] != n
            for w in words):
         raise ValueError(f"{what}: words must be int64[n]")
-    if not 0 < num_parts < (1 << 31):
-        raise ValueError(f"{what}: num_parts {num_parts} out of range")
     if n >= (1 << 31):
         raise ValueError(f"{what}: {n} rows exceed int32 indexing")
     _check_contiguous(words, what)
+    return n
+
+
+def _barrett_magic(num_parts: int) -> int:
+    """floor((2^64 - 1) / num_parts): the kernels' fast modulo."""
+    return ((1 << 64) - 1) // num_parts
+
+
+def hash_partition_ids_plain(words: List[torch.Tensor],
+                             num_parts: int) -> torch.Tensor:
+    """Plain torch version of the hash-partition kernel."""
+    return hash_to_partition(hash_words(words), num_parts)
+
+
+def hash_partition_ids(words: List[torch.Tensor], num_parts: int,
+                       fast_mod: bool = True) -> torch.Tensor:
+    """Partition id of every row: murmur-style mix over the 64-bit key
+    words (int64 bit patterns), then unsigned ``% num_parts``.  On the
+    card ``fast_mod`` picks the Barrett modulo (bit-equal) over the 64-bit
+    division."""
+    what = "hash_partition_ids"
+    n = _check_words(words, what)
+    if not 0 < num_parts < (1 << 31):
+        raise ValueError(f"{what}: num_parts {num_parts} out of range")
     if _device_kind(words, what) == "cpu":
         return hash_partition_ids_plain(words, num_parts)
     dev = words[0].device
@@ -179,40 +228,383 @@ def hash_partition_ids(words: List[torch.Tensor],
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hash_partition_ids(ptrs, len(words), n, num_parts,
+                                     int(fast_mod), _barrett_magic(num_parts),
                                      out.data_ptr(), stream)
     _raise_on(lib, what, err)
     LAUNCHES[what] += 1
     return out
 
 
-# -- B2: bucket-table reduce ------------------------------------------------
+def split_tiles(n: int, num_parts: int):
+    """(tiles, rows per tile) of ``hash_split``: about two tiles per SM of
+    an H100 at large n, at least 2048 rows each, and few enough that the
+    one-block scan of the [num_parts + 1, tiles] histogram stays under
+    2^18 entries."""
+    tiles = max(1, min(264, -(-n // 2048), (1 << 18) // (num_parts + 1)))
+    tile = max(256, -(-n // tiles // 256) * 256)
+    return max(1, -(-n // tile)), tile
+
+
+def hash_split_plain(words: List[torch.Tensor], live: torch.Tensor,
+                     num_parts: int):
+    """Plain torch version of ``hash_split``: a stable sort of the ids
+    (dead rows as ``num_parts``) and their counts."""
+    pids = hash_partition_ids_plain(words, num_parts).to(torch.int64)
+    key = torch.where(live, pids, num_parts)
+    _, perm = torch.sort(key, stable=True)
+    return perm, torch.bincount(key, minlength=num_parts + 1)
+
+
+def hash_split(words: List[torch.Tensor], live: torch.Tensor,
+               num_parts: int):
+    """The exchange's split of a batch: (perm int64[n], counts
+    int64[num_parts + 1]).  ``perm`` lists the live rows by partition id,
+    each partition's rows in their input order, then the dead rows (live
+    False) in theirs: what ``torch.sort(key, stable=True)`` gives for key =
+    id, or ``num_parts`` for a dead row.  ``counts[p]`` is partition p's
+    row count; the last entry counts the dead rows.  On the card, a
+    counting sort in three launches (csrc/hash_partition.cu)."""
+    what = "hash_split"
+    n = _check_words(words, what)
+    if not 0 < num_parts <= SPLIT_MAX_PARTS:
+        raise ValueError(f"{what}: num_parts {num_parts} outside "
+                         f"[1, {SPLIT_MAX_PARTS}]")
+    if live.dtype != torch.bool or live.shape != (n,):
+        raise ValueError(f"{what}: live must be bool[{n}]")
+    _check_contiguous([live], what)
+    if _device_kind([*words, live], what) == "cpu":
+        return hash_split_plain(words, live, num_parts)
+    dev = live.device
+    tiles, tile = split_tiles(n, num_parts)
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    counts = torch.empty(num_parts + 1, dtype=torch.int64, device=dev)
+    pid_ws = torch.empty(n, dtype=torch.int16, device=dev)
+    hist_ws = torch.empty((num_parts + 1) * tiles, dtype=torch.int32,
+                          device=dev)
+    lib = _load("hash_partition")
+    ptrs = (ctypes.c_void_p * len(words))(*[w.data_ptr() for w in words])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hash_split(ptrs, len(words), live.data_ptr(), n, num_parts,
+                             _barrett_magic(num_parts), tiles, tile,
+                             pid_ws.data_ptr(), hist_ws.data_ptr(),
+                             perm.data_ptr(), counts.data_ptr(), stream)
+    _raise_on(lib, what, err)
+    LAUNCHES["hash_partition_ids"] += 1
+    return perm, counts
+
+
+# -- B2: the table core's reduce stage --------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageCol:
+    """One input of ``table_stage``: a row kind, its column (None for a
+    count of rows), the column's validity (None: every row valid) and,
+    for ``fsum64``, the batch's largest f32 exponent as an int64 device
+    scalar."""
+    kind: str
+    data: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+    emax: Optional[torch.Tensor] = None
+
+
+_KIND_IDS = {"count": 0, "icount": 1, "fsum64": 2, "fmax64": 3, "fsumv": 4,
+             "fmax": 5, "sum32": 6, "sum64": 7, "max32": 8}
+#: bytes per bucket of each sub-row of a kind; a 64-bit one comes last
+_SUB_BYTES = {"count": (4,), "icount": (8,), "fsum64": (4,) * 19,
+              "fmax64": (4, 4, 8), "fsumv": (4, 8), "fmax": (4, 4, 4),
+              "sum32": (4,), "sum64": (8,), "max32": (4,)}
+_IN_DTYPE = {"count": None, "icount": torch.int64, "fsum64": torch.float64,
+             "fmax64": torch.float64, "fsumv": torch.float64,
+             "fmax": torch.float64, "sum32": torch.float32,
+             "sum64": torch.float64, "max32": torch.float32}
+_RAW_KINDS = ("sum32", "sum64", "max32")
+
+
+@dataclasses.dataclass
+class StagePlan:
+    """How ``table_stage`` lays its tables out.  ``rows[c]`` is column c's
+    first u32 and u64 output row; each group is the pieces ``(column,
+    lo, hi, shared byte offset)`` one y-block reduces; ``chunk`` buckets
+    per y-block, ``stride`` shared slots per sub-row."""
+    rows: List[Tuple[int, int]]
+    groups: List[List[Tuple[int, int, int, int]]]
+    group_bytes: List[int]
+    chunk: int
+    stride: int
+    r32: int
+    r64: int
+
+
+def stage_plan(kinds: Sequence[str], table: int, budget: int) -> StagePlan:
+    """Pack the kinds' sub-rows into groups whose shared tables fit
+    ``budget`` bytes, about equal in size, each of at most
+    STAGE_GROUP_PIECES columns; tables past the budget split their
+    bucket range too."""
+    rows, g32, g64 = [], 0, 0
+    for k in kinds:
+        rows.append((g32, g64))
+        g32 += _SUB_BYTES[k].count(4)
+        g64 += _SUB_BYTES[k].count(8)
+    chunk = table if 8 * (table + table % 2) <= budget else (budget // 8) & ~1
+    stride = chunk + chunk % 2
+    subs = [(c, j, b * stride) for c, k in enumerate(kinds)
+            for j, b in enumerate(_SUB_BYTES[k])]
+    total = sum(s[2] for s in subs)
+    target = total / -(-total // budget)
+    groups, sizes, used = [[]], [0], 0
+    for c, j, nb in subs:
+        cur = groups[-1]
+        new_piece = not cur or cur[-1][0] != c
+        if cur and (used + nb > budget or used + nb / 2 > target or
+                    (new_piece and len(cur) == STAGE_GROUP_PIECES)):
+            groups.append([])
+            sizes.append(0)
+            cur, used, new_piece = groups[-1], 0, True
+        if new_piece:
+            cur.append((c, j, j + 1, used))
+        else:
+            col, lo, _, off = cur[-1]
+            cur[-1] = (col, lo, j + 1, off)
+        used += nb
+        sizes[-1] = used
+    if len(groups) > STAGE_MAX_GROUPS or \
+            sum(map(len, groups)) > STAGE_MAX_PIECES:
+        raise ValueError(f"table_stage: {len(kinds)} columns at table "
+                         f"{table} need more than {STAGE_MAX_GROUPS} groups "
+                         f"or {STAGE_MAX_PIECES} pieces")
+    return StagePlan(rows, groups, sizes, chunk, stride, g32, g64)
+
+
+def decode_max32(key: torch.Tensor) -> torch.Tensor:
+    """f32 max words (flip32 order, 0 = empty) -> f32, empty -> -inf."""
+    return torch.where(key == 0, float("-inf"), unflip32(key))
+
+
+def table_stage_plain(bucket: torch.Tensor, table: int,
+                      cols: Sequence[StageCol]) -> List[tuple]:
+    """Plain torch version of ``table_stage``: index_add_ for the counts
+    and sums, the chunk lanes of ``part_chunk_lanes``, and scatter_reduce_
+    for the max words."""
+    b = torch.where((bucket >= 0) & (bucket < table), bucket,
+                    table).to(torch.int64)
+
+    def tab(vals, dtype, reduce="sum", init=0):
+        out = torch.full((table + 1,), init, dtype=dtype,
+                         device=bucket.device)
+        if reduce == "sum":
+            out.index_add_(0, b, vals.to(dtype))
+        else:
+            out.scatter_reduce_(0, b, vals.to(dtype), "amax",
+                                include_self=True)
+        return out[:table]
+
+    res = []
+    for c in cols:
+        k, v = c.kind, c.data
+        if k == "sum32" or k == "sum64":
+            res.append((tab(v, v.dtype),))
+            continue
+        if k == "max32":
+            key = flip32(torch.where(torch.isnan(v), float("nan"), v))
+            res.append((decode_max32(tab(key, torch.int64, "amax")),),)
+            continue
+        ok = c.valid if c.valid is not None else \
+            torch.ones_like(b, dtype=torch.bool)
+        cnt = tab(ok, torch.int32)
+        if k == "count":
+            res.append((cnt,))
+        elif k == "icount":
+            res.append((tab(torch.where(ok, v, 0), torch.int64),))
+        elif k == "fsumv":
+            res.append((cnt, tab(torch.where(ok, v, 0.0), torch.float64)))
+        elif k == "fsum64":
+            okf = ok & torch.isfinite(v)
+            vq = torch.where(okf, v, 0.0)
+            hi = vq.to(torch.float32)
+            lo = (vq - hi.to(torch.float64)).to(torch.float32)
+            lanes = torch.zeros(v.shape[0], CH_LANES, dtype=torch.int32,
+                                device=v.device)
+            part_chunk_lanes(hi, okf, c.emax, lanes)
+            part_chunk_lanes(lo, okf, c.emax, lanes)
+            lane_tab = torch.zeros(table + 1, CH_LANES, dtype=torch.int32,
+                                   device=v.device).index_add_(0, b, lanes)
+            res.append((cnt, tab(ok & torch.isnan(v), torch.int32),
+                        tab(ok & (v == float("inf")), torch.int32),
+                        tab(ok & (v == float("-inf")), torch.int32),
+                        lane_tab[:table].T.contiguous()))
+        else:                                        # fmax64, fmax
+            v = torch.where(v == 0.0, 0.0, v)        # -0.0 == 0.0
+            okn = ok & ~torch.isnan(v)
+            nn = tab(okn, torch.int32)
+            hi = v.to(torch.float32)
+            if k == "fmax":
+                key = torch.where(okn, flip32(hi), 0)
+                res.append((cnt, nn,
+                            decode_max32(tab(key, torch.int64, "amax"))))
+                continue
+            lo = torch.where(torch.isfinite(v), v - hi.to(torch.float64),
+                             0.0).to(torch.float32)
+            # the u64 word flip32(hi) << 32 | flip32(lo) as int64 bits,
+            # maxed as a signed max with the top bit flipped
+            whi = flip32(hi)
+            word = torch.where(whi >= 1 << 31, whi - (1 << 32), whi) * \
+                (1 << 32) + flip32(lo)
+            w = tab(torch.where(okn, word ^ SIGN64, SIGN64), torch.int64,
+                    "amax", SIGN64)
+            res.append((cnt, nn, w ^ SIGN64))
+    return res
+
+
+def _check_stage(bucket: torch.Tensor, table: int,
+                 cols: Sequence[StageCol], what: str) -> List[torch.Tensor]:
+    if bucket.dtype != torch.int32 or bucket.dim() != 1:
+        raise ValueError(f"{what}: bucket must be int32[n]")
+    n = bucket.shape[0]
+    if not 0 < table < (1 << 24):
+        raise ValueError(f"{what}: table {table} out of range")
+    if n >= (1 << 31):
+        raise ValueError(f"{what}: {n} rows exceed int32 indexing")
+    tensors = [bucket]
+    for c in cols:
+        if c.kind not in _KIND_IDS:
+            raise ValueError(f"{what}: unknown kind {c.kind!r}")
+        want = _IN_DTYPE[c.kind]
+        if (want is None) != (c.data is None) or (
+                c.data is not None and (c.data.dtype != want or
+                                        c.data.shape != (n,))):
+            raise ValueError(f"{what}: {c.kind} takes "
+                             f"{'no column' if want is None else want}"
+                             f"[{n}]")
+        if c.valid is not None and (c.valid.dtype != torch.bool or
+                                    c.valid.shape != (n,) or
+                                    c.kind in _RAW_KINDS):
+            raise ValueError(f"{what}: {c.kind} validity must be bool[{n}]")
+        if (c.kind == "fsum64") != (c.emax is not None) or (
+                c.emax is not None and (c.emax.dtype != torch.int64 or
+                                        c.emax.numel() != 1)):
+            raise ValueError(f"{what}: fsum64, and only it, takes an int64 "
+                             f"emax scalar")
+        tensors += [t for t in (c.data, c.valid, c.emax) if t is not None]
+    _check_contiguous(tensors, what)
+    return tensors
+
+
+_PLANS: Dict[tuple, Tuple[StagePlan, _Plan]] = {}
+
+
+def _stage_ctypes(kinds: Tuple[str, ...], table: int, budget: int):
+    """The plan of these kinds and its ctypes form without column
+    pointers, built once per (kinds, table, budget)."""
+    key = (kinds, table, budget)
+    if key not in _PLANS:
+        sp = stage_plan(kinds, table, budget)
+        cp = _Plan()
+        i = 0
+        for gi, (pieces, nbytes) in enumerate(zip(sp.groups,
+                                                  sp.group_bytes)):
+            cp.group[gi] = _Group(i, len(pieces), nbytes)
+            for col, lo, hi, off in pieces:
+                g32, g64 = sp.rows[col]
+                cp.piece[i] = _Piece(None, None, None, _KIND_IDS[kinds[col]],
+                                     lo, hi, g32, g64, off)
+                i += 1
+        cp.ngroups, cp.chunk, cp.stride = len(sp.groups), sp.chunk, sp.stride
+        _PLANS[key] = (sp, cp)
+    return _PLANS[key]
+
+
+def table_stage(bucket: torch.Tensor, table: int,
+                cols: Sequence[StageCol]) -> List[tuple]:
+    """The reduce stage of the table core: every column's per-bucket
+    tables, in one launch on the card.  Rows whose bucket lies outside
+    [0, table) (the dead slot) are dropped.  Per column, by kind:
+
+    - count:  (count int32,)
+    - icount: (sum int64,)
+    - fsum64: (count, NaN count, +inf count, -inf count int32,
+      chunk lanes int32[CH_LANES, table])
+    - fmax64: (count, non-NaN count int32, u64 max word as int64 bits)
+    - fsumv:  (count int32, sum float64)
+    - fmax:   (count, non-NaN count int32, max float32)
+    - sum32 / sum64 / max32: (float32 / float64 sum,) / (float32 max,)
+
+    An empty bucket has zeros, a max word of 0, and a float max of -inf;
+    a NaN wins a raw max32 row."""
+    what = "table_stage"
+    tensors = _check_stage(bucket, table, cols, what)
+    if _device_kind(tensors, what) == "cpu":
+        return table_stage_plain(bucket, table, cols)
+    dev = bucket.device
+    lib = _load("table_reduce")
+    kinds = tuple(c.kind for c in cols)
+    sp, cached = _stage_ctypes(kinds, table, lib.table_stage_smem_limit())
+    cp = _Plan.from_buffer_copy(cached)      # this call's column pointers
+    i = 0
+    for pieces in sp.groups:
+        for col, *_ in pieces:
+            c = cols[col]
+            p = cp.piece[i]
+            p.data = c.data.data_ptr() if c.data is not None else None
+            p.valid = c.valid.data_ptr() if c.valid is not None else None
+            p.emax = c.emax.data_ptr() if c.emax is not None else None
+            i += 1
+    n64, n32 = sp.r64 * table, sp.r32 * table
+    out = torch.empty(n64 + (n32 + 1) // 2, dtype=torch.int64, device=dev)
+    out64 = out[:n64].view(sp.r64, table)
+    out32 = out[n64:].view(torch.int32)[:n32].view(sp.r32, table)
+    vec = 4 if all(t.data_ptr() % (4 if t.dtype == torch.bool else 16) == 0
+                   for t in tensors if t.dim() == 1) else 1
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.table_stage(bucket.data_ptr(), bucket.shape[0], table,
+                              ctypes.byref(cp), vec, out.data_ptr(),
+                              out.data_ptr() + n64 * 8,
+                              out.numel() * 8, stream)
+    _raise_on(lib, what, err)
+    LAUNCHES["table_reduce"] += 1
+    res = []
+    for c, (g32, g64) in zip(cols, sp.rows):
+        k = c.kind
+        r32 = out32[g32:g32 + _SUB_BYTES[k].count(4)]
+        r64 = out64[g64] if 8 in _SUB_BYTES[k] else None
+        res.append(_kernel_outputs(k, r32, r64))
+    return res
+
+
+def _kernel_outputs(kind: str, r32: torch.Tensor, r64):
+    """One column's tables from the kernel's output rows, as
+    ``table_stage_plain`` returns them."""
+    if kind == "count":
+        return (r32[0],)
+    if kind == "icount":
+        return (r64,)
+    if kind == "fsum64":
+        return (r32[0], r32[1], r32[2], r32[3], r32[4:])
+    if kind == "fmax64":
+        return (r32[0], r32[1], r64)
+    if kind == "fsumv":
+        return (r32[0], r64.view(torch.float64))
+    if kind == "fmax":
+        return (r32[0], r32[1], decode_max32(r32[2]))
+    if kind == "sum32":
+        return (r32[0].view(torch.float32),)
+    if kind == "sum64":
+        return (r64.view(torch.float64),)
+    return (decode_max32(r32[0]),)                   # max32
+
 
 def table_reduce_plain(bucket: torch.Tensor, sums: torch.Tensor,
                        maxs: torch.Tensor, table: int):
-    """Plain torch version of the table-reduce kernel."""
-    ok = (bucket >= 0) & (bucket < table)
-    b = torch.where(ok, bucket, table).to(torch.int64)
-    dev = bucket.device
-    sum_out = torch.zeros(sums.shape[0], table + 1, dtype=sums.dtype,
-                          device=dev)
-    sum_out.index_add_(1, b, sums)
-    m = maxs.shape[0]
-    nan = torch.isnan(maxs)
-    nan_cnt = torch.zeros(m, table + 1, dtype=torch.float32, device=dev)
-    nan_cnt.index_add_(1, b, nan.to(torch.float32))
-    max_out = torch.full((m, table + 1), float("-inf"), dtype=torch.float32,
-                         device=dev)
-    vals = torch.where(nan, float("-inf"), maxs)
-    max_out.scatter_reduce_(1, b.expand(m, -1), vals, "amax",
-                            include_self=True)
-    max_out = torch.where(nan_cnt > 0, float("nan"), max_out)
-    return sum_out[:, :table].contiguous(), max_out[:, :table].contiguous()
+    """Plain torch version of ``table_reduce``."""
+    return _raw_rows(table_stage_plain, bucket, sums, maxs, table)
 
 
 def table_reduce(bucket: torch.Tensor, sums: torch.Tensor,
                  maxs: torch.Tensor, table: int):
-    """Reduce rows into ``table`` buckets; the dead slot ``table`` (and
-    any id outside [0, table)) is dropped.
+    """The TPU kernel's function, on ``table_stage``'s raw row kinds:
+    reduce rows into ``table`` buckets; the dead slot ``table`` (and any
+    id outside [0, table)) is dropped.
 
     bucket: int32[n]; sums: f32 or f64 [k, n]; maxs: f32[m, n] (mins
     ride negated).  Returns (sums' dtype [k, table] sums, f32[m, table]
@@ -220,32 +612,23 @@ def table_reduce(bucket: torch.Tensor, sums: torch.Tensor,
     max."""
     what = "table_reduce"
     n = bucket.shape[0]
-    if bucket.dtype != torch.int32 or bucket.dim() != 1:
-        raise ValueError(f"{what}: bucket must be int32[n]")
     for t, nm, dts in ((sums, "sums", (torch.float32, torch.float64)),
                        (maxs, "maxs", (torch.float32,))):
         if t.dtype not in dts or t.dim() != 2 or t.shape[1] != n:
             raise ValueError(f"{what}: {nm} must be "
                              f"{'/'.join(map(str, dts))}[rows, {n}]")
-    if not 0 < table < (1 << 24):
-        raise ValueError(f"{what}: table {table} out of range")
-    if n >= (1 << 31):
-        raise ValueError(f"{what}: {n} rows exceed int32 indexing")
-    _check_contiguous([bucket, sums, maxs], what)
-    if _device_kind([bucket, sums, maxs], what) == "cpu":
-        return table_reduce_plain(bucket, sums, maxs, table)
-    dev = bucket.device
-    k, m = sums.shape[0], maxs.shape[0]
-    sum_out = torch.empty(k, table, dtype=sums.dtype, device=dev)
-    max_out = torch.empty(m, table, dtype=torch.float32, device=dev)
-    lib = _load("table_reduce")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.table_reduce(bucket.data_ptr(), sums.data_ptr(), k,
-                               int(sums.dtype == torch.float64),
-                               maxs.data_ptr(), m, n, table,
-                               sum_out.data_ptr(), max_out.data_ptr(),
-                               stream)
-    _raise_on(lib, what, err)
-    LAUNCHES[what] += 1
-    return sum_out, max_out
+    _check_contiguous([sums, maxs], what)
+    return _raw_rows(table_stage, bucket, sums, maxs, table)
+
+
+def _raw_rows(stage, bucket, sums, maxs, table):
+    kind = "sum64" if sums.dtype == torch.float64 else "sum32"
+    cols = [StageCol(kind, r) for r in sums] + \
+        [StageCol("max32", r) for r in maxs]
+    out = [t[0] for t in stage(bucket, table, cols)] if cols else []
+    k = sums.shape[0]
+
+    def stack(tabs, dtype):
+        return torch.stack(tabs) if tabs else \
+            torch.empty(0, table, dtype=dtype, device=bucket.device)
+    return stack(out[:k], sums.dtype), stack(out[k:], torch.float32)

@@ -1,9 +1,10 @@
 """Hash partitioner: partition ids on the device, then a contiguous split.
 
-Counterpart of ``spark_rapids_tpu/shuffle/partitioners.py``.  Partition
-ids come from the ``hash_partition_ids`` kernel over the keys' canonical
-words (a null key hashes a fixed word); the split is a stable sort by id
-plus per-partition counts, read to the host to cut the slices.
+Counterpart of ``spark_rapids_tpu/shuffle/partitioners.py``.  The split
+hashes the keys' canonical words (a null key hashes a fixed word) and
+orders the rows by partition id in one ``hash_split`` call, a counting
+sort on the card; the per-partition counts are read to the host once per
+batch to cut the slices.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from ..columnar.batch import ColumnarBatch
 from ..expr import core as ec
 from ..kernels import canon
 from ..kernels.basic import as_signed64
-from ..kernels.cuda_ops import hash_partition_ids
+from ..kernels.cuda_ops import hash_split
 
 #: word hashed for a null key
 NULL_WORD = as_signed64(0x9E3779B97F4A7C15)
@@ -43,23 +44,22 @@ class HashPartitioner:
         self.key_exprs = key_exprs
         self.num_partitions = num_partitions
 
-    def partition_ids(self, batch: ColumnarBatch) -> torch.Tensor:
+    def _key_words(self, batch: ColumnarBatch) -> List[torch.Tensor]:
         words = []
         for e in self.key_exprs:
             col = ec.eval_as_column(e.bind(batch.schema), batch)
             for w in canon.value_words(col):
                 words.append(torch.where(col.validity, w, NULL_WORD)
                              .contiguous())
-        return hash_partition_ids(words, self.num_partitions)
+        return words
 
     def split(self, batch: ColumnarBatch) -> SplitBatch:
-        """Stable sort by partition id (dead rows last) and the host
-        offsets of each partition's rows."""
+        """Rows stably ordered by partition id (dead rows last) and the
+        host offsets of each partition's rows."""
         n = self.num_partitions
-        pids = self.partition_ids(batch).to(torch.int64)
-        key = torch.where(batch.live_mask(), pids, n)
-        _, perm = torch.sort(key, stable=True)
-        counts = torch.bincount(key, minlength=n + 1)[:n].cpu().numpy()
+        perm, counts = hash_split(self._key_words(batch),
+                                  batch.live_mask().contiguous(), n)
+        counts = counts[:n].cpu().numpy()
         offsets = np.zeros(n + 1, dtype=np.int64)
         offsets[1:] = np.cumsum(counts)
         sorted_batch = batch.gather(perm, int(offsets[-1]))

@@ -13,8 +13,15 @@ import torch
 
 import chip_smoke
 from spark_rapids_tpu_torch.api import TpuSession
+from spark_rapids_tpu_torch.columnar import dtypes as T
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.column import Column
+from spark_rapids_tpu_torch.columnar.schema import Field, Schema
 from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.exec.tpu_aggregate import TpuHashAggregate
+from spark_rapids_tpu_torch.expr import core as ec
 from spark_rapids_tpu_torch.kernels import cuda_ops
+from spark_rapids_tpu_torch.shuffle.partitioners import HashPartitioner
 
 NULL_WORD = np.uint64(0x9E3779B97F4A7C15)
 
@@ -24,23 +31,71 @@ def _need_card():
         pytest.skip("needs a CUDA device")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,num_words,num_parts",
-                         [(4096, 1, 8), (100_003, 3, 1000), (1, 2, 1)])
-def test_hash_partition_kernel_matches_plain(n, num_words, num_parts):
-    _need_card()
-    rng = np.random.default_rng(n)
+def _words(rng, n, num_words):
     words = []
     for _ in range(num_words):
         w = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
         w[rng.random(n) < 0.1] = NULL_WORD
         words.append(torch.from_numpy(w.view(np.int64)).cuda())
+    return words
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fast_mod", [False, True], ids=["div", "barrett"])
+@pytest.mark.parametrize("n,num_words,num_parts",
+                         [(4096, 1, 8), (100_003, 3, 1000), (1, 2, 1),
+                          (50_000, 1, 2**31 - 1), (50_000, 1, 4096)])
+def test_hash_partition_kernel_matches_plain(n, num_words, num_parts,
+                                             fast_mod):
+    _need_card()
+    words = _words(np.random.default_rng(n), n, num_words)
     before = cuda_ops.LAUNCHES["hash_partition_ids"]
-    got = cuda_ops.hash_partition_ids(words, num_parts)
+    got = cuda_ops.hash_partition_ids(words, num_parts, fast_mod=fast_mod)
     assert cuda_ops.LAUNCHES["hash_partition_ids"] == before + 1
     assert got.is_cuda
     assert torch.equal(got, cuda_ops.hash_partition_ids_plain(words,
                                                               num_parts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,num_words,num_parts,live_frac",
+                         [(4096, 1, 8, 0.25), (4 << 20, 1, 8, 1.0),
+                          (100_003, 3, 1, 0.5), (1 << 20, 2, 4096, 0.9),
+                          (1, 1, 8, 1.0), (0, 1, 8, 1.0),
+                          (70_000, 1, 5, 0.0)])
+def test_hash_split_matches_stable_sort(n, num_words, num_parts, live_frac):
+    """The counting-sort split equals torch.sort(stable=True) + bincount
+    of the ids (dead rows as partition num_parts), bit for bit."""
+    _need_card()
+    rng = np.random.default_rng(n + num_parts)
+    words = _words(rng, n, num_words)
+    live = torch.from_numpy(rng.random(n) < live_frac).cuda()
+    perm, counts = cuda_ops.hash_split(words, live, num_parts)
+    key = torch.where(live, cuda_ops.hash_partition_ids_plain(
+        words, num_parts).to(torch.int64), num_parts)
+    assert torch.equal(perm, torch.sort(key, stable=True)[1])
+    assert torch.equal(counts, torch.bincount(key, minlength=num_parts + 1))
+
+
+@pytest.mark.gpu
+def test_split_on_card_calls_neither_sort_nor_bincount(monkeypatch):
+    _need_card()
+    n = 10_000
+    rng = np.random.default_rng(3)
+    k = torch.from_numpy(rng.integers(0, 1000, n)).cuda()
+    schema = Schema([Field("k", T.INT64, True)])
+    batch = ColumnarBatch(schema, [Column(T.INT64, k, torch.ones(
+        n, dtype=torch.bool, device="cuda"))], n - 7, device=k.device)
+    part = HashPartitioner([ec.AttributeReference("k", T.INT64)], 8)
+    want = part.split(batch)
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.sort / torch.bincount on the card")
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch, "bincount", refuse)
+    got = part.split(batch)
+    assert np.array_equal(got.offsets, want.offsets)
+    assert got.offsets[-1] == n - 7
 
 
 @pytest.mark.gpu
@@ -73,6 +128,79 @@ def test_table_reduce_kernel_matches_plain(n, table, k, m, sum_dt):
     torch.testing.assert_close(s[1:], ps[1:], rtol=rtol, atol=atol)
     assert torch.equal(mx.isnan(), pm.isnan())
     assert torch.equal(mx.nan_to_num(), pm.nan_to_num())
+
+
+def _stage_values(rng, n):
+    """f64 values of many magnitudes with NaN, +-inf, -0.0, subnormals
+    (f64 and f32) sprinkled in."""
+    v = rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)
+    specials = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 5e-324,
+                         1e-310, 1e-45, -3e-40])
+    pick = rng.random(n) < 0.02
+    v[pick] = rng.choice(specials, int(pick.sum()))
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kinds,n,table,beyond_f32,offset", [
+    (("fsum64", "fmax64"), 1 << 20, 4096, False, 0),       # exact partial
+    (("fsum64", "icount", "fmax64"), 16_384, 4096, False, 0),   # final
+    (("fsumv", "fmax"), 1 << 20, 4096, False, 0),           # variable
+    (("fsum64", "fmax64"), 1 << 20, 1 << 14, False, 0),     # y-split
+    (("fsum64", "fmax64", "count"), 100_001, 60_000, True, 0),  # chunks
+    (("fsum64", "fmax", "fsumv", "icount", "count"), 50_003, 512, False,
+     1),                                                    # unaligned
+], ids=["partial", "final", "variable", "ysplit", "chunks", "unaligned"])
+def test_table_stage_kernel_matches_plain(kinds, n, table, beyond_f32,
+                                          offset):
+    """Every table of the stage kernel against its plain version: integer
+    tables (counts, flags, chunk lanes, i64 sums, u64 max words) and f32
+    maxes bit for bit, f64 value sums within 1e-12 of the bucket's sum
+    of |v|."""
+    _need_card()
+    rng = np.random.default_rng(n + table)
+    m = n + offset
+    bucket = torch.from_numpy(rng.integers(0, table + 1, m)
+                              .astype(np.int32)).cuda()[offset:]
+    live = bucket < table
+    cols = [cuda_ops.StageCol("count")]
+    for kind in kinds:
+        valid = torch.from_numpy(rng.random(m) > 0.1).cuda()[offset:]
+        if kind == "icount":
+            data = torch.from_numpy(rng.integers(0, 1 << 40, m)).cuda()
+            c = Column(T.INT64, data[offset:], valid)
+        else:
+            v = _stage_values(rng, m)
+            if beyond_f32:
+                v[::997] = 1e300
+            c = Column(T.FLOAT64, torch.from_numpy(v).cuda()[offset:], valid)
+        sc, fit = TpuHashAggregate._stage_col(kind, c, live)
+        if beyond_f32 and kind != "count":
+            assert not bool(fit)
+        cols.append(sc)
+    before = cuda_ops.LAUNCHES["table_reduce"]
+    got = cuda_ops.table_stage(bucket, table, cols)
+    assert cuda_ops.LAUNCHES["table_reduce"] == before + 1
+    want = cuda_ops.table_stage_plain(bucket, table, cols)
+    for c, g, w in zip(cols, got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and a.shape == b.shape, c.kind
+            if c.kind == "fsumv" and a.dtype == torch.float64:
+                mag = cuda_ops.table_stage_plain(bucket, table, [
+                    cuda_ops.StageCol("fsumv", c.data.abs()
+                                      .nan_to_num(0.0, 0.0, 0.0),
+                                      c.valid)])[0][1]
+                fin = torch.isfinite(b)
+                assert torch.equal(a.isnan(), b.isnan()), c.kind
+                assert torch.equal(a[~fin].nan_to_num(), b[~fin]
+                                   .nan_to_num()), c.kind
+                assert bool(((a - b)[fin].abs() <= 1e-12 * mag[fin])
+                            .all()), c.kind
+            elif a.is_floating_point():
+                assert torch.equal(a.isnan(), b.isnan()), c.kind
+                assert torch.equal(a.nan_to_num(), b.nan_to_num()), c.kind
+            else:
+                assert torch.equal(a, b), c.kind
 
 
 @pytest.mark.gpu

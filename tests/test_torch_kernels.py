@@ -259,3 +259,326 @@ def test_table_bucket_matches_reference(case):
     assert int(ng) == int(jng)
     assert np.array_equal(order.numpy()[:int(ng)],
                           np.asarray(jorder)[:int(jng)])
+
+
+# -- B2 redesigned: the table core's reduce stage ----------------------------
+
+from spark_rapids_tpu.exec import tpu_aggregate as jta  # noqa: E402
+from spark_rapids_tpu_torch.exec.tpu_aggregate import \
+    TpuHashAggregate  # noqa: E402
+
+_BUDGET = 232_448 - 1024          # the H100's opt-in shared memory
+
+
+def _stage_values(rng, n, wide=False):
+    """f64 values of many magnitudes with NaN, +-inf, -0.0 and f64
+    subnormals sprinkled in; ``wide`` adds f32 subnormals and a value
+    beyond f32 range, so the batch does not fit the exact-sum window."""
+    v = rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)
+    pick = rng.random(n) < 0.03
+    specials = [np.nan, np.inf, -np.inf, -0.0, 0.0, 5e-324, 1e-310]
+    if wide:
+        specials += [1e-45, -3e-40]
+    v[pick] = rng.choice(np.array(specials), int(pick.sum()))
+    if wide:
+        v[7] = 1e300
+    return v
+
+
+def _stage_case(rng, n, table, wide=False):
+    """Bucket ids with the dead slot and empty buckets, f64 values with
+    specials, validity; the fsum64 column through the table core's own
+    ``_stage_col`` (its emax and fit flag)."""
+    bucket = rng.integers(0, table + 1, n).astype(np.int32)
+    bucket[bucket == 3] = 4                       # bucket 3 stays empty
+    v = _stage_values(rng, n, wide)
+    valid = rng.random(n) > 0.1
+    live = torch.from_numpy(bucket < table)
+    col = Column(T.FLOAT64, torch.from_numpy(v), torch.from_numpy(valid))
+    sc, fit = TpuHashAggregate._stage_col("fsum64", col, live)
+    return bucket, v, valid, col, sc, fit
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["fits", "wide"])
+def test_table_stage_lanes_match_reference(wide):
+    """fsum64: the count and flag tables against numpy, the chunk-lane
+    table against the reference's ``_part_chunk_rows`` +
+    ``jax.ops.segment_sum`` bit for bit, and the fit flag."""
+    import jax
+    rng = np.random.default_rng(11)
+    n, table = 4000, 64
+    bucket, v, valid, col, sc, fit = _stage_case(rng, n, table, wide)
+    assert bool(fit) == (not wide)
+    cnt, nan, pinf, ninf, lanes = cuda_ops.table_stage(
+        torch.from_numpy(bucket), table, [sc])[0]
+    b = np.where(bucket < table, bucket, table)
+    for got, mask in ((cnt, valid), (nan, valid & np.isnan(v)),
+                      (pinf, valid & (v == np.inf)),
+                      (ninf, valid & (v == -np.inf))):
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), np.bincount(
+            b, weights=mask, minlength=table + 1)[:table].astype(np.int32))
+    okf = valid & np.isfinite(v)
+    vq = np.where(okf, v, 0.0)
+    with np.errstate(over="ignore", invalid="ignore"):
+        hi = vq.astype(np.float32)
+        lo = (vq - hi.astype(np.float64)).astype(np.float32)
+    emax = jnp.int32(int(sc.emax))
+    rows = [r + s for r, s in zip(
+        jta._part_chunk_rows(jnp.asarray(hi), jnp.asarray(okf), emax),
+        jta._part_chunk_rows(jnp.asarray(lo), jnp.asarray(okf), emax))]
+    ref = jax.ops.segment_sum(jnp.stack(rows, 1), jnp.asarray(b),
+                              num_segments=table + 1)[:table]
+    assert lanes.shape == (jta.CH_LANES, table)
+    assert np.array_equal(lanes.numpy(), np.asarray(ref).T)
+    assert not lanes[:, 3].any() and not cnt[3]
+
+
+def _torch_two_stage_max(v, ok, bucket, table):
+    """The table core's earlier exact max in torch: u32 max of the hi
+    words, then of the lo words among the hi winners."""
+    from spark_rapids_tpu_torch.kernels.aggregate import flip32
+    b = torch.where(bucket < table, bucket, table).long()
+    v = torch.where(v == 0.0, 0.0, v)
+    okn = ok & ~torch.isnan(v)
+    hi = v.to(torch.float32)
+    lo = torch.where(torch.isfinite(v), v - hi.double(), 0.0).float()
+    whi = torch.where(okn, flip32(hi), 0)
+    mm1 = torch.zeros(table + 1, dtype=torch.int64).scatter_reduce_(
+        0, b, whi, "amax")
+    wlo = torch.where(okn & (whi == mm1[b]), flip32(lo), 0)
+    mm2 = torch.zeros(table + 1, dtype=torch.int64).scatter_reduce_(
+        0, b, wlo, "amax")
+    return mm1[:table], mm2[:table]
+
+
+def test_table_stage_max_word_matches_two_stage_max():
+    """fmax64: the u64 max word's halves equal the reference's two-stage
+    u32 ``segment_max`` and the earlier torch two-stage max, bit for bit;
+    the count and non-NaN count against numpy."""
+    import jax
+    rng = np.random.default_rng(12)
+    n, table = 4000, 64
+    bucket, v, valid, col, _, _ = _stage_case(rng, n, table)
+    live = torch.from_numpy(bucket < table)
+    sc, fit = TpuHashAggregate._stage_col("fmax64", col, live)
+    assert bool(fit)
+    cnt, nn, word = cuda_ops.table_stage(torch.from_numpy(bucket), table,
+                                         [sc])[0]
+    w = word.numpy().view(np.uint64)
+    b = np.where(bucket < table, bucket, table)
+    vz = np.where(v == 0.0, 0.0, v)
+    okn = valid & ~np.isnan(vz)
+    assert np.array_equal(nn.numpy(), np.bincount(
+        b, weights=okn, minlength=table + 1)[:table])
+    assert np.array_equal(cnt.numpy(), np.bincount(
+        b, weights=valid, minlength=table + 1)[:table])
+    hi = vz.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        lo = np.where(np.isfinite(vz), vz - hi.astype(np.float64),
+                      0.0).astype(np.float32)
+    jb = jnp.asarray(b)
+    whi = jnp.where(jnp.asarray(okn), jta._flip32(jnp.asarray(hi)),
+                    jnp.uint32(0))
+    mm1 = jax.ops.segment_max(whi, jb, num_segments=table + 1)
+    win = jnp.asarray(okn) & (whi == jnp.take(mm1, jb))
+    mm2 = jax.ops.segment_max(
+        jnp.where(win, jta._flip32(jnp.asarray(lo)), jnp.uint32(0)), jb,
+        num_segments=table + 1)
+    # an empty bucket: the reference's segment_max gives 0 only where a
+    # row of value 0 landed, so compare where the bucket has a non-NaN
+    has = np.bincount(b, weights=okn, minlength=table + 1)[:table] > 0
+    assert np.array_equal((w >> np.uint64(32))[has],
+                          np.asarray(mm1)[:table][has])
+    assert np.array_equal((w & np.uint64(0xFFFFFFFF))[has],
+                          np.asarray(mm2)[:table][has])
+    assert not w[~has].any()
+    t1, t2 = _torch_two_stage_max(col.data, col.validity & live,
+                                  torch.from_numpy(bucket), table)
+    assert np.array_equal(w >> np.uint64(32), t1.numpy().astype(np.uint64))
+    assert np.array_equal(w & np.uint64(0xFFFFFFFF),
+                          t2.numpy().astype(np.uint64))
+
+
+def test_table_stage_other_kinds_match_numpy():
+    """count, icount, fsumv and fmax against numpy; raw sum32/sum64/max32
+    rows against the reference kernel's ``table_reduce`` (scatter)."""
+    rng = np.random.default_rng(13)
+    n, table = 3000, 50
+    bucket, v, valid, col, _, _ = _stage_case(rng, n, table)
+    live = torch.from_numpy(bucket < table)
+    ints = rng.integers(-(1 << 40), 1 << 40, n)
+    icol = Column(T.INT64, torch.from_numpy(ints), torch.from_numpy(valid))
+    cols = [cuda_ops.StageCol("count"),
+            TpuHashAggregate._stage_col("count", col, live)[0],
+            TpuHashAggregate._stage_col("icount", icol, live)[0],
+            TpuHashAggregate._stage_col("fsumv", col, live)[0],
+            TpuHashAggregate._stage_col("fmax", col, live)[0]]
+    (rows,), (cnt,), (isum,), (vc, vsum), (mc, mnn, mmax) = \
+        cuda_ops.table_stage(torch.from_numpy(bucket), table, cols)
+    b = np.where(bucket < table, bucket, table)
+
+    def bc(w):
+        return np.bincount(b, weights=w, minlength=table + 1)[:table]
+    assert np.array_equal(rows.numpy(), bc(np.ones(n)))
+    assert np.array_equal(cnt.numpy(), bc(valid))
+    assert np.array_equal(vc.numpy(), bc(valid))
+    want_i = np.zeros(table + 1, np.int64)
+    np.add.at(want_i, b, np.where(valid, ints, 0))
+    assert np.array_equal(isum.numpy(), want_i[:table])
+    finite = np.isfinite(bc(np.where(valid, v, 0.0)))
+    np.testing.assert_allclose(vsum.numpy()[finite],
+                               bc(np.where(valid, v, 0.0))[finite],
+                               rtol=1e-12, atol=1e-300)
+    vz = np.where(v == 0.0, 0.0, v).astype(np.float32)
+    okn = valid & ~np.isnan(vz)
+    want_m = np.full(table + 1, -np.inf, np.float32)
+    np.maximum.at(want_m, b[okn], vz[okn])
+    assert np.array_equal(mmax.numpy(), want_m[:table])
+    assert np.array_equal(mnn.numpy(), bc(okn))
+    # raw rows: the TPU kernel's own function
+    f32 = rng.standard_normal((2, n)).astype(np.float32)
+    f32[1, ::17] = np.nan
+    js, jm = jpallas.table_reduce(jnp.asarray(bucket), [jnp.asarray(f32[0])],
+                                  [jnp.asarray(f32[1])], table,
+                                  impl="scatter")
+    (s32,), (s64,), (m32,) = cuda_ops.table_stage(
+        torch.from_numpy(bucket), table,
+        [cuda_ops.StageCol("sum32", torch.from_numpy(f32[0])),
+         cuda_ops.StageCol("sum64", torch.from_numpy(f32[0].astype(
+             np.float64))),
+         cuda_ops.StageCol("max32", torch.from_numpy(f32[1]))])
+    np.testing.assert_allclose(s32.numpy(), np.asarray(js[0]), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(s64.numpy(), bc(f32[0].astype(np.float64)),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(m32.numpy(), np.asarray(jm[0]))
+
+
+@pytest.mark.parametrize("kinds,table", [
+    (("count", "fsum64", "fmax64"), 4096),
+    (("fsum64", "icount", "fmax64"), 4096),
+    (("count", "fsumv", "fmax"), 4096),
+    (("count", "fsum64", "fmax64"), 1 << 14),
+    (("sum64", "sum64", "max32"), 60_000),
+    (("sum32",) * 7, 4096),
+])
+def test_stage_plan_packs_within_budget(kinds, table):
+    """Every sub-row lands in exactly one group; a group fits the shared
+    budget, takes at most STAGE_GROUP_PIECES columns, keeps 64-bit
+    sub-rows 8-byte aligned; the headline exact partial needs 2 groups."""
+    plan = cuda_ops.stage_plan(kinds, table, _BUDGET)
+    seen = []
+    for pieces, nbytes in zip(plan.groups, plan.group_bytes):
+        assert len(pieces) <= cuda_ops.STAGE_GROUP_PIECES
+        assert nbytes <= _BUDGET
+        end = 0
+        for col, lo, hi, off in pieces:
+            assert off == end and off % 8 == 0
+            sub = cuda_ops._SUB_BYTES[kinds[col]]
+            end += sum(sub[lo:hi]) * plan.stride
+            seen += [(col, j) for j in range(lo, hi)]
+        assert end == nbytes
+    assert sorted(seen) == [(c, j) for c, k in enumerate(kinds)
+                            for j in range(len(cuda_ops._SUB_BYTES[k]))]
+    assert plan.chunk <= table and plan.stride % 2 == 0
+    assert plan.chunk == table or 8 * plan.stride <= _BUDGET
+    if kinds == ("count", "fsum64", "fmax64") and table == 4096:
+        assert plan.group_bytes == [196_608, 196_608]
+
+
+def test_table_stage_checks_inputs():
+    b = torch.zeros(4, dtype=torch.int32)
+    v = torch.zeros(4, dtype=torch.float64)
+    ok = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError):                  # fsum64 without emax
+        cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("fsum64", v, ok)])
+    with pytest.raises(ValueError):                  # wrong column dtype
+        cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("fsumv", v.float())])
+    with pytest.raises(ValueError):                  # unknown kind
+        cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("avg", v)])
+    with pytest.raises(ValueError):                  # count takes no column
+        cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("count", v)])
+
+
+# -- B1 redesigned: the counting-sort split ----------------------------------
+
+def _barrett(h: int, p: int) -> int:
+    """The kernels' fast modulo, in Python integers."""
+    magic = ((1 << 64) - 1) // p
+    r = h - ((h * magic) >> 64) * p
+    return r - p if r >= p else r
+
+
+def test_barrett_modulo_is_exact():
+    rng = np.random.default_rng(14)
+    hs = [int(x) for x in U64_EDGES] + [int(x) for x in rng.integers(
+        0, 2**64 - 1, 2000, dtype=np.uint64, endpoint=True)]
+    for p in (1, 2, 3, 7, 8, 1000, 4096, 4097, 65_521, 2**31 - 1):
+        assert all(_barrett(h, p) == h % p for h in hs)
+
+
+def _split_model(pids: np.ndarray, parts: int, warps: int = 8):
+    """The three passes of the hash_split kernel in numpy, with its tiles
+    and per-warp slices: tile histograms, the partition-major exclusive
+    scan, and each warp's in-order ranks."""
+    n = len(pids)
+    tiles, tile = cuda_ops.split_tiles(n, parts)
+    hist = np.zeros((parts + 1, tiles), np.int64)
+    for t in range(tiles):
+        hist[:, t] = np.bincount(pids[t * tile:(t + 1) * tile],
+                                 minlength=parts + 1)
+    flat = hist.reshape(-1)
+    offsets = (np.cumsum(flat) - flat).reshape(parts + 1, tiles)
+    counts = hist.sum(1)
+    perm = np.empty(n, np.int64)
+    for t in range(tiles):
+        t0, t1 = t * tile, min(n, (t + 1) * tile)
+        per = -(-(t1 - t0) // warps)
+        per = -(-per // 32) * 32
+        run = offsets[:, t].copy()
+        for w in range(warps):
+            w0 = min(t1, t0 + w * per)
+            w1 = min(t1, w0 + per)
+            for i in range(w0, w1):
+                perm[run[pids[i]]] = i
+                run[pids[i]] += 1
+    return perm, counts
+
+
+@pytest.mark.parametrize("n,parts,live_frac",
+                         [(4096, 8, 0.25), (70_001, 8, 0.9), (9000, 1, 0.5),
+                          (20_000, 4096, 1.0), (50, 3, 0.0)])
+def test_hash_split_matches_stable_sort(n, parts, live_frac):
+    """The split (plain version here) and a model of its kernel's passes
+    against numpy's stable argsort + bincount of the reference's ids."""
+    rng = np.random.default_rng(n + parts)
+    words = _words(rng, n, 2)
+    live = rng.random(n) < live_frac
+    ids = np.asarray(jbasic.hash_to_partition(
+        jbasic.hash_words([jnp.asarray(w) for w in words]), parts))
+    key = np.where(live, ids, parts)
+    perm, counts = cuda_ops.hash_split([_t(w) for w in words],
+                                       torch.from_numpy(live), parts)
+    assert np.array_equal(perm.numpy(), np.argsort(key, kind="stable"))
+    assert np.array_equal(counts.numpy(), np.bincount(key,
+                                                      minlength=parts + 1))
+    mperm, mcounts = _split_model(key, parts)
+    assert np.array_equal(mperm, perm.numpy())
+    assert np.array_equal(mcounts, counts.numpy())
+
+
+def test_partition_limit_in_split_and_conf():
+    from spark_rapids_tpu_torch.config import (MAX_SHUFFLE_PARTITIONS,
+                                               SHUFFLE_PARTITIONS, TpuConf)
+    assert MAX_SHUFFLE_PARTITIONS == cuda_ops.SPLIT_MAX_PARTS == 4096
+    TpuConf({SHUFFLE_PARTITIONS: 4096})
+    for bad in (0, 4097):
+        with pytest.raises(ValueError):
+            TpuConf({SHUFFLE_PARTITIONS: bad})
+    w = [torch.zeros(4, dtype=torch.int64)]
+    live = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        cuda_ops.hash_split(w, live, 4097)
+    with pytest.raises(ValueError):
+        cuda_ops.hash_split(w, live[:3], 8)

@@ -89,12 +89,22 @@ def test_headline_query_matches_reference(variable):
     assert len(port_rows) > 900
     _compare_rows(jax_rows, port_rows, rel=rel)
     _compare_rows(oracle_rows, port_rows, rel=rel)
+    assert _path_counts(session.last_physical_plan) == [
+        {"table": 4, "sort": 0}, {"table": 8, "sort": 0}]
     plan = session.last_physical_plan.tree_string()
     for node in ("TpuLocalScan", "TpuHashAggregate[partial, staged=2 ops]",
                  "TpuShuffleExchange[HashPartitioner(8)]",
                  "TpuHashAggregate[final]", "TpuBroadcastHashJoin",
                  "TpuBroadcastExchange", "TpuProject"):
         assert node in plan
+
+
+def _path_counts(node):
+    """path_counts of every hash aggregate below ``node``, leaves first."""
+    out = [c for child in node.children for c in _path_counts(child)]
+    if isinstance(node, TpuHashAggregate):
+        out.append(node.path_counts)
+    return out
 
 
 @pytest.mark.parametrize("conf", [
@@ -156,10 +166,18 @@ def test_exact_mode_runs_are_byte_identical():
 
 def _agg_table(case: str, n: int = 5000) -> pa.Table:
     rng = np.random.default_rng(21)
-    hi = {"fits": 300, "misfit": 10**9}[case]
+    hi = {"fits": 300, "misfit": 10**9, "specials": 300, "f32_ovf": 300}[case]
     x = rng.standard_normal(n) * 1e3
     x[rng.random(n) < 0.01] = np.nan
+    if case in ("specials", "f32_ovf"):
+        # +-inf, -0.0 and a subnormal in the table core's exact sum/max
+        pick = rng.random(n) < 0.02
+        x[pick] = rng.choice(np.array([np.inf, -np.inf, -0.0, 1e-310]),
+                             int(pick.sum()))
+    if case == "f32_ovf":
+        x[11] = 1e300            # beyond f32: the batch takes the sort path
     x_null = rng.random(n) < 0.05
+    x_null[11] &= case != "f32_ovf"
     k_null = rng.random(n) < 0.02
     return pa.table({
         "k": pa.array(rng.integers(-hi, hi, n), mask=k_null),
@@ -167,7 +185,7 @@ def _agg_table(case: str, n: int = 5000) -> pa.Table:
     })
 
 
-@pytest.mark.parametrize("case", ["fits", "misfit"])
+@pytest.mark.parametrize("case", ["fits", "misfit", "specials", "f32_ovf"])
 def test_partial_aggregate_matches_reference(case):
     """One batch through the reference's partial aggregate and the
     port's: the table core when the keys fit, the sort path when not."""
@@ -198,7 +216,8 @@ def test_partial_aggregate_matches_reference(case):
              AggExpr(ea.Count(px), "cx"), AggExpr(ea.Max(px), "mx")]
     pagg = TpuHashAggregate([pk], paggs, None, PARTIAL, 4096, False)
     pout = pagg._aggregate(pbatch, update=True)
-    assert pagg.path_counts == ({"table": 1, "sort": 0} if case == "fits"
+    on_table = case in ("fits", "specials")
+    assert pagg.path_counts == ({"table": 1, "sort": 0} if on_table
                                 else {"table": 0, "sort": 1})
     prows = sorted(to_arrow(pout).to_pylist(),
                    key=lambda r: _row_key(tuple(r.values())))
