@@ -26,7 +26,7 @@ Phases (any failure exits non-zero):
    before it, the query's variable-mode sums are reduced through the
    table-reduce kernel in f32 and in f64 rows, and the groups that miss
    the variable-mode limit are counted for each.  Each mode's warm run
-   is profiled; the exact one must call none of STAGE_REPLACED_OPS.
+   is profiled and must call none of STAGE_REPLACED_OPS.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -135,23 +135,21 @@ def random_words(rng, n: int, num_words: int):
 
 
 def check_hash_ids(ops, rng, n: int, num_words: int, parts: int,
-                   fast_mod=None):
-    """B1's ids alone (the TPU kernel's function); ``fast_mod`` None is a
-    wrapper without that argument (the parent checkout's kernel)."""
+                   design: str):
+    """B1's ids alone (the TPU kernel's function), from ``ops``: this
+    tree's wrapper or the parent checkout's."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops
     words = random_words(rng, n, num_words)
-    kw = {} if fast_mod is None else {"fast_mod": fast_mod}
-    got = ops.hash_partition_ids(words, parts, **kw)
+    got = ops.hash_partition_ids(words, parts)
     torch.cuda.synchronize()
     check(torch.equal(got, cuda_ops.hash_partition_ids_plain(words, parts)),
-          f"hash_partition_ids {kw} differs from its plain version, n={n}")
-    design = {None: "parent kernel", False: "64-bit % by a runtime divisor",
-              True: "Barrett modulo"}[fast_mod]
+          f"hash_partition_ids ({design}) differs from its plain version, "
+          f"n={n}")
     return kernel_entry(
         "hash_partition_ids", "hash_partition.cu", "37",
         f"ids {n} rows x {num_words} word(s) -> {parts} parts ({design})",
-        0.0, time_cuda(lambda: ops.hash_partition_ids(words, parts, **kw)),
+        0.0, time_cuda(lambda: ops.hash_partition_ids(words, parts)),
         time_cuda(lambda: cuda_ops.hash_partition_ids_plain(words, parts),
                   iters=5, queued=False)[0],
         n * 8 * num_words + n * 4)
@@ -173,7 +171,7 @@ def check_hash_split(rng, n: int, num_words: int, parts: int,
 
     def sort_path():      # the split before: ids kernel, stable sort, bincount
         key = torch.where(live, cuda_ops.hash_partition_ids(
-            words, parts, fast_mod=False).to(torch.int64), parts)
+            words, parts).to(torch.int64), parts)
         torch.sort(key, stable=True)
         torch.bincount(key, minlength=parts + 1)
     key = torch.where(live, cuda_ops.hash_partition_ids_plain(
@@ -371,19 +369,21 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     shapes (and the sizes an exchange of whole batches will give B1).
     Returns each kernel's main-path entry; prints every entry."""
     from spark_rapids_tpu_torch.kernels import cuda_ops
+    # each kernel's main-path check comes first among its checks
+    split_main = lambda: check_hash_split(rng, 4096, 1, 8, 0.25)
+    stage_main = lambda: check_table_stage(rng, big, 4096, "partial")
     checks = [
         # B1: the split at the main path's shape (a partial table of 4096
         # slots, ~1000 live), at a whole batch, and at the partition limit
-        lambda: check_hash_split(rng, 4096, 1, 8, 0.25),
+        split_main,
         lambda: check_hash_split(rng, big, 1, 8, 1.0),
         lambda: check_hash_split(rng, big, 1, 1, 0.9),
         lambda: check_hash_split(rng, big, 2, cuda_ops.SPLIT_MAX_PARTS, 0.9),
-        # B1's ids alone: the 64-bit modulo against the Barrett modulo
-        lambda: check_hash_ids(cuda_ops, rng, 4096, 1, 8, fast_mod=False),
-        lambda: check_hash_ids(cuda_ops, rng, big, 1, 8, fast_mod=False),
-        lambda: check_hash_ids(cuda_ops, rng, big, 1, 8, fast_mod=True),
+        # B1's ids alone
+        lambda: check_hash_ids(cuda_ops, rng, 4096, 1, 8, "Barrett modulo"),
+        lambda: check_hash_ids(cuda_ops, rng, big, 1, 8, "Barrett modulo"),
         # B2: the stage at the query's shapes, then the TPU kernel's raw rows
-        lambda: check_table_stage(rng, big, 4096, "partial"),
+        stage_main,
         lambda: check_table_stage(rng, 4 * 4096, 4096, "final"),
         lambda: check_table_stage(rng, big, 4096, "variable"),
         lambda: check_table_stage(rng, big // 4, 1 << 14, "partial"),
@@ -396,17 +396,19 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
         old = load_parent_ops(parent)
         old.build_all()
         checks += [
-            lambda: check_hash_ids(old, rng, 4096, 1, 8),
-            lambda: check_hash_ids(old, rng, big, 1, 8),
+            lambda: check_hash_ids(old, rng, 4096, 1, 8, "parent kernel"),
+            lambda: check_hash_ids(old, rng, big, 1, 8, "parent kernel"),
             lambda: check_table_reduce(old, rng, big, 4096, 7, 0,
                                        np.float32, "parent kernel"),
             lambda: check_table_reduce(old, rng, big, 4096, 5, 1,
                                        np.float64, "parent kernel")]
-    entries = []
+    main = {}
     for measure in checks:
-        entries.append(measure())
-        print("kernel", json.dumps(entries[-1]), flush=True)
-    return {"hash_partition_ids": entries[0], "table_reduce": entries[7]}
+        entry = measure()
+        if measure is split_main or measure is stage_main:
+            main[entry["name"]] = entry
+        print("kernel", json.dumps(entry), flush=True)
+    return main
 
 
 # -- phase 4: the headline query ---------------------------------------------
@@ -652,8 +654,8 @@ def main(argv=None) -> int:
         if args.device == "cuda":
             ops = profile_query(df)
             left = [o for o in STAGE_REPLACED_OPS if o in ops]
-            check(variable or not left,
-                  f"exact query still runs {left} beside the kernels")
+            check(not left,
+                  f"{mode} query still runs {left} beside the kernels")
         print(f"query {mode} on {args.device}: {tables[0].num_rows} groups; "
               f"cold "
               f"{times[0]:.4f}s warm {times[1]:.4f}s; warm "

@@ -8,16 +8,16 @@
 //
 // Two entry points:
 // - hash_partition_ids: the ids alone, one thread per row (the TPU kernel's
-//   function).  `fast_mod` picks the modulo: 0 is the 64-bit `%` by a
-//   runtime divisor (a software division routine on the GPU), 1 a Barrett
-//   reduction with the host-computed magic M = floor((2^64 - 1) / parts):
-//   q = umulhi(h, M) is floor(h / parts) or one less, so r = h - q * parts
-//   needs at most one correction.  Bit-equal for every parts < 2^31.
+//   function).  The modulo is a Barrett reduction with the host-computed
+//   magic M = floor((2^64 - 1) / parts): q = umulhi(h, M) is floor(h /
+//   parts) or one less, so r = h - q * parts needs at most one correction.
+//   Bit-equal to the 64-bit `%` for every parts < 2^31, which the GPU runs
+//   as a software division routine.
 // - hash_split: the split of a batch by partition id, as the exchange
 //   needs it: the permutation that a stable sort of the ids would give
 //   (dead rows, the live mask false, go last as partition `parts`) and
 //   the row count of each partition.  A counting sort in three launches:
-//     1. ids (fast modulo) of every row, stored as u16, plus each tile's
+//     1. ids (Barrett modulo) of every row, stored as u16, plus each tile's
 //        histogram, counted in shared memory with warp-aggregated atomics
 //        (__match_any_sync: one atomic per distinct id in a warp);
 //     2. one block scans the [parts + 1, tiles] histogram (partition-major,
@@ -81,7 +81,6 @@ __device__ __forceinline__ unsigned fast_mod(unsigned long long h,
   return (unsigned)r;
 }
 
-template <bool FAST>
 __global__ void hash_partition_kernel(WordPtrs words, int num_words, int n,
                                       unsigned long long num_parts,
                                       unsigned long long magic,
@@ -89,7 +88,7 @@ __global__ void hash_partition_kernel(WordPtrs words, int num_words, int n,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const unsigned long long h = hash_row(words, num_words, i);
-    out[i] = FAST ? (int)fast_mod(h, num_parts, magic) : (int)(h % num_parts);
+    out[i] = (int)fast_mod(h, num_parts, magic);
   }
 }
 
@@ -232,10 +231,10 @@ static WordPtrs word_ptrs(const void* const* words, int num_words) {
 }
 
 // words: host array of num_words device pointers, each to n 64-bit words.
-// out: device int32[n].  magic: floor((2^64 - 1) / num_parts), read when
-// fast_mod is 1.  Launches on `stream`; returns cudaGetLastError().
+// out: device int32[n].  magic: floor((2^64 - 1) / num_parts).  Launches
+// on `stream`; returns cudaGetLastError().
 extern "C" int hash_partition_ids(const void* const* words, int num_words,
-                                  int n, int num_parts, int fast_mod,
+                                  int n, int num_parts,
                                   unsigned long long magic, void* out,
                                   void* stream) {
   if (num_words < 1 || num_words > HP_MAX_WORDS || n < 0 || num_parts < 1)
@@ -246,12 +245,8 @@ extern "C" int hash_partition_ids(const void* const* words, int num_words,
   long long blocks = ((long long)n + threads - 1) / threads;
   if (blocks > (1 << 20)) blocks = 1 << 20;
   cudaStream_t s = (cudaStream_t)stream;
-  if (fast_mod)
-    hash_partition_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(
-        w, num_words, n, (unsigned long long)num_parts, magic, (int*)out);
-  else
-    hash_partition_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(
-        w, num_words, n, (unsigned long long)num_parts, magic, (int*)out);
+  hash_partition_kernel<<<(unsigned)blocks, threads, 0, s>>>(
+      w, num_words, n, (unsigned long long)num_parts, magic, (int*)out);
   return (int)cudaGetLastError();
 }
 

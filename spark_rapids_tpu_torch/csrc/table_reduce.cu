@@ -27,7 +27,12 @@
 //   FSUMV   [u32 cnt, f64 sum]                     (variable float mode)
 //   FMAX    [u32 cnt, non-NaN cnt, u32 max of flip32(f32(v))]
 //   SUM32, SUM64, MAX32: the TPU kernel's own raw f32/f64 sum rows and f32
-//             max rows (canonical NaN wins, as XLA's max).
+//             max rows (canonical NaN wins, as XLA's max).  Their column is
+//             a [k, n] matrix and each of its k rows is one sub-row, so k
+//             raw rows are one piece: they share one group, and one read
+//             of the bucket, while their tables fit the budget.  A launch
+//             takes raw pieces only or none (the kernel's RAW instance),
+//             so the stage's row loop carries no raw-row code.
 // Every table starts at zero bits: zero is the identity of every add, and
 // of every ordered max word (an empty bucket's max word is 0).  The
 // wrapper decodes the f32 max words.
@@ -56,7 +61,11 @@
 //   split their bucket range along gridDim.y.
 // - Bytes in flight: each thread takes 4 consecutive rows per iteration
 //   with 16-byte vector loads (bucket int4, values 2 x 16 B, masks 4 B)
-//   and issues every load of the iteration before its atomics.
+//   and issues every load of the iteration before its atomics; a raw piece
+//   loads TS_RAW_BATCH of its rows at a time the same way.  Where the
+//   tables leave room for two blocks per SM (the raw rows of the headline
+//   query: 7 x 4096 x 4 B), the launch takes the 1-row instance instead,
+//   whose registers allow both (launch_by_occupancy).
 // - A max only issues its atomic when the value beats the slot's current
 //   word, so the common case is one shared load.
 #include <cuda_runtime.h>
@@ -64,6 +73,7 @@
 #define TS_MAX_PIECES 48
 #define TS_MAX_GROUPS 32
 #define TS_GROUP_PIECES 4
+#define TS_RAW_BATCH 4
 #define TS_THREADS 512
 // shared bytes left to the kernel's static arrays (the pieces of its group)
 #define TS_STATIC_RESERVE 1024
@@ -78,8 +88,9 @@ enum { OP_ADD32 = 0, OP_ADD64, OP_ADDF32, OP_ADDF64, OP_MAX32, OP_MAX64 };
 
 // One column with one kind, and the sub-rows [lo, hi) of the kind that its
 // group reduces.  Global rows: 32-bit sub-row j at out32 row g32 + j; the
-// kind's one 64-bit sub-row (always its last) at out64 row g64.  Shared:
-// sub-row j at byte smem + (j - lo) * 4 * stride.
+// kind's one 64-bit sub-row (always its last) at out64 row g64, and a SUM64
+// column's sub-row j at g64 + j.  Shared: sub-row j at byte
+// smem + (j - lo) * row_bytes(kind) * stride.
 struct Piece {
   const void* data;
   const unsigned char* valid;   // bool[n], or null: every row valid
@@ -114,6 +125,16 @@ __device__ __forceinline__ bool wide_input(int kind) {
   return kind != K_SUM32 && kind != K_MAX32;
 }
 
+__host__ __device__ __forceinline__ bool raw_kind(int kind) {
+  return kind == K_SUM32 || kind == K_SUM64 || kind == K_MAX32;
+}
+
+// shared bytes per slot of each sub-row of a piece (SUM64: all 8; every
+// other kind keeps 4-byte sub-rows, with its one 64-bit sub-row last)
+__device__ __forceinline__ int row_bytes(int kind) {
+  return kind == K_SUM64 ? 8 : 4;
+}
+
 // f32 -> u32 whose unsigned order is the float order (canonical NaN above
 // +inf, -0.0 below 0.0)
 __device__ __forceinline__ unsigned flip32(float f) {
@@ -123,7 +144,7 @@ __device__ __forceinline__ unsigned flip32(float f) {
 
 struct Slot {
   unsigned char* sh;   // shared byte address of sub-row lo, this bucket's
-  int lo, hi, step;    // step: bytes between sub-rows (4 * stride)
+  int lo, hi, step;    // step: bytes between sub-rows (row_bytes * stride)
   __device__ __forceinline__ bool has(int j) const { return j >= lo && j < hi; }
   template <typename T>
   __device__ __forceinline__ T* at(int j, int slot) const {
@@ -233,47 +254,63 @@ __device__ __forceinline__ void apply(int kind, const Slot& s, int slot,
       }
       break;
     }
-    case K_SUM32: {
-      const float v = __uint_as_float((unsigned)raw);
-      if (v != 0.0f) s.addf32(0, slot, v);
-      break;
-    }
-    case K_SUM64: {
-      const double v = __longlong_as_double((long long)raw);
-      if (v != 0.0) s.addf64(0, slot, v);
-      break;
-    }
-    case K_MAX32: {
-      float v = __uint_as_float((unsigned)raw);
-      if (isnan(v)) v = __int_as_float(0x7fc00000);
-      s.max32(0, slot, flip32(v));
-      break;
-    }
   }
 }
 
-// Rows [i, i + V) of one piece: raw value bits and validity.  `full`: all
-// V rows exist and the pointers are aligned for vector loads.
+// One row of raw sub-row j into its bucket's shared slot.
+__device__ __forceinline__ void apply_raw(int kind, const Slot& s, int j,
+                                          int slot, unsigned long long raw) {
+  if (kind == K_SUM32) {
+    const float v = __uint_as_float((unsigned)raw);
+    if (v != 0.0f) s.addf32(j, slot, v);
+  } else if (kind == K_SUM64) {
+    const double v = __longlong_as_double((long long)raw);
+    if (v != 0.0) s.addf64(j, slot, v);
+  } else {
+    float v = __uint_as_float((unsigned)raw);
+    if (isnan(v)) v = __int_as_float(0x7fc00000);
+    s.max32(j, slot, flip32(v));
+  }
+}
+
+// Values [i, i + V) of one column row that starts at element `row`: raw
+// bits, where the row exists.  `full`: all V exist and are aligned for
+// vector loads.
+template <int V>
+__device__ __forceinline__ void load_values(const void* data, bool wide,
+                                            long long row, long long i,
+                                            long long n, bool full,
+                                            unsigned long long* raw) {
+  if (V == 4 && full) {
+    if (wide) {
+      const ulonglong2* d = reinterpret_cast<const ulonglong2*>(
+          static_cast<const unsigned long long*>(data) + row + i);
+      const ulonglong2 a = __ldg(d), b = __ldg(d + 1);
+      raw[0] = a.x; raw[1] = a.y; raw[2] = b.x; raw[3] = b.y;
+    } else {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(
+          static_cast<const unsigned*>(data) + row + i));
+      raw[0] = a.x; raw[1] = a.y; raw[2] = a.z; raw[3] = a.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    if (i + k < n)
+      raw[k] = wide
+          ? __ldg(static_cast<const unsigned long long*>(data) + row + i + k)
+          : __ldg(static_cast<const unsigned*>(data) + row + i + k);
+}
+
+// Rows [i, i + V) of one (not raw) piece: raw value bits and validity.
 template <int V>
 __device__ __forceinline__ void load_piece(const Piece& p, long long i,
                                            long long n, bool full,
                                            unsigned long long* raw,
                                            bool* ok) {
-  const bool wide = wide_input(p.kind);
+  if (p.data != nullptr)
+    load_values<V>(p.data, wide_input(p.kind), 0, i, n, full, raw);
   if (V == 4 && full) {
-    if (p.data != nullptr) {
-      if (wide) {
-        const ulonglong2* d =
-            reinterpret_cast<const ulonglong2*>(
-                static_cast<const unsigned long long*>(p.data) + i);
-        const ulonglong2 a = __ldg(d), b = __ldg(d + 1);
-        raw[0] = a.x; raw[1] = a.y; raw[2] = b.x; raw[3] = b.y;
-      } else {
-        const uint4 a = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const unsigned*>(p.data) + i));
-        raw[0] = a.x; raw[1] = a.y; raw[2] = a.z; raw[3] = a.w;
-      }
-    }
     if (p.valid != nullptr) {
       const uchar4 v = *reinterpret_cast<const uchar4*>(p.valid + i);
       ok[0] = v.x; ok[1] = v.y; ok[2] = v.z; ok[3] = v.w;
@@ -284,17 +321,36 @@ __device__ __forceinline__ void load_piece(const Piece& p, long long i,
     return;
   }
 #pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const long long r = i + k;
-    const bool in = r < n;
-    ok[k] = in && (p.valid == nullptr || p.valid[r]);
-    if (in && p.data != nullptr)
-      raw[k] = wide ? __ldg(static_cast<const unsigned long long*>(p.data) + r)
-                    : __ldg(static_cast<const unsigned*>(p.data) + r);
+  for (int k = 0; k < V; ++k)
+    ok[k] = i + k < n && (p.valid == nullptr || p.valid[i + k]);
+}
+
+// Rows [i, i + V) of every sub-row of a raw piece, TS_RAW_BATCH sub-rows'
+// loads at a time before their atomics.  Row j of the [k, n] column
+// starts at element j * n.
+template <int V>
+__device__ __forceinline__ void reduce_raw(const Piece& p, const Slot& s,
+                                           long long i, long long n,
+                                           bool full, const int* slot) {
+  const bool wide = wide_input(p.kind);
+  for (int j0 = p.lo; j0 < p.hi; j0 += TS_RAW_BATCH) {
+    unsigned long long raw[TS_RAW_BATCH][V];
+#pragma unroll
+    for (int r = 0; r < TS_RAW_BATCH; ++r)
+      if (j0 + r < p.hi)
+        load_values<V>(p.data, wide, (long long)(j0 + r) * n, i, n, full,
+                       raw[r]);
+#pragma unroll
+    for (int r = 0; r < TS_RAW_BATCH; ++r) {
+      if (j0 + r >= p.hi) continue;
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (slot[k] >= 0) apply_raw(p.kind, s, j0 + r, slot[k], raw[r][k]);
+    }
   }
 }
 
-template <int V>
+template <int V, bool RAW>
 __global__ void __launch_bounds__(TS_THREADS)
 table_stage_kernel(const int* __restrict__ bucket, long long n, int table,
                    const Plan plan, unsigned long long* __restrict__ out64,
@@ -306,7 +362,6 @@ table_stage_kernel(const int* __restrict__ bucket, long long n, int table,
   const int gi = blockIdx.y / nch;
   const int b0 = (blockIdx.y % nch) * plan.chunk;
   const int bw = min(plan.chunk, table - b0);
-  const int step = 4 * plan.stride;
   const int np = plan.group[gi].count;
   const int bytes = plan.group[gi].bytes;
   if (threadIdx.x < np) {
@@ -336,20 +391,28 @@ table_stage_kernel(const int* __restrict__ bucket, long long n, int table,
       slot[k] -= b0;
       if ((unsigned)slot[k] >= (unsigned)bw) slot[k] = -1;
     }
-    unsigned long long raw[TS_GROUP_PIECES][V];
-    bool ok[TS_GROUP_PIECES][V];
+    if constexpr (RAW) {
+      for (int q = 0; q < np; ++q) {
+        const Slot s{sh + sp[q].smem, sp[q].lo, sp[q].hi,
+                     row_bytes(sp[q].kind) * plan.stride};
+        reduce_raw<V>(sp[q], s, i, n, full, slot);
+      }
+    } else {
+      unsigned long long raw[TS_GROUP_PIECES][V];
+      bool ok[TS_GROUP_PIECES][V];
 #pragma unroll
-    for (int q = 0; q < TS_GROUP_PIECES; ++q)
-      if (q < np) load_piece<V>(sp[q], i, n, full, raw[q], ok[q]);
+      for (int q = 0; q < TS_GROUP_PIECES; ++q)
+        if (q < np) load_piece<V>(sp[q], i, n, full, raw[q], ok[q]);
 #pragma unroll
-    for (int q = 0; q < TS_GROUP_PIECES; ++q) {
-      if (q >= np) continue;
-      const Slot s{sh + sp[q].smem, sp[q].lo, sp[q].hi, step};
-      const int kind = sp[q].kind;
+      for (int q = 0; q < TS_GROUP_PIECES; ++q) {
+        if (q >= np) continue;
+        const int kind = sp[q].kind;
+        const Slot s{sh + sp[q].smem, sp[q].lo, sp[q].hi, 4 * plan.stride};
 #pragma unroll
-      for (int k = 0; k < V; ++k)
-        if (slot[k] >= 0 && ok[q][k]) apply(kind, s, slot[k], raw[q][k],
-                                             semax[q]);
+        for (int k = 0; k < V; ++k)
+          if (slot[k] >= 0 && ok[q][k]) apply(kind, s, slot[k], raw[q][k],
+                                               semax[q]);
+      }
     }
   }
   __syncthreads();
@@ -359,10 +422,12 @@ table_stage_kernel(const int* __restrict__ bucket, long long n, int table,
     const Piece& p = sp[q];
     for (int j = p.lo; j < p.hi; ++j) {
       const int op = sub_op(p.kind, j);
-      const unsigned char* row = sh + p.smem + (j - p.lo) * step;
-      const long long g = op == OP_ADD64 || op == OP_ADDF64 || op == OP_MAX64
-                              ? (long long)p.g64 * table + b0
-                              : (long long)(p.g32 + j) * table + b0;
+      const unsigned char* row =
+          sh + p.smem + (j - p.lo) * row_bytes(p.kind) * plan.stride;
+      const long long g =
+          op == OP_ADD64 || op == OP_ADDF64 || op == OP_MAX64
+              ? (long long)(p.g64 + (p.kind == K_SUM64 ? j : 0)) * table + b0
+              : (long long)(p.g32 + j) * table + b0;
       for (int t = threadIdx.x; t < bw; t += blockDim.x) {
         switch (op) {
           case OP_ADD32:
@@ -391,35 +456,46 @@ table_stage_kernel(const int* __restrict__ bucket, long long n, int table,
   }
 }
 
-template <int V>
-static int launch(const int* bucket, long long n, int table, const Plan& plan,
-                  unsigned long long* out64, unsigned* out32,
-                  cudaStream_t s) {
-  static int smem_optin = 0, sms = 0, cached_smem = -1, cached_per_sm = 1;
-  cudaError_t err;
-  if (smem_optin == 0) {
-    int dev = 0;
+// Blocks of one instance that fit an SM beside `smem` dynamic shared bytes
+// (cached per instance, which gets its shared-memory limit on first use).
+template <int V, bool RAW>
+static int blocks_per_sm(int smem, int* blocks) {
+  static int limit_set = 0, cached_smem = -1, cached = 1;
+  if (!limit_set) {
+    int dev = 0, optin = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&smem_optin,
-                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    err = cudaFuncSetAttribute(table_stage_kernel<V>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_optin - TS_STATIC_RESERVE);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    const cudaError_t err = cudaFuncSetAttribute(
+        table_stage_kernel<V, RAW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        optin - TS_STATIC_RESERVE);
     if (err != cudaSuccess) return (int)err;
+    limit_set = 1;
   }
-  int smem = 0;
-  for (int g = 0; g < plan.ngroups; ++g)
-    smem = plan.group[g].bytes > smem ? plan.group[g].bytes : smem;
   if (smem != cached_smem) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &cached_per_sm, table_stage_kernel<V>, TS_THREADS, smem);
-    if (cached_per_sm < 1) cached_per_sm = 1;
+        &cached, table_stage_kernel<V, RAW>, TS_THREADS, smem);
+    if (cached < 1) cached = 1;
     cached_smem = smem;
+  }
+  *blocks = cached;
+  return 0;
+}
+
+template <int V, bool RAW>
+static int launch(const int* bucket, long long n, int table, const Plan& plan,
+                  int smem, int per_sm, unsigned long long* out64,
+                  unsigned* out32, cudaStream_t s) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   const int nch = (table + plan.chunk - 1) / plan.chunk;
   const int groups = plan.ngroups * nch;
-  long long gx = (long long)cached_per_sm * sms / groups;
+  long long gx = (long long)per_sm * sms / groups;
   // a block's shared init and flush cost about table slots; give each
   // block at least 8 row iterations
   const long long need = (n + (long long)TS_THREADS * V * 8 - 1) /
@@ -427,16 +503,39 @@ static int launch(const int* bucket, long long n, int table, const Plan& plan,
   if (gx > need) gx = need;
   if (gx < 1) gx = 1;
   dim3 grid((unsigned)gx, (unsigned)groups);
-  table_stage_kernel<V><<<grid, TS_THREADS, smem, s>>>(bucket, n, table, plan,
-                                                      out64, out32);
+  table_stage_kernel<V, RAW><<<grid, TS_THREADS, smem, s>>>(
+      bucket, n, table, plan, out64, out32);
   return (int)cudaGetLastError();
 }
 
+// The 4-row instance needs more registers than the 1-row one (ptxas: 90-96
+// against 40 at 512 threads), so where the shared tables leave room for two
+// blocks per SM only the 1-row instance gets them.  Take the instance with
+// more blocks per SM: the atomics, not the loads, set the pace.
+template <bool RAW>
+static int launch_by_occupancy(const int* bucket, long long n, int table,
+                               const Plan& plan, int vec,
+                               unsigned long long* out64, unsigned* out32,
+                               cudaStream_t s) {
+  int smem = 0;
+  for (int g = 0; g < plan.ngroups; ++g)
+    smem = plan.group[g].bytes > smem ? plan.group[g].bytes : smem;
+  int per1 = 1, per4 = 0;
+  int err = blocks_per_sm<1, RAW>(smem, &per1);
+  if (err == 0 && vec == 4) err = blocks_per_sm<4, RAW>(smem, &per4);
+  if (err != 0) return err;
+  if (vec == 4 && per4 >= per1)
+    return launch<4, RAW>(bucket, n, table, plan, smem, per4, out64, out32,
+                          s);
+  return launch<1, RAW>(bucket, n, table, plan, smem, per1, out64, out32, s);
+}
+
 // bucket: int32[n]; plan: the pieces and groups (kernels/cuda_ops.py builds
-// it); vec: 4 when bucket, every column (16 B) and every mask (4 B) are
-// aligned for vector loads, else 1.  out: one buffer of out_bytes, zeroed
-// here, whose first part is out64 (u64 rows) and the rest out32 (u32 rows),
-// each [rows, table].  Launches on `stream`; returns cudaGetLastError().
+// it), raw pieces only or none; vec: 4 when bucket, every column and every
+// row of a raw column (16 B) and every mask (4 B) are aligned for vector
+// loads, else 1.  out: one buffer of out_bytes, zeroed here, whose first
+// part is out64 (u64 rows) and the rest out32 (u32 rows), each [rows,
+// table].  Launches on `stream`; returns cudaGetLastError().
 extern "C" int table_stage(const void* bucket, long long n, int table,
                            const Plan* plan, int vec, void* out64,
                            void* out32, long long out_bytes, void* stream) {
@@ -444,14 +543,23 @@ extern "C" int table_stage(const void* bucket, long long n, int table,
       plan->ngroups > TS_MAX_GROUPS || plan->chunk < 1 ||
       plan->stride < plan->chunk || (plan->stride & 1))
     return (int)cudaErrorInvalidValue;
+  const Group& last = plan->group[plan->ngroups - 1];
+  const int npieces = last.first + last.count;
+  if (npieces < 1 || npieces > TS_MAX_PIECES)
+    return (int)cudaErrorInvalidValue;
+  int nraw = 0;
+  for (int q = 0; q < npieces; ++q)
+    nraw += raw_kind(plan->piece[q].kind);
+  if (nraw != 0 && nraw != npieces) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(out64, 0, (size_t)out_bytes, s);
   if (err != cudaSuccess || n == 0) return (int)err;
-  if (vec == 4)
-    return launch<4>((const int*)bucket, n, table, *plan,
-                     (unsigned long long*)out64, (unsigned*)out32, s);
-  return launch<1>((const int*)bucket, n, table, *plan,
-                   (unsigned long long*)out64, (unsigned*)out32, s);
+  const int* b = (const int*)bucket;
+  unsigned long long* o64 = (unsigned long long*)out64;
+  unsigned* o32 = (unsigned*)out32;
+  if (nraw)
+    return launch_by_occupancy<true>(b, n, table, *plan, vec, o64, o32, s);
+  return launch_by_occupancy<false>(b, n, table, *plan, vec, o64, o32, s);
 }
 
 extern "C" int table_stage_smem_limit(void) {

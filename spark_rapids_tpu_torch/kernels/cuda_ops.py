@@ -41,6 +41,9 @@ _MAX_WORDS = 16
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: shared bytes one table_stage block may take, read once when its
+#: library loads
+_STAGE_BUDGET: List[int] = []
 
 
 def reset_launches() -> None:
@@ -116,7 +119,7 @@ class _Group(ctypes.Structure):
 
 STAGE_MAX_PIECES = 48          # TS_MAX_PIECES
 STAGE_MAX_GROUPS = 32          # TS_MAX_GROUPS
-STAGE_GROUP_PIECES = 4         # TS_GROUP_PIECES
+STAGE_GROUP_PIECES = 4         # TS_GROUP_PIECES (a raw column is one)
 
 
 class _Plan(ctypes.Structure):
@@ -130,8 +133,8 @@ _VP, _I, _LL, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_uint64)
 _SIGNATURES = {
     "hash_partition": {
-        "hash_partition_ids": [ctypes.POINTER(_VP), _I, _I, _I, _I, _U64,
-                               _VP, _VP],
+        "hash_partition_ids": [ctypes.POINTER(_VP), _I, _I, _I, _U64, _VP,
+                               _VP],
         "hash_split": [ctypes.POINTER(_VP), _I, _VP, _I, _I, _U64, _I, _I,
                        _VP, _VP, _VP, _VP, _VP]},
     "table_reduce": {
@@ -154,6 +157,8 @@ def _load(name: str) -> ctypes.CDLL:
             for fn, args in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = args
                 getattr(lib, fn).restype = ctypes.c_int
+            if name == "table_reduce":
+                _STAGE_BUDGET.append(lib.table_stage_smem_limit())
             _LIBS[name] = lib
     return _LIBS[name]
 
@@ -209,12 +214,11 @@ def hash_partition_ids_plain(words: List[torch.Tensor],
     return hash_to_partition(hash_words(words), num_parts)
 
 
-def hash_partition_ids(words: List[torch.Tensor], num_parts: int,
-                       fast_mod: bool = True) -> torch.Tensor:
+def hash_partition_ids(words: List[torch.Tensor],
+                       num_parts: int) -> torch.Tensor:
     """Partition id of every row: murmur-style mix over the 64-bit key
-    words (int64 bit patterns), then unsigned ``% num_parts``.  On the
-    card ``fast_mod`` picks the Barrett modulo (bit-equal) over the 64-bit
-    division."""
+    words (int64 bit patterns), then unsigned ``% num_parts`` (a Barrett
+    modulo on the card, bit-equal)."""
     what = "hash_partition_ids"
     n = _check_words(words, what)
     if not 0 < num_parts < (1 << 31):
@@ -228,7 +232,7 @@ def hash_partition_ids(words: List[torch.Tensor], num_parts: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hash_partition_ids(ptrs, len(words), n, num_parts,
-                                     int(fast_mod), _barrett_magic(num_parts),
+                                     _barrett_magic(num_parts),
                                      out.data_ptr(), stream)
     _raise_on(lib, what, err)
     LAUNCHES[what] += 1
@@ -299,9 +303,9 @@ def hash_split(words: List[torch.Tensor], live: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class StageCol:
     """One input of ``table_stage``: a row kind, its column (None for a
-    count of rows), the column's validity (None: every row valid) and,
-    for ``fsum64``, the batch's largest f32 exponent as an int64 device
-    scalar."""
+    count of rows; a [k, n] matrix of k rows for a raw kind), the
+    column's validity (None: every row valid) and, for ``fsum64``, the
+    batch's largest f32 exponent as an int64 device scalar."""
     kind: str
     data: Optional[torch.Tensor] = None
     valid: Optional[torch.Tensor] = None
@@ -310,7 +314,8 @@ class StageCol:
 
 _KIND_IDS = {"count": 0, "icount": 1, "fsum64": 2, "fmax64": 3, "fsumv": 4,
              "fmax": 5, "sum32": 6, "sum64": 7, "max32": 8}
-#: bytes per bucket of each sub-row of a kind; a 64-bit one comes last
+#: bytes per bucket of each sub-row of a kind; a 64-bit one comes last.
+#: A raw kind has one sub-row per row of its column.
 _SUB_BYTES = {"count": (4,), "icount": (8,), "fsum64": (4,) * 19,
               "fmax64": (4, 4, 8), "fsumv": (4, 8), "fmax": (4, 4, 4),
               "sum32": (4,), "sum64": (8,), "max32": (4,)}
@@ -319,6 +324,16 @@ _IN_DTYPE = {"count": None, "icount": torch.int64, "fsum64": torch.float64,
              "fmax": torch.float64, "sum32": torch.float32,
              "sum64": torch.float64, "max32": torch.float32}
 _RAW_KINDS = ("sum32", "sum64", "max32")
+
+
+def sub_bytes(kind: str, rows: int = 1) -> Tuple[int, ...]:
+    """Bytes per bucket of each sub-row of a column of this kind (``rows``:
+    a raw column's row count)."""
+    return _SUB_BYTES[kind] * (rows if kind in _RAW_KINDS else 1)
+
+
+def _shape(c: StageCol) -> Tuple[str, int]:
+    return c.kind, (c.data.shape[0] if c.kind in _RAW_KINDS else 1)
 
 
 @dataclasses.dataclass
@@ -336,20 +351,22 @@ class StagePlan:
     r64: int
 
 
-def stage_plan(kinds: Sequence[str], table: int, budget: int) -> StagePlan:
-    """Pack the kinds' sub-rows into groups whose shared tables fit
-    ``budget`` bytes, about equal in size, each of at most
-    STAGE_GROUP_PIECES columns; tables past the budget split their
-    bucket range too."""
+def stage_plan(shapes: Sequence[Tuple[str, int]], table: int,
+               budget: int) -> StagePlan:
+    """Pack the sub-rows of the columns, each a (kind, rows) pair, into
+    groups whose shared tables fit ``budget`` bytes, about equal in size,
+    each of at most STAGE_GROUP_PIECES columns; tables past the budget
+    split their bucket range too."""
+    subs_of = [sub_bytes(k, r) for k, r in shapes]
     rows, g32, g64 = [], 0, 0
-    for k in kinds:
+    for sb in subs_of:
         rows.append((g32, g64))
-        g32 += _SUB_BYTES[k].count(4)
-        g64 += _SUB_BYTES[k].count(8)
+        g32 += sb.count(4)
+        g64 += sb.count(8)
     chunk = table if 8 * (table + table % 2) <= budget else (budget // 8) & ~1
     stride = chunk + chunk % 2
-    subs = [(c, j, b * stride) for c, k in enumerate(kinds)
-            for j, b in enumerate(_SUB_BYTES[k])]
+    subs = [(c, j, b * stride) for c, sb in enumerate(subs_of)
+            for j, b in enumerate(sb)]
     total = sum(s[2] for s in subs)
     target = total / -(-total // budget)
     groups, sizes, used = [[]], [0], 0
@@ -370,7 +387,7 @@ def stage_plan(kinds: Sequence[str], table: int, budget: int) -> StagePlan:
         sizes[-1] = used
     if len(groups) > STAGE_MAX_GROUPS or \
             sum(map(len, groups)) > STAGE_MAX_PIECES:
-        raise ValueError(f"table_stage: {len(kinds)} columns at table "
+        raise ValueError(f"table_stage: {len(shapes)} columns at table "
                          f"{table} need more than {STAGE_MAX_GROUPS} groups "
                          f"or {STAGE_MAX_PIECES} pieces")
     return StagePlan(rows, groups, sizes, chunk, stride, g32, g64)
@@ -403,11 +420,16 @@ def table_stage_plain(bucket: torch.Tensor, table: int,
     for c in cols:
         k, v = c.kind, c.data
         if k == "sum32" or k == "sum64":
-            res.append((tab(v, v.dtype),))
+            out = torch.zeros(v.shape[0], table + 1, dtype=v.dtype,
+                              device=v.device).index_add_(1, b, v)
+            res.append((out[:, :table],))
             continue
         if k == "max32":
             key = flip32(torch.where(torch.isnan(v), float("nan"), v))
-            res.append((decode_max32(tab(key, torch.int64, "amax")),),)
+            out = torch.zeros(v.shape[0], table + 1, dtype=torch.int64,
+                              device=v.device).scatter_reduce_(
+                1, b.expand_as(key), key, "amax", include_self=True)
+            res.append((decode_max32(out[:, :table]),))
             continue
         ok = c.valid if c.valid is not None else \
             torch.ones_like(b, dtype=torch.bool)
@@ -470,12 +492,15 @@ def _check_stage(bucket: torch.Tensor, table: int,
         if c.kind not in _KIND_IDS:
             raise ValueError(f"{what}: unknown kind {c.kind!r}")
         want = _IN_DTYPE[c.kind]
+        raw = c.kind in _RAW_KINDS
         if (want is None) != (c.data is None) or (
-                c.data is not None and (c.data.dtype != want or
-                                        c.data.shape != (n,))):
+                c.data is not None and (
+                    c.data.dtype != want or c.data.shape[-1:] != (n,) or
+                    c.data.dim() != 1 + raw or
+                    (raw and c.data.shape[0] < 1))):
             raise ValueError(f"{what}: {c.kind} takes "
                              f"{'no column' if want is None else want}"
-                             f"[{n}]")
+                             f"{'[rows, ' if raw else '['}{n}]")
         if c.valid is not None and (c.valid.dtype != torch.bool or
                                     c.valid.shape != (n,) or
                                     c.kind in _RAW_KINDS):
@@ -486,6 +511,9 @@ def _check_stage(bucket: torch.Tensor, table: int,
             raise ValueError(f"{what}: fsum64, and only it, takes an int64 "
                              f"emax scalar")
         tensors += [t for t in (c.data, c.valid, c.emax) if t is not None]
+    if 0 < sum(c.kind in _RAW_KINDS for c in cols) < len(cols):
+        raise ValueError(f"{what}: raw row kinds do not mix with the "
+                         f"others in one call")
     _check_contiguous(tensors, what)
     return tensors
 
@@ -493,12 +521,13 @@ def _check_stage(bucket: torch.Tensor, table: int,
 _PLANS: Dict[tuple, Tuple[StagePlan, _Plan]] = {}
 
 
-def _stage_ctypes(kinds: Tuple[str, ...], table: int, budget: int):
-    """The plan of these kinds and its ctypes form without column
-    pointers, built once per (kinds, table, budget)."""
-    key = (kinds, table, budget)
+def _stage_ctypes(shapes: Tuple[Tuple[str, int], ...], table: int,
+                  budget: int):
+    """The plan of these columns and its ctypes form without column
+    pointers, built once per (shapes, table, budget)."""
+    key = (shapes, table, budget)
     if key not in _PLANS:
-        sp = stage_plan(kinds, table, budget)
+        sp = stage_plan(shapes, table, budget)
         cp = _Plan()
         i = 0
         for gi, (pieces, nbytes) in enumerate(zip(sp.groups,
@@ -506,8 +535,9 @@ def _stage_ctypes(kinds: Tuple[str, ...], table: int, budget: int):
             cp.group[gi] = _Group(i, len(pieces), nbytes)
             for col, lo, hi, off in pieces:
                 g32, g64 = sp.rows[col]
-                cp.piece[i] = _Piece(None, None, None, _KIND_IDS[kinds[col]],
-                                     lo, hi, g32, g64, off)
+                cp.piece[i] = _Piece(None, None, None,
+                                     _KIND_IDS[shapes[col][0]], lo, hi, g32,
+                                     g64, off)
                 i += 1
         cp.ngroups, cp.chunk, cp.stride = len(sp.groups), sp.chunk, sp.stride
         _PLANS[key] = (sp, cp)
@@ -527,18 +557,19 @@ def table_stage(bucket: torch.Tensor, table: int,
     - fmax64: (count, non-NaN count int32, u64 max word as int64 bits)
     - fsumv:  (count int32, sum float64)
     - fmax:   (count, non-NaN count int32, max float32)
-    - sum32 / sum64 / max32: (float32 / float64 sum,) / (float32 max,)
+    - sum32 / sum64 / max32, a [k, n] column: (float32 / float64 sums
+      [k, table],) / (float32 maxes [k, table],)
 
     An empty bucket has zeros, a max word of 0, and a float max of -inf;
-    a NaN wins a raw max32 row."""
+    a NaN wins a raw max32 row.  Raw kinds go in a call of their own."""
     what = "table_stage"
     tensors = _check_stage(bucket, table, cols, what)
     if _device_kind(tensors, what) == "cpu":
         return table_stage_plain(bucket, table, cols)
     dev = bucket.device
     lib = _load("table_reduce")
-    kinds = tuple(c.kind for c in cols)
-    sp, cached = _stage_ctypes(kinds, table, lib.table_stage_smem_limit())
+    sp, cached = _stage_ctypes(tuple(map(_shape, cols)), table,
+                               _STAGE_BUDGET[0])
     cp = _Plan.from_buffer_copy(cached)      # this call's column pointers
     i = 0
     for pieces in sp.groups:
@@ -553,8 +584,15 @@ def table_stage(bucket: torch.Tensor, table: int,
     out = torch.empty(n64 + (n32 + 1) // 2, dtype=torch.int64, device=dev)
     out64 = out[:n64].view(sp.r64, table)
     out32 = out[n64:].view(torch.int32)[:n32].view(sp.r32, table)
-    vec = 4 if all(t.data_ptr() % (4 if t.dtype == torch.bool else 16) == 0
-                   for t in tensors if t.dim() == 1) else 1
+    # vector loads take 16-byte aligned columns and 4-byte aligned masks;
+    # the rows of a raw column start every n elements
+    loaded = [bucket] + [t for c in cols for t in (c.data, c.valid)
+                         if t is not None]
+    aligned = all(t.data_ptr() % (4 if t.dtype == torch.bool else 16) == 0
+                  for t in loaded)
+    rows_aligned = bucket.shape[0] % 4 == 0 or \
+        all(_shape(c)[1] == 1 for c in cols)
+    vec = 4 if aligned and rows_aligned else 1
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.table_stage(bucket.data_ptr(), bucket.shape[0], table,
@@ -565,33 +603,33 @@ def table_stage(bucket: torch.Tensor, table: int,
     LAUNCHES["table_reduce"] += 1
     res = []
     for c, (g32, g64) in zip(cols, sp.rows):
-        k = c.kind
-        r32 = out32[g32:g32 + _SUB_BYTES[k].count(4)]
-        r64 = out64[g64] if 8 in _SUB_BYTES[k] else None
-        res.append(_kernel_outputs(k, r32, r64))
+        sb = sub_bytes(*_shape(c))
+        r32 = out32[g32:g32 + sb.count(4)]
+        r64 = out64[g64:g64 + sb.count(8)]
+        res.append(_kernel_outputs(c.kind, r32, r64))
     return res
 
 
-def _kernel_outputs(kind: str, r32: torch.Tensor, r64):
+def _kernel_outputs(kind: str, r32: torch.Tensor, r64: torch.Tensor):
     """One column's tables from the kernel's output rows, as
     ``table_stage_plain`` returns them."""
     if kind == "count":
         return (r32[0],)
     if kind == "icount":
-        return (r64,)
+        return (r64[0],)
     if kind == "fsum64":
         return (r32[0], r32[1], r32[2], r32[3], r32[4:])
     if kind == "fmax64":
-        return (r32[0], r32[1], r64)
+        return (r32[0], r32[1], r64[0])
     if kind == "fsumv":
-        return (r32[0], r64.view(torch.float64))
+        return (r32[0], r64[0].view(torch.float64))
     if kind == "fmax":
         return (r32[0], r32[1], decode_max32(r32[2]))
     if kind == "sum32":
-        return (r32[0].view(torch.float32),)
+        return (r32.view(torch.float32),)
     if kind == "sum64":
         return (r64.view(torch.float64),)
-    return (decode_max32(r32[0]),)                   # max32
+    return (decode_max32(r32),)                      # max32
 
 
 def table_reduce_plain(bucket: torch.Tensor, sums: torch.Tensor,
@@ -622,13 +660,11 @@ def table_reduce(bucket: torch.Tensor, sums: torch.Tensor,
 
 
 def _raw_rows(stage, bucket, sums, maxs, table):
+    """The sum rows as one raw column and the max rows as another."""
     kind = "sum64" if sums.dtype == torch.float64 else "sum32"
-    cols = [StageCol(kind, r) for r in sums] + \
-        [StageCol("max32", r) for r in maxs]
-    out = [t[0] for t in stage(bucket, table, cols)] if cols else []
-    k = sums.shape[0]
-
-    def stack(tabs, dtype):
-        return torch.stack(tabs) if tabs else \
-            torch.empty(0, table, dtype=dtype, device=bucket.device)
-    return stack(out[:k], sums.dtype), stack(out[k:], torch.float32)
+    mats = [(kind, sums), ("max32", maxs)]
+    cols = [StageCol(k, m) for k, m in mats if m.shape[0]]
+    out = iter(stage(bucket, table, cols) if cols else [])
+    return tuple(next(out)[0] if m.shape[0] else
+                 torch.empty(0, table, dtype=m.dtype, device=bucket.device)
+                 for _, m in mats)

@@ -41,16 +41,14 @@ def _words(rng, n, num_words):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fast_mod", [False, True], ids=["div", "barrett"])
 @pytest.mark.parametrize("n,num_words,num_parts",
                          [(4096, 1, 8), (100_003, 3, 1000), (1, 2, 1),
                           (50_000, 1, 2**31 - 1), (50_000, 1, 4096)])
-def test_hash_partition_kernel_matches_plain(n, num_words, num_parts,
-                                             fast_mod):
+def test_hash_partition_kernel_matches_plain(n, num_words, num_parts):
     _need_card()
     words = _words(np.random.default_rng(n), n, num_words)
     before = cuda_ops.LAUNCHES["hash_partition_ids"]
-    got = cuda_ops.hash_partition_ids(words, num_parts, fast_mod=fast_mod)
+    got = cuda_ops.hash_partition_ids(words, num_parts)
     assert cuda_ops.LAUNCHES["hash_partition_ids"] == before + 1
     assert got.is_cuda
     assert torch.equal(got, cuda_ops.hash_partition_ids_plain(words,
@@ -105,7 +103,9 @@ def test_split_on_card_calls_neither_sort_nor_bincount(monkeypatch):
                           (5000, 60_000, 1, 1, np.float32),
                           (0, 16, 1, 1, np.float32),
                           (1 << 20, 4096, 5, 1, np.float64),
-                          (5000, 60_000, 2, 1, np.float64)])
+                          (5000, 60_000, 2, 1, np.float64),
+                          (100_003, 4096, 3, 2, np.float32),
+                          (100_001, 4096, 3, 1, np.float64)])
 def test_table_reduce_kernel_matches_plain(n, table, k, m, sum_dt):
     _need_card()
     rng = np.random.default_rng(n + table)

@@ -444,15 +444,18 @@ def test_table_stage_other_kinds_match_numpy():
                                   impl="scatter")
     (s32,), (s64,), (m32,) = cuda_ops.table_stage(
         torch.from_numpy(bucket), table,
-        [cuda_ops.StageCol("sum32", torch.from_numpy(f32[0])),
-         cuda_ops.StageCol("sum64", torch.from_numpy(f32[0].astype(
+        [cuda_ops.StageCol("sum32", torch.from_numpy(f32[:1])),
+         cuda_ops.StageCol("sum64", torch.from_numpy(f32.astype(
              np.float64))),
-         cuda_ops.StageCol("max32", torch.from_numpy(f32[1]))])
-    np.testing.assert_allclose(s32.numpy(), np.asarray(js[0]), rtol=1e-5,
+         cuda_ops.StageCol("max32", torch.from_numpy(f32[1:]))])
+    assert s32.shape == (1, table) and s64.shape == (2, table)
+    np.testing.assert_allclose(s32[0].numpy(), np.asarray(js[0]), rtol=1e-5,
                                atol=1e-5)
-    np.testing.assert_allclose(s64.numpy(), bc(f32[0].astype(np.float64)),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_array_equal(m32.numpy(), np.asarray(jm[0]))
+    for i in range(2):
+        np.testing.assert_allclose(s64[i].numpy(),
+                                   bc(f32[i].astype(np.float64)),
+                                   rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(m32[0].numpy(), np.asarray(jm[0]))
 
 
 @pytest.mark.parametrize("kinds,table", [
@@ -460,14 +463,19 @@ def test_table_stage_other_kinds_match_numpy():
     (("fsum64", "icount", "fmax64"), 4096),
     (("count", "fsumv", "fmax"), 4096),
     (("count", "fsum64", "fmax64"), 1 << 14),
-    (("sum64", "sum64", "max32"), 60_000),
+    ((("sum64", 2), "max32"), 60_000),
+    ((("sum32", 7),), 4096),
+    ((("sum64", 5), ("max32", 1)), 4096),
     (("sum32",) * 7, 4096),
 ])
 def test_stage_plan_packs_within_budget(kinds, table):
     """Every sub-row lands in exactly one group; a group fits the shared
     budget, takes at most STAGE_GROUP_PIECES columns, keeps 64-bit
-    sub-rows 8-byte aligned; the headline exact partial needs 2 groups."""
-    plan = cuda_ops.stage_plan(kinds, table, _BUDGET)
+    sub-rows 8-byte aligned; the headline exact partial needs 2 groups,
+    the TPU kernel's raw rows of the headline query one.  A column is a
+    kind, or a (raw kind, rows) pair."""
+    shapes = [k if isinstance(k, tuple) else (k, 1) for k in kinds]
+    plan = cuda_ops.stage_plan(shapes, table, _BUDGET)
     seen = []
     for pieces, nbytes in zip(plan.groups, plan.group_bytes):
         assert len(pieces) <= cuda_ops.STAGE_GROUP_PIECES
@@ -475,16 +483,18 @@ def test_stage_plan_packs_within_budget(kinds, table):
         end = 0
         for col, lo, hi, off in pieces:
             assert off == end and off % 8 == 0
-            sub = cuda_ops._SUB_BYTES[kinds[col]]
+            sub = cuda_ops.sub_bytes(*shapes[col])
             end += sum(sub[lo:hi]) * plan.stride
             seen += [(col, j) for j in range(lo, hi)]
         assert end == nbytes
-    assert sorted(seen) == [(c, j) for c, k in enumerate(kinds)
-                            for j in range(len(cuda_ops._SUB_BYTES[k]))]
+    assert sorted(seen) == [(c, j) for c, s in enumerate(shapes)
+                            for j in range(len(cuda_ops.sub_bytes(*s)))]
     assert plan.chunk <= table and plan.stride % 2 == 0
     assert plan.chunk == table or 8 * plan.stride <= _BUDGET
     if kinds == ("count", "fsum64", "fmax64") and table == 4096:
         assert plan.group_bytes == [196_608, 196_608]
+    if shapes in ([("sum32", 7)], [("sum64", 5), ("max32", 1)]):
+        assert len(plan.groups) == 1
 
 
 def test_table_stage_checks_inputs():
@@ -499,6 +509,13 @@ def test_table_stage_checks_inputs():
         cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("avg", v)])
     with pytest.raises(ValueError):                  # count takes no column
         cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("count", v)])
+    with pytest.raises(ValueError):                  # raw rows are [k, n]
+        cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("sum64", v)])
+    with pytest.raises(ValueError):                  # ... with k >= 1
+        cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("sum64", v[None, :0])])
+    with pytest.raises(ValueError):                  # raw kinds stand alone
+        cuda_ops.table_stage(b, 4, [cuda_ops.StageCol("count"),
+                                    cuda_ops.StageCol("sum64", v[None])])
 
 
 # -- B1 redesigned: the counting-sort split ----------------------------------
