@@ -4,7 +4,7 @@ Runs from the repository root:
 
     python3 chip_smoke.py                      # full size, on the card
     python3 chip_smoke.py --rows 4000000       # a shorter query phase
-    python3 chip_smoke.py --device cpu --rows 200000   # CPU rehearsal
+    python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05  # rehearsal
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
 
 Phases (any failure exits non-zero):
@@ -26,7 +26,16 @@ Phases (any failure exits non-zero):
    before it, the query's variable-mode sums are reduced through the
    table-reduce kernel in f32 and in f64 rows, and the groups that miss
    the variable-mode limit are counted for each.  Each mode's warm run
-   is profiled and must call none of STAGE_REPLACED_OPS.
+   is profiled and must call none of STAGE_REPLACED_OPS;
+5. joins: orders, lineitem and partsupp in TPC-H's shapes at scale
+   ``--sf`` (default 10: 15M, ~60M and 8M rows), and seven queries over
+   them: a year of orders joined to late lineitems as an inner, left,
+   right, full, semi and anti join (J1-J6), and Q9's two-key join of
+   lineitem and partsupp (J7), each grouped.  Each must plan a
+   ``TpuShuffledHashJoin`` over two exchanges built on the expected
+   side, match numpy at 1e-9 and give the same bytes twice; J1 runs once
+   more under the profiler, and J2's join rows must not change when it
+   expands in small chunks.  B1 and B2 must launch on this path.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -554,9 +563,9 @@ STAGE_REPLACED_OPS = ("aten::scatter_reduce_", "aten::index_add_",
 
 
 def profile_query(df) -> set:
-    """One more warm run under torch.profiler: device time by op and the
-    device's busy share of the (profiled) wall time.  Returns the names
-    of the ops the run called."""
+    """One more warm run under torch.profiler: device time by op, the
+    device's busy share of the (profiled) wall time and the device
+    events of the run.  Returns the names of the ops the run called."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -566,25 +575,374 @@ def profile_query(df) -> set:
         df.to_arrow()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    averages = prof.key_averages()
-    names = {e.key for e in averages}
-    events = [e for e in averages
-              if getattr(e, "self_device_time_total", 0) > 0]
-    dev_us = sum(e.self_device_time_total for e in events)
-    if not events:
+    names = {e.key for e in prof.key_averages()}
+    # device events alone: an op's row in key_averages() carries its
+    # kernels' time too, so summing every row counts the device twice
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
         print("profile: the profiler saw no device time")
         return names
+    by_name = {}
+    for e in device:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    dev_us = sum(us for us, _ in by_name.values())
+    copies = sum(n for name, (_, n) in by_name.items()
+                 if name.startswith(("Memcpy", "Memset")))
     print(f"profile: wall {wall_us / 1e3:.3f} ms (profiled), device busy "
-          f"{dev_us / 1e3:.3f} ms = {100 * dev_us / wall_us:.1f}% of wall")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}")
+          f"{dev_us / 1e3:.3f} ms = {100 * dev_us / wall_us:.1f}% of wall; "
+          f"{len(device) - copies} kernel launches, {copies} copies and "
+          f"memsets")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :12]:
+        print(f"  {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
     return names
+
+
+# -- phase 5: shuffled joins at TPC-H scale ----------------------------------
+
+#: join type and planned build side of each phase 5 query
+JOIN_QUERIES = {"J1": ("inner", "left"), "J2": ("left", "right"),
+                "J3": ("right", "left"), "J4": ("full", "right"),
+                "J5": ("semi", "right"), "J6": ("anti", "right"),
+                "J7": ("inner", "right")}
+#: one year of orders: 1994-01-01 < o_orderdate <= 1994-12-31 (days since
+#: 1970-01-01)
+YEAR_LO, YEAR_HI = 8765, 9130
+JOIN_BATCH_ROWS = 1 << 22          # batchSizeRows of phase 5 at SF10
+#: join.gather.chunkRows of the chunked J2 at SF10: below its stream
+#: batches' output rows (~180K), so they expand in several chunks
+JOIN_CHUNK_ROWS = 1 << 16
+
+
+def join_scale(sf: float):
+    """(batchSizeRows, broadcast threshold, chunk rows of the chunked J2)
+    that give the plans and chunks of SF10 at scale ``sf``: below SF10
+    all three shrink with the tables, so a rehearsal plans the same
+    shuffled joins over the same number of batches."""
+    from spark_rapids_tpu_torch.plan import overrides
+    shrink = min(1.0, sf / 10)
+    return (max(1024, int(JOIN_BATCH_ROWS * shrink)),
+            int(overrides.BROADCAST_ROW_THRESHOLD * shrink),
+            max(16, int(JOIN_CHUNK_ROWS * shrink)))
+
+
+def make_tpch(sf: float, seed: int):
+    """orders, lineitem and partsupp in TPC-H's shapes (spec 4.2.3), the
+    fixed-width columns only, dates as int32 days since 1970-01-01."""
+    rng = np.random.default_rng(seed)
+    n_orders = int(1_500_000 * sf)
+    parts = max(1, int(200_000 * sf))
+    supps = max(4, int(10_000 * sf))
+    i = np.arange(n_orders, dtype=np.int64)
+    okey = (i // 8) * 32 + i % 8 + 1               # dbgen's sparse keys
+    odate = rng.integers(8035, 10441, n_orders).astype(np.int32)
+    orders = {"o_orderkey": okey, "o_orderdate": odate,
+              "o_orderpriority": rng.integers(1, 6, n_orders)
+              .astype(np.int32),
+              "o_totalprice": rng.integers(85_000, 55_000_000, n_orders)
+              / 100.0}
+    lines = rng.integers(1, 8, n_orders)
+    n_lines = int(lines.sum())
+    order_of = np.repeat(i, lines)
+    first = np.cumsum(lines) - lines
+    linenumber = (np.arange(n_lines) - np.repeat(first, lines) + 1)
+    partkey = rng.integers(1, parts + 1, n_lines)
+    quantity = rng.integers(1, 51, n_lines)
+    retail = (90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)) \
+        / 100.0
+    ldate = odate[order_of]
+    ship = ldate + rng.integers(1, 122, n_lines)
+    lineitem = {
+        "l_orderkey": okey[order_of],
+        "l_linenumber": linenumber.astype(np.int32),
+        "l_partkey": partkey,
+        "l_suppkey": ps_suppkey(partkey, rng.integers(0, 4, n_lines), supps),
+        "l_quantity": quantity,
+        "l_extendedprice": quantity * retail,
+        "l_commitdate": (ldate + rng.integers(30, 91, n_lines))
+        .astype(np.int32),
+        "l_receiptdate": (ship + rng.integers(1, 31, n_lines))
+        .astype(np.int32)}
+    ps_part = np.repeat(np.arange(1, parts + 1, dtype=np.int64), 4)
+    partsupp = {"ps_partkey": ps_part,
+                "ps_suppkey": ps_suppkey(ps_part, np.tile(np.arange(4),
+                                                          parts), supps),
+                "ps_supplycost": rng.integers(100, 100_001, 4 * parts)
+                / 100.0}
+    return {"orders": orders, "lineitem": lineitem, "partsupp": partsupp}
+
+
+def ps_suppkey(partkey, j, supps: int):
+    """The spec's j-th supplier (0..3) of a part, for ``supps`` suppliers."""
+    return (partkey + j * (supps // 4 + (partkey - 1) // supps)) % supps + 1
+
+
+def join_frames(session, tables):
+    return {name: session.create_dataframe(cols, num_partitions=PARTITIONS)
+            for name, cols in tables.items()}
+
+
+def join_query(F, frames, q: str):
+    """Query ``q`` of phase 5, with the functions module ``F`` of the
+    package whose session made ``frames``.  J1-J6: a year of orders
+    joined to the lineitems received after their commit date (the shape
+    of Q4, Q12 and Q21), grouped by priority; J7: Q9's two-key join of
+    lineitem and partsupp, grouped by line number."""
+    o, li, ps = frames["orders"], frames["lineitem"], frames["partsupp"]
+    if q == "J7":
+        li = li.select("l_partkey", "l_suppkey", "l_quantity", "l_linenumber")
+        j = li.join(ps, (li["l_partkey"] == ps["ps_partkey"]) &
+                    (li["l_suppkey"] == ps["ps_suppkey"]), "inner")
+        return j.group_by("l_linenumber").agg(
+            F.sum(F.col("l_quantity") * F.col("ps_supplycost"))
+            .alias("value"), F.count().alias("cnt"),
+            F.max("ps_supplycost").alias("max_cost"))
+    how = JOIN_QUERIES[q][0]
+    od = F.col("o_orderdate")
+    year = o.filter((od > YEAR_LO) & ~(od > YEAR_HI)).select(
+        "o_orderkey", "o_orderpriority", "o_totalprice")
+    late = li.filter(F.col("l_receiptdate") > F.col("l_commitdate")).select(
+        "l_orderkey", "l_extendedprice", "l_quantity")
+    j = year.join(late, year["o_orderkey"] == late["l_orderkey"], how)
+    if how in ("semi", "anti"):
+        return j.group_by("o_orderpriority").agg(
+            F.count().alias("cnt"), F.sum("o_totalprice").alias("price"))
+    return j.group_by("o_orderpriority").agg(
+        F.sum("l_extendedprice").alias("revenue"), F.count().alias("cnt"),
+        F.max("l_quantity").alias("max_qty"))
+
+
+def join_references(tables) -> dict:
+    """{query: {group key: row}} of every phase 5 query by numpy, from the
+    same tables (None is the null group)."""
+    o, li, ps = tables["orders"], tables["lineitem"], tables["partsupp"]
+    # J7: every (lineitem, partsupp) pair with equal keys; a small scale
+    # factor repeats a part's supplier
+    supps = int(max(ps["ps_suppkey"].max(), li["l_suppkey"].max())) + 1
+    pkey = ps["ps_partkey"] * supps + ps["ps_suppkey"]
+    order = np.argsort(pkey, kind="stable")
+    lkey = li["l_partkey"] * supps + li["l_suppkey"]
+    lorder = np.argsort(lkey)          # sorted needles search far faster
+    lo = np.searchsorted(pkey[order], lkey[lorder])
+    n = np.searchsorted(pkey[order], lkey[lorder], side="right") - lo
+    row = lorder[np.repeat(np.arange(len(lkey)), n)]
+    at = np.repeat(lo - (np.cumsum(n) - n), n) + np.arange(len(row))
+    cost = ps["ps_supplycost"][order][at]
+    line = li["l_linenumber"][row]
+    cnt = np.bincount(line, minlength=8)
+    value = np.bincount(line, weights=li["l_quantity"][row] * cost,
+                        minlength=8)
+    refs = {"J7": {g: (float(value[g]), int(cnt[g]),
+                       float(cost[line == g].max()))
+                   for g in range(1, 8) if cnt[g]}}
+    # J1-J6: group 0 below is the null priority of unmatched lineitems
+    od = o["o_orderdate"]
+    in_year = (od > YEAR_LO) & ~(od > YEAR_HI)
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    at = np.clip(np.searchsorted(o["o_orderkey"], li["l_orderkey"]), 0,
+                 len(od) - 1)
+    pair = late & (o["o_orderkey"][at] == li["l_orderkey"]) & in_year[at]
+    matches = np.bincount(at[pair], minlength=len(od))
+    pri = o["o_orderpriority"].astype(np.int64)
+    gp = pri[at[pair]]
+    price, qty = li["l_extendedprice"][pair], li["l_quantity"][pair]
+    inner_n = np.bincount(gp, minlength=6)
+    inner_sum = np.bincount(gp, weights=price, minlength=6)
+    inner_max = [int(qty[gp == g].max()) if inner_n[g] else None
+                 for g in range(6)]
+    lone_orders = np.bincount(pri[in_year & (matches == 0)], minlength=6)
+    lone_lines = late & ~pair
+    lone_price = li["l_extendedprice"][lone_lines]
+    lone_qty = li["l_quantity"][lone_lines]
+    for q, (how, _) in JOIN_QUERIES.items():
+        if q == "J7":
+            continue
+        if how in ("semi", "anti"):
+            keep = in_year & ((matches > 0) if how == "semi" else
+                              (matches == 0))
+            k = np.bincount(pri[keep], minlength=6)
+            tp = np.bincount(pri[keep], weights=o["o_totalprice"][keep],
+                             minlength=6)
+            refs[q] = {g: (int(k[g]), float(tp[g])) for g in range(1, 6)
+                       if k[g]}
+        else:
+            out = {}
+            for g in range(1, 6):
+                extra = lone_orders[g] if how in ("left", "full") else 0
+                if inner_n[g] + extra:
+                    out[g] = (float(inner_sum[g]) if inner_n[g] else None,
+                              int(inner_n[g] + extra), inner_max[g])
+            if how in ("right", "full") and len(lone_price):
+                out[None] = (float(lone_price.sum()), len(lone_price),
+                             int(lone_qty.max()))
+            refs[q] = out
+    return refs
+
+
+def same_bytes(a, b) -> bool:
+    """Two arrow tables equal buffer for buffer."""
+    return a.equals(b) and all(
+        x.combine_chunks().buffers() == y.combine_chunks().buffers()
+        for x, y in zip(a.columns, b.columns))
+
+
+def table_groups(table):
+    """{group key: row} of a query result (first column the key)."""
+    cols = [table.column(i).to_pylist() for i in range(table.num_columns)]
+    return {row[0]: tuple(row[1:]) for row in zip(*cols)}
+
+
+def compare_groups(got: dict, want: dict, rel: float, what: str) -> float:
+    """Check a query's groups against numpy's: the same keys, integers and
+    nulls equal, floats within ``rel``.  Returns the largest float error
+    over its limit."""
+    check(set(got) == set(want),
+          f"{what}: groups {sorted(got, key=str)} against "
+          f"{sorted(want, key=str)}")
+    worst = 0.0
+    for g, row in want.items():
+        for a, b in zip(got[g], row):
+            if isinstance(b, float) and a is not None:
+                ratio = abs(a - b) / float(rel_limit(a, b, rel))
+                check(ratio <= 1.0, f"{what}, group {g}: {a!r} against "
+                                    f"{b!r} beyond {rel} relative")
+                worst = max(worst, ratio)
+            else:
+                check(a == b, f"{what}, group {g}: {a!r} against {b!r}")
+    return worst
+
+
+def join_output(session, df):
+    """The join operator of ``df``'s plan and its output rows of one more
+    run, as one arrow table."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.arrow import to_arrow
+    join = _find(session.plan(df._plan), "TpuShuffledHashJoin")[0]
+    return join, pa.concat_tables(to_arrow(b) for part in join.execute()
+                                  for b in part)
+
+
+def _find(node, kind: str):
+    out = [node] if type(node).__name__ == kind else []
+    for c in node.children:
+        out.extend(_find(c, kind))
+    return out
+
+
+def join_phase(args, kernels_used) -> dict:
+    """Phase 5: J1-J7 through the port at TPC-H scale ``--sf``.  Returns
+    the B1/B2 launches of the join path (the queries' first and second
+    runs)."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    tables = make_tpch(args.sf, args.seed)
+    refs = join_references(tables)
+    rows = {n: len(next(iter(t.values()))) for n, t in tables.items()}
+    print(f"join data + numpy references: sf {args.sf}, {rows} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    batch_rows, threshold, chunk_rows = join_scale(args.sf)
+    overrides.BROADCAST_ROW_THRESHOLD = threshold   # for the process
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
+    session = TpuSession(TpuConf(conf), device=args.device)
+    frames = join_frames(session, tables)
+    t0 = time.perf_counter()
+    for df in frames.values():
+        session.plan(df._plan).execute()        # uploads the table once
+    sync()
+    print(f"join tables uploaded in {time.perf_counter() - t0:.3f}s")
+
+    def run(df):
+        sync()
+        t0 = time.perf_counter()
+        table = df.to_arrow()
+        sync()
+        return table, time.perf_counter() - t0
+
+    cuda_ops.reset_launches()
+    for q, (how, side) in JOIN_QUERIES.items():
+        df = join_query(F, frames, q)
+        physical = session.plan(df._plan)
+        plan = physical.tree_string()
+        node = f"TpuShuffledHashJoin[{how}, build={side}]"
+        check(node in plan, f"{q}: {node} not planned:\n{plan}")
+        join = _find(physical, "TpuShuffledHashJoin")[0]
+        check([type(c).__name__ for c in join.children] ==
+              ["TpuShuffleExchange"] * 2,
+              f"{q}: the join is not over two exchanges:\n{plan}")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(cuda_ops.LAUNCHES)
+        (t1, cold), (t2, warm) = run(df), run(df)
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        launches = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()}
+        worst = max(compare_groups(table_groups(t), refs[q], EXACT_REL,
+                                   f"{q} run {i}")
+                    for i, t in enumerate((t1, t2)))
+        check(same_bytes(t1, t2), f"{q}: the two runs are not byte-identical")
+        sides = ("orders", "lineitem") if q != "J7" else \
+            ("lineitem", "partsupp")
+        in_rows = rows[sides[0]] + rows[sides[1]]
+        # every joined row lands in one group, null keys included
+        join_out = sum(t1.column("cnt").to_pylist())
+        print(f"{q} {how:5s} build={side:5s}: {t1.num_rows} groups; "
+              f"input rows {in_rows}, join output rows {join_out}; cold "
+              f"{cold:.4f}s warm {warm:.4f}s; warm {in_rows / warm / 1e6:.3f} "
+              f"Mrows/s; peak device memory {peak} B; launches (2 runs) "
+              f"{launches}; byte-identical runs; matches numpy at "
+              f"{EXACT_REL} (worst error/limit {worst!r})")
+    by_path = dict(cuda_ops.LAUNCHES)
+    print("plan J7:\n" + join_query(F, frames, "J7").explain())
+
+    # J1 under the profiler; J2 again with small expansion chunks
+    if on_card:
+        profile_query(join_query(F, frames, "J1"))
+    chunked = TpuSession(TpuConf({**conf,
+                                  "spark.rapids.tpu.sql.join.gather."
+                                  "chunkRows": chunk_rows}),
+                         device=args.device)
+    df = join_query(F, join_frames(chunked, tables), "J2")
+    table, secs = run(df)
+    worst = compare_groups(table_groups(table), refs["J2"], EXACT_REL,
+                           "chunked J2")
+    # the aggregate rounds each batch's exact sum, so other chunk bounds
+    # may move a sum's last bit: the join's own rows must not move at all
+    whole, whole_rows = join_output(session, join_query(F, frames, "J2"))
+    split, split_rows = join_output(chunked, df)
+    check(split.expand_counts["chunks"] > split.expand_counts["batches"],
+          f"J2 with chunkRows {chunk_rows}: no batch expanded in chunks "
+          f"({split.expand_counts})")
+    check(whole.expand_counts["chunks"] == whole.expand_counts["batches"],
+          f"J2 expanded in chunks by default ({whole.expand_counts})")
+    check(same_bytes(split_rows, whole_rows),
+          "J2's join rows differ with chunked expansion")
+    print(f"J2 with chunkRows {chunk_rows}: {split.expand_counts}; cold "
+          f"{secs:.4f}s; join output ({split_rows.num_rows} rows) "
+          f"byte-identical to J2's; matches numpy at {EXACT_REL} (worst "
+          f"error/limit {worst!r})")
+    for name in kernels_used:
+        check(by_path.get(name, 0) > 0,
+              f"{name} never launched on the join path")
+    return by_path
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=64_000_000)
+    ap.add_argument("--sf", type=float, default=10.0,
+                    help="TPC-H scale factor of phase 5's tables")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--parent", default=None,
@@ -664,6 +1022,11 @@ def main(argv=None) -> int:
               f"{'byte-identical runs; ' if not variable else ''}matches "
               f"numpy at {rel} (worst error/limit {worst!r})")
     print("plan:\n" + df.explain())
+    df = session = None         # phase 4's table leaves the card
+
+    # 5. shuffled joins at TPC-H scale
+    results["join"] = join_phase(
+        args, list(kernels) if args.device == "cuda" else [])
 
     if args.device != "cuda":
         print("cpu rehearsal: no device result")
@@ -671,7 +1034,7 @@ def main(argv=None) -> int:
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            check(got > 0, f"{name} never launched on the {mode} query path")
+            check(got > 0, f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]
         kernels[name]["launches_by_path"] = by_path
     print(json.dumps({"kernels": list(kernels.values())}))

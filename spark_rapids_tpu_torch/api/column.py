@@ -49,6 +49,9 @@ class Col:
     def __and__(self, o):
         return Col(ep.And(self.expr, _expr(o)))
 
+    def __invert__(self):
+        return Col(ep.Not(self.expr))
+
     def alias(self, name: str) -> "Col":
         return Col(ec.Alias(self.expr, name))
 

@@ -1,7 +1,7 @@
 """DataFrame API: the PySpark-flavoured surface that builds logical plans.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py`` (select,
-with_column, filter, group_by().agg(), inner join, collect, to_arrow).
+with_column, filter, group_by().agg(), join, collect, to_arrow).
 """
 from __future__ import annotations
 
@@ -82,8 +82,35 @@ class DataFrame:
 
     groupBy = group_by
 
-    def join(self, other: "DataFrame", on, how: str = "inner"
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":
+        """Join on a condition (``Col``: its equalities between the two
+        sides become keys, the rest a residual condition) or on column
+        names both sides share (the right side's copies are dropped, as
+        Spark does).  Cross joins are planned but not ported: planning
+        one raises."""
+        how = _JOIN_ALIASES.get(how, how)
+        if how == "cross" or on is None:
+            return DataFrame(L.Join(self._plan, other._plan, "cross", [], []),
+                             self.session)
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)) and all(isinstance(x, str)
+                                                 for x in on):
+            joined = L.Join(self._plan, other._plan, how,
+                            [_to_expr(k, self.schema) for k in on],
+                            [_to_expr(k, other.schema) for k in on])
+            if how in ("semi", "anti"):
+                return DataFrame(joined, self.session)
+            nleft = len(self.schema)
+            dropped = set(on)
+            out = []
+            for i, f in enumerate(joined.schema):
+                if i >= nleft and f.name in dropped:
+                    dropped.discard(f.name)
+                    continue
+                out.append(ec.BoundReference(i, f.dtype, f.nullable, f.name))
+            return DataFrame(L.Project(out, joined), self.session)
         cond = on.expr if isinstance(on, Col) else on
         lkeys, rkeys, residual = _extract_equi_keys(cond, self.schema,
                                                     other.schema)
@@ -100,6 +127,13 @@ class DataFrame:
 
     def explain(self) -> str:
         return self.session.plan(self._plan).tree_string()
+
+
+_JOIN_ALIASES = {"left_outer": "left", "right_outer": "right",
+                 "outer": "full", "full_outer": "full",
+                 "leftsemi": "semi", "left_semi": "semi",
+                 "leftanti": "anti", "left_anti": "anti",
+                 "crossjoin": "cross"}
 
 
 def _ref_names(e: ec.Expression) -> set:

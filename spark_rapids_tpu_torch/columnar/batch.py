@@ -11,7 +11,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from .column import Column, bucket_capacity
+from .column import MIN_CAPACITY, Column, bucket_capacity
 from .schema import Schema
 
 
@@ -30,6 +30,13 @@ class ColumnarBatch:
         else:
             self._rows_host = None
             self.rows_dev = rows.to(torch.int64).reshape(())
+
+    @staticmethod
+    def empty(schema: Schema, device) -> "ColumnarBatch":
+        """No rows, at the smallest capacity."""
+        cols = [Column.from_scalar(None, f.dtype, MIN_CAPACITY, device)
+                for f in schema]
+        return ColumnarBatch(schema, cols, 0, device=device)
 
     @property
     def capacity(self) -> int:

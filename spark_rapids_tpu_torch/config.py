@@ -14,6 +14,7 @@ VARIABLE_FLOAT_AGG = "spark.rapids.tpu.sql.variableFloatAgg.enabled"
 BATCH_SIZE_ROWS = "spark.rapids.tpu.sql.batchSizeRows"
 AGG_TABLE_SIZE = "spark.rapids.tpu.sql.agg.tableSize"
 SHUFFLE_PARTITIONS = "spark.rapids.tpu.sql.shuffle.partitions"
+JOIN_GATHER_CHUNK_ROWS = "spark.rapids.tpu.sql.join.gather.chunkRows"
 
 #: the hash split's partition limit (kernels/cuda_ops.SPLIT_MAX_PARTS)
 MAX_SHUFFLE_PARTITIONS = 4096
@@ -26,8 +27,11 @@ _DEFAULTS: Dict[str, Any] = {
     BATCH_SIZE_ROWS: 1 << 20,
     # Bucket-table size of the sort-free group-by path.
     AGG_TABLE_SIZE: 4096,
-    # Partition count of hash exchanges.
+    # Most partitions of a hash exchange.
     SHUFFLE_PARTITIONS: 8,
+    # Join output rows gathered per expansion chunk: a stream batch whose
+    # match total is larger expands in pieces of at most this many rows.
+    JOIN_GATHER_CHUNK_ROWS: 1 << 22,
 }
 
 
@@ -52,6 +56,8 @@ class TpuConf:
         if not 1 <= parts <= MAX_SHUFFLE_PARTITIONS:
             raise ValueError(f"{SHUFFLE_PARTITIONS} = {parts}: the hash "
                              f"split takes 1..{MAX_SHUFFLE_PARTITIONS}")
+        if self.get(JOIN_GATHER_CHUNK_ROWS) < 1:
+            raise ValueError(f"{JOIN_GATHER_CHUNK_ROWS} must be at least 1")
 
     def get(self, key: str):
         return self._settings.get(key, _DEFAULTS[key])

@@ -15,7 +15,9 @@ arrays beside its reduce kernel:
   atomics, which are order-independent, so exact mode is deterministic
   on the card, and recombine per bucket in f64 after the launch;
 - exact f64 max: one u64 order word per row (the reference's two-stage
-  u32 max in one 64-bit max).
+  u32 max in one 64-bit max).  An integer max takes the same word: an
+  integer of magnitude at most 2^48 is exact as an f64 and as the word's
+  f32 pair; a batch with a larger one runs the sort path.
 
 The batch's largest exponent and the fit conditions stay torch ops
 before the launch.  A device fit flag says whether the batch fit the
@@ -47,6 +49,8 @@ from ..plan.logical import AggExpr
 from .tpu_basic import TpuExec, apply_ops_masked
 
 PARTIAL, FINAL = "partial", "final"
+#: largest integer magnitude the table path's max word holds exactly
+INT_MAX_EXACT = 1 << 48
 
 def buffer_schema(group_exprs, aggs: List[AggExpr]) -> Schema:
     """Schema of partial-aggregation output: keys + flattened buffers."""
@@ -206,6 +210,9 @@ class TpuHashAggregate(TpuExec):
             elif isinstance(f, ea.Max) and cdt is not None and \
                     cdt.is_fractional:
                 descs.append("fmax" if self.variable_float else "fmax64")
+            elif isinstance(f, ea.Max) and cdt is not None and \
+                    cdt.is_integral:
+                descs.append("fmax64")
             else:
                 return None
         return descs
@@ -237,6 +244,9 @@ class TpuHashAggregate(TpuExec):
         # fmax, fmax64: a finite f64 whose f32 overflows would alias inf
         fit = torch.where(ok & torch.isfinite(v),
                           torch.isfinite(v.to(torch.float32)), True).all()
+        if c.dtype == T.INT64:
+            fit = fit & torch.where(ok, (c.data >= -INT_MAX_EXACT) &
+                                    (c.data <= INT_MAX_EXACT), True).all()
         return StageCol(kind, v, valid), fit
 
     def _table_core(self, batch: ColumnarBatch, update: bool):

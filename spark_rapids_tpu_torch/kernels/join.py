@@ -3,7 +3,10 @@
 Counterpart of ``spark_rapids_tpu/kernels/join.py``.  The build side is
 sorted by its canonical key words; each probe row binary-searches its
 lower and upper bound, and (lo, count) pairs expand into flat gather
-maps by a prefix sum and ``searchsorted``.
+maps by a prefix sum and ``searchsorted``.  Join types other than inner
+change the counts before the expansion (``outer_counts``); semi and
+anti joins select probe rows by compaction instead of expanding them
+(``basic.compact_indices``).  Counts and their prefix sums are int64.
 """
 from __future__ import annotations
 
@@ -78,16 +81,33 @@ def probe_counts(bt: BuildTable, probe_words: List[torch.Tensor],
     return JoinCounts(lo, counts, counts > 0)
 
 
+def outer_counts(counts: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """Counts of an outer join's stream side: a live row without a match
+    expands to one row, whose build side the expansion leaves null."""
+    return torch.where((counts == 0) & live, 1, counts)
+
+
+def mark_matched(flags: torch.Tensor, build_idx: torch.Tensor,
+                 hit: torch.Tensor) -> None:
+    """Set ``flags[build_idx]`` where ``hit``, on the device.  ``flags``
+    has one slot past the build rows, which takes the misses."""
+    spare = flags.shape[0] - 1
+    flags[torch.where(hit, build_idx, spare)] = True
+
+
 def expand_matches(lo: torch.Tensor, counts: torch.Tensor,
-                   perm: torch.Tensor, out_cap: int):
-    """(lo, counts) -> flat (probe_idx, build_idx, live, total).
+                   perm: torch.Tensor, out_cap: int, start: int = 0):
+    """(lo, counts) -> flat (probe_idx, build_idx, live, total) for output
+    rows ``start .. start + out_cap - 1``.
 
     Output row t belongs to probe row p where excl[p] <= t < incl[p];
-    its build position is lo[p] + (t - excl[p])."""
+    its build position is lo[p] + (t - excl[p]).  A chunk of a larger
+    expansion starts past 0, so one probe row's matches may split across
+    chunks."""
     incl = torch.cumsum(counts, 0)
     excl = incl - counts
     total = incl[-1]
-    t = torch.arange(out_cap, device=lo.device)
+    t = torch.arange(start, start + out_cap, device=lo.device)
     p = torch.searchsorted(incl, t, right=True)
     pc = p.clamp(0, counts.shape[0] - 1)
     build_pos = lo[pc] + (t - excl[pc])

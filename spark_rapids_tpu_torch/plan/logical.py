@@ -1,8 +1,7 @@
 """Logical plan nodes built by the DataFrame API.
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, limited to the nodes
-this slice plans: local relation, project, filter, aggregate and
-equi-join.
+the port plans: local relation, project, filter, aggregate and join.
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ from ..columnar.arrow import schema_from_arrow
 from ..columnar.schema import Field, Schema
 from ..expr import core as ec
 from ..expr.aggregates import AggregateFunction
+from ..expr.predicates import promote_comparison_sides
 
 
 class LogicalPlan:
@@ -92,18 +92,41 @@ class Aggregate(LogicalPlan):
         return Schema(fields)
 
 
+JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
+
+
+def join_schema(how: str, left: Schema, right: Schema) -> Schema:
+    """Output schema of a join: semi/anti keep the left side alone; the
+    side an outer join does not preserve becomes nullable."""
+    if how in ("semi", "anti"):
+        return left
+    lfields, rfields = list(left), list(right)
+    if how in ("left", "full"):
+        rfields = [Field(f.name, f.dtype, True) for f in rfields]
+    if how in ("right", "full"):
+        lfields = [Field(f.name, f.dtype, True) for f in lfields]
+    return Schema(lfields + rfields)
+
+
 class Join(LogicalPlan):
     def __init__(self, left: LogicalPlan, right: LogicalPlan, how: str,
                  left_keys: List[ec.Expression],
                  right_keys: List[ec.Expression],
                  condition: Optional[ec.Expression] = None):
+        if how not in JOIN_TYPES:
+            raise ValueError(f"join type {how!r}; expected one of "
+                             f"{JOIN_TYPES}")
         self.how = how
-        self.left_keys = left_keys
-        self.right_keys = right_keys
+        # each key pair shares one dtype, or the two sides' canonical key
+        # words (and partition ids) would not compare
+        pairs = [promote_comparison_sides(lk, rk)
+                 for lk, rk in zip(left_keys, right_keys)]
+        self.left_keys = [lk for lk, _ in pairs]
+        self.right_keys = [rk for _, rk in pairs]
         self.condition = condition
         self.children = [left, right]
 
     @property
     def schema(self):
-        return Schema(list(self.children[0].schema) +
-                      list(self.children[1].schema))
+        return join_schema(self.how, self.children[0].schema,
+                           self.children[1].schema)

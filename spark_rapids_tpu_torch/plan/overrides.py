@@ -1,12 +1,17 @@
 """Planner: logical plan -> device operators.
 
-Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for this slice:
+Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
 - a group-by becomes partial aggregate -> hash exchange on the group keys
   -> final aggregate, with the filter/project chain under it staged into
-  the partial aggregate;
-- an inner equi-join broadcasts its smaller side (by estimated rows);
-- the exchange's partition count is ``spark.rapids.tpu.sql.shuffle.
-  partitions``.
+  the partial aggregate; that exchange has ``shuffle.partitions``
+  partitions;
+- an equi-join builds on the right side, except a right join; an inner
+  join builds on the side with fewer estimated rows.  A build side of at
+  most ``BROADCAST_ROW_THRESHOLD`` estimated rows is broadcast, unless
+  the join is full; every other join hash-partitions both sides on
+  their keys into ``_pick_partitions`` partitions and joins partition by
+  partition (``TpuShuffledHashJoin``);
+- cross joins and joins without equi-keys are not ported and raise.
 """
 from __future__ import annotations
 
@@ -17,9 +22,13 @@ from ..expr import core as ec
 from ..exec.exchange import TpuBroadcastExchange, TpuShuffleExchange
 from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
 from ..exec.tpu_basic import TpuExec, TpuFilter, TpuLocalScan, TpuProject
-from ..exec.tpu_join import TpuBroadcastHashJoin
+from ..exec.tpu_join import TpuBroadcastHashJoin, TpuShuffledHashJoin
 from ..shuffle.partitioners import HashPartitioner
 from . import logical as L
+
+#: most estimated build rows a join broadcasts (the reference's stand-in
+#: for a byte size)
+BROADCAST_ROW_THRESHOLD = 1 << 20
 
 
 def _stage_ops(node: L.LogicalPlan):
@@ -68,17 +77,41 @@ def plan_physical(node: L.LogicalPlan, conf: C.TpuConf,
         return TpuHashAggregate(node.group_exprs, node.aggs, exchange, FINAL,
                                 table, variable)
     if isinstance(node, L.Join):
-        if node.how != "inner" or not node.left_keys or \
-                node.condition is not None:
-            raise NotImplementedError(
-                "only inner equi-joins without a residual are ported yet")
-        left, right = node.children
-        build_right = right.estimated_rows() <= left.estimated_rows()
-        lexec, rexec = go(left), go(right)
+        return _plan_join(node, conf, device, go)
+    raise NotImplementedError(f"no device operator for {type(node).__name__}")
+
+
+def _pick_partitions(conf: C.TpuConf, *plans: L.LogicalPlan) -> int:
+    """Exchange width from size estimates: at most ``shuffle.partitions``,
+    and no more than one batch of the larger side per partition."""
+    est = max(p.estimated_rows() for p in plans)
+    need = max(1, -(-est // max(conf.get(C.BATCH_SIZE_ROWS), 1)))
+    return max(1, min(conf.get(C.SHUFFLE_PARTITIONS), need))
+
+
+def _plan_join(node: L.Join, conf: C.TpuConf, device: torch.device,
+               go) -> TpuExec:
+    if node.how == "cross" or not node.left_keys:
+        raise NotImplementedError(
+            "cross joins and joins without equi-keys (the reference's "
+            "TpuNestedLoopJoin) are not ported yet")
+    left, right = node.children
+    lsize, rsize = left.estimated_rows(), right.estimated_rows()
+    build_right = node.how != "right"
+    if node.how == "inner":
+        build_right = rsize <= lsize
+    build_size = rsize if build_right else lsize
+    lexec, rexec = go(left), go(right)
+    chunk = conf.get(C.JOIN_GATHER_CHUNK_ROWS)
+    if build_size <= BROADCAST_ROW_THRESHOLD and node.how != "full":
         if build_right:
             rexec = TpuBroadcastExchange(rexec)
         else:
             lexec = TpuBroadcastExchange(lexec)
-        return TpuBroadcastHashJoin(lexec, rexec, node.left_keys,
-                                    node.right_keys, build_right)
-    raise NotImplementedError(f"no device operator for {type(node).__name__}")
+        return TpuBroadcastHashJoin(node, lexec, rexec, build_right, chunk,
+                                    device)
+    n = _pick_partitions(conf, left, right)
+    return TpuShuffledHashJoin(
+        node, TpuShuffleExchange(HashPartitioner(node.left_keys, n), lexec),
+        TpuShuffleExchange(HashPartitioner(node.right_keys, n), rexec),
+        build_right, chunk, device)

@@ -220,3 +220,90 @@ def test_headline_query_on_card_matches_numpy(variable):
                        "card")
     if not variable:
         assert table.equals(df.to_arrow())
+
+
+def _join_frames(session, n_left=120_000, n_right=80_000, hot=0, seed=9):
+    """Two seeded tables with duplicate keys, nulls in the first key and a
+    second key; ``hot`` right rows (and hot // 10 left rows) share key 7."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+
+    def side(n, prefix, nulls):
+        k = rng.integers(0, 60_000, n)
+        k[:hot // 10 if prefix == "l" else hot] = 7
+        return pa.table({
+            f"{prefix}k": pa.array(k, mask=rng.random(n) < nulls),
+            f"{prefix}k2": rng.integers(0, 3, n),
+            f"{prefix}v": rng.random(n),
+            f"{prefix}i": np.arange(n, dtype=np.int32)})
+    return (session.create_dataframe(side(n_left, "l", 0.0 if hot else 0.05),
+                                     num_partitions=3),
+            session.create_dataframe(side(n_right, "r", 0.0 if hot else
+                                          0.05), num_partitions=2))
+
+
+def _join(session, how, hot=0):
+    a, b = _join_frames(session, hot=hot)
+    return a.join(b, (a["lk"] == b["rk"]) & (a["lk2"] == b["rk2"]), how)
+
+
+def _sessions(monkeypatch, conf=None):
+    from spark_rapids_tpu_torch.plan import overrides
+    monkeypatch.setattr(overrides, "BROADCAST_ROW_THRESHOLD", 1000)
+    conf = TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 1 << 15,
+                    **(conf or {})})
+    return TpuSession(conf), TpuSession(conf, device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi",
+                                 "anti"])
+def test_join_types_on_card_equal_cpu(monkeypatch, how):
+    """A two-key shuffled join on the card equals the port's CPU run row
+    by row: every split, sort and compaction is stable on both."""
+    _need_card()
+    card, cpu = _sessions(monkeypatch)
+    df = _join(card, how)
+    assert f"TpuShuffledHashJoin[{how}, " in df.explain()
+    cuda_ops.reset_launches()
+    got = df.to_arrow()
+    assert cuda_ops.LAUNCHES["hash_partition_ids"] > 0
+    assert got.num_rows > 1000
+    assert got.equals(_join(cpu, how).to_arrow())
+
+
+@pytest.mark.gpu
+def test_two_key_join_query_on_card_equals_cpu(monkeypatch):
+    """chip_smoke's J7 (lineitem x partsupp on two keys) at SF 0.03: the
+    join's rows equal the CPU run's, the query matches numpy."""
+    _need_card()
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.plan import overrides
+    tables = chip_smoke.make_tpch(0.03, 5)
+    batch_rows, threshold, _ = chip_smoke.join_scale(0.03)
+    monkeypatch.setattr(overrides, "BROADCAST_ROW_THRESHOLD", threshold)
+    conf = TpuConf({"spark.rapids.tpu.sql.batchSizeRows": batch_rows})
+    rows = []
+    for device in ("cuda", "cpu"):
+        s = TpuSession(conf, device=device)
+        df = chip_smoke.join_query(F, chip_smoke.join_frames(s, tables), "J7")
+        chip_smoke.compare_groups(chip_smoke.table_groups(df.to_arrow()),
+                                  chip_smoke.join_references(tables)["J7"],
+                                  chip_smoke.EXACT_REL, device)
+        rows.append(chip_smoke.join_output(s, df)[1])
+    assert rows[0].num_rows > 100_000
+    assert rows[0].equals(rows[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["inner", "full"])
+def test_chunked_join_on_card_equals_whole(monkeypatch, how):
+    _need_card()
+    whole, _ = _sessions(monkeypatch)
+    chunked, _ = _sessions(monkeypatch, {
+        "spark.rapids.tpu.sql.join.gather.chunkRows": 4096})
+    got = _join(chunked, how, hot=6000).to_arrow()
+    join = chip_smoke._find(chunked.last_physical_plan,
+                            "TpuShuffledHashJoin")[0]
+    assert join.expand_counts["chunks"] > 2 * join.expand_counts["batches"]
+    assert got.equals(_join(whole, how, hot=6000).to_arrow())
