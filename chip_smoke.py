@@ -4,7 +4,8 @@ Runs from the repository root:
 
     python3 chip_smoke.py                      # full size, on the card
     python3 chip_smoke.py --rows 4000000       # a shorter query phase
-    python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05  # rehearsal
+    python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
+                                               # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
 
 Phases (any failure exits non-zero):
@@ -35,7 +36,14 @@ Phases (any failure exits non-zero):
    ``TpuShuffledHashJoin`` over two exchanges built on the expected
    side, match numpy at 1e-9 and give the same bytes twice; J1 runs once
    more under the profiler, and J2's join rows must not change when it
-   expands in small chunks.  B1 and B2 must launch on this path.
+   expands in small chunks.  B1 and B2 must launch on this path;
+6. TPC-DS: the six tables of q3, q42, q52 and q96 at scale ``--ds-sf``
+   (default 10: store_sales 28.8M rows in 8 Parquet files) written to a
+   temporary directory, registered as temp views, and the queries' text
+   run through ``session.sql``.  Each must plan the expected operators,
+   match a pyarrow computation (1e-9, ORDER BY kept, ties as a
+   multiset), and give the same bytes on two warm runs; cold and warm
+   times, peak memory and a profile of q3 are printed.  B1 must launch.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -164,13 +172,34 @@ def check_hash_ids(ops, rng, n: int, num_words: int, parts: int,
         n * 8 * num_words + n * 4)
 
 
+def q3_exchange_words(rng, n: int):
+    """The hash words of q3's exchange (phase 6) for a partial aggregate's
+    n output slots: d_year, i_brand_id, and i_brand's folded word and
+    length."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.arrow import from_arrow
+    from spark_rapids_tpu_torch.expr import core as ec
+    from spark_rapids_tpu_torch.shuffle.partitioners import HashPartitioner
+    table = pa.table({
+        "d_year": pa.array(rng.integers(1998, 2003, n).astype(np.int32)),
+        "i_brand_id": pa.array(rng.integers(1000000, 1000100, n)),
+        "i_brand": pa.array([f"brand#{i}" for i in
+                             rng.integers(0, 100, n)])})
+    keys = [ec.AttributeReference("d_year", T.INT32),
+            ec.AttributeReference("i_brand_id", T.INT64),
+            ec.AttributeReference("i_brand", T.STRING)]
+    return HashPartitioner(keys, 8)._key_words(from_arrow(table, "cuda"))
+
+
 def check_hash_split(rng, n: int, num_words: int, parts: int,
-                     live_frac: float):
+                     live_frac: float, words=None, what: str = ""):
     """B1 redesigned: the exchange's split against a stable sort of the
-    ids + bincount, bit for bit."""
+    ids + bincount, bit for bit (of random words, or of ``words``)."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops
-    words = random_words(rng, n, num_words)
+    if words is None:
+        words = random_words(rng, n, num_words)
     live = torch.from_numpy(rng.random(n) < live_frac).cuda()
     perm, counts = cuda_ops.hash_split(words, live, parts)
     want_perm, want_counts = cuda_ops.hash_split_plain(words, live, parts)
@@ -188,7 +217,7 @@ def check_hash_split(rng, n: int, num_words: int, parts: int,
     return kernel_entry(
         "hash_partition_ids", "hash_partition.cu", "37",
         f"split {n} rows x {num_words} word(s) -> {parts} parts, "
-        f"{live_frac:.0%} live", 0.0,
+        f"{live_frac:.0%} live{what}", 0.0,
         time_cuda(lambda: cuda_ops.hash_split(words, live, parts)),
         time_cuda(lambda: cuda_ops.hash_split_plain(words, live, parts),
                   iters=5, queued=False)[0],
@@ -388,6 +417,11 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
         lambda: check_hash_split(rng, big, 1, 8, 1.0),
         lambda: check_hash_split(rng, big, 1, 1, 0.9),
         lambda: check_hash_split(rng, big, 2, cuda_ops.SPLIT_MAX_PARTS, 0.9),
+        # q3's exchange (phase 6): a partial aggregate's 1024 slots, ~300
+        # live groups, keys d_year, i_brand_id and i_brand (4 words)
+        lambda: check_hash_split(rng, 1024, 4, 8, 0.3,
+                                 q3_exchange_words(rng, 1024),
+                                 " (q3's exchange words)"),
         # B1's ids alone
         lambda: check_hash_ids(cuda_ops, rng, 4096, 1, 8, "Barrett modulo"),
         lambda: check_hash_ids(cuda_ops, rng, big, 1, 8, "Barrett modulo"),
@@ -854,7 +888,8 @@ def join_phase(args, kernels_used) -> dict:
     print(f"join data + numpy references: sf {args.sf}, {rows} in "
           f"{time.perf_counter() - t0:.1f}s")
     batch_rows, threshold, chunk_rows = join_scale(args.sf)
-    overrides.BROADCAST_ROW_THRESHOLD = threshold   # for the process
+    default_threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = threshold   # until the phase ends
     conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
     session = TpuSession(TpuConf(conf), device=args.device)
     frames = join_frames(session, tables)
@@ -935,7 +970,386 @@ def join_phase(args, kernels_used) -> dict:
     for name in kernels_used:
         check(by_path.get(name, 0) > 0,
               f"{name} never launched on the join path")
+    overrides.BROADCAST_ROW_THRESHOLD = default_threshold
     return by_path
+
+
+# -- phase 6: the TPC-DS quartet over Parquet at SF10 -------------------------
+
+#: rows per scale factor of the six tables the quartet reads
+#: (benchmarks/tpcds.py ROWS_PER_SF; store scales with max(sf, 1))
+DS_ROWS_PER_SF = {"store_sales": 2_880_000, "item": 18_000,
+                  "household_demographics": 7_200}
+DS_TABLES = ("date_dim", "time_dim", "item", "store",
+             "household_demographics", "store_sales")
+DS_QUERIES = ("q3", "q42", "q52", "q96")
+DS_PARTS = 8                        # store_sales part files
+DS_BATCH_ROWS = 1 << 22             # batchSizeRows of phase 6
+DATE_SK0 = 2450815                  # 1998-01-01
+N_DATES = 365 * 5                   # 1998-2002
+#: the physical plan of each query, one operator per line, top down
+_DS_STAR = ["TpuGlobalLimit", "TpuCoalescePartitions", "TpuLocalLimit",
+            "TpuProject", "TpuSort",
+            "TpuShuffleExchange[RangePartitioner(8)]",
+            "TpuHashAggregate[final", "TpuShuffleExchange[HashPartitioner(8)]",
+            "TpuHashAggregate[partial",
+            "TpuBroadcastHashJoin[inner, build=right]",
+            "TpuBroadcastHashJoin[inner, build=left]",
+            "TpuBroadcastExchange", "TpuFilter",
+            "TpuFileScan[parquet, 1 files", "TpuFileScan[parquet, 8 files",
+            "TpuBroadcastExchange",
+            "TpuFilter", "TpuFileScan[parquet, 1 files"]
+DS_PLANS = {
+    "q3": _DS_STAR, "q42": _DS_STAR, "q52": _DS_STAR,
+    "q96": ["TpuGlobalLimit", "TpuCoalescePartitions", "TpuLocalLimit",
+            "TpuProject[cnt]", "TpuSort", "TpuHashAggregate[final",
+            "TpuCoalescePartitions", "TpuHashAggregate[partial",
+            "TpuBroadcastHashJoin[inner, build=right]",
+            "TpuBroadcastHashJoin[inner, build=right]",
+            "TpuBroadcastHashJoin[inner, build=right]",
+            "TpuFileScan[parquet, 8 files", "TpuBroadcastExchange",
+            "TpuFilter", "TpuFileScan[parquet, 1 files",
+            "TpuBroadcastExchange", "TpuFilter",
+            "TpuFileScan[parquet, 1 files", "TpuBroadcastExchange",
+            "TpuFilter", "TpuFileScan[parquet, 1 files"]}
+#: ORDER BY of each query: (output column, ascending)
+DS_ORDER = {"q3": [("d_year", True), ("sum_agg", False), ("brand_id", True)],
+            "q42": [("total_sales", False), ("d_year", True),
+                    ("i_category_id", True), ("i_category", True)],
+            "q52": [("d_year", True), ("ext_price", False),
+                    ("brand_id", True)],
+            "q96": [("cnt", True)]}
+
+
+def make_tpcds(data_dir: str, scale: float, seed: int) -> dict:
+    """The six tables of the quartet as Parquet under ``data_dir``, with
+    the formulas, names and types of ``benchmarks/tpcds.py`` ``generate``
+    at ``scale``; store_sales in DS_PARTS part files, each drawn from its
+    own seeded generator.  Returns each table's row count."""
+    import os
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+    rng = np.random.default_rng(seed)
+    n = {k: max(int(v * scale), 64) for k, v in DS_ROWS_PER_SF.items()}
+    n["store"] = max(int(12 * max(scale, 1)), 4)
+
+    def write(name, table):
+        papq.write_table(table, os.path.join(data_dir, f"{name}.parquet"))
+
+    days = (np.datetime64("1998-01-01") +
+            np.arange(N_DATES).astype("timedelta64[D]"))
+    ymd = days.astype("datetime64[D]")
+    years = ymd.astype("datetime64[Y]").astype(int) + 1970
+    months = ymd.astype("datetime64[M]").astype(int) % 12 + 1
+    dom = (ymd - ymd.astype("datetime64[M]")).astype(int) + 1
+    dow = ((ymd.astype("datetime64[D]").astype(int) + 4) % 7)
+    qoy = (months - 1) // 3 + 1
+    day_names = np.array(["Sunday", "Monday", "Tuesday", "Wednesday",
+                          "Thursday", "Friday", "Saturday"])
+    write("date_dim", pa.table({
+        "d_date_sk": (DATE_SK0 + np.arange(N_DATES)).astype(np.int64),
+        "d_date": ymd,
+        "d_year": years.astype(np.int32),
+        "d_moy": months.astype(np.int32),
+        "d_dom": dom.astype(np.int32),
+        "d_qoy": qoy.astype(np.int32),
+        "d_dow": dow.astype(np.int32),
+        "d_day_name": day_names[dow],
+        "d_month_seq": ((years - 1900) * 12 + months - 1).astype(np.int32),
+        "d_week_seq": ((ymd.astype(int) - ymd.astype(int).min()) // 7 +
+                       5200).astype(np.int32),
+        "d_quarter_name": np.array([f"{y}Q{q}" for y, q in zip(years, qoy)]),
+    }))
+    write("time_dim", pa.table({
+        "t_time_sk": np.arange(86400, dtype=np.int64),
+        "t_time": np.arange(86400, dtype=np.int64),
+        "t_hour": (np.arange(86400) // 3600).astype(np.int32),
+        "t_minute": ((np.arange(86400) % 3600) // 60).astype(np.int32),
+    }))
+    ni = n["item"]
+    write("item", pa.table({
+        "i_item_sk": np.arange(ni, dtype=np.int64),
+        "i_item_id": np.array([f"AAAAAAAA{i:08d}" for i in range(ni)]),
+        "i_item_desc": np.array([f"desc of item {i}" for i in range(ni)]),
+        "i_brand_id": rng.integers(1000000, 1000100, ni).astype(np.int64),
+        "i_brand": np.array([f"brand#{i % 100}" for i in range(ni)]),
+        "i_class": rng.choice(["dresses", "shirts", "pants", "football",
+                               "fishing", "classical", "rock"], ni),
+        "i_class_id": rng.integers(1, 17, ni).astype(np.int64),
+        "i_category": rng.choice(["Women", "Men", "Sports", "Music",
+                                  "Books", "Home"], ni),
+        "i_category_id": rng.integers(1, 11, ni).astype(np.int64),
+        "i_manufact_id": rng.integers(1, 1000, ni).astype(np.int64),
+        "i_manufact": np.array([f"manufact#{i % 1000}" for i in range(ni)]),
+        "i_manager_id": rng.integers(1, 100, ni).astype(np.int64),
+        "i_current_price": (rng.random(ni) * 100).round(2),
+        "i_wholesale_cost": (rng.random(ni) * 80).round(2),
+        "i_color": rng.choice(["red", "blue", "green", "yellow", "purple",
+                               "orange", "white", "black"], ni),
+        "i_size": rng.choice(["small", "medium", "large", "extra large",
+                              "petite", "economy"], ni),
+        "i_units": rng.choice(["Each", "Dozen", "Case", "Pallet"], ni),
+        "i_product_name": np.array([f"product{i}" for i in range(ni)]),
+    }))
+    ns = n["store"]
+    write("store", pa.table({
+        "s_store_sk": np.arange(ns, dtype=np.int64),
+        "s_store_id": np.array([f"AAAAAAAA{i:04d}" for i in range(ns)]),
+        "s_store_name": rng.choice(["ese", "ought", "able", "pri"], ns),
+        "s_state": rng.choice(["TN", "SD", "AL", "GA"], ns),
+        "s_county": rng.choice(["Williamson County", "Ziebach County",
+                                "Walker County"], ns),
+        "s_city": rng.choice(["Midway", "Fairview", "Oakland"], ns),
+        "s_zip": np.array([f"{rng.integers(10000, 99999)}"
+                           for _ in range(ns)]),
+        "s_number_employees": rng.integers(200, 300, ns).astype(np.int32),
+        "s_company_id": np.ones(ns, dtype=np.int32),
+        "s_gmt_offset": np.full(ns, -5.0),
+        "s_market_id": rng.integers(1, 11, ns).astype(np.int32),
+    }))
+    nh = n["household_demographics"]
+    write("household_demographics", pa.table({
+        "hd_demo_sk": np.arange(nh, dtype=np.int64),
+        "hd_dep_count": rng.integers(0, 10, nh).astype(np.int32),
+        "hd_vehicle_count": rng.integers(-1, 5, nh).astype(np.int32),
+        "hd_income_band_sk": rng.integers(1, 21, nh).astype(np.int64),
+        "hd_buy_potential": rng.choice(["0-500", "501-1000", "1001-5000",
+                                        "5001-10000", ">10000", "Unknown"],
+                                       nh),
+    }))
+    # the other dimensions' sizes, as generate's foreign keys see them
+    nc = max(int(100_000 * scale), 64)
+    nd = max(int(19_208 * scale), 64)
+    na = max(int(50_000 * scale), 64)
+    npx = max(int(300 * scale), 64)
+    nss = n["store_sales"]
+    ss_dir = os.path.join(data_dir, "store_sales.parquet")
+    os.makedirs(ss_dir)
+    bounds = np.linspace(0, nss, DS_PARTS + 1).astype(np.int64)
+    for part in range(DS_PARTS):
+        r = np.random.default_rng([seed, part])
+        m = int(bounds[part + 1] - bounds[part])
+        price = (r.random(m) * 200).round(2)
+        qty = r.integers(1, 100, m)
+        wcost = (r.random(m) * 100).round(2)
+        ext_sales = (price * qty).round(2)
+        ext_wcost = (wcost * qty).round(2)
+        papq.write_table(pa.table({
+            "ss_sold_date_sk": (DATE_SK0 + r.integers(0, N_DATES, m))
+            .astype(np.int64),
+            "ss_sold_time_sk": r.integers(0, 86400, m).astype(np.int64),
+            "ss_item_sk": r.integers(0, ni, m).astype(np.int64),
+            "ss_customer_sk": r.integers(0, nc, m).astype(np.int64),
+            "ss_cdemo_sk": r.integers(0, nd, m).astype(np.int64),
+            "ss_hdemo_sk": r.integers(0, nh, m).astype(np.int64),
+            "ss_addr_sk": r.integers(0, na, m).astype(np.int64),
+            "ss_store_sk": r.integers(0, ns, m).astype(np.int64),
+            "ss_promo_sk": r.integers(0, npx, m).astype(np.int64),
+            "ss_ticket_number": (r.integers(0, nss, m) // 4)
+            .astype(np.int64),
+            "ss_quantity": qty.astype(np.int32),
+            "ss_wholesale_cost": wcost,
+            "ss_list_price": (price * 1.2).round(2),
+            "ss_sales_price": price,
+            "ss_ext_discount_amt": (r.random(m) * 100).round(2),
+            "ss_ext_sales_price": ext_sales,
+            "ss_ext_wholesale_cost": ext_wcost,
+            "ss_ext_list_price": (price * 1.2 * qty).round(2),
+            "ss_ext_tax": (ext_sales * 0.08).round(2),
+            "ss_coupon_amt": (r.random(m) * 50).round(2),
+            "ss_net_paid": (ext_sales * 0.95).round(2),
+            "ss_net_paid_inc_tax": (ext_sales * 1.03).round(2),
+            "ss_net_profit": (ext_sales - ext_wcost).round(2),
+        }), os.path.join(ss_dir, f"part-{part:05d}.parquet"))
+    return {"date_dim": N_DATES, "time_dim": 86400, "item": ni,
+            "store": ns, "household_demographics": nh, "store_sales": nss}
+
+
+def ds_references(data_dir: str) -> dict:
+    """Each query's full result (every group, before its LIMIT), by
+    pyarrow joins, group-bys and sorts written apart from the port."""
+    import os
+    import pyarrow.compute as pc
+    import pyarrow.parquet as papq
+
+    def read(name, cols, **kw):
+        return papq.read_table(os.path.join(data_dir, f"{name}.parquet"),
+                               columns=cols, **kw)
+    out = {}
+    ss = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                              "ss_ext_sales_price"])
+    for q, item_pred, date_pred in (
+            ("q3", ("i_manufact_id", 128), [("d_moy", 11)]),
+            ("q42", ("i_manager_id", 1), [("d_moy", 11), ("d_year", 2000)]),
+            ("q52", ("i_manager_id", 1), [("d_moy", 11), ("d_year", 2000)])):
+        dd = read("date_dim", ["d_date_sk", "d_year", "d_moy"])
+        for col, v in date_pred:
+            dd = dd.filter(pc.equal(dd[col], v))
+        it = read("item", ["i_item_sk", "i_brand_id", "i_brand",
+                           "i_category_id", "i_category", item_pred[0]])
+        it = it.filter(pc.equal(it[item_pred[0]], item_pred[1]))
+        j = ss.join(dd, keys="ss_sold_date_sk", right_keys="d_date_sk",
+                    join_type="inner") \
+            .join(it, keys="ss_item_sk", right_keys="i_item_sk",
+                  join_type="inner")
+        keys = ["d_year", "i_category_id", "i_category"] if q == "q42" \
+            else ["d_year", "i_brand_id", "i_brand"]
+        g = j.group_by(keys).aggregate([("ss_ext_sales_price", "sum")])
+        out[q] = [tuple(r.values()) for r in g.to_pylist()]
+    ss = read("store_sales", ["ss_sold_time_sk", "ss_hdemo_sk",
+                              "ss_store_sk"])
+    hd = read("household_demographics", ["hd_demo_sk", "hd_dep_count"])
+    td = read("time_dim", ["t_time_sk", "t_hour", "t_minute"])
+    st = read("store", ["s_store_sk", "s_store_name"])
+    hd = hd.filter(pc.equal(hd["hd_dep_count"], 7))
+    td = td.filter(pc.and_(pc.equal(td["t_hour"], 20),
+                           pc.greater_equal(td["t_minute"], 30)))
+    st = st.filter(pc.equal(st["s_store_name"], "ese"))
+    j = ss.join(hd, keys="ss_hdemo_sk", right_keys="hd_demo_sk",
+                join_type="inner") \
+        .join(td, keys="ss_sold_time_sk", right_keys="t_time_sk",
+              join_type="inner") \
+        .join(st, keys="ss_store_sk", right_keys="s_store_sk",
+              join_type="inner")
+    out["q96"] = [(j.num_rows,)]
+    return out
+
+
+def _order_key(q: str, names, row):
+    """The row's ORDER BY values, each descending one negated."""
+    return tuple(row[names.index(c)] if asc else -row[names.index(c)]
+                 for c, asc in DS_ORDER[q])
+
+
+def check_ds_rows(q: str, table, full: list) -> int:
+    """The port's rows against the reference's groups: every row one of
+    them (strings and integers equal, sums within EXACT_REL), as many rows
+    as the LIMIT keeps, in ORDER BY order; rows whose order keys tie may
+    come in any order.  Returns the reference's group count."""
+    names = table.column_names
+    rows = [tuple(r.values()) for r in table.to_pylist()]
+    check(len(rows) == min(100, len(full)),
+          f"{q}: {len(rows)} rows, the reference has {len(full)} groups")
+    ref = {r[:-1]: r[-1] for r in full}
+    for r in rows:
+        key, v = r[:-1], r[-1]
+        check(key in ref, f"{q}: row {r} is no group of the reference")
+        want = ref[key]
+        check(v == want if isinstance(v, int) else
+              abs(v - want) <= EXACT_REL * max(abs(want), 1.0),
+              f"{q}: {key}: {v} against the reference's {want}")
+    keys = [_order_key(q, names, r) for r in rows]
+    check(keys == sorted(keys), f"{q}: rows out of ORDER BY order")
+    # the first rows of the reference's own order hold the same order keys
+    ref_rows = sorted((k + (v,) for k, v in ref.items()),
+                      key=lambda r: _order_key(q, names, r))[:len(rows)]
+    want_keys = [_order_key(q, names, r) for r in ref_rows]
+    for a, b in zip(keys, want_keys):
+        check(all(x == y or (isinstance(x, float) and abs(x - y) <=
+                             EXACT_REL * max(abs(y), 1.0))
+                  for x, y in zip(a, b)),
+              f"{q}: order keys {a} where the reference has {b}")
+    return len(full)
+
+
+def tpcds_phase(args, kernels_used) -> dict:
+    """Phase 6: the verbatim text of TPC-DS q3, q42, q52 and q96 through
+    the port's ``session.sql`` over Parquet temp views at scale
+    ``--ds-sf``.  Returns B1's launches on this path."""
+    import os
+    import tempfile
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "benchmarks"))
+    from tpcds_queries import QUERIES
+    check("spark_rapids_tpu" not in sys.modules,
+          "the query corpus imported the JAX package")
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    on_card = args.device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
+        t0 = time.perf_counter()
+        rows = make_tpcds(data_dir, args.ds_sf, args.seed)
+        t1 = time.perf_counter()
+        refs = ds_references(data_dir)
+        print(f"tpcds data: sf {args.ds_sf}, {rows}, store_sales in "
+              f"{DS_PARTS} files, written in {t1 - t0:.1f}s; pyarrow "
+              f"references in {time.perf_counter() - t1:.1f}s")
+        session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                      DS_BATCH_ROWS}), device=args.device)
+        for t in DS_TABLES:
+            session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
+                .create_or_replace_temp_view(t)
+        cache = DeviceScanCache.get()
+        cache.clear()
+        launches = {k: 0 for k in cuda_ops.LAUNCHES}
+        for q in DS_QUERIES:
+            df = session.sql(QUERIES[q])
+            plan = df.explain()
+            lines = [ln.strip() for ln in plan.splitlines()]
+            check(len(lines) == len(DS_PLANS[q]) and
+                  all(ln.startswith(w) for ln, w in zip(lines, DS_PLANS[q])),
+                  f"{q}: not the planned operators:\n{plan}")
+            cache.clear()                  # cold: read and upload again
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            cuda_ops.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            cold = df.to_arrow()
+            sync()
+            cold_s = time.perf_counter() - t0
+            scans = _find(session.last_physical_plan, "TpuFileScan")
+            read_s = sum(s.timings["read_s"] for s in scans)
+            upload_s = sum(s.timings["upload_s"] for s in scans)
+            warm, warm_s = [], []
+            for _ in range(2):
+                sync()
+                t0 = time.perf_counter()
+                warm.append(df.to_arrow())
+                sync()
+                warm_s.append(time.perf_counter() - t0)
+            for name, v in cuda_ops.LAUNCHES.items():
+                launches[name] += v
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            groups = check_ds_rows(q, cold, refs[q])
+            for t in warm:
+                check_ds_rows(q, t, refs[q])
+            check(same_bytes(warm[0], warm[1]),
+                  f"{q}: the two warm runs are not byte-identical")
+            check(cold.num_rows > 0, f"{q}: no rows")
+            if q == "q3" and args.ds_sf >= 10:
+                # at SF10 the LIMIT cuts: ~180 items of manufacturer 128
+                check(groups > 100, f"q3: {groups} groups, not more than "
+                      f"its LIMIT 100")
+            ss_rows = rows["store_sales"]
+            print(f"{q}: {cold.num_rows} rows of {groups} groups; cold "
+                  f"{cold_s:.4f}s (host read {read_s:.4f}s, upload "
+                  f"{upload_s:.4f}s); warm {warm_s[0]:.4f}s "
+                  f"{warm_s[1]:.4f}s; warm {ss_rows / warm_s[1] / 1e6:.3f} "
+                  f"Mrows/s of store_sales; peak device memory {peak} B; "
+                  f"launches (3 runs) {dict(cuda_ops.LAUNCHES)}; "
+                  f"byte-identical warm runs; matches pyarrow at "
+                  f"{EXACT_REL}; first rows {cold.slice(0, 3).to_pylist()}")
+        print("plan q3:\n" + session.sql(QUERIES["q3"]).explain())
+        if on_card:
+            before = cuda_ops.LAUNCHES["hash_partition_ids"]
+            profile_query(session.sql(QUERIES["q3"]))
+            b1 = cuda_ops.LAUNCHES["hash_partition_ids"] - before
+            print(f"profile q3: B1 hash_split launches {b1}")
+            check(b1 > 0, "q3's profiled run launched no hash_split")
+        cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the TPC-DS path")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -943,6 +1357,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=64_000_000)
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor of phase 5's tables")
+    ap.add_argument("--ds-sf", type=float, default=10.0,
+                    help="TPC-DS scale factor of phase 6's tables")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--parent", default=None,
@@ -1028,13 +1444,20 @@ def main(argv=None) -> int:
     results["join"] = join_phase(
         args, list(kernels) if args.device == "cuda" else [])
 
+    # 6. the TPC-DS quartet through session.sql over Parquet
+    results["tpcds"] = tpcds_phase(
+        args, ["hash_partition_ids"] if args.device == "cuda" else [])
+
     if args.device != "cuda":
         print("cpu rehearsal: no device result")
         return 0
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            check(got > 0, f"{name} never launched on the {mode} path")
+            # phase 6 takes no B2: string keys and count(*) run the sort
+            # path
+            check(got > 0 or (mode, name) == ("tpcds", "table_reduce"),
+                  f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]
         kernels[name]["launches_by_path"] = by_path
     print(json.dumps({"kernels": list(kernels.values())}))

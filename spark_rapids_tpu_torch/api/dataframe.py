@@ -1,7 +1,8 @@
 """DataFrame API: the PySpark-flavoured surface that builds logical plans.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py`` (select,
-with_column, filter, group_by().agg(), join, collect, to_arrow).
+with_column, filter, group_by().agg(), join, temp views, collect,
+to_arrow).
 """
 from __future__ import annotations
 
@@ -116,6 +117,11 @@ class DataFrame:
                                                     other.schema)
         return DataFrame(L.Join(self._plan, other._plan, how, lkeys, rkeys,
                                 residual), self.session)
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        self.session.register_table(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
 
     def collect(self) -> List[tuple]:
         t = self.to_arrow()

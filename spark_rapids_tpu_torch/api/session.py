@@ -2,11 +2,14 @@
 
 Counterpart of ``spark_rapids_tpu/api/session.py``.  A session runs on
 one device, ``cuda`` by default; ``device="cpu"`` runs the same plans on
-the CPU through each kernel's plain torch version.
+the CPU through each kernel's plain torch version.  ``read.parquet``
+makes a DataFrame over Parquet files, ``create_or_replace_temp_view``
+names it, and ``sql`` runs query text over the named views
+(``api/sql.py``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import pyarrow as pa
 
@@ -22,6 +25,23 @@ class TpuSession:
         self.conf = conf if conf is not None else TpuConf()
         self.device = resolve_device(device)
         self.last_physical_plan: Optional[TpuExec] = None
+        self._views: Dict[str, L.LogicalPlan] = {}
+
+    @property
+    def read(self):
+        from .reader import DataFrameReader
+        return DataFrameReader(self)
+
+    def register_table(self, name: str, df) -> None:
+        self._views[name.lower()] = df._plan
+
+    def sql(self, query: str):
+        """A DataFrame of the query over this session's temp views;
+        ``SqlError`` if the text holds a construct the port does not
+        run."""
+        from .dataframe import DataFrame
+        from .sql import sql_to_plan
+        return DataFrame(sql_to_plan(query, self._views), self)
 
     def create_dataframe(self, data, num_partitions: int = 1):
         from .dataframe import DataFrame

@@ -1,7 +1,8 @@
 """pyarrow <-> device tensor interop.
 
 Counterpart of ``spark_rapids_tpu/columnar/arrow.py`` for fixed-width
-types.  Uploads move only live rows and pad on the device.
+types and strings.  Uploads move only live rows and pad on the device; a
+string column moves its offsets (rebased to 0) and its bytes.
 """
 from __future__ import annotations
 
@@ -13,12 +14,37 @@ import torch
 
 from . import dtypes as T
 from .batch import ColumnarBatch
-from .column import Column, bucket_capacity
+from .column import Column, StringColumn, bucket_capacity
 from .schema import Field, Schema
 
 
-def schema_from_arrow(s: pa.Schema) -> Schema:
-    return Schema(Field(f.name, T.from_arrow(f.type), f.nullable) for f in s)
+def schema_from_arrow(s: pa.Schema, lenient: bool = False) -> Schema:
+    """Engine schema of an arrow schema; with ``lenient`` (a file's
+    schema) a type the port does not carry becomes ``UnsupportedType``."""
+    return Schema(Field(f.name, T.from_arrow(f.type, lenient), f.nullable)
+                  for f in s)
+
+
+def _string_from_arrow(arr, cap: int, device) -> StringColumn:
+    if pa.types.is_large_string(arr.type):
+        arr = arr.cast(pa.string())
+    n = len(arr)
+    offs = np.frombuffer(arr.buffers()[1], dtype=np.int32,
+                         count=arr.offset + n + 1)[arr.offset:]
+    base, end = int(offs[0]), int(offs[-1])
+    raw = arr.buffers()[2]
+    data = np.frombuffer(raw, dtype=np.uint8)[base:end] if raw is not None \
+        and end > base else np.zeros(0, np.uint8)
+    offsets = np.empty(cap + 1, dtype=np.int32)
+    offsets[:n + 1] = offs - base
+    offsets[n + 1:] = end - base
+    lens = np.diff(offsets[:n + 1])
+    valid = np.zeros(cap, dtype=np.bool_)
+    valid[:n] = ~np.asarray(arr.is_null()) if arr.null_count else True
+    return StringColumn(torch.from_numpy(offsets).to(device),
+                        torch.from_numpy(data.copy()).to(device),
+                        torch.from_numpy(valid).to(device),
+                        int(lens.max()) if n else 0)
 
 
 def _upload(arr: np.ndarray, dtype: T.DType, cap: int, device) -> torch.Tensor:
@@ -33,6 +59,11 @@ def _upload(arr: np.ndarray, dtype: T.DType, cap: int, device) -> torch.Tensor:
 def _column_from_arrow(arr, dtype: T.DType, cap: int, device) -> Column:
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks() if arr.num_chunks != 1 else arr.chunk(0)
+    if dtype == T.STRING:
+        return _string_from_arrow(arr, cap, device)
+    if isinstance(dtype, T.UnsupportedType):
+        raise NotImplementedError(f"column type {arr.type} is not "
+                                  f"supported by the port")
     n = len(arr)
     if arr.null_count:
         valid_np = ~np.asarray(arr.is_null())
@@ -75,11 +106,30 @@ def to_arrow(batch: ColumnarBatch) -> pa.Table:
     n = batch.num_rows
     arrays = []
     for f, c in zip(batch.schema, batch.columns):
+        if isinstance(c, StringColumn):
+            arrays.append(_string_to_arrow(c, n))
+            continue
         data = c.data[:n].cpu().numpy()
         valid = c.validity[:n].cpu().numpy()
         mask = None if valid.all() else ~valid
         arrays.append(pa.array(data, type=f.dtype.arrow_type, mask=mask))
     return pa.Table.from_arrays(arrays, names=batch.schema.names)
+
+
+def _string_to_arrow(c: StringColumn, n: int) -> pa.Array:
+    offs = c.offsets[:n + 1].cpu().numpy().astype(np.int64)
+    valid = c.validity[:n].cpu().numpy()
+    base = int(offs[0]) if n else 0
+    end = int(offs[-1]) if n else 0
+    data = c.data[base:end].cpu().numpy() if end > base else \
+        np.zeros(0, np.uint8)
+    offsets = (offs - base).astype(np.int32)
+    bitmap = None
+    if not valid.all():
+        bitmap = pa.array(valid, type=pa.bool_()).buffers()[1]
+    return pa.Array.from_buffers(pa.string(), n, [
+        bitmap, pa.py_buffer(offsets.tobytes()),
+        pa.py_buffer(data.tobytes())], null_count=int(n - valid.sum()))
 
 
 def empty_table(schema: Schema) -> pa.Table:

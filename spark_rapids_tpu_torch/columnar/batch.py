@@ -11,7 +11,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from .column import MIN_CAPACITY, Column, bucket_capacity
+from .column import (MIN_CAPACITY, Column, bucket_capacity, concat_columns,
+                     null_column)
 from .schema import Schema
 
 
@@ -34,8 +35,7 @@ class ColumnarBatch:
     @staticmethod
     def empty(schema: Schema, device) -> "ColumnarBatch":
         """No rows, at the smallest capacity."""
-        cols = [Column.from_scalar(None, f.dtype, MIN_CAPACITY, device)
-                for f in schema]
+        cols = [null_column(f.dtype, MIN_CAPACITY, device) for f in schema]
         return ColumnarBatch(schema, cols, 0, device=device)
 
     @property
@@ -73,8 +73,7 @@ class ColumnarBatch:
     def slice(self, lo: int, n: int) -> "ColumnarBatch":
         """Rows ``[lo, lo + n)`` as a batch of capacity bucket_capacity(n)."""
         cap = bucket_capacity(n)
-        cols = [Column(c.dtype, c.data[lo:lo + n], c.validity[lo:lo + n])
-                .pad_to(cap) for c in self.columns]
+        cols = [c.slice(lo, n).pad_to(cap) for c in self.columns]
         return ColumnarBatch(self.schema, cols, n, device=self.device)
 
     def __repr__(self):
@@ -93,11 +92,6 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     counts = [b.num_rows for b in batches]
     total = sum(counts)
     cap = bucket_capacity(total)
-    cols = []
-    for ci, f in enumerate(schema):
-        data = torch.cat([b.columns[ci].data[:n]
-                          for b, n in zip(batches, counts)])
-        valid = torch.cat([b.columns[ci].validity[:n]
-                           for b, n in zip(batches, counts)])
-        cols.append(Column(f.dtype, data, valid).pad_to(cap))
+    cols = [concat_columns([b.columns[ci] for b in batches], counts, cap)
+            for ci in range(len(schema))]
     return ColumnarBatch(schema, cols, total, device=batches[0].device)

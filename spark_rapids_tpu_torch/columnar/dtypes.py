@@ -1,8 +1,15 @@
-"""Engine data types: the fixed-width subset the port carries.
+"""Engine data types: the fixed-width subset the port carries, and
+strings.
 
 Counterpart of ``spark_rapids_tpu/columnar/dtypes.py``.  Each dtype knows
 its device buffer type (a torch dtype) and its numpy/arrow types for
 host interop.  Nulls travel in a separate validity mask, Arrow-style.
+A string column has no single buffer type: it is int32 offsets plus
+uint8 bytes (``columnar/column.StringColumn``).
+
+A file may hold columns of a type the port does not carry (a date, say):
+``from_arrow`` types them ``UnsupportedType`` so the file's schema still
+reads, and reading such a column raises.
 """
 from __future__ import annotations
 
@@ -70,11 +77,34 @@ class DoubleType(DType):
     is_fractional = True
 
 
+class StringType(DType):
+    name = "string"
+    np_dtype = np.dtype(object)
+    arrow_type = pa.string()
+
+
+class UnsupportedType(DType):
+    """A column type of a file that the port does not carry; planning a
+    scan that reads such a column raises."""
+
+    def __init__(self, arrow_type: pa.DataType):
+        self.arrow_type = arrow_type
+        self.name = f"unsupported<{arrow_type}>"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, UnsupportedType) and \
+            other.arrow_type == self.arrow_type
+
+    def __hash__(self) -> int:
+        return hash(("unsupported", str(self.arrow_type)))
+
+
 BOOL = BooleanType()
 INT32 = IntegerType()
 INT64 = LongType()
 FLOAT32 = FloatType()
 FLOAT64 = DoubleType()
+STRING = StringType()
 
 _ALL = (BOOL, INT32, INT64, FLOAT32, FLOAT64)
 _NUMERIC_ORDER = [INT32, INT64, FLOAT32, FLOAT64]
@@ -88,10 +118,17 @@ def from_numpy(dt) -> DType:
     raise NotImplementedError(f"no engine dtype for numpy {dt}")
 
 
-def from_arrow(at: pa.DataType) -> DType:
+def from_arrow(at: pa.DataType, lenient: bool = False) -> DType:
+    """The engine dtype of an arrow type.  An arrow type the port does not
+    carry raises, or with ``lenient`` (a file's schema) types as
+    ``UnsupportedType``."""
     for t in _ALL:
         if t.arrow_type == at:
             return t
+    if pa.types.is_string(at) or pa.types.is_large_string(at):
+        return STRING
+    if lenient:
+        return UnsupportedType(at)
     raise NotImplementedError(f"no engine dtype for arrow {at}")
 
 

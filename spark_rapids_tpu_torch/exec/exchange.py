@@ -1,4 +1,4 @@
-"""Exchanges: in-process hash shuffle and broadcast.
+"""Exchanges: in-process hash and range shuffle, broadcast, coalesce.
 
 Counterpart of ``spark_rapids_tpu/exec/exchange.py`` (in-process only).
 """
@@ -23,21 +23,26 @@ class TpuShuffleExchange(TpuExec):
         return self.children[0].output_schema
 
     def _node_string(self):
-        return (f"TpuShuffleExchange[HashPartitioner("
-                f"{self.partitioner.num_partitions})]")
+        return f"TpuShuffleExchange[{self.partitioner!r}]"
+
+    def num_partitions(self) -> int:
+        return self.partitioner.num_partitions
 
     def execute(self) -> Partitions:
         n = self.partitioner.num_partitions
         out = [[] for _ in range(n)]
-        for part in self.children[0].execute():
-            for batch in part:
-                if batch.rows_known == 0:
-                    continue
-                split = self.partitioner.split(batch)
-                for pid in range(n):
-                    s = split.partition_slice(pid)
-                    if s is not None:
-                        out[pid].append(s)
+        batches = [b for part in self.children[0].execute() for b in part
+                   if b.rows_known != 0]
+        if hasattr(self.partitioner, "fit"):
+            # a range exchange places rows by bounds from all its input
+            batches = [b for b in batches if b.num_rows > 0]
+            self.partitioner.fit(batches)
+        for batch in batches:
+            split = self.partitioner.split(batch)
+            for pid in range(n):
+                s = split.partition_slice(pid)
+                if s is not None:
+                    out[pid].append(s)
         return out
 
 
@@ -51,6 +56,9 @@ class TpuBroadcastExchange(TpuExec):
     def output_schema(self):
         return self.children[0].output_schema
 
+    def num_partitions(self) -> int:
+        return 1
+
     def broadcast_batch(self) -> Optional[ColumnarBatch]:
         batches = [b for part in self.children[0].execute() for b in part]
         batches = [b for b in batches if b.num_rows > 0]
@@ -61,3 +69,20 @@ class TpuBroadcastExchange(TpuExec):
     def execute(self) -> Partitions:
         b = self.broadcast_batch()
         return [[b] if b is not None else []]
+
+
+class TpuCoalescePartitions(TpuExec):
+    """Every partition of the child, in order, as one partition."""
+
+    def __init__(self, child: TpuExec):
+        self.children = [child]
+
+    @property
+    def output_schema(self):
+        return self.children[0].output_schema
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute(self) -> Partitions:
+        return [[b for part in self.children[0].execute() for b in part]]

@@ -27,6 +27,12 @@ the sort path (``groupby_plan`` and the ``seg_*`` reductions).
 Variable float mode (``variableFloatAgg.enabled``) sums its values in
 the kernel in f64 (the atomics reorder additions from run to run) and
 takes its maxes in f32.
+
+A string group key never enters the table core: its batches take the
+sort path, and its output keys are gathered from one row per group.  An
+aggregate with no keys (``_global_agg``) runs the sort path over one
+constant key and emits exactly one row, also over no input rows (count
+0, other results null), as Spark does.
 """
 from __future__ import annotations
 
@@ -73,13 +79,15 @@ class TpuHashAggregate(TpuExec):
 
     def __init__(self, group_exprs: List[ec.Expression], aggs: List[AggExpr],
                  child: TpuExec, mode: str, table: int,
-                 variable_float: bool):
+                 variable_float: bool, device=None):
         self.group_exprs = group_exprs
         self.aggs = aggs
         self.children = [child]
         self.mode = mode
         self.table = table
         self.variable_float = variable_float
+        #: where a keyless final aggregate makes its row over no input
+        self.device = device
         self.pre_ops = None
         #: batches per path in the last execute(), for tests and tools
         self.path_counts = {"table": 0, "sort": 0}
@@ -114,9 +122,12 @@ class TpuHashAggregate(TpuExec):
                     merged = self._aggregate(merged, update=False)
                 out.append([merged])
             else:
-                if not batches:
+                if not batches and self.group_exprs:
                     out.append([])
                     continue
+                if not batches:
+                    batches = [ColumnarBatch.empty(
+                        self.children[0].output_schema, self.device)]
                 merged = self._aggregate(concat_batches(batches),
                                          update=False)
                 out.append([self._finalize(merged)])
@@ -125,6 +136,8 @@ class TpuHashAggregate(TpuExec):
     def _aggregate(self, batch: ColumnarBatch, update: bool) -> ColumnarBatch:
         """One batch to buffer rows: the table core when the batch fits,
         else the sort path.  Reads the fit flag and group count."""
+        if not self.group_exprs:
+            return self._global_agg(batch, update)
         res = self._table_core(batch, update)
         if res is not None:
             out, fit = res
@@ -167,6 +180,24 @@ class TpuHashAggregate(TpuExec):
             pos += nb
         return keys, inputs
 
+    def _global_agg(self, batch: ColumnarBatch,
+                    update: bool) -> ColumnarBatch:
+        """No keys: one row of buffers, also over no live rows (counts 0,
+        every other buffer null)."""
+        out = self._sort_aggregate(batch, update)
+        has_rows = out.rows_dev > 0
+        row0 = torch.arange(out.capacity, device=out.device) < 1
+        cols, pos = [], 0
+        for a in self.aggs:
+            for c in out.columns[pos:pos + a.func.num_buffers]:
+                if isinstance(a.func, ea.Count):
+                    cols.append(Column(c.dtype, torch.where(row0, c.data, 0),
+                                       row0))
+                else:
+                    cols.append(c.mask_validity(row0 & has_rows))
+            pos += a.func.num_buffers
+        return ColumnarBatch(out.schema, cols, 1, device=out.device)
+
     # -- sort path ----------------------------------------------------------
     def _sort_aggregate(self, batch: ColumnarBatch,
                         update: bool) -> ColumnarBatch:
@@ -177,7 +208,9 @@ class TpuHashAggregate(TpuExec):
         else:
             b = batch
         key_cols = [ec.eval_as_column(e, b) for e in keys]
-        words = canon.batch_key_words(key_cols, live)
+        # no keys: one constant key, so every live row is one group
+        words = canon.batch_key_words(key_cols, live) or \
+            [torch.where(live, 1, 2).to(torch.int64)]
         plan = agg_k.groupby_plan(words)
         cap = batch.capacity
         ng = plan.num_groups

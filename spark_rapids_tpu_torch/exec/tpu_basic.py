@@ -1,4 +1,4 @@
-"""Scan, project and filter operators.
+"""Scan, project, filter and limit operators.
 
 Counterpart of ``spark_rapids_tpu/exec/tpu_basic.py``.  An operator's
 ``execute()`` returns its partitions, each a list of device batches;
@@ -28,6 +28,10 @@ class TpuExec:
 
     def execute(self) -> Partitions:
         raise NotImplementedError
+
+    def num_partitions(self) -> int:
+        """Partitions ``execute()`` returns (the planner's count)."""
+        return self.children[0].num_partitions() if self.children else 1
 
     def _node_string(self) -> str:
         return type(self).__name__
@@ -82,6 +86,9 @@ class TpuLocalScan(TpuExec):
     def _node_string(self):
         return f"TpuLocalScan[{self.relation.num_partitions} partitions]"
 
+    def num_partitions(self) -> int:
+        return self.relation.num_partitions
+
     def execute(self) -> Partitions:
         key = (str(self.device), self.batch_rows)
         parts = self.relation.device_cache.get(key)
@@ -110,6 +117,10 @@ class TpuProject(TpuExec):
     def __init__(self, exprs: List[ec.Expression], child: TpuExec):
         self.exprs = exprs
         self.children = [child]
+
+    def _node_string(self):
+        names = ", ".join(ec.output_name(e) for e in self.exprs)
+        return f"TpuProject[{names}]"
 
     @property
     def output_schema(self):
@@ -143,6 +154,9 @@ class TpuFilter(TpuExec):
     def output_schema(self):
         return self.children[0].output_schema
 
+    def _node_string(self):
+        return f"TpuFilter[{self.condition!r}]"
+
     def execute(self) -> Partitions:
         bound = self.condition.bind(self.children[0].output_schema)
         out = []
@@ -155,3 +169,60 @@ class TpuFilter(TpuExec):
                 res.append(b.gather(order, count))
             out.append(res)
         return out
+
+
+def _take_rows(batches, n: int) -> List[ColumnarBatch]:
+    """The first ``n`` rows of the batches in order (reads each batch's
+    row count until they are found)."""
+    out = []
+    for b in batches:
+        if n <= 0:
+            break
+        k = min(b.num_rows, n)
+        out.append(b if k == b.num_rows else b.slice(0, k))
+        n -= k
+    return out
+
+
+class TpuLocalLimit(TpuExec):
+    """The first ``n`` rows of each partition."""
+
+    def __init__(self, n: int, child: TpuExec):
+        self.n = n
+        self.children = [child]
+
+    @property
+    def output_schema(self):
+        return self.children[0].output_schema
+
+    def _node_string(self):
+        return f"TpuLocalLimit[{self.n}]"
+
+    def execute(self) -> Partitions:
+        return [_take_rows(part, self.n)
+                for part in self.children[0].execute()]
+
+
+class TpuGlobalLimit(TpuExec):
+    """The first ``n`` rows of a one-partition child."""
+
+    def __init__(self, n: int, child: TpuExec):
+        self.n = n
+        self.children = [child]
+
+    @property
+    def output_schema(self):
+        return self.children[0].output_schema
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def _node_string(self):
+        return f"TpuGlobalLimit[{self.n}]"
+
+    def execute(self) -> Partitions:
+        parts = self.children[0].execute()
+        if len(parts) != 1:
+            raise ValueError(f"a global limit needs one partition, got "
+                             f"{len(parts)}")
+        return [_take_rows(parts[0], self.n)]

@@ -21,6 +21,10 @@ A residual condition is evaluated on each expanded inner pair, over a
 schema where every column is nullable; the join type's rows follow from
 the pairs that survive.  The output keeps the logical column order, left
 then right, whichever side is built.
+
+String keys of both sides take one word width (``canon.common_str_words``
+over the build and every stream batch), so their words compare.  A
+broadcast join has as many partitions as its stream side.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from typing import List
 
 import torch
 
+from ..columnar import dtypes as T
 from ..columnar.batch import ColumnarBatch, concat_batches
-from ..columnar.column import Column, bucket_capacity
+from ..columnar.column import Column, bucket_capacity, null_column
 from ..columnar.schema import Field, Schema
 from ..expr import core as ec
 from ..kernels import canon, join as join_k
@@ -42,18 +47,27 @@ from .tpu_basic import Partitions, TpuExec
 _OUTER = ("left", "right", "full")
 
 
-def _key_words(keys, batch, live):
+def _key_words(keys, batch, live, str_words):
     cols = [ec.eval_as_column(k, batch) for k in keys]
     words, rank_pos = [], []
-    for c in cols:
+    for c, sw in zip(cols, str_words):
         rank_pos.append(len(words))
-        words.extend(canon.column_key_words(c, live))
+        words.extend(canon.column_key_words(c, live, str_words=sw))
     return words, rank_pos
 
 
+def _str_words(bkeys, build_batches, skeys, stream_batches):
+    """One string width per key position over both sides' batches."""
+    if not any(k.dtype() == T.STRING for k in bkeys):
+        return [None] * len(bkeys)
+    sets = [[ec.eval_as_column(k, b) for k in bkeys] for b in build_batches]
+    sets += [[ec.eval_as_column(k, b) for k in skeys]
+             for b in stream_batches]
+    return canon.common_str_words(sets) if sets else [None] * len(bkeys)
+
+
 def _null_columns(schema: Schema, capacity: int, device) -> List[Column]:
-    return [Column.from_scalar(None, f.dtype, capacity, device)
-            for f in schema]
+    return [null_column(f.dtype, capacity, device) for f in schema]
 
 
 class TpuHashJoinBase(TpuExec):
@@ -94,12 +108,12 @@ class TpuHashJoinBase(TpuExec):
             return right, left, rkeys, lkeys
         return left, right, lkeys, rkeys
 
-    def _build(self, batches, schema: Schema, keys):
+    def _build(self, batches, schema: Schema, keys, str_words):
         """The build side as one batch, and its table sorted once."""
         batches = [b for b in batches if b.num_rows > 0]
         build = concat_batches(batches) if batches else \
             ColumnarBatch.empty(schema, self.device)
-        words, _ = _key_words(keys, build, build.live_mask())
+        words, _ = _key_words(keys, build, build.live_mask(), str_words)
         return build, join_k.build(words)
 
     def _order(self, stream_cols, build_cols) -> List[Column]:
@@ -113,7 +127,8 @@ class TpuHashJoinBase(TpuExec):
 
     # -- one partition --------------------------------------------------------
     def _run_partition(self, build: ColumnarBatch, bt: join_k.BuildTable,
-                       stream_batches, skeys) -> List[ColumnarBatch]:
+                       stream_batches, skeys, str_words
+                       ) -> List[ColumnarBatch]:
         how = self.join.how
         residual = self.join.condition is not None
         flags = torch.zeros(build.capacity + 1, dtype=torch.bool,
@@ -122,7 +137,7 @@ class TpuHashJoinBase(TpuExec):
         # phase A: probe every stream batch
         for sb in stream_batches:
             live = sb.live_mask()
-            words, rank_pos = _key_words(skeys, sb, live)
+            words, rank_pos = _key_words(skeys, sb, live, str_words)
             jc = join_k.probe_counts(bt, words, live, rank_pos)
             if how in ("semi", "anti") and not residual:
                 keep = jc.matched if how == "semi" else ~jc.matched & live
@@ -254,8 +269,9 @@ class TpuShuffledHashJoin(TpuHashJoinBase):
                              f"{len(sparts)} partitions")
         out = []
         for bpart, spart in zip(bparts, sparts):
-            build, bt = self._build(bpart, bexec.output_schema, bkeys)
-            out.append(self._run_partition(build, bt, spart, skeys))
+            sw = _str_words(bkeys, bpart, skeys, spart)
+            build, bt = self._build(bpart, bexec.output_schema, bkeys, sw)
+            out.append(self._run_partition(build, bt, spart, skeys, sw))
         return out
 
 
@@ -272,11 +288,17 @@ class TpuBroadcastHashJoin(TpuHashJoinBase):
         if not isinstance(self._sides()[0], TpuBroadcastExchange):
             raise TypeError("the build side must be a TpuBroadcastExchange")
 
+    def num_partitions(self) -> int:
+        return self._sides()[1].num_partitions()
+
     def execute(self) -> Partitions:
         self.expand_counts = {"batches": 0, "chunks": 0}
         bexec, sexec, bkeys, skeys = self._sides()
         b = bexec.broadcast_batch()
-        build, bt = self._build([b] if b is not None else [],
-                                bexec.output_schema, bkeys)
-        return [self._run_partition(build, bt, part, skeys)
-                for part in sexec.execute()]
+        bpart = [b] if b is not None else []
+        sparts = sexec.execute()
+        sw = _str_words(bkeys, bpart, skeys,
+                        [sb for part in sparts for sb in part])
+        build, bt = self._build(bpart, bexec.output_schema, bkeys, sw)
+        return [self._run_partition(build, bt, part, skeys, sw)
+                for part in sparts]

@@ -11,7 +11,7 @@ import dataclasses
 from typing import Any, List, Optional
 
 from ..columnar import dtypes as T
-from ..columnar.column import Column
+from ..columnar.column import Column, StringColumn
 
 
 @dataclasses.dataclass
@@ -21,6 +21,9 @@ class Scalar:
     value: Any
 
     def to_column(self, capacity: int, device) -> Column:
+        if self.dtype == T.STRING:
+            return StringColumn.from_scalar(self.value, self.dtype, capacity,
+                                            device)
         return Column.from_scalar(self.value, self.dtype, capacity, device)
 
 
@@ -153,6 +156,8 @@ class Literal(Expression):
                 dt = T.INT64
             elif isinstance(value, float):
                 dt = T.FLOAT64
+            elif isinstance(value, str):
+                dt = T.STRING
             else:
                 raise ValueError(f"cannot infer literal type for {value!r}")
         self.value = value

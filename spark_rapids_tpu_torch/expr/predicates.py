@@ -2,7 +2,10 @@
 
 Counterpart of ``spark_rapids_tpu/expr/predicates.py``.  Numeric
 comparisons run natively with Spark's order pinned: NaN is greatest and
-equal to itself, -0.0 == 0.0.  Mixed types promote first.
+equal to itself, -0.0 == 0.0.  Mixed types promote first.  Strings
+compare by bytes: equality with a literal matches the literal's bytes
+(``strings.equal_literal``); any other string comparison runs on both
+sides' key words at one width.
 """
 from __future__ import annotations
 
@@ -10,7 +13,9 @@ import torch
 
 from ..columnar import dtypes as T
 from ..columnar.column import Column
-from .core import Cast, Expression, eval_as_column
+from ..kernels import strings
+from ..kernels.canon import words_less
+from .core import Cast, Expression, Literal, eval_as_column
 
 
 def promote_comparison_sides(left: Expression, right: Expression):
@@ -37,7 +42,36 @@ class BinaryComparison(Expression):
     def compare(self, lt, eq):
         raise NotImplementedError
 
+    def _string_eval(self, batch):
+        left, right = self.children
+        if isinstance(left, Literal):
+            left, right = right, left
+        if isinstance(self, EqualTo) and isinstance(right, Literal) and \
+                right.value is not None and not isinstance(left, Literal):
+            c = eval_as_column(left, batch)
+            return Column(T.BOOL, strings.equal_literal(c, right.value),
+                          c.validity)
+        left, right = self.children
+        lc = eval_as_column(left, batch)
+        rc = eval_as_column(right, batch)
+        width = max(strings.needed_key_words(lc),
+                    strings.needed_key_words(rc))
+        lw = strings.string_key_words(lc, width)
+        rw = strings.string_key_words(rc, width)
+        rows = torch.arange(lc.capacity, device=lc.device)
+        lt = words_less(lw, rows, rw, rows)
+        eq = torch.ones_like(lt)
+        for a, b in zip(lw, rw):
+            eq = eq & (a == b)
+        return Column(T.BOOL, self.compare(lt, eq), lc.validity & rc.validity)
+
     def columnar_eval(self, batch):
+        if T.STRING in (self.children[0].dtype(), self.children[1].dtype()):
+            if self.children[0].dtype() != self.children[1].dtype():
+                raise NotImplementedError(
+                    f"comparison of {self.children[0].dtype()} with "
+                    f"{self.children[1].dtype()} is not ported")
+            return self._string_eval(batch)
         left, right = promote_comparison_sides(*self.children)
         lc = eval_as_column(left, batch)
         rc = eval_as_column(right, batch)
@@ -67,6 +101,27 @@ class GreaterThan(BinaryComparison):
 
     def compare(self, lt, eq):
         return ~lt & ~eq
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    symbol = ">="
+
+    def compare(self, lt, eq):
+        return ~lt
+
+
+class LessThan(BinaryComparison):
+    symbol = "<"
+
+    def compare(self, lt, eq):
+        return lt
+
+
+class LessThanOrEqual(BinaryComparison):
+    symbol = "<="
+
+    def compare(self, lt, eq):
+        return lt | eq
 
 
 class Not(Expression):
@@ -103,3 +158,24 @@ class And(Expression):
 
     def __repr__(self):
         return f"({self.children[0]!r} AND {self.children[1]!r})"
+
+
+class Or(Expression):
+    """Three-valued OR: true | null = true."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = [left, right]
+
+    def dtype(self):
+        return T.BOOL
+
+    def columnar_eval(self, batch):
+        lc = eval_as_column(self.children[0], batch)
+        rc = eval_as_column(self.children[1], batch)
+        a, av = lc.data.to(torch.bool), lc.validity
+        b, bv = rc.data.to(torch.bool), rc.validity
+        valid = (av & bv) | (av & a) | (bv & b)
+        return Column(T.BOOL, a | b, valid)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} OR {self.children[1]!r})"

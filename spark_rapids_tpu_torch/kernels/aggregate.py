@@ -3,9 +3,10 @@
 Counterpart of ``spark_rapids_tpu/kernels/aggregate.py``.
 
 Sort path: sort rows by their canonical key words, cut the sorted order
-into segments, reduce per segment.  Float sums scatter with
-``index_put_(accumulate=True)``, which is deterministic on the card;
-integer sums are prefix sums with boundary gathers.
+into segments, reduce per segment.  Float sums add pairwise in a fixed
+tree within each segment (``seg_tree_sum``), so the CPU and the card add
+in the same order and give the same bits (a scatter-add's order differs
+between them); integer sums are prefix sums with boundary gathers.
 
 Table path helpers: ``table_bucket`` packs small-range keys into
 mixed-radix bucket ids below ``table`` (no sort), ``table_compact``
@@ -77,14 +78,35 @@ def seg_prefix_sum(plan: GroupPlan, contrib: torch.Tensor) -> torch.Tensor:
     return torch.where(gi < plan.num_groups, total, torch.zeros_like(total))
 
 
+def seg_tree_sum(plan: GroupPlan, contrib: torch.Tensor) -> torch.Tensor:
+    """Per-group float sum of a per-sorted-row array, added pairwise:
+    at step s (1, 2, 4, ...) the row at offset ``k * 2s`` of its segment
+    takes the partial sum of the row ``s`` past it, if that row is in the
+    same segment.  The order of the additions depends on the segment
+    lengths alone.  Dead rows carry zeros in the last segment."""
+    cap = contrib.shape[0]
+    idx = torch.arange(cap, device=contrib.device)
+    seg = plan.seg_id
+    pos = idx - plan.head_pos.clamp(0, cap - 1)[seg.clamp(0, cap - 1)]
+    v = contrib
+    s = 1
+    while s < cap:
+        partner = (idx + s).clamp(max=cap - 1)
+        take = ((pos & (2 * s - 1)) == 0) & (idx + s < cap) & \
+            (seg[partner] == seg)
+        v = torch.where(take, v + v[partner], v)
+        s *= 2
+    out = v[plan.head_pos.clamp(0, cap - 1)]
+    return torch.where(idx < plan.num_groups, out, torch.zeros_like(out))
+
+
 def seg_sum(plan: GroupPlan, values, validity, out_dtype=None):
     v, ok = _sorted_vals(plan, values, validity)
     acc = v.to(out_dtype or v.dtype)
     contrib = torch.where(ok, acc, torch.zeros_like(acc))
     if not contrib.is_floating_point():
         return seg_prefix_sum(plan, contrib.to(torch.int64)).to(acc.dtype)
-    out = torch.zeros_like(contrib)
-    return out.index_put_((plan.seg_id,), contrib, accumulate=True)
+    return seg_tree_sum(plan, contrib)
 
 
 def seg_count(plan: GroupPlan, validity) -> torch.Tensor:

@@ -11,8 +11,13 @@ the hash exchange all key on these words.
                  Hopper has native float64 bitcasts, so a DOUBLE is the
                  single word the reference computes on the CPU, bit for
                  bit (not the TPU's three-word f32 split).
+- strings     -> ``strings.string_key_words``: big-endian packed byte
+                 words, zero-padded to ``str_words`` words, then the
+                 length; columns compared with each other take one width.
+- descending  -> every value word inverted (the rank word is not).
 - null handling: ``column_key_words`` prepends a rank word per key:
-                 0 null, 1 valid, 2 dead row (sorts past every live row).
+                 nulls first 0 null / 1 valid, nulls last 0 valid /
+                 1 null, and 2 for a dead row (sorts past every live row).
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from typing import List
 import torch
 
 from ..columnar import dtypes as T
-from ..columnar.column import Column
+from ..columnar.column import Column, StringColumn
+from . import strings
 from .basic import SIGN64, ult64
 
 _SIGN32 = 0x80000000
@@ -54,9 +60,12 @@ def _float_to_words(data: torch.Tensor) -> List[torch.Tensor]:
     return [torch.where(sign, ~bits, bits | SIGN64)]
 
 
-def value_words(col: Column) -> List[torch.Tensor]:
-    """Word list for the column's values (no null rank)."""
+def value_words(col: Column, str_words: int = None) -> List[torch.Tensor]:
+    """Word list for the column's values (no null rank); a string takes
+    ``str_words`` byte words (default: what its longest string needs)."""
     dt = col.dtype
+    if isinstance(col, StringColumn):
+        return strings.string_key_words(col, str_words)
     if dt == T.BOOL:
         return [col.data.to(torch.int64)]
     if dt.is_integral:
@@ -66,21 +75,45 @@ def value_words(col: Column) -> List[torch.Tensor]:
     raise NotImplementedError(f"key encoding for {dt}")
 
 
-def column_key_words(col: Column, live: torch.Tensor) -> List[torch.Tensor]:
+def column_key_words(col: Column, live: torch.Tensor, *,
+                     descending: bool = False, nulls_last: bool = False,
+                     str_words: int = None) -> List[torch.Tensor]:
     """[rank word] + value words, with the words of null rows zeroed."""
     valid = col.validity & live
-    rank = torch.where(valid, 1, 0).to(torch.int64)
+    rank = torch.where(valid, 1 - int(nulls_last), int(nulls_last)).to(
+        torch.int64)
     rank = torch.where(live, rank, torch.full_like(rank, 2))
-    words = [torch.where(valid, w, torch.zeros_like(w))
-             for w in value_words(col)]
+    words = value_words(col, str_words)
+    if descending:
+        words = [~w for w in words]
+    words = [torch.where(valid, w, torch.zeros_like(w)) for w in words]
     return [rank] + words
 
 
-def batch_key_words(cols: List[Column], live: torch.Tensor
-                    ) -> List[torch.Tensor]:
+def batch_key_words(cols: List[Column], live: torch.Tensor,
+                    descending: List[bool] = None,
+                    nulls_last: List[bool] = None,
+                    str_words: List[int] = None) -> List[torch.Tensor]:
+    n = len(cols)
+    descending = descending or [False] * n
+    nulls_last = nulls_last or [False] * n
+    str_words = str_words or [None] * n
     out: List[torch.Tensor] = []
-    for c in cols:
-        out.extend(column_key_words(c, live))
+    for c, d, nl, sw in zip(cols, descending, nulls_last, str_words):
+        out.extend(column_key_words(c, live, descending=d, nulls_last=nl,
+                                    str_words=sw))
+    return out
+
+
+def common_str_words(col_lists: List[List[Column]]) -> List[int]:
+    """Per key position, one string width for every list of key columns
+    that will be compared (``None`` for a fixed-width key)."""
+    out = []
+    for cols in zip(*col_lists):
+        if isinstance(cols[0], StringColumn):
+            out.append(max(strings.needed_key_words(c) for c in cols))
+        else:
+            out.append(None)
     return out
 
 

@@ -1,10 +1,12 @@
 """Logical plan nodes built by the DataFrame API.
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, limited to the nodes
-the port plans: local relation, project, filter, aggregate and join.
+the port plans: local relation, file scan, project, filter, aggregate,
+join, sort and limit.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import pyarrow as pa
@@ -44,6 +46,31 @@ class LocalRelation(LogicalPlan):
 
     def estimated_rows(self):
         return self.table.num_rows
+
+
+class Scan(LogicalPlan):
+    """A scan of Parquet files (paths are files or directories of part
+    files).  ``schema`` is the columns the scan reads: the optimizer
+    narrows it to what the plan above needs (``prune_scan_columns``)."""
+
+    def __init__(self, paths: List[str], schema: Schema):
+        self.paths = list(paths)
+        self._schema = schema
+        self.children = []
+        self._rows: Optional[int] = None
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def estimated_rows(self):
+        """Row count from the files' Parquet footers (read once)."""
+        if self._rows is None:
+            import pyarrow.parquet as papq
+            from ..io.readers import expand_paths
+            self._rows = sum(papq.ParquetFile(f).metadata.num_rows
+                             for f in expand_paths(self.paths))
+        return self._rows
 
 
 class Project(LogicalPlan):
@@ -130,3 +157,41 @@ class Join(LogicalPlan):
     def schema(self):
         return join_schema(self.how, self.children[0].schema,
                            self.children[1].schema)
+
+
+@dataclasses.dataclass
+class SortOrder:
+    """One sort key; ``nulls_first`` defaults to Spark's: first when
+    ascending, last when descending."""
+    expr: ec.Expression
+    ascending: bool = True
+    nulls_first: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.nulls_first is None:
+            self.nulls_first = self.ascending
+
+
+class Sort(LogicalPlan):
+    """A global sort of the child's rows."""
+
+    def __init__(self, orders: List[SortOrder], child: LogicalPlan):
+        self.orders = orders
+        self.children = [child]
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
+        self.children = [child]
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def estimated_rows(self):
+        return self.n

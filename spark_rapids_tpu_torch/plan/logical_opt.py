@@ -1,0 +1,220 @@
+"""Logical rewrites: equi-joins out of comma-joins, filter pushdown, and
+scan column pruning.
+
+Counterpart of ``spark_rapids_tpu/plan/logical_opt.py`` (the rules the
+port needs).  ``optimize`` works bottom-up: a Filter over a keyless
+cross/inner join tree first has its relations reordered so each one
+joins one already joined through an equality (``_reorder_cross_joins``),
+then its conjuncts split over the join (``_rewrite_filter_join``):
+those of one side sink into that side, equalities across the sides
+become join keys, the rest stay above.  ``prune_scan_columns`` narrows
+every scan to the columns the plan above it reads.
+"""
+from __future__ import annotations
+
+import copy
+from typing import List, Optional, Set
+
+from ..expr import core as ec
+from ..expr import predicates as ep
+from . import logical as L
+
+
+def _flatten_and(e: ec.Expression) -> List[ec.Expression]:
+    if isinstance(e, ep.And):
+        return _flatten_and(e.children[0]) + _flatten_and(e.children[1])
+    return [e]
+
+
+def _and_all(conjuncts: List[ec.Expression]) -> ec.Expression:
+    out = conjuncts[0]
+    for c in conjuncts[1:]:
+        out = ep.And(out, c)
+    return out
+
+
+def _refs(e: ec.Expression) -> Optional[Set[str]]:
+    """Names of the AttributeReferences in ``e``; None if ``e`` holds a
+    BoundReference (an ordinal, which does not survive a move)."""
+    if isinstance(e, ec.BoundReference):
+        return None
+    if isinstance(e, ec.AttributeReference):
+        return {e.col_name}
+    out: Set[str] = set()
+    for c in e.children:
+        r = _refs(c)
+        if r is None:
+            return None
+        out |= r
+    return out
+
+
+def _filter_over(conjuncts: List[ec.Expression],
+                 plan: L.LogicalPlan) -> L.LogicalPlan:
+    return L.Filter(_and_all(conjuncts), plan) if conjuncts else plan
+
+
+def _rewrite_filter_join(f: L.Filter) -> L.LogicalPlan:
+    j = f.children[0]
+    if not isinstance(j, L.Join) or j.how not in ("inner", "cross"):
+        return f
+    left, right = j.children
+    lnames, rnames = set(left.schema.names), set(right.schema.names)
+    if lnames & rnames:
+        return f                  # ambiguous column names: leave alone
+    lpush, rpush, rest = [], [], []
+    lkeys, rkeys = list(j.left_keys), list(j.right_keys)
+    for c in _flatten_and(f.condition):
+        refs = _refs(c)
+        if not refs:
+            rest.append(c)
+        elif refs <= lnames:
+            lpush.append(c)
+        elif refs <= rnames:
+            rpush.append(c)
+        elif isinstance(c, ep.EqualTo):
+            a, b = c.children
+            ra, rb = _refs(a), _refs(b)
+            if ra and rb and ra <= lnames and rb <= rnames:
+                lkeys.append(a)
+                rkeys.append(b)
+            elif ra and rb and ra <= rnames and rb <= lnames:
+                lkeys.append(b)
+                rkeys.append(a)
+            else:
+                rest.append(c)
+        else:
+            rest.append(c)
+    if not lpush and not rpush and len(lkeys) == len(j.left_keys):
+        return f
+    new_left = optimize(_filter_over(lpush, left))
+    new_right = optimize(_filter_over(rpush, right))
+    how = "inner" if lkeys else j.how
+    joined = L.Join(new_left, new_right, how, lkeys, rkeys, j.condition)
+    return _filter_over(rest, joined)
+
+
+def _collect_cross_tree(p: L.LogicalPlan, rels: List[L.LogicalPlan]) -> bool:
+    """Flatten a keyless cross/inner join tree into its relations."""
+    if isinstance(p, L.Join) and p.how in ("cross", "inner") and \
+            not p.left_keys and p.condition is None:
+        return _collect_cross_tree(p.children[0], rels) and \
+            _collect_cross_tree(p.children[1], rels)
+    rels.append(p)
+    return True
+
+
+def _reorder_cross_joins(f: L.Filter) -> L.Filter:
+    """Connectivity-first order of a FROM list: from the first relation,
+    attach next the first (in FROM order) relation an equality links to
+    the joined set; a relation nothing links comes in FROM order."""
+    j = f.children[0]
+    rels: List[L.LogicalPlan] = []
+    if not (isinstance(j, L.Join) and _collect_cross_tree(j, rels)) or \
+            len(rels) < 3:
+        return f
+    names = [set(r.schema.names) for r in rels]
+    if len(set().union(*names)) != sum(len(n) for n in names):
+        return f
+    edges = []
+    for c in _flatten_and(f.condition):
+        if isinstance(c, ep.EqualTo):
+            ra, rb = _refs(c.children[0]), _refs(c.children[1])
+            if not ra or not rb:
+                continue
+            ia = [i for i, n in enumerate(names) if ra <= n]
+            ib = [i for i, n in enumerate(names) if rb <= n]
+            if len(ia) == 1 and len(ib) == 1 and ia[0] != ib[0]:
+                edges.append((ia[0], ib[0]))
+    joined, order = {0}, [0]
+    remaining = list(range(1, len(rels)))
+    while remaining:
+        pick = next((i for i in remaining
+                     if any((a in joined) != (b in joined) and i in (a, b)
+                            for a, b in edges)), remaining[0])
+        joined.add(pick)
+        order.append(pick)
+        remaining.remove(pick)
+    if order == list(range(len(rels))):
+        return f
+    tree = rels[order[0]]
+    for i in order[1:]:
+        tree = L.Join(tree, rels[i], "cross", [], [])
+    return L.Filter(f.condition, tree)
+
+
+def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
+    new_children = [optimize(c) for c in plan.children]
+    if any(n is not o for n, o in zip(new_children, plan.children)):
+        plan = copy.copy(plan)
+        plan.children = new_children
+    if isinstance(plan, L.Filter):
+        child = plan.children[0]
+        if isinstance(child, L.Filter):
+            return optimize(L.Filter(ep.And(plan.condition, child.condition),
+                                     child.children[0]))
+        return _rewrite_filter_join(_reorder_cross_joins(plan))
+    return plan
+
+
+# -- scan column pruning -----------------------------------------------------
+
+def _u(*sets: Optional[Set[str]]) -> Optional[Set[str]]:
+    """Union of required-name sets; None (every column) wins."""
+    out: Set[str] = set()
+    for s in sets:
+        if s is None:
+            return None
+        out |= s
+    return out
+
+
+def _refs_many(exprs) -> Optional[Set[str]]:
+    return _u(*[_refs(e) for e in exprs]) if exprs else set()
+
+
+def prune_scan_columns(plan: L.LogicalPlan,
+                       need: Optional[Set[str]] = None) -> L.LogicalPlan:
+    """Narrow each scan to the columns the plan above reads (``need``
+    None: all of them).  Nodes are copied, never changed: a scan is
+    shared by every query over its view."""
+    if isinstance(plan, L.Scan):
+        if need is None:
+            return plan
+        kept = [f for f in plan.schema if f.name in need]
+        if len(kept) == len(plan.schema):
+            return plan
+        if not kept:                   # a count(*) still needs rows
+            kept = [plan.schema[0]]
+        from ..columnar.schema import Schema
+        out = copy.copy(plan)
+        out._schema = Schema(kept)
+        return out
+    if not plan.children:
+        return plan
+    if isinstance(plan, L.Filter):
+        needs = [_u(need, _refs(plan.condition))]
+    elif isinstance(plan, L.Project):
+        needs = [_refs_many(plan.exprs)]
+    elif isinstance(plan, L.Aggregate):
+        needs = [_u(_refs_many(plan.group_exprs),
+                    _refs_many([a.func for a in plan.aggs]))]
+    elif isinstance(plan, L.Join):
+        cond = _refs(plan.condition) if plan.condition is not None \
+            else set()
+        n = _u(need, _refs_many(plan.left_keys),
+               _refs_many(plan.right_keys), cond)
+        needs = [n, n]
+    elif isinstance(plan, L.Sort):
+        needs = [_u(need, _refs_many([o.expr for o in plan.orders]))]
+    elif isinstance(plan, L.Limit):
+        needs = [need]
+    else:
+        needs = [None] * len(plan.children)
+    new_children = [prune_scan_columns(c, n)
+                    for c, n in zip(plan.children, needs)]
+    if all(n is o for n, o in zip(new_children, plan.children)):
+        return plan
+    out = copy.copy(plan)
+    out.children = new_children
+    return out

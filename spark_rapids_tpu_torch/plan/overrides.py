@@ -1,17 +1,30 @@
 """Planner: logical plan -> device operators.
 
 Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
+- scans are first narrowed to the columns the plan reads
+  (``logical_opt.prune_scan_columns``); a filter right over a file scan
+  pushes the conjuncts pyarrow can apply into the scan, and still runs;
 - a group-by becomes partial aggregate -> hash exchange on the group keys
   -> final aggregate, with the filter/project chain under it staged into
   the partial aggregate; that exchange has ``shuffle.partitions``
-  partitions;
+  partitions.  An aggregate without keys becomes partial -> coalesce ->
+  final (one output row).  Neither is ever planned as one ``complete``
+  aggregate, so no plan merges partitions it did not exchange (the
+  reference takes an operator's partition count from its first child,
+  so a broadcast join built on the left reports one partition and its
+  aggregate runs ``complete`` over many: here each operator reports the
+  partitions it really returns, ``TpuExec.num_partitions``);
 - an equi-join builds on the right side, except a right join; an inner
   join builds on the side with fewer estimated rows.  A build side of at
   most ``BROADCAST_ROW_THRESHOLD`` estimated rows is broadcast, unless
   the join is full; every other join hash-partitions both sides on
   their keys into ``_pick_partitions`` partitions and joins partition by
   partition (``TpuShuffledHashJoin``);
-- cross joins and joins without equi-keys are not ported and raise.
+- cross joins and joins without equi-keys are not ported and raise;
+- a global sort over more than one partition range-partitions its input
+  into as many partitions (``RangePartitioner``) and sorts each; a limit
+  takes each partition's first rows, coalesces, and takes the first rows
+  again.
 """
 from __future__ import annotations
 
@@ -19,12 +32,17 @@ import torch
 
 from .. import config as C
 from ..expr import core as ec
-from ..exec.exchange import TpuBroadcastExchange, TpuShuffleExchange
+from ..exec.exchange import (TpuBroadcastExchange, TpuCoalescePartitions,
+                             TpuShuffleExchange)
 from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
-from ..exec.tpu_basic import TpuExec, TpuFilter, TpuLocalScan, TpuProject
+from ..exec.tpu_basic import (TpuExec, TpuFilter, TpuGlobalLimit,
+                              TpuLocalLimit, TpuLocalScan, TpuProject)
 from ..exec.tpu_join import TpuBroadcastHashJoin, TpuShuffledHashJoin
-from ..shuffle.partitioners import HashPartitioner
+from ..exec.tpu_sort import TpuSort
+from ..io.planner import TpuFileScan, to_arrow_filters
+from ..shuffle.partitioners import HashPartitioner, RangePartitioner
 from . import logical as L
+from .logical_opt import prune_scan_columns
 
 #: most estimated build rows a join broadcasts (the reference's stand-in
 #: for a byte size)
@@ -51,34 +69,61 @@ def _stage_ops(node: L.LogicalPlan):
 
 def plan_physical(node: L.LogicalPlan, conf: C.TpuConf,
                   device: torch.device) -> TpuExec:
+    return _plan(prune_scan_columns(node), conf, device)
+
+
+def _plan(node: L.LogicalPlan, conf: C.TpuConf,
+          device: torch.device) -> TpuExec:
     def go(n):
-        return plan_physical(n, conf, device)
+        return _plan(n, conf, device)
 
     if isinstance(node, L.LocalRelation):
         return TpuLocalScan(node, conf.get(C.BATCH_SIZE_ROWS), device)
+    if isinstance(node, L.Scan):
+        return TpuFileScan(node, conf, device)
     if isinstance(node, L.Project):
         return TpuProject(node.exprs, go(node.children[0]))
     if isinstance(node, L.Filter):
-        return TpuFilter(node.condition, go(node.children[0]))
+        child = node.children[0]
+        if isinstance(child, L.Scan):
+            return TpuFilter(node.condition, TpuFileScan(
+                child, conf, device, to_arrow_filters(node.condition)))
+        return TpuFilter(node.condition, go(child))
     if isinstance(node, L.Aggregate):
-        if not node.group_exprs:
-            raise NotImplementedError("global aggregates are not ported yet")
-        src, ops = _stage_ops(node.children[0])
-        table = conf.get(C.AGG_TABLE_SIZE)
-        variable = conf.get(C.VARIABLE_FLOAT_AGG)
-        partial = TpuHashAggregate(node.group_exprs, node.aggs, go(src),
-                                   PARTIAL, table, variable)
-        partial.pre_ops = ops or None
-        hash_keys = [ec.AttributeReference(ec.output_name(e))
-                     for e in node.group_exprs]
-        exchange = TpuShuffleExchange(
-            HashPartitioner(hash_keys, conf.get(C.SHUFFLE_PARTITIONS)),
-            partial)
-        return TpuHashAggregate(node.group_exprs, node.aggs, exchange, FINAL,
-                                table, variable)
+        return _plan_aggregate(node, conf, device, go)
     if isinstance(node, L.Join):
         return _plan_join(node, conf, device, go)
+    if isinstance(node, L.Sort):
+        child = go(node.children[0])
+        nparts = child.num_partitions()
+        if nparts > 1:
+            child = TpuShuffleExchange(RangePartitioner(node.orders, nparts),
+                                       child)
+        return TpuSort(node.orders, child)
+    if isinstance(node, L.Limit):
+        local = TpuLocalLimit(node.n, go(node.children[0]))
+        return TpuGlobalLimit(node.n, TpuCoalescePartitions(local))
     raise NotImplementedError(f"no device operator for {type(node).__name__}")
+
+
+def _plan_aggregate(node: L.Aggregate, conf: C.TpuConf,
+                    device: torch.device, go) -> TpuExec:
+    src, ops = _stage_ops(node.children[0])
+    table = conf.get(C.AGG_TABLE_SIZE)
+    variable = conf.get(C.VARIABLE_FLOAT_AGG)
+    partial = TpuHashAggregate(node.group_exprs, node.aggs, go(src),
+                               PARTIAL, table, variable, device)
+    partial.pre_ops = ops or None
+    if node.group_exprs:
+        hash_keys = [ec.AttributeReference(ec.output_name(e))
+                     for e in node.group_exprs]
+        merged = TpuShuffleExchange(
+            HashPartitioner(hash_keys, conf.get(C.SHUFFLE_PARTITIONS)),
+            partial)
+    else:
+        merged = TpuCoalescePartitions(partial)
+    return TpuHashAggregate(node.group_exprs, node.aggs, merged, FINAL,
+                            table, variable, device)
 
 
 def _pick_partitions(conf: C.TpuConf, *plans: L.LogicalPlan) -> int:

@@ -1,22 +1,33 @@
-"""Hash partitioner: partition ids on the device, then a contiguous split.
+"""Hash and range partitioners: partition ids on the device, then a
+contiguous split.
 
-Counterpart of ``spark_rapids_tpu/shuffle/partitioners.py``.  The split
-hashes the keys' canonical words (a null key hashes a fixed word) and
-orders the rows by partition id in one ``hash_split`` call, a counting
-sort on the card; the per-partition counts are read to the host once per
-batch to cut the slices.
+Counterpart of ``spark_rapids_tpu/shuffle/partitioners.py``.  The hash
+split hashes the keys' canonical words (a null key hashes a fixed word)
+and orders the rows by partition id in one ``hash_split`` call, a
+counting sort on the card; the per-partition counts are read to the host
+once per batch to cut the slices.
+
+A string key hashes ``strings.partition_words`` (its own words folded
+into one, and its length), not its key words: those are as wide as the
+batch's longest string, so the reference's id of one string changes with
+the batch it arrives in and one key can land in several partitions.
+
+The range partitioner (global sort) picks its bounds from all its input
+rows' order words, read to the host in one read, and places each row by
+comparing it with the bounds on the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..columnar.batch import ColumnarBatch
 from ..expr import core as ec
-from ..kernels import canon
+from ..columnar.column import StringColumn
+from ..kernels import canon, strings
 from ..kernels.basic import as_signed64
 from ..kernels.cuda_ops import hash_split
 
@@ -37,6 +48,14 @@ class SplitBatch:
         return self.batch.slice(lo, hi - lo)
 
 
+def _split_by(batch: ColumnarBatch, perm: torch.Tensor, counts,
+              n: int) -> SplitBatch:
+    counts = counts[:n].cpu().numpy()
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum(counts)
+    return SplitBatch(batch.gather(perm, int(offsets[-1])), offsets)
+
+
 class HashPartitioner:
     """murmur-style hash of the key columns mod n."""
 
@@ -44,11 +63,16 @@ class HashPartitioner:
         self.key_exprs = key_exprs
         self.num_partitions = num_partitions
 
+    def __repr__(self):
+        return f"HashPartitioner({self.num_partitions})"
+
     def _key_words(self, batch: ColumnarBatch) -> List[torch.Tensor]:
         words = []
         for e in self.key_exprs:
             col = ec.eval_as_column(e.bind(batch.schema), batch)
-            for w in canon.value_words(col):
+            vw = strings.partition_words(col) \
+                if isinstance(col, StringColumn) else canon.value_words(col)
+            for w in vw:
                 words.append(torch.where(col.validity, w, NULL_WORD)
                              .contiguous())
         return words
@@ -59,8 +83,75 @@ class HashPartitioner:
         n = self.num_partitions
         perm, counts = hash_split(self._key_words(batch),
                                   batch.live_mask().contiguous(), n)
-        counts = counts[:n].cpu().numpy()
-        offsets = np.zeros(n + 1, dtype=np.int64)
-        offsets[1:] = np.cumsum(counts)
-        sorted_batch = batch.gather(perm, int(offsets[-1]))
-        return SplitBatch(sorted_batch, offsets)
+        return _split_by(batch, perm, counts, n)
+
+
+class RangePartitioner:
+    """Sample-free range partitioning for a global sort: ``fit`` reads the
+    order words of every input row to the host at once, sorts them and
+    takes n - 1 bound rows at even quantiles; a row's partition is the
+    number of bounds at or below it.  String keys take one width over
+    every batch, so bounds and rows compare."""
+
+    def __init__(self, orders, num_partitions: int):
+        self.orders = orders
+        self.num_partitions = num_partitions
+        self.bound_words: Optional[List[torch.Tensor]] = None
+        self.str_words: Optional[List[Optional[int]]] = None
+
+    def __repr__(self):
+        return f"RangePartitioner({self.num_partitions})"
+
+    def _cols(self, batch: ColumnarBatch):
+        return [ec.eval_as_column(o.expr.bind(batch.schema), batch)
+                for o in self.orders]
+
+    def _order_words(self, batch: ColumnarBatch, cols=None):
+        return canon.batch_key_words(
+            cols or self._cols(batch), batch.live_mask(),
+            descending=[not o.ascending for o in self.orders],
+            nulls_last=[not o.nulls_first for o in self.orders],
+            str_words=self.str_words)
+
+    def fit(self, batches: Sequence[ColumnarBatch]) -> None:
+        col_sets = [self._cols(b) for b in batches]
+        self.str_words = canon.common_str_words(col_sets) \
+            if col_sets else None
+        acc = [[w[:b.num_rows] for w in self._order_words(b, cols)]
+               for b, cols in zip(batches, col_sets)]
+        rows = sum(b.num_rows for b in batches)
+        if rows == 0:
+            self.bound_words = None
+            return
+        dev = batches[0].device
+        merged = torch.stack([torch.cat([a[i] for a in acc])
+                              for i in range(len(acc[0]))]).cpu().numpy()
+        # unsigned order: numpy sorts the words as uint64
+        order = np.lexsort(tuple(reversed(merged.view(np.uint64))))
+        qpos = [min(int(rows * (i + 1) / self.num_partitions), rows - 1)
+                for i in range(self.num_partitions - 1)]
+        pick = order[qpos]
+        self.bound_words = [torch.from_numpy(m[pick].copy()).to(dev)
+                            for m in merged]
+
+    def partition_ids(self, batch: ColumnarBatch) -> torch.Tensor:
+        cap = batch.capacity
+        pid = torch.zeros(cap, dtype=torch.int64, device=batch.device)
+        if self.bound_words is None:
+            return pid
+        words = self._order_words(batch)
+        rows = torch.arange(cap, device=batch.device)
+        for bi in range(self.num_partitions - 1):
+            bidx = torch.full((cap,), bi, dtype=torch.int64,
+                              device=batch.device)
+            # a row at or past bound bi goes to a later partition
+            pid += (~canon.words_less(words, rows, self.bound_words,
+                                      bidx)).to(torch.int64)
+        return pid.clamp(max=self.num_partitions - 1)
+
+    def split(self, batch: ColumnarBatch) -> SplitBatch:
+        n = self.num_partitions
+        key = torch.where(batch.live_mask(), self.partition_ids(batch), n)
+        _, perm = torch.sort(key, stable=True)
+        return _split_by(batch, perm, torch.bincount(key, minlength=n + 1),
+                         n)

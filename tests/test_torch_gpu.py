@@ -307,3 +307,41 @@ def test_chunked_join_on_card_equals_whole(monkeypatch, how):
                             "TpuShuffledHashJoin")[0]
     assert join.expand_counts["chunks"] > 2 * join.expand_counts["batches"]
     assert got.equals(_join(whole, how, hot=6000).to_arrow())
+
+
+@pytest.fixture(scope="module")
+def tpcds_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tpcds")
+    chip_smoke.make_tpcds(str(d), 0.1, 7)
+    return str(d)
+
+
+def _tpcds_session(data_dir, device):
+    s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 1 << 16}),
+                   device=device)
+    for t in chip_smoke.DS_TABLES:
+        s.read.parquet(f"{data_dir}/{t}.parquet") \
+            .create_or_replace_temp_view(t)
+    return s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q3", "q42", "q52", "q96"])
+def test_tpcds_quartet_on_card_equals_cpu(tpcds_dir, q):
+    """The query text over Parquet part files on the card: the CPU run's
+    bytes, the planned operators, and B1 in the grouped exchanges."""
+    _need_card()
+    import sys
+    sys.path.insert(0, "benchmarks")
+    from tpcds_queries import QUERIES
+    want = _tpcds_session(tpcds_dir, "cpu").sql(QUERIES[q]).to_arrow()
+    df = _tpcds_session(tpcds_dir, "cuda").sql(QUERIES[q])
+    lines = [ln.strip() for ln in df.explain().splitlines()]
+    plan = chip_smoke.DS_PLANS[q]
+    assert len(lines) == len(plan)
+    assert all(ln.startswith(w) for ln, w in zip(lines, plan))
+    before = cuda_ops.LAUNCHES["hash_partition_ids"]
+    got = df.to_arrow()
+    assert got.num_rows > 0 and chip_smoke.same_bytes(got, want)
+    if q != "q96":
+        assert cuda_ops.LAUNCHES["hash_partition_ids"] > before
