@@ -43,7 +43,18 @@ Phases (any failure exits non-zero):
    run through ``session.sql``.  Each must plan the expected operators,
    match a pyarrow computation (1e-9, ORDER BY kept, ties as a
    multiset), and give the same bytes on two warm runs; cold and warm
-   times, peak memory and a profile of q3 are printed.  B1 must launch.
+   times, peak memory and a profile of q3 are printed.  B1 must launch;
+7. flat TPC-DS: the 17 more tables of the 21 queries without subqueries
+   (DS7_QUERIES) in the same directory, with returns drawn from sales
+   (``make_tpcds7`` lists every departure from ``generate``), and each
+   query's text through the same session: its plan's limit, sort,
+   aggregate and join operators as DS7_PLANS lists (no cross join; below
+   SF10 the broadcast threshold shrinks with the scale), a cold and two
+   warm runs against a pyarrow computation (``ds7_references``; 1e-9,
+   ORDER BY kept, ties as a multiset, also at the LIMIT's cut), warm
+   runs byte-identical, rows unless DS7_EMPTY names the query; q17 runs
+   once more under the profiler (launches and host-to-device copies).
+   B1 must launch.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -51,8 +62,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -192,15 +205,65 @@ def q3_exchange_words(rng, n: int):
     return HashPartitioner(keys, 8)._key_words(from_arrow(table, "cuda"))
 
 
+def ds7_exchange_words(rng, which: str, n: int, device: str = "cuda"):
+    """The hash words of two of phase 7's exchanges at SF10, built as the
+    exchange builds them (``HashPartitioner._key_words``).  ``"join"``:
+    q17's store_sales side of its join with store_returns, keys
+    ss_customer_sk, ss_item_sk and ss_ticket_number (3 words) over a map
+    batch of n rows.  ``"agg"``: q25's aggregate exchange, keys
+    i_item_id, i_item_desc, s_store_id and s_store_name (a folded word
+    and a length each: 8 words) over a partial aggregate's n groups.
+    Returns (words, live mask) of the batch, padded to its capacity."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.arrow import from_arrow
+    from spark_rapids_tpu_torch.expr import core as ec
+    from spark_rapids_tpu_torch.shuffle.partitioners import HashPartitioner
+    if which == "join":
+        cols = {
+            "ss_customer_sk": rng.integers(
+                0, DS7_ROWS_PER_SF["customer"] * 10, n),
+            "ss_item_sk": rng.integers(0, DS_ROWS_PER_SF["item"] * 10, n),
+            "ss_ticket_number": rng.integers(
+                0, DS_ROWS_PER_SF["store_sales"] * 10, n) // 4}
+        table = pa.table({k: pa.array(v) for k, v in cols.items()})
+        keys = [ec.AttributeReference(k, T.INT64) for k in cols]
+    else:
+        item = rng.integers(0, DS_ROWS_PER_SF["item"] * 10, n)
+        store = rng.integers(0, 120, n)
+        table = pa.table({
+            "i_item_id": pa.array([f"AAAAAAAA{i:08d}" for i in item]),
+            "i_item_desc": pa.array([f"desc of item {i}" for i in item]),
+            "s_store_id": pa.array([f"AAAAAAAA{i:04d}" for i in store]),
+            "s_store_name": pa.array(rng.choice(
+                ["ese", "ought", "able", "pri"], n))})
+        keys = [ec.AttributeReference(k, T.STRING)
+                for k in table.column_names]
+    batch = from_arrow(table, device)
+    return HashPartitioner(keys, 8)._key_words(batch), batch.live_mask()
+
+
+def check_ds7_split(rng, which: str, rows: int, what: str):
+    """B1's split of one of phase 7's exchanges (``ds7_exchange_words``)
+    against its plain version."""
+    words, live = ds7_exchange_words(rng, which, rows)
+    cap = live.shape[0]
+    return check_hash_split(rng, cap, len(words), 8, rows / cap, words,
+                            what, live=live)
+
+
 def check_hash_split(rng, n: int, num_words: int, parts: int,
-                     live_frac: float, words=None, what: str = ""):
+                     live_frac: float, words=None, what: str = "",
+                     live=None):
     """B1 redesigned: the exchange's split against a stable sort of the
-    ids + bincount, bit for bit (of random words, or of ``words``)."""
+    ids + bincount, bit for bit (of random words and rows, or of
+    ``words`` and ``live``)."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops
     if words is None:
         words = random_words(rng, n, num_words)
-    live = torch.from_numpy(rng.random(n) < live_frac).cuda()
+    if live is None:
+        live = torch.from_numpy(rng.random(n) < live_frac).cuda()
     perm, counts = cuda_ops.hash_split(words, live, parts)
     want_perm, want_counts = cuda_ops.hash_split_plain(words, live, parts)
     torch.cuda.synchronize()
@@ -422,6 +485,13 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
         lambda: check_hash_split(rng, 1024, 4, 8, 0.3,
                                  q3_exchange_words(rng, 1024),
                                  " (q3's exchange words)"),
+        # phase 7's exchanges: q17's 3-key join on a store_sales map
+        # batch (28.8M rows in 8 part files), and q25's aggregate on 4
+        # string keys (8 words) over about its 18,177 groups
+        lambda: check_ds7_split(rng, "join", DS7_MAP_ROWS,
+                                " (q17's join exchange words)"),
+        lambda: check_ds7_split(rng, "agg", 20000,
+                                " (q25's aggregate exchange words)"),
         # B1's ids alone
         lambda: check_hash_ids(cuda_ops, rng, 4096, 1, 8, "Barrett modulo"),
         lambda: check_hash_ids(cuda_ops, rng, big, 1, 8, "Barrett modulo"),
@@ -624,10 +694,11 @@ def profile_query(df) -> set:
     dev_us = sum(us for us, _ in by_name.values())
     copies = sum(n for name, (_, n) in by_name.items()
                  if name.startswith(("Memcpy", "Memset")))
+    htod = sum(n for name, (_, n) in by_name.items() if "HtoD" in name)
     print(f"profile: wall {wall_us / 1e3:.3f} ms (profiled), device busy "
           f"{dev_us / 1e3:.3f} ms = {100 * dev_us / wall_us:.1f}% of wall; "
           f"{len(device) - copies} kernel launches, {copies} copies and "
-          f"memsets")
+          f"memsets, of which {htod} host-to-device copies")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :12]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
@@ -1124,8 +1195,8 @@ def make_tpcds(data_dir: str, scale: float, seed: int) -> dict:
     npx = max(int(300 * scale), 64)
     nss = n["store_sales"]
     ss_dir = os.path.join(data_dir, "store_sales.parquet")
-    os.makedirs(ss_dir)
     bounds = np.linspace(0, nss, DS_PARTS + 1).astype(np.int64)
+    os.makedirs(ss_dir)
     for part in range(DS_PARTS):
         r = np.random.default_rng([seed, part])
         m = int(bounds[part + 1] - bounds[part])
@@ -1252,12 +1323,12 @@ def check_ds_rows(q: str, table, full: list) -> int:
     return len(full)
 
 
-def tpcds_phase(args, kernels_used) -> dict:
+def tpcds_phase(args, kernels_used, data_dir: str):
     """Phase 6: the verbatim text of TPC-DS q3, q42, q52 and q96 through
     the port's ``session.sql`` over Parquet temp views at scale
-    ``--ds-sf``.  Returns B1's launches on this path."""
+    ``--ds-sf``, written under ``data_dir``.  Returns B1's launches on
+    this path and the session (phase 7 goes on with it)."""
     import os
-    import tempfile
     import torch
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "benchmarks"))
@@ -1274,28 +1345,1178 @@ def tpcds_phase(args, kernels_used) -> dict:
         if on_card:
             torch.cuda.synchronize()
 
-    with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
+    t0 = time.perf_counter()
+    rows = make_tpcds(data_dir, args.ds_sf, args.seed)
+    t1 = time.perf_counter()
+    refs = ds_references(data_dir)
+    print(f"tpcds data: sf {args.ds_sf}, {rows}, store_sales in "
+          f"{DS_PARTS} files, written in {t1 - t0:.1f}s; pyarrow "
+          f"references in {time.perf_counter() - t1:.1f}s")
+    session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                  DS_BATCH_ROWS}), device=args.device)
+    for t in DS_TABLES:
+        session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
+            .create_or_replace_temp_view(t)
+    cache = DeviceScanCache.get()
+    cache.clear()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    for q in DS_QUERIES:
+        df = session.sql(QUERIES[q])
+        plan = df.explain()
+        lines = [ln.strip() for ln in plan.splitlines()]
+        check(len(lines) == len(DS_PLANS[q]) and
+              all(ln.startswith(w) for ln, w in zip(lines, DS_PLANS[q])),
+              f"{q}: not the planned operators:\n{plan}")
+        cache.clear()                  # cold: read and upload again
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        cuda_ops.reset_launches()
+        sync()
         t0 = time.perf_counter()
-        rows = make_tpcds(data_dir, args.ds_sf, args.seed)
-        t1 = time.perf_counter()
-        refs = ds_references(data_dir)
-        print(f"tpcds data: sf {args.ds_sf}, {rows}, store_sales in "
-              f"{DS_PARTS} files, written in {t1 - t0:.1f}s; pyarrow "
-              f"references in {time.perf_counter() - t1:.1f}s")
-        session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
-                                      DS_BATCH_ROWS}), device=args.device)
-        for t in DS_TABLES:
-            session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
-                .create_or_replace_temp_view(t)
-        cache = DeviceScanCache.get()
-        cache.clear()
-        launches = {k: 0 for k in cuda_ops.LAUNCHES}
-        for q in DS_QUERIES:
+        cold = df.to_arrow()
+        sync()
+        cold_s = time.perf_counter() - t0
+        scans = _find(session.last_physical_plan, "TpuFileScan")
+        read_s = sum(s.timings["read_s"] for s in scans)
+        upload_s = sum(s.timings["upload_s"] for s in scans)
+        warm, warm_s = [], []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            warm.append(df.to_arrow())
+            sync()
+            warm_s.append(time.perf_counter() - t0)
+        for name, v in cuda_ops.LAUNCHES.items():
+            launches[name] += v
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        groups = check_ds_rows(q, cold, refs[q])
+        for t in warm:
+            check_ds_rows(q, t, refs[q])
+        check(same_bytes(warm[0], warm[1]),
+              f"{q}: the two warm runs are not byte-identical")
+        check(cold.num_rows > 0, f"{q}: no rows")
+        if q == "q3" and args.ds_sf >= 10:
+            # at SF10 the LIMIT cuts: ~180 items of manufacturer 128
+            check(groups > 100, f"q3: {groups} groups, not more than "
+                  f"its LIMIT 100")
+        ss_rows = rows["store_sales"]
+        print(f"{q}: {cold.num_rows} rows of {groups} groups; cold "
+              f"{cold_s:.4f}s (host read {read_s:.4f}s, upload "
+              f"{upload_s:.4f}s); warm {warm_s[0]:.4f}s "
+              f"{warm_s[1]:.4f}s; warm {ss_rows / warm_s[1] / 1e6:.3f} "
+              f"Mrows/s of store_sales; peak device memory {peak} B; "
+              f"launches (3 runs) {dict(cuda_ops.LAUNCHES)}; "
+              f"byte-identical warm runs; matches pyarrow at "
+              f"{EXACT_REL}; first rows {cold.slice(0, 3).to_pylist()}")
+    print("plan q3:\n" + session.sql(QUERIES["q3"]).explain())
+    if on_card:
+        before = cuda_ops.LAUNCHES["hash_partition_ids"]
+        profile_query(session.sql(QUERIES["q3"]))
+        b1 = cuda_ops.LAUNCHES["hash_partition_ids"] - before
+        print(f"profile q3: B1 hash_split launches {b1}")
+        check(b1 > 0, "q3's profiled run launched no hash_split")
+    cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the TPC-DS path")
+    return launches, session
+
+
+# -- phase 7: the flat TPC-DS queries over Parquet at SF10 -------------------
+
+#: the 21 TPC-DS queries without subqueries, CTEs, windows, ROLLUP or set
+#: operations
+DS7_QUERIES = ("q7", "q13", "q15", "q17", "q19", "q21", "q25", "q26", "q29",
+               "q37", "q40", "q43", "q48", "q50", "q55", "q62", "q82",
+               "q84", "q85", "q91", "q99")
+#: rows per scale factor of the tables phase 7 adds (benchmarks/tpcds.py
+#: ROWS_PER_SF)
+DS7_ROWS_PER_SF = {"customer": 100_000, "customer_address": 50_000,
+                   "customer_demographics": 19_208, "promotion": 300,
+                   "catalog_sales": 1_440_000, "web_sales": 720_000,
+                   "store_returns": 288_000, "catalog_returns": 144_000,
+                   "web_returns": 72_000, "inventory": 1_000_000}
+DS7_TABLES = ("customer", "customer_address", "customer_demographics",
+              "income_band", "promotion", "warehouse", "ship_mode",
+              "reason", "call_center", "web_site", "web_page",
+              "catalog_sales", "web_sales", "store_returns",
+              "catalog_returns", "web_returns", "inventory")
+#: part files of catalog_sales and web_sales
+DS7_PARTS = 8
+#: rows of one store_sales part file (a map batch) at SF10
+DS7_MAP_ROWS = DS_ROWS_PER_SF["store_sales"] * 10 // DS_PARTS
+#: share of catalog_sales rows that repeat a store return's (customer,
+#: item) 0-60 days after the return
+DS7_REPEAT_SHARE = 0.1
+#: a return comes this many days after its sale (1 to 120)
+DS7_RETURN_DAYS = (1, 121)
+#: queries allowed an empty answer at SF10, with the reason (none: below
+#: SF10 a selective query may return no rows)
+DS7_EMPTY: dict = {}
+#: each query's plan at SF10's row estimates: its limit, sort, aggregate
+#: and join operators, top down (the scans, filters, projections and
+#: exchanges between them are not listed)
+_BR = "TpuBroadcastHashJoin[inner, build=right]"
+_BL = "TpuBroadcastHashJoin[inner, build=left]"
+_SR = "TpuShuffledHashJoin[inner, build=right]"
+_SL = "TpuShuffledHashJoin[inner, build=left]"
+_AGG = ["TpuHashAggregate[final", "TpuHashAggregate[partial"]
+_TOP = ["TpuGlobalLimit", "TpuSort"] + _AGG
+DS7_PLANS = {
+    "q7": _TOP + [_BR] * 4,
+    "q13": _AGG + [_BR] * 5,
+    "q15": _TOP + [_BR] * 3,
+    "q17": _TOP + [_BR] * 5 + [_SR] * 2,
+    "q19": _TOP + [_BR] * 4 + [_BL],
+    "q21": _TOP + [_BR] * 3,
+    "q25": _TOP + [_BR] * 5 + [_SR] * 2,
+    "q26": _TOP + [_BR] * 4,
+    "q29": _TOP + [_BR] * 5 + [_SR] * 2,
+    "q37": _TOP + [_SL] + [_BR] + [_BL],
+    "q40": _TOP + [_BR] * 3 + ["TpuShuffledHashJoin[left, build=right]"],
+    "q43": _TOP + [_BR] + [_BL],
+    "q48": _AGG + [_BR] * 4,
+    "q50": _TOP + [_BR] * 3 + [_SR],
+    "q55": _TOP + [_BR] + [_BL],
+    "q62": _TOP + [_BR] * 4,
+    "q82": _TOP + [_SL] + [_BR] + [_BL],
+    "q84": ["TpuGlobalLimit", "TpuSort"] + [_BL] + [_BR] * 4,
+    "q85": _TOP + [_BR] * 7,
+    "q91": _TOP + [_BR] * 5 + [_BL],
+    "q99": _TOP + [_BR] * 4}
+
+
+def _ds7_rng(seed: int, *stream: int):
+    return np.random.default_rng([seed, 7, *stream])
+
+
+def _returns_of(r, sold_date, cols: dict, k: int) -> dict:
+    """``k`` sales lines drawn without replacement (in row order): each
+    keyed column of ``cols`` at those lines, and the sale's date plus
+    DS7_RETURN_DAYS."""
+    pick = np.sort(r.permutation(len(sold_date))[:k])
+    out = {name: c[pick] for name, c in cols.items()}
+    out["_returned"] = sold_date[pick] + r.integers(*DS7_RETURN_DAYS, k)
+    return out
+
+
+def make_tpcds7(data_dir: str, scale: float, seed: int) -> dict:
+    """The 17 tables phase 7 adds to phase 6's (``make_tpcds``, which
+    must have written store_sales under ``data_dir``), with the
+    formulas, names and types of ``benchmarks/tpcds.py`` ``generate`` at
+    ``scale``, except:
+
+    - returns are drawn from sales, as TPC-DS's own generator draws them:
+      each returns table holds ``generate``'s row count (10% of its sales
+      table), each return a distinct sales line whose ticket or order
+      number, item and customer it keeps (store_returns:
+      ``sr_ticket_number``, ``sr_item_sk``, ``sr_customer_sk`` from
+      store_sales; catalog_returns: ``cr_order_number``, ``cr_item_sk``,
+      ``cr_returning_customer_sk`` = ``cs_bill_customer_sk``;
+      web_returns: ``wr_order_number``, ``wr_item_sk``,
+      ``wr_returning_customer_sk`` = ``ws_bill_customer_sk``), returned
+      DS7_RETURN_DAYS (1-120) days after the sale;
+    - a web return's returning demographics and address are its refunded
+      ones (``wr_returning_cdemo_sk`` = ``wr_refunded_cdemo_sk``,
+      ``wr_returning_addr_sk`` = ``wr_refunded_addr_sk``), TPC-DS's rule;
+    - repeat purchases: a DS7_REPEAT_SHARE (10%) share of catalog_sales
+      rows takes a random store return's customer
+      (``cs_bill_customer_sk``) and item (``cs_item_sk``), sold
+      (``cs_sold_date_sk``) 0-60 days after that return;
+    - catalog_sales and web_sales are DS7_PARTS part files, each drawn
+      from its own seeded generator, and string columns drawn per row in
+      ``generate`` (zip codes, street numbers) are drawn as one array.
+
+    Returns each table's row count."""
+    import os
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+    from concurrent.futures import ThreadPoolExecutor
+    n = {k: max(int(v * scale), 64) for k, v in DS7_ROWS_PER_SF.items()}
+    ni = max(int(DS_ROWS_PER_SF["item"] * scale), 64)
+    nh = max(int(DS_ROWS_PER_SF["household_demographics"] * scale), 64)
+    nss = max(int(DS_ROWS_PER_SF["store_sales"] * scale), 64)
+    nc, na = n["customer"], n["customer_address"]
+    nd, npx = n["customer_demographics"], n["promotion"]
+    rng = _ds7_rng(seed, 0)
+    rows = {}
+
+    def write(name, table):
+        rows[name] = table.num_rows
+        papq.write_table(table, os.path.join(data_dir, f"{name}.parquet"))
+
+    def ids(prefix, count, width):
+        return np.char.add(prefix, np.char.zfill(
+            np.arange(count).astype(str), width))
+
+    write("customer", pa.table({
+        "c_customer_sk": np.arange(nc, dtype=np.int64),
+        "c_customer_id": ids("AAAAAAAA", nc, 8),
+        "c_current_addr_sk": rng.integers(0, na, nc).astype(np.int64),
+        "c_current_cdemo_sk": rng.integers(0, nd, nc).astype(np.int64),
+        "c_current_hdemo_sk": rng.integers(0, nh, nc).astype(np.int64),
+        "c_first_name": rng.choice(["John", "Mary", "Ann", "Sam", "Pat",
+                                    "Lee", "Kim", "Dana"], nc),
+        "c_last_name": rng.choice(["Smith", "Jones", "Brown", "Lee",
+                                   "Walker", "Hill"], nc),
+        "c_salutation": rng.choice(["Mr.", "Mrs.", "Ms.", "Dr."], nc),
+        "c_birth_country": rng.choice(["UNITED STATES", "CANADA", "MEXICO",
+                                       "GERMANY"], nc),
+        "c_birth_year": rng.integers(1930, 1995, nc).astype(np.int32),
+        "c_birth_month": rng.integers(1, 13, nc).astype(np.int32),
+        "c_preferred_cust_flag": rng.choice(["Y", "N"], nc),
+        "c_email_address": np.char.add(np.char.add(
+            "c", np.arange(nc).astype(str)), "@example.com"),
+        "c_login": np.char.add("login", np.arange(nc).astype(str)),
+        "c_first_sales_date_sk": (DATE_SK0 + rng.integers(0, N_DATES, nc))
+        .astype(np.int64),
+        "c_first_shipto_date_sk": (DATE_SK0 + rng.integers(0, N_DATES, nc))
+        .astype(np.int64),
+    }))
+    write("customer_address", pa.table({
+        "ca_address_sk": np.arange(na, dtype=np.int64),
+        "ca_zip": rng.integers(10000, 99999, na).astype(str),
+        "ca_state": rng.choice(["TN", "SD", "AL", "GA", "CA", "TX", "NY",
+                                "OH"], na),
+        "ca_city": rng.choice(["Midway", "Fairview", "Oakland",
+                               "Springfield", "Salem"], na),
+        "ca_county": rng.choice(["Williamson County", "Ziebach County",
+                                 "Walker County", "Rush County"], na),
+        "ca_country": np.full(na, "United States"),
+        "ca_gmt_offset": rng.choice([-5.0, -6.0, -7.0, -8.0], na),
+        "ca_location_type": rng.choice(["apartment", "condo",
+                                        "single family"], na),
+        "ca_street_number": rng.integers(1, 1000, na).astype(str),
+        "ca_street_name": rng.choice(["Main", "Oak", "Elm", "Park", "First",
+                                      "Second"], na),
+    }))
+    write("customer_demographics", pa.table({
+        "cd_demo_sk": np.arange(nd, dtype=np.int64),
+        "cd_gender": rng.choice(["M", "F"], nd),
+        "cd_marital_status": rng.choice(["S", "M", "D", "W", "U"], nd),
+        "cd_education_status": rng.choice(
+            ["Primary", "Secondary", "College", "2 yr Degree",
+             "4 yr Degree", "Advanced Degree", "Unknown"], nd),
+        "cd_dep_count": rng.integers(0, 7, nd).astype(np.int32),
+        "cd_purchase_estimate": (rng.integers(1, 12, nd) * 500)
+        .astype(np.int32),
+        "cd_credit_rating": rng.choice(["Low Risk", "Good", "High Risk",
+                                        "Unknown"], nd),
+        "cd_dep_employed_count": rng.integers(0, 7, nd).astype(np.int32),
+        "cd_dep_college_count": rng.integers(0, 7, nd).astype(np.int32),
+    }))
+    write("income_band", pa.table({
+        "ib_income_band_sk": np.arange(1, 21, dtype=np.int64),
+        "ib_lower_bound": (np.arange(20) * 10000).astype(np.int32),
+        "ib_upper_bound": ((np.arange(20) + 1) * 10000).astype(np.int32),
+    }))
+    write("promotion", pa.table({
+        "p_promo_sk": np.arange(npx, dtype=np.int64),
+        "p_channel_email": rng.choice(["Y", "N"], npx),
+        "p_channel_event": rng.choice(["Y", "N"], npx),
+        "p_channel_dmail": rng.choice(["Y", "N"], npx),
+        "p_channel_tv": rng.choice(["Y", "N"], npx),
+    }))
+    write("warehouse", pa.table({
+        "w_warehouse_sk": np.arange(5, dtype=np.int64),
+        "w_warehouse_name": np.array([f"Warehouse {i}" for i in range(5)]),
+        "w_warehouse_sq_ft": (np.arange(5) * 10000 + 50000).astype(np.int32),
+        "w_state": np.array(["TN", "SD", "AL", "GA", "CA"]),
+        "w_country": np.full(5, "United States"),
+        "w_city": np.array(["Midway", "Fairview", "Oakland", "Springfield",
+                            "Salem"]),
+        "w_county": np.full(5, "Williamson County"),
+    }))
+    write("ship_mode", pa.table({
+        "sm_ship_mode_sk": np.arange(20, dtype=np.int64),
+        "sm_type": np.array((["EXPRESS", "NEXT DAY", "OVERNIGHT", "REGULAR",
+                              "TWO DAY"] * 4)[:20]),
+        "sm_carrier": np.array((["UPS", "FEDEX", "AIRBORNE", "USPS",
+                                 "DHL"] * 4)[:20]),
+    }))
+    write("reason", pa.table({
+        "r_reason_sk": np.arange(35, dtype=np.int64),
+        "r_reason_desc": np.array([f"reason {i}" for i in range(35)]),
+    }))
+    write("call_center", pa.table({
+        "cc_call_center_sk": np.arange(6, dtype=np.int64),
+        "cc_name": np.array([f"call center {i}" for i in range(6)]),
+        "cc_manager": np.array([f"Manager {i}" for i in range(6)]),
+        "cc_county": np.full(6, "Williamson County"),
+    }))
+    write("web_site", pa.table({
+        "web_site_sk": np.arange(30, dtype=np.int64),
+        "web_site_id": np.array([f"AAAAAAAA{i:04d}" for i in range(30)]),
+        "web_name": np.array([f"site_{i}" for i in range(30)]),
+        "web_company_name": rng.choice(["pri", "ought", "able"], 30),
+    }))
+    write("web_page", pa.table({
+        "wp_web_page_sk": np.arange(60, dtype=np.int64),
+        "wp_char_count": rng.integers(4000, 6000, 60).astype(np.int32),
+    }))
+    nin = n["inventory"]
+    write("inventory", pa.table({
+        "inv_date_sk": (DATE_SK0 + rng.integers(0, N_DATES // 7, nin) * 7)
+        .astype(np.int64),
+        "inv_item_sk": rng.integers(0, ni, nin).astype(np.int64),
+        "inv_warehouse_sk": rng.integers(0, 5, nin).astype(np.int64),
+        "inv_quantity_on_hand": rng.integers(0, 1000, nin).astype(np.int32),
+    }))
+
+    ns = max(int(12 * max(scale, 1)), 4)
+    nsr = n["store_returns"]
+    ncs, nws = n["catalog_sales"], n["web_sales"]
+    ncr, nwr = n["catalog_returns"], n["web_returns"]
+    ncp = max(int(11_718 * scale), 64)
+
+    def sales_parts(name, total, returns, make):
+        """Write ``name`` in DS7_PARTS part files on threads; each part
+        also draws its share of the returns.  Returns the drawn lines."""
+        bounds = np.linspace(0, total, DS7_PARTS + 1).astype(np.int64)
+        rets = np.diff(np.linspace(0, returns, DS7_PARTS + 1)
+                       .astype(np.int64))
+        out_dir = os.path.join(data_dir, f"{name}.parquet")
+        os.makedirs(out_dir)
+
+        def one(part):
+            r = _ds7_rng(seed, 2 if name == "catalog_sales" else 3, part)
+            table, keyed = make(r, int(bounds[part + 1] - bounds[part]))
+            papq.write_table(table, os.path.join(
+                out_dir, f"part-{part:05d}.parquet"))
+            return _returns_of(r, keyed.pop("_sold"), keyed,
+                               int(rets[part]))
+        with ThreadPoolExecutor(4) as pool:
+            drawn = list(pool.map(one, range(DS7_PARTS)))
+        rows[name] = total
+        return {c: np.concatenate([d[c] for d in drawn]) for c in drawn[0]}
+
+    def catalog_sales(r, m):
+        cprice = (r.random(m) * 200).round(2)
+        cqty = r.integers(1, 100, m)
+        cwcost = (r.random(m) * 100).round(2)
+        cext = (cprice * cqty).round(2)
+        sold = (DATE_SK0 + r.integers(0, N_DATES, m)).astype(np.int64)
+        cust = r.integers(0, nc, m).astype(np.int64)
+        item = r.integers(0, ni, m).astype(np.int64)
+        order = (r.integers(0, ncs, m) // 3).astype(np.int64)
+        # repeat purchases of store returns
+        rep = np.flatnonzero(r.random(m) < DS7_REPEAT_SHARE)
+        src = r.integers(0, nsr, len(rep))
+        cust[rep] = sr["ss_customer_sk"][src]
+        item[rep] = sr["ss_item_sk"][src]
+        sold[rep] = sr["_returned"][src] + r.integers(0, 61, len(rep))
+        table = pa.table({
+            "cs_sold_date_sk": sold,
+            "cs_sold_time_sk": r.integers(0, 86400, m).astype(np.int64),
+            "cs_ship_date_sk": (DATE_SK0 + r.integers(0, N_DATES, m))
+            .astype(np.int64),
+            "cs_bill_customer_sk": cust,
+            "cs_bill_cdemo_sk": r.integers(0, nd, m).astype(np.int64),
+            "cs_bill_hdemo_sk": r.integers(0, nh, m).astype(np.int64),
+            "cs_bill_addr_sk": r.integers(0, na, m).astype(np.int64),
+            "cs_ship_addr_sk": r.integers(0, na, m).astype(np.int64),
+            "cs_ship_mode_sk": r.integers(0, 20, m).astype(np.int64),
+            "cs_call_center_sk": r.integers(0, 6, m).astype(np.int64),
+            "cs_catalog_page_sk": r.integers(0, ncp, m).astype(np.int64),
+            "cs_warehouse_sk": r.integers(0, 5, m).astype(np.int64),
+            "cs_item_sk": item,
+            "cs_promo_sk": r.integers(0, npx, m).astype(np.int64),
+            "cs_order_number": order,
+            "cs_quantity": cqty.astype(np.int32),
+            "cs_wholesale_cost": cwcost,
+            "cs_list_price": (cprice * 1.2).round(2),
+            "cs_sales_price": cprice,
+            "cs_ext_discount_amt": (r.random(m) * 100).round(2),
+            "cs_ext_sales_price": cext,
+            "cs_ext_wholesale_cost": (cwcost * cqty).round(2),
+            "cs_ext_list_price": (cprice * 1.2 * cqty).round(2),
+            "cs_ext_ship_cost": (cext * 0.05).round(2),
+            "cs_coupon_amt": (r.random(m) * 50).round(2),
+            "cs_net_paid": (cext * 0.95).round(2),
+            "cs_net_paid_inc_ship": (cext * 1.02).round(2),
+            "cs_net_profit": (cext - cwcost * cqty).round(2),
+        })
+        return table, {"_sold": sold, "order": order, "item": item,
+                       "cust": cust}
+
+    def web_sales(r, m):
+        wprice = (r.random(m) * 200).round(2)
+        wqty = r.integers(1, 100, m)
+        wwcost = (r.random(m) * 100).round(2)
+        wext = (wprice * wqty).round(2)
+        sold = (DATE_SK0 + r.integers(0, N_DATES, m)).astype(np.int64)
+        item = r.integers(0, ni, m).astype(np.int64)
+        cust = r.integers(0, nc, m).astype(np.int64)
+        order = (r.integers(0, nws, m) // 3).astype(np.int64)
+        table = pa.table({
+            "ws_sold_date_sk": sold,
+            "ws_sold_time_sk": r.integers(0, 86400, m).astype(np.int64),
+            "ws_ship_date_sk": (DATE_SK0 + r.integers(0, N_DATES, m))
+            .astype(np.int64),
+            "ws_item_sk": item,
+            "ws_bill_customer_sk": cust,
+            "ws_bill_addr_sk": r.integers(0, na, m).astype(np.int64),
+            "ws_ship_customer_sk": r.integers(0, nc, m).astype(np.int64),
+            "ws_ship_addr_sk": r.integers(0, na, m).astype(np.int64),
+            "ws_web_page_sk": r.integers(0, 60, m).astype(np.int64),
+            "ws_web_site_sk": r.integers(0, 30, m).astype(np.int64),
+            "ws_ship_mode_sk": r.integers(0, 20, m).astype(np.int64),
+            "ws_warehouse_sk": r.integers(0, 5, m).astype(np.int64),
+            "ws_promo_sk": r.integers(0, npx, m).astype(np.int64),
+            "ws_order_number": order,
+            "ws_quantity": wqty.astype(np.int32),
+            "ws_wholesale_cost": wwcost,
+            "ws_list_price": (wprice * 1.2).round(2),
+            "ws_sales_price": wprice,
+            "ws_ext_discount_amt": (r.random(m) * 100).round(2),
+            "ws_ext_sales_price": wext,
+            "ws_ext_wholesale_cost": (wwcost * wqty).round(2),
+            "ws_ext_list_price": (wprice * 1.2 * wqty).round(2),
+            "ws_ext_ship_cost": (wext * 0.05).round(2),
+            "ws_net_paid": (wext * 0.95).round(2),
+            "ws_net_profit": (wext - wwcost * wqty).round(2),
+        })
+        return table, {"_sold": sold, "order": order, "item": item,
+                       "cust": cust}
+
+    # store_returns: drawn from phase 6's store_sales, part by part
+    ss_files = sorted(os.listdir(os.path.join(data_dir,
+                                              "store_sales.parquet")))
+    take = np.diff(np.linspace(0, nsr, len(ss_files) + 1).astype(np.int64))
+    drawn = []
+    for part, (f, k) in enumerate(zip(ss_files, take)):
+        ss = papq.read_table(
+            os.path.join(data_dir, "store_sales.parquet", f),
+            columns=["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                     "ss_ticket_number"])
+        cols = {c: ss[c].to_numpy() for c in ss.column_names}
+        drawn.append(_returns_of(_ds7_rng(seed, 1, part),
+                                 cols.pop("ss_sold_date_sk"), cols,
+                                 int(k)))
+    sr = {c: np.concatenate([d[c] for d in drawn]) for c in drawn[0]}
+    ramt = (rng.random(nsr) * 150).round(2)
+    write("store_returns", pa.table({
+        "sr_returned_date_sk": sr["_returned"].astype(np.int64),
+        "sr_item_sk": sr["ss_item_sk"],
+        "sr_customer_sk": sr["ss_customer_sk"],
+        "sr_cdemo_sk": rng.integers(0, nd, nsr).astype(np.int64),
+        "sr_store_sk": rng.integers(0, ns, nsr).astype(np.int64),
+        "sr_reason_sk": rng.integers(0, 35, nsr).astype(np.int64),
+        "sr_ticket_number": sr["ss_ticket_number"],
+        "sr_return_quantity": rng.integers(1, 50, nsr).astype(np.int32),
+        "sr_return_amt": ramt,
+        "sr_return_tax": (ramt * 0.08).round(2),
+        "sr_return_amt_inc_tax": (ramt * 1.08).round(2),
+        "sr_fee": (rng.random(nsr) * 20).round(2),
+        "sr_return_ship_cost": (rng.random(nsr) * 10).round(2),
+        "sr_refunded_cash": (ramt * 0.8).round(2),
+        "sr_reversed_charge": (ramt * 0.1).round(2),
+        "sr_store_credit": (ramt * 0.1).round(2),
+        "sr_net_loss": (rng.random(nsr) * 60).round(2),
+    }))
+
+    cr = sales_parts("catalog_sales", ncs, ncr, catalog_sales)
+    cramt = (rng.random(ncr) * 150).round(2)
+    write("catalog_returns", pa.table({
+        "cr_returned_date_sk": cr["_returned"].astype(np.int64),
+        "cr_item_sk": cr["item"],
+        "cr_returning_customer_sk": cr["cust"],
+        "cr_returning_addr_sk": rng.integers(0, na, ncr).astype(np.int64),
+        "cr_call_center_sk": rng.integers(0, 6, ncr).astype(np.int64),
+        "cr_catalog_page_sk": rng.integers(0, ncp, ncr).astype(np.int64),
+        "cr_reason_sk": rng.integers(0, 35, ncr).astype(np.int64),
+        "cr_order_number": cr["order"],
+        "cr_return_quantity": rng.integers(1, 50, ncr).astype(np.int32),
+        "cr_return_amount": cramt,
+        "cr_return_amt_inc_tax": (cramt * 1.08).round(2),
+        "cr_net_loss": (rng.random(ncr) * 60).round(2),
+        "cr_refunded_cash": (cramt * 0.8).round(2),
+        "cr_reversed_charge": (cramt * 0.1).round(2),
+        "cr_store_credit": (cramt * 0.1).round(2),
+    }))
+    wr = sales_parts("web_sales", nws, nwr, web_sales)
+    wramt = (rng.random(nwr) * 150).round(2)
+    refunded_cdemo = rng.integers(0, nd, nwr).astype(np.int64)
+    refunded_addr = rng.integers(0, na, nwr).astype(np.int64)
+    write("web_returns", pa.table({
+        "wr_returned_date_sk": wr["_returned"].astype(np.int64),
+        "wr_item_sk": wr["item"],
+        "wr_returning_customer_sk": wr["cust"],
+        "wr_returning_addr_sk": refunded_addr,
+        "wr_web_page_sk": rng.integers(0, 60, nwr).astype(np.int64),
+        "wr_reason_sk": rng.integers(0, 35, nwr).astype(np.int64),
+        "wr_order_number": wr["order"],
+        "wr_refunded_cdemo_sk": refunded_cdemo,
+        "wr_returning_cdemo_sk": refunded_cdemo,
+        "wr_refunded_addr_sk": refunded_addr,
+        "wr_return_quantity": rng.integers(1, 50, nwr).astype(np.int32),
+        "wr_return_amt": wramt,
+        "wr_refunded_cash": (wramt * 0.8).round(2),
+        "wr_fee": (rng.random(nwr) * 20).round(2),
+        "wr_net_loss": (rng.random(nwr) * 60).round(2),
+    }))
+    return rows
+
+
+def _ds7_tools(data_dir: str):
+    """(read, join, isin, between) over pyarrow for the references."""
+    import os
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as papq
+
+    def read(name, cols, prefix=""):
+        t = papq.read_table(os.path.join(data_dir, f"{name}.parquet"),
+                            columns=cols)
+        return t.rename_columns([prefix + c for c in cols]) if prefix else t
+
+    def join(a, b, ka, kb, how="inner"):
+        return a.join(b, keys=ka, right_keys=kb, join_type=how)
+
+    def isin(col, values):
+        return pc.is_in(col, value_set=pa.array(values))
+
+    def between(col, lo, hi):
+        return pc.and_(pc.greater_equal(col, lo), pc.less_equal(col, hi))
+    return read, join, isin, between
+
+
+def _grouped(t, keys, aggs, out):
+    """Rows of ``t`` grouped by ``keys`` with pyarrow ``aggs``
+    ([(column, function[, options])]), as tuples of the ``out`` columns
+    (group keys and ``<column>_<function>`` names)."""
+    g = t.group_by(keys).aggregate(aggs)
+    return list(zip(*[g[c].to_pylist() for c in out]))
+
+
+def _case_sum_cols(t, names_conds):
+    """``sum(case when cond then 1 else 0 end)`` inputs: one int64
+    column per (name, condition)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    one, zero = pa.scalar(1, pa.int64()), pa.scalar(0, pa.int64())
+    for name, cond in names_conds:
+        t = t.append_column(name, pc.if_else(cond, one, zero))
+    return t
+
+
+def ds7_references(data_dir: str, queries=DS7_QUERIES) -> dict:
+    """Each phase-7 query's full result (every row before its LIMIT), in
+    its select list's order, by pyarrow joins, filters, group-bys and
+    compute functions written apart from the port."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, between = _ds7_tools(data_dir)
+    std = pc.VarianceOptions(ddof=1)
+    out = {}
+
+    def dates(prefix, *conds):
+        d = read("date_dim", ["d_date_sk", "d_year", "d_moy", "d_qoy",
+                              "d_quarter_name", "d_day_name",
+                              "d_month_seq"], prefix)
+        for col, fn in conds:
+            d = d.filter(fn(d[prefix + col]))
+        return d
+
+    def eq(v):
+        return lambda c: pc.equal(c, v)
+
+    def q7_26(fact, p):
+        cols = [f"{p}_quantity", f"{p}_list_price", f"{p}_coupon_amt",
+                f"{p}_sales_price"]
+        f = read(fact, [f"{p}_sold_date_sk", f"{p}_item_sk",
+                        f"{p}_cdemo_sk" if p == "ss" else "cs_bill_cdemo_sk",
+                        f"{p}_promo_sk"] + cols)
+        cd = read("customer_demographics", ["cd_demo_sk", "cd_gender",
+                                            "cd_marital_status",
+                                            "cd_education_status"])
+        cd = cd.filter(pc.and_(pc.and_(pc.equal(cd["cd_gender"], "M"),
+                                       pc.equal(cd["cd_marital_status"], "S")),
+                               pc.equal(cd["cd_education_status"], "College")))
+        pr = read("promotion", ["p_promo_sk", "p_channel_email",
+                                "p_channel_event"])
+        pr = pr.filter(pc.or_(pc.equal(pr["p_channel_email"], "N"),
+                              pc.equal(pr["p_channel_event"], "N")))
+        j = join(f, dates("", ("d_year", eq(2000))), f"{p}_sold_date_sk",
+                 "d_date_sk")
+        j = join(j, cd, f"{p}_cdemo_sk" if p == "ss" else "cs_bill_cdemo_sk",
+                 "cd_demo_sk")
+        j = join(j, pr, f"{p}_promo_sk", "p_promo_sk")
+        j = join(j, read("item", ["i_item_sk", "i_item_id"]), f"{p}_item_sk",
+                 "i_item_sk")
+        return _grouped(j, ["i_item_id"], [(c, "mean") for c in cols],
+                        ["i_item_id"] + [f"{c}_mean" for c in cols])
+
+    if "q7" in queries:
+        out["q7"] = q7_26("store_sales", "ss")
+    if "q26" in queries:
+        out["q26"] = q7_26("catalog_sales", "cs")
+
+    def demo_address_arms(j, p, arms, addr_arms, hd=True):
+        cond = None
+        for ms, es, lo, hi, dep in arms:
+            c = pc.and_(pc.and_(pc.equal(j["cd_marital_status"], ms),
+                                pc.equal(j["cd_education_status"], es)),
+                        between(j[f"{p}_sales_price"], lo, hi))
+            if dep is not None:
+                c = pc.and_(c, pc.equal(j["hd_dep_count"], dep))
+            cond = c if cond is None else pc.or_(cond, c)
+        acond = None
+        for states, lo, hi in addr_arms:
+            c = pc.and_(pc.and_(pc.equal(j["ca_country"], "United States"),
+                                isin(j["ca_state"], states)),
+                        between(j[f"{p}_net_profit"], lo, hi))
+            acond = c if acond is None else pc.or_(acond, c)
+        return j.filter(pc.and_(cond, acond))
+
+    def store_demo_address(year, extra_cols, hd):
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_hdemo_sk", "ss_cdemo_sk", "ss_addr_sk",
+                                  "ss_sales_price", "ss_net_profit"] +
+                  extra_cols)
+        j = join(ss, dates("", ("d_year", eq(year))), "ss_sold_date_sk",
+                 "d_date_sk")
+        j = join(j, read("store", ["s_store_sk"]), "ss_store_sk",
+                 "s_store_sk")
+        if hd:
+            j = join(j, read("household_demographics",
+                             ["hd_demo_sk", "hd_dep_count"]), "ss_hdemo_sk",
+                     "hd_demo_sk")
+        j = join(j, read("customer_demographics",
+                         ["cd_demo_sk", "cd_marital_status",
+                          "cd_education_status"]), "ss_cdemo_sk",
+                 "cd_demo_sk")
+        return join(j, read("customer_address", ["ca_address_sk", "ca_state",
+                                                 "ca_country"]),
+                    "ss_addr_sk", "ca_address_sk")
+
+    def scalar(v):
+        return v.as_py()
+
+    if "q13" in queries:
+        j = store_demo_address(2001, ["ss_quantity", "ss_ext_sales_price",
+                                      "ss_ext_wholesale_cost"], True)
+        j = demo_address_arms(
+            j, "ss", [("M", "Advanced Degree", 100.0, 150.0, 3),
+                      ("S", "College", 50.0, 100.0, 1),
+                      ("W", "2 yr Degree", 150.0, 200.0, 1)],
+            [(["TX", "OH", "TX"], 100, 200), (["OR", "NM", "KY"], 150, 300),
+             (["VA", "TX", "MS"], 50, 250)])
+        out["q13"] = [(scalar(pc.mean(j["ss_quantity"])),
+                       scalar(pc.mean(j["ss_ext_sales_price"])),
+                       scalar(pc.mean(j["ss_ext_wholesale_cost"])),
+                       scalar(pc.sum(j["ss_ext_wholesale_cost"])))]
+    if "q48" in queries:
+        j = store_demo_address(2000, ["ss_quantity"], False)
+        j = demo_address_arms(
+            j, "ss", [("M", "4 yr Degree", 100.0, 150.0, None),
+                      ("D", "2 yr Degree", 50.0, 100.0, None),
+                      ("S", "College", 150.0, 200.0, None)],
+            [(["CO", "OH", "TX"], 0, 2000), (["OR", "MN", "KY"], 150, 3000),
+             (["VA", "CA", "MS"], 50, 25000)])
+        out["q48"] = [(scalar(pc.sum(j["ss_quantity"])),)]
+    if "q15" in queries:
+        cs = read("catalog_sales", ["cs_sold_date_sk", "cs_bill_customer_sk",
+                                    "cs_sales_price"])
+        j = join(cs, dates("", ("d_qoy", eq(2)), ("d_year", eq(2001))),
+                 "cs_sold_date_sk", "d_date_sk")
+        j = join(j, read("customer", ["c_customer_sk", "c_current_addr_sk"]),
+                 "cs_bill_customer_sk", "c_customer_sk")
+        j = join(j, read("customer_address", ["ca_address_sk", "ca_zip",
+                                              "ca_state"]),
+                 "c_current_addr_sk", "ca_address_sk")
+        zips = ["85669", "86197", "88274", "83405", "86475", "85392",
+                "85460", "80348", "81792"]
+        j = j.filter(pc.or_(pc.or_(
+            isin(pc.utf8_slice_codeunits(j["ca_zip"], 0, 5), zips),
+            isin(j["ca_state"], ["CA", "WA", "GA"])),
+            pc.greater(j["cs_sales_price"], 500)))
+        out["q15"] = _grouped(j, ["ca_zip"], [("cs_sales_price", "sum")],
+                              ["ca_zip", "cs_sales_price_sum"])
+
+    def store_return_catalog(d1, d2, d3, cols):
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                                  "ss_store_sk", "ss_customer_sk",
+                                  "ss_ticket_number"] + cols[0])
+        sr = read("store_returns", ["sr_returned_date_sk", "sr_item_sk",
+                                    "sr_customer_sk", "sr_ticket_number"] +
+                  cols[1])
+        cs = read("catalog_sales", ["cs_sold_date_sk", "cs_bill_customer_sk",
+                                    "cs_item_sk"] + cols[2])
+        ss = join(ss, dates("d1_", *d1), "ss_sold_date_sk", "d1_d_date_sk")
+        sr = join(sr, dates("d2_", *d2), "sr_returned_date_sk",
+                  "d2_d_date_sk")
+        cs = join(cs, dates("d3_", *d3), "cs_sold_date_sk", "d3_d_date_sk")
+        j = join(ss, sr, ["ss_customer_sk", "ss_item_sk", "ss_ticket_number"],
+                 ["sr_customer_sk", "sr_item_sk", "sr_ticket_number"])
+        j = join(j, cs, ["ss_customer_sk", "ss_item_sk"],
+                 ["cs_bill_customer_sk", "cs_item_sk"])
+        j = join(j, read("store", ["s_store_sk", "s_store_id",
+                                   "s_store_name", "s_state"]),
+                 "ss_store_sk", "s_store_sk")
+        return join(j, read("item", ["i_item_sk", "i_item_id",
+                                     "i_item_desc"]),
+                    "ss_item_sk", "i_item_sk")
+
+    quarters = ["2001Q1", "2001Q2", "2001Q3"]
+    if "q17" in queries:
+        j = store_return_catalog(
+            [("d_quarter_name", eq("2001Q1"))],
+            [("d_quarter_name", lambda c: isin(c, quarters))],
+            [("d_quarter_name", lambda c: isin(c, quarters))],
+            [["ss_quantity"], ["sr_return_quantity"], ["cs_quantity"]])
+        keys = ["i_item_id", "i_item_desc", "s_state"]
+        aggs, cols = [], list(keys)
+        for c in ("ss_quantity", "sr_return_quantity", "cs_quantity"):
+            aggs += [(c, "count"), (c, "mean"), (c, "stddev", std)]
+            cols += [f"{c}_count", f"{c}_mean", f"{c}_stddev", None]
+        g = j.group_by(keys).aggregate(aggs)
+        rows = []
+        for r in g.to_pylist():
+            row = []
+            for c in cols:
+                if c is None:          # stddev / avg of the column before
+                    s, m = row[-1], row[-2]
+                    row.append(None if s is None or m is None or m == 0
+                               else s / m)
+                else:
+                    row.append(r[c])
+            rows.append(tuple(row))
+        out["q17"] = rows
+    for q, d1, d2, d3, cols, aggs in (
+            ("q25", [("d_moy", eq(4)), ("d_year", eq(2001))],
+             [("d_moy", lambda c: between(c, 4, 10)), ("d_year", eq(2001))],
+             [("d_moy", lambda c: between(c, 4, 10)), ("d_year", eq(2001))],
+             [["ss_net_profit"], ["sr_net_loss"], ["cs_net_profit"]],
+             ["ss_net_profit", "sr_net_loss", "cs_net_profit"]),
+            ("q29", [("d_moy", eq(9)), ("d_year", eq(1999))],
+             [("d_moy", lambda c: between(c, 9, 12)), ("d_year", eq(1999))],
+             [("d_year", lambda c: isin(c, [1999, 2000, 2001]))],
+             [["ss_quantity"], ["sr_return_quantity"], ["cs_quantity"]],
+             ["ss_quantity", "sr_return_quantity", "cs_quantity"])):
+        if q in queries:
+            j = store_return_catalog(d1, d2, d3, cols)
+            keys = ["i_item_id", "i_item_desc", "s_store_id", "s_store_name"]
+            out[q] = _grouped(j, keys, [(c, "sum") for c in aggs],
+                              keys + [f"{c}_sum" for c in aggs])
+    if "q19" in queries or "q55" in queries:
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                                  "ss_customer_sk", "ss_store_sk",
+                                  "ss_ext_sales_price"])
+        it = read("item", ["i_item_sk", "i_brand_id", "i_brand",
+                           "i_manufact_id", "i_manufact", "i_manager_id"])
+    if "q19" in queries:
+        j = join(ss, dates("", ("d_moy", eq(11)), ("d_year", eq(1998))),
+                 "ss_sold_date_sk", "d_date_sk")
+        j = join(j, it.filter(pc.equal(it["i_manager_id"], 8)), "ss_item_sk",
+                 "i_item_sk")
+        j = join(j, read("customer", ["c_customer_sk", "c_current_addr_sk"]),
+                 "ss_customer_sk", "c_customer_sk")
+        j = join(j, read("customer_address", ["ca_address_sk", "ca_zip"]),
+                 "c_current_addr_sk", "ca_address_sk")
+        j = join(j, read("store", ["s_store_sk", "s_zip"]), "ss_store_sk",
+                 "s_store_sk")
+        j = j.filter(pc.not_equal(pc.utf8_slice_codeunits(j["ca_zip"], 0, 5),
+                                  pc.utf8_slice_codeunits(j["s_zip"], 0, 5)))
+        keys = ["i_brand_id", "i_brand", "i_manufact_id", "i_manufact"]
+        out["q19"] = _grouped(j, keys, [("ss_ext_sales_price", "sum")],
+                              keys + ["ss_ext_sales_price_sum"])
+    if "q55" in queries:
+        j = join(ss, dates("", ("d_moy", eq(11)), ("d_year", eq(1999))),
+                 "ss_sold_date_sk", "d_date_sk")
+        j = join(j, it.filter(pc.equal(it["i_manager_id"], 28)),
+                 "ss_item_sk", "i_item_sk")
+        out["q55"] = _grouped(j, ["i_brand_id", "i_brand"],
+                              [("ss_ext_sales_price", "sum")],
+                              ["i_brand_id", "i_brand",
+                               "ss_ext_sales_price_sum"])
+    if "q21" in queries:
+        inv = read("inventory", ["inv_date_sk", "inv_item_sk",
+                                 "inv_warehouse_sk", "inv_quantity_on_hand"])
+        it = read("item", ["i_item_sk", "i_item_id", "i_current_price"])
+        j = join(inv, it.filter(between(it["i_current_price"], 0.99, 1.49)),
+                 "inv_item_sk", "i_item_sk")
+        j = join(j, read("warehouse", ["w_warehouse_sk", "w_warehouse_name"]),
+                 "inv_warehouse_sk", "w_warehouse_sk")
+        j = join(j, dates("", ("d_year", eq(2000))), "inv_date_sk",
+                 "d_date_sk")
+        q = pc.cast(j["inv_quantity_on_hand"], pa.int64())
+        zero = pa.scalar(0, pa.int64())
+        j = j.append_column("before", pc.if_else(pc.less(j["d_moy"], 3), q,
+                                                 zero))
+        j = j.append_column("after", pc.if_else(
+            pc.greater_equal(j["d_moy"], 3), q, zero))
+        rows = _grouped(j, ["w_warehouse_name", "i_item_id"],
+                        [("before", "sum"), ("after", "sum")],
+                        ["w_warehouse_name", "i_item_id", "before_sum",
+                         "after_sum"])
+        out["q21"] = [r for r in rows if r[2] is not None and r[2] > 0]
+
+    def inventory_items(lo, manufacts, fact, key):
+        it = read("item", ["i_item_sk", "i_item_id", "i_item_desc",
+                           "i_current_price", "i_manufact_id"])
+        it = it.filter(pc.and_(between(it["i_current_price"], lo, lo + 30),
+                               isin(it["i_manufact_id"], manufacts)))
+        inv = read("inventory", ["inv_date_sk", "inv_item_sk",
+                                 "inv_quantity_on_hand"])
+        inv = inv.filter(between(inv["inv_quantity_on_hand"], 100, 500))
+        j = join(it, inv, "i_item_sk", "inv_item_sk")
+        j = join(j, dates("", ("d_year", eq(2000))), "inv_date_sk",
+                 "d_date_sk")
+        j = join(j, read(fact, [key]), "i_item_sk", key)
+        keys = ["i_item_id", "i_item_desc", "i_current_price"]
+        return _grouped(j, keys, [], keys)
+
+    if "q37" in queries:
+        out["q37"] = inventory_items(68, [677, 940, 694, 808],
+                                     "catalog_sales", "cs_item_sk")
+    if "q82" in queries:
+        out["q82"] = inventory_items(62, [129, 270, 821, 423],
+                                     "store_sales", "ss_item_sk")
+    if "q40" in queries:
+        cs = read("catalog_sales", ["cs_sold_date_sk", "cs_item_sk",
+                                    "cs_warehouse_sk", "cs_order_number",
+                                    "cs_sales_price"])
+        cr = read("catalog_returns", ["cr_order_number", "cr_item_sk",
+                                      "cr_return_amount"])
+        j = join(cs, cr, ["cs_order_number", "cs_item_sk"],
+                 ["cr_order_number", "cr_item_sk"], "left outer")
+        it = read("item", ["i_item_sk", "i_item_id", "i_current_price"])
+        j = join(j, it.filter(between(it["i_current_price"], 0.99, 1.49)),
+                 "cs_item_sk", "i_item_sk")
+        j = join(j, read("warehouse", ["w_warehouse_sk", "w_state"]),
+                 "cs_warehouse_sk", "w_warehouse_sk")
+        j = join(j, dates("", ("d_year", lambda c: isin(c, [1999, 2000,
+                                                            2001]))),
+                 "cs_sold_date_sk", "d_date_sk")
+        net = pc.subtract(j["cs_sales_price"],
+                          pc.coalesce(j["cr_return_amount"], 0.0))
+        j = j.append_column("before", pc.if_else(pc.less(j["d_year"], 2000),
+                                                 net, 0.0))
+        j = j.append_column("after", pc.if_else(
+            pc.greater_equal(j["d_year"], 2000), net, 0.0))
+        out["q40"] = _grouped(j, ["w_state", "i_item_id"],
+                              [("before", "sum"), ("after", "sum")],
+                              ["w_state", "i_item_id", "before_sum",
+                               "after_sum"])
+    if "q43" in queries:
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_sales_price"])
+        st = read("store", ["s_store_sk", "s_store_name", "s_store_id",
+                            "s_gmt_offset"])
+        j = join(ss, dates("", ("d_year", eq(2000))), "ss_sold_date_sk",
+                 "d_date_sk")
+        j = join(j, st.filter(pc.equal(st["s_gmt_offset"], -5.0)),
+                 "ss_store_sk", "s_store_sk")
+        days = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+                "Friday", "Saturday"]
+        null = pa.scalar(None, pa.float64())
+        for d in days:
+            j = j.append_column(d, pc.if_else(pc.equal(j["d_day_name"], d),
+                                              j["ss_sales_price"], null))
+        out["q43"] = _grouped(j, ["s_store_name", "s_store_id"],
+                              [(d, "sum") for d in days],
+                              ["s_store_name", "s_store_id"] +
+                              [f"{d}_sum" for d in days])
+
+    def day_buckets(t, late, early):
+        diff = pc.subtract(t[late], t[early])
+        conds = [pc.less_equal(diff, 30),
+                 pc.and_(pc.greater(diff, 30), pc.less_equal(diff, 60)),
+                 pc.and_(pc.greater(diff, 60), pc.less_equal(diff, 90)),
+                 pc.greater(diff, 90)]
+        names = ["d30", "d31_60", "d61_90", "d90_plus"]
+        return _case_sum_cols(t, list(zip(names, conds))), names
+
+    if "q50" in queries:
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                                  "ss_customer_sk", "ss_ticket_number",
+                                  "ss_store_sk"])
+        sr = read("store_returns", ["sr_returned_date_sk", "sr_item_sk",
+                                    "sr_customer_sk", "sr_ticket_number"])
+        sr = join(sr, dates("d2_", ("d_year", eq(2001)), ("d_moy", eq(8))),
+                  "sr_returned_date_sk", "d2_d_date_sk")
+        j = join(ss, sr, ["ss_ticket_number", "ss_item_sk", "ss_customer_sk"],
+                 ["sr_ticket_number", "sr_item_sk", "sr_customer_sk"])
+        j = join(j, dates("d1_"), "ss_sold_date_sk", "d1_d_date_sk")
+        j = join(j, read("store", ["s_store_sk", "s_store_name",
+                                   "s_company_id", "s_state", "s_zip"]),
+                 "ss_store_sk", "s_store_sk")
+        j, names = day_buckets(j, "sr_returned_date_sk", "ss_sold_date_sk")
+        keys = ["s_store_name", "s_company_id", "s_state", "s_zip"]
+        out["q50"] = _grouped(j, keys, [(c, "sum") for c in names],
+                              keys + [f"{c}_sum" for c in names])
+    for q, fact, p, site in (("q62", "web_sales", "ws",
+                              ("web_site", "ws_web_site_sk", "web_site_sk",
+                               "web_name")),
+                             ("q99", "catalog_sales", "cs",
+                              ("call_center", "cs_call_center_sk",
+                               "cc_call_center_sk", "cc_name"))):
+        if q not in queries:
+            continue
+        f = read(fact, [f"{p}_ship_date_sk", f"{p}_sold_date_sk",
+                        f"{p}_warehouse_sk", f"{p}_ship_mode_sk", site[1]])
+        j = join(f, dates("", ("d_month_seq",
+                               lambda c: between(c, 1200, 1211))),
+                 f"{p}_ship_date_sk", "d_date_sk")
+        j = join(j, read("warehouse", ["w_warehouse_sk", "w_warehouse_name"]),
+                 f"{p}_warehouse_sk", "w_warehouse_sk")
+        j = join(j, read("ship_mode", ["sm_ship_mode_sk", "sm_type"]),
+                 f"{p}_ship_mode_sk", "sm_ship_mode_sk")
+        j = join(j, read(site[0], [site[2], site[3]]), site[1], site[2])
+        j, names = day_buckets(j, f"{p}_ship_date_sk", f"{p}_sold_date_sk")
+        keys = ["w_warehouse_name", "sm_type", site[3]]
+        out[q] = _grouped(j, keys, [(c, "sum") for c in names],
+                          keys + [f"{c}_sum" for c in names])
+    if "q84" in queries:
+        c = read("customer", ["c_customer_sk", "c_customer_id",
+                              "c_current_addr_sk", "c_current_cdemo_sk",
+                              "c_current_hdemo_sk", "c_first_name",
+                              "c_last_name"])
+        ca = read("customer_address", ["ca_address_sk", "ca_city"])
+        ib = read("income_band", ["ib_income_band_sk", "ib_lower_bound",
+                                  "ib_upper_bound"])
+        ib = ib.filter(pc.and_(pc.greater_equal(ib["ib_lower_bound"], 30000),
+                               pc.less_equal(ib["ib_upper_bound"], 80000)))
+        j = join(c, ca.filter(pc.equal(ca["ca_city"], "Fairview")),
+                 "c_current_addr_sk", "ca_address_sk")
+        j = join(j, read("household_demographics",
+                         ["hd_demo_sk", "hd_income_band_sk"]),
+                 "c_current_hdemo_sk", "hd_demo_sk")
+        j = join(j, ib, "hd_income_band_sk", "ib_income_band_sk")
+        j = join(j, read("customer_demographics", ["cd_demo_sk"]),
+                 "c_current_cdemo_sk", "cd_demo_sk")
+        j = join(j, read("store_returns", ["sr_cdemo_sk"]),
+                 "c_current_cdemo_sk", "sr_cdemo_sk")
+        name = pc.binary_join_element_wise(j["c_last_name"], ", ",
+                                           j["c_first_name"], "")
+        out["q84"] = list(zip(j["c_customer_id"].to_pylist(),
+                              name.to_pylist()))
+    if "q85" in queries:
+        ws = read("web_sales", ["ws_sold_date_sk", "ws_item_sk",
+                                "ws_order_number", "ws_web_page_sk",
+                                "ws_quantity", "ws_sales_price",
+                                "ws_net_profit"])
+        wr = read("web_returns", ["wr_item_sk", "wr_order_number",
+                                  "wr_refunded_cdemo_sk",
+                                  "wr_returning_cdemo_sk",
+                                  "wr_refunded_addr_sk", "wr_reason_sk",
+                                  "wr_refunded_cash", "wr_fee"])
+        j = join(ws, wr, ["ws_item_sk", "ws_order_number"],
+                 ["wr_item_sk", "wr_order_number"])
+        j = join(j, read("web_page", ["wp_web_page_sk"]), "ws_web_page_sk",
+                 "wp_web_page_sk")
+        j = join(j, dates("", ("d_year", eq(2000))), "ws_sold_date_sk",
+                 "d_date_sk")
+        cd = ["cd_demo_sk", "cd_marital_status", "cd_education_status"]
+        j = join(j, read("customer_demographics", cd, "cd1_"),
+                 "wr_refunded_cdemo_sk", "cd1_cd_demo_sk")
+        j = join(j, read("customer_demographics", cd, "cd2_"),
+                 "wr_returning_cdemo_sk", "cd2_cd_demo_sk")
+        j = join(j, read("customer_address", ["ca_address_sk", "ca_country",
+                                              "ca_state"]),
+                 "wr_refunded_addr_sk", "ca_address_sk")
+        j = join(j, read("reason", ["r_reason_sk", "r_reason_desc"]),
+                 "wr_reason_sk", "r_reason_sk")
+        cond = None
+        for ms, es, lo, hi in (("M", "Advanced Degree", 100.0, 150.0),
+                               ("S", "College", 50.0, 100.0),
+                               ("W", "2 yr Degree", 150.0, 200.0)):
+            c = pc.and_(pc.and_(
+                pc.equal(j["cd1_cd_marital_status"], ms),
+                pc.equal(j["cd1_cd_marital_status"],
+                         j["cd2_cd_marital_status"])), pc.and_(
+                pc.equal(j["cd1_cd_education_status"], es),
+                pc.equal(j["cd1_cd_education_status"],
+                         j["cd2_cd_education_status"])))
+            c = pc.and_(c, between(j["ws_sales_price"], lo, hi))
+            cond = c if cond is None else pc.or_(cond, c)
+        acond = None
+        for states, lo, hi in ((["IN", "OH", "NJ"], 100, 200),
+                               (["WI", "CT", "KY"], 150, 300),
+                               (["LA", "IA", "AR"], 50, 250)):
+            c = pc.and_(pc.and_(pc.equal(j["ca_country"], "United States"),
+                                isin(j["ca_state"], states)),
+                        between(j["ws_net_profit"], lo, hi))
+            acond = c if acond is None else pc.or_(acond, c)
+        j = j.filter(pc.and_(cond, acond))
+        rows = _grouped(j, ["r_reason_desc"],
+                        [("ws_quantity", "mean"), ("wr_refunded_cash", "mean"),
+                         ("wr_fee", "mean")],
+                        ["r_reason_desc", "ws_quantity_mean",
+                         "wr_refunded_cash_mean", "wr_fee_mean"])
+        out["q85"] = [(r[0][:20],) + r[1:] for r in rows]
+    if "q91" in queries:
+        cr = read("catalog_returns", ["cr_call_center_sk",
+                                      "cr_returned_date_sk",
+                                      "cr_returning_customer_sk",
+                                      "cr_net_loss"])
+        # the call center on the left keeps its key column
+        j = join(read("call_center", ["cc_call_center_sk", "cc_name",
+                                      "cc_manager"]), cr,
+                 "cc_call_center_sk", "cr_call_center_sk")
+        j = join(j, dates("", ("d_year", eq(1998)), ("d_moy", eq(11))),
+                 "cr_returned_date_sk", "d_date_sk")
+        j = join(j, read("customer", ["c_customer_sk", "c_current_cdemo_sk",
+                                      "c_current_hdemo_sk",
+                                      "c_current_addr_sk"]),
+                 "cr_returning_customer_sk", "c_customer_sk")
+        cd = read("customer_demographics", ["cd_demo_sk", "cd_marital_status",
+                                            "cd_education_status"])
+        cd = cd.filter(pc.or_(
+            pc.and_(pc.equal(cd["cd_marital_status"], "M"),
+                    pc.equal(cd["cd_education_status"], "Unknown")),
+            pc.and_(pc.equal(cd["cd_marital_status"], "W"),
+                    pc.equal(cd["cd_education_status"], "Advanced Degree"))))
+        j = join(j, cd, "c_current_cdemo_sk", "cd_demo_sk")
+        hd = read("household_demographics", ["hd_demo_sk",
+                                             "hd_buy_potential"])
+        hd = hd.filter(pc.match_like(hd["hd_buy_potential"], ">10000%"))
+        j = join(j, hd, "c_current_hdemo_sk", "hd_demo_sk")
+        ca = read("customer_address", ["ca_address_sk", "ca_gmt_offset"])
+        j = join(j, ca.filter(pc.equal(ca["ca_gmt_offset"], -7.0)),
+                 "c_current_addr_sk", "ca_address_sk")
+        keys = ["cc_call_center_sk", "cc_name", "cc_manager"]
+        out["q91"] = _grouped(j, keys, [("cr_net_loss", "sum")],
+                              keys + ["cr_net_loss_sum"])
+    return out
+
+
+#: ORDER BY of each query: (select column position, ascending); None:
+#: no ORDER BY and no LIMIT (one row)
+_ASC4 = [(0, True), (1, True), (2, True), (3, True)]
+DS7_ORDER = {"q7": [(0, True)], "q13": None, "q15": [(0, True)],
+             "q17": _ASC4[:3], "q19": [(4, False), (0, True)],
+             "q21": _ASC4[:2], "q25": _ASC4, "q26": [(0, True)],
+             "q29": _ASC4, "q37": [(0, True)], "q40": _ASC4[:2],
+             "q43": [(i, True) for i in range(9)], "q48": None,
+             "q50": _ASC4, "q55": [(2, False), (0, True)],
+             "q62": _ASC4[:3], "q82": [(0, True)], "q84": [(0, True)],
+             "q85": _ASC4, "q91": [(3, False)], "q99": _ASC4[:3]}
+#: the table whose rows a query's Mrows/s counts (its largest scan)
+DS7_FACT = {"q7": "store_sales", "q13": "store_sales",
+            "q15": "catalog_sales", "q17": "store_sales",
+            "q19": "store_sales", "q21": "inventory", "q25": "store_sales",
+            "q26": "catalog_sales", "q29": "store_sales",
+            "q37": "catalog_sales", "q40": "catalog_sales",
+            "q43": "store_sales", "q48": "store_sales", "q50": "store_sales",
+            "q55": "store_sales", "q62": "web_sales", "q82": "store_sales",
+            "q84": "store_returns", "q85": "web_sales",
+            "q91": "catalog_returns", "q99": "catalog_sales"}
+
+
+def _sort_rows(rows, order):
+    """Rows in ORDER BY order (Spark's nulls: first ascending, last
+    descending), stable."""
+    out = list(rows)
+    for i, asc in reversed(order or []):
+        out.sort(key=lambda r: (0,) if r[i] is None else (1, r[i]),
+                 reverse=not asc)
+    return out
+
+
+def _close(a, b) -> bool:
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (a != a and b != b) or \
+            abs(a - b) <= EXACT_REL * max(abs(a), abs(b), 1.0)
+    return a == b
+
+
+def check_ds7_rows(q: str, table, full: list) -> int:
+    """The port's rows against the reference's full result: as many as
+    the LIMIT keeps, in ORDER BY order, each position's order keys those
+    of the reference's row there, and each row one of the reference's
+    rows with those keys (so ties, also at the LIMIT's cut, compare as a
+    multiset); strings, integers and nulls equal, floats within
+    EXACT_REL.  Returns the reference's row count."""
+    order = DS7_ORDER[q]
+    rows = [tuple(r.values()) for r in table.to_pylist()]
+    ref = _sort_rows(full, order)
+    want = min(100, len(ref)) if order is not None else len(ref)
+    check(len(rows) == want,
+          f"{q}: {len(rows)} rows where the reference has {want}")
+
+    def key(r):
+        return tuple(r[i] for i, _ in order or [])
+
+    def same_key(a, b):
+        return all(_close(x, y) for x, y in zip(key(a), key(b)))
+    check([key(r) for r in _sort_rows(rows, order)] ==
+          [key(r) for r in rows], f"{q}: rows out of ORDER BY order")
+    used = set()
+    for i, r in enumerate(rows):
+        check(same_key(r, ref[i]),
+              f"{q}: row {i} has order keys {key(r)}, the reference "
+              f"{key(ref[i])}")
+        lo, hi = i, i + 1
+        while lo > 0 and same_key(ref[lo - 1], r):
+            lo -= 1
+        while hi < len(ref) and same_key(ref[hi], r):
+            hi += 1
+        j = next((j for j in range(lo, hi) if j not in used and
+                  len(r) == len(ref[j]) and
+                  all(_close(a, b) for a, b in zip(r, ref[j]))), None)
+        check(j is not None, f"{q}: row {r} is no row of the reference "
+                             f"(near {ref[i]})")
+        used.add(j)
+    return len(ref)
+
+
+_PLAN_OP = re.compile(r"^(TpuGlobalLimit|TpuTopN|TpuSort|"
+                      r"TpuHashAggregate\[\w+|Tpu\w*HashJoin\[[^\]]*\])")
+
+
+def plan_signature(explain: str) -> list:
+    """The limit, sort, aggregate and join operators of a plan, top
+    down (what DS7_PLANS lists)."""
+    return [m.group(1) for ln in explain.splitlines()
+            if (m := _PLAN_OP.match(ln.strip()))]
+
+
+def tpcds7_phase(args, kernels_used, data_dir: str, session) -> dict:
+    """Phase 7: the verbatim text of the 21 flat TPC-DS queries
+    (DS7_QUERIES) through the port's ``session.sql`` over Parquet temp
+    views at scale ``--ds-sf``, on phase 6's tables and session with the
+    17 more tables of ``make_tpcds7``.  Below SF10 the broadcast
+    threshold shrinks with the scale, so the plans are SF10's.  Returns
+    B1's launches on this path."""
+    import os
+    import torch
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    rows = make_tpcds7(data_dir, args.ds_sf, args.seed)
+    t1 = time.perf_counter()
+    refs = ds7_references(data_dir)
+    print(f"tpcds7 data: sf {args.ds_sf}, {rows}, written in "
+          f"{t1 - t0:.1f}s; pyarrow references in "
+          f"{time.perf_counter() - t1:.1f}s")
+    rows.update({"store_sales": max(int(DS_ROWS_PER_SF["store_sales"] *
+                                        args.ds_sf), 64)})
+    for t in DS7_TABLES:
+        session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
+            .create_or_replace_temp_view(t)
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        for q in DS7_QUERIES:
+            check("spark_rapids_tpu" not in sys.modules,
+                  "phase 7 imported the JAX package")
             df = session.sql(QUERIES[q])
             plan = df.explain()
-            lines = [ln.strip() for ln in plan.splitlines()]
-            check(len(lines) == len(DS_PLANS[q]) and
-                  all(ln.startswith(w) for ln, w in zip(lines, DS_PLANS[q])),
+            check(plan_signature(plan) == DS7_PLANS[q] and
+                  "cross" not in plan,
                   f"{q}: not the planned operators:\n{plan}")
             cache.clear()                  # cold: read and upload again
             if on_card:
@@ -1319,36 +2540,37 @@ def tpcds_phase(args, kernels_used) -> dict:
             for name, v in cuda_ops.LAUNCHES.items():
                 launches[name] += v
             peak = torch.cuda.max_memory_allocated() if on_card else None
-            groups = check_ds_rows(q, cold, refs[q])
+            full = check_ds7_rows(q, cold, refs[q])
             for t in warm:
-                check_ds_rows(q, t, refs[q])
+                check_ds7_rows(q, t, refs[q])
             check(same_bytes(warm[0], warm[1]),
                   f"{q}: the two warm runs are not byte-identical")
-            check(cold.num_rows > 0, f"{q}: no rows")
-            if q == "q3" and args.ds_sf >= 10:
-                # at SF10 the LIMIT cuts: ~180 items of manufacturer 128
-                check(groups > 100, f"q3: {groups} groups, not more than "
-                      f"its LIMIT 100")
-            ss_rows = rows["store_sales"]
-            print(f"{q}: {cold.num_rows} rows of {groups} groups; cold "
-                  f"{cold_s:.4f}s (host read {read_s:.4f}s, upload "
-                  f"{upload_s:.4f}s); warm {warm_s[0]:.4f}s "
-                  f"{warm_s[1]:.4f}s; warm {ss_rows / warm_s[1] / 1e6:.3f} "
-                  f"Mrows/s of store_sales; peak device memory {peak} B; "
-                  f"launches (3 runs) {dict(cuda_ops.LAUNCHES)}; "
-                  f"byte-identical warm runs; matches pyarrow at "
-                  f"{EXACT_REL}; first rows {cold.slice(0, 3).to_pylist()}")
-        print("plan q3:\n" + session.sql(QUERIES["q3"]).explain())
+            # below SF10 a selective query may find nothing
+            check(cold.num_rows > 0 or q in DS7_EMPTY or args.ds_sf < 10,
+                  f"{q}: no rows (not in DS7_EMPTY)")
+            fact = rows[DS7_FACT[q]]
+            print(f"{q}: {cold.num_rows} rows of {full}; cold {cold_s:.4f}s "
+                  f"(host read {read_s:.4f}s, upload {upload_s:.4f}s); warm "
+                  f"{warm_s[0]:.4f}s {warm_s[1]:.4f}s; warm "
+                  f"{fact / warm_s[1] / 1e6:.3f} Mrows/s of {DS7_FACT[q]}; "
+                  f"peak device memory {peak} B; B1 launches (3 runs) "
+                  f"{cuda_ops.LAUNCHES['hash_partition_ids']}; B2 launches "
+                  f"{cuda_ops.LAUNCHES['table_reduce']}; byte-identical warm "
+                  f"runs; matches pyarrow at {EXACT_REL}; first rows "
+                  f"{cold.slice(0, 2).to_pylist()}")
+        print("plan q17:\n" + session.sql(QUERIES["q17"]).explain())
         if on_card:
             before = cuda_ops.LAUNCHES["hash_partition_ids"]
-            profile_query(session.sql(QUERIES["q3"]))
+            profile_query(session.sql(QUERIES["q17"]))
             b1 = cuda_ops.LAUNCHES["hash_partition_ids"] - before
-            print(f"profile q3: B1 hash_split launches {b1}")
-            check(b1 > 0, "q3's profiled run launched no hash_split")
+            print(f"profile q17: B1 hash_split launches {b1}")
+            check(b1 > 0, "q17's profiled run launched no hash_split")
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
         check(launches.get(name, 0) > 0,
-              f"{name} never launched on the TPC-DS path")
+              f"{name} never launched on the phase 7 path")
     return launches
 
 
@@ -1444,9 +2666,13 @@ def main(argv=None) -> int:
     results["join"] = join_phase(
         args, list(kernels) if args.device == "cuda" else [])
 
-    # 6. the TPC-DS quartet through session.sql over Parquet
-    results["tpcds"] = tpcds_phase(
-        args, ["hash_partition_ids"] if args.device == "cuda" else [])
+    # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
+    # TPC-DS queries on the same tables, session and directory
+    used = ["hash_partition_ids"] if args.device == "cuda" else []
+    with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
+        results["tpcds"], session = tpcds_phase(args, used, data_dir)
+        results["tpcds7"] = tpcds7_phase(args, used, data_dir, session)
+        session = None
 
     if args.device != "cuda":
         print("cpu rehearsal: no device result")
@@ -1454,9 +2680,10 @@ def main(argv=None) -> int:
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            # phase 6 takes no B2: string keys and count(*) run the sort
-            # path
-            check(got > 0 or (mode, name) == ("tpcds", "table_reduce"),
+            # phases 6 and 7 take no B2: their string keys and keyless
+            # aggregates run the sort path
+            check(got > 0 or (mode in ("tpcds", "tpcds7") and
+                              name == "table_reduce"),
                   f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]
         kernels[name]["launches_by_path"] = by_path

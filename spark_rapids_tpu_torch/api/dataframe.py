@@ -1,8 +1,8 @@
 """DataFrame API: the PySpark-flavoured surface that builds logical plans.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py`` (select,
-with_column, filter, group_by().agg(), join, temp views, collect,
-to_arrow).
+with_column, filter, group_by().agg(), join, sort, limit, temp views,
+collect, to_arrow).
 """
 from __future__ import annotations
 
@@ -117,6 +117,28 @@ class DataFrame:
                                                     other.schema)
         return DataFrame(L.Join(self._plan, other._plan, how, lkeys, rkeys,
                                 residual), self.session)
+
+    def sort(self, *cols, ascending=None) -> "DataFrame":
+        """A global sort by columns, names or ``Col.asc()`` / ``desc()``
+        orders; ``limit`` right over it plans a ``TpuTopN``."""
+        orders = []
+        for c in cols:
+            if isinstance(c, L.SortOrder):
+                orders.append(L.SortOrder(_resolve(c.expr, self.schema),
+                                          c.ascending, c.nulls_first))
+            else:
+                orders.append(L.SortOrder(_to_expr(c, self.schema)))
+        if ascending is not None:
+            flags = ascending if isinstance(ascending, (list, tuple)) \
+                else [ascending] * len(orders)
+            orders = [L.SortOrder(o.expr, bool(a)) for o, a in
+                      zip(orders, flags)]
+        return DataFrame(L.Sort(orders, self._plan), self.session)
+
+    orderBy = order_by = sort
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self._plan), self.session)
 
     def create_or_replace_temp_view(self, name: str) -> None:
         self.session.register_table(name, self)

@@ -6,23 +6,40 @@ runs:
 - ``SELECT`` lists of expressions with aliases (``AS`` optional) and
   ``*``;
 - ``FROM`` lists of temp views (comma joins) and ``[INNER | LEFT
-  [OUTER] | RIGHT [OUTER] | FULL [OUTER]] JOIN ... ON``, views with
-  aliases, column names with or without a qualifier;
+  [OUTER] | RIGHT [OUTER] | FULL [OUTER]] JOIN ... ON``, the two mixed
+  (``a LEFT JOIN b ON ..., c``), views with aliases, column names with
+  or without a qualifier; a view joined to itself under two aliases
+  (``date_dim d1, date_dim d2``) has its second copy's columns renamed
+  ``__<alias>_<name>`` inside the plan;
 - ``WHERE`` with ``AND`` / ``OR`` / ``NOT``, the comparisons ``=``,
-  ``<>``, ``!=``, ``<``, ``<=``, ``>``, ``>=``, and ``+``, ``*``, ``%``;
-- integer, decimal (read as double) and string literals;
-- ``GROUP BY`` expressions or select aliases; the aggregates
-  ``count(*)``, ``count``, ``sum`` and ``max``;
+  ``<>``, ``!=``, ``<``, ``<=``, ``>``, ``>=``, ``[NOT] BETWEEN``,
+  ``[NOT] IN (literal list)``, ``[NOT] LIKE`` (prefix, suffix,
+  contains and equality patterns), ``IS [NOT] NULL``; conjuncts common
+  to every arm of an OR are factored out of it (``plan/logical_opt``'s
+  ``_factor_or``, for WHERE and ``JOIN ... ON`` alike), so join
+  equalities written inside the arms become join keys;
+- ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``;
+  ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric values;
+  ``substring`` / ``substr`` with literal positions, ``concat``,
+  ``coalesce`` / ``nvl`` / ``ifnull`` of numbers;
+- integer, decimal (read as double), string and ``NULL`` literals;
+- ``GROUP BY`` expressions, ordinals or select aliases, with or
+  without aggregates; the aggregates ``count(*)``, ``count``, ``sum``,
+  ``max``, ``avg`` / ``mean``, ``stddev`` / ``stddev_samp`` / ``std``,
+  ``stddev_pop``, ``variance`` / ``var_samp``, ``var_pop``, and
+  expressions over them and over the group keys; ``HAVING``, whose
+  aggregates need not be selected;
 - ``ORDER BY`` expressions, select aliases or ordinals with ``ASC`` /
   ``DESC`` and ``NULLS FIRST`` / ``LAST``; ``LIMIT``.
 
 Anything else raises ``SqlError`` naming the construct, before any
 device work.  The plan is built in Spark's order: the FROM relations as
-a left-deep join tree, WHERE as a filter over it, the aggregate, the
-sort (over the aggregate's columns, an alias standing for its select
-expression), the projection of the select list, the limit; then
-``plan/logical_opt.optimize`` turns the comma joins and WHERE
-equalities into equi-joins with the filters below them.
+a left-deep join tree, WHERE as a filter over it, the aggregate (its
+keys and every aggregate call of the select list, HAVING and ORDER BY
+as columns), HAVING as a filter over it, the sort, the projection of
+the select list, the limit; then ``plan/logical_opt.optimize`` turns
+the comma joins and WHERE equalities into equi-joins with the filters
+below them.
 """
 from __future__ import annotations
 
@@ -30,10 +47,13 @@ import dataclasses
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..columnar import dtypes as T
 from ..expr import aggregates as eagg
 from ..expr import arithmetic as ea
+from ..expr import conditional as econd
 from ..expr import core as ec
 from ..expr import predicates as ep
+from ..expr import string_ops as es
 from ..plan import logical as L
 from ..plan.logical_opt import optimize
 
@@ -79,13 +99,19 @@ def _lex(sql: str) -> List[Tok]:
 
 @dataclasses.dataclass(frozen=True)
 class Lit:
-    value: Any
+    value: Any              # None: the NULL literal
 
 
 @dataclasses.dataclass(frozen=True)
 class Ident:
     name: str
     qualifier: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Res:
+    """A column resolved to its name in the plan's schema."""
+    cname: str
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +143,41 @@ class Neg:
     child: Any
 
 
+@dataclasses.dataclass(frozen=True)
+class Between:
+    child: Any
+    lo: Any
+    hi: Any
+    negated: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class InList:
+    child: Any
+    items: Tuple[Any, ...]
+    negated: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LikeOp:
+    child: Any
+    pattern: str
+    negated: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class IsNullOp:
+    child: Any
+    negated: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Case:
+    operand: Any
+    whens: Tuple[Tuple[Any, Any], ...]
+    els: Any = None
+
+
 @dataclasses.dataclass
 class TableRef:
     name: str
@@ -144,8 +205,59 @@ class Select:
     from_: List[Any]
     where: Any = None
     group_by: List[Any] = dataclasses.field(default_factory=list)
+    having: Any = None
     order_by: List[OrderItem] = dataclasses.field(default_factory=list)
     limit: Optional[int] = None
+
+
+def _kids(a) -> List[Any]:
+    """The expression nodes directly under ``a``."""
+    if isinstance(a, Case):
+        out = [a.operand] if a.operand is not None else []
+        for c, v in a.whens:
+            out += [c, v]
+        return out + ([a.els] if a.els is not None else [])
+    if isinstance(a, (Call, InList)):
+        return ([a.child] if isinstance(a, InList) else []) + \
+            list(a.args if isinstance(a, Call) else a.items)
+    if isinstance(a, Between):
+        return [a.child, a.lo, a.hi]
+    if isinstance(a, BinOp):
+        return [a.left, a.right]
+    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp)):
+        return [a.child]
+    return []
+
+
+def _walk(a):
+    yield a
+    for k in _kids(a):
+        yield from _walk(k)
+
+
+def _transform_kids(a, f):
+    """``a`` with ``f`` applied to each of its direct expression nodes."""
+    if isinstance(a, Case):
+        return Case(f(a.operand) if a.operand is not None else None,
+                    tuple((f(c), f(v)) for c, v in a.whens),
+                    f(a.els) if a.els is not None else None)
+    if isinstance(a, Call):
+        return Call(a.name, tuple(f(x) for x in a.args), a.star)
+    if isinstance(a, InList):
+        return InList(f(a.child), tuple(f(x) for x in a.items), a.negated)
+    if isinstance(a, Between):
+        return Between(f(a.child), f(a.lo), f(a.hi), a.negated)
+    if isinstance(a, BinOp):
+        return BinOp(a.op, f(a.left), f(a.right))
+    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp)):
+        return dataclasses.replace(a, child=f(a.child))
+    return a
+
+
+def _transform(a, fn):
+    """Bottom-up rebuild of an expression AST with ``fn`` applied to
+    every node."""
+    return fn(_transform_kids(a, lambda k: _transform(k, fn)))
 
 
 #: keywords that end an expression or cannot be an alias
@@ -157,27 +269,32 @@ _KEYWORDS = {
     "is", "null", "case", "when", "then", "else", "end", "exists", "over",
     "offset", "semi", "anti", "using", "interval", "cast", "true", "false",
     "all", "window", "qualify", "lateral", "natural", "rollup", "cube",
-    "grouping",
+    "grouping", "rlike", "date", "timestamp",
 }
 #: constructs of Spark SQL the port does not parse, by their keyword
 _UNSUPPORTED = {
     "with": "WITH (common table expressions)", "union": "UNION",
     "intersect": "INTERSECT", "except": "EXCEPT", "distinct": "DISTINCT",
-    "having": "HAVING", "between": "BETWEEN", "in": "IN", "like": "LIKE",
-    "is": "IS [NOT] NULL", "case": "CASE", "exists": "EXISTS",
-    "over": "window functions (OVER)", "offset": "OFFSET",
-    "cast": "CAST", "interval": "INTERVAL", "null": "NULL literals",
+    "exists": "EXISTS", "over": "window functions (OVER)",
+    "offset": "OFFSET", "cast": "CAST", "interval": "INTERVAL",
     "true": "boolean literals", "false": "boolean literals",
     "using": "JOIN ... USING", "cross": "CROSS JOIN",
     "natural": "NATURAL JOIN", "semi": "SEMI JOIN", "anti": "ANTI JOIN",
     "rollup": "ROLLUP", "cube": "CUBE", "grouping": "GROUPING SETS",
     "window": "WINDOW", "qualify": "QUALIFY", "lateral": "LATERAL",
-    "all": "ALL",
+    "all": "ALL", "rlike": "RLIKE", "date": "DATE literals",
+    "timestamp": "TIMESTAMP literals",
 }
-_AGGREGATES = {"sum": eagg.Sum, "count": eagg.Count, "max": eagg.Max}
+_AGGREGATES = {"sum": eagg.Sum, "count": eagg.Count, "max": eagg.Max,
+               "avg": eagg.Average, "mean": eagg.Average,
+               "stddev": eagg.StddevSamp, "stddev_samp": eagg.StddevSamp,
+               "std": eagg.StddevSamp, "stddev_pop": eagg.StddevPop,
+               "variance": eagg.VarianceSamp, "var_samp": eagg.VarianceSamp,
+               "var_pop": eagg.VariancePop}
 _COMPARISONS = {"=": ep.EqualTo, "<": ep.LessThan, "<=": ep.LessThanOrEqual,
                 ">": ep.GreaterThan, ">=": ep.GreaterThanOrEqual}
-_ARITHMETIC = {"+": ea.Add, "*": ea.Multiply, "%": ea.Remainder}
+_ARITHMETIC = {"+": ea.Add, "-": ea.Subtract, "*": ea.Multiply,
+               "/": ea.Divide, "%": ea.Remainder}
 
 
 class _Parser:
@@ -269,6 +386,9 @@ class _Parser:
             while self.at_op(","):
                 self.advance()
                 q.group_by.append(self.expr())
+        if self.at("having"):
+            self.advance()
+            q.having = self.expr()
         self._unsupported_here()
         if self.at("order"):
             self.advance()
@@ -378,16 +498,55 @@ class _Parser:
         if self.at("not"):
             self.advance()
             return NotOp(self.not_expr())
-        return self.comparison()
+        return self.predicate()
 
-    def comparison(self):
+    def predicate(self):
+        """A comparison, ``[NOT] BETWEEN``, ``[NOT] IN (list)``,
+        ``[NOT] LIKE`` or ``IS [NOT] NULL`` over additive operands."""
         e = self.additive()
-        self._unsupported_here()
-        if self.at_op("=", "<>", "!=", "<", "<=", ">", ">="):
-            op = self.advance().text
-            e = BinOp("<>" if op == "!=" else op, e, self.additive())
+        while True:
             self._unsupported_here()
-        return e
+            negated = False
+            if self.at("not") and \
+                    self._word(self.toks[self.i + 1]) in ("between", "in",
+                                                          "like"):
+                self.advance()
+                negated = True
+            if self.at("between"):
+                self.advance()
+                lo = self.additive()
+                self.expect("and")
+                e = Between(e, lo, self.additive(), negated)
+            elif self.at("in"):
+                self.advance()
+                self.expect_op("(")
+                if self.at("select", "with"):
+                    self._fail("IN (subquery) is not supported by the port")
+                items = [self.expr()]
+                while self.at_op(","):
+                    self.advance()
+                    items.append(self.expr())
+                self.expect_op(")")
+                e = InList(e, tuple(items), negated)
+            elif self.at("like"):
+                self.advance()
+                t = self.tok
+                if t.kind != "str":
+                    self._fail("expected a string LIKE pattern")
+                self.advance()
+                e = LikeOp(e, t.text[1:-1].replace("''", "'"), negated)
+            elif self.at("is"):
+                self.advance()
+                neg = self.at("not")
+                if neg:
+                    self.advance()
+                self.expect("null")
+                e = IsNullOp(e, neg)
+            elif self.at_op("=", "<>", "!=", "<", "<=", ">", ">="):
+                op = self.advance().text
+                e = BinOp("<>" if op == "!=" else op, e, self.additive())
+            else:
+                return e
 
     def additive(self):
         e = self.multiplicative()
@@ -412,8 +571,31 @@ class _Parser:
             return self.unary()
         return self.primary()
 
+    def case_expr(self) -> Case:
+        self.expect("case")
+        operand = None if self.at("when") else self.expr()
+        whens = []
+        while self.at("when"):
+            self.advance()
+            c = self.expr()
+            self.expect("then")
+            whens.append((c, self.expr()))
+        if not whens:
+            self._fail("expected WHEN")
+        els = None
+        if self.at("else"):
+            self.advance()
+            els = self.expr()
+        self.expect("end")
+        return Case(operand, tuple(whens), els)
+
     def primary(self):
         t = self.tok
+        if self.at("null"):
+            self.advance()
+            return Lit(None)
+        if self.at("case"):
+            return self.case_expr()
         if t.kind == "num":
             self.advance()
             txt = t.text
@@ -473,8 +655,10 @@ def _sql_text(a) -> str:
     """A column name for an un-aliased select expression."""
     if isinstance(a, Ident):
         return a.name
+    if isinstance(a, Res):
+        return a.cname
     if isinstance(a, Lit):
-        return repr(a.value)
+        return "NULL" if a.value is None else repr(a.value)
     if isinstance(a, Call):
         inner = "*" if a.star else ", ".join(_sql_text(x) for x in a.args)
         return f"{a.name}({inner})"
@@ -484,70 +668,195 @@ def _sql_text(a) -> str:
         return f"(NOT {_sql_text(a.child)})"
     if isinstance(a, Neg):
         return f"(- {_sql_text(a.child)})"
-    return repr(a)
+    if isinstance(a, Case):
+        return "CASE"
+    return type(a).__name__.lower()
+
+
+def _is_agg_call(a) -> bool:
+    return isinstance(a, Call) and a.name in _AGGREGATES
 
 
 def _has_agg(a) -> bool:
-    if isinstance(a, Call):
-        return a.name in _AGGREGATES or any(_has_agg(x) for x in a.args)
-    if isinstance(a, BinOp):
-        return _has_agg(a.left) or _has_agg(a.right)
-    if isinstance(a, (NotOp, Neg)):
-        return _has_agg(a.child)
-    return False
+    return a is not None and any(_is_agg_call(n) for n in _walk(a))
+
+
+def _agg_calls(a, out: List[Call]) -> None:
+    for n in _walk(a):
+        if _is_agg_call(n) and n not in out:
+            out.append(n)
+
+
+def _split(a, op: str) -> List[Any]:
+    if isinstance(a, BinOp) and a.op == op:
+        return _split(a.left, op) + _split(a.right, op)
+    return [a]
+
+
+class _Scope:
+    """Name resolution over a plan's columns: ``entries`` are (relation
+    alias, {lower-case column name: the column's name in the plan}), so
+    a qualified name picks its relation, and a column a self-join
+    renamed (``__<alias>_<name>``) keeps its written name."""
+
+    def __init__(self, entries):
+        self.entries = entries
+
+    @staticmethod
+    def of(schema, alias: Optional[str] = None) -> "_Scope":
+        return _Scope([(alias, {n.lower(): n for n in schema.names})])
+
+    def resolve(self, a: Ident) -> str:
+        col = a.name.lower()
+        q = a.qualifier.lower() if a.qualifier is not None else None
+        hits = [cols[col] for alias, cols in self.entries
+                if col in cols and (q is None or alias == q)]
+        if not hits:
+            raise SqlError(f"column not found: "
+                           f"{(a.qualifier + '.') if a.qualifier else ''}"
+                           f"{a.name}")
+        if len(hits) > 1:
+            raise SqlError(f"ambiguous column: {a.name}")
+        return hits[0]
+
+    def canon(self, a):
+        """``a`` with every identifier resolved to a column name."""
+        return _transform(a, lambda n: Res(self.resolve(n))
+                          if isinstance(n, Ident) else n)
+
+
+def _literal_of(e: ec.Expression):
+    if not isinstance(e, ec.Literal):
+        raise SqlError("expected a literal argument")
+    return e.value
 
 
 class _Lowerer:
     def __init__(self, views: Dict[str, L.LogicalPlan]):
         self.views = views
+        self._uid = 0
+
+    def fresh(self, prefix: str) -> str:
+        self._uid += 1
+        return f"__{prefix}{self._uid}"
 
     # -- FROM ----------------------------------------------------------------
-    def relation(self, ref) -> L.LogicalPlan:
+    def relation(self, ref):
+        """(plan, scope) of one FROM item."""
         if isinstance(ref, TableRef):
             plan = self.views.get(ref.name.lower())
             if plan is None:
                 raise SqlError(f"table or view not found: {ref.name}")
-            return plan
-        left, right = self.relation(ref.left), self.relation(ref.right)
+            return plan, _Scope.of(plan.schema,
+                                   (ref.alias or ref.name).lower())
+        lplan, lscope = self.relation(ref.left)
+        rplan, rscope = self.relation(ref.right)
+        rplan, scope = self.combine(lplan, lscope, rplan, rscope)
+        from ..plan.logical_opt import _and_all, _conjuncts
         from .dataframe import _extract_equi_keys
-        both = L.Join(left, right, "cross", [], []).schema
-        cond = self.expr(ref.on, both)
-        lkeys, rkeys, residual = _extract_equi_keys(cond, left.schema,
-                                                    right.schema)
+        both = L.Join(lplan, rplan, "cross", [], []).schema
+        # the equalities inside every arm of an OR become join keys
+        cond = _and_all(_conjuncts(self.expr(scope.canon(ref.on), both)))
+        lkeys, rkeys, residual = _extract_equi_keys(cond, lplan.schema,
+                                                    rplan.schema)
         if not lkeys:
             raise SqlError("JOIN ... ON without an equality between the two "
                            "sides is not supported by the port")
-        return L.Join(left, right, ref.how, lkeys, rkeys, residual)
+        return L.Join(lplan, rplan, ref.how, lkeys, rkeys, residual), scope
+
+    @staticmethod
+    def combine(lplan, lscope: _Scope, rplan, rscope: _Scope):
+        """(right plan, joined scope): a right column whose name the left
+        side already has is renamed ``__<alias>_<name>`` by a projection,
+        so the joined columns' names stay distinct (self-joins)."""
+        taken = set(lplan.schema.names)
+        renames = {}
+        for alias, cols in rscope.entries:
+            for actual in cols.values():
+                if actual in taken:
+                    new = f"__{alias or 'r'}_{actual}"
+                    while new in taken:
+                        new += "_"
+                    renames[actual] = new
+                taken.add(renames.get(actual, actual))
+        if renames:
+            schema = rplan.schema
+            rplan = L.Project(
+                [ec.Alias(ec.AttributeReference(f.name).resolve(schema),
+                          renames[f.name]) if f.name in renames else
+                 ec.AttributeReference(f.name).resolve(schema)
+                 for f in schema], rplan)
+            rscope = _Scope([(alias, {k: renames.get(v, v)
+                                      for k, v in cols.items()})
+                             for alias, cols in rscope.entries])
+        return rplan, _Scope(lscope.entries + rscope.entries)
 
     # -- expressions ---------------------------------------------------------
-    def column(self, a: Ident, schema) -> ec.Expression:
-        names = schema.names
-        hits = [n for n in names if n == a.name] or \
-            [n for n in names if n.lower() == a.name.lower()]
-        if not hits:
-            raise SqlError(f"column not found: {_sql_text(a)}")
-        if len(hits) > 1:
-            raise SqlError(f"ambiguous column: {_sql_text(a)}")
-        return ec.AttributeReference(hits[0]).resolve(schema)
-
-    def expr(self, a, schema, aggs: Dict = None) -> ec.Expression:
-        if aggs is not None and a in aggs:
-            return ec.AttributeReference(aggs[a]).resolve(schema)
+    def expr(self, a, schema) -> ec.Expression:
+        """An expression over ``schema`` from an AST whose identifiers are
+        resolved (``Res``)."""
         if isinstance(a, Lit):
             return ec.Literal(a.value)
+        if isinstance(a, Res):
+            if a.cname not in schema.names:
+                raise SqlError(f"column not found: {a.cname}")
+            return ec.AttributeReference(a.cname).resolve(schema)
         if isinstance(a, Ident):
-            return self.column(a, schema)
+            raise SqlError(f"column not found: {a.name}")
         if isinstance(a, Neg):
-            if isinstance(a.child, Lit) and isinstance(a.child.value,
-                                                       (int, float)):
-                return ec.Literal(-a.child.value)
-            raise SqlError("unary minus of an expression is not supported "
-                           "by the port")
+            child = self.expr(a.child, schema)
+            if isinstance(child, ec.Literal) and \
+                    isinstance(child.value, (int, float)) and \
+                    not isinstance(child.value, bool):
+                return ec.Literal(-child.value)
+            return ea.UnaryMinus(child)
         if isinstance(a, NotOp):
-            return ep.Not(self.expr(a.child, schema, aggs))
+            return ep.Not(self.expr(a.child, schema))
+        if isinstance(a, Between):
+            e = self.expr(a.child, schema)
+            cond = ep.And(ep.GreaterThanOrEqual(e, self.expr(a.lo, schema)),
+                          ep.LessThanOrEqual(e, self.expr(a.hi, schema)))
+            return ep.Not(cond) if a.negated else cond
+        if isinstance(a, InList):
+            e = self.expr(a.child, schema)
+            items = [self.expr(i, schema) for i in a.items]
+            if all(isinstance(i, ec.Literal) for i in items):
+                out = ep.In(e, [i.value for i in items])
+            else:
+                out = ep.EqualTo(e, items[0])
+                for i in items[1:]:
+                    out = ep.Or(out, ep.EqualTo(e, i))
+            return ep.Not(out) if a.negated else out
+        if isinstance(a, LikeOp):
+            try:
+                out = es.Like(self.expr(a.child, schema),
+                              ec.Literal(a.pattern))
+            except NotImplementedError as err:
+                raise SqlError(str(err)) from None
+            return ep.Not(out) if a.negated else out
+        if isinstance(a, IsNullOp):
+            return (ep.IsNotNull if a.negated else ep.IsNull)(
+                self.expr(a.child, schema))
+        if isinstance(a, Case):
+            if a.operand is not None:
+                op = self.expr(a.operand, schema)
+                branches = [(ep.EqualTo(op, self.expr(c, schema)),
+                             self.expr(v, schema)) for c, v in a.whens]
+            else:
+                branches = [(self.expr(c, schema), self.expr(v, schema))
+                            for c, v in a.whens]
+            els = self.expr(a.els, schema) if a.els is not None else None
+            out = econd.CaseWhen(branches, els)
+            if out.dtype() == T.STRING:
+                raise SqlError("a string-valued CASE is not supported by "
+                               "the port")
+            return out
         if isinstance(a, BinOp):
-            left = self.expr(a.left, schema, aggs)
-            right = self.expr(a.right, schema, aggs)
+            if a.op == "||":
+                parts = [self.expr(p, schema) for p in _split(a, "||")]
+                return es.ConcatStrings(*parts)
+            left = self.expr(a.left, schema)
+            right = self.expr(a.right, schema)
             if a.op == "and":
                 return ep.And(left, right)
             if a.op == "or":
@@ -562,10 +871,29 @@ class _Lowerer:
         if isinstance(a, Call):
             if a.name in _AGGREGATES:
                 raise SqlError(f"aggregate {a.name}() is not allowed here")
-            raise SqlError(f"function {a.name}() is not supported by the port")
+            return self.function(a, schema)
         if isinstance(a, Star):
             raise SqlError("* is only allowed as a select item or count(*)")
         raise SqlError(f"unsupported expression {a!r}")
+
+    def function(self, a: Call, schema) -> ec.Expression:
+        args = [self.expr(x, schema) for x in a.args]
+        n = a.name
+        try:
+            if n in ("substring", "substr") and len(args) in (2, 3):
+                return es.Substring(args[0], *[
+                    ec.Literal(_literal_of(x)) for x in args[1:]])
+            if n == "concat" and args:
+                return es.ConcatStrings(*args)
+            if n in ("coalesce", "nvl", "ifnull") and args:
+                out = econd.Coalesce(*args)
+                if out.dtype() == T.STRING:
+                    raise SqlError(f"{n}() of strings is not supported by "
+                                   f"the port")
+                return out
+        except NotImplementedError as err:
+            raise SqlError(str(err)) from None
+        raise SqlError(f"function {n}() is not supported by the port")
 
     def agg_func(self, a: Call, schema) -> eagg.AggregateFunction:
         if a.star:
@@ -578,111 +906,138 @@ class _Lowerer:
             raise SqlError("nested aggregates are not allowed")
         return _AGGREGATES[a.name](self.expr(a.args[0], schema))
 
-    def _collect_aggs(self, a, out: List[Call]) -> None:
-        if isinstance(a, Call) and a.name in _AGGREGATES:
-            if a not in out:
-                out.append(a)
-            return
-        if isinstance(a, Call):
-            raise SqlError(f"function {a.name}() is not supported by the "
-                           f"port")
-        for child in (getattr(a, "left", None), getattr(a, "right", None),
-                      getattr(a, "child", None)):
-            if child is not None:
-                self._collect_aggs(child, out)
-
     # -- SELECT --------------------------------------------------------------
     def select(self, q: Select) -> L.LogicalPlan:
-        plan = self.relation(q.from_[0])
+        # 1. FROM: a left-deep join tree, comma relations as cross joins
+        plan, scope = self.relation(q.from_[0])
         for ref in q.from_[1:]:
-            plan = L.Join(plan, self.relation(ref), "cross", [], [])
+            rplan, rscope = self.relation(ref)
+            rplan, scope = self.combine(plan, scope, rplan, rscope)
+            plan = L.Join(plan, rplan, "cross", [], [])
+        # 2. select items with their display names; * expands in order
+        items, names = [], []
+        for a, alias in q.items:
+            if isinstance(a, Star):
+                for _, cols in scope.entries:
+                    for low, actual in cols.items():
+                        items.append(Res(actual))
+                        # a renamed self-join column shows its own name
+                        names.append(actual if actual.lower() == low
+                                     else low)
+                continue
+            items.append(scope.canon(a))
+            names.append(alias or _sql_text(a))
+        seen: Dict[str, int] = {}
+        for i, d in enumerate(names):
+            if d in seen:
+                seen[d] += 1
+                names[i] = f"{d}_{seen[d]}"
+            else:
+                seen[d] = 0
+        by_name = {d.lower(): it for d, it in zip(names, items)}
+        # 3. WHERE (optimize factors the conjuncts of every OR's arms out)
         if q.where is not None:
             if _has_agg(q.where):
                 raise SqlError("aggregates are not allowed in WHERE")
-            plan = L.Filter(self.expr(q.where, plan.schema), plan)
-        items = []
-        for a, alias in q.items:
-            if isinstance(a, Star):
-                items.extend((Ident(n), None) for n in plan.schema.names)
+            plan = L.Filter(self.expr(scope.canon(q.where),
+                                      plan.schema), plan)
+        # 4. ORDER BY items: ordinals and select names stand for the
+        # select expressions; GROUP BY items: ordinals, columns, names
+        orders = []
+        for o in q.order_by:
+            a = o.expr
+            if isinstance(a, Lit) and isinstance(a.value, int):
+                if not 1 <= a.value <= len(items):
+                    raise SqlError(f"ORDER BY position {a.value} is not "
+                                   f"in the select list")
+                a = items[a.value - 1]
+            elif isinstance(a, Ident) and a.qualifier is None and \
+                    a.name.lower() in by_name:
+                a = by_name[a.name.lower()]
             else:
-                items.append((a, alias))
-        aliases = {alias.lower(): a for a, alias in items if alias}
-        grouped = bool(q.group_by) or any(_has_agg(a) for a, _ in items)
-        agg_names = None
-        if grouped:
-            plan, agg_names = self.aggregate(q, items, aliases, plan)
-        schema = plan.schema
-        outs = []
-        for a, alias in items:
-            e = self.expr(a, schema, agg_names)
-            name = alias or _sql_text(a)
-            outs.append(e if isinstance(e, ec.AttributeReference) and
-                        e.col_name == name else ec.Alias(e, name))
-        if q.order_by:
-            orders = []
-            for o in q.order_by:
-                a = o.expr
-                if isinstance(a, Lit) and isinstance(a.value, int):
-                    if not 1 <= a.value <= len(items):
-                        raise SqlError(f"ORDER BY position {a.value} is not "
-                                       f"in the select list")
-                    e = outs[a.value - 1]
-                    e = e.children[0] if isinstance(e, ec.Alias) else e
-                elif isinstance(a, Ident) and a.qualifier is None and \
-                        a.name.lower() in aliases and \
-                        a.name not in schema.names:
-                    e = self.expr(aliases[a.name.lower()], schema, agg_names)
-                else:
-                    e = self.expr(a, schema, agg_names)
-                orders.append(L.SortOrder(e, o.ascending, o.nulls_first))
-            plan = L.Sort(orders, plan)
-        plan = L.Project(outs, plan)
-        if q.limit is not None:
-            plan = L.Limit(q.limit, plan)
-        return plan
-
-    def aggregate(self, q: Select, items, aliases, plan):
-        """Aggregate node and the names of its outputs: every group
-        expression and aggregate call (as AST) -> its output column."""
-        schema = plan.schema
-        group_asts = []
+                a = scope.canon(a)
+            orders.append((a, o))
+        keys = []
         for g in q.group_by:
             if isinstance(g, Lit) and isinstance(g.value, int):
                 if not 1 <= g.value <= len(items):
                     raise SqlError(f"GROUP BY position {g.value} is not in "
                                    f"the select list")
-                g = items[g.value - 1][0]
-            elif isinstance(g, Ident) and g.qualifier is None and \
-                    g.name not in schema.names and g.name.lower() in aliases:
-                g = aliases[g.name.lower()]
+                g = items[g.value - 1]
+            else:
+                try:
+                    g = scope.canon(g)
+                except SqlError:
+                    if not (isinstance(g, Ident) and g.qualifier is None
+                            and g.name.lower() in by_name):
+                        raise
+                    g = by_name[g.name.lower()]
             if _has_agg(g):
                 raise SqlError("aggregates are not allowed in GROUP BY")
-            group_asts.append(g)
-        names: Dict[Any, str] = {}
+            keys.append(g)
+        having = scope.canon(q.having) if q.having is not None else None
+        # 5. the aggregate: group keys and every aggregate call of the
+        # select list, HAVING and ORDER BY become its columns
+        if keys or having is not None or any(_has_agg(a) for a in items):
+            plan, items, having, orders = self.aggregate(
+                plan, keys, items, having, orders)
+        schema = plan.schema
+        if having is not None:
+            plan = L.Filter(self.expr(having, schema), plan)
+        if orders:
+            plan = L.Sort([L.SortOrder(self.expr(a, schema), o.ascending,
+                                       o.nulls_first) for a, o in orders],
+                          plan)
+        outs = []
+        for a, name in zip(items, names):
+            e = self.expr(a, schema)
+            outs.append(e if isinstance(e, ec.AttributeReference) and
+                        e.col_name == name else ec.Alias(e, name))
+        plan = L.Project(outs, plan)
+        if q.limit is not None:
+            plan = L.Limit(q.limit, plan)
+        return plan
+
+    def aggregate(self, plan, keys, items, having, orders):
+        """The Aggregate node, and the select items, HAVING and ORDER BY
+        rewritten over its columns: a key that is a column keeps its name,
+        other keys and the aggregate calls take fresh ones."""
+        schema = plan.schema
+        subst: Dict[Any, str] = {}
         group_exprs = []
-        for g in group_asts:
-            e = self.expr(g, schema)
-            name = ec.output_name(e) if isinstance(
-                e, ec.AttributeReference) else _sql_text(g)
-            group_exprs.append(e if isinstance(e, ec.AttributeReference)
-                               else ec.Alias(e, name))
-            names[g] = name
-            if isinstance(g, Ident):
-                names[Ident(g.name)] = name
+        for k in keys:
+            if k in subst:
+                continue
+            e = self.expr(k, schema)
+            if isinstance(k, Res):
+                name = k.cname
+            else:
+                name = self.fresh("grp")
+                e = ec.Alias(e, name)
+            subst[k] = name
+            group_exprs.append(e)
         calls: List[Call] = []
-        for a, _ in items:
-            self._collect_aggs(a, calls)
-        for o in q.order_by:
-            if not (isinstance(o.expr, Ident) and o.expr.name.lower() in
-                    aliases):
-                self._collect_aggs(o.expr, calls)
-        item_alias = {a: alias for a, alias in items if alias}
-        agg_exprs = []
+        for a in items + [having] + [a for a, _ in orders]:
+            if a is not None:
+                _agg_calls(a, calls)
+        aggs = []
         for c in calls:
-            alias = item_alias.get(c) or _sql_text(c)
-            agg_exprs.append(L.AggExpr(self.agg_func(c, schema), alias))
-            names[c] = alias
-        return L.Aggregate(group_exprs, agg_exprs, plan), names
+            name = self.fresh("agg")
+            aggs.append(L.AggExpr(self.agg_func(c, schema), name))
+            subst[c] = name
+
+        def rw(a):
+            """Top down: a key or call is replaced whole, before its
+            parts are."""
+            if a in subst:
+                return Res(subst[a])
+            if not _kids(a):
+                return a
+            return _transform_kids(a, rw)
+        items = [rw(a) for a in items]
+        having = rw(having) if having is not None else None
+        orders = [(rw(a), o) for a, o in orders]
+        return L.Aggregate(group_exprs, aggs, plan), items, having, orders
 
 
 def sql_to_plan(sql: str, views: Dict[str, L.LogicalPlan]) -> L.LogicalPlan:

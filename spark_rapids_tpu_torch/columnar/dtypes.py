@@ -83,6 +83,15 @@ class StringType(DType):
     arrow_type = pa.string()
 
 
+class NullType(DType):
+    """The type of a bare ``NULL`` literal; a conditional takes its
+    result type from its other branches."""
+    name = "null"
+    np_dtype = np.dtype(np.bool_)
+    torch_dtype = torch.bool
+    arrow_type = pa.null()
+
+
 class UnsupportedType(DType):
     """A column type of a file that the port does not carry; planning a
     scan that reads such a column raises."""
@@ -105,6 +114,7 @@ INT64 = LongType()
 FLOAT32 = FloatType()
 FLOAT64 = DoubleType()
 STRING = StringType()
+NULL = NullType()
 
 _ALL = (BOOL, INT32, INT64, FLOAT32, FLOAT64)
 _NUMERIC_ORDER = [INT32, INT64, FLOAT32, FLOAT64]
@@ -133,9 +143,12 @@ def from_arrow(at: pa.DataType, lenient: bool = False) -> DType:
 
 
 def common_type(a: DType, b: DType) -> DType:
-    """Numeric type promotion following Spark's binary-op coercion."""
+    """Numeric type promotion following Spark's binary-op coercion; a
+    NULL side takes the other's type."""
     if a == b:
         return a
+    if a == NULL or b == NULL:
+        return b if a == NULL else a
     if a in _NUMERIC_ORDER and b in _NUMERIC_ORDER:
         return _NUMERIC_ORDER[max(_NUMERIC_ORDER.index(a),
                                   _NUMERIC_ORDER.index(b))]

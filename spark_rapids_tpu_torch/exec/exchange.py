@@ -12,11 +12,17 @@ from .tpu_basic import Partitions, TpuExec
 
 class TpuShuffleExchange(TpuExec):
     """Splits every map-side batch by the partitioner; reduce partition i
-    receives the i-th slice of each, in map order."""
+    receives the i-th slice of each, in map order, concatenated into
+    batches of at most ``target_rows`` rows, as a coalesced shuffle read
+    does: each map batch would otherwise reach a join as
+    ``num_partitions`` small batches, each probed on its own (a join
+    over a join's output would probe ``num_partitions^2`` batches per
+    map batch)."""
 
-    def __init__(self, partitioner, child: TpuExec):
+    def __init__(self, partitioner, child: TpuExec, target_rows: int):
         self.partitioner = partitioner
         self.children = [child]
+        self.target_rows = target_rows
 
     @property
     def output_schema(self):
@@ -43,7 +49,22 @@ class TpuShuffleExchange(TpuExec):
                 s = split.partition_slice(pid)
                 if s is not None:
                     out[pid].append(s)
-        return out
+        return [_coalesce(part, self.target_rows) for part in out]
+
+
+def _coalesce(batches, target_rows: int):
+    """Consecutive batches (host row counts known) concatenated while
+    they fit ``target_rows``; a larger one stays whole."""
+    out, group, rows = [], [], 0
+    for b in batches:
+        if group and rows + b.num_rows > target_rows:
+            out.append(concat_batches(group))
+            group, rows = [], 0
+        group.append(b)
+        rows += b.num_rows
+    if group:
+        out.append(concat_batches(group))
+    return out
 
 
 class TpuBroadcastExchange(TpuExec):

@@ -28,6 +28,12 @@ Variable float mode (``variableFloatAgg.enabled``) sums its values in
 the kernel in f64 (the atomics reorder additions from run to run) and
 takes its maxes in f32.
 
+An ``avg`` over a fractional column takes the table core too (the
+reference's ``favg64`` / ``avg``): its f64 sum row gives the sum and
+that row's count the count; merging partials sums buffer 0 and adds the
+counts of buffer 1.  Integer inputs other than max, and the moments,
+take the sort path, as in the reference.
+
 A string group key never enters the table core: its batches take the
 sort path, and its output keys are gathered from one row per group.  An
 aggregate with no keys (``_global_agg``) runs the sort path over one
@@ -229,23 +235,32 @@ class TpuHashAggregate(TpuExec):
 
     # -- table path ---------------------------------------------------------
     def _descs(self, inputs, update: bool):
-        """Per-agg lowering for the table core, or None if any agg (or
-        key) cannot take it."""
+        """Per-agg lowering for the table core: (finish kind, [(stage
+        kind, input position)]), or None if any agg cannot take it.  An
+        avg over a fractional column (the reference's ``favg64`` /
+        ``avg``) sums its values on an f64 sum row and counts them on
+        that row's count; merging partials sums buffer 0 and adds the
+        counts of buffer 1."""
         descs = []
+        fsum = "fsumv" if self.variable_float else "fsum64"
         for a, bs in zip(self.aggs, inputs):
             f = a.func
             cdt = bs[0].dtype() if bs else None
+            frac = cdt is not None and cdt.is_fractional
             if isinstance(f, ea.Count):
-                descs.append("count" if update else "icount")
-            elif isinstance(f, ea.Sum) and cdt is not None and \
-                    cdt.is_fractional:
-                descs.append("fsumv" if self.variable_float else "fsum64")
-            elif isinstance(f, ea.Max) and cdt is not None and \
-                    cdt.is_fractional:
-                descs.append("fmax" if self.variable_float else "fmax64")
+                kind = "count" if update else "icount"
+                descs.append((kind, [(kind, 0)]))
+            elif isinstance(f, ea.Sum) and frac:
+                descs.append((fsum, [(fsum, 0)]))
+            elif isinstance(f, ea.Average) and frac:
+                descs.append(("avg", [(fsum, 0)] if update else
+                              [(fsum, 0), ("icount", 1)]))
+            elif isinstance(f, ea.Max) and frac:
+                kind = "fmax" if self.variable_float else "fmax64"
+                descs.append((kind, [(kind, 0)]))
             elif isinstance(f, ea.Max) and cdt is not None and \
                     cdt.is_integral:
-                descs.append("fmax64")
+                descs.append(("fmax64", [("fmax64", 0)]))
             else:
                 return None
         return descs
@@ -294,7 +309,8 @@ class TpuHashAggregate(TpuExec):
         cap = batch.capacity
         # u32 count rows are exact below 2^24 rows; i32 chunk lanes hold
         # |lane sum| <= 510 per row below 2^31, so at most 2^22 rows
-        if cap > (1 << 24) or ("fsum64" in descs and cap > (1 << 22)):
+        kinds = {k for _, stages in descs for k, _ in stages}
+        if cap > (1 << 24) or ("fsum64" in kinds and cap > (1 << 22)):
             return None
         dev = batch.device
         live = batch.live_mask()
@@ -312,18 +328,21 @@ class TpuHashAggregate(TpuExec):
         # in the dropped bucket ``table``); one column per distinct
         # (kind, input) of the aggregates
         cols, col_of, slots = [StageCol("count")], {}, []
-        for ai, kind in enumerate(descs):
-            c = icols[ai][0] if icols[ai] else None
-            if c is None:                       # count(*)
-                slots.append(0)
-                continue
-            dk = (kind, repr(inputs[ai][0]))
-            if dk not in col_of:
-                sc, col_fit = self._stage_col(kind, c, live)
-                fit = fit & col_fit
-                col_of[dk] = len(cols)
-                cols.append(sc)
-            slots.append(col_of[dk])
+        for ai, (_, stages) in enumerate(descs):
+            agg_slots = []
+            for kind, pos in stages:
+                c = icols[ai][pos] if icols[ai] else None
+                if c is None:                       # count(*)
+                    agg_slots.append(0)
+                    continue
+                dk = (kind, repr(inputs[ai][pos]))
+                if dk not in col_of:
+                    sc, col_fit = self._stage_col(kind, c, live)
+                    fit = fit & col_fit
+                    col_of[dk] = len(cols)
+                    cols.append(sc)
+                agg_slots.append(col_of[dk])
+            slots.append(agg_slots)
         tabs = table_stage(bucket, table, cols)
 
         present, order, ng = agg_k.table_compact(tabs[0][0], table)
@@ -347,8 +366,20 @@ class TpuHashAggregate(TpuExec):
                 (word ^ SIGN64).to(dt.torch_dtype)
             out_cols.append(Column(dt, data, (digit > 0) & live_g))
 
-        for ai, kind in enumerate(descs):
-            t = tabs[slots[ai]]
+        def fsum(slot, kind):
+            t = tabs[slot]
+            if kind == "fsumv":
+                return compact(t[1])
+            ssum = chunk_recombine(t[4][:, order], cols[slot].emax)
+            nanv, pinf, ninf = (compact(x) for x in t[1:4])
+            ssum = torch.where(pinf > 0, float("inf"), ssum)
+            ssum = torch.where(ninf > 0, float("-inf"), ssum)
+            return torch.where((nanv > 0) | ((pinf > 0) & (ninf > 0)),
+                               float("nan"), ssum)
+
+        for ai, (kind, stages) in enumerate(descs):
+            slot = slots[ai][0]
+            t = tabs[slot]
             if kind in ("count", "icount"):
                 data = torch.where(live_g, compact(t[0]), 0)
                 out_cols.append(Column(T.INT64, data.to(torch.int64),
@@ -356,16 +387,16 @@ class TpuHashAggregate(TpuExec):
                 continue
             cntv = compact(t[0])
             valid = (cntv > 0) & live_g
-            if kind == "fsumv":
-                out_cols.append(Column(T.FLOAT64, compact(t[1]), valid))
-            elif kind == "fsum64":
-                ssum = chunk_recombine(t[4][:, order], cols[slots[ai]].emax)
-                nanv, pinf, ninf = (compact(x) for x in t[1:4])
-                ssum = torch.where(pinf > 0, float("inf"), ssum)
-                ssum = torch.where(ninf > 0, float("-inf"), ssum)
-                ssum = torch.where((nanv > 0) | ((pinf > 0) & (ninf > 0)),
-                                   float("nan"), ssum)
-                out_cols.append(Column(T.FLOAT64, ssum, valid))
+            if kind == "avg":
+                # buffers (sum, count), valid in every group
+                cnt = cntv if len(stages) == 1 else \
+                    compact(tabs[slots[ai][1]][0])
+                out_cols.append(Column(T.FLOAT64, torch.where(
+                    live_g, fsum(slot, stages[0][0]), 0.0), live_g))
+                out_cols.append(Column(T.INT64, torch.where(
+                    live_g, cnt, 0).to(torch.int64), live_g))
+            elif kind in ("fsumv", "fsum64"):
+                out_cols.append(Column(T.FLOAT64, fsum(slot, kind), valid))
             else:
                 nnv = compact(t[1])
                 if kind == "fmax":

@@ -1,2 +1,3 @@
-"""Expressions: column refs, literals, arithmetic, predicates and
-aggregate functions, evaluated on torch tensors."""
+"""Expressions: column refs, literals, arithmetic, predicates,
+conditionals, string functions and aggregate functions, evaluated on
+torch tensors."""

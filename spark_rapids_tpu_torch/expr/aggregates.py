@@ -1,4 +1,4 @@
-"""Aggregate functions: sum, count and max.
+"""Aggregate functions: sum, count, max, avg and the central moments.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``.  Each function
 declares its partial buffers, how a batch updates them (``update``), how
@@ -96,3 +96,103 @@ class Max(AggregateFunction):
 
     def merge(self, plan, buffers):
         return self.update(plan, buffers)
+
+
+class Average(AggregateFunction):
+    """avg: a double; buffers are the f64 sum and the int64 count of the
+    valid inputs (both always valid), and a group with no valid input
+    gives null."""
+
+    def dtype(self):
+        return T.FLOAT64
+
+    @property
+    def num_buffers(self):
+        return 2
+
+    def buffer_dtypes(self):
+        return [T.FLOAT64, T.INT64]
+
+    @staticmethod
+    def _buffers(s, cnt):
+        always = torch.ones_like(cnt, dtype=torch.bool)
+        return [Column(T.FLOAT64, s, always), Column(T.INT64, cnt, always)]
+
+    def update(self, plan, cols):
+        c = cols[0]
+        s = agg_k.seg_sum(plan, c.data, c.validity, out_dtype=torch.float64)
+        return self._buffers(s, agg_k.seg_count(plan, c.validity))
+
+    def merge(self, plan, buffers):
+        s = agg_k.seg_sum(plan, buffers[0].data, buffers[0].validity)
+        cnt = agg_k.seg_sum(plan, buffers[1].data, buffers[1].validity)
+        return self._buffers(s, cnt)
+
+    def finalize(self, buffers):
+        s, cnt = buffers[0].data, buffers[1].data
+        ok = cnt > 0
+        avg = s / torch.where(ok, cnt, 1).to(torch.float64)
+        return Column(T.FLOAT64, avg, ok & buffers[0].validity)
+
+
+class CentralMoment(AggregateFunction):
+    """Base of the variance and standard deviation family.  Buffers are
+    (count, mean, M2), not sums of squares, whose difference cancels
+    catastrophically; the sample forms (``ddof`` 1) of a group of one
+    value are null."""
+
+    #: 1 for the sample forms, 0 for the population forms
+    ddof = 1
+    #: square root at finalize (stddev) or not (variance)
+    sqrt = False
+
+    def dtype(self):
+        return T.FLOAT64
+
+    @property
+    def num_buffers(self):
+        return 3
+
+    def buffer_dtypes(self):
+        return [T.INT64, T.FLOAT64, T.FLOAT64]
+
+    @staticmethod
+    def _buffers(cnt, mean, m2):
+        always = torch.ones_like(cnt, dtype=torch.bool)
+        return [Column(T.INT64, cnt, always),
+                Column(T.FLOAT64, mean, always),
+                Column(T.FLOAT64, m2, always)]
+
+    def update(self, plan, cols):
+        c = cols[0]
+        return self._buffers(*agg_k.seg_moments(plan, c.data, c.validity))
+
+    def merge(self, plan, buffers):
+        cnt, mean, m2 = buffers
+        return self._buffers(*agg_k.seg_merge_moments(
+            plan, cnt.data, mean.data, m2.data, cnt.validity))
+
+    def finalize(self, buffers):
+        n = buffers[0].data.to(torch.float64)
+        ok = n > self.ddof
+        v = buffers[2].data.clamp(min=0.0) / torch.where(
+            ok, n - self.ddof, 1.0)
+        if self.sqrt:
+            v = torch.sqrt(v)
+        return Column(T.FLOAT64, v, ok)
+
+
+class VarianceSamp(CentralMoment):
+    ddof, sqrt = 1, False
+
+
+class VariancePop(CentralMoment):
+    ddof, sqrt = 0, False
+
+
+class StddevSamp(CentralMoment):
+    ddof, sqrt = 1, True
+
+
+class StddevPop(CentralMoment):
+    ddof, sqrt = 0, True

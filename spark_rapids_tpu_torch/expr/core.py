@@ -150,7 +150,9 @@ class BoundReference(Expression):
 class Literal(Expression):
     def __init__(self, value, dt: Optional[T.DType] = None):
         if dt is None:
-            if isinstance(value, bool):
+            if value is None:
+                dt = T.NULL
+            elif isinstance(value, bool):
                 dt = T.BOOL
             elif isinstance(value, int):
                 dt = T.INT64

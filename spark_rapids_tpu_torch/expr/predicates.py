@@ -35,6 +35,7 @@ class BinaryComparison(Expression):
 
     def __init__(self, left: Expression, right: Expression):
         self.children = [left, right]
+        self._lits = {}
 
     def dtype(self):
         return T.BOOL
@@ -49,8 +50,8 @@ class BinaryComparison(Expression):
         if isinstance(self, EqualTo) and isinstance(right, Literal) and \
                 right.value is not None and not isinstance(left, Literal):
             c = eval_as_column(left, batch)
-            return Column(T.BOOL, strings.equal_literal(c, right.value),
-                          c.validity)
+            lit = strings.held_literal(self._lits, right.value)
+            return Column(T.BOOL, strings.equal_literal(c, lit), c.validity)
         left, right = self.children
         lc = eval_as_column(left, batch)
         rc = eval_as_column(right, batch)
@@ -179,3 +180,85 @@ class Or(Expression):
 
     def __repr__(self):
         return f"({self.children[0]!r} OR {self.children[1]!r})"
+
+
+class IsNull(Expression):
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def dtype(self):
+        return T.BOOL
+
+    @property
+    def nullable(self):
+        return False
+
+    def columnar_eval(self, batch):
+        c = eval_as_column(self.children[0], batch)
+        return Column(T.BOOL, ~c.validity, torch.ones_like(c.validity))
+
+    def __repr__(self):
+        return f"isnull({self.children[0]!r})"
+
+
+class IsNotNull(Expression):
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def dtype(self):
+        return T.BOOL
+
+    @property
+    def nullable(self):
+        return False
+
+    def columnar_eval(self, batch):
+        c = eval_as_column(self.children[0], batch)
+        return Column(T.BOOL, c.validity.clone(), torch.ones_like(c.validity))
+
+    def __repr__(self):
+        return f"isnotnull({self.children[0]!r})"
+
+
+class In(Expression):
+    """``child IN (v1, v2, ...)`` over a literal list.  Each value is an
+    equality of the child with that literal: a string list compares each
+    value's bytes (``strings.equal_literal``), a number list the child's
+    values, a fractional value against an integer child promoting the
+    child.  A match is true; otherwise a null child or a null in the
+    list gives null."""
+
+    def __init__(self, child: Expression, values):
+        self.children = [child]
+        self.values = list(values)
+        self._lits = {}
+
+    def dtype(self):
+        return T.BOOL
+
+    def _equal(self, c: Column, v) -> torch.Tensor:
+        if c.dtype == T.STRING:
+            return strings.equal_literal(
+                c, strings.held_literal(self._lits, str(v)))
+        a = c.data
+        if a.is_floating_point() and isinstance(v, float) and v != v:
+            return torch.isnan(a)          # Spark: NaN equals NaN
+        if isinstance(v, float) and not a.is_floating_point():
+            a = a.to(torch.float64)
+        elif not a.is_floating_point():
+            a = a.to(torch.int64)
+        return a == v
+
+    def columnar_eval(self, batch):
+        c = eval_as_column(self.children[0], batch)
+        hit = torch.zeros_like(c.validity)
+        for v in self.values:
+            if v is not None:
+                hit = hit | self._equal(c, v)
+        hit = hit & c.validity
+        if any(v is None for v in self.values):
+            return Column(T.BOOL, hit, hit)
+        return Column(T.BOOL, hit, c.validity)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} IN {self.values!r})"

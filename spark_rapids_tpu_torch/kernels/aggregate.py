@@ -109,6 +109,36 @@ def seg_sum(plan: GroupPlan, values, validity, out_dtype=None):
     return seg_tree_sum(plan, contrib)
 
 
+def seg_moments(plan: GroupPlan, values, validity):
+    """Per-group (count, mean, M2) of the valid values, two passes over
+    the segments: the mean, then the squared deviations from it, both
+    added in the fixed tree of ``seg_tree_sum``."""
+    x, ok = _sorted_vals(plan, values.to(torch.float64), validity)
+    cnt = seg_prefix_sum(plan, ok.to(torch.int64))
+    s = seg_tree_sum(plan, torch.where(ok, x, 0.0))
+    mean = s / cnt.clamp(min=1).to(torch.float64)
+    delta = x - mean[plan.seg_id]
+    m2 = seg_tree_sum(plan, torch.where(ok, delta * delta, 0.0))
+    return cnt, mean, m2
+
+
+def seg_merge_moments(plan: GroupPlan, counts, means, m2s, validity):
+    """Combine per-group (count, mean, M2) partials: the merged mean is
+    the count-weighted mean, and M2 = sum(M2_i + n_i (mean_i - mean)^2)."""
+    n_i, ok = _sorted_vals(plan, counts.to(torch.float64), validity)
+    mean_i, _ = _sorted_vals(plan, means, validity)
+    m2_i, _ = _sorted_vals(plan, m2s, validity)
+    n_i = torch.where(ok, n_i, 0.0)
+    n = seg_prefix_sum(plan, torch.where(ok, counts[plan.perm], 0).to(
+        torch.int64))
+    wsum = seg_tree_sum(plan, torch.where(ok, n_i * mean_i, 0.0))
+    mean = wsum / n.clamp(min=1).to(torch.float64)
+    delta = mean_i - mean[plan.seg_id]
+    m2 = seg_tree_sum(plan, torch.where(ok, m2_i + n_i * delta * delta,
+                                        0.0))
+    return n, mean, m2
+
+
 def seg_count(plan: GroupPlan, validity) -> torch.Tensor:
     _, ok = _sorted_vals(plan, validity, validity)
     return seg_prefix_sum(plan, ok.to(torch.int64))

@@ -18,7 +18,7 @@ a string's id does not depend on the batch it arrives in.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -122,18 +122,174 @@ def gather_strings(col, indices: torch.Tensor, live: torch.Tensor = None):
     return StringColumn(offsets, data, valid, col.max_bytes)
 
 
-def equal_literal(col, value: str) -> torch.Tensor:
-    """bool[cap]: the row's bytes equal ``value``'s UTF-8 bytes."""
-    lit = value.encode("utf-8")
+class LiteralBytes:
+    """A string literal's UTF-8 bytes and their copy on each device.  The
+    expression that holds one uploads its literal once per device, never
+    per batch."""
+
+    def __init__(self, text):
+        self.raw = text if isinstance(text, bytes) else \
+            str(text).encode("utf-8")
+        self._on: Dict[str, torch.Tensor] = {}
+
+    def __len__(self):
+        return len(self.raw)
+
+    def on(self, device) -> torch.Tensor:
+        t = self._on.get(str(device))
+        if t is None:
+            t = torch.tensor(list(self.raw), dtype=torch.uint8,
+                             device=device)
+            self._on[str(device)] = t
+        return t
+
+
+def held_literal(held: Dict, text) -> LiteralBytes:
+    """``text``'s LiteralBytes in an expression's ``held`` dict (shared
+    by the expression's bound copies), made on first use."""
+    lit = held.get(text)
+    if lit is None:
+        lit = held[text] = LiteralBytes(text)
+    return lit
+
+
+def _bytes_at(col, pos: torch.Tensor, m: int) -> torch.Tensor:
+    """[cap, m] bytes of the data buffer from per-row byte positions."""
+    k = torch.arange(m, device=col.offsets.device)
+    idx = (pos.to(torch.int64)[:, None] + k).clamp(
+        0, max(col.data.shape[0] - 1, 0))
+    return col.data[idx]
+
+
+def _match_at(col, pos: torch.Tensor, lit: LiteralBytes) -> torch.Tensor:
+    """bool[cap]: the bytes at ``pos`` are ``lit`` (not bounds-checked)."""
+    want = lit.on(col.offsets.device)
+    return (_bytes_at(col, pos, len(lit)) == want).all(dim=1)
+
+
+def equal_literal(col, lit: LiteralBytes) -> torch.Tensor:
+    """bool[cap]: the row's bytes equal the literal's."""
     lens = string_lengths(col.offsets)
     eq = lens == len(lit)
     if lit and len(lit) <= col.max_bytes:
-        k = torch.arange(len(lit), device=col.offsets.device)
-        idx = (col.offsets[:-1].to(torch.int64)[:, None] + k).clamp(
-            0, max(col.data.shape[0] - 1, 0))
-        want = torch.tensor(list(lit), dtype=torch.uint8,
-                            device=col.offsets.device)
-        eq = eq & (col.data[idx] == want).all(dim=1)
+        eq = eq & _match_at(col, col.offsets[:-1], lit)
     elif lit:
         eq = torch.zeros_like(eq)
     return eq
+
+
+def starts_with(col, prefix: LiteralBytes) -> torch.Tensor:
+    """bool[cap]: the row begins with ``prefix``."""
+    lens = string_lengths(col.offsets)
+    if not prefix:
+        return torch.ones_like(lens, dtype=torch.bool)
+    if len(prefix) > col.max_bytes:
+        return torch.zeros_like(lens, dtype=torch.bool)
+    return (lens >= len(prefix)) & _match_at(col, col.offsets[:-1], prefix)
+
+
+def ends_with(col, suffix: LiteralBytes) -> torch.Tensor:
+    """bool[cap]: the row ends with ``suffix``."""
+    lens = string_lengths(col.offsets)
+    if not suffix:
+        return torch.ones_like(lens, dtype=torch.bool)
+    if len(suffix) > col.max_bytes:
+        return torch.zeros_like(lens, dtype=torch.bool)
+    return (lens >= len(suffix)) & _match_at(col, col.offsets[1:] -
+                                             len(suffix), suffix)
+
+
+def contains(col, needle: LiteralBytes) -> torch.Tensor:
+    """bool[cap]: ``needle`` occurs in the row.  Every byte position of
+    the buffer is compared with the needle once; a row holds a match if
+    one starts in ``[start, end - len(needle)]``, counted by a prefix sum
+    of the match flags."""
+    lens = string_lengths(col.offsets)
+    if not needle:
+        return torch.ones_like(lens, dtype=torch.bool)
+    if len(needle) > col.max_bytes:
+        return torch.zeros_like(lens, dtype=torch.bool)
+    nbytes = col.data.shape[0]
+    pos = torch.arange(nbytes, device=col.offsets.device)
+    hit = _match_at(col, pos, needle) & (pos + len(needle) <= nbytes)
+    cum = torch.zeros(nbytes + 1, dtype=torch.int64,
+                      device=col.offsets.device)
+    cum[1:] = torch.cumsum(hit.to(torch.int64), 0)
+    starts = col.offsets[:-1].to(torch.int64).clamp(0, nbytes)
+    ends = torch.maximum(col.offsets[1:].to(torch.int64) - len(needle) + 1,
+                         starts).clamp(0, nbytes)
+    return (cum[ends] - cum[starts]) > 0
+
+
+def _substring_offsets(offsets: torch.Tensor, start: int,
+                       length: Optional[int]):
+    """Spark's substring positions, as the reference computes them: a
+    1-based ``start``, 0 read as 1, a negative one counted from the end
+    (clamped to the first byte); at most ``length`` bytes.  Returns
+    (source start, byte count) per row."""
+    starts = offsets[:-1]
+    lens = offsets[1:] - starts
+    if start > 0:
+        s = torch.full_like(lens, start - 1)
+    elif start < 0:
+        s = (lens + start).clamp(min=0)
+    else:
+        s = torch.zeros_like(lens)
+    s = torch.minimum(s, lens)
+    room = lens - s
+    n = room if length is None else torch.clamp(room, max=max(length, 0))
+    return starts + s, n
+
+
+def substring(col, start: int, length: Optional[int]):
+    """``substring(col, start, length)`` by bytes (the reference's
+    semantics).  The result's host bound is ``min(max_bytes, length)``,
+    so no size is read from the device."""
+    from ..columnar.column import StringColumn
+    src, n = _substring_offsets(col.offsets, start, length)
+    n = torch.where(col.validity, n, 0)
+    mb = col.max_bytes if length is None else \
+        min(col.max_bytes, max(length, 0))
+    offsets, data = copy_rows(col.data, src, n, mb)
+    return StringColumn(offsets, data, col.validity, mb)
+
+
+def concat(parts, capacity: int, device):
+    """Byte concatenation of ``parts``, each a string column or a
+    LiteralBytes; null if any column part is null.  The output's
+    host bound is the sum of the parts' bounds."""
+    from ..columnar.column import StringColumn
+    valid = torch.ones(capacity, dtype=torch.bool, device=device)
+    lens = []
+    for p in parts:
+        if isinstance(p, LiteralBytes):
+            lens.append(None)
+        else:
+            valid = valid & p.validity
+            lens.append(string_lengths(p.offsets).to(torch.int64))
+    total = torch.zeros(capacity, dtype=torch.int64, device=device)
+    for p, ln in zip(parts, lens):
+        total = total + (len(p) if ln is None else ln)
+    total = torch.where(valid, total, 0)
+    offsets = torch.zeros(capacity + 1, dtype=torch.int32, device=device)
+    offsets[1:] = torch.cumsum(total, 0)
+    bounds = [len(p) if isinstance(p, LiteralBytes) else p.max_bytes
+              for p in parts]
+    size = capacity * sum(bounds)
+    out = torch.zeros(size + 1, dtype=torch.uint8, device=device)
+    base = offsets[:-1].to(torch.int64)
+    for p, ln, mb in zip(parts, lens, bounds):
+        if mb == 0:
+            continue
+        k = torch.arange(mb, device=device)
+        if ln is None:
+            inb = valid[:, None] & (k[None, :] < mb)
+            src = p.on(device).expand(capacity, mb)
+        else:
+            inb = valid[:, None] & (k[None, :] < ln[:, None])
+            src = _bytes_at(p, p.offsets[:-1], mb)
+        # bytes past a part's length go to one spare slot, dropped below
+        dst = torch.where(inb, base[:, None] + k, size)
+        out.scatter_(0, dst.reshape(-1), src.reshape(-1))
+        base = base + torch.where(valid, mb if ln is None else ln, 0)
+    return StringColumn(offsets, out[:max(size, 1)], valid, sum(bounds))

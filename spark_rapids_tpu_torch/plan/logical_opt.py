@@ -3,12 +3,14 @@ scan column pruning.
 
 Counterpart of ``spark_rapids_tpu/plan/logical_opt.py`` (the rules the
 port needs).  ``optimize`` works bottom-up: a Filter over a keyless
-cross/inner join tree first has its relations reordered so each one
+cross/inner join tree first has its conjuncts common to every arm of an
+OR factored out of it (``_factor_or``, so join equalities written inside
+each arm become conjuncts), then its relations reordered so each one
 joins one already joined through an equality (``_reorder_cross_joins``),
 then its conjuncts split over the join (``_rewrite_filter_join``):
 those of one side sink into that side, equalities across the sides
 become join keys, the rest stay above.  ``prune_scan_columns`` narrows
-every scan to the columns the plan above it reads.
+every scan, and every projection, to the columns the plan above reads.
 """
 from __future__ import annotations
 
@@ -31,6 +33,54 @@ def _and_all(conjuncts: List[ec.Expression]) -> ec.Expression:
     for c in conjuncts[1:]:
         out = ep.And(out, c)
     return out
+
+
+def _flatten_or(e: ec.Expression) -> List[ec.Expression]:
+    if isinstance(e, ep.Or):
+        return _flatten_or(e.children[0]) + _flatten_or(e.children[1])
+    return [e]
+
+
+def _or_all(disjuncts: List[ec.Expression]) -> ec.Expression:
+    out = disjuncts[0]
+    for d in disjuncts[1:]:
+        out = ep.Or(out, d)
+    return out
+
+
+def _factor_or(e: ec.Expression) -> List[ec.Expression]:
+    """Conjuncts common to every OR arm, factored out of it:
+    ``(A and B) or (A and C) -> [A, B or C]``.  Sound in SQL's
+    three-valued logic (AND distributes over OR); TPC-DS q13, q48 and
+    q85 write their join equalities inside each arm, which would
+    otherwise stay above a cross join."""
+    disjuncts = _flatten_or(e)
+    if len(disjuncts) < 2:
+        return [e]
+    conj_lists = [_flatten_and(d) for d in disjuncts]
+    first = {repr(c): c for c in conj_lists[0]}
+    common = [k for k in first
+              if all(any(repr(x) == k for x in cl) for cl in conj_lists[1:])]
+    if not common:
+        return [e]
+    rests = []
+    for cl in conj_lists:
+        removed, rest = set(), []
+        for x in cl:
+            rx = repr(x)
+            if rx in common and rx not in removed:
+                removed.add(rx)
+                continue
+            rest.append(x)
+        if not rest:            # (A) or (A and P) == A
+            return [first[k] for k in common]
+        rests.append(_and_all(rest))
+    return [first[k] for k in common] + [_or_all(rests)]
+
+
+def _conjuncts(cond: ec.Expression) -> List[ec.Expression]:
+    """The conjuncts of a filter, each OR's common conjuncts factored."""
+    return [x for c in _flatten_and(cond) for x in _factor_or(c)]
 
 
 def _refs(e: ec.Expression) -> Optional[Set[str]]:
@@ -64,7 +114,7 @@ def _rewrite_filter_join(f: L.Filter) -> L.LogicalPlan:
         return f                  # ambiguous column names: leave alone
     lpush, rpush, rest = [], [], []
     lkeys, rkeys = list(j.left_keys), list(j.right_keys)
-    for c in _flatten_and(f.condition):
+    for c in _conjuncts(f.condition):
         refs = _refs(c)
         if not refs:
             rest.append(c)
@@ -117,7 +167,7 @@ def _reorder_cross_joins(f: L.Filter) -> L.Filter:
     if len(set().union(*names)) != sum(len(n) for n in names):
         return f
     edges = []
-    for c in _flatten_and(f.condition):
+    for c in _conjuncts(f.condition):
         if isinstance(c, ep.EqualTo):
             ra, rb = _refs(c.children[0]), _refs(c.children[1])
             if not ra or not rb:
@@ -195,6 +245,11 @@ def prune_scan_columns(plan: L.LogicalPlan,
     if isinstance(plan, L.Filter):
         needs = [_u(need, _refs(plan.condition))]
     elif isinstance(plan, L.Project):
+        if need is not None:
+            kept = [e for e in plan.exprs if ec.output_name(e) in need]
+            if len(kept) < len(plan.exprs):
+                plan = copy.copy(plan)
+                plan.exprs = kept or plan.exprs[:1]
         needs = [_refs_many(plan.exprs)]
     elif isinstance(plan, L.Aggregate):
         needs = [_u(_refs_many(plan.group_exprs),

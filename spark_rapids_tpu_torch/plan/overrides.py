@@ -19,12 +19,16 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   most ``BROADCAST_ROW_THRESHOLD`` estimated rows is broadcast, unless
   the join is full; every other join hash-partitions both sides on
   their keys into ``_pick_partitions`` partitions and joins partition by
-  partition (``TpuShuffledHashJoin``);
+  partition (``TpuShuffledHashJoin``); an exchange reads each partition
+  back as batches of up to ``batchSizeRows`` rows;
 - cross joins and joins without equi-keys are not ported and raise;
 - a global sort over more than one partition range-partitions its input
   into as many partitions (``RangePartitioner``) and sorts each; a limit
   takes each partition's first rows, coalesces, and takes the first rows
-  again.
+  again.  A limit right over a global sort is one ``TpuTopN`` over the
+  sort's input (the reference's rule; SQL text puts its projection
+  between the two, so only the DataFrame API's ``sort().limit()``
+  reaches it).
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
 from ..exec.tpu_basic import (TpuExec, TpuFilter, TpuGlobalLimit,
                               TpuLocalLimit, TpuLocalScan, TpuProject)
 from ..exec.tpu_join import TpuBroadcastHashJoin, TpuShuffledHashJoin
-from ..exec.tpu_sort import TpuSort
+from ..exec.tpu_sort import TpuSort, TpuTopN
 from ..io.planner import TpuFileScan, to_arrow_filters
 from ..shuffle.partitioners import HashPartitioner, RangePartitioner
 from . import logical as L
@@ -98,9 +102,12 @@ def _plan(node: L.LogicalPlan, conf: C.TpuConf,
         nparts = child.num_partitions()
         if nparts > 1:
             child = TpuShuffleExchange(RangePartitioner(node.orders, nparts),
-                                       child)
+                                       child, conf.get(C.BATCH_SIZE_ROWS))
         return TpuSort(node.orders, child)
     if isinstance(node, L.Limit):
+        if isinstance(node.children[0], L.Sort):
+            sort = node.children[0]
+            return TpuTopN(node.n, sort.orders, go(sort.children[0]))
         local = TpuLocalLimit(node.n, go(node.children[0]))
         return TpuGlobalLimit(node.n, TpuCoalescePartitions(local))
     raise NotImplementedError(f"no device operator for {type(node).__name__}")
@@ -119,7 +126,7 @@ def _plan_aggregate(node: L.Aggregate, conf: C.TpuConf,
                      for e in node.group_exprs]
         merged = TpuShuffleExchange(
             HashPartitioner(hash_keys, conf.get(C.SHUFFLE_PARTITIONS)),
-            partial)
+            partial, conf.get(C.BATCH_SIZE_ROWS))
     else:
         merged = TpuCoalescePartitions(partial)
     return TpuHashAggregate(node.group_exprs, node.aggs, merged, FINAL,
@@ -156,7 +163,9 @@ def _plan_join(node: L.Join, conf: C.TpuConf, device: torch.device,
         return TpuBroadcastHashJoin(node, lexec, rexec, build_right, chunk,
                                     device)
     n = _pick_partitions(conf, left, right)
+    rows = conf.get(C.BATCH_SIZE_ROWS)
     return TpuShuffledHashJoin(
-        node, TpuShuffleExchange(HashPartitioner(node.left_keys, n), lexec),
-        TpuShuffleExchange(HashPartitioner(node.right_keys, n), rexec),
+        node, TpuShuffleExchange(HashPartitioner(node.left_keys, n), lexec,
+                                 rows),
+        TpuShuffleExchange(HashPartitioner(node.right_keys, n), rexec, rows),
         build_right, chunk, device)

@@ -345,3 +345,152 @@ def test_tpcds_quartet_on_card_equals_cpu(tpcds_dir, q):
     assert got.num_rows > 0 and chip_smoke.same_bytes(got, want)
     if q != "q96":
         assert cuda_ops.LAUNCHES["hash_partition_ids"] > before
+
+
+def _close_tables(got, want, rel=1e-12):
+    """Equal column names and rows; integers, strings and nulls equal,
+    floats within ``rel`` of the CPU's value."""
+    assert got.column_names == want.column_names
+    assert got.num_rows == want.num_rows
+    for a, b in zip(got.columns, want.columns):
+        for x, y in zip(a.to_pylist(), b.to_pylist()):
+            if isinstance(y, float) and x is not None:
+                assert x == y or (x != x and y != y) or \
+                    abs(x - y) <= rel * max(abs(x), abs(y)), (x, y)
+            else:
+                assert x == y
+
+
+def _expr_frame(session, n=5000, seed=3):
+    rng = np.random.default_rng(seed)
+    words = np.array(["Music", "Books", "", "Home", ">10000", "5001-10000",
+                      "a somewhat longer value"], dtype=object)
+    s = rng.choice(words, n)
+    s[rng.random(n) < 0.05] = None
+    a = rng.integers(-50, 50, n).astype(object)
+    a[rng.random(n) < 0.05] = None
+    x = (rng.random(n) * 200 - 50).astype(object)
+    x[rng.random(n) < 0.05] = None
+    import pyarrow as pa
+    return session.create_dataframe(pa.table({
+        "k": pa.array(rng.integers(0, 40, n)),
+        "a": pa.array(list(a), pa.int64()),
+        "d": pa.array(rng.integers(-3, 4, n).astype(np.int32)),
+        "x": pa.array(list(x), pa.float64()),
+        "s": pa.array(list(s), pa.string()),
+    }), num_partitions=3)
+
+
+def _expr_cases():
+    from spark_rapids_tpu_torch.api import functions as F
+    c = F.col
+    return {
+        "subtract": lambda: c("a") - c("d"),
+        "divide": lambda: c("a") / c("d"),
+        "divide_double": lambda: c("x") / c("a"),
+        "unary_minus": lambda: -c("x"),
+        "in_ints": lambda: c("a").isin(1, 2, 3, -7),
+        "in_strings": lambda: c("s").isin("Music", "Home", ""),
+        "is_null": lambda: c("s").isNull(),
+        "is_not_null": lambda: c("x").isNotNull(),
+        "between": lambda: c("x").between(10.0, 60.5),
+        "if": lambda: F.when(c("a") > 0, c("x")).otherwise(c("d")),
+        "case_null_else": lambda: F.when(c("d") < 0, c("a"))
+        .when(c("d") == 0, 7),
+        "coalesce": lambda: F.coalesce(c("x"), c("a"), F.lit(0)),
+        "substring_1": lambda: F.substring(c("s"), 1, 5),
+        "substring_0": lambda: F.substring(c("s"), 0, 3),
+        "substring_neg": lambda: F.substring(c("s"), -4, 2),
+        "like_prefix": lambda: c("s").like(">1000%"),
+        "like_suffix": lambda: c("s").like("%ks"),
+        "like_contains": lambda: c("s").like("%what%"),
+        "like_equal": lambda: c("s").like("Home"),
+        "concat": lambda: F.concat(c("s"), F.lit(", "), c("s")),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_expr_cases()))
+def test_expression_on_card_equals_cpu(name):
+    _need_card()
+    out = []
+    for device in ("cpu", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 2048}),
+                       device=device)
+        df = _expr_frame(s)
+        out.append(df.select("k", _expr_cases()[name]().alias("v"))
+                   .to_arrow())
+    _close_tables(out[1], out[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", ["k", "s"], ids=["table", "sort"])
+def test_aggregates_on_card_equal_cpu(key):
+    """avg and the moments on the card: an integer key takes the table
+    core for avg (B2 launches), a string key the sort path; the moments
+    always take the sort path."""
+    _need_card()
+    from spark_rapids_tpu_torch.api import functions as F
+    out = []
+    for device in ("cpu", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 2048}),
+                       device=device)
+        df = _expr_frame(s).group_by(key).agg(
+            F.avg("x").alias("ax"), F.avg("a").alias("aa"),
+            F.stddev_samp("x").alias("sx"), F.stddev_pop("a").alias("sp"),
+            F.variance("x").alias("vx"), F.var_pop("d").alias("vd"))
+        out.append(df.sort(key).to_arrow())
+    _close_tables(out[1], out[0])
+    before = cuda_ops.LAUNCHES["table_reduce"]
+    s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 2048}),
+                   device="cuda")
+    got = _expr_frame(s).group_by(key).agg(F.avg("x").alias("ax")) \
+        .sort(key).to_arrow()
+    want = _expr_frame(TpuSession(device="cpu")).group_by(key).agg(
+        F.avg("x").alias("ax")).sort(key).to_arrow()
+    _close_tables(got, want)
+    launched = cuda_ops.LAUNCHES["table_reduce"] - before
+    assert launched > 0 if key == "k" else launched == 0
+
+
+@pytest.mark.gpu
+def test_top_n_on_card_equals_sort_and_limit():
+    _need_card()
+    from spark_rapids_tpu_torch.api import functions as F
+    s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 2048}),
+                   device="cuda")
+    df = _expr_frame(s, n=20000).sort(F.col("s").desc(), "x", "a").limit(25)
+    assert df.explain().splitlines()[0] == "TpuTopN[25]"
+    got = df.to_arrow()
+    full = _expr_frame(s, n=20000).sort(F.col("s").desc(), "x", "a")
+    assert got.equals(full.to_arrow().slice(0, 25))
+
+
+@pytest.fixture(scope="module")
+def tpcds7_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("tpcds7"))
+    chip_smoke.make_tpcds(d, 0.1, 7)
+    chip_smoke.make_tpcds7(d, 0.1, 7)
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q7", "q15", "q17", "q21", "q40", "q84"])
+def test_tpcds_flat_queries_on_card_equal_cpu(tpcds7_dir, q):
+    """Six of phase 7's queries at scale 0.1 on the card against the port
+    on the CPU: avg, stddev and a division of aggregates, substring and
+    IN, CASE and HAVING, a left join with coalesce, concatenation."""
+    _need_card()
+    import sys
+    sys.path.insert(0, "benchmarks")
+    from tpcds_queries import QUERIES
+    out = []
+    for device in ("cpu", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 16}), device=device)
+        for t in chip_smoke.DS_TABLES + chip_smoke.DS7_TABLES:
+            s.read.parquet(f"{tpcds7_dir}/{t}.parquet") \
+                .create_or_replace_temp_view(t)
+        out.append(s.sql(QUERIES[q]).to_arrow())
+    assert out[0].num_rows > 0
+    _close_tables(out[1], out[0])

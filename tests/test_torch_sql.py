@@ -1,5 +1,12 @@
 """SQL text through the PyTorch port against the JAX package, on the CPU.
 
+The subset includes, since the flat TPC-DS slice, BETWEEN, [NOT] IN
+lists, [NOT] LIKE's four device forms, IS [NOT] NULL, CASE, ``-``, ``/``,
+unary minus, ``||``, substring, coalesce, avg and the moments, HAVING,
+GROUP BY without aggregates, select expressions over group keys,
+qualified names of self-joins, OR factoring and a LEFT JOIN followed by
+comma relations.
+
 Each construct of the port's SQL subset runs on the same seeded tables
 through the port's ``session.sql`` (``device="cpu"``) and the JAX
 package's, and the rows must agree (floats within 1e-9 relative; a query
@@ -91,6 +98,48 @@ QUERIES = {
                      "order by s desc nulls last limit 4",
     "order_alias_ordinal": "select k as key, count(*) as n from fact "
                            "group by k order by 2, key desc",
+    "in_list": "select k, s from fact where k in (1, 2, 9) "
+               "or s in ('Music', '')",
+    "not_in_list": "select k from fact where k not in (1, 2, 3)",
+    "like": "select k, s from fact where s like 'M%' or s like '%s' "
+            "or s like '%om%' or s like 'Men'",
+    "not_like": "select k from fact where s not like '%e%'",
+    "between": "select k, x from fact where x between 10 and 30.5 "
+               "and k not between 3 and 5",
+    "is_null": "select k, a from fact where a is null or s is not null",
+    "having": "select s, sum(x) as total from fact group by s "
+              "having count(*) > 55 and max(a) > 900",
+    "case": "select k, case when a > 0 then x when a < -900 then 0 "
+            "else null end as c, case k when 1 then 10 when 2 then 20 "
+            "end as n from fact where d < 30",
+    "case_in_sum": "select s, sum(case when k < 5 then 1 else 0 end) as lo, "
+                   "sum(case when d >= 20 then a else 0 end) as hi "
+                   "from fact group by s",
+    "minus_divide": "select k - d as kd, a / d as q, -a as na, -(x * 2) "
+                    "as nx, x / 0 as z from fact where k < 3",
+    "strings": "select substring(s, 2, 3) as sub, substr(s, 0, 2) as head, "
+               "s || '/' || dname as joined, concat(dname, s) as c2 "
+               "from fact, dim where d = dk and k < 4",
+    "coalesce": "select k, coalesce(a, d, 0) as c, nvl(a, -1) as n "
+                "from fact where k > 8",
+    "avg_moments": "select s, avg(x) as ax, avg(a) aa, stddev_samp(x) sx, "
+                   "stddev(a) sa, variance(x) vx, var_pop(a) vp, "
+                   "stddev_pop(x) sp from fact group by s",
+    "agg_ratio": "select k, stddev_samp(x) / avg(x) as cov from fact "
+                 "group by k",
+    "group_by_alone": "select s, d from fact where k < 3 group by s, d",
+    "key_expression": "select substring(s, 1, 3) as p, count(*) as n "
+                      "from fact group by s",
+    "self_join": "select a.dk, b.dname from dim a, dim b "
+                 "where a.dv = b.dk and a.dk < 30",
+    "or_factoring": "select k, dname from fact, dim where "
+                    "(d = dk and dv = 1 and x > 50) or "
+                    "(d = dk and dv = 3 and k < 4)",
+    "join_on_or_factoring": "select k, dname from fact join dim on "
+                            "(d = dk and dv = 1) or (d = dk and x > 90)",
+    "left_join_then_comma": "select k, dim.dname, d2.dv from fact left "
+                            "outer join dim on (a = dk and d < 40), dim d2 "
+                            "where k = d2.dk and k < 6",
 }
 #: queries whose ORDER BY fixes the row order
 ORDERED = {"order_limit", "order_strings", "order_alias_ordinal"}
@@ -133,17 +182,17 @@ def test_order_by_limit_over_more_groups_with_string_keys():
 
 UNSUPPORTED = {
     "select distinct k from fact": "DISTINCT",
-    "select k from fact where k in (1, 2)": "IN",
-    "select k from fact where s like 'M%'": "LIKE",
-    "select k from fact where k between 1 and 3": "BETWEEN",
-    "select k from fact where a is null": "IS",
-    "select k, count(*) from fact group by k having count(*) > 3": "HAVING",
+    "select k from fact where k in (select k from fact)": "IN \\(subquery\\)",
+    "select k from fact where s like 'M_sic'": "LIKE 'M_sic'",
+    "select k from fact where s like '%a%b%'": "LIKE",
+    "select k from fact where exists (select k from fact)": "EXISTS",
+    "select cast(k as double) from fact": "CAST",
     "with t as (select k from fact) select k from t": "WITH",
     "select k from fact union select k from fact": "UNION",
     "select k from (select k from fact) t": "subqueries",
-    "select case when k > 1 then 1 else 0 end from fact": "CASE",
+    "select case when k > 1 then s else 'x' end from fact": "string-valued",
     "select min(k) from fact": "min",
-    "select k - 1 from fact": "'-'",
+    "select date '2000-01-01' from fact": "DATE",
     "select k from fact order by k limit 5 offset 2": "OFFSET",
     "select k from nosuchtable": "not found",
     "select nosuchcol from fact": "not found",
