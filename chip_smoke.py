@@ -15,7 +15,8 @@ Phases (any failure exits non-zero):
    nvcc and prints each one's registers and shared memory;
 3. kernels: each kernel against its plain torch version on the card at
    the main path's shapes (B1: the exchange's split and the ids alone;
-   B2: the table core's reduce stage and the TPU kernel's raw rows),
+   B2: the table core's reduce stage and the TPU kernel's raw rows; the
+   join probe at q17's and q78's join partitions and at one key),
    device-timed behind a sleep kernel (``time_cuda``) beside its byte
    bound (3.35 TB/s), its host cost per call, the plain version and a
    one-call PyTorch yardstick where one exists;
@@ -54,7 +55,15 @@ Phases (any failure exits non-zero):
    ORDER BY kept, ties as a multiset, also at the LIMIT's cut), warm
    runs byte-identical, rows unless DS7_EMPTY names the query; q17 runs
    once more under the profiler (launches and host-to-device copies).
-   B1 must launch.
+   B1 and the join probe must launch;
+8. TPC-DS with derived tables and CTEs: the 15 queries of DS8_QUERIES
+   (q28 and q88 cross-join one-row aggregates in a TpuNestedLoopJoin)
+   verbatim through the same session on the same tables, each with
+   DS8_PLANS' operators, a cold and two warm runs against a pyarrow
+   computation (``ds8_references``), warm runs byte-identical, rows
+   unless DS8_EMPTY names the query, and B1, B2 and probe launches per
+   query; q78 and q64 run once more under the profiler.  B1 and the
+   join probe must launch.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -144,10 +153,14 @@ def bound_ms(nbytes: int) -> float:
 def kernel_entry(name: str, source: str, replaces: str, shape: str,
                  err: float, timed, plain_ms: float, nbytes: int,
                  library_ms=None, **extra):
+    """One kernel line; ``replaces`` is a line of pallas_ops.py, or a
+    ``file:line`` of the JAX package for a kernel of the port alone."""
     ms, host_ms = timed
+    if ":" not in replaces:
+        replaces = f"spark_rapids_tpu/kernels/pallas_ops.py:{replaces}"
     return {"name": name, "route": "cuda",
             "source": f"spark_rapids_tpu_torch/csrc/{source}",
-            "replaces": f"spark_rapids_tpu/kernels/pallas_ops.py:{replaces}",
+            "replaces": replaces,
             "shape": shape, "max_abs_err": err, "ms": ms,
             "host_ms": host_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
@@ -288,6 +301,99 @@ def check_hash_split(rng, n: int, num_words: int, parts: int,
         design="counting-sort split",
         sort_path_ms=time_cuda(sort_path, iters=5, queued=False)[0],
         sort_ms=time_cuda(lambda: torch.sort(key, stable=True))[0])
+
+
+#: a join partition of phase 7/8 at SF10: a store_sales map batch's
+#: capacity and live rows (28.8M rows in 8 part files) against
+#: store_returns' rows (2.88M) in one of 8 partitions
+PROBE_CAP, PROBE_LIVE = 1 << 22, 28_800_000 // 8
+PROBE_BUILD = 2_880_000 // 8
+
+
+def probe_inputs(rng, keys: int, device: str = "cuda"):
+    """The join probe's inputs at a phase 7/8 join partition, built by
+    the join's own ``_key_words``: a store_sales stream batch (PROBE_LIVE
+    live rows of PROBE_CAP) against a sorted store_returns build of
+    PROBE_BUILD lines drawn from it, as phase 7 draws returns from sales.
+    ``keys``: 3 (q17's ss_customer_sk, ss_item_sk, ss_ticket_number), 2
+    (q78's ss_ticket_number, ss_item_sk) or 1 (ss_ticket_number).
+    Returns (build table, probe words, live mask, rank word positions)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import (Column,
+                                                        bucket_capacity)
+    from spark_rapids_tpu_torch.columnar.schema import Field, Schema
+    from spark_rapids_tpu_torch.exec.tpu_join import _key_words
+    from spark_rapids_tpu_torch.expr import core as ec
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    highs = {"ss_customer_sk": DS7_ROWS_PER_SF["customer"] * 10,
+             "ss_item_sk": DS_ROWS_PER_SF["item"] * 10,
+             "ss_ticket_number": DS_ROWS_PER_SF["store_sales"] * 10 // 4}
+    names = {3: ["ss_customer_sk", "ss_item_sk", "ss_ticket_number"],
+             2: ["ss_ticket_number", "ss_item_sk"],
+             1: ["ss_ticket_number"]}[keys]
+    stream = [rng.integers(0, highs[n], PROBE_LIVE) for n in names]
+    pick = rng.choice(PROBE_LIVE, PROBE_BUILD, replace=False)
+
+    def batch(cols, rows):
+        cap = PROBE_CAP if rows == PROBE_LIVE else bucket_capacity(rows)
+        live = torch.arange(cap, device=device) < rows
+        data = [torch.zeros(cap, dtype=torch.int64, device=device)
+                for _ in cols]
+        for d, c in zip(data, cols):
+            d[:rows] = torch.from_numpy(c).to(device)
+        schema = Schema([Field(n, T.INT64, True) for n in names])
+        return ColumnarBatch(schema, [Column(T.INT64, d, live)
+                                      for d in data], rows, device=device)
+    exprs = [ec.BoundReference(i, T.INT64) for i in range(keys)]
+    sb = batch(stream, PROBE_LIVE)
+    bb = batch([c[pick] for c in stream], PROBE_BUILD)
+    bwords, _ = _key_words(exprs, bb, bb.live_mask(), [None] * keys)
+    live = sb.live_mask()
+    words, rank = _key_words(exprs, sb, live, [None] * keys)
+    return join_k.build(bwords), words, live, rank
+
+
+def check_join_probe(rng, keys: int, what: str):
+    """The join probe at a phase 7/8 join partition (``probe_inputs``)
+    against its plain version (two ``_bsearch`` loops), bit for bit.  The
+    1-key case also times ``torch.searchsorted`` of the value word, lower
+    and upper bound, over the build's live rows: the library call."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.kernels.basic import SIGN64
+    bt, words, live, rank = probe_inputs(rng, keys)
+    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank)
+    plo, pcnt = cuda_ops.join_probe_plain(bt.sorted_words, words, live,
+                                          rank)
+    torch.cuda.synchronize()
+    err = int(max((lo - plo).abs().max(), (cnt - pcnt).abs().max()))
+    check(err == 0, f"join_probe differs from _bsearch ({keys} keys): "
+                    f"{err}")
+    check(int(cnt.sum()) >= PROBE_BUILD,
+          f"join_probe ({keys} keys): fewer matches than build rows")
+    library = None
+    if keys == 1:
+        bval = (bt.sorted_words[1][:PROBE_BUILD] ^ SIGN64).contiguous()
+        pval = words[1] ^ SIGN64
+
+        def lib():
+            torch.searchsorted(bval, pval)
+            torch.searchsorted(bval, pval, right=True)
+        library = time_cuda(lib)[0]
+    k = len(words)
+    return kernel_entry(
+        "join_probe", "join_probe.cu", "spark_rapids_tpu/kernels/join.py:41",
+        f"probe {PROBE_CAP} rows ({PROBE_LIVE} live) x {k} words against "
+        f"{PROBE_BUILD} build rows{what}", float(err),
+        time_cuda(lambda: cuda_ops.join_probe(bt.sorted_words, words, live,
+                                              rank)),
+        time_cuda(lambda: cuda_ops.join_probe_plain(
+            bt.sorted_words, words, live, rank), iters=3, queued=False)[0],
+        PROBE_CAP * 8 * k + bt.capacity * 8 * k + PROBE_CAP +
+        2 * PROBE_CAP * 8, library_ms=library,
+        design="one thread per probe row, both bounds in one launch")
 
 
 def bench_like_reduce_rows(rng, n: int, table: int, k: int, m: int,
@@ -473,6 +579,7 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     # each kernel's main-path check comes first among its checks
     split_main = lambda: check_hash_split(rng, 4096, 1, 8, 0.25)
     stage_main = lambda: check_table_stage(rng, big, 4096, "partial")
+    probe_main = lambda: check_join_probe(rng, 3, " (q17's join)")
     checks = [
         # B1: the split at the main path's shape (a partial table of 4096
         # slots, ~1000 live), at a whole batch, and at the partition limit
@@ -504,6 +611,11 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
                                    np.float32, "stage kernel"),
         lambda: check_table_reduce(cuda_ops, rng, big, 4096, 5, 1,
                                    np.float64, "stage kernel"),
+        # the join probe: q17's 3-key join, q78's 2-key store_sales /
+        # store_returns join, and one key beside torch.searchsorted
+        probe_main,
+        lambda: check_join_probe(rng, 2, " (q78's ss/sr join)"),
+        lambda: check_join_probe(rng, 1, " (one key)"),
     ]
     if parent:
         old = load_parent_ops(parent)
@@ -518,7 +630,7 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     main = {}
     for measure in checks:
         entry = measure()
-        if measure is split_main or measure is stage_main:
+        if measure in (split_main, stage_main, probe_main):
             main[entry["name"]] = entry
         print("kernel", json.dumps(entry), flush=True)
     return main
@@ -1056,6 +1168,10 @@ DS_TABLES = ("date_dim", "time_dim", "item", "store",
 DS_QUERIES = ("q3", "q42", "q52", "q96")
 DS_PARTS = 8                        # store_sales part files
 DS_BATCH_ROWS = 1 << 22             # batchSizeRows of phase 6
+#: share of each store_sales part's rows that are baskets (``_baskets``),
+#: and a basket's lines, low and high (exclusive)
+DS_BASKET_SHARE = 0.1
+DS_BASKET_LINES = (8, 17)
 DATE_SK0 = 2450815                  # 1998-01-01
 N_DATES = 365 * 5                   # 1998-2002
 #: the physical plan of each query, one operator per line, top down
@@ -1092,11 +1208,33 @@ DS_ORDER = {"q3": [("d_year", True), ("sum_agg", False), ("brand_id", True)],
             "q96": [("cnt", True)]}
 
 
+def _baskets(r, m: int, ticket_cols) -> np.ndarray:
+    """Make the first DS_BASKET_SHARE of a store_sales part's ``m`` rows
+    baskets, in place: runs of DS_BASKET_LINES lines that share one draw
+    of each ``(array, low, high)`` of ``ticket_cols``.  Returns the basket
+    (0, 1, ...) of each of those rows."""
+    k = int(m * DS_BASKET_SHARE)
+    sizes = r.integers(*DS_BASKET_LINES, k // DS_BASKET_LINES[0] + 1)
+    basket = np.repeat(np.arange(len(sizes)), sizes)[:k]
+    nb = int(basket[-1]) + 1 if k else 0
+    for arr, lo, hi in ticket_cols:
+        arr[:k] = r.integers(lo, hi, nb)[basket]
+    return basket
+
+
 def make_tpcds(data_dir: str, scale: float, seed: int) -> dict:
     """The six tables of the quartet as Parquet under ``data_dir``, with
     the formulas, names and types of ``benchmarks/tpcds.py`` ``generate``
     at ``scale``; store_sales in DS_PARTS part files, each drawn from its
-    own seeded generator.  Returns each table's row count."""
+    own seeded generator.  One departure from ``generate``, for q34 (its
+    ticket of 15 to 20 lines that pass ticket-level filters): the first
+    DS_BASKET_SHARE (10%) of each part's rows are baskets, tickets of 8
+    to 16 lines that share a ticket number past ``generate``'s range and
+    one date, time, customer, demographics, household, address and store,
+    as the lines of one TPC-DS ticket do (``generate`` draws every line's
+    own, so no ticket holds more than one customer's line and q34 is
+    empty at every scale); the other rows, and every column's type, are
+    ``generate``'s.  Returns each table's row count."""
     import os
     import pyarrow as pa
     import pyarrow.parquet as papq
@@ -1205,19 +1343,34 @@ def make_tpcds(data_dir: str, scale: float, seed: int) -> dict:
         wcost = (r.random(m) * 100).round(2)
         ext_sales = (price * qty).round(2)
         ext_wcost = (wcost * qty).round(2)
+        sold = (DATE_SK0 + r.integers(0, N_DATES, m)).astype(np.int64)
+        t = r.integers(0, 86400, m).astype(np.int64)
+        item = r.integers(0, ni, m).astype(np.int64)
+        cust = r.integers(0, nc, m).astype(np.int64)
+        cdemo = r.integers(0, nd, m).astype(np.int64)
+        hdemo = r.integers(0, nh, m).astype(np.int64)
+        addr = r.integers(0, na, m).astype(np.int64)
+        store = r.integers(0, ns, m).astype(np.int64)
+        promo = r.integers(0, npx, m).astype(np.int64)
+        ticket = (r.integers(0, nss, m) // 4).astype(np.int64)
+        basket = _baskets(np.random.default_rng([seed, part, 8]), m, [
+            (sold, DATE_SK0, DATE_SK0 + N_DATES), (t, 0, 86400),
+            (cust, 0, nc), (cdemo, 0, nd), (hdemo, 0, nh), (addr, 0, na),
+            (store, 0, ns)])
+        # past generate's tickets; a part has at most bounds[part + 1] -
+        # bounds[part] baskets, so the parts' ranges do not meet
+        ticket[:len(basket)] = nss // 4 + int(bounds[part]) + basket
         papq.write_table(pa.table({
-            "ss_sold_date_sk": (DATE_SK0 + r.integers(0, N_DATES, m))
-            .astype(np.int64),
-            "ss_sold_time_sk": r.integers(0, 86400, m).astype(np.int64),
-            "ss_item_sk": r.integers(0, ni, m).astype(np.int64),
-            "ss_customer_sk": r.integers(0, nc, m).astype(np.int64),
-            "ss_cdemo_sk": r.integers(0, nd, m).astype(np.int64),
-            "ss_hdemo_sk": r.integers(0, nh, m).astype(np.int64),
-            "ss_addr_sk": r.integers(0, na, m).astype(np.int64),
-            "ss_store_sk": r.integers(0, ns, m).astype(np.int64),
-            "ss_promo_sk": r.integers(0, npx, m).astype(np.int64),
-            "ss_ticket_number": (r.integers(0, nss, m) // 4)
-            .astype(np.int64),
+            "ss_sold_date_sk": sold,
+            "ss_sold_time_sk": t,
+            "ss_item_sk": item,
+            "ss_customer_sk": cust,
+            "ss_cdemo_sk": cdemo,
+            "ss_hdemo_sk": hdemo,
+            "ss_addr_sk": addr,
+            "ss_store_sk": store,
+            "ss_promo_sk": promo,
+            "ss_ticket_number": ticket,
             "ss_quantity": qty.astype(np.int32),
             "ss_wholesale_cost": wcost,
             "ss_list_price": (price * 1.2).round(2),
@@ -1323,13 +1476,44 @@ def check_ds_rows(q: str, table, full: list) -> int:
     return len(full)
 
 
+def cold_and_warm(session, df, on_card: bool):
+    """A query's cold run (the device scan cache emptied, the kernels'
+    launch counts and the peak memory reset) and two warm runs: (cold
+    table, cold s, the cold scans' host read s and upload s, warm tables,
+    warm s, peak device bytes or None off the card).  ``cuda_ops.LAUNCHES``
+    then holds the three runs' launches."""
+    import torch
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+
+    def run():
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = df.to_arrow()
+        if on_card:
+            torch.cuda.synchronize()
+        return table, time.perf_counter() - t0
+
+    DeviceScanCache.get().clear()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    cold, cold_s = run()
+    scans = _find(session.last_physical_plan, "TpuFileScan")
+    read_s = sum(s.timings["read_s"] for s in scans)
+    upload_s = sum(s.timings["upload_s"] for s in scans)
+    warm, warm_s = zip(*[run() for _ in range(2)])
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    return cold, cold_s, read_s, upload_s, warm, warm_s, peak
+
+
 def tpcds_phase(args, kernels_used, data_dir: str):
     """Phase 6: the verbatim text of TPC-DS q3, q42, q52 and q96 through
     the port's ``session.sql`` over Parquet temp views at scale
     ``--ds-sf``, written under ``data_dir``.  Returns B1's launches on
     this path and the session (phase 7 goes on with it)."""
     import os
-    import torch
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "benchmarks"))
     from tpcds_queries import QUERIES
@@ -1340,10 +1524,6 @@ def tpcds_phase(args, kernels_used, data_dir: str):
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.kernels import cuda_ops
     on_card = args.device == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     rows = make_tpcds(data_dir, args.ds_sf, args.seed)
@@ -1367,28 +1547,10 @@ def tpcds_phase(args, kernels_used, data_dir: str):
         check(len(lines) == len(DS_PLANS[q]) and
               all(ln.startswith(w) for ln, w in zip(lines, DS_PLANS[q])),
               f"{q}: not the planned operators:\n{plan}")
-        cache.clear()                  # cold: read and upload again
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        cuda_ops.reset_launches()
-        sync()
-        t0 = time.perf_counter()
-        cold = df.to_arrow()
-        sync()
-        cold_s = time.perf_counter() - t0
-        scans = _find(session.last_physical_plan, "TpuFileScan")
-        read_s = sum(s.timings["read_s"] for s in scans)
-        upload_s = sum(s.timings["upload_s"] for s in scans)
-        warm, warm_s = [], []
-        for _ in range(2):
-            sync()
-            t0 = time.perf_counter()
-            warm.append(df.to_arrow())
-            sync()
-            warm_s.append(time.perf_counter() - t0)
+        cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+            cold_and_warm(session, df, on_card)
         for name, v in cuda_ops.LAUNCHES.items():
             launches[name] += v
-        peak = torch.cuda.max_memory_allocated() if on_card else None
         groups = check_ds_rows(q, cold, refs[q])
         for t in warm:
             check_ds_rows(q, t, refs[q])
@@ -2423,16 +2585,22 @@ def _close(a, b) -> bool:
 
 
 def check_ds7_rows(q: str, table, full: list) -> int:
+    """``check_rows`` of a phase-7 query (LIMIT 100 after its ORDER BY)."""
+    return check_rows(q, table, full, DS7_ORDER[q])
+
+
+def check_rows(q: str, table, full: list, order, limit: int = 100) -> int:
     """The port's rows against the reference's full result: as many as
-    the LIMIT keeps, in ORDER BY order, each position's order keys those
-    of the reference's row there, and each row one of the reference's
-    rows with those keys (so ties, also at the LIMIT's cut, compare as a
-    multiset); strings, integers and nulls equal, floats within
-    EXACT_REL.  Returns the reference's row count."""
-    order = DS7_ORDER[q]
+    the LIMIT keeps, in ORDER BY order (``order``: (column, ascending)
+    pairs, or None for a query without ORDER BY or LIMIT), each
+    position's order keys those of the reference's row there, and each
+    row one of the reference's rows with those keys (so ties, also at
+    the LIMIT's cut, compare as a multiset); strings, integers and nulls
+    equal, floats within EXACT_REL.  Returns the reference's row
+    count."""
     rows = [tuple(r.values()) for r in table.to_pylist()]
     ref = _sort_rows(full, order)
-    want = min(100, len(ref)) if order is not None else len(ref)
+    want = min(limit, len(ref)) if order is not None else len(ref)
     check(len(rows) == want,
           f"{q}: {len(rows)} rows where the reference has {want}")
 
@@ -2463,12 +2631,13 @@ def check_ds7_rows(q: str, table, full: list) -> int:
 
 
 _PLAN_OP = re.compile(r"^(TpuGlobalLimit|TpuTopN|TpuSort|"
-                      r"TpuHashAggregate\[\w+|Tpu\w*HashJoin\[[^\]]*\])")
+                      r"TpuHashAggregate\[\w+|Tpu\w*HashJoin\[[^\]]*\]|"
+                      r"TpuNestedLoopJoin\[\w+\])")
 
 
 def plan_signature(explain: str) -> list:
     """The limit, sort, aggregate and join operators of a plan, top
-    down (what DS7_PLANS lists)."""
+    down (what DS7_PLANS and DS8_PLANS list)."""
     return [m.group(1) for ln in explain.splitlines()
             if (m := _PLAN_OP.match(ln.strip()))]
 
@@ -2481,16 +2650,11 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session) -> dict:
     threshold shrinks with the scale, so the plans are SF10's.  Returns
     B1's launches on this path."""
     import os
-    import torch
     from tpcds_queries import QUERIES
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.kernels import cuda_ops
     from spark_rapids_tpu_torch.plan import overrides
     on_card = args.device == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     rows = make_tpcds7(data_dir, args.ds_sf, args.seed)
@@ -2518,28 +2682,10 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session) -> dict:
             check(plan_signature(plan) == DS7_PLANS[q] and
                   "cross" not in plan,
                   f"{q}: not the planned operators:\n{plan}")
-            cache.clear()                  # cold: read and upload again
-            if on_card:
-                torch.cuda.reset_peak_memory_stats()
-            cuda_ops.reset_launches()
-            sync()
-            t0 = time.perf_counter()
-            cold = df.to_arrow()
-            sync()
-            cold_s = time.perf_counter() - t0
-            scans = _find(session.last_physical_plan, "TpuFileScan")
-            read_s = sum(s.timings["read_s"] for s in scans)
-            upload_s = sum(s.timings["upload_s"] for s in scans)
-            warm, warm_s = [], []
-            for _ in range(2):
-                sync()
-                t0 = time.perf_counter()
-                warm.append(df.to_arrow())
-                sync()
-                warm_s.append(time.perf_counter() - t0)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, df, on_card)
             for name, v in cuda_ops.LAUNCHES.items():
                 launches[name] += v
-            peak = torch.cuda.max_memory_allocated() if on_card else None
             full = check_ds7_rows(q, cold, refs[q])
             for t in warm:
                 check_ds7_rows(q, t, refs[q])
@@ -2574,6 +2720,598 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session) -> dict:
     return launches
 
 
+# -- phase 8: derived tables, CTEs and nested-loop joins at SF10 ------------
+
+#: the 15 TPC-DS queries that need subqueries in FROM (q28, q88: cross
+#: joins of one-row aggregates) or CTEs, and nothing else the port lacks
+DS8_QUERIES = ("q28", "q88", "q34", "q46", "q65", "q68", "q73", "q79",
+               "q93", "q31", "q39", "q59", "q64", "q78", "q97")
+#: queries allowed an empty answer at SF10, with the reason
+DS8_EMPTY: dict = {}
+#: ORDER BY of each query as (select column position, ascending); None:
+#: one row, no ORDER BY
+DS8_ORDER = {
+    "q28": None, "q88": None, "q97": None,
+    "q34": [(0, True), (1, True), (2, True), (3, False), (4, True)],
+    "q46": [(i, True) for i in range(5)],
+    "q65": [(0, True), (1, True), (2, True)],
+    "q68": [(0, True), (4, True)],
+    "q73": [(5, False), (0, True), (1, True), (4, True)],
+    "q79": [(0, True), (1, True), (2, True), (5, True), (3, True)],
+    "q93": [(1, True), (0, True)],
+    "q31": [(0, True)],
+    "q39": [(i, True) for i in range(10)],
+    "q59": [(0, True), (1, True), (2, True)],
+    "q64": [(0, True), (1, True), (20, True), (13, True), (16, True)],
+    "q78": [(0, True), (2, False), (3, False), (4, False)]}
+#: LIMIT of each query with an ORDER BY (100 where not listed)
+DS8_LIMIT = {"q34": 1000}
+#: the table whose rows a query's Mrows/s counts (its largest scan)
+DS8_FACT = {q: "inventory" if q == "q39" else "store_sales"
+            for q in DS8_QUERIES}
+#: the queries whose plans hold a TpuNestedLoopJoin (and no other does)
+DS8_NESTED = ("q28", "q88")
+#: each query's plan at SF10's row estimates, as DS7_PLANS lists them
+_NL = "TpuNestedLoopJoin[cross]"
+_BLO = "TpuBroadcastHashJoin[left, build=right]"
+_SLO = "TpuShuffledHashJoin[left, build=right]"
+_LS = ["TpuGlobalLimit", "TpuSort"]
+_TICKETS = _LS + [_BR] + _AGG + [_BR] * 3            # q34, q73, q79
+_BOUGHT = _LS + [_BR] * 2 + _AGG + [_BR] * 4         # q46, q68
+_CROSS_SALES = _AGG + [_BR] * 15 + [_SR] * 2 + _AGG + [_SR]
+DS8_PLANS = {
+    "q28": [_NL] * 2 + _AGG * 3,
+    "q88": [_NL] * 3 + (_AGG + [_BR] * 3) * 4,
+    "q34": _TICKETS, "q46": _BOUGHT, "q68": _BOUGHT, "q73": _TICKETS,
+    "q65": _LS + [_SR, _BR, _BL] + _AGG + [_BR] + _AGG * 2 + [_BR],
+    "q79": _TICKETS,
+    "q93": _LS + _AGG + [_BR, _SLO],
+    "q31": _LS + [_SR] * 3 + (_AGG + [_BR] * 2) * 4,
+    "q39": _LS + [_SR] + (_AGG + [_BR] * 3) * 2,
+    "q59": _LS + [_SR, _BR, _BR] + _AGG + [_BR] * 3 + _AGG + [_BR],
+    "q64": _LS + [_SR] + _CROSS_SALES * 2,
+    "q78": _LS + [_SLO] * 2 + _AGG + [_BR, _SLO] + _AGG + [_BR, _BLO] +
+    _AGG + [_BR, _SLO],
+    "q97": ["TpuGlobalLimit"] + _AGG +
+    ["TpuShuffledHashJoin[full, build=right]"] + (_AGG + [_BR]) * 2}
+
+
+def ds8_references(data_dir: str, queries=DS8_QUERIES) -> dict:
+    """Each phase-8 query's full result (every row before its LIMIT), in
+    its select list's order, by pyarrow joins, filters, group-bys and
+    compute functions written apart from the port (a derived table or a
+    CTE is a pyarrow table or a Python dict here; a join the port runs as
+    a nested loop is a product of one-row results)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, between = _ds7_tools(data_dir)
+    std = pc.VarianceOptions(ddof=1)
+    years = [1999, 2000, 2001]
+    out = {}
+
+    def rows_of(t, cols):
+        return list(zip(*[t[c].to_pylist() for c in cols]))
+
+    def dates(*conds, prefix="", cols=("d_date_sk", "d_year", "d_moy",
+                                       "d_dom", "d_dow", "d_qoy",
+                                       "d_month_seq", "d_week_seq")):
+        d = read("date_dim", list(cols), prefix)
+        for col, fn in conds:
+            d = d.filter(fn(d[prefix + col]))
+        return d
+
+    def eq(v):
+        return lambda c: pc.equal(c, v)
+
+    def div(a, b):
+        return None if a is None or b is None or b == 0 else a / b
+
+    if "q28" in queries:
+        ss = read("store_sales", ["ss_quantity", "ss_list_price",
+                                  "ss_coupon_amt", "ss_wholesale_cost"])
+        row = []
+        for qlo, qhi, lp, ca, wc in ((0, 5, 8, 459, 57),
+                                     (6, 10, 90, 2323, 31),
+                                     (11, 15, 142, 12214, 79)):
+            f = ss.filter(pc.and_(
+                between(ss["ss_quantity"], qlo, qhi),
+                pc.or_(pc.or_(between(ss["ss_list_price"], lp, lp + 10),
+                              between(ss["ss_coupon_amt"], ca, ca + 1000)),
+                       between(ss["ss_wholesale_cost"], wc, wc + 20))))
+            row += [pc.mean(f["ss_list_price"]).as_py(),
+                    pc.count(f["ss_list_price"]).as_py()]
+        out["q28"] = [tuple(row)]
+    if "q88" in queries:
+        ss = read("store_sales", ["ss_sold_time_sk", "ss_hdemo_sk",
+                                  "ss_store_sk"])
+        hd = read("household_demographics", ["hd_demo_sk", "hd_dep_count",
+                                             "hd_vehicle_count"])
+        cond = None
+        for dep in (4, 2, 0):
+            c = pc.and_(pc.equal(hd["hd_dep_count"], dep),
+                        pc.less_equal(hd["hd_vehicle_count"], dep + 2))
+            cond = c if cond is None else pc.or_(cond, c)
+        st = read("store", ["s_store_sk", "s_store_name"])
+        j = join(join(ss, hd.filter(cond), "ss_hdemo_sk", "hd_demo_sk"),
+                 st.filter(pc.equal(st["s_store_name"], "ese")),
+                 "ss_store_sk", "s_store_sk")
+        tm = read("time_dim", ["t_time_sk", "t_hour", "t_minute"])
+        row = []
+        for hour, early in ((8, False), (9, True), (9, False), (10, True)):
+            m = pc.less(tm["t_minute"], 30) if early else \
+                pc.greater_equal(tm["t_minute"], 30)
+            t = tm.filter(pc.and_(pc.equal(tm["t_hour"], hour), m))
+            row.append(join(j, t, "ss_sold_time_sk", "t_time_sk").num_rows)
+        out["q88"] = [tuple(row)]
+
+    def customers(t, cols):
+        return join(t, read("customer", ["c_customer_sk"] + cols),
+                    "ss_customer_sk", "c_customer_sk")
+
+    def tickets(dom, counties, lo, hi):
+        """q34 and q73: (ticket, customer) line counts within [lo, hi]."""
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_hdemo_sk", "ss_ticket_number",
+                                  "ss_customer_sk"])
+        st = read("store", ["s_store_sk", "s_county"])
+        hd = read("household_demographics", ["hd_demo_sk", "hd_buy_potential",
+                                             "hd_vehicle_count"])
+        hd = hd.filter(pc.and_(isin(hd["hd_buy_potential"],
+                                    [">10000", "Unknown"]),
+                               pc.greater(hd["hd_vehicle_count"], 0)))
+        j = join(ss, dates(("d_dom", dom),
+                           ("d_year", lambda c: isin(c, years))),
+                 "ss_sold_date_sk", "d_date_sk")
+        j = join(j, st.filter(isin(st["s_county"], counties)),
+                 "ss_store_sk", "s_store_sk")
+        j = join(j, hd, "ss_hdemo_sk", "hd_demo_sk")
+        g = j.group_by(["ss_ticket_number", "ss_customer_sk"]).aggregate(
+            [("ss_ticket_number", "count")])
+        g = g.filter(between(g["ss_ticket_number_count"], lo, hi))
+        cols = ["c_last_name", "c_first_name", "c_salutation",
+                "c_preferred_cust_flag"]
+        return rows_of(customers(g, cols), cols + [
+            "ss_ticket_number", "ss_ticket_number_count"])
+
+    if "q34" in queries:
+        out["q34"] = tickets(
+            lambda c: pc.or_(between(c, 1, 3), between(c, 25, 28)),
+            ["Williamson County", "Ziebach County", "Walker County",
+             "Rush County"], 15, 20)
+    if "q73" in queries:
+        out["q73"] = tickets(lambda c: between(c, 1, 2),
+                             ["Williamson County", "Ziebach County"], 1, 5)
+
+    def bought(date_conds, sums):
+        """q46 and q68: per (ticket, customer, address, city) sums, with
+        the customer's current city, where it is not the bought city."""
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_hdemo_sk", "ss_addr_sk",
+                                  "ss_ticket_number", "ss_customer_sk"] +
+                  sums)
+        st = read("store", ["s_store_sk", "s_city"])
+        hd = read("household_demographics", ["hd_demo_sk", "hd_dep_count",
+                                             "hd_vehicle_count"])
+        j = join(ss, dates(*date_conds, ("d_year",
+                                         lambda c: isin(c, years))),
+                 "ss_sold_date_sk", "d_date_sk")
+        j = join(j, st.filter(isin(st["s_city"], ["Fairview", "Midway"])),
+                 "ss_store_sk", "s_store_sk")
+        j = join(j, hd.filter(pc.or_(pc.equal(hd["hd_dep_count"], 4),
+                                     pc.equal(hd["hd_vehicle_count"], 3))),
+                 "ss_hdemo_sk", "hd_demo_sk")
+        j = join(j, read("customer_address", ["ca_address_sk", "ca_city"]),
+                 "ss_addr_sk", "ca_address_sk")
+        g = j.group_by(["ss_ticket_number", "ss_customer_sk", "ss_addr_sk",
+                        "ca_city"]).aggregate([(c, "sum") for c in sums])
+        g = customers(g, ["c_current_addr_sk", "c_first_name",
+                          "c_last_name"])
+        g = join(g, read("customer_address", ["ca_address_sk", "ca_city"],
+                         "cur_"), "c_current_addr_sk", "cur_ca_address_sk")
+        return g.filter(pc.not_equal(g["cur_ca_city"], g["ca_city"]))
+
+    if "q46" in queries:
+        g = bought([("d_dow", lambda c: isin(c, [6, 0]))],
+                   ["ss_coupon_amt", "ss_net_profit"])
+        out["q46"] = rows_of(g, ["c_last_name", "c_first_name",
+                                 "cur_ca_city", "ca_city",
+                                 "ss_ticket_number", "ss_coupon_amt_sum",
+                                 "ss_net_profit_sum"])
+    if "q68" in queries:
+        g = bought([("d_dom", lambda c: between(c, 1, 2))],
+                   ["ss_ext_sales_price", "ss_ext_list_price",
+                    "ss_ext_tax"])
+        out["q68"] = rows_of(g, ["c_last_name", "c_first_name",
+                                 "cur_ca_city", "ca_city",
+                                 "ss_ticket_number",
+                                 "ss_ext_sales_price_sum", "ss_ext_tax_sum",
+                                 "ss_ext_list_price_sum"])
+    if "q79" in queries:
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_hdemo_sk", "ss_addr_sk",
+                                  "ss_ticket_number", "ss_customer_sk",
+                                  "ss_coupon_amt", "ss_net_profit"])
+        st = read("store", ["s_store_sk", "s_city", "s_number_employees"])
+        hd = read("household_demographics", ["hd_demo_sk", "hd_dep_count",
+                                             "hd_vehicle_count"])
+        j = join(ss, dates(("d_dow", eq(1)),
+                           ("d_year", lambda c: isin(c, years))),
+                 "ss_sold_date_sk", "d_date_sk")
+        j = join(j, st.filter(between(st["s_number_employees"], 200, 295)),
+                 "ss_store_sk", "s_store_sk")
+        j = join(j, hd.filter(pc.or_(pc.equal(hd["hd_dep_count"], 6),
+                                     pc.greater(hd["hd_vehicle_count"], 2))),
+                 "ss_hdemo_sk", "hd_demo_sk")
+        g = j.group_by(["ss_ticket_number", "ss_customer_sk", "ss_addr_sk",
+                        "s_city"]).aggregate([("ss_coupon_amt", "sum"),
+                                              ("ss_net_profit", "sum")])
+        g = customers(g, ["c_last_name", "c_first_name"])
+        g = g.append_column("city", pc.utf8_slice_codeunits(g["s_city"], 0,
+                                                            30))
+        out["q79"] = rows_of(g, ["c_last_name", "c_first_name", "city",
+                                 "ss_ticket_number", "ss_coupon_amt_sum",
+                                 "ss_net_profit_sum"])
+    if "q65" in queries:
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_item_sk", "ss_sales_price"])
+        j = join(ss, dates(("d_month_seq", lambda c: between(c, 1176, 1187)),
+                           cols=("d_date_sk", "d_month_seq")),
+                 "ss_sold_date_sk", "d_date_sk")
+        sc = j.group_by(["ss_store_sk", "ss_item_sk"]).aggregate(
+            [("ss_sales_price", "sum")])
+        sb = sc.group_by(["ss_store_sk"]).aggregate(
+            [("ss_sales_price_sum", "mean")]).rename_columns(["sb_store",
+                                                             "ave"])
+        t = join(sc, sb, "ss_store_sk", "sb_store")
+        t = t.filter(pc.less_equal(t["ss_sales_price_sum"],
+                                   pc.multiply(t["ave"], 0.1)))
+        t = join(t, read("store", ["s_store_sk", "s_store_name"]),
+                 "ss_store_sk", "s_store_sk")
+        t = join(t, read("item", ["i_item_sk", "i_item_desc",
+                                  "i_current_price", "i_wholesale_cost",
+                                  "i_brand"]), "ss_item_sk", "i_item_sk")
+        out["q65"] = rows_of(t, ["s_store_name", "i_item_desc",
+                                 "ss_sales_price_sum", "i_current_price",
+                                 "i_wholesale_cost", "i_brand"])
+    if "q93" in queries:
+        ss = read("store_sales", ["ss_item_sk", "ss_ticket_number",
+                                  "ss_customer_sk", "ss_quantity",
+                                  "ss_sales_price"])
+        sr = read("store_returns", ["sr_item_sk", "sr_ticket_number",
+                                    "sr_reason_sk", "sr_return_quantity"])
+        r = read("reason", ["r_reason_sk", "r_reason_desc"])
+        # the WHERE on sr_reason_sk drops the outer join's unmatched rows
+        j = join(ss, sr, ["ss_item_sk", "ss_ticket_number"],
+                 ["sr_item_sk", "sr_ticket_number"])
+        j = join(j, r.filter(pc.equal(r["r_reason_desc"], "reason 28")),
+                 "sr_reason_sk", "r_reason_sk")
+        price = j["ss_sales_price"]
+        act = pc.if_else(
+            pc.is_valid(j["sr_return_quantity"]),
+            pc.multiply(pc.subtract(j["ss_quantity"],
+                                    j["sr_return_quantity"]), price),
+            pc.multiply(j["ss_quantity"], price))
+        j = j.append_column("act", act)
+        out["q93"] = _grouped(j, ["ss_customer_sk"], [("act", "sum")],
+                              ["ss_customer_sk", "act_sum"])
+    if "q31" in queries:
+        def county_sales(fact, date_col, addr_col, val):
+            f = read(fact, [date_col, addr_col, val])
+            j = join(f, dates(("d_year", eq(2000)),
+                              ("d_qoy", lambda c: isin(c, [1, 2]))),
+                     date_col, "d_date_sk")
+            j = join(j, read("customer_address", ["ca_address_sk",
+                                                  "ca_county"]),
+                     addr_col, "ca_address_sk")
+            g = j.group_by(["ca_county", "d_qoy"]).aggregate([(val, "sum")])
+            return {(c, q): v for c, q, v in rows_of(
+                g, ["ca_county", "d_qoy", f"{val}_sum"])}
+        ss = county_sales("store_sales", "ss_sold_date_sk", "ss_addr_sk",
+                          "ss_ext_sales_price")
+        ws = county_sales("web_sales", "ws_sold_date_sk", "ws_bill_addr_sk",
+                          "ws_ext_sales_price")
+        rows = []
+        for county in {c for c, _ in ss}:
+            s1, s2 = ss.get((county, 1)), ss.get((county, 2))
+            w1, w2 = ws.get((county, 1)), ws.get((county, 2))
+            if None in (s1, s2, w1, w2):
+                continue
+            wr = w2 / w1 if w1 > 0 else None
+            sr = s2 / s1 if s1 > 0 else None
+            if wr is not None and sr is not None and wr > sr:
+                rows.append((county, 2000, div(w2, w1), div(s2, s1)))
+        out["q31"] = rows
+    if "q39" in queries:
+        inv = read("inventory", ["inv_date_sk", "inv_item_sk",
+                                 "inv_warehouse_sk", "inv_quantity_on_hand"])
+        j = join(inv, read("item", ["i_item_sk"]), "inv_item_sk", "i_item_sk")
+        j = join(j, read("warehouse", ["w_warehouse_sk", "w_warehouse_name"]),
+                 "inv_warehouse_sk", "w_warehouse_sk")
+        j = join(j, dates(("d_year", eq(2001)),
+                          ("d_moy", lambda c: isin(c, [1, 2]))),
+                 "inv_date_sk", "d_date_sk")
+        g = j.group_by(["w_warehouse_name", "inv_warehouse_sk",
+                        "inv_item_sk", "d_moy"]).aggregate(
+            [("inv_quantity_on_hand", "stddev", std),
+             ("inv_quantity_on_hand", "mean")])
+        by_moy = {1: {}, 2: {}}
+        for _, wsk, isk, moy, sd, mean in rows_of(
+                g, ["w_warehouse_name", "inv_warehouse_sk", "inv_item_sk",
+                    "d_moy", "inv_quantity_on_hand_stddev",
+                    "inv_quantity_on_hand_mean"]):
+            ratio = 0.0 if mean == 0 else div(sd, mean)
+            if ratio is not None and ratio > 0.5:
+                cov = None if mean == 0 else div(sd, mean)
+                by_moy[moy][(wsk, isk)] = (wsk, isk, moy, mean, cov)
+        out["q39"] = [a + b for k, a in by_moy[1].items()
+                      for b in [by_moy[2].get(k)] if b is not None]
+    if "q59" in queries:
+        days = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+                "Friday", "Saturday"]
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_sales_price"])
+        d = read("date_dim", ["d_date_sk", "d_week_seq", "d_day_name",
+                              "d_month_seq"])
+        j = join(ss, d.select(["d_date_sk", "d_week_seq", "d_day_name"]),
+                 "ss_sold_date_sk", "d_date_sk")
+        none = pa.scalar(None, pa.float64())
+        for day in days:
+            j = j.append_column(day, pc.if_else(
+                pc.equal(j["d_day_name"], day), j["ss_sales_price"], none))
+        g = j.group_by(["d_week_seq", "ss_store_sk"]).aggregate(
+            [(day, "sum") for day in days])
+        wss = {(w, sk): v for w, sk, *v in rows_of(
+            g, ["d_week_seq", "ss_store_sk"] + [f"{x}_sum" for x in days])}
+        st = {sk: (name, sid) for sk, name, sid in rows_of(
+            read("store", ["s_store_sk", "s_store_name", "s_store_id"]),
+            ["s_store_sk", "s_store_name", "s_store_id"])}
+        # the date_dim rows of each week in each year's months: a wss row
+        # joins each of them (the query's own fan-out)
+        per_week = {}
+        for w, m in rows_of(d, ["d_week_seq", "d_month_seq"]):
+            for lo in (1200, 1212):
+                if lo <= m <= lo + 11:
+                    per_week[(lo, w)] = per_week.get((lo, w), 0) + 1
+        rows = []
+        for (w, sk), v1 in wss.items():
+            n1 = per_week.get((1200, w), 0)
+            v2 = wss.get((w + 52, sk))
+            n2 = per_week.get((1212, w + 52), 0)
+            if not n1 or not n2 or v2 is None or sk not in st:
+                continue
+            name, sid = st[sk]
+            row = (name, sid, w) + tuple(div(a, b) for a, b in zip(v1, v2))
+            rows += [row] * (n1 * n2)
+        out["q59"] = rows
+    if "q64" in queries:
+        cs = read("catalog_sales", ["cs_item_sk", "cs_order_number",
+                                    "cs_ext_list_price"])
+        cr = read("catalog_returns", ["cr_item_sk", "cr_order_number",
+                                      "cr_refunded_cash",
+                                      "cr_reversed_charge",
+                                      "cr_store_credit"])
+        j = join(cs, cr, ["cs_item_sk", "cs_order_number"],
+                 ["cr_item_sk", "cr_order_number"])
+        j = j.append_column("refund", pc.add(pc.add(
+            j["cr_refunded_cash"], j["cr_reversed_charge"]),
+            j["cr_store_credit"]))
+        g = j.group_by(["cs_item_sk"]).aggregate(
+            [("cs_ext_list_price", "sum"), ("refund", "sum")])
+        cs_ui = g.filter(pc.greater(g["cs_ext_list_price_sum"], pc.multiply(
+            g["refund_sum"], 2.0))).select(["cs_item_sk"])
+        it = read("item", ["i_item_sk", "i_product_name", "i_color",
+                           "i_current_price"])
+        it = it.filter(pc.and_(
+            isin(it["i_color"], ["red", "blue", "green", "purple", "white",
+                                 "orange"]),
+            between(it["i_current_price"], 20, 70)))
+        ss = read("store_sales", ["ss_item_sk", "ss_ticket_number",
+                                  "ss_store_sk", "ss_sold_date_sk",
+                                  "ss_customer_sk", "ss_cdemo_sk",
+                                  "ss_hdemo_sk", "ss_addr_sk", "ss_promo_sk",
+                                  "ss_wholesale_cost", "ss_list_price",
+                                  "ss_coupon_amt"])
+        j = join(ss, it, "ss_item_sk", "i_item_sk")
+        j = join(j, cs_ui, "ss_item_sk", "cs_item_sk")
+        j = join(j, read("store_returns", ["sr_item_sk", "sr_ticket_number"]),
+                 ["ss_item_sk", "ss_ticket_number"],
+                 ["sr_item_sk", "sr_ticket_number"])
+        j = join(j, read("store", ["s_store_sk", "s_store_name", "s_zip"]),
+                 "ss_store_sk", "s_store_sk")
+        j = join(j, read("customer", [
+            "c_customer_sk", "c_current_cdemo_sk", "c_current_hdemo_sk",
+            "c_current_addr_sk", "c_first_sales_date_sk",
+            "c_first_shipto_date_sk"]), "ss_customer_sk", "c_customer_sk")
+        # only the groups of 1999 and 2000 (d1's year, a group key) meet
+        for p, col in (("d1_", "ss_sold_date_sk"),
+                       ("d2_", "c_first_sales_date_sk"),
+                       ("d3_", "c_first_shipto_date_sk")):
+            d = dates(prefix=p, cols=("d_date_sk", "d_year"))
+            if p == "d1_":
+                d = d.filter(isin(d["d1_d_year"], [1999, 2000]))
+            j = join(j, d, col, p + "d_date_sk")
+        for p, col in (("cd1_", "ss_cdemo_sk"),
+                       ("cd2_", "c_current_cdemo_sk")):
+            j = join(j, read("customer_demographics",
+                             ["cd_demo_sk", "cd_marital_status"], p), col,
+                     p + "cd_demo_sk")
+        j = j.filter(pc.not_equal(j["cd1_cd_marital_status"],
+                                  j["cd2_cd_marital_status"]))
+        j = join(j, read("promotion", ["p_promo_sk"]), "ss_promo_sk",
+                 "p_promo_sk")
+        for h, col in (("hd1_", "ss_hdemo_sk"),
+                       ("hd2_", "c_current_hdemo_sk")):
+            j = join(j, read("household_demographics",
+                             ["hd_demo_sk", "hd_income_band_sk"], h), col,
+                     h + "hd_demo_sk")
+            ib = "ib" + h[2:]
+            j = join(j, read("income_band", ["ib_income_band_sk"], ib),
+                     h + "hd_income_band_sk", ib + "ib_income_band_sk")
+        addr = ["ca_street_number", "ca_street_name", "ca_city", "ca_zip"]
+        for p, col in (("ad1_", "ss_addr_sk"), ("ad2_", "c_current_addr_sk")):
+            j = join(j, read("customer_address", ["ca_address_sk"] + addr, p),
+                     col, p + "ca_address_sk")
+        keys = (["i_product_name", "ss_item_sk", "s_store_name", "s_zip"] +
+                ["ad1_" + c for c in addr] + ["ad2_" + c for c in addr] +
+                ["d1_d_year", "d2_d_year", "d3_d_year"])
+        g = j.group_by(keys).aggregate([
+            ("ss_wholesale_cost", "count"), ("ss_wholesale_cost", "sum"),
+            ("ss_list_price", "sum"), ("ss_coupon_amt", "sum")])
+        cols = keys + ["ss_wholesale_cost_count", "ss_wholesale_cost_sum",
+                       "ss_list_price_sum", "ss_coupon_amt_sum"]
+        g = g.select(cols).rename_columns(
+            keys[:12] + ["syear", "y2", "y3", "cnt", "s1", "s2", "s3"])
+        cs1 = g.filter(pc.equal(g["syear"], 1999))
+        cs2 = g.filter(pc.equal(g["syear"], 2000)).select(
+            ["ss_item_sk", "s_store_name", "s_zip", "syear", "cnt", "s1",
+             "s2", "s3"]).rename_columns(
+            ["i2", "n2", "z2", "syear2", "cnt2", "s12", "s22", "s32"])
+        j = join(cs1, cs2, ["ss_item_sk", "s_store_name", "s_zip"],
+                 ["i2", "n2", "z2"])
+        j = j.filter(pc.less_equal(j["cnt2"], j["cnt"]))
+        out["q64"] = rows_of(j, ["i_product_name", "s_store_name", "s_zip"] +
+                             keys[4:12] + ["syear", "cnt", "s1", "s2", "s3",
+                                           "s12", "s22", "s32", "syear2",
+                                           "cnt2"])
+    if "q78" in queries:
+        def channel(fact, rets, p, fkeys, rkeys, cust):
+            f = read(fact, [f"{p}_sold_date_sk", f"{p}_item_sk", cust,
+                            fkeys[0], f"{p}_quantity", f"{p}_wholesale_cost",
+                            f"{p}_sales_price"])
+            f = join(f, read(rets, rkeys), fkeys, rkeys, "left anti")
+            f = join(f, dates(("d_year", eq(2000)),
+                              cols=("d_date_sk", "d_year")),
+                     f"{p}_sold_date_sk", "d_date_sk")
+            g = f.group_by(["d_year", f"{p}_item_sk", cust]).aggregate(
+                [(f"{p}_quantity", "sum"), (f"{p}_wholesale_cost", "sum"),
+                 (f"{p}_sales_price", "sum")])
+            return g.rename_columns(["year", "item", "cust", "qty", "wc",
+                                     "sp"]
+                                    if p == "ss" else
+                                    [f"{p}_{c}" for c in (
+                                        "year", "item", "cust", "qty", "wc",
+                                        "sp")])
+        ss = channel("store_sales", "store_returns", "ss",
+                     ["ss_ticket_number", "ss_item_sk"],
+                     ["sr_ticket_number", "sr_item_sk"], "ss_customer_sk")
+        j = ss
+        for p, fact, rets in (("ws", "web_sales", "web_returns"),
+                              ("cs", "catalog_sales", "catalog_returns")):
+            r = p[0] + "r"
+            g = channel(fact, rets, p, [f"{p}_order_number", f"{p}_item_sk"],
+                        [f"{r}_order_number", f"{r}_item_sk"],
+                        f"{p}_bill_customer_sk")
+            j = join(j, g, ["year", "item", "cust"],
+                     [f"{p}_year", f"{p}_item", f"{p}_cust"], "left outer")
+        wq = pc.fill_null(j["ws_qty"], 0)
+        cq = pc.fill_null(j["cs_qty"], 0)
+        j = j.filter(pc.or_(pc.greater(wq, 0), pc.greater(cq, 0)))
+        wq, cq = pc.fill_null(j["ws_qty"], 0), pc.fill_null(j["cs_qty"], 0)
+        ratio = pc.round(pc.divide(pc.cast(j["qty"], pa.float64()),
+                                   pc.cast(pc.add(wq, cq), pa.float64())),
+                         2, round_mode="half_towards_infinity")
+        j = j.append_column("ratio", ratio)
+        out["q78"] = rows_of(j, ["item", "ratio", "qty", "wc", "sp"])
+    if "q97" in queries:
+        def pairs(fact, date_col, cust, item):
+            f = read(fact, [date_col, cust, item])
+            j = join(f, dates(("d_month_seq", lambda c: between(c, 1200,
+                                                                1211)),
+                              cols=("d_date_sk", "d_month_seq")),
+                     date_col, "d_date_sk")
+            return j.group_by([cust, item]).aggregate([])
+        s = pairs("store_sales", "ss_sold_date_sk", "ss_customer_sk",
+                  "ss_item_sk")
+        c = pairs("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk",
+                  "cs_item_sk")
+        both = join(s, c, ["ss_customer_sk", "ss_item_sk"],
+                    ["cs_bill_customer_sk", "cs_item_sk"]).num_rows
+        out["q97"] = [(s.num_rows - both, c.num_rows - both, both)]
+    return out
+
+
+def tpcds8_phase(args, kernels_used, data_dir: str, session) -> dict:
+    """Phase 8: the verbatim text of the 15 TPC-DS queries with derived
+    tables or CTEs (DS8_QUERIES) through the port's ``session.sql`` on
+    phase 7's tables, directory and session.  Each must plan DS8_PLANS'
+    operators at SF10 (a TpuNestedLoopJoin in q28 and q88 alone, at
+    every scale), equal
+    ``ds8_references`` (1e-9, ORDER BY kept, ties as a multiset, also at
+    the LIMIT's cut), give the same bytes on two warm runs, and return
+    rows unless DS8_EMPTY names it.  Below SF10 the broadcast threshold
+    shrinks with the scale, as in phase 7.  q78 and q64 run once more
+    under the profiler.  Returns the kernels' launches on this path."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    t0 = time.perf_counter()
+    refs = ds8_references(data_dir)
+    print(f"tpcds8: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    rows = {"store_sales": max(int(DS_ROWS_PER_SF["store_sales"] *
+                                   args.ds_sf), 64),
+            "inventory": max(int(DS7_ROWS_PER_SF["inventory"] * args.ds_sf),
+                             64)}
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        for q in DS8_QUERIES:
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 8 imported JAX or the JAX package")
+            df = session.sql(QUERIES[q])
+            plan = df.explain()
+            # below SF10 time_dim (86,400 rows at every scale) outgrows
+            # the shrunk broadcast threshold: q88 shuffles it there
+            check((plan_signature(plan) == DS8_PLANS[q] or
+                   args.ds_sf < 10) and
+                  ("TpuNestedLoopJoin" in plan) == (q in DS8_NESTED),
+                  f"{q}: not the planned operators:\n{plan}")
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, df, on_card)
+            for name, v in cuda_ops.LAUNCHES.items():
+                launches[name] += v
+            order, limit = DS8_ORDER[q], DS8_LIMIT.get(q, 100)
+            full = check_rows(q, cold, refs[q], order, limit)
+            for t in warm:
+                check_rows(q, t, refs[q], order, limit)
+            check(same_bytes(warm[0], warm[1]),
+                  f"{q}: the two warm runs are not byte-identical")
+            check(cold.num_rows > 0 or q in DS8_EMPTY or args.ds_sf < 10,
+                  f"{q}: no rows (not in DS8_EMPTY)")
+            fact = rows[DS8_FACT[q]]
+            got = cuda_ops.LAUNCHES
+            print(f"{q}: {cold.num_rows} rows of {full}; cold {cold_s:.4f}s "
+                  f"(host read {read_s:.4f}s, upload {upload_s:.4f}s); warm "
+                  f"{warm_s[0]:.4f}s {warm_s[1]:.4f}s; warm "
+                  f"{fact / warm_s[1] / 1e6:.3f} Mrows/s of {DS8_FACT[q]}; "
+                  f"peak device memory {peak} B; launches (3 runs) B1 "
+                  f"{got['hash_partition_ids']}, B2 {got['table_reduce']}, "
+                  f"probe {got['join_probe']}; byte-identical warm runs; "
+                  f"matches pyarrow at {EXACT_REL}; first rows "
+                  f"{cold.slice(0, 2).to_pylist()}", flush=True)
+        for q in ("q78", "q64"):
+            print(f"plan {q}:\n" + session.sql(QUERIES[q]).explain())
+            if on_card:
+                before = dict(cuda_ops.LAUNCHES)
+                print(f"profile {q}:")
+                profile_query(session.sql(QUERIES[q]))
+                print(f"profile {q}: kernel launches " + str(
+                    {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()}))
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
+        cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the phase 8 path")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=64_000_000)
@@ -2587,6 +3325,11 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: also time its "
                          "kernels at the raw-row shapes with this timer")
     args = ap.parse_args(argv)
+    start = time.perf_counter()
+
+    def phase_done(name):
+        print(f"phase {name} done at {time.perf_counter() - start:.1f}s",
+              flush=True)
 
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
@@ -2615,6 +3358,7 @@ def main(argv=None) -> int:
 
         # 3. kernels against their plain versions
         kernels = kernel_phase(np.random.default_rng(args.seed), args.parent)
+        phase_done("3")
 
     # 4. the headline query
     t0 = time.perf_counter()
@@ -2662,16 +3406,25 @@ def main(argv=None) -> int:
     print("plan:\n" + df.explain())
     df = session = None         # phase 4's table leaves the card
 
+    phase_done("4")
+
     # 5. shuffled joins at TPC-H scale
     results["join"] = join_phase(
         args, list(kernels) if args.device == "cuda" else [])
 
     # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
-    # TPC-DS queries on the same tables, session and directory
-    used = ["hash_partition_ids"] if args.device == "cuda" else []
+    # TPC-DS queries, 8. those with derived tables and CTEs, on the same
+    # tables, session and directory
+    used = ["hash_partition_ids", "join_probe"] \
+        if args.device == "cuda" else []
     with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
+        phase_done("5")
         results["tpcds"], session = tpcds_phase(args, used, data_dir)
+        phase_done("6")
         results["tpcds7"] = tpcds7_phase(args, used, data_dir, session)
+        phase_done("7")
+        results["tpcds8"] = tpcds8_phase(args, used, data_dir, session)
+        phase_done("8")
         session = None
 
     if args.device != "cuda":
@@ -2680,9 +3433,9 @@ def main(argv=None) -> int:
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            # phases 6 and 7 take no B2: their string keys and keyless
-            # aggregates run the sort path
-            check(got > 0 or (mode in ("tpcds", "tpcds7") and
+            # phases 6-8 take no B2: their string keys, keyless
+            # aggregates and wide key ranges run the sort path
+            check(got > 0 or (mode in ("tpcds", "tpcds7", "tpcds8") and
                               name == "table_reduce"),
                   f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]

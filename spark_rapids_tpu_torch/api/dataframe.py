@@ -88,8 +88,8 @@ class DataFrame:
         """Join on a condition (``Col``: its equalities between the two
         sides become keys, the rest a residual condition) or on column
         names both sides share (the right side's copies are dropped, as
-        Spark does).  Cross joins are planned but not ported: planning
-        one raises."""
+        Spark does).  A cross join, or a condition without an equality
+        between the sides, runs as a nested-loop join."""
         how = _JOIN_ALIASES.get(how, how)
         if how == "cross" or on is None:
             return DataFrame(L.Join(self._plan, other._plan, "cross", [], []),

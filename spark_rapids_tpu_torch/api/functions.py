@@ -1,4 +1,5 @@
-"""functions: col, the aggregates, conditionals and string functions.
+"""functions: col, the aggregates, conditionals, ``round`` and string
+functions.
 
 Counterpart of ``spark_rapids_tpu/api/functions.py`` (the port's
 subset).
@@ -6,6 +7,7 @@ subset).
 from __future__ import annotations
 
 from ..expr import aggregates as eagg
+from ..expr import arithmetic as ea
 from ..expr import conditional as econd
 from ..expr import core as ec
 from ..expr import string_ops as es
@@ -89,3 +91,8 @@ def substring(c, pos: int, length: int) -> Col:
 
 def concat(*cols) -> Col:
     return Col(es.ConcatStrings(*[_arg(c) for c in cols]))
+
+
+def round(c, scale: int = 0) -> Col:  # noqa: A001
+    """Spark's ``round`` (HALF_UP) to ``scale`` decimal places."""
+    return Col(ea.Round(_arg(c), scale))

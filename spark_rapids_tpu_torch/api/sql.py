@@ -3,14 +3,19 @@
 Counterpart of ``spark_rapids_tpu/api/sql.py`` for the subset the port
 runs:
 
+- ``WITH name AS (query) [, ...]`` before a query: each CTE is a view
+  while the query is lowered, and a later CTE reads an earlier one;
 - ``SELECT`` lists of expressions with aliases (``AS`` optional) and
   ``*``;
-- ``FROM`` lists of temp views (comma joins) and ``[INNER | LEFT
-  [OUTER] | RIGHT [OUTER] | FULL [OUTER]] JOIN ... ON``, the two mixed
-  (``a LEFT JOIN b ON ..., c``), views with aliases, column names with
-  or without a qualifier; a view joined to itself under two aliases
-  (``date_dim d1, date_dim d2``) has its second copy's columns renamed
-  ``__<alias>_<name>`` inside the plan;
+- ``FROM`` lists of temp views, CTEs and derived tables (``(query)
+  [AS] alias``) as comma joins and ``[INNER | LEFT [OUTER] | RIGHT
+  [OUTER] | FULL [OUTER]] JOIN ... ON`` or ``CROSS JOIN``, the two mixed
+  (``a LEFT JOIN b ON ..., c``), with aliases, column names with or
+  without a qualifier; a relation read twice under two aliases
+  (``date_dim d1, date_dim d2``, a CTE ``ss ss1, ss ss2``) has its
+  second copy's colliding columns renamed ``__<alias>_<name>`` inside
+  the plan; a join without an equality between its sides (a cross join,
+  or ``ON`` a non-equi condition) is a nested-loop join;
 - ``WHERE`` with ``AND`` / ``OR`` / ``NOT``, the comparisons ``=``,
   ``<>``, ``!=``, ``<``, ``<=``, ``>``, ``>=``, ``[NOT] BETWEEN``,
   ``[NOT] IN (literal list)``, ``[NOT] LIKE`` (prefix, suffix,
@@ -20,26 +25,30 @@ runs:
   equalities written inside the arms become join keys;
 - ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``;
   ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric values;
-  ``substring`` / ``substr`` with literal positions, ``concat``,
-  ``coalesce`` / ``nvl`` / ``ifnull`` of numbers;
+  ``substring`` / ``substr`` with literal positions (in characters),
+  ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` of numbers,
+  ``round(x[, d])`` (HALF_UP);
 - integer, decimal (read as double), string and ``NULL`` literals;
 - ``GROUP BY`` expressions, ordinals or select aliases, with or
   without aggregates; the aggregates ``count(*)``, ``count``, ``sum``,
-  ``max``, ``avg`` / ``mean``, ``stddev`` / ``stddev_samp`` / ``std``,
-  ``stddev_pop``, ``variance`` / ``var_samp``, ``var_pop``, and
-  expressions over them and over the group keys; ``HAVING``, whose
-  aggregates need not be selected;
+  ``max`` (also of strings), ``avg`` / ``mean``, ``stddev`` /
+  ``stddev_samp`` / ``std``, ``stddev_pop``, ``variance`` /
+  ``var_samp``, ``var_pop`` (all but ``count`` and ``max`` of numbers
+  only), and expressions over them and over the group keys; ``HAVING``,
+  whose aggregates need not be selected;
 - ``ORDER BY`` expressions, select aliases or ordinals with ``ASC`` /
   ``DESC`` and ``NULLS FIRST`` / ``LAST``; ``LIMIT``.
 
 Anything else raises ``SqlError`` naming the construct, before any
-device work.  The plan is built in Spark's order: the FROM relations as
-a left-deep join tree, WHERE as a filter over it, the aggregate (its
-keys and every aggregate call of the select list, HAVING and ORDER BY
-as columns), HAVING as a filter over it, the sort, the projection of
-the select list, the limit; then ``plan/logical_opt.optimize`` turns
-the comma joins and WHERE equalities into equi-joins with the filters
-below them.
+device work: expression subqueries (``IN (query)``, a scalar query,
+``EXISTS``), set operations, windows and the rest of Spark SQL.  The
+plan is built in Spark's order: the FROM relations as a left-deep join
+tree, WHERE as a filter over it, the aggregate (its keys and every
+aggregate call of the select list, HAVING and ORDER BY as columns),
+HAVING as a filter over it, the sort, the projection of the select
+list, the limit; then ``plan/logical_opt.optimize`` turns the comma
+joins and WHERE equalities into equi-joins with the filters below them,
+also through a derived table's projection.
 """
 from __future__ import annotations
 
@@ -185,6 +194,13 @@ class TableRef:
 
 
 @dataclasses.dataclass
+class SubqueryRef:
+    """A parenthesised query with an alias in FROM (a derived table)."""
+    query: "Select"
+    alias: str
+
+
+@dataclasses.dataclass
 class JoinRef:
     left: Any
     right: Any
@@ -208,6 +224,9 @@ class Select:
     having: Any = None
     order_by: List[OrderItem] = dataclasses.field(default_factory=list)
     limit: Optional[int] = None
+    #: ``WITH name AS (query), ...``: (name, query) in order
+    ctes: List[Tuple[str, "Select"]] = dataclasses.field(
+        default_factory=list)
 
 
 def _kids(a) -> List[Any]:
@@ -273,12 +292,12 @@ _KEYWORDS = {
 }
 #: constructs of Spark SQL the port does not parse, by their keyword
 _UNSUPPORTED = {
-    "with": "WITH (common table expressions)", "union": "UNION",
+    "union": "UNION",
     "intersect": "INTERSECT", "except": "EXCEPT", "distinct": "DISTINCT",
     "exists": "EXISTS", "over": "window functions (OVER)",
     "offset": "OFFSET", "cast": "CAST", "interval": "INTERVAL",
     "true": "boolean literals", "false": "boolean literals",
-    "using": "JOIN ... USING", "cross": "CROSS JOIN",
+    "using": "JOIN ... USING",
     "natural": "NATURAL JOIN", "semi": "SEMI JOIN", "anti": "ANTI JOIN",
     "rollup": "ROLLUP", "cube": "CUBE", "grouping": "GROUPING SETS",
     "window": "WINDOW", "qualify": "QUALIFY", "lateral": "LATERAL",
@@ -361,6 +380,18 @@ class _Parser:
         return q
 
     def select(self) -> Select:
+        ctes = []
+        if self.at("with"):
+            self.advance()
+            while True:
+                name = self.name()
+                self.expect("as")
+                self.expect_op("(")
+                ctes.append((name, self.select()))
+                self.expect_op(")")
+                if not self.at_op(","):
+                    break
+                self.advance()
         self.expect("select")
         self._unsupported_here()
         items = [self.select_item()]
@@ -374,7 +405,7 @@ class _Parser:
         while self.at_op(","):
             self.advance()
             from_.append(self.join_tree())
-        q = Select(items, from_)
+        q = Select(items, from_, ctes=ctes)
         if self.at("where"):
             self.advance()
             q.where = self.expr()
@@ -431,9 +462,16 @@ class _Parser:
         e = self.expr()
         return e, self._alias()
 
-    def table_ref(self) -> TableRef:
+    def table_ref(self):
         if self.at_op("("):
-            self._fail("subqueries in FROM are not supported by the port")
+            self.advance()
+            if not self.at("select", "with"):
+                self._fail("expected a query in parentheses")
+            q = self.select()
+            self.expect_op(")")
+            if self.at("as"):
+                self.advance()
+            return SubqueryRef(q, self.name())
         name = self.name()
         if self.at_op("."):                       # db.table
             self.advance()
@@ -449,15 +487,18 @@ class _Parser:
             elif self.at("inner"):
                 self.advance()
                 how = "inner"
-            elif self.at("left", "right", "full"):
+            elif self.at("left", "right", "full", "cross"):
                 how = self.advance().text.lower()
-                if self.at("outer"):
+                if self.at("outer") and how != "cross":
                     self.advance()
             else:
                 self._unsupported_here()
                 return left
             self.expect("join")
             right = self.table_ref()
+            if how == "cross":
+                left = JoinRef(left, right, how, None)
+                continue
             if not self.at("on"):
                 self._fail("expected ON")
             self.advance()
@@ -742,26 +783,30 @@ class _Lowerer:
 
     # -- FROM ----------------------------------------------------------------
     def relation(self, ref):
-        """(plan, scope) of one FROM item."""
+        """(plan, scope) of one FROM item: a view (or a CTE in scope), a
+        derived table under its alias, or a join of two of them."""
         if isinstance(ref, TableRef):
             plan = self.views.get(ref.name.lower())
             if plan is None:
                 raise SqlError(f"table or view not found: {ref.name}")
             return plan, _Scope.of(plan.schema,
                                    (ref.alias or ref.name).lower())
+        if isinstance(ref, SubqueryRef):
+            plan = self.select(ref.query)
+            return plan, _Scope.of(plan.schema, ref.alias.lower())
         lplan, lscope = self.relation(ref.left)
         rplan, rscope = self.relation(ref.right)
         rplan, scope = self.combine(lplan, lscope, rplan, rscope)
+        if ref.how == "cross":
+            return L.Join(lplan, rplan, "cross", [], []), scope
         from ..plan.logical_opt import _and_all, _conjuncts
         from .dataframe import _extract_equi_keys
         both = L.Join(lplan, rplan, "cross", [], []).schema
-        # the equalities inside every arm of an OR become join keys
+        # the equalities inside every arm of an OR become join keys; a
+        # join without one is a nested-loop join on its condition
         cond = _and_all(_conjuncts(self.expr(scope.canon(ref.on), both)))
         lkeys, rkeys, residual = _extract_equi_keys(cond, lplan.schema,
                                                     rplan.schema)
-        if not lkeys:
-            raise SqlError("JOIN ... ON without an equality between the two "
-                           "sides is not supported by the port")
         return L.Join(lplan, rplan, ref.how, lkeys, rkeys, residual), scope
 
     @staticmethod
@@ -885,6 +930,14 @@ class _Lowerer:
                     ec.Literal(_literal_of(x)) for x in args[1:]])
             if n == "concat" and args:
                 return es.ConcatStrings(*args)
+            if n == "round" and len(args) in (1, 2):
+                scale = _literal_of(args[1]) if len(args) == 2 else 0
+                dt = args[0].dtype()
+                if not isinstance(scale, int) or isinstance(scale, bool) or \
+                        not (dt.is_integral or dt.is_fractional):
+                    raise SqlError("round() takes a number and an integer "
+                                   "scale")
+                return ea.Round(args[0], scale)
             if n in ("coalesce", "nvl", "ifnull") and args:
                 out = econd.Coalesce(*args)
                 if out.dtype() == T.STRING:
@@ -904,10 +957,36 @@ class _Lowerer:
             raise SqlError(f"{a.name}() takes one argument")
         if _has_agg(a.args[0]):
             raise SqlError("nested aggregates are not allowed")
-        return _AGGREGATES[a.name](self.expr(a.args[0], schema))
+        arg = self.expr(a.args[0], schema)
+        dt = arg.dtype()
+        if a.name not in ("count", "max") and not (
+                dt.is_integral or dt.is_fractional) and dt != T.NULL:
+            # Spark casts the input to double (null for a word that is no
+            # number); CAST is not ported, and adding a string's bytes, as
+            # the reference's engine does, is no answer
+            raise SqlError(f"{a.name}() of a {dt} column is not supported "
+                           f"by the port")
+        return _AGGREGATES[a.name](arg)
 
     # -- SELECT --------------------------------------------------------------
     def select(self, q: Select) -> L.LogicalPlan:
+        """The plan of one query.  Its CTEs are views of a copy of the
+        view map, lowered in order (a later CTE sees an earlier one), and
+        the copy is dropped when the query is lowered.  A CTE read twice
+        is one plan under two aliases: ``combine`` renames the second
+        copy's colliding columns, and no optimizer rule changes a node in
+        place."""
+        views = self.views
+        if q.ctes:
+            self.views = dict(views)
+            for name, sub in q.ctes:
+                self.views[name.lower()] = self.select(sub)
+        try:
+            return self._select_body(q)
+        finally:
+            self.views = views
+
+    def _select_body(self, q: Select) -> L.LogicalPlan:
         # 1. FROM: a left-deep join tree, comma relations as cross joins
         plan, scope = self.relation(q.from_[0])
         for ref in q.from_[1:]:

@@ -40,7 +40,8 @@
 // for the partition counts an exchange uses.
 #include <cuda_runtime.h>
 
-#define HP_MAX_WORDS 16
+// key words per row: TPC-DS q64's 15 group keys (10 strings) take 26
+#define HP_MAX_WORDS 32
 #define HS_MAX_PARTS 4096
 #define HS_THREADS 256
 #define HS_WARPS (HS_THREADS / 32)

@@ -1,7 +1,9 @@
-"""Hash joins, shuffled and broadcast, of every join type with equi-keys.
+"""Hash joins, shuffled and broadcast, of every join type with equi-keys,
+and the nested-loop join of cross joins and joins without equi-keys.
 
-Counterpart of ``TpuHashJoinBase``, ``TpuShuffledHashJoin`` and
-``TpuBroadcastHashJoin`` in ``spark_rapids_tpu/exec/tpu_join.py``.  Per
+Counterpart of ``TpuHashJoinBase``, ``TpuShuffledHashJoin``,
+``TpuBroadcastHashJoin`` and ``TpuNestedLoopJoin`` in
+``spark_rapids_tpu/exec/tpu_join.py``.  Per
 partition the build side is concatenated once and sorted once by its
 canonical key words (a stable sort, so duplicate build keys keep their
 order from run to run).  Every stream batch of the partition is probed
@@ -25,6 +27,16 @@ then right, whichever side is built.
 String keys of both sides take one word width (``canon.common_str_words``
 over the build and every stream batch), so their words compare.  A
 broadcast join has as many partitions as its stream side.
+
+The nested-loop join pairs every left row with every row of the
+broadcast right side, in chunks of at most ``join.gather.chunkRows``
+pairs (the reference expands all ``n_l x n_r`` pairs of a batch at
+once; the rows are the same, in the same order).  Its condition decides
+each pair, with the reference's pair-level semantics for every join
+type: outer sides null-extend the rows no surviving pair holds, semi and
+anti keep the left rows that have a surviving pair or none, and right and
+full joins collapse the left side into one partition, so that the right
+rows no pair matched are known once every left row was seen.
 """
 from __future__ import annotations
 
@@ -64,6 +76,15 @@ def _str_words(bkeys, build_batches, skeys, stream_batches):
     sets += [[ec.eval_as_column(k, b) for k in skeys]
              for b in stream_batches]
     return canon.common_str_words(sets) if sets else [None] * len(bkeys)
+
+
+def _pair_schema(children) -> Schema:
+    """A join's left then right columns, all nullable: the schema its
+    condition is evaluated over, pair by pair."""
+    left, right = children
+    return Schema([Field(f.name, f.dtype, True)
+                   for f in list(left.output_schema) +
+                   list(right.output_schema)])
 
 
 def _null_columns(schema: Schema, capacity: int, device) -> List[Column]:
@@ -201,15 +222,9 @@ class TpuHashJoinBase(TpuExec):
                 join_k.mark_matched(flags, b_idx, hit)
             yield self._assemble(scols, bcols, n)
 
-    def _pair_schema(self) -> Schema:
-        left, right = self.children
-        return Schema([Field(f.name, f.dtype, True)
-                       for f in list(left.output_schema) +
-                       list(right.output_schema)])
-
     def _expand_residual(self, sb, live_s, build, bt, jc, total, flags):
         how = self.join.how
-        pair_schema = self._pair_schema()
+        pair_schema = _pair_schema(self.children)
         cond = self.join.condition.bind(pair_schema)
         # stream rows with a surviving pair (one spare slot for misses)
         surv = torch.zeros(sb.capacity + 1, dtype=torch.bool,
@@ -302,3 +317,115 @@ class TpuBroadcastHashJoin(TpuHashJoinBase):
         build, bt = self._build(bpart, bexec.output_schema, bkeys, sw)
         return [self._run_partition(build, bt, part, skeys, sw)
                 for part in sparts]
+
+
+class TpuNestedLoopJoin(TpuExec):
+    """Cross joins and joins without equi-keys: every left batch against
+    the broadcast right side (``children[1]``, a TpuBroadcastExchange,
+    materialised once per execute)."""
+
+    def __init__(self, join: Join, left: TpuExec, right: TpuExec,
+                 chunk_rows: int, device):
+        if not isinstance(right, TpuBroadcastExchange):
+            raise TypeError("the right side must be a TpuBroadcastExchange")
+        self.children = [left, right]
+        self.join = join
+        self.chunk_rows = chunk_rows
+        self.device = device
+        #: left batches with pairs, and their chunks, in the last execute()
+        self.expand_counts = {"batches": 0, "chunks": 0}
+
+    @property
+    def output_schema(self) -> Schema:
+        return join_schema(self.join.how, self.children[0].output_schema,
+                           self.children[1].output_schema)
+
+    def num_partitions(self) -> int:
+        if self.join.how in ("right", "full"):
+            return 1
+        return self.children[0].num_partitions()
+
+    def _node_string(self):
+        return f"TpuNestedLoopJoin[{self.join.how}]"
+
+    def execute(self) -> Partitions:
+        self.expand_counts = {"batches": 0, "chunks": 0}
+        left, right = self.children
+        rb = right.broadcast_batch()
+        if rb is None:
+            rb = ColumnarBatch.empty(right.output_schema, self.device)
+        lparts = left.execute()
+        flags = None
+        if self.join.how in ("right", "full"):
+            # the right rows no pair matched, known after every left row
+            flags = torch.zeros(rb.capacity + 1, dtype=torch.bool,
+                                device=self.device)
+            lparts = [[b for part in lparts for b in part]]
+        out = [[ob for lb in part for ob in self._join_batch(lb, rb, flags)]
+               for part in lparts]
+        if flags is not None:
+            keep = ~flags[:-1] & rb.live_mask()
+            idx, n = compact_indices(keep, rb.rows_dev)
+            out[0].append(ColumnarBatch(
+                self.output_schema,
+                _null_columns(left.output_schema, rb.capacity, self.device) +
+                rb.gather(idx, n).columns, n, device=self.device))
+        return out
+
+    def _join_batch(self, lb: ColumnarBatch, rb: ColumnarBatch, flags):
+        how = self.join.how
+        n_l, n_r = lb.num_rows, rb.num_rows
+        cond = self.join.condition
+        if cond is not None:
+            pair_schema = _pair_schema(self.children)
+            cond = cond.bind(pair_schema)
+        live_l = lb.live_mask()
+        # left rows with a surviving pair (one spare slot for misses)
+        surv = torch.zeros(lb.capacity + 1, dtype=torch.bool,
+                           device=self.device)
+        total = n_l * n_r
+        if cond is None and how in ("semi", "anti") and n_r:
+            surv[:-1] = live_l          # every pair survives: no pairs
+            total = 0
+        self.expand_counts["batches"] += total > 0
+        for start in range(0, total, self.chunk_rows):
+            n = min(self.chunk_rows, total - start)
+            self.expand_counts["chunks"] += 1
+            cap = bucket_capacity(n)
+            t = torch.arange(start, start + cap, device=self.device)
+            live = t < start + n
+            li, ri = t // n_r, t % n_r
+            cols = [c.gather(li, live) for c in lb.columns] + \
+                [c.gather(ri, live) for c in rb.columns]
+            if cond is None:
+                keep = live
+            else:
+                pairs = ColumnarBatch(pair_schema, cols, n,
+                                      device=self.device)
+                pred = ec.eval_as_column(cond, pairs)
+                keep = pred.data.to(torch.bool) & pred.validity & live
+            join_k.mark_matched(surv, li, keep)
+            if flags is not None:
+                join_k.mark_matched(flags, ri, keep)
+            if how in ("semi", "anti"):
+                continue
+            if cond is None:
+                yield ColumnarBatch(self.output_schema, cols, n,
+                                    device=self.device)
+            else:
+                idx, kept = compact_indices(keep, n)
+                yield ColumnarBatch(self.output_schema,
+                                    pairs.gather(idx, kept).columns, kept,
+                                    device=self.device)
+        surv = surv[:-1]
+        if how in ("semi", "anti"):
+            keep = surv if how == "semi" else ~surv & live_l
+            idx, n = compact_indices(keep, lb.rows_dev)
+            yield ColumnarBatch(self.output_schema, lb.gather(idx, n).columns,
+                                n, device=self.device)
+        elif how in ("left", "full"):
+            idx, n = compact_indices(~surv & live_l, lb.rows_dev)
+            yield ColumnarBatch(
+                self.output_schema, lb.gather(idx, n).columns +
+                _null_columns(rb.schema, lb.capacity, self.device), n,
+                device=self.device)

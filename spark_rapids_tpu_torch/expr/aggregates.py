@@ -1,4 +1,5 @@
-"""Aggregate functions: sum, count, max, avg and the central moments.
+"""Aggregate functions: sum, count, max (also of strings), avg and the
+central moments.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``.  Each function
 declares its partial buffers, how a batch updates them (``update``), how
@@ -13,8 +14,9 @@ from typing import List, Optional
 import torch
 
 from ..columnar import dtypes as T
-from ..columnar.column import Column
+from ..columnar.column import Column, StringColumn
 from ..kernels import aggregate as agg_k
+from ..kernels.strings import string_key_words
 from .core import Expression
 
 
@@ -84,11 +86,18 @@ class Count(AggregateFunction):
 
 
 class Max(AggregateFunction):
+    """max; of a string column, the largest string in byte order: each
+    group's largest row by its string key words, gathered whole."""
+
     def dtype(self):
         return self.children[0].dtype()
 
     def update(self, plan, cols):
         c = cols[0]
+        if isinstance(c, StringColumn):
+            rows = agg_k.seg_argmax_words(
+                plan, string_key_words(c), c.validity)
+            return [c.gather(rows.clamp(min=0), rows >= 0)]
         m = agg_k.seg_max(plan, c.data, c.validity)
         cnt = agg_k.seg_count(plan, c.validity)
         return [Column(self.dtype(), m.to(self.dtype().torch_dtype),

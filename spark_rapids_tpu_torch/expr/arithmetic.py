@@ -1,5 +1,5 @@
-"""Arithmetic: +, -, *, /, % and unary minus with Spark's null and type
-rules.
+"""Arithmetic: +, -, *, /, %, unary minus and ``round`` with Spark's null
+and type rules.
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``.  Operands promote
 to their common type (int < bigint < float < double); ``/`` is always
@@ -113,3 +113,29 @@ class UnaryMinus(Expression):
 
     def __repr__(self):
         return f"(- {self.children[0]!r})"
+
+
+class Round(Expression):
+    """``round(x, scale)``, Spark's HALF_UP (ties away from zero), as the
+    reference computes it: ``sign(v) * floor(|v| * 10^scale + 0.5) /
+    10^scale`` in double, back to the input's type; an integer with a
+    scale of at least 0 is unchanged."""
+
+    def __init__(self, child: Expression, scale: int = 0):
+        self.children = [child]
+        self.scale = int(scale)
+
+    def dtype(self):
+        return self.children[0].dtype()
+
+    def columnar_eval(self, batch):
+        c = eval_as_column(self.children[0], batch)
+        if c.dtype.is_integral and self.scale >= 0:
+            return c
+        mult = 10.0 ** self.scale
+        scaled = c.data.to(torch.float64) * mult
+        out = torch.sign(scaled) * torch.floor(scaled.abs() + 0.5) / mult
+        return Column(c.dtype, out.to(c.dtype.torch_dtype), c.validity)
+
+    def __repr__(self):
+        return f"round({self.children[0]!r}, {self.scale})"

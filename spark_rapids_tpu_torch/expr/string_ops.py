@@ -38,7 +38,7 @@ def _eval_string(expr: Expression, batch) -> StringColumn:
 
 class Substring(Expression):
     """``substring(str, pos, len)`` with literal ``pos`` and ``len``, by
-    bytes, with the reference's position rules
+    characters, with the reference's position rules
     (``strings._substring_offsets``)."""
 
     def __init__(self, child: Expression, pos: Expression,

@@ -23,7 +23,7 @@ import torch
 
 from . import canon
 from .basic import SIGN64, compact_indices, umin64
-from .sort import sorted_words
+from .sort import sort_permutation, sorted_words
 
 _I64_MAX = (1 << 63) - 1
 
@@ -165,6 +165,26 @@ def seg_max(plan: GroupPlan, values, validity):
     m = torch.full((cap,), ident, dtype=v.dtype, device=v.device)
     return m.scatter_reduce_(0, plan.seg_id, contrib, "amax",
                              include_self=True)
+
+
+def seg_argmax_words(plan: GroupPlan, words: List[torch.Tensor],
+                     validity: torch.Tensor) -> torch.Tensor:
+    """Per group: the input row whose word tuple is the largest of its
+    valid rows in unsigned lexicographic order (a string's key words give
+    byte order), or -1 where the group has none.  Each row's rank in one
+    stable sort of the words is maxed per segment, and the best rank maps
+    back to its row."""
+    cap = validity.shape[0]
+    order = sort_permutation(words)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(cap, device=order.device)
+    r, ok = _sorted_vals(plan, rank, validity)
+    best = torch.full((cap,), -1, dtype=torch.int64, device=order.device)
+    best.scatter_reduce_(0, plan.seg_id, torch.where(ok, r, -1), "amax",
+                         include_self=True)
+    gi = torch.arange(cap, device=order.device)
+    best = torch.where(gi < plan.num_groups, best, -1)
+    return torch.where(best >= 0, order[best.clamp(min=0)], -1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, and their plain torch versions.
 
-Counterpart of ``spark_rapids_tpu/kernels/pallas_ops.py``.  Each kernel
+Counterpart of ``spark_rapids_tpu/kernels/pallas_ops.py`` (B1, B2), plus
+the join probe, a kernel of the port alone.  Each kernel
 lives in ``csrc/`` as CUDA C++ with a plain C interface, is compiled at
 first use with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the
 repository root, and is loaded with ``ctypes``.
@@ -31,13 +32,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {"hash_partition": "hash_partition.cu",
-           "table_reduce": "table_reduce.cu"}
+           "table_reduce": "table_reduce.cu",
+           "join_probe": "join_probe.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES: Dict[str, int] = {"hash_partition_ids": 0, "table_reduce": 0}
-_MAX_WORDS = 16
+LAUNCHES: Dict[str, int] = {"hash_partition_ids": 0, "table_reduce": 0,
+                            "join_probe": 0}
+_MAX_WORDS = 32
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -141,6 +144,9 @@ _SIGNATURES = {
         "table_stage": [_VP, _LL, _I, ctypes.POINTER(_Plan), _I, _VP, _VP,
                         _LL, _VP],
         "table_stage_smem_limit": []},
+    "join_probe": {
+        "join_probe": [ctypes.POINTER(_VP), ctypes.POINTER(_VP), _I, _LL,
+                       _VP, _LL, ctypes.c_uint, _VP, _VP, _VP]},
 }
 
 
@@ -668,3 +674,60 @@ def _raw_rows(stage, bucket, sums, maxs, table):
     return tuple(next(out)[0] if m.shape[0] else
                  torch.empty(0, table, dtype=m.dtype, device=bucket.device)
                  for _, m in mats)
+
+
+# -- the join probe (a kernel of the port alone) ----------------------------
+
+def join_probe_plain(build_words: List[torch.Tensor],
+                     probe_words: List[torch.Tensor], live: torch.Tensor,
+                     rank_words: Sequence[int]):
+    """Plain torch version of ``join_probe``: two binary searches of
+    ``kernels/join._bsearch``, a torch loop over the search steps."""
+    from .join import _bsearch
+    lo = _bsearch(build_words, probe_words, upper=False)
+    hi = _bsearch(build_words, probe_words, upper=True)
+    usable = live
+    for i in rank_words:
+        usable = usable & (probe_words[i] == 1)
+    return lo, torch.where(usable, hi - lo, 0)
+
+
+def join_probe(build_words: List[torch.Tensor],
+               probe_words: List[torch.Tensor], live: torch.Tensor,
+               rank_words: Sequence[int]):
+    """Each probe row's matches in the sorted build side: (lo int64[n],
+    the first build row not less than the row's words, unsigned
+    lexicographic; counts int64[n], the build rows equal to them, or 0
+    for a dead row or one whose rank word at any of ``rank_words`` is not
+    1, a null key).  On the card, one launch (csrc/join_probe.cu)."""
+    what = "join_probe"
+    n = _check_words(probe_words, what)
+    bn = _check_words(build_words, what)
+    if len(build_words) != len(probe_words):
+        raise ValueError(f"{what}: {len(build_words)} build words against "
+                         f"{len(probe_words)} probe words")
+    if live.dtype != torch.bool or live.shape != (n,):
+        raise ValueError(f"{what}: live must be bool[{n}]")
+    if any(not 0 <= i < len(probe_words) for i in rank_words):
+        raise ValueError(f"{what}: rank word positions {list(rank_words)} "
+                         f"out of range")
+    _check_contiguous([live], what)
+    if _device_kind([*build_words, *probe_words, live], what) == "cpu":
+        return join_probe_plain(build_words, probe_words, live, rank_words)
+    dev = live.device
+    lo = torch.empty(n, dtype=torch.int64, device=dev)
+    counts = torch.empty(n, dtype=torch.int64, device=dev)
+    lib = _load("join_probe")
+    k = len(probe_words)
+    bptrs = (ctypes.c_void_p * k)(*[w.data_ptr() for w in build_words])
+    pptrs = (ctypes.c_void_p * k)(*[w.data_ptr() for w in probe_words])
+    mask = 0
+    for i in rank_words:
+        mask |= 1 << i
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.join_probe(bptrs, pptrs, k, bn, live.data_ptr(), n, mask,
+                             lo.data_ptr(), counts.data_ptr(), stream)
+    _raise_on(lib, what, err)
+    LAUNCHES[what] += 1
+    return lo, counts

@@ -2,7 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/kernels/join.py``.  The build side is
 sorted by its canonical key words; each probe row binary-searches its
-lower and upper bound, and (lo, count) pairs expand into flat gather
+lower and upper bound (``cuda_ops.join_probe``: one launch on the card;
+``_bsearch``, a torch loop over the search steps, is its plain version),
+and (lo, count) pairs expand into flat gather
 maps by a prefix sum and ``searchsorted``.  Join types other than inner
 change the counts before the expansion (``outer_counts``); semi and
 anti joins select probe rows by compaction instead of expanding them
@@ -15,7 +17,7 @@ from typing import List
 
 import torch
 
-from . import canon
+from . import canon, cuda_ops
 from .sort import sorted_words
 
 
@@ -34,7 +36,8 @@ def build(words: List[torch.Tensor]) -> BuildTable:
 
 def _bsearch(build_words: List[torch.Tensor],
              probe_words: List[torch.Tensor], upper: bool) -> torch.Tensor:
-    """Lower (or upper) bound of each probe tuple in the sorted build."""
+    """Lower (or upper) bound of each probe tuple in the sorted build:
+    the plain version of ``cuda_ops.join_probe``."""
     bcap = build_words[0].shape[0]
     pcap = probe_words[0].shape[0]
     dev = probe_words[0].device
@@ -72,12 +75,9 @@ def probe_counts(bt: BuildTable, probe_words: List[torch.Tensor],
     """Matches of each probe row.  A probe row with a null key (rank word
     0) or past the live rows (rank 2) matches nothing; ``rank_words``
     lists the positions of every key's rank word."""
-    lo = _bsearch(bt.sorted_words, probe_words, upper=False)
-    hi = _bsearch(bt.sorted_words, probe_words, upper=True)
-    usable = probe_live
-    for i in rank_words:
-        usable = usable & (probe_words[i] == 1)
-    counts = torch.where(usable, hi - lo, 0)
+    lo, counts = cuda_ops.join_probe(
+        bt.sorted_words, [w.contiguous() for w in probe_words],
+        probe_live.contiguous(), rank_words)
     return JoinCounts(lo, counts, counts > 0)
 
 

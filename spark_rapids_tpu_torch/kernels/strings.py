@@ -221,14 +221,36 @@ def contains(col, needle: LiteralBytes) -> torch.Tensor:
     return (cum[ends] - cum[starts]) > 0
 
 
-def _substring_offsets(offsets: torch.Tensor, start: int,
-                       length: Optional[int]):
-    """Spark's substring positions, as the reference computes them: a
-    1-based ``start``, 0 read as 1, a negative one counted from the end
-    (clamped to the first byte); at most ``length`` bytes.  Returns
-    (source start, byte count) per row."""
-    starts = offsets[:-1]
-    lens = offsets[1:] - starts
+def _char_positions(offsets: torch.Tensor, data: torch.Tensor):
+    """(first, nchars, byte_of) of each row's UTF-8 characters: the
+    buffer's count of character starts (bytes that are not continuation
+    bytes, as the reference's ``char_length`` counts them) before the
+    row, the row's character count, and ``byte_of(k)``, the byte position
+    of each row's character ``k`` (its end for ``k >= nchars``)."""
+    is_start = (data & 0xC0) != 0x80
+    cs = torch.zeros(data.shape[0] + 1, dtype=torch.int64,
+                     device=data.device)
+    cs[1:] = torch.cumsum(is_start.to(torch.int64), 0)
+    starts = offsets[:-1].to(torch.int64)
+    ends = offsets[1:].to(torch.int64)
+    first = cs[starts]
+    nchars = cs[ends] - first
+
+    def byte_of(k: torch.Tensor) -> torch.Tensor:
+        # the first byte whose inclusive count of starts passes the
+        # global ordinal of character k is that character's first byte
+        pos = torch.searchsorted(cs[1:], first + k, right=True)
+        return torch.where(k >= nchars, ends, pos)
+    return nchars, byte_of
+
+
+def _substring_offsets(offsets: torch.Tensor, data: torch.Tensor,
+                       start: int, length: Optional[int]):
+    """Spark's substring positions, in characters: a 1-based ``start``, 0
+    read as 1, a negative one counted from the end (clamped to the first
+    character); at most ``length`` characters.  Returns (source byte
+    start, byte count) per row."""
+    lens, byte_of = _char_positions(offsets, data)
     if start > 0:
         s = torch.full_like(lens, start - 1)
     elif start < 0:
@@ -238,18 +260,21 @@ def _substring_offsets(offsets: torch.Tensor, start: int,
     s = torch.minimum(s, lens)
     room = lens - s
     n = room if length is None else torch.clamp(room, max=max(length, 0))
-    return starts + s, n
+    src = byte_of(s)
+    return src, byte_of(s + n) - src
 
 
 def substring(col, start: int, length: Optional[int]):
-    """``substring(col, start, length)`` by bytes (the reference's
-    semantics).  The result's host bound is ``min(max_bytes, length)``,
-    so no size is read from the device."""
+    """``substring(col, start, length)`` by characters (Spark's semantics;
+    the reference's device kernel counts bytes and cuts a multi-byte
+    character).  A character is at most 4 bytes, so the result's host
+    bound is ``min(max_bytes, 4 * length)``: no size is read from the
+    device."""
     from ..columnar.column import StringColumn
-    src, n = _substring_offsets(col.offsets, start, length)
-    n = torch.where(col.validity, n, 0)
+    src, n = _substring_offsets(col.offsets, col.data, start, length)
+    n = torch.where(col.validity, n, 0).to(torch.int32)
     mb = col.max_bytes if length is None else \
-        min(col.max_bytes, max(length, 0))
+        min(col.max_bytes, 4 * max(length, 0))
     offsets, data = copy_rows(col.data, src, n, mb)
     return StringColumn(offsets, data, col.validity, mb)
 

@@ -9,8 +9,13 @@ each arm become conjuncts), then its relations reordered so each one
 joins one already joined through an equality (``_reorder_cross_joins``),
 then its conjuncts split over the join (``_rewrite_filter_join``):
 those of one side sink into that side, equalities across the sides
-become join keys, the rest stay above.  ``prune_scan_columns`` narrows
-every scan, and every projection, to the columns the plan above reads.
+become join keys, the rest stay above.  A Filter over a Project (a
+derived table's or a CTE's select list, or a self-join's renaming) has
+the conjuncts over its pass-through columns rewritten to the names below
+and sunk under it (``_rewrite_filter_project``), so they go on sinking
+into the joins inside; a Filter stays above an Aggregate, a Sort and a
+Limit.  ``prune_scan_columns`` narrows every scan, and every projection,
+to the columns the plan above reads.
 """
 from __future__ import annotations
 
@@ -144,6 +149,44 @@ def _rewrite_filter_join(f: L.Filter) -> L.LogicalPlan:
     return _filter_over(rest, joined)
 
 
+def _rewrite_filter_project(f: L.Filter) -> L.LogicalPlan:
+    """Filter conjuncts through a Project whose columns they read are
+    pure pass-throughs (a column, or a column under an alias): each is
+    rewritten to the source names and sinks below the Project; the rest
+    stay above."""
+    pj = f.children[0]
+    if not isinstance(pj, L.Project):
+        return f
+    mapping = {}                     # output name -> source column
+    for e in pj.exprs:
+        src = e.children[0] if isinstance(e, ec.Alias) else e
+        if isinstance(src, ec.AttributeReference):
+            mapping[ec.output_name(e)] = src
+
+    def rewrite(e: ec.Expression):
+        if isinstance(e, ec.AttributeReference):
+            return mapping.get(e.col_name)
+        kids = []
+        for c in e.children:
+            r = rewrite(c)
+            if r is None:
+                return None
+            kids.append(r)
+        return e.with_children(kids) if kids else e
+
+    push, rest = [], []
+    for c in _flatten_and(f.condition):
+        r = rewrite(c) if _refs(c) is not None else None
+        if r is None:
+            rest.append(c)
+        else:
+            push.append(r)
+    if not push:
+        return f
+    below = optimize(_filter_over(push, pj.children[0]))
+    return _filter_over(rest, L.Project(pj.exprs, below))
+
+
 def _collect_cross_tree(p: L.LogicalPlan, rels: List[L.LogicalPlan]) -> bool:
     """Flatten a keyless cross/inner join tree into its relations."""
     if isinstance(p, L.Join) and p.how in ("cross", "inner") and \
@@ -203,7 +246,11 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
         if isinstance(child, L.Filter):
             return optimize(L.Filter(ep.And(plan.condition, child.condition),
                                      child.children[0]))
-        return _rewrite_filter_join(_reorder_cross_joins(plan))
+        plan = _reorder_cross_joins(plan)
+        out = _rewrite_filter_join(plan)
+        if out is not plan:
+            return out
+        return _rewrite_filter_project(plan)
     return plan
 
 

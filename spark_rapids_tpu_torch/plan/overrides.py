@@ -21,7 +21,9 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   their keys into ``_pick_partitions`` partitions and joins partition by
   partition (``TpuShuffledHashJoin``); an exchange reads each partition
   back as batches of up to ``batchSizeRows`` rows;
-- cross joins and joins without equi-keys are not ported and raise;
+- a cross join, or a join without equi-keys, is a ``TpuNestedLoopJoin``
+  over a ``TpuBroadcastExchange`` of its right side (every join type; a
+  right or full one collapses the left side into one partition);
 - a global sort over more than one partition range-partitions its input
   into as many partitions (``RangePartitioner``) and sorts each; a limit
   takes each partition's first rows, coalesces, and takes the first rows
@@ -41,7 +43,8 @@ from ..exec.exchange import (TpuBroadcastExchange, TpuCoalescePartitions,
 from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
 from ..exec.tpu_basic import (TpuExec, TpuFilter, TpuGlobalLimit,
                               TpuLocalLimit, TpuLocalScan, TpuProject)
-from ..exec.tpu_join import TpuBroadcastHashJoin, TpuShuffledHashJoin
+from ..exec.tpu_join import (TpuBroadcastHashJoin, TpuNestedLoopJoin,
+                             TpuShuffledHashJoin)
 from ..exec.tpu_sort import TpuSort, TpuTopN
 from ..io.planner import TpuFileScan, to_arrow_filters
 from ..shuffle.partitioners import HashPartitioner, RangePartitioner
@@ -143,10 +146,11 @@ def _pick_partitions(conf: C.TpuConf, *plans: L.LogicalPlan) -> int:
 
 def _plan_join(node: L.Join, conf: C.TpuConf, device: torch.device,
                go) -> TpuExec:
+    chunk = conf.get(C.JOIN_GATHER_CHUNK_ROWS)
     if node.how == "cross" or not node.left_keys:
-        raise NotImplementedError(
-            "cross joins and joins without equi-keys (the reference's "
-            "TpuNestedLoopJoin) are not ported yet")
+        return TpuNestedLoopJoin(
+            node, go(node.children[0]),
+            TpuBroadcastExchange(go(node.children[1])), chunk, device)
     left, right = node.children
     lsize, rsize = left.estimated_rows(), right.estimated_rows()
     build_right = node.how != "right"
@@ -154,7 +158,6 @@ def _plan_join(node: L.Join, conf: C.TpuConf, device: torch.device,
         build_right = rsize <= lsize
     build_size = rsize if build_right else lsize
     lexec, rexec = go(left), go(right)
-    chunk = conf.get(C.JOIN_GATHER_CHUNK_ROWS)
     if build_size <= BROADCAST_ROW_THRESHOLD and node.how != "full":
         if build_right:
             rexec = TpuBroadcastExchange(rexec)

@@ -21,7 +21,7 @@ from spark_rapids_tpu_torch.api import TpuSession
 from spark_rapids_tpu_torch.config import TpuConf
 
 from tests.harness import (DEFAULT_FLOAT_REL, FAST_FLOAT_REL, _compare_rows,
-                           canon_rows, with_tpu_session)
+                           canon_rows, with_cpu_session, with_tpu_session)
 
 # the port's CPU runs here are many small torch ops: one intra-op thread
 # per test process, so parallel test workers do not oversubscribe the
@@ -118,15 +118,19 @@ def _port_rows(build, table, conf=None):
     return build(_modules("spark_rapids_tpu_torch"), df).collect(), s
 
 
-def _jax_rows(build, table, conf=None):
+def _jax_rows(build, table, conf=None, oracle=False):
+    """The JAX package's rows: its engine, or its pyarrow oracle."""
     def fn(s):
         df = s.create_dataframe(table, num_partitions=3)
         return build(_modules("spark_rapids_tpu"), df).collect()
-    return with_tpu_session(fn, conf)
+    return (with_cpu_session if oracle else with_tpu_session)(fn, conf)
 
 
 @pytest.mark.parametrize("name", sorted(EXPRESSIONS))
 def test_expression_matches_jax(name):
+    """Each expression against the JAX engine; substring against its
+    oracle, whose positions count characters as Spark's do (the engine
+    counts bytes and cuts the 2-byte É of "Électronique": ROADMAP C)."""
     def build(m, df):
         e = EXPRESSIONS[name](m)
         return df.select(_c(m, "k"), _c(m, "s"), _c(m, "x"),
@@ -134,7 +138,7 @@ def test_expression_matches_jax(name):
                          else m.F.Col(e).alias("v"))
     table = _table()
     got, _ = _port_rows(build, table)
-    want = _jax_rows(build, table)
+    want = _jax_rows(build, table, oracle=name.startswith("substring"))
     _compare_rows(canon_rows(want), canon_rows(got), rel=DEFAULT_FLOAT_REL)
 
 
@@ -251,3 +255,59 @@ def test_top_n_equals_sort_and_limit(n):
             assert all(r in pool for r in mine + theirs), k
         else:
             _compare_rows(theirs, mine)
+
+
+def _string_max(m, df, grouped: bool):
+    aggs = [m.F.max(_c(m, "s")).alias("ms"), m.F.count("*").alias("n")]
+    keys = [_c(m, "k")] if grouped else []
+    return df.group_by(*keys).agg(*aggs)
+
+
+def test_string_max_grouped_matches_jax():
+    """max of a STRING column per group: the largest string in byte order
+    (so "a somewhat longer value" beats "Music" and "É" beats both), one
+    row per group, null for a group of null inputs."""
+    table = _table()
+    got, _ = _port_rows(lambda m, df: _string_max(m, df, True), table)
+    want = _jax_rows(lambda m, df: _string_max(m, df, True), table)
+    _compare_rows(canon_rows(want), canon_rows(got), rel=DEFAULT_FLOAT_REL)
+    assert any(r[1] == "Électronique" for r in got)
+
+
+@pytest.mark.parametrize("rows", ["all", "none"])
+def test_string_max_keyless_matches_oracle(rows):
+    """max of a STRING column without keys, over every row and over none
+    (null): against the JAX oracle, since the JAX engine raises on it
+    (``test_reference_keyless_string_max_raises``)."""
+    table = _table() if rows == "all" else _table().slice(0, 0)
+
+    def build(m, df):
+        return _string_max(m, df, False)
+    got, _ = _port_rows(build, table)
+    want = _jax_rows(build, table, oracle=True)
+    _compare_rows(want, got, rel=DEFAULT_FLOAT_REL)
+    assert got[0][0] == ("Électronique" if rows == "all" else None)
+
+
+def test_reference_keyless_string_max_raises():
+    """The JAX package's fault (ROADMAP C): its engine's keyless max of a
+    string raises ``NotImplementedError`` (no key encoding for strings in
+    its global-aggregate path), where the port gives the largest
+    string."""
+    with pytest.raises(NotImplementedError, match="string"):
+        _jax_rows(lambda m, df: _string_max(m, df, False), _table())
+
+
+@pytest.mark.parametrize("agg", ["sum", "avg", "mean", "stddev",
+                                 "var_pop"])
+def test_numeric_aggregate_of_a_string_raises(agg):
+    """sum, avg and the moments of a string raise SqlError when the plan
+    is built: Spark would give null after an implicit cast, which the
+    port lacks, and the JAX engine adds the strings' bytes (ROADMAP C)."""
+    from spark_rapids_tpu_torch.api.sql import SqlError
+    s = TpuSession(device="cpu")
+    s.create_dataframe(_table()).create_or_replace_temp_view("t")
+    for sql in (f"select {agg}(s) from t", f"select k, {agg}(s) from t "
+                                           f"group by k"):
+        with pytest.raises(SqlError, match="STRING|string"):
+            s.sql(sql)

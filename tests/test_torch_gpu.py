@@ -494,3 +494,43 @@ def test_tpcds_flat_queries_on_card_equal_cpu(tpcds7_dir, q):
         out.append(s.sql(QUERIES[q]).to_arrow())
     assert out[0].num_rows > 0
     _close_tables(out[1], out[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", [1, 2, 3])
+def test_join_probe_kernel_matches_plain(keys):
+    """The join probe at a phase 7/8 join partition (a store_sales batch
+    against store_returns' sorted lines), bit for bit against its plain
+    version, the two ``_bsearch`` loops; one launch per call."""
+    _need_card()
+    bt, words, live, rank = chip_smoke.probe_inputs(
+        np.random.default_rng(keys), keys)
+    before = cuda_ops.LAUNCHES["join_probe"]
+    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank)
+    assert cuda_ops.LAUNCHES["join_probe"] == before + 1
+    plo, pcnt = cuda_ops.join_probe_plain(bt.sorted_words, words, live, rank)
+    assert torch.equal(lo, plo) and torch.equal(cnt, pcnt)
+    assert int(cnt.sum()) >= chip_smoke.PROBE_BUILD
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q28", "q65", "q78", "q97"])
+def test_tpcds_subquery_queries_on_card_equal_cpu(tpcds7_dir, q):
+    """Four of phase 8's queries at scale 0.1 on the card against the port
+    on the CPU: a cross join of one-row aggregates (TpuNestedLoopJoin),
+    nested derived tables with a non-equi residual, three CTEs with left
+    joins and round, and a full outer join of two CTEs."""
+    _need_card()
+    import sys
+    sys.path.insert(0, "benchmarks")
+    from tpcds_queries import QUERIES
+    out = []
+    for device in ("cpu", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 16}), device=device)
+        for t in chip_smoke.DS_TABLES + chip_smoke.DS7_TABLES:
+            s.read.parquet(f"{tpcds7_dir}/{t}.parquet") \
+                .create_or_replace_temp_view(t)
+        out.append(s.sql(QUERIES[q]).to_arrow())
+    assert out[0].num_rows > 0
+    _close_tables(out[1], out[0])

@@ -272,13 +272,22 @@ def test_join_strategy_matches_reference(monkeypatch, how, n_left, n_right,
 
 @pytest.mark.parametrize("how", ["cross", "inner"])
 def test_joins_without_keys_raise(how):
-    s = port_session()
-    lt, rt = join_tables("int64")
-    a, b = s.create_dataframe(lt), s.create_dataframe(rt)
-    df = a.join(b, how="cross") if how == "cross" else \
-        a.join(b, a["x"] > b["y"], how)
-    with pytest.raises(NotImplementedError, match="TpuNestedLoopJoin"):
-        df.collect()
+    """The two joins without keys that the port once refused (a cross
+    join, and an inner join on ``x > y`` alone) plan a
+    ``TpuNestedLoopJoin`` and equal the JAX package's engine and oracle."""
+    def query(s):
+        lt, rt = join_tables("int64", n_left=150, n_right=110)
+        a, b = s.create_dataframe(lt, num_partitions=2), \
+            s.create_dataframe(rt, num_partitions=2)
+        return a.join(b, how="cross") if how == "cross" else \
+            a.join(b, a["x"] > b["y"], how)
+    jax_rows, oracle = reference_rows(query)
+    df = query(port_session())
+    got = rows(df)
+    assert f"TpuNestedLoopJoin[{how}]" in df.explain()
+    assert len(got) > 1000
+    _compare_rows(jax_rows, got, rel=DEFAULT_FLOAT_REL)
+    _compare_rows(oracle, got, rel=DEFAULT_FLOAT_REL)
 
 
 @pytest.mark.parametrize("num_parts", [1, 7, 8, 4096])

@@ -187,9 +187,11 @@ UNSUPPORTED = {
     "select k from fact where s like '%a%b%'": "LIKE",
     "select k from fact where exists (select k from fact)": "EXISTS",
     "select cast(k as double) from fact": "CAST",
-    "with t as (select k from fact) select k from t": "WITH",
+    "select k, sum(x) over (partition by k) from fact": "OVER",
     "select k from fact union select k from fact": "UNION",
-    "select k from (select k from fact) t": "subqueries",
+    "select k from fact intersect select k from fact": "INTERSECT",
+    "select k from fact left semi join dim on d = dk": "SEMI JOIN",
+    "select k from fact where x > (select max(x) from fact)": "subqueries",
     "select case when k > 1 then s else 'x' end from fact": "string-valued",
     "select min(k) from fact": "min",
     "select date '2000-01-01' from fact": "DATE",

@@ -3,7 +3,9 @@
 The same seeded strings go through both packages: the Arrow round trip
 with nulls, the key words and their width (bit-equal), gathers, the sort
 order of string keys, and the partition id of a string, which in the
-port does not depend on the batch the string arrives in.
+port does not depend on the batch the string arrives in.  ``substring``
+of non-ASCII strings counts characters, as the JAX package's oracle and
+Spark do; its engine counts bytes and cuts a UTF-8 character.
 """
 import numpy as np
 import pyarrow as pa
@@ -196,3 +198,43 @@ def test_reference_string_partition_id_depends_on_the_batch():
     string goes to different partitions in different batches (its fault,
     not the port's)."""
     assert [_reference_id(b) for b in _BATCHES[:3]] == [5, 7, 0]
+
+
+_UNICODE = ["héllo", "日本語テキスト", "abc", None, "", "ñandú", "x", "ß",
+            "Électronique", "naïve café"]
+
+
+def _substrings(F, s):
+    df = s.create_dataframe(pa.table({
+        "k": pa.array(range(len(_UNICODE)), pa.int64()),
+        "s": pa.array(_UNICODE, pa.string())}), num_partitions=2)
+    return df.select(F.col("k"), *[
+        F.substring(F.col("s"), pos, n).alias(f"s{i}")
+        for i, (pos, n) in enumerate([(1, 2), (2, 100), (0, 4), (-3, 2),
+                                      (3, 1), (-100, 3), (5, 0)])]
+    ).collect()
+
+
+def test_substring_of_non_ascii_strings_matches_oracle():
+    """Positions and lengths count characters: substring('héllo', 1, 2) is
+    'hé', every result decodes (collect raises nothing), and every row
+    equals the JAX package's oracle."""
+    from spark_rapids_tpu.api import functions as JF
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.api import functions as PF
+    from tests.harness import with_cpu_session
+    got = sorted(_substrings(PF, TpuSession(device="cpu")))
+    want = sorted(with_cpu_session(lambda s: _substrings(JF, s)))
+    assert got == want
+    assert got[0][1] == "hé" and got[1][1] == "日本"
+    assert got[1][4] == "キス"
+
+
+def test_reference_substring_cuts_a_character():
+    """The JAX package's fault (ROADMAP C): its engine's substring counts
+    bytes, so substring('héllo', 1, 2) keeps 'h' and the first byte of
+    'é', which decodes as U+FFFD."""
+    from spark_rapids_tpu.api import functions as JF
+    from tests.harness import with_tpu_session
+    rows = sorted(with_tpu_session(lambda s: _substrings(JF, s)))
+    assert rows[0][1] == "h\ufffd"

@@ -1,6 +1,7 @@
 """TPC-DS query text through the PyTorch port's ``session.sql`` on the
 CPU, against the JAX package, its oracle and pyarrow: the quartet (q3,
-q42, q52, q96) and the 21 flat queries of ``chip_smoke`` phase 7.
+q42, q52, q96), the 21 flat queries of ``chip_smoke`` phase 7 and the 15
+with derived tables or CTEs of its phase 8.
 
 The tables come from ``benchmarks/tpcds.generate`` and are registered
 with ``tpcds.register`` on a port session, unchanged.  Scale 0.02 is the
@@ -22,12 +23,21 @@ scale 5.  Each equals the JAX package's engine and oracle, and
 pyarrow alone: the JAX package factors ``ca_state IN (...)`` lists of
 different values out of their ORs as one conjunct (ROADMAP C, fault 4),
 which ``test_reference_factors_distinct_in_lists`` shows.
+
+The 15 queries of phase 8 (``chip_smoke.DS8_QUERIES``) run the same two
+ways: on ``generate``'s files at scale 0.02 against the JAX package's
+engine, its oracle and ``chip_smoke.ds8_references`` (q34, q39 and q64
+return no rows there), and on phase 7's files at scale 0.1, where every
+one returns rows, against the oracle and the references; at SF10's row
+estimates each plans DS8_PLANS' operators.
 """
 import os
 import re
 import shutil
 import sys
 
+import pyarrow as pa
+import pyarrow.compute  # noqa: F401
 import pyarrow.parquet as papq
 import pytest
 import torch
@@ -364,3 +374,71 @@ def test_phase7_generator_matches_generate(one_file, tmp_path):
         assert j.num_rows >= r.num_rows
     wr = papq.read_table(os.path.join(d, "web_returns.parquet"))
     assert wr["wr_returning_cdemo_sk"].equals(wr["wr_refunded_cdemo_sk"])
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS8_QUERIES)
+def test_ds8_query_matches_jax_oracle_and_pyarrow(one_file, q):
+    refs = chip_smoke.ds8_references(one_file, [q])[q]
+    df = _views(TpuSession(device="cpu"), one_file).sql(tpcds.QUERIES[q])
+    table = df.to_arrow()
+    chip_smoke.check_rows(q, table, refs, chip_smoke.DS8_ORDER[q],
+                          chip_smoke.DS8_LIMIT.get(q, 100))
+    got = [tuple(r.values()) for r in table.to_pylist()]
+    for engine in (with_tpu_session, with_cpu_session):
+        _compare_rows(canon_rows(_jax_on(one_file, q, engine)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS8_QUERIES)
+def test_ds8_query_on_drawn_returns_matches_oracle(drawn, q):
+    refs = chip_smoke.ds8_references(drawn, [q])[q]
+    df = _views(TpuSession(device="cpu"), drawn).sql(tpcds.QUERIES[q])
+    table = df.to_arrow()
+    chip_smoke.check_rows(q, table, refs, chip_smoke.DS8_ORDER[q],
+                          chip_smoke.DS8_LIMIT.get(q, 100))
+    got = [tuple(r.values()) for r in table.to_pylist()]
+    assert got, f"{q}: no rows"
+    _compare_rows(canon_rows(_jax_on(drawn, q, with_cpu_session)),
+                  canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS8_QUERIES)
+def test_sf10_estimates_plan_phase8(drawn, q):
+    """At SF10's row counts each phase-8 query plans DS8_PLANS'
+    operators: q28 and q88 a TpuNestedLoopJoin over their one-row
+    aggregates, and no other query one."""
+    sf10 = {**{t: int(v * 10) for t, v in chip_smoke.DS_ROWS_PER_SF.items()},
+            **{t: int(v * 10) for t, v in
+               chip_smoke.DS7_ROWS_PER_SF.items()}, "store": 120}
+    s = _views(TpuSession(device="cpu"), drawn)
+    for view in s._views.values():
+        for scan in _scans(view):
+            name = os.path.basename(scan.paths[0]).split(".")[0]
+            scan._rows = sf10.get(name, scan.estimated_rows())
+    plan = s.sql(tpcds.QUERIES[q]).explain()
+    assert chip_smoke.plan_signature(plan) == chip_smoke.DS8_PLANS[q]
+    assert ("TpuNestedLoopJoin" in plan) == (q in chip_smoke.DS8_NESTED)
+
+
+def test_phase6_baskets_are_tickets(tmp_path):
+    """Phase 6's baskets (its one departure from ``generate``, for q34):
+    a tenth of each store_sales part's rows, in tickets of 8 to 16 lines
+    past generate's ticket numbers, each ticket's lines on one date,
+    time, customer, demographics, household, address and store."""
+    d = str(tmp_path)
+    chip_smoke.make_tpcds(d, SCALE, SEED)
+    ss = papq.read_table(os.path.join(d, "store_sales.parquet"))
+    nss = ss.num_rows
+    baskets = ss.filter(pa.compute.greater_equal(ss["ss_ticket_number"],
+                                                  nss // 4))
+    assert abs(baskets.num_rows - nss * chip_smoke.DS_BASKET_SHARE) <= 8
+    shared = ["ss_sold_date_sk", "ss_sold_time_sk", "ss_customer_sk",
+              "ss_cdemo_sk", "ss_hdemo_sk", "ss_addr_sk", "ss_store_sk"]
+    g = baskets.group_by("ss_ticket_number").aggregate(
+        [("ss_item_sk", "count")] +
+        [(c, "count_distinct") for c in shared])
+    lines = g["ss_item_sk_count"].to_pylist()
+    # each part's last basket may be cut short
+    assert sum(1 for n in lines if not 8 <= n <= 16) <= chip_smoke.DS_PARTS
+    for c in shared:
+        assert set(g[f"{c}_count_distinct"].to_pylist()) == {1}, c
