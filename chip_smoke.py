@@ -16,10 +16,12 @@ Phases (any failure exits non-zero):
 3. kernels: each kernel against its plain torch version on the card at
    the main path's shapes (B1: the exchange's split and the ids alone;
    B2: the table core's reduce stage and the TPU kernel's raw rows; the
-   join probe at q17's and q78's join partitions and at one key),
-   device-timed behind a sleep kernel (``time_cuda``) beside its byte
-   bound (3.35 TB/s), its host cost per call, the plain version and a
-   one-call PyTorch yardstick where one exists;
+   join probe at q17's and q78's join partitions, at one key, at the star
+   joins' four dimensions and at a build past the L2), device-timed
+   behind a sleep kernel (``time_cuda``) beside its byte bound (3.35
+   TB/s), its host cost per call, the plain version and a one-call
+   PyTorch yardstick where one exists; the probe's separator table
+   against its threads per SM (``probe_tradeoff``);
 4. query: the headline query of ``bench.py`` (filter, project, group-by
    with sum/count/max, hash exchange, broadcast join, project) through
    the port's session at 64M rows in 4 partitions, twice in exact mode
@@ -308,16 +310,17 @@ def check_hash_split(rng, n: int, num_words: int, parts: int,
 #: store_returns' rows (2.88M) in one of 8 partitions
 PROBE_CAP, PROBE_LIVE = 1 << 22, 28_800_000 // 8
 PROBE_BUILD = 2_880_000 // 8
+#: a build of 6 words past the H100's 50 MB L2 (156 MB of live rows)
+PROBE_BIG_BUILD = 3_250_000
 
 
-def probe_inputs(rng, keys: int, device: str = "cuda"):
-    """The join probe's inputs at a phase 7/8 join partition, built by
-    the join's own ``_key_words``: a store_sales stream batch (PROBE_LIVE
-    live rows of PROBE_CAP) against a sorted store_returns build of
-    PROBE_BUILD lines drawn from it, as phase 7 draws returns from sales.
-    ``keys``: 3 (q17's ss_customer_sk, ss_item_sk, ss_ticket_number), 2
-    (q78's ss_ticket_number, ss_item_sk) or 1 (ss_ticket_number).
-    Returns (build table, probe words, live mask, rank word positions)."""
+def probe_tables(names, stream, build, device: str = "cuda"):
+    """The join probe's inputs, built by the join's own ``_key_words``: a
+    store_sales stream batch of PROBE_LIVE live rows (capacity PROBE_CAP)
+    holding the int64 key columns ``names`` (``stream``), against the
+    sorted build of ``build``'s rows (capacity a power of two, as the
+    engine pads it).  Returns (build table, probe words, live mask, rank
+    word positions)."""
     import torch
     from spark_rapids_tpu_torch.columnar import dtypes as T
     from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
@@ -327,17 +330,9 @@ def probe_inputs(rng, keys: int, device: str = "cuda"):
     from spark_rapids_tpu_torch.exec.tpu_join import _key_words
     from spark_rapids_tpu_torch.expr import core as ec
     from spark_rapids_tpu_torch.kernels import join as join_k
-    highs = {"ss_customer_sk": DS7_ROWS_PER_SF["customer"] * 10,
-             "ss_item_sk": DS_ROWS_PER_SF["item"] * 10,
-             "ss_ticket_number": DS_ROWS_PER_SF["store_sales"] * 10 // 4}
-    names = {3: ["ss_customer_sk", "ss_item_sk", "ss_ticket_number"],
-             2: ["ss_ticket_number", "ss_item_sk"],
-             1: ["ss_ticket_number"]}[keys]
-    stream = [rng.integers(0, highs[n], PROBE_LIVE) for n in names]
-    pick = rng.choice(PROBE_LIVE, PROBE_BUILD, replace=False)
 
-    def batch(cols, rows):
-        cap = PROBE_CAP if rows == PROBE_LIVE else bucket_capacity(rows)
+    def batch(cols, cap):
+        rows = len(cols[0])
         live = torch.arange(cap, device=device) < rows
         data = [torch.zeros(cap, dtype=torch.int64, device=device)
                 for _ in cols]
@@ -346,54 +341,131 @@ def probe_inputs(rng, keys: int, device: str = "cuda"):
         schema = Schema([Field(n, T.INT64, True) for n in names])
         return ColumnarBatch(schema, [Column(T.INT64, d, live)
                                       for d in data], rows, device=device)
-    exprs = [ec.BoundReference(i, T.INT64) for i in range(keys)]
-    sb = batch(stream, PROBE_LIVE)
-    bb = batch([c[pick] for c in stream], PROBE_BUILD)
-    bwords, _ = _key_words(exprs, bb, bb.live_mask(), [None] * keys)
+    exprs = [ec.BoundReference(i, T.INT64) for i in range(len(names))]
+    sb = batch(stream, PROBE_CAP)
+    bb = batch(build, bucket_capacity(len(build[0])))
+    bwords, _ = _key_words(exprs, bb, bb.live_mask(), [None] * len(names))
     live = sb.live_mask()
-    words, rank = _key_words(exprs, sb, live, [None] * keys)
+    words, rank = _key_words(exprs, sb, live, [None] * len(names))
     return join_k.build(bwords), words, live, rank
 
 
-def check_join_probe(rng, keys: int, what: str):
-    """The join probe at a phase 7/8 join partition (``probe_inputs``)
-    against its plain version (two ``_bsearch`` loops), bit for bit.  The
-    1-key case also times ``torch.searchsorted`` of the value word, lower
-    and upper bound, over the build's live rows: the library call."""
+def probe_inputs(rng, keys: int, device: str = "cuda",
+                 build_rows: int = PROBE_BUILD):
+    """The join probe at a phase 7/8 join partition (``probe_tables``):
+    a store_sales stream batch against a build of ``build_rows`` lines
+    drawn from it, as phase 7 draws returns from sales.  ``keys``: 3
+    (q17's ss_customer_sk, ss_item_sk, ss_ticket_number), 2 (q78's
+    ss_ticket_number, ss_item_sk) or 1 (ss_ticket_number)."""
+    highs = {"ss_customer_sk": DS7_ROWS_PER_SF["customer"] * 10,
+             "ss_item_sk": DS_ROWS_PER_SF["item"] * 10,
+             "ss_ticket_number": DS_ROWS_PER_SF["store_sales"] * 10 // 4}
+    names = {3: ["ss_customer_sk", "ss_item_sk", "ss_ticket_number"],
+             2: ["ss_ticket_number", "ss_item_sk"],
+             1: ["ss_ticket_number"]}[keys]
+    stream = [rng.integers(0, highs[n], PROBE_LIVE) for n in names]
+    pick = rng.choice(PROBE_LIVE, build_rows, replace=False)
+    return probe_tables(names, stream, [c[pick] for c in stream], device)
+
+
+def star_probe_inputs(rng, dim: str, device: str = "cuda"):
+    """A star join's probe (``probe_tables``): a store_sales batch's
+    foreign key, uniform over the dimension's keys as ``make_tpcds`` draws
+    it, against the dimension's keys (STAR_BUILDS), one key of 2 words."""
+    name, rows, first = STAR_BUILDS[dim]
+    stream = [first + rng.integers(0, rows, PROBE_LIVE)]
+    return probe_tables([name], stream,
+                        [first + rng.permutation(rows)], device)
+
+
+def check_join_probe(inputs, what: str, old=None):
+    """The join probe on ``inputs`` (``probe_inputs`` or
+    ``star_probe_inputs``) against its plain version (two ``_bsearch``
+    loops), bit for bit, and with ``old`` (the parent checkout's
+    ``cuda_ops``) also the parent's kernel, equal and timed.  On one key
+    (2 words) it also times ``torch.searchsorted`` of the value word,
+    lower and upper bound, over the build's live rows: the library
+    call."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops
     from spark_rapids_tpu_torch.kernels.basic import SIGN64
-    bt, words, live, rank = probe_inputs(rng, keys)
-    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank)
+    bt, words, live, rank = inputs
+    n, k, bn = live.shape[0], len(words), bt.capacity
+    build_live = int((bt.sorted_words[0] == 1).sum())
+    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank,
+                                  bt.index)
     plo, pcnt = cuda_ops.join_probe_plain(bt.sorted_words, words, live,
                                           rank)
     torch.cuda.synchronize()
     err = int(max((lo - plo).abs().max(), (cnt - pcnt).abs().max()))
-    check(err == 0, f"join_probe differs from _bsearch ({keys} keys): "
-                    f"{err}")
-    check(int(cnt.sum()) >= PROBE_BUILD,
-          f"join_probe ({keys} keys): fewer matches than build rows")
+    check(err == 0, f"join_probe differs from _bsearch{what}: {err}")
+    check(int(cnt.sum()) >= build_live,
+          f"join_probe{what}: fewer matches than build rows")
+    extra = {}
+    if old is not None:
+        olo, ocnt = old.join_probe(bt.sorted_words, words, live, rank)
+        torch.cuda.synchronize()
+        check(torch.equal(olo, lo) and torch.equal(ocnt, cnt),
+              f"the parent's join_probe differs{what}")
+        extra["parent_ms"] = time_cuda(lambda: old.join_probe(
+            bt.sorted_words, words, live, rank))[0]
     library = None
-    if keys == 1:
-        bval = (bt.sorted_words[1][:PROBE_BUILD] ^ SIGN64).contiguous()
+    if k == 2:
+        bval = (bt.sorted_words[1][bt.sorted_words[0] == 1] ^
+                SIGN64).contiguous()
         pval = words[1] ^ SIGN64
 
         def lib():
             torch.searchsorted(bval, pval)
             torch.searchsorted(bval, pval, right=True)
         library = time_cuda(lib)[0]
-    k = len(words)
     return kernel_entry(
         "join_probe", "join_probe.cu", "spark_rapids_tpu/kernels/join.py:41",
-        f"probe {PROBE_CAP} rows ({PROBE_LIVE} live) x {k} words against "
-        f"{PROBE_BUILD} build rows{what}", float(err),
+        f"probe {n} rows ({int(live.sum())} live) x {k} words against "
+        f"{build_live} build rows ({bn} capacity){what}", float(err),
         time_cuda(lambda: cuda_ops.join_probe(bt.sorted_words, words, live,
-                                              rank)),
+                                              rank, bt.index)),
         time_cuda(lambda: cuda_ops.join_probe_plain(
             bt.sorted_words, words, live, rank), iters=3, queued=False)[0],
-        PROBE_CAP * 8 * k + bt.capacity * 8 * k + PROBE_CAP +
-        2 * PROBE_CAP * 8, library_ms=library,
-        design="one thread per probe row, both bounds in one launch")
+        n * 8 * k + bn * 8 * k + n + 2 * n * 8, library_ms=library,
+        design=f"separator table in shared memory (stride "
+               f"{bt.index.stride}), interleaved rows, galloping upper "
+               f"bound", **extra)
+
+
+#: the probe's launch shapes measured against each other (phase 3)
+TRADEOFF_TABLES_PER_SM = (1, 2, 4)
+TRADEOFF_THREADS = (256, 512, 1024)
+
+
+def probe_tradeoff(inputs, what: str) -> list:
+    """The separator table's size against the threads per SM: the probe
+    timed with an index for 1, 2 or 4 tables per SM (each the SM's share
+    of shared memory) and 256, 512 or 1024 threads per block, each equal
+    to the default index's result."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    bt, words, live, rank = inputs
+    want = cuda_ops.join_probe(bt.sorted_words, words, live, rank, bt.index)
+    out = []
+    for tables in TRADEOFF_TABLES_PER_SM:
+        for threads in TRADEOFF_THREADS:
+            index = cuda_ops.probe_index(
+                bt.sorted_words, cuda_ops.probe_budget(tables), threads)
+            got = cuda_ops.join_probe(bt.sorted_words, words, live, rank,
+                                      index)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"join_probe{what} differs at {tables} tables per SM, "
+                  f"{threads} threads")
+            ms = time_cuda(lambda: cuda_ops.join_probe(
+                bt.sorted_words, words, live, rank, index))[0]
+            out.append({"tables_per_sm": tables, "threads": threads,
+                        "stride": index.stride, "ms": ms})
+            print(f"probe tradeoff{what}: {tables} table(s) per SM, "
+                  f"{threads} threads, stride {index.stride}: {ms:.6f} ms",
+                  flush=True)
+    return out
 
 
 def bench_like_reduce_rows(rng, n: int, table: int, k: int, m: int,
@@ -576,10 +648,17 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     shapes (and the sizes an exchange of whole batches will give B1).
     Returns each kernel's main-path entry; prints every entry."""
     from spark_rapids_tpu_torch.kernels import cuda_ops
+    old = None
+    if parent:
+        old = load_parent_ops(parent)
+        old.build_all()
+
+    def probe(inputs, what):
+        return lambda: check_join_probe(inputs(), what, old)
     # each kernel's main-path check comes first among its checks
     split_main = lambda: check_hash_split(rng, 4096, 1, 8, 0.25)
     stage_main = lambda: check_table_stage(rng, big, 4096, "partial")
-    probe_main = lambda: check_join_probe(rng, 3, " (q17's join)")
+    probe_main = probe(lambda: probe_inputs(rng, 3), " (q17's join)")
     checks = [
         # B1: the split at the main path's shape (a partial table of 4096
         # slots, ~1000 live), at a whole batch, and at the partition limit
@@ -612,14 +691,17 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
         lambda: check_table_reduce(cuda_ops, rng, big, 4096, 5, 1,
                                    np.float64, "stage kernel"),
         # the join probe: q17's 3-key join, q78's 2-key store_sales /
-        # store_returns join, and one key beside torch.searchsorted
+        # store_returns join, one key beside torch.searchsorted, the star
+        # joins' dimensions, and a 6-word build past the L2
         probe_main,
-        lambda: check_join_probe(rng, 2, " (q78's ss/sr join)"),
-        lambda: check_join_probe(rng, 1, " (one key)"),
+        probe(lambda: probe_inputs(rng, 2), " (q78's ss/sr join)"),
+        probe(lambda: probe_inputs(rng, 1), " (one key)"),
+        *[probe(lambda d=d: star_probe_inputs(rng, d), f" ({d} star)")
+          for d in STAR_BUILDS],
+        probe(lambda: probe_inputs(rng, 3, build_rows=PROBE_BIG_BUILD),
+              " (a build past the L2)"),
     ]
     if parent:
-        old = load_parent_ops(parent)
-        old.build_all()
         checks += [
             lambda: check_hash_ids(old, rng, 4096, 1, 8, "parent kernel"),
             lambda: check_hash_ids(old, rng, big, 1, 8, "parent kernel"),
@@ -633,6 +715,10 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
         if measure in (split_main, stage_main, probe_main):
             main[entry["name"]] = entry
         print("kernel", json.dumps(entry), flush=True)
+    main["join_probe"]["tradeoff"] = {
+        what: probe_tradeoff(inputs(), what) for what, inputs in (
+            (" (q17's join)", lambda: probe_inputs(rng, 3)),
+            (" (customer star)", lambda: star_probe_inputs(rng, "customer")))}
     return main
 
 
@@ -778,6 +864,12 @@ STAGE_REPLACED_OPS = ("aten::scatter_reduce_", "aten::index_add_",
                       "aten::scatter_add_", "aten::bincount")
 
 
+#: the kernels of spark_rapids_tpu_torch/csrc, by name
+PORT_KERNELS = ("hash_partition_kernel", "split_hist_kernel",
+                "split_scan_kernel", "split_scatter_kernel",
+                "table_stage_kernel", "join_probe_kernel")
+
+
 def profile_query(df) -> set:
     """One more warm run under torch.profiler: device time by op, the
     device's busy share of the (profiled) wall time and the device
@@ -811,9 +903,11 @@ def profile_query(df) -> set:
           f"{dev_us / 1e3:.3f} ms = {100 * dev_us / wall_us:.1f}% of wall; "
           f"{len(device) - copies} kernel launches, {copies} copies and "
           f"memsets, of which {htod} host-to-device copies")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :12]:
-        print(f"  {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the top 12, and the port's own kernels wherever they rank
+    for rank, (name, (us, n)) in enumerate(ranked):
+        if rank < 12 or any(k in name for k in PORT_KERNELS):
+            print(f"  {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
     return names
 
 
@@ -1174,6 +1268,11 @@ DS_BASKET_SHARE = 0.1
 DS_BASKET_LINES = (8, 17)
 DATE_SK0 = 2450815                  # 1998-01-01
 N_DATES = 365 * 5                   # 1998-2002
+#: the star joins' dimensions at SF10: (store_sales key, rows, first key)
+STAR_BUILDS = {"store": ("ss_store_sk", 120, 0),
+               "date_dim": ("ss_sold_date_sk", N_DATES, DATE_SK0),
+               "item": ("ss_item_sk", 180_000, 0),
+               "customer": ("ss_customer_sk", 1_000_000, 0)}
 #: the physical plan of each query, one operator per line, top down
 _DS_STAR = ["TpuGlobalLimit", "TpuCoalescePartitions", "TpuLocalLimit",
             "TpuProject", "TpuSort",
@@ -3323,7 +3422,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: also time its "
-                         "kernels at the raw-row shapes with this timer")
+                         "kernels at the raw-row and probe shapes with "
+                         "this timer")
     args = ap.parse_args(argv)
     start = time.perf_counter()
 
@@ -3353,7 +3453,8 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f}s")
         for name, rep in reports.items():
             for line in rep.splitlines():
-                if "registers" in line or "Compiling entry" in line:
+                if any(w in line for w in ("registers", "Compiling entry",
+                                           "spill")):
                     print(f"  {name}: {line.strip()}")
 
         # 3. kernels against their plain versions

@@ -47,6 +47,9 @@ _LOCK = threading.Lock()
 #: shared bytes one table_stage block may take, read once when its
 #: library loads
 _STAGE_BUDGET: List[int] = []
+#: shared bytes one block may take and one SM has, read once when the
+#: join probe's library loads
+_PROBE_SMEM: List[int] = []
 
 
 def reset_launches() -> None:
@@ -145,8 +148,9 @@ _SIGNATURES = {
                         _LL, _VP],
         "table_stage_smem_limit": []},
     "join_probe": {
-        "join_probe": [ctypes.POINTER(_VP), ctypes.POINTER(_VP), _I, _LL,
-                       _VP, _LL, ctypes.c_uint, _VP, _VP, _VP]},
+        "join_probe": [_VP, _VP, _I, _I, _I, ctypes.POINTER(_VP), _VP, _I,
+                       ctypes.c_uint, _VP, _VP, _I, _VP],
+        "join_probe_smem": [_I]},
 }
 
 
@@ -165,6 +169,9 @@ def _load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             if name == "table_reduce":
                 _STAGE_BUDGET.append(lib.table_stage_smem_limit())
+            if name == "join_probe":
+                _PROBE_SMEM.extend([lib.join_probe_smem(0),
+                                    lib.join_probe_smem(1)])
             _LIBS[name] = lib
     return _LIBS[name]
 
@@ -678,6 +685,64 @@ def _raw_rows(stage, bucket, sums, maxs, table):
 
 # -- the join probe (a kernel of the port alone) ----------------------------
 
+#: threads per block of the join probe, and the separator tables one SM
+#: holds (each block's budget is the SM's share): the fastest of 256-1024
+#: threads and 1, 2 or 4 tables at q17's join and the customer star
+#: (chip_smoke.probe_tradeoff, PERF.md)
+PROBE_THREADS = 1024
+PROBE_TABLES_PER_SM = 1
+#: shared bytes the runtime keeps for each block
+_BLOCK_RESERVE = 1024
+
+
+@dataclasses.dataclass
+class ProbeIndex:
+    """The join probe's index of a sorted build side (csrc/join_probe.cu):
+    the sorted key words row-major, padded with a zero word to an even
+    count (16-byte rows), and the separators, every ``stride``-th row, that
+    one block holds in shared memory.  ``threads``: the probe's block."""
+    rows: torch.Tensor      # int64[build_n, kp]
+    seps: torch.Tensor      # int64[ceil(build_n / stride), kp]
+    stride: int
+    words: int
+    threads: int = PROBE_THREADS
+
+
+def probe_budget(tables_per_sm: int = PROBE_TABLES_PER_SM) -> int:
+    """Shared bytes of one separator table when an SM holds
+    ``tables_per_sm`` of them (read from the card)."""
+    _load("join_probe")
+    optin, per_sm = _PROBE_SMEM
+    return min(optin, per_sm // tables_per_sm - _BLOCK_RESERVE)
+
+
+def probe_stride(build_n: int, words: int, budget: int) -> int:
+    """The least power of two for which every ``stride``-th row of a build
+    of ``build_n`` rows of ``words`` words (padded to even) fits
+    ``budget`` bytes."""
+    row = 8 * (words + (words & 1))
+    if budget < row:
+        raise ValueError(f"probe_stride: {budget} bytes hold no {row}-byte "
+                         f"row")
+    stride = 1
+    while -(-build_n // stride) * row > budget:
+        stride *= 2
+    return stride
+
+
+def probe_index(sorted_words: List[torch.Tensor], budget: int = None,
+                threads: int = PROBE_THREADS) -> ProbeIndex:
+    """The probe's index of sorted build words, made once per build (on
+    the card, ``budget`` defaults to ``probe_budget()``)."""
+    k = len(sorted_words)
+    pad = [torch.zeros_like(sorted_words[0])] if k & 1 else []
+    rows = torch.stack([*sorted_words, *pad], dim=1)
+    if budget is None:
+        budget = probe_budget()
+    stride = probe_stride(rows.shape[0], k, budget)
+    return ProbeIndex(rows, rows[::stride].contiguous(), stride, k, threads)
+
+
 def join_probe_plain(build_words: List[torch.Tensor],
                      probe_words: List[torch.Tensor], live: torch.Tensor,
                      rank_words: Sequence[int]):
@@ -694,40 +759,54 @@ def join_probe_plain(build_words: List[torch.Tensor],
 
 def join_probe(build_words: List[torch.Tensor],
                probe_words: List[torch.Tensor], live: torch.Tensor,
-               rank_words: Sequence[int]):
+               rank_words: Sequence[int], index: ProbeIndex = None):
     """Each probe row's matches in the sorted build side: (lo int64[n],
     the first build row not less than the row's words, unsigned
     lexicographic; counts int64[n], the build rows equal to them, or 0
     for a dead row or one whose rank word at any of ``rank_words`` is not
-    1, a null key).  On the card, one launch (csrc/join_probe.cu)."""
+    1, a null key).  On the card, one launch (csrc/join_probe.cu) over
+    ``index``, the build words' ``probe_index`` (made here if None)."""
     what = "join_probe"
     n = _check_words(probe_words, what)
     bn = _check_words(build_words, what)
-    if len(build_words) != len(probe_words):
+    k = len(probe_words)
+    if len(build_words) != k:
         raise ValueError(f"{what}: {len(build_words)} build words against "
-                         f"{len(probe_words)} probe words")
+                         f"{k} probe words")
     if live.dtype != torch.bool or live.shape != (n,):
         raise ValueError(f"{what}: live must be bool[{n}]")
-    if any(not 0 <= i < len(probe_words) for i in rank_words):
+    if any(not 0 <= i < k for i in rank_words):
         raise ValueError(f"{what}: rank word positions {list(rank_words)} "
                          f"out of range")
     _check_contiguous([live], what)
     if _device_kind([*build_words, *probe_words, live], what) == "cpu":
         return join_probe_plain(build_words, probe_words, live, rank_words)
+    if index is None:
+        index = probe_index(build_words)
+    kp = k + (k & 1)
+    stride = index.stride
+    if (index.words != k or index.rows.shape != (bn, kp) or
+            index.seps.shape != (-(-bn // stride), kp) or
+            stride & (stride - 1) or
+            any(t.device != live.device or t.dtype != torch.int64 or
+                not t.is_contiguous() or t.data_ptr() % 16
+                for t in (index.rows, index.seps))):
+        raise ValueError(f"{what}: the index is not one of these build "
+                         f"words")
     dev = live.device
     lo = torch.empty(n, dtype=torch.int64, device=dev)
     counts = torch.empty(n, dtype=torch.int64, device=dev)
     lib = _load("join_probe")
-    k = len(probe_words)
-    bptrs = (ctypes.c_void_p * k)(*[w.data_ptr() for w in build_words])
     pptrs = (ctypes.c_void_p * k)(*[w.data_ptr() for w in probe_words])
     mask = 0
     for i in rank_words:
         mask |= 1 << i
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.join_probe(bptrs, pptrs, k, bn, live.data_ptr(), n, mask,
-                             lo.data_ptr(), counts.data_ptr(), stream)
+        err = lib.join_probe(index.rows.data_ptr(), index.seps.data_ptr(), k,
+                             bn, stride.bit_length() - 1, pptrs,
+                             live.data_ptr(), n, mask, lo.data_ptr(),
+                             counts.data_ptr(), index.threads, stream)
     _raise_on(lib, what, err)
     LAUNCHES[what] += 1
     return lo, counts

@@ -1,7 +1,8 @@
 """Join kernels: sort-based build, binary-search probe, match expansion.
 
 Counterpart of ``spark_rapids_tpu/kernels/join.py``.  The build side is
-sorted by its canonical key words; each probe row binary-searches its
+sorted by its canonical key words (on the card, with the probe kernel's
+index, ``cuda_ops.probe_index``, made once); each probe row searches its
 lower and upper bound (``cuda_ops.join_probe``: one launch on the card;
 ``_bsearch``, a torch loop over the search steps, is its plain version),
 and (lo, count) pairs expand into flat gather
@@ -13,7 +14,7 @@ anti joins select probe rows by compaction instead of expanding them
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -23,15 +24,18 @@ from .sort import sorted_words
 
 @dataclasses.dataclass
 class BuildTable:
-    """Sorted build side: key words plus the permutation back to rows."""
+    """Sorted build side: key words plus the permutation back to rows, and
+    on the card the probe kernel's index of the words (None on the CPU)."""
     sorted_words: List[torch.Tensor]
     perm: torch.Tensor
     capacity: int
+    index: Optional[cuda_ops.ProbeIndex] = None
 
 
 def build(words: List[torch.Tensor]) -> BuildTable:
     ws, perm = sorted_words(words)
-    return BuildTable(ws, perm, int(perm.shape[0]))
+    index = cuda_ops.probe_index(ws) if ws[0].is_cuda else None
+    return BuildTable(ws, perm, int(perm.shape[0]), index)
 
 
 def _bsearch(build_words: List[torch.Tensor],
@@ -41,8 +45,10 @@ def _bsearch(build_words: List[torch.Tensor],
     bcap = build_words[0].shape[0]
     pcap = probe_words[0].shape[0]
     dev = probe_words[0].device
-    steps = max(1, (bcap - 1).bit_length() + 1)
     lo = torch.zeros(pcap, dtype=torch.int64, device=dev)
+    if bcap == 0:
+        return lo
+    steps = max(1, (bcap - 1).bit_length() + 1)
     hi = torch.full((pcap,), bcap, dtype=torch.int64, device=dev)
     prows = torch.arange(pcap, device=dev)
     for _ in range(steps):
@@ -77,7 +83,7 @@ def probe_counts(bt: BuildTable, probe_words: List[torch.Tensor],
     lists the positions of every key's rank word."""
     lo, counts = cuda_ops.join_probe(
         bt.sorted_words, [w.contiguous() for w in probe_words],
-        probe_live.contiguous(), rank_words)
+        probe_live.contiguous(), rank_words, bt.index)
     return JoinCounts(lo, counts, counts > 0)
 
 

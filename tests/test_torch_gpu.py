@@ -506,11 +506,113 @@ def test_join_probe_kernel_matches_plain(keys):
     bt, words, live, rank = chip_smoke.probe_inputs(
         np.random.default_rng(keys), keys)
     before = cuda_ops.LAUNCHES["join_probe"]
-    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank)
+    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank,
+                                  bt.index)
     assert cuda_ops.LAUNCHES["join_probe"] == before + 1
     plo, pcnt = cuda_ops.join_probe_plain(bt.sorted_words, words, live, rank)
     assert torch.equal(lo, plo) and torch.equal(cnt, pcnt)
     assert int(cnt.sum()) >= chip_smoke.PROBE_BUILD
+
+
+def _probe_keys(rng, n, keys, distinct, null_frac):
+    """Words of ``keys`` int64 keys on the card (a rank and a value word
+    each) from ``distinct`` values; ``null_frac`` of the rows have a null
+    (rank 0) in a random key."""
+    words = []
+    null_key = rng.integers(0, keys, n)
+    is_null = rng.random(n) < null_frac
+    for j in range(keys):
+        null = is_null & (null_key == j)
+        value = rng.integers(0, distinct, n).astype(np.int64) * 7919 - 40_000
+        words += [np.where(null, 0, 1).astype(np.int64),
+                  np.where(null, 0, value)]
+    return [torch.from_numpy(w).cuda() for w in words]
+
+
+#: (keys, build rows, distinct values per key, the index's shared bytes:
+#: None for the card's own budget, else small so that stride > 1)
+PROBE_EDGES = [
+    (1, 0, 10, None), (1, 1, 10, None), (3, 1, 10, None),
+    (1, 31, 10, 16), (1, 33, 10, 32),             # stride 32, -1 and +1
+    (2, 63, 10, 32), (2, 65, 10, 64),             # stride 64, -1 and +1
+    (1, 5000, 1, None), (1, 5000, 1, 1024),       # all one key
+    (1, 100_003, 50, 4096), (2, 100_003, 30, None),  # runs over separators
+    (3, 524_288, 200, None), (4, 70_001, 8, 8192),
+    (13, 20_000, 2, None), (16, 9_999, 2, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys,build_n,distinct,budget", PROBE_EDGES)
+def test_join_probe_index_and_kernel_match_plain(keys, build_n, distinct,
+                                                 budget):
+    """The probe's index (rows and separators) and the kernel over it
+    equal the sorted words and ``join_probe_plain`` bit for bit: builds of
+    0 and 1 rows, of stride +- 1, all one key (count = build_n), runs of
+    equal keys across separators, no multiple of the stride, 1-16 keys
+    (2-32 words: the K = 2, 4, 6, 8 instances and the generic one), null
+    keys and dead rows.  One launch per call."""
+    _need_card()
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    rng = np.random.default_rng(build_n + keys)
+    null_frac = 0.05 if distinct > 1 else 0.0
+    bt = join_k.build(_probe_keys(rng, build_n, keys, distinct, null_frac))
+    index = bt.index if budget is None else \
+        cuda_ops.probe_index(bt.sorted_words, budget)
+    k = 2 * keys
+    assert index.rows.shape == (build_n, k) and index.rows.is_cuda
+    assert all(torch.equal(index.rows[:, w], bt.sorted_words[w])
+               for w in range(k))
+    assert torch.equal(index.seps, index.rows[::index.stride])
+    assert budget is None or index.stride > 1 or build_n <= 1
+    n = 50_000
+    words = _probe_keys(rng, n, keys, distinct + 1, 0.05)
+    live = torch.from_numpy(rng.random(n) < 0.8).cuda()
+    rank = list(range(0, k, 2))
+    before = cuda_ops.LAUNCHES["join_probe"]
+    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank, index)
+    assert cuda_ops.LAUNCHES["join_probe"] == before + 1
+    plo, pcnt = cuda_ops.join_probe_plain(bt.sorted_words, words, live, rank)
+    assert torch.equal(lo, plo) and torch.equal(cnt, pcnt)
+    if distinct == 1:
+        assert int(cnt.max()) == build_n
+    elif build_n > 1000:
+        assert int(cnt.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 25])
+def test_join_probe_odd_word_count(k):
+    """An odd word count pads a zero word to each row: 3 words run the
+    K = 4 instance, 25 the generic one."""
+    _need_card()
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    rng = np.random.default_rng(k)
+    bt = join_k.build(_probe_keys(rng, 40_000, 13, 2, 0.05)[:k])
+    assert bt.index.rows.shape == (40_000, k + 1)
+    words = _probe_keys(rng, 30_000, 13, 2, 0.05)[:k]
+    live = torch.from_numpy(rng.random(30_000) < 0.8).cuda()
+    rank = list(range(0, k, 2))
+    lo, cnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank,
+                                  bt.index)
+    plo, pcnt = cuda_ops.join_probe_plain(bt.sorted_words, words, live, rank)
+    assert torch.equal(lo, plo) and torch.equal(cnt, pcnt)
+    assert int(cnt.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_join_probe_without_index_builds_one():
+    """A call without an index makes one and still launches once."""
+    _need_card()
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    rng = np.random.default_rng(5)
+    bt = join_k.build(_probe_keys(rng, 3000, 2, 20, 0.05))
+    words = _probe_keys(rng, 4096, 2, 21, 0.05)
+    live = torch.ones(4096, dtype=torch.bool, device="cuda")
+    before = cuda_ops.LAUNCHES["join_probe"]
+    got = cuda_ops.join_probe(bt.sorted_words, words, live, [0, 2])
+    assert cuda_ops.LAUNCHES["join_probe"] == before + 1
+    want = cuda_ops.join_probe_plain(bt.sorted_words, words, live, [0, 2])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.gpu
