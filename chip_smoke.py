@@ -65,7 +65,17 @@ Phases (any failure exits non-zero):
    computation (``ds8_references``), warm runs byte-identical, rows
    unless DS8_EMPTY names the query, and B1, B2 and probe launches per
    query; q78 and q64 run once more under the profiler.  B1 and the
-   join probe must launch.
+   join probe must launch;
+9. TPC-DS with expression subqueries: the 12 queries of DS9_QUERIES
+   (scalar, ``IN``, ``EXISTS`` and correlated scalar queries) verbatim
+   through the same session on the same tables, each run timed as
+   ``session.sql(text).to_arrow()``, so that the subqueries that run
+   while the text is lowered are inside the wall (``SqlRun``), with
+   DS9_PLANS' operators, a cold and two warm runs against a pyarrow
+   computation (``ds9_references``), warm runs byte-identical, rows
+   unless DS9_EMPTY names the query, the lowering's share and B1, B2
+   and probe launches per query; q10 and q1 run once more under the
+   profiler.  B1 and the join probe must launch.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3411,6 +3421,421 @@ def tpcds8_phase(args, kernels_used, data_dir: str, session) -> dict:
     return launches
 
 
+DS9_QUERIES = ("q1", "q9", "q10", "q24", "q30", "q32", "q35", "q45", "q58",
+               "q69", "q81", "q92")
+#: queries allowed an empty answer at SF10, with the reason
+DS9_EMPTY: dict = {}
+_ASC = [(i, True) for i in range(13)]
+#: ORDER BY of each query as (select column position, ascending); None:
+#: no ORDER BY (q9's one row, q32's and q92's keyless sum)
+DS9_ORDER = {
+    "q1": _ASC[:1], "q9": None, "q32": None, "q92": None,
+    "q10": [(i, True) for i in (0, 1, 2, 4, 6, 8, 10, 12)],
+    "q24": _ASC[:3], "q30": _ASC[:7], "q35": _ASC[:3], "q45": _ASC[:2],
+    "q58": _ASC[:2], "q69": _ASC[:3], "q81": _ASC[:5]}
+#: LIMIT of each query with an ORDER BY (100 where not listed)
+DS9_LIMIT: dict = {}
+#: each query's plan at SF10's row estimates, as DS7_PLANS lists them (q9's
+#: outer query reads reason alone: its fifteen scalar queries run, and are
+#: planned, while its text is lowered; q45's IN (query) sits inside an OR
+#: and runs then too, to an IN list)
+_SSEMI = "TpuShuffledHashJoin[semi, build=right]"
+_SANTI = "TpuShuffledHashJoin[anti, build=right]"
+_RETURNS = [_BR, _BR] + _AGG * 2 + [_BR, _BR]        # q30's, q81's CTE twice
+_DISCOUNT = ["TpuGlobalLimit"] + _AGG + [_SR, _BR, _BR] + _AGG + [_BR]
+DS9_PLANS = {
+    "q1": _LS + [_SR, _BR, _BR] + _AGG + [_BR] + _AGG * 2 + [_BR],
+    "q9": [],
+    "q10": _TOP + [_SSEMI] * 2 + [_BR] * 5,
+    "q24": _TOP + _AGG + [_BR] * 4 + [_SR],
+    "q30": _LS + [_BR, _BR, _BL] + _AGG + _RETURNS,
+    "q32": _DISCOUNT,
+    "q35": _TOP + [_SSEMI] * 2 + [_BR] * 4,
+    "q45": _TOP + [_BR] * 4,
+    "q58": _LS + [_SR] * 2 + (_AGG + [_BR] * 2) * 3,
+    "q69": _TOP + [_SANTI, _SSEMI] + [_BR] * 4,
+    "q81": _LS + [_SR, _BR, _BR] + _AGG + _RETURNS,
+    "q92": _DISCOUNT}
+#: the table whose rows a query's Mrows/s counts (its largest scan)
+DS9_FACT = {"q1": "store_returns", "q9": "store_sales",
+            "q10": "store_sales", "q24": "store_sales",
+            "q30": "web_returns", "q32": "catalog_sales",
+            "q35": "store_sales", "q45": "web_sales", "q58": "store_sales",
+            "q69": "store_sales", "q81": "catalog_returns",
+            "q92": "web_sales"}
+
+
+def ds9_references(data_dir: str, queries=DS9_QUERIES) -> dict:
+    """Each phase-9 query's full result (every row before its LIMIT), in
+    its select list's order, by pyarrow written apart from the port: an
+    ``IN`` or ``EXISTS`` query is a set of keys its outer rows are
+    tested against with ``pc.is_in``, an uncorrelated scalar query a
+    value computed first, and a correlated scalar query a group-by on
+    its correlation keys joined back to the outer rows."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, between = _ds7_tools(data_dir)
+    out = {}
+
+    def rows_of(t, cols):
+        return list(zip(*[t[c].to_pylist() for c in cols]))
+
+    def dates(*conds):
+        d = read("date_dim", ["d_date_sk", "d_year", "d_moy", "d_dom",
+                              "d_qoy", "d_week_seq"])
+        for col, fn in conds:
+            d = d.filter(fn(d[col]))
+        return d
+
+    def eq(v):
+        return lambda c: pc.equal(c, v)
+
+    def keys_of(fact, cust, date, *conds):
+        """The customers of ``fact`` on the dates ``conds`` keep: the
+        key set of an EXISTS (or IN) query."""
+        f = join(read(fact, [cust, date]), dates(*conds), date, "d_date_sk")
+        return pc.unique(pc.drop_null(f[cust]))
+
+    def in_keys(t, col, keys, keep=True):
+        hit = pc.is_in(t[col], value_set=keys)
+        return t.filter(hit if keep else pc.invert(hit))
+
+    def people(addr_cond=None):
+        """customer joined to its address and demographics (q10, q35,
+        q69's FROM list)."""
+        c = read("customer", ["c_customer_sk", "c_current_addr_sk",
+                              "c_current_cdemo_sk"])
+        ca = read("customer_address", ["ca_address_sk", "ca_state",
+                                       "ca_county"])
+        if addr_cond is not None:
+            ca = ca.filter(addr_cond(ca))
+        cd = read("customer_demographics", [
+            "cd_demo_sk", "cd_gender", "cd_marital_status",
+            "cd_education_status", "cd_purchase_estimate",
+            "cd_credit_rating", "cd_dep_count", "cd_dep_employed_count",
+            "cd_dep_college_count"])
+        return join(join(c, ca, "c_current_addr_sk", "ca_address_sk"), cd,
+                    "c_current_cdemo_sk", "cd_demo_sk")
+
+    def over_avg(t, total, key, factor):
+        """The rows of ``t`` whose ``total`` exceeds ``factor`` times its
+        mean over the rows of their ``key`` (a correlated scalar
+        query)."""
+        g = t.group_by(key).aggregate([(total, "mean")])
+        g = g.rename_columns(["__key" if c == key else c
+                              for c in g.column_names])
+        j = join(t, g, key, "__key")
+        return j.filter(pc.greater(j[total], pc.multiply(
+            j[total + "_mean"], factor)))
+
+    if "q1" in queries:
+        sr = join(read("store_returns", ["sr_returned_date_sk",
+                                         "sr_customer_sk", "sr_store_sk",
+                                         "sr_return_amt"]),
+                  dates(("d_year", eq(2000))), "sr_returned_date_sk",
+                  "d_date_sk")
+        ctr = sr.group_by(["sr_customer_sk", "sr_store_sk"]).aggregate(
+            [("sr_return_amt", "sum")])
+        ctr = over_avg(ctr, "sr_return_amt_sum", "sr_store_sk", 1.2)
+        st = read("store", ["s_store_sk", "s_state"])
+        j = join(ctr, st.filter(pc.equal(st["s_state"], "TN")),
+                 "sr_store_sk", "s_store_sk")
+        j = join(j, read("customer", ["c_customer_sk", "c_customer_id"]),
+                 "sr_customer_sk", "c_customer_sk")
+        out["q1"] = rows_of(j, ["c_customer_id"])
+    if "q9" in queries:
+        ss = read("store_sales", ["ss_quantity", "ss_ext_discount_amt",
+                                  "ss_net_paid"])
+        row = []
+        for lo, hi in ((1, 20), (21, 40), (41, 60)):
+            f = ss.filter(between(ss["ss_quantity"], lo, hi))
+            col = "ss_ext_discount_amt" if f.num_rows > 10000 else \
+                "ss_net_paid"
+            row.append(pc.mean(f[col]).as_py())
+        r = read("reason", ["r_reason_sk"])
+        n = r.filter(pc.equal(r["r_reason_sk"], 1)).num_rows
+        out["q9"] = [tuple(row)] * n
+    if "q10" in queries or "q35" in queries or "q69" in queries:
+        def sales_keys(year, cond):
+            return {p: keys_of(fact, cust, date, ("d_year", eq(year)), cond)
+                    for p, fact, cust, date in (
+                        ("ss", "store_sales", "ss_customer_sk",
+                         "ss_sold_date_sk"),
+                        ("ws", "web_sales", "ws_bill_customer_sk",
+                         "ws_sold_date_sk"),
+                        ("cs", "catalog_sales", "cs_bill_customer_sk",
+                         "cs_sold_date_sk"))}
+    if "q10" in queries:
+        k = sales_keys(2002, ("d_moy", lambda c: between(c, 1, 4)))
+        p = people(lambda ca: isin(ca["ca_county"], [
+            "Williamson County", "Ziebach County", "Walker County",
+            "Rush County"]))
+        p = in_keys(p, "c_customer_sk", k["ss"])
+        p = in_keys(p, "c_customer_sk", pa.concat_arrays(
+            [k["ws"], k["cs"]]))
+        cols = ["cd_gender", "cd_marital_status", "cd_education_status",
+                "cd_purchase_estimate", "cd_credit_rating", "cd_dep_count",
+                "cd_dep_employed_count", "cd_dep_college_count"]
+        g = p.group_by(cols).aggregate([([], "count_all")])
+        n = g["count_all"].to_pylist()
+        keys = rows_of(g, cols)
+        out["q10"] = [(*r[:3], c, r[3], c, r[4], c, r[5], c, r[6], c, r[7],
+                       c) for r, c in zip(keys, n)]
+    if "q35" in queries:
+        k = sales_keys(2002, ("d_qoy", lambda c: pc.less(c, 4)))
+        p = in_keys(in_keys(people(), "c_customer_sk", k["ss"]),
+                    "c_customer_sk", k["ws"])
+        g = p.group_by(["ca_state", "cd_gender", "cd_marital_status"]) \
+            .aggregate([([], "count_all"), ("cd_dep_count", "mean"),
+                        ("cd_dep_count", "max"), ("cd_dep_count", "sum")])
+        out["q35"] = rows_of(g, ["ca_state", "cd_gender",
+                                 "cd_marital_status", "count_all",
+                                 "cd_dep_count_mean", "cd_dep_count_max",
+                                 "cd_dep_count_sum"])
+    if "q69" in queries:
+        k = sales_keys(2001, ("d_moy", lambda c: between(c, 4, 6)))
+        p = people(lambda ca: isin(ca["ca_state"], ["KY", "GA", "NM"]))
+        p = in_keys(in_keys(p, "c_customer_sk", k["ss"]), "c_customer_sk",
+                    k["ws"], keep=False)
+        g = p.group_by(["cd_gender", "cd_marital_status",
+                        "cd_education_status"]).aggregate(
+            [([], "count_all")])
+        out["q69"] = rows_of(g, ["cd_gender", "cd_marital_status",
+                                 "cd_education_status", "count_all"])
+    if "q24" in queries:
+        ss = read("store_sales", ["ss_ticket_number", "ss_item_sk",
+                                  "ss_customer_sk", "ss_store_sk",
+                                  "ss_net_paid"])
+        sr = read("store_returns", ["sr_ticket_number", "sr_item_sk"])
+        st = read("store", ["s_store_sk", "s_store_name", "s_state",
+                            "s_zip", "s_market_id"])
+        st = st.filter(pc.equal(st["s_market_id"], 8))
+        it = read("item", ["i_item_sk", "i_color", "i_current_price",
+                           "i_manager_id", "i_units", "i_size"])
+        c = read("customer", ["c_customer_sk", "c_last_name",
+                              "c_first_name", "c_birth_country"])
+        ca = read("customer_address", ["ca_state", "ca_zip", "ca_country"])
+        ca = ca.append_column("__country", pc.ascii_upper(ca["ca_country"]))
+        j = join(ss, sr, ["ss_ticket_number", "ss_item_sk"],
+                 ["sr_ticket_number", "sr_item_sk"])
+        j = join(join(join(j, st, "ss_store_sk", "s_store_sk"), it,
+                      "ss_item_sk", "i_item_sk"), c, "ss_customer_sk",
+                 "c_customer_sk")
+        j = join(j, ca, ["s_zip", "c_birth_country"],
+                 ["ca_zip", "__country"])
+        keys = ["c_last_name", "c_first_name", "s_store_name", "ca_state",
+                "s_state", "i_color", "i_current_price", "i_manager_id",
+                "i_units", "i_size"]
+        ssales = j.group_by(keys).aggregate([("ss_net_paid", "sum")])
+        limit = None
+        if ssales.num_rows:
+            limit = 0.05 * pc.mean(ssales["ss_net_paid_sum"]).as_py()
+        red = ssales.filter(pc.equal(ssales["i_color"], "red"))
+        g = red.group_by(keys[:3]).aggregate([("ss_net_paid_sum", "sum")])
+        out["q24"] = [r for r in rows_of(g, keys[:3] +
+                                         ["ss_net_paid_sum_sum"])
+                      if limit is not None and r[3] is not None and
+                      r[3] > limit]
+    for q, fact, cust, addr, amt, year, cols in (
+            ("q30", "web_returns", "wr_returning_customer_sk",
+             "wr_returning_addr_sk", "wr_return_amt", 2002,
+             ["c_customer_id", "c_salutation", "c_first_name",
+              "c_last_name", "c_preferred_cust_flag", "c_birth_year"]),
+            ("q81", "catalog_returns", "cr_returning_customer_sk",
+             "cr_returning_addr_sk", "cr_return_amt_inc_tax", 2000,
+             ["c_customer_id", "c_salutation", "c_first_name",
+              "c_last_name"])):
+        if q not in queries:
+            continue
+        date = fact[0] + "r_returned_date_sk"
+        r = join(read(fact, [date, cust, addr, amt]),
+                 dates(("d_year", eq(year))), date, "d_date_sk")
+        r = join(r, read("customer_address", ["ca_address_sk", "ca_state"]),
+                 addr, "ca_address_sk")
+        ctr = r.group_by([cust, "ca_state"]).aggregate([(amt, "sum")])
+        ctr = ctr.rename_columns(["ctr_state" if n == "ca_state" else n
+                                  for n in ctr.column_names])
+        ctr = over_avg(ctr, amt + "_sum", "ctr_state", 1.2)
+        c = read("customer", ["c_customer_sk", "c_current_addr_sk"] + cols)
+        ca = read("customer_address", ["ca_address_sk", "ca_state"])
+        c = join(c, ca.filter(pc.equal(ca["ca_state"], "GA")),
+                 "c_current_addr_sk", "ca_address_sk")
+        j = join(ctr, c, cust, "c_customer_sk")
+        out[q] = rows_of(j, cols + [amt + "_sum"])
+    for q, p, fact, manufact in (("q32", "cs", "catalog_sales", 977),
+                                 ("q92", "ws", "web_sales", 350)):
+        if q not in queries:
+            continue
+        item, amt = f"{p}_item_sk", f"{p}_ext_discount_amt"
+        f = join(read(fact, [f"{p}_sold_date_sk", item, amt]),
+                 dates(("d_year", eq(2000)),
+                       ("d_moy", lambda c: between(c, 1, 4))),
+                 f"{p}_sold_date_sk", "d_date_sk")
+        f = over_avg(f, amt, item, 1.3)
+        it = read("item", ["i_item_sk", "i_manufact_id"])
+        f = join(f, it.filter(pc.equal(it["i_manufact_id"], manufact)),
+                 item, "i_item_sk")
+        out[q] = [(pc.sum(f[amt]).as_py(),)]
+    if "q45" in queries:
+        ws = read("web_sales", ["ws_bill_customer_sk", "ws_item_sk",
+                                "ws_sold_date_sk", "ws_sales_price"])
+        j = join(ws, dates(("d_qoy", eq(2)), ("d_year", eq(2001))),
+                 "ws_sold_date_sk", "d_date_sk")
+        j = join(j, read("customer", ["c_customer_sk", "c_current_addr_sk"]),
+                 "ws_bill_customer_sk", "c_customer_sk")
+        j = join(j, read("customer_address", ["ca_address_sk", "ca_zip",
+                                              "ca_city"]),
+                 "c_current_addr_sk", "ca_address_sk")
+        it = read("item", ["i_item_sk", "i_item_id"])
+        j = join(j, it, "ws_item_sk", "i_item_sk")
+        ids = it.filter(isin(it["i_item_sk"], [2, 3, 5, 7, 11, 13, 17, 19,
+                                               23, 29]))["i_item_id"]
+        zips = ["85669", "86197", "88274", "83405", "86475", "85392",
+                "85460", "80348", "81792"]
+        j = j.filter(pc.or_kleene(
+            isin(pc.utf8_slice_codeunits(j["ca_zip"], 0, 5), zips),
+            pc.is_in(j["i_item_id"], value_set=pc.drop_null(ids))))
+        g = j.group_by(["ca_zip", "ca_city"]).aggregate(
+            [("ws_sales_price", "sum")])
+        out["q45"] = rows_of(g, ["ca_zip", "ca_city", "ws_sales_price_sum"])
+    if "q58" in queries:
+        d = dates()
+        week = d.filter(pc.and_(pc.and_(pc.equal(d["d_year"], 2000),
+                                        pc.equal(d["d_moy"], 1)),
+                                pc.equal(d["d_dom"], 3)))["d_week_seq"]
+        check(len(week) == 1, "q58: not one week")
+        days = d.filter(pc.equal(d["d_week_seq"], week[0]))
+        it = read("item", ["i_item_sk", "i_item_id"])
+        rev = []
+        for p, fact in (("ss", "store_sales"), ("cs", "catalog_sales"),
+                        ("ws", "web_sales")):
+            f = join(read(fact, [f"{p}_sold_date_sk", f"{p}_item_sk",
+                                 f"{p}_ext_sales_price"]), days,
+                     f"{p}_sold_date_sk", "d_date_sk")
+            g = join(f, it, f"{p}_item_sk", "i_item_sk").group_by(
+                "i_item_id").aggregate([(f"{p}_ext_sales_price", "sum")])
+            rev.append(dict(rows_of(g, ["i_item_id",
+                                        f"{p}_ext_sales_price_sum"])))
+        rows = []
+        for item, s in rev[0].items():
+            if item not in rev[1] or item not in rev[2]:
+                continue
+            c, w = rev[1][item], rev[2][item]
+            if None in (s, c, w) or not all(
+                    0.9 * b <= a <= 1.1 * b for a, b in (
+                        (s, c), (s, w), (c, s), (c, w), (w, s), (w, c))):
+                continue
+            avg = (s + c + w) / 3
+            rows.append((item, s, s / avg * 100, c, c / avg * 100, w,
+                         w / avg * 100, avg))
+        out["q58"] = rows
+    return out
+
+class SqlRun:
+    """``session.sql(text).to_arrow()`` as the one unit ``cold_and_warm``
+    times in phase 9: the lowering, with every subquery it runs on the
+    card, is inside the timed wall.  ``lower_s`` holds each run's
+    lowering seconds."""
+
+    def __init__(self, session, text: str, on_card: bool):
+        self.session, self.text, self.on_card = session, text, on_card
+        self.lower_s = []
+
+    def to_arrow(self):
+        import torch
+        t0 = time.perf_counter()
+        df = self.session.sql(self.text)
+        if self.on_card:
+            torch.cuda.synchronize()
+        self.lower_s.append(time.perf_counter() - t0)
+        return df.to_arrow()
+
+
+def tpcds9_phase(args, kernels_used, data_dir: str, session) -> dict:
+    """Phase 9: the verbatim text of the 12 TPC-DS queries with
+    expression subqueries (DS9_QUERIES: scalar, IN, EXISTS and their
+    correlated forms) through the port's ``session.sql`` on phase 7's
+    tables, directory and session.  Each must plan DS9_PLANS' operators
+    at SF10, equal ``ds9_references`` (1e-9, ORDER BY kept, ties as a
+    multiset, also at the LIMIT's cut), give the same bytes on two warm
+    runs, and return rows unless DS9_EMPTY names it.  A run is
+    ``session.sql(text).to_arrow()`` (``SqlRun``): the subqueries that
+    run while the text is lowered (q9's fifteen scans of store_sales)
+    are inside its wall, and the lowering's share is printed apart.
+    Below SF10 the broadcast threshold shrinks with the scale, as in
+    phases 7 and 8.  q10 and q1 run once more under the profiler.
+    Returns the kernels' launches on this path."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    t0 = time.perf_counter()
+    refs = ds9_references(data_dir)
+    print(f"tpcds9: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    rows = {t: max(int(n * args.ds_sf), 64) for t, n in
+            {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        for q in DS9_QUERIES:
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 9 imported JAX or the JAX package")
+            plan = session.sql(QUERIES[q]).explain()
+            check(plan_signature(plan) == DS9_PLANS[q] or args.ds_sf < 10,
+                  f"{q}: not the planned operators:\n{plan}")
+            run = SqlRun(session, QUERIES[q], on_card)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, run, on_card)
+            for name, v in cuda_ops.LAUNCHES.items():
+                launches[name] += v
+            order, limit = DS9_ORDER[q], DS9_LIMIT.get(q, 100)
+            full = check_rows(q, cold, refs[q], order, limit)
+            for t in warm:
+                check_rows(q, t, refs[q], order, limit)
+            check(same_bytes(warm[0], warm[1]),
+                  f"{q}: the two warm runs are not byte-identical")
+            check(cold.num_rows > 0 or q in DS9_EMPTY or args.ds_sf < 10,
+                  f"{q}: no rows (not in DS9_EMPTY)")
+            fact = rows[DS9_FACT[q]]
+            got = cuda_ops.LAUNCHES
+            lower = run.lower_s
+            print(f"{q}: {cold.num_rows} rows of {full}; cold {cold_s:.4f}s "
+                  f"(lowering and its subqueries {lower[0]:.4f}s, "
+                  f"{100 * lower[0] / cold_s:.1f}%; host read "
+                  f"{read_s:.4f}s, upload {upload_s:.4f}s); warm "
+                  f"{warm_s[0]:.4f}s {warm_s[1]:.4f}s (lowering "
+                  f"{lower[2]:.4f}s, {100 * lower[2] / warm_s[1]:.1f}%); "
+                  f"warm {fact / warm_s[1] / 1e6:.3f} Mrows/s of "
+                  f"{DS9_FACT[q]}; peak device memory {peak} B; launches "
+                  f"(3 runs) B1 {got['hash_partition_ids']}, B2 "
+                  f"{got['table_reduce']}, probe {got['join_probe']}; "
+                  f"byte-identical warm runs; matches pyarrow at "
+                  f"{EXACT_REL}; first rows {cold.slice(0, 2).to_pylist()}",
+                  flush=True)
+        for q in ("q10", "q1"):
+            print(f"plan {q}:\n" + session.sql(QUERIES[q]).explain())
+            if on_card:
+                before = dict(cuda_ops.LAUNCHES)
+                print(f"profile {q}:")
+                profile_query(session.sql(QUERIES[q]))
+                print(f"profile {q}: kernel launches " + str(
+                    {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()}))
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
+        cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the phase 9 path")
+    print(f"tpcds9: launches of the phase (3 runs of each query) {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=64_000_000)
@@ -3514,8 +3939,8 @@ def main(argv=None) -> int:
         args, list(kernels) if args.device == "cuda" else [])
 
     # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
-    # TPC-DS queries, 8. those with derived tables and CTEs, on the same
-    # tables, session and directory
+    # TPC-DS queries, 8. those with derived tables and CTEs, 9. those with
+    # expression subqueries, on the same tables, session and directory
     used = ["hash_partition_ids", "join_probe"] \
         if args.device == "cuda" else []
     with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
@@ -3526,6 +3951,8 @@ def main(argv=None) -> int:
         phase_done("7")
         results["tpcds8"] = tpcds8_phase(args, used, data_dir, session)
         phase_done("8")
+        results["tpcds9"] = tpcds9_phase(args, used, data_dir, session)
+        phase_done("9")
         session = None
 
     if args.device != "cuda":
@@ -3534,9 +3961,10 @@ def main(argv=None) -> int:
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            # phases 6-8 take no B2: their string keys, keyless
+            # phases 6-9 need not take B2: their string keys, keyless
             # aggregates and wide key ranges run the sort path
-            check(got > 0 or (mode in ("tpcds", "tpcds7", "tpcds8") and
+            check(got > 0 or (mode in ("tpcds", "tpcds7", "tpcds8",
+                                       "tpcds9") and
                               name == "table_reduce"),
                   f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]

@@ -38,10 +38,11 @@ class TpuSession:
     def sql(self, query: str):
         """A DataFrame of the query over this session's temp views;
         ``SqlError`` if the text holds a construct the port does not
-        run."""
+        run.  Its uncorrelated subqueries run here, on this session's
+        device."""
         from .dataframe import DataFrame
         from .sql import sql_to_plan
-        return DataFrame(sql_to_plan(query, self._views), self)
+        return DataFrame(sql_to_plan(query, self._views, self), self)
 
     def create_dataframe(self, data, num_partitions: int = 1):
         from .dataframe import DataFrame

@@ -9,7 +9,8 @@ runs:
   ``*``;
 - ``FROM`` lists of temp views, CTEs and derived tables (``(query)
   [AS] alias``) as comma joins and ``[INNER | LEFT [OUTER] | RIGHT
-  [OUTER] | FULL [OUTER]] JOIN ... ON`` or ``CROSS JOIN``, the two mixed
+  [OUTER] | FULL [OUTER] | LEFT SEMI | LEFT ANTI] JOIN ... ON`` or
+  ``CROSS JOIN``, the two mixed
   (``a LEFT JOIN b ON ..., c``), with aliases, column names with or
   without a qualifier; a relation read twice under two aliases
   (``date_dim d1, date_dim d2``, a CTE ``ss ss1, ss ss2``) has its
@@ -27,7 +28,8 @@ runs:
   ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric values;
   ``substring`` / ``substr`` with literal positions (in characters),
   ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` of numbers,
-  ``round(x[, d])`` (HALF_UP);
+  ``round(x[, d])`` (HALF_UP), ``upper`` / ``ucase`` and ``lower`` /
+  ``lcase`` (ASCII letters, as the reference);
 - integer, decimal (read as double), string and ``NULL`` literals;
 - ``GROUP BY`` expressions, ordinals or select aliases, with or
   without aggregates; the aggregates ``count(*)``, ``count``, ``sum``,
@@ -37,18 +39,42 @@ runs:
   only), and expressions over them and over the group keys; ``HAVING``,
   whose aggregates need not be selected;
 - ``ORDER BY`` expressions, select aliases or ordinals with ``ASC`` /
-  ``DESC`` and ``NULLS FIRST`` / ``LAST``; ``LIMIT``.
+  ``DESC`` and ``NULLS FIRST`` / ``LAST``; ``LIMIT``;
+- expression subqueries, with the reference's semantics
+  (``spark_rapids_tpu/api/sql.py``'s ``lower_where``):
+  an uncorrelated scalar query anywhere an expression goes (WHERE, the
+  select list, CASE, HAVING) runs while the text is lowered, to a
+  literal (NULL of its type for no row; ``SqlError`` for more than
+  one); ``x [NOT] IN (query)`` as a conjunct of WHERE is a semi or anti
+  join (``NOT IN`` in three-valued logic: an empty set keeps every row,
+  a NULL in the set none, a NULL ``x`` never matches), and inside any
+  other expression an uncorrelated one runs to an IN list (q45's ``...
+  or i_item_id in (select ...)``); ``[NOT] EXISTS`` as a conjunct of
+  WHERE runs to a constant when uncorrelated, and is a semi or anti
+  join on its equalities with the outer query when correlated (other
+  conditions between the two queries a residual join condition); an OR
+  of correlated ``EXISTS`` on the same outer keys is one semi join
+  against the union of their key sets (q10); ``x CMP (query)`` with a
+  correlated query of one aggregate is that query grouped by its
+  correlation keys, an inner join and a filter (q1, q32).  A subquery
+  that runs while the text is lowered runs on the session's device:
+  ``sql_to_plan`` without a session raises ``SqlError`` for it.
 
 Anything else raises ``SqlError`` naming the construct, before any
-device work: expression subqueries (``IN (query)``, a scalar query,
-``EXISTS``), set operations, windows and the rest of Spark SQL.  The
-plan is built in Spark's order: the FROM relations as a left-deep join
-tree, WHERE as a filter over it, the aggregate (its keys and every
-aggregate call of the select list, HAVING and ORDER BY as columns),
-HAVING as a filter over it, the sort, the projection of the select
-list, the limit; then ``plan/logical_opt.optimize`` turns the comma
-joins and WHERE equalities into equi-joins with the filters below them,
-also through a derived table's projection.
+device work (a subquery may have run): set operations, windows,
+``DISTINCT``, ``CAST``, a correlated ``IN (query)``, a correlation other
+than equalities of a scalar query, a correlated subquery outside a
+conjunct of WHERE, an OR of ``EXISTS`` whose key sets differ in type
+(the union's children must have equal types while ``CAST`` is not
+ported) and the rest of Spark SQL.  The plan is built in Spark's order:
+the FROM relations as a left-deep join tree, WHERE as a filter over it
+(its subquery conjuncts as joins under that filter), the aggregate (its
+keys and every aggregate call of the select list, HAVING and ORDER BY
+as columns), HAVING as a filter over it, the sort, the projection of
+the select list, the limit; then ``plan/logical_opt.optimize`` turns
+the comma joins and WHERE equalities into equi-joins with the filters
+below them, also through a derived table's projection and a semi or
+anti join.
 """
 from __future__ import annotations
 
@@ -167,6 +193,27 @@ class InList:
     negated: bool = False
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class InSub:
+    """``child [NOT] IN (query)``; compared by identity, as are the other
+    subquery nodes (a query is not hashable)."""
+    child: Any
+    query: "Select"
+    negated: bool = False
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Exists:
+    query: "Select"
+    negated: bool = False
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScalarSub:
+    """A parenthesised query in expression position."""
+    query: "Select"
+
+
 @dataclasses.dataclass(frozen=True)
 class LikeOp:
     child: Any
@@ -230,7 +277,8 @@ class Select:
 
 
 def _kids(a) -> List[Any]:
-    """The expression nodes directly under ``a``."""
+    """The expression nodes directly under ``a``; a subquery's own
+    expressions are not (only an ``IN (query)``'s operand is)."""
     if isinstance(a, Case):
         out = [a.operand] if a.operand is not None else []
         for c, v in a.whens:
@@ -243,7 +291,7 @@ def _kids(a) -> List[Any]:
         return [a.child, a.lo, a.hi]
     if isinstance(a, BinOp):
         return [a.left, a.right]
-    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp)):
+    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp, InSub)):
         return [a.child]
     return []
 
@@ -268,7 +316,7 @@ def _transform_kids(a, f):
         return Between(f(a.child), f(a.lo), f(a.hi), a.negated)
     if isinstance(a, BinOp):
         return BinOp(a.op, f(a.left), f(a.right))
-    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp)):
+    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp, InSub)):
         return dataclasses.replace(a, child=f(a.child))
     return a
 
@@ -294,11 +342,11 @@ _KEYWORDS = {
 _UNSUPPORTED = {
     "union": "UNION",
     "intersect": "INTERSECT", "except": "EXCEPT", "distinct": "DISTINCT",
-    "exists": "EXISTS", "over": "window functions (OVER)",
+    "over": "window functions (OVER)",
     "offset": "OFFSET", "cast": "CAST", "interval": "INTERVAL",
     "true": "boolean literals", "false": "boolean literals",
     "using": "JOIN ... USING",
-    "natural": "NATURAL JOIN", "semi": "SEMI JOIN", "anti": "ANTI JOIN",
+    "natural": "NATURAL JOIN",
     "rollup": "ROLLUP", "cube": "CUBE", "grouping": "GROUPING SETS",
     "window": "WINDOW", "qualify": "QUALIFY", "lateral": "LATERAL",
     "all": "ALL", "rlike": "RLIKE", "date": "DATE literals",
@@ -464,11 +512,7 @@ class _Parser:
 
     def table_ref(self):
         if self.at_op("("):
-            self.advance()
-            if not self.at("select", "with"):
-                self._fail("expected a query in parentheses")
-            q = self.select()
-            self.expect_op(")")
+            q = self.subquery()
             if self.at("as"):
                 self.advance()
             return SubqueryRef(q, self.name())
@@ -491,6 +535,8 @@ class _Parser:
                 how = self.advance().text.lower()
                 if self.at("outer") and how != "cross":
                     self.advance()
+                elif how == "left" and self.at("semi", "anti"):
+                    how = self.advance().text.lower()
             else:
                 self._unsupported_here()
                 return left
@@ -543,7 +589,11 @@ class _Parser:
 
     def predicate(self):
         """A comparison, ``[NOT] BETWEEN``, ``[NOT] IN (list)``,
-        ``[NOT] LIKE`` or ``IS [NOT] NULL`` over additive operands."""
+        ``[NOT] LIKE`` or ``IS [NOT] NULL`` over additive operands;
+        ``EXISTS (query)``."""
+        if self.at("exists"):
+            self.advance()
+            return Exists(self.subquery())
         e = self.additive()
         while True:
             self._unsupported_here()
@@ -560,9 +610,10 @@ class _Parser:
                 e = Between(e, lo, self.additive(), negated)
             elif self.at("in"):
                 self.advance()
+                if self._word(self.toks[self.i + 1]) in ("select", "with"):
+                    e = InSub(e, self.subquery(), negated)
+                    continue
                 self.expect_op("(")
-                if self.at("select", "with"):
-                    self._fail("IN (subquery) is not supported by the port")
                 items = [self.expr()]
                 while self.at_op(","):
                     self.advance()
@@ -645,9 +696,9 @@ class _Parser:
             self.advance()
             return Lit(t.text[1:-1].replace("''", "'"))
         if self.at_op("("):
+            if self._word(self.toks[self.i + 1]) in ("select", "with"):
+                return ScalarSub(self.subquery())
             self.advance()
-            if self.at("select"):
-                self._fail("subqueries are not supported by the port")
             e = self.expr()
             self.expect_op(")")
             return e
@@ -664,6 +715,15 @@ class _Parser:
                 self._fail("qualified * is not supported by the port")
             return Ident(self.name(), name)
         return Ident(name)
+
+    def subquery(self) -> Select:
+        """``(query)``."""
+        self.expect_op("(")
+        if not self.at("select", "with"):
+            self._fail("expected a query in parentheses")
+        q = self.select()
+        self.expect_op(")")
+        return q
 
     def call(self, name: str) -> Call:
         self.advance()                                  # (
@@ -734,6 +794,18 @@ def _split(a, op: str) -> List[Any]:
     return [a]
 
 
+def _and(parts: List[Any]):
+    """The AND of ASTs; None for no part."""
+    out = None
+    for p in parts:
+        out = p if out is None else BinOp("and", out, p)
+    return out
+
+
+#: a comparison with its sides swapped
+_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "=", "<>": "<>"}
+
+
 class _Scope:
     """Name resolution over a plan's columns: ``entries`` are (relation
     alias, {lower-case column name: the column's name in the plan}), so
@@ -772,14 +844,31 @@ def _literal_of(e: ec.Expression):
     return e.value
 
 
+def _comparison(op: str, left: ec.Expression, right: ec.Expression):
+    if op == "<>":
+        return ep.Not(ep.EqualTo(left, right))
+    return _COMPARISONS[op](left, right)
+
+
 class _Lowerer:
-    def __init__(self, views: Dict[str, L.LogicalPlan]):
+    def __init__(self, views: Dict[str, L.LogicalPlan], session=None):
         self.views = views
+        self.session = session
         self._uid = 0
+        #: each uncorrelated scalar query's value, once it has run
+        self._scalars: Dict[ScalarSub, ec.Literal] = {}
 
     def fresh(self, prefix: str) -> str:
         self._uid += 1
         return f"__{prefix}{self._uid}"
+
+    def run(self, plan: L.LogicalPlan):
+        """A subquery's rows, run now on the session's device through the
+        optimizer ``sql_to_plan`` uses."""
+        if self.session is None:
+            raise SqlError("a subquery runs on a session's device: lower "
+                           "the query through session.sql")
+        return self.session.execute_to_arrow(optimize(plan))
 
     # -- FROM ----------------------------------------------------------------
     def relation(self, ref):
@@ -807,7 +896,19 @@ class _Lowerer:
         cond = _and_all(_conjuncts(self.expr(scope.canon(ref.on), both)))
         lkeys, rkeys, residual = _extract_equi_keys(cond, lplan.schema,
                                                     rplan.schema)
-        return L.Join(lplan, rplan, ref.how, lkeys, rkeys, residual), scope
+        join = L.Join(lplan, rplan, ref.how, lkeys, rkeys, residual)
+        # a semi or anti join's output is its left side's
+        return join, lscope if ref.how in ("semi", "anti") else scope
+
+    def from_clause(self, from_: List[Any]):
+        """(plan, scope) of a FROM list: a left-deep join tree, comma
+        relations as cross joins."""
+        plan, scope = self.relation(from_[0])
+        for ref in from_[1:]:
+            rplan, rscope = self.relation(ref)
+            rplan, scope = self.combine(plan, scope, rplan, rscope)
+            plan = L.Join(plan, rplan, "cross", [], [])
+        return plan, scope
 
     @staticmethod
     def combine(lplan, lscope: _Scope, rplan, rscope: _Scope):
@@ -906,10 +1007,8 @@ class _Lowerer:
                 return ep.And(left, right)
             if a.op == "or":
                 return ep.Or(left, right)
-            if a.op == "<>":
-                return ep.Not(ep.EqualTo(left, right))
-            if a.op in _COMPARISONS:
-                return _COMPARISONS[a.op](left, right)
+            if a.op in _FLIP:
+                return _comparison(a.op, left, right)
             if a.op in _ARITHMETIC:
                 return _ARITHMETIC[a.op](left, right)
             raise SqlError(f"operator {a.op!r} is not supported by the port")
@@ -919,7 +1018,277 @@ class _Lowerer:
             return self.function(a, schema)
         if isinstance(a, Star):
             raise SqlError("* is only allowed as a select item or count(*)")
+        if isinstance(a, ScalarSub):
+            if a not in self._scalars:
+                self._scalars[a] = self.scalar_value(
+                    self._uncorrelated(a.query, "a scalar query"))
+            return self._scalars[a]
+        if isinstance(a, InSub):
+            return self.in_values(a, schema)
+        if isinstance(a, Exists):
+            raise SqlError("EXISTS is supported only as a conjunct of "
+                           "WHERE")
         raise SqlError(f"unsupported expression {a!r}")
+
+    # -- expression subqueries -----------------------------------------------
+    def _uncorrelated(self, q: Select, what: str) -> L.LogicalPlan:
+        try:
+            return self.select(q)
+        except SqlError as err:
+            raise SqlError(f"{what} inside an expression must be "
+                           f"uncorrelated (the port decorrelates only a "
+                           f"conjunct of WHERE): {err}") from None
+
+    def scalar_value(self, plan: L.LogicalPlan) -> ec.Literal:
+        """An uncorrelated scalar query's value: NULL of its type for no
+        row, ``SqlError`` for more than one."""
+        if len(plan.schema) != 1:
+            raise SqlError("a scalar query must select one column")
+        t = self.run(L.Limit(2, plan))
+        if t.num_rows > 1:
+            raise SqlError("a scalar query returned more than one row")
+        value = t.column(0)[0].as_py() if t.num_rows else None
+        return ec.Literal(value, plan.schema.fields[0].dtype)
+
+    def in_values(self, a: InSub, schema) -> ec.Expression:
+        """``x [NOT] IN (query)`` inside an expression (q45's ``... or
+        i_item_id in (select ...)``): the query runs now, to an IN list,
+        in three-valued logic (a NULL in the set makes NOT IN NULL or
+        false, never true)."""
+        sub = self._uncorrelated(a.query, "IN (query)")
+        if len(sub.schema) != 1:
+            raise SqlError("IN (query) must select one column")
+        values = self.run(sub).column(0).to_pylist()
+        has_null = None in values
+        values = list(dict.fromkeys(v for v in values if v is not None))
+        if not values and not has_null:        # the empty set
+            return ec.Literal(a.negated, T.BOOL)
+        out = ep.In(self.expr(a.child, schema), values)
+        if not a.negated:
+            return out
+        if has_null:
+            return econd.CaseWhen([(out, ec.Literal(False, T.BOOL))],
+                                  ec.Literal(None, T.BOOL))
+        return ep.Not(out)
+
+    def where(self, where, plan: L.LogicalPlan,
+              scope: _Scope) -> L.LogicalPlan:
+        """WHERE over ``plan``, conjunct by conjunct: ``[NOT] IN (query)``
+        is a semi or anti join, ``[NOT] EXISTS`` a constant (uncorrelated)
+        or a semi or anti join (correlated), an OR of correlated EXISTS
+        one semi join against the union of their key sets, and ``x CMP
+        (query)`` a literal (uncorrelated) or a join with the query's
+        groups (correlated); the other conjuncts are one filter above
+        those joins."""
+        rest = []
+        for c in _split(where, "and"):
+            if isinstance(c, NotOp) and isinstance(c.child, (InSub, Exists)):
+                c = dataclasses.replace(c.child, negated=not c.child.negated)
+            arms = _split(c, "or")
+            if isinstance(c, InSub):
+                plan = self.in_join(c, plan)
+            elif isinstance(c, Exists):
+                plan = self.exists(c, plan, scope)
+            elif len(arms) > 1 and all(isinstance(d, Exists) and
+                                       not d.negated for d in arms):
+                plan = self.exists_or(arms, plan, scope)
+            elif isinstance(c, BinOp) and c.op in _FLIP and \
+                    isinstance(c.left, ScalarSub) != \
+                    isinstance(c.right, ScalarSub):
+                sub = c.right if isinstance(c.right, ScalarSub) else c.left
+                try:
+                    sub_plan = self.select(sub.query)
+                except SqlError as err:
+                    plan = self.scalar_cmp(c, plan, scope, err)
+                    continue
+                self._scalars[sub] = self.scalar_value(sub_plan)
+                rest.append(c)
+            else:
+                rest.append(c)
+        if rest:
+            plan = L.Filter(self.expr(_and(rest), plan.schema), plan)
+        return plan
+
+    def in_join(self, c: InSub, plan: L.LogicalPlan) -> L.LogicalPlan:
+        """``x IN (query)`` as a semi join; ``x NOT IN (query)`` as an
+        anti join in three-valued logic: an empty set keeps every row, a
+        NULL in the set keeps none, a NULL ``x`` never matches."""
+        sub = self.select(c.query)
+        if len(sub.schema) != 1:
+            raise SqlError("IN (query) must select one column")
+        f = sub.schema.fields[0]
+        name = self.fresh("in")
+        sub = L.Project([ec.Alias(ec.AttributeReference(f.name).resolve(
+            sub.schema), name)], sub)
+        lkey = self.expr(c.child, plan.schema)
+        rkey = ec.AttributeReference(name, f.dtype, f.nullable)
+        if not c.negated:
+            return L.Join(plan, sub, "semi", [lkey], [rkey])
+        if self.run(L.Limit(1, sub)).num_rows == 0:
+            return plan
+        if f.nullable and self.run(L.Limit(1, L.Filter(
+                ep.IsNull(rkey), sub))).num_rows:
+            return L.Filter(ec.Literal(False, T.BOOL), plan)
+        if lkey.nullable:
+            plan = L.Filter(ep.IsNotNull(lkey), plan)
+        return L.Join(plan, sub, "anti", [lkey], [rkey])
+
+    def exists(self, c: Exists, plan: L.LogicalPlan,
+               scope: _Scope) -> L.LogicalPlan:
+        """An uncorrelated ``[NOT] EXISTS`` runs now, to a constant; a
+        correlated one is a semi or anti join (``exists_parts``)."""
+        try:
+            sub = self.select(c.query)
+        except SqlError:
+            okeys, inner, ikeys, cond = self.exists_parts(c, plan, scope)
+            return L.Join(plan, inner, "anti" if c.negated else "semi",
+                          okeys, ikeys, cond)
+        if (self.run(L.Limit(1, sub)).num_rows > 0) == c.negated:
+            return L.Filter(ec.Literal(False, T.BOOL), plan)
+        return plan
+
+    @staticmethod
+    def _correlation(cj, inner: _Scope, outer: _Scope):
+        """(inner side, outer side) of an equality between a column of
+        the inner query and one of the outer query; None otherwise."""
+        if isinstance(cj, BinOp) and cj.op == "=":
+            for a, b in ((cj.left, cj.right), (cj.right, cj.left)):
+                try:
+                    inner.canon(a)
+                    outer.canon(b)
+                except SqlError:
+                    continue
+                return a, b
+        return None
+
+    def exists_parts(self, c: Exists, plan: L.LogicalPlan, scope: _Scope):
+        """A correlated EXISTS as (outer keys, inner plan, inner keys,
+        residual condition).  Its WHERE conjuncts over the inner query
+        alone filter the inner side, its equalities between the two
+        queries are the join keys (projected under fresh ``__ck`` names),
+        and any other conjunct is the join's residual condition, with the
+        inner columns it reads projected under fresh ``__rc`` names
+        (q16's ``cs1.cs_warehouse_sk <> cs2.cs_warehouse_sk``)."""
+        q = c.query
+        if q.group_by or q.having is not None or q.ctes:
+            raise SqlError("a correlated EXISTS with GROUP BY, HAVING or "
+                           "WITH is not supported by the port")
+        inner, iscope = self.from_clause(q.from_)
+        local, residual, okeys, ikeys = [], [], [], []
+        for cj in _split(q.where, "and") if q.where is not None else []:
+            try:
+                local.append(iscope.canon(cj))
+                continue
+            except SqlError:
+                pass
+            pair = self._correlation(cj, iscope, scope)
+            if pair is None:
+                residual.append(cj)
+                continue
+            ikeys.append(self.expr(iscope.canon(pair[0]), inner.schema))
+            okeys.append(self.expr(scope.canon(pair[1]), plan.schema))
+        if not ikeys:
+            raise SqlError("a correlated EXISTS needs an equality between "
+                           "the inner and the outer query")
+        if local:
+            inner = L.Filter(self.expr(_and(local), inner.schema), inner)
+        names = [self.fresh("ck") for _ in ikeys]
+        proj = [ec.Alias(k, n) for k, n in zip(ikeys, names)]
+        extra: Dict[str, str] = {}          # inner column -> projected
+
+        def inner_col(n):
+            if not isinstance(n, Ident):
+                return n
+            try:
+                col = iscope.resolve(n)
+            except SqlError:
+                return n
+            if col not in extra:
+                extra[col] = self.fresh("rc")
+            return Res(extra[col])
+        asts = [scope.canon(_transform(r, inner_col)) for r in residual]
+        proj += [ec.Alias(ec.AttributeReference(col).resolve(inner.schema),
+                          n) for col, n in extra.items()]
+        inner = L.Project(proj, inner)
+        cond = None
+        if asts:
+            both = L.Join(plan, inner, "cross", [], []).schema
+            cond = self.expr(_and(asts), both)
+        refs = [ec.AttributeReference(n).resolve(inner.schema)
+                for n in names]
+        return okeys, inner, refs, cond
+
+    def exists_or(self, arms, plan: L.LogicalPlan,
+                  scope: _Scope) -> L.LogicalPlan:
+        """``EXISTS (q1) OR EXISTS (q2) ...`` whose arms correlate on the
+        same outer keys: one semi join against the union of the arms' key
+        sets (q10's web-or-catalog customers)."""
+        parts = [self.exists_parts(d, plan, scope) for d in arms]
+        if any(p[3] is not None for p in parts):
+            raise SqlError("an OR of EXISTS with a residual condition is "
+                           "not supported by the port")
+        keys = [repr(k) for k in parts[0][0]]
+        if any([repr(k) for k in p[0]] != keys for p in parts[1:]):
+            raise SqlError("an OR of EXISTS needs the same correlation "
+                           "keys in every arm")
+        try:
+            union = L.Union([p[1] for p in parts])
+        except ValueError as err:
+            raise SqlError(str(err)) from None
+        return L.Join(plan, union, "semi", parts[0][0], parts[0][2])
+
+    def scalar_cmp(self, c: BinOp, plan: L.LogicalPlan, scope: _Scope,
+                   err: SqlError) -> L.LogicalPlan:
+        """``x CMP (correlated query of one aggregate)`` (q1's
+        ``ctr_total_return > (select avg(ctr_total_return) * 1.2 ...
+        where ctr1.ctr_store_sk = ctr2.ctr_store_sk)``): the query grouped
+        by its correlation keys, joined to the outer rows on them, the
+        comparison a filter, and a projection back to the outer columns.
+        An outer row without a group compares with NULL and drops, so the
+        join is an inner one."""
+        right = isinstance(c.right, ScalarSub)
+        sub, outer = (c.right, c.left) if right else (c.left, c.right)
+        op = c.op if right else _FLIP[c.op]
+        q = sub.query
+        if q.group_by or q.having is not None or q.ctes or \
+                len(q.items) != 1 or isinstance(q.items[0][0], Star) or \
+                not _has_agg(q.items[0][0]):
+            raise SqlError(f"a correlated scalar query must select one "
+                           f"aggregate expression ({err})")
+        _, iscope = self.from_clause(q.from_)
+        local, ikeys, okeys = [], [], []
+        for cj in _split(q.where, "and") if q.where is not None else []:
+            try:
+                iscope.canon(cj)
+                local.append(cj)
+                continue
+            except SqlError:
+                pass
+            pair = self._correlation(cj, iscope, scope)
+            if pair is None:
+                raise SqlError(f"a correlated scalar query's conditions must "
+                               f"be equalities between the inner and the "
+                               f"outer query, or conditions of the inner "
+                               f"query alone ({err})")
+            ikeys.append(pair[0])
+            okeys.append(self.expr(scope.canon(pair[1]), plan.schema))
+        if not ikeys:
+            raise SqlError(str(err))
+        names = [self.fresh("ck") for _ in ikeys]
+        value = self.fresh("sv")
+        grouped = self.select(dataclasses.replace(
+            q, items=list(zip(ikeys, names)) + [(q.items[0][0], value)],
+            where=_and(local), group_by=list(ikeys), order_by=[],
+            limit=None))
+        refs = [ec.AttributeReference(n).resolve(grouped.schema)
+                for n in names]
+        joined = L.Join(plan, grouped, "inner", okeys, refs)
+        cond = _comparison(op, self.expr(outer, plan.schema),
+                           ec.AttributeReference(value).resolve(
+                               grouped.schema))
+        # the helper columns do not leak into * or the select list
+        return L.Project([ec.AttributeReference(f.name).resolve(plan.schema)
+                          for f in plan.schema], L.Filter(cond, joined))
 
     def function(self, a: Call, schema) -> ec.Expression:
         args = [self.expr(x, schema) for x in a.args]
@@ -930,6 +1299,10 @@ class _Lowerer:
                     ec.Literal(_literal_of(x)) for x in args[1:]])
             if n == "concat" and args:
                 return es.ConcatStrings(*args)
+            if n in ("upper", "ucase", "lower", "lcase") and \
+                    len(args) == 1 and args[0].dtype() == T.STRING:
+                return (es.Upper if n in ("upper", "ucase") else
+                        es.Lower)(args[0])
             if n == "round" and len(args) in (1, 2):
                 scale = _literal_of(args[1]) if len(args) == 2 else 0
                 dt = args[0].dtype()
@@ -988,11 +1361,7 @@ class _Lowerer:
 
     def _select_body(self, q: Select) -> L.LogicalPlan:
         # 1. FROM: a left-deep join tree, comma relations as cross joins
-        plan, scope = self.relation(q.from_[0])
-        for ref in q.from_[1:]:
-            rplan, rscope = self.relation(ref)
-            rplan, scope = self.combine(plan, scope, rplan, rscope)
-            plan = L.Join(plan, rplan, "cross", [], [])
+        plan, scope = self.from_clause(q.from_)
         # 2. select items with their display names; * expands in order
         items, names = [], []
         for a, alias in q.items:
@@ -1014,12 +1383,12 @@ class _Lowerer:
             else:
                 seen[d] = 0
         by_name = {d.lower(): it for d, it in zip(names, items)}
-        # 3. WHERE (optimize factors the conjuncts of every OR's arms out)
+        # 3. WHERE, with its expression subqueries (optimize factors the
+        # conjuncts of every OR's arms out)
         if q.where is not None:
             if _has_agg(q.where):
                 raise SqlError("aggregates are not allowed in WHERE")
-            plan = L.Filter(self.expr(scope.canon(q.where),
-                                      plan.schema), plan)
+            plan = self.where(scope.canon(q.where), plan, scope)
         # 4. ORDER BY items: ordinals and select names stand for the
         # select expressions; GROUP BY items: ordinals, columns, names
         orders = []
@@ -1119,7 +1488,10 @@ class _Lowerer:
         return L.Aggregate(group_exprs, aggs, plan), items, having, orders
 
 
-def sql_to_plan(sql: str, views: Dict[str, L.LogicalPlan]) -> L.LogicalPlan:
+def sql_to_plan(sql: str, views: Dict[str, L.LogicalPlan],
+                session=None) -> L.LogicalPlan:
     """The optimized logical plan of a query over ``views`` (lower-case
-    names -> plans)."""
-    return optimize(_Lowerer(views).select(parse_sql(sql)))
+    names -> plans).  An uncorrelated subquery runs while the query is
+    lowered, on ``session``'s device; without a session it raises
+    ``SqlError``."""
+    return optimize(_Lowerer(views, session).select(parse_sql(sql)))

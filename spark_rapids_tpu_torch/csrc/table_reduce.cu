@@ -22,8 +22,11 @@
 //             into signed 8-bit chunks on a 120-bit window anchored at the
 //             batch's largest exponent `emax`, a device scalar the kernel
 //             reads (the arithmetic of kernels/aggregate.part_chunk_lanes)
-//   FMAX64  [u32 cnt, non-NaN cnt, u64 max of flip32(hi) << 32 | flip32(lo)]
-//             (-0.0 -> 0.0; equals the two-stage u32 max bit for bit)
+//   FMAX64  [u32 cnt, non-NaN cnt, u64 max of flip64(v)]
+//             (-0.0 -> 0.0; the f64's own bits in float order, so the max
+//             is the winning row's value exactly; the TPU's two-stage u32
+//             max of the f32 pair hi + lo kept ~48 bits of it, and ranks
+//             the rows the same way)
 //   FSUMV   [u32 cnt, f64 sum]                     (variable float mode)
 //   FMAX    [u32 cnt, non-NaN cnt, u32 max of flip32(f32(v))]
 //   SUM32, SUM64, MAX32: the TPU kernel's own raw f32/f64 sum rows and f32
@@ -142,6 +145,12 @@ __device__ __forceinline__ unsigned flip32(float f) {
   return (u >> 31) ? ~u : (u | 0x80000000u);
 }
 
+// f64 -> u64 whose unsigned order is the float order (flip32 for 64 bits)
+__device__ __forceinline__ unsigned long long flip64(double f) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(f);
+  return (u >> 63) ? ~u : (u | 0x8000000000000000ull);
+}
+
 struct Slot {
   unsigned char* sh;   // shared byte address of sub-row lo, this bucket's
   int lo, hi, step;    // step: bytes between sub-rows (row_bytes * stride)
@@ -230,11 +239,7 @@ __device__ __forceinline__ void apply(int kind, const Slot& s, int slot,
       s.add32(0, slot, 1);
       if (!isnan(v)) {
         s.add32(1, slot, 1);
-        const float hi = __double2float_rn(v);
-        const float lo = isfinite(v) ? __double2float_rn(v - (double)hi)
-                                     : 0.0f;
-        s.max64(2, slot, ((unsigned long long)flip32(hi) << 32) |
-                             flip32(lo));
+        s.max64(2, slot, flip64(v));
       }
       break;
     }

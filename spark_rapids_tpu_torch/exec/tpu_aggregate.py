@@ -14,10 +14,13 @@ arrays beside its reduce kernel:
   batch's largest exponent; the i32 chunk lanes add with integer
   atomics, which are order-independent, so exact mode is deterministic
   on the card, and recombine per bucket in f64 after the launch;
-- exact f64 max: one u64 order word per row (the reference's two-stage
-  u32 max in one 64-bit max).  An integer max takes the same word: an
-  integer of magnitude at most 2^48 is exact as an f64 and as the word's
-  f32 pair; a batch with a larger one runs the sort path.
+- exact f64 max: one u64 order word per row, the f64's own bits in
+  float order (``flip64``).  The reference's two-stage u32 max of the
+  f32 pair hi + lo ranks the rows the same way but keeps about 48 bits
+  of the winner, so ``x = max(x)`` missed the row it came from; the H100
+  has f64.  An integer max takes the same word for a magnitude of at
+  most 2^48 (the pair form's bound); a batch with a larger one runs the
+  sort path.
 
 The batch's largest exponent and the fit conditions stay torch ops
 before the launch.  A device fit flag says whether the batch fit the
@@ -54,7 +57,7 @@ from ..expr import core as ec
 from ..expr import aggregates as ea
 from ..kernels import aggregate as agg_k
 from ..kernels import canon
-from ..kernels.aggregate import CH_W0, chunk_recombine, f32_exp, unflip32
+from ..kernels.aggregate import CH_W0, chunk_recombine, f32_exp, unflip64
 from ..kernels.basic import SIGN64
 from ..kernels.cuda_ops import StageCol, table_stage
 from ..plan.logical import AggExpr
@@ -289,9 +292,9 @@ class TpuHashAggregate(TpuExec):
             # exponent spread beyond the window -> exact sort path
             fit = fit & ((emax - emin) <= CH_W0 - 25)
             return StageCol(kind, v, valid, emax), fit
-        # fmax, fmax64: a finite f64 whose f32 overflows would alias inf
-        fit = torch.where(ok & torch.isfinite(v),
-                          torch.isfinite(v.to(torch.float32)), True).all()
+        # fmax: a finite f64 whose f32 overflows would alias inf
+        fit = torch.where(ok & torch.isfinite(v), torch.isfinite(
+            v.to(torch.float32)), True).all() if kind == "fmax" else True
         if c.dtype == T.INT64:
             fit = fit & torch.where(ok, (c.data >= -INT_MAX_EXACT) &
                                     (c.data <= INT_MAX_EXACT), True).all()
@@ -402,9 +405,7 @@ class TpuHashAggregate(TpuExec):
                 if kind == "fmax":
                     m = compact(t[2]).to(torch.float64)
                 else:
-                    w = compact(t[2])
-                    m = unflip32(w >> 32).to(torch.float64) + \
-                        unflip32(w).to(torch.float64)
+                    m = unflip64(compact(t[2]))
                 # any NaN in the group wins
                 m = torch.where(cntv > nnv, float("nan"), m)
                 dt = self.aggs[ai].func.buffer_dtypes()[0]

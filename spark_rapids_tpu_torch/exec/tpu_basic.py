@@ -1,4 +1,4 @@
-"""Scan, project, filter and limit operators.
+"""Scan, project, filter, limit and union operators.
 
 Counterpart of ``spark_rapids_tpu/exec/tpu_basic.py``.  An operator's
 ``execute()`` returns its partitions, each a list of device batches;
@@ -226,3 +226,30 @@ class TpuGlobalLimit(TpuExec):
             raise ValueError(f"a global limit needs one partition, got "
                              f"{len(parts)}")
         return [_take_rows(parts[0], self.n)]
+
+
+class TpuUnion(TpuExec):
+    """UNION ALL: every child's partitions in turn, each batch relabelled
+    with the union's schema (``plan/logical.Union``: the children's column
+    types are equal, so no batch is converted)."""
+
+    def __init__(self, schema: Schema, children: List[TpuExec]):
+        for c in children:
+            types = [f.dtype for f in c.output_schema]
+            if types != [f.dtype for f in schema]:
+                raise ValueError(f"a union child of column types {types} "
+                                 f"under a union of {schema}")
+        self.schema = schema
+        self.children = list(children)
+
+    @property
+    def output_schema(self):
+        return self.schema
+
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions() for c in self.children)
+
+    def execute(self) -> Partitions:
+        return [[ColumnarBatch(self.schema, b.columns, b.rows,
+                               device=b.device) for b in part]
+                for c in self.children for part in c.execute()]

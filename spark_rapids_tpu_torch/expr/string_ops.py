@@ -1,5 +1,5 @@
-"""String expressions: substring, prefix/suffix/contains tests, LIKE and
-concatenation.
+"""String expressions: substring, prefix/suffix/contains tests, LIKE,
+concatenation and ASCII case.
 
 Counterpart of ``spark_rapids_tpu/expr/string_ops.py`` (the expressions
 this slice runs).  Positions and patterns are literals, read when the
@@ -55,6 +55,29 @@ class Substring(Expression):
     def columnar_eval(self, batch):
         return skern.substring(_eval_string(self.children[0], batch),
                                self.pos, self.length)
+
+
+class Upper(Expression):
+    """``upper(str)``: ASCII letters only, as the reference's
+    ``strings.upper`` (a non-ASCII character keeps its bytes)."""
+
+    kernel = staticmethod(skern.upper)
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def dtype(self):
+        return T.STRING
+
+    def columnar_eval(self, batch):
+        return type(self).kernel(_eval_string(self.children[0], batch))
+
+
+class Lower(Upper):
+    """``lower(str)``: ASCII letters only, as the reference's
+    ``strings.lower``."""
+
+    kernel = staticmethod(skern.lower)
 
 
 class _LiteralPatternPredicate(Expression):

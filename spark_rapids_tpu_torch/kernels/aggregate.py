@@ -271,6 +271,19 @@ def unflip32(w: torch.Tensor) -> torch.Tensor:
     return u.to(torch.int32).view(torch.float32)
 
 
+def flip64(f: torch.Tensor) -> torch.Tensor:
+    """f64 -> the int64 bits of a u64 whose unsigned order is the float
+    order (canonical NaN above +inf, -0.0 below 0.0): ``flip32`` for the
+    f64's own bits."""
+    u = f.contiguous().view(torch.int64)
+    return torch.where(u < 0, ~u, u | SIGN64)
+
+
+def unflip64(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``flip64``: int64 words -> f64."""
+    return torch.where(w < 0, w ^ SIGN64, ~w).view(torch.float64)
+
+
 def _pow2_f64(k: torch.Tensor) -> torch.Tensor:
     """2^k as f64 from an integer tensor, k in the normal range."""
     return ((k + 1023) << 52).view(torch.float64)

@@ -25,7 +25,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .aggregate import CH_LANES, flip32, part_chunk_lanes, unflip32
+from .aggregate import (CH_LANES, flip32, flip64, part_chunk_lanes,
+                        unflip32)
 from .basic import SIGN64, hash_to_partition, hash_words
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -472,21 +473,15 @@ def table_stage_plain(bucket: torch.Tensor, table: int,
             v = torch.where(v == 0.0, 0.0, v)        # -0.0 == 0.0
             okn = ok & ~torch.isnan(v)
             nn = tab(okn, torch.int32)
-            hi = v.to(torch.float32)
             if k == "fmax":
-                key = torch.where(okn, flip32(hi), 0)
+                key = torch.where(okn, flip32(v.to(torch.float32)), 0)
                 res.append((cnt, nn,
                             decode_max32(tab(key, torch.int64, "amax"))))
                 continue
-            lo = torch.where(torch.isfinite(v), v - hi.to(torch.float64),
-                             0.0).to(torch.float32)
-            # the u64 word flip32(hi) << 32 | flip32(lo) as int64 bits,
-            # maxed as a signed max with the top bit flipped
-            whi = flip32(hi)
-            word = torch.where(whi >= 1 << 31, whi - (1 << 32), whi) * \
-                (1 << 32) + flip32(lo)
-            w = tab(torch.where(okn, word ^ SIGN64, SIGN64), torch.int64,
-                    "amax", SIGN64)
+            # the u64 word flip64(v) as int64 bits, maxed as a signed max
+            # with the top bit flipped
+            w = tab(torch.where(okn, flip64(v) ^ SIGN64, SIGN64),
+                    torch.int64, "amax", SIGN64)
             res.append((cnt, nn, w ^ SIGN64))
     return res
 

@@ -122,6 +122,25 @@ def gather_strings(col, indices: torch.Tensor, live: torch.Tensor = None):
     return StringColumn(offsets, data, valid, col.max_bytes)
 
 
+def _shift_case(col, lo: int, hi: int, delta: int):
+    """``col`` with each byte in [lo, hi] moved by ``delta``: the ASCII
+    letters alone, as the reference's byte tables do (a byte of a
+    multi-byte UTF-8 character is 0x80 or more, and stays)."""
+    d = col.data
+    data = torch.where((d >= lo) & (d <= hi), d + delta, d).to(torch.uint8)
+    return type(col)(col.offsets, data, col.validity, col.max_bytes)
+
+
+def upper(col):
+    """ASCII upper case (``strings.upper`` of the reference)."""
+    return _shift_case(col, ord("a"), ord("z"), -32)
+
+
+def lower(col):
+    """ASCII lower case (``strings.lower`` of the reference)."""
+    return _shift_case(col, ord("A"), ord("Z"), 32)
+
+
 class LiteralBytes:
     """A string literal's UTF-8 bytes and their copy on each device.  The
     expression that holds one uploads its literal once per device, never

@@ -2,7 +2,7 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, limited to the nodes
 the port plans: local relation, file scan, project, filter, aggregate,
-join, sort and limit.
+join, sort, limit and union.
 """
 from __future__ import annotations
 
@@ -195,3 +195,30 @@ class Limit(LogicalPlan):
 
     def estimated_rows(self):
         return self.n
+
+
+class Union(LogicalPlan):
+    """UNION ALL of children whose columns have the same types, under the
+    first child's names; a column is nullable if it is in any child.  The
+    port has no CAST, so children of other types raise ``ValueError``
+    rather than being cast."""
+
+    def __init__(self, children: List[LogicalPlan]):
+        self.children = list(children)
+        first = [f.dtype for f in self.children[0].schema]
+        for c in self.children[1:]:
+            types = [f.dtype for f in c.schema]
+            if types != first:
+                raise ValueError(f"a union's children must have the same "
+                                 f"column types (the port has no CAST): "
+                                 f"{first} and {types}")
+
+    @property
+    def schema(self):
+        schemas = [c.schema for c in self.children]
+        return Schema(Field(f.name, f.dtype, any(s[i].nullable
+                                                  for s in schemas))
+                      for i, f in enumerate(schemas[0]))
+
+    def estimated_rows(self):
+        return sum(c.estimated_rows() for c in self.children)

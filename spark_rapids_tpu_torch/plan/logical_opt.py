@@ -13,8 +13,9 @@ become join keys, the rest stay above.  A Filter over a Project (a
 derived table's or a CTE's select list, or a self-join's renaming) has
 the conjuncts over its pass-through columns rewritten to the names below
 and sunk under it (``_rewrite_filter_project``), so they go on sinking
-into the joins inside; a Filter stays above an Aggregate, a Sort and a
-Limit.  ``prune_scan_columns`` narrows every scan, and every projection,
+into the joins inside; a Filter over a semi or anti join has its
+conjuncts over the left side sunk into it (``_rewrite_filter_semi``); a
+Filter stays above an Aggregate, a Sort and a Limit.  ``prune_scan_columns`` narrows every scan, and every projection,
 to the columns the plan above reads.
 """
 from __future__ import annotations
@@ -149,6 +150,30 @@ def _rewrite_filter_join(f: L.Filter) -> L.LogicalPlan:
     return _filter_over(rest, joined)
 
 
+def _rewrite_filter_semi(f: L.Filter) -> L.LogicalPlan:
+    """Filter over a semi or anti join: the join's output is its left
+    rows, so a conjunct over the left columns commutes with it and sinks
+    into the left side, where the comma-join rules then make equi-joins
+    of it.  The ``IN (query)`` and ``EXISTS`` lowerings stack their joins
+    between WHERE's filter and the FROM list's cross joins: without this
+    rule those stay cross joins."""
+    j = f.children[0]
+    if not isinstance(j, L.Join) or j.how not in ("semi", "anti"):
+        return f
+    left = j.children[0]
+    lnames = set(left.schema.names)
+    push, rest = [], []
+    for c in _flatten_and(f.condition):
+        refs = _refs(c)
+        (push if refs and refs <= lnames else rest).append(c)
+    if not push:
+        return f
+    new_left = optimize(_filter_over(push, left))
+    joined = L.Join(new_left, j.children[1], j.how, j.left_keys,
+                    j.right_keys, j.condition)
+    return _filter_over(rest, joined)
+
+
 def _rewrite_filter_project(f: L.Filter) -> L.LogicalPlan:
     """Filter conjuncts through a Project whose columns they read are
     pure pass-throughs (a column, or a column under an alias): each is
@@ -247,9 +272,10 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
             return optimize(L.Filter(ep.And(plan.condition, child.condition),
                                      child.children[0]))
         plan = _reorder_cross_joins(plan)
-        out = _rewrite_filter_join(plan)
-        if out is not plan:
-            return out
+        for rule in (_rewrite_filter_join, _rewrite_filter_semi):
+            out = rule(plan)
+            if out is not plan:
+                return out
         return _rewrite_filter_project(plan)
     return plan
 

@@ -30,7 +30,10 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   again.  A limit right over a global sort is one ``TpuTopN`` over the
   sort's input (the reference's rule; SQL text puts its projection
   between the two, so only the DataFrame API's ``sort().limit()``
-  reaches it).
+  reaches it);
+- a union is a ``TpuUnion`` of its children's partitions, one after the
+  other.  The semi and anti joins of SQL's ``IN (query)`` and ``EXISTS``
+  take the broadcast or shuffle choice of every other join.
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ from ..exec.exchange import (TpuBroadcastExchange, TpuCoalescePartitions,
                              TpuShuffleExchange)
 from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
 from ..exec.tpu_basic import (TpuExec, TpuFilter, TpuGlobalLimit,
-                              TpuLocalLimit, TpuLocalScan, TpuProject)
+                              TpuLocalLimit, TpuLocalScan, TpuProject,
+                              TpuUnion)
 from ..exec.tpu_join import (TpuBroadcastHashJoin, TpuNestedLoopJoin,
                              TpuShuffledHashJoin)
 from ..exec.tpu_sort import TpuSort, TpuTopN
@@ -113,6 +117,8 @@ def _plan(node: L.LogicalPlan, conf: C.TpuConf,
             return TpuTopN(node.n, sort.orders, go(sort.children[0]))
         local = TpuLocalLimit(node.n, go(node.children[0]))
         return TpuGlobalLimit(node.n, TpuCoalescePartitions(local))
+    if isinstance(node, L.Union):
+        return TpuUnion(node.schema, [go(c) for c in node.children])
     raise NotImplementedError(f"no device operator for {type(node).__name__}")
 
 

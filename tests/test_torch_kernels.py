@@ -353,9 +353,13 @@ def _torch_two_stage_max(v, ok, bucket, table):
 
 
 def test_table_stage_max_word_matches_two_stage_max():
-    """fmax64: the u64 max word's halves equal the reference's two-stage
-    u32 ``segment_max`` and the earlier torch two-stage max, bit for bit;
-    the count and non-NaN count against numpy."""
+    """fmax64: the u64 max word is the bucket's largest value in float
+    order (``flip64``), equal to numpy's max bit for bit; the f32 pair
+    (hi, lo) of that value equals the reference's two-stage u32
+    ``segment_max`` and the earlier torch two-stage max, which rank the
+    rows the same way but keep only the pair; the count and non-NaN
+    count against numpy."""
+    from spark_rapids_tpu_torch.kernels.aggregate import flip32, unflip64
     import jax
     rng = np.random.default_rng(12)
     n, table = 4000, 64
@@ -365,10 +369,21 @@ def test_table_stage_max_word_matches_two_stage_max():
     assert bool(fit)
     cnt, nn, word = cuda_ops.table_stage(torch.from_numpy(bucket), table,
                                          [sc])[0]
-    w = word.numpy().view(np.uint64)
     b = np.where(bucket < table, bucket, table)
     vz = np.where(v == 0.0, 0.0, v)
     okn = valid & ~np.isnan(vz)
+    # the word's value is the bucket's max exactly
+    has = np.bincount(b, weights=okn, minlength=table + 1)[:table] > 0
+    assert not word.numpy()[~has].any()
+    m = unflip64(word)
+    want = np.full(table, -np.inf)
+    np.maximum.at(want, b[okn & (b < table)], vz[okn & (b < table)])
+    assert np.array_equal(m.numpy()[has], want[has])
+    # its f32 pair, as the two-stage max words
+    hi32 = m.to(torch.float32)
+    lo32 = torch.where(torch.isfinite(m), m - hi32.double(), 0.0).float()
+    w = ((flip32(hi32) << 32) | flip32(lo32)).numpy().view(np.uint64)
+    w[~has] = 0
     assert np.array_equal(nn.numpy(), np.bincount(
         b, weights=okn, minlength=table + 1)[:table])
     assert np.array_equal(cnt.numpy(), np.bincount(
@@ -387,7 +402,6 @@ def test_table_stage_max_word_matches_two_stage_max():
         num_segments=table + 1)
     # an empty bucket: the reference's segment_max gives 0 only where a
     # row of value 0 landed, so compare where the bucket has a non-NaN
-    has = np.bincount(b, weights=okn, minlength=table + 1)[:table] > 0
     assert np.array_equal((w >> np.uint64(32))[has],
                           np.asarray(mm1)[:table][has])
     assert np.array_equal((w & np.uint64(0xFFFFFFFF))[has],
