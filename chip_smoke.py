@@ -75,7 +75,17 @@ Phases (any failure exits non-zero):
    computation (``ds9_references``), warm runs byte-identical, rows
    unless DS9_EMPTY names the query, the lowering's share and B1, B2
    and probe launches per query; q10 and q1 run once more under the
-   profiler.  B1 and the join probe must launch.
+   profiler.  B1 and the join probe must launch;
+10. TPC-DS with set operations, SELECT DISTINCT and DATE columns: the 15
+   queries of DS10_QUERIES (UNION ALL reports over the three channels,
+   the year-over-year customer totals, INTERSECT and EXCEPT of customer
+   sets, q83's DATE keys) verbatim through the same session on the same
+   tables, timed as in phase 9, each with DS10_PLANS' operators, a cold
+   and two warm runs against a pyarrow computation
+   (``ds10_references``), warm runs byte-identical, rows unless
+   DS10_EMPTY names the query, peak memory and B1, B2 and probe launches
+   per query; q4 and q87 run once more under the profiler.  B1 and the
+   join probe must launch.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -893,18 +904,23 @@ def profile_query(df) -> set:
         df.to_arrow()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    names = {e.key for e in prof.key_averages()}
-    # device events alone: an op's row in key_averages() carries its
-    # kernels' time too, so summing every row counts the device twice
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the trace's raw events: building the profiler's event tree
+    # (``prof.events()``, ``key_averages()``) takes minutes for a run of
+    # 270,000 launches; the names and device times are the same
+    events = prof.profiler.kineto_results.events()
+    names = {e.name() for e in events}
+    # device events alone: an op's CPU event spans its kernels' time too,
+    # so summing every event counts the device twice
+    device = [e for e in events
+              if e.device_type() == torch.autograd.DeviceType.CUDA and
+              not e.is_user_annotation()]
     if not device:
         print("profile: the profiler saw no device time")
         return names
     by_name = {}
     for e in device:
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        us, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     dev_us = sum(us for us, _ in by_name.values())
     copies = sum(n for name, (_, n) in by_name.items()
                  if name.startswith(("Memcpy", "Memset")))
@@ -3836,6 +3852,588 @@ def tpcds9_phase(args, kernels_used, data_dir: str, session) -> dict:
     return launches
 
 
+DS10_QUERIES = ("q2", "q4", "q8", "q11", "q23", "q33", "q38", "q56", "q60",
+                "q66", "q71", "q74", "q76", "q83", "q87")
+#: queries allowed an empty answer at SF10, with the reason
+DS10_EMPTY = {
+    "q76": "its three branches read the sales rows whose ss_store_sk, "
+           "ws_ship_customer_sk or cs_ship_mode_sk is NULL, and the "
+           "generator draws no NULL foreign key"}
+#: ORDER BY of each query as (select column position, ascending); None:
+#: no ORDER BY (q23's keyless sum, q38's and q87's counts)
+DS10_ORDER = {
+    "q2": _ASC[:1], "q4": _ASC[:4], "q8": _ASC[:1], "q11": _ASC[:4],
+    "q23": None, "q33": [(1, True), (0, True)], "q38": None,
+    "q56": [(1, True), (0, True)], "q60": _ASC[:2], "q66": _ASC[:1],
+    "q71": [(4, False), (0, True)], "q74": _ASC[:3], "q76": _ASC[:5],
+    "q83": _ASC[:2], "q87": None}
+#: LIMIT of each query with an ORDER BY (100 where not listed; q2 has
+#: none)
+DS10_LIMIT = {"q2": 1 << 62}
+#: the table whose rows a query's Mrows/s counts (its largest scan)
+DS10_FACT = {q: "store_sales" for q in DS10_QUERIES}
+DS10_FACT.update({"q2": "catalog_sales", "q66": "catalog_sales",
+                  "q83": "store_returns"})
+#: the two-digit zip prefixes of q8's address list
+Q8_PREFIXES = ("24", "35", "46", "57", "68", "79", "80", "91", "12", "23",
+               "34", "45", "56", "67", "78", "89", "90", "10")
+
+
+def _round_half_up(v: float, digits: int) -> float:
+    """Spark's ``round`` of a double (HALF_UP), in the port's formula."""
+    s = v * 10.0 ** digits
+    return math.copysign(math.floor(abs(s) + 0.5), s) / 10.0 ** digits
+
+
+def _sum_or_null(values):
+    """SQL ``sum``: the sum of the non-null values, NULL if there is
+    none."""
+    vals = [v for v in values if v is not None]
+    return sum(vals) if vals else None
+
+
+def ds10_references(data_dir: str, queries=DS10_QUERIES) -> dict:
+    """Each phase-10 query's full result (every row before its LIMIT), in
+    its select list's order, by pyarrow and Python written apart from
+    the port: a UNION ALL is the branches' rows one after the other (or
+    their sums merged by key), an INTERSECT or EXCEPT of DISTINCT sets a
+    ``pc.unique`` of one joined key per row tested with ``pc.is_in``, a
+    join whose key repeats (q2's weeks, q8's zip prefixes) a multiplicity
+    counted apart, and q4/q11/q74's six- and four-way self-join of
+    ``year_total`` a product over each customer's rows."""
+    import collections
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, between = _ds7_tools(data_dir)
+    out = {}
+
+    def rows_of(t, cols):
+        return list(zip(*[t[c].to_pylist() for c in cols]))
+
+    def dates(cols, *conds):
+        d = read("date_dim", ["d_date_sk"] + cols)
+        for col, fn in conds:
+            d = d.filter(fn(d[col]))
+        return d
+
+    def eq(v):
+        return lambda c: pc.equal(c, v)
+
+    if "q2" in queries:
+        days = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+                "Friday", "Saturday")
+        d = read("date_dim", ["d_date_sk", "d_week_seq", "d_day_name",
+                              "d_year"])
+        sales = pa.concat_tables([
+            read(f, [f"{p}_sold_date_sk", f"{p}_ext_sales_price"])
+            .rename_columns(["sold_date_sk", "sales_price"])
+            for p, f in (("ws", "web_sales"), ("cs", "catalog_sales"))])
+        j = join(sales, d, "sold_date_sk", "d_date_sk")
+        none = pa.scalar(None, pa.float64())
+        for day in days:
+            j = j.append_column(day, pc.if_else(
+                pc.equal(j["d_day_name"], day), j["sales_price"], none))
+        g = j.group_by("d_week_seq").aggregate([(x, "sum") for x in days])
+        week = {r[0]: r[1:] for r in rows_of(
+            g, ["d_week_seq"] + [f"{x}_sum" for x in days])}
+        # a week's row repeats once per date_dim row of that week in the
+        # year (``from wswscs, date_dim where d_week_seq = ... and d_year
+        # = 2000``)
+        per_year = {y: collections.Counter(d.filter(pc.equal(
+            d["d_year"], y))["d_week_seq"].to_pylist()) for y in (2000,
+                                                                 2001)}
+        rows = []
+        for w1, n1 in per_year[2000].items():
+            w2 = w1 + 53
+            if w1 not in week or w2 not in week or w2 not in per_year[2001]:
+                continue
+            vals = tuple(None if a is None or b is None or b == 0 else
+                         _round_half_up(a / b, 2)
+                         for a, b in zip(week[w1], week[w2]))
+            rows += [(w1,) + vals] * (n1 * per_year[2001][w2])
+        out["q2"] = rows
+
+    def year_over_year(cust_cols, value, channels, years, beats):
+        """q4/q11/q74: each channel's ``year_total`` branch summed by
+        customer and year, then the self-join of its first- and
+        second-year rows: the customers whose first-year totals are all
+        positive and whose growth ratios (second / first year, by
+        channel letter) ``beats`` holds, with the second store year's
+        customer columns.  The text groups and joins by the customer's
+        columns and id; each id names one customer, so the sums group by
+        the customer key and the rows join on it."""
+        facts = {"s": ("store_sales", "ss", "ss_customer_sk"),
+                 "c": ("catalog_sales", "cs", "cs_bill_customer_sk"),
+                 "w": ("web_sales", "ws", "ws_bill_customer_sk")}
+        cust = read("customer", ["c_customer_sk"] + cust_cols)
+        check(pc.count_distinct(cust["c_customer_id"]).as_py() ==
+              cust.num_rows, "customer ids repeat")
+        d = dates(["d_year"], ("d_year", lambda c: isin(c, list(years))))
+        t = None
+        for ch in channels:
+            fact, p, ck = facts[ch]
+            cols = {c.replace("PFX", p) for c in value[1]}
+            f = read(fact, [ck, f"{p}_sold_date_sk"] + sorted(cols))
+            f = f.append_column("v", value[0](
+                lambda name: f[name.replace("PFX", p)]))
+            g = join(f, d, f"{p}_sold_date_sk", "d_date_sk").group_by(
+                [ck, "d_year"]).aggregate([("v", "sum")])
+            for i, y in enumerate(years):
+                part = g.filter(pc.equal(g["d_year"], y))
+                part = pa.table({"sk": part[ck],
+                                 f"{ch}{i}": part["v_sum"]})
+                t = part if t is None else join(t, part, "sk", "sk")
+        keep = None
+        for ch in channels:
+            first_ok = pc.greater(t[f"{ch}0"], 0)
+            keep = first_ok if keep is None else pc.and_(keep, first_ok)
+        ratio = {ch: pc.divide(t[f"{ch}1"], t[f"{ch}0"]) for ch in channels}
+        t = t.filter(pc.and_(keep, beats(ratio)))
+        t = join(t, cust, "sk", "c_customer_sk")
+        return rows_of(t, cust_cols[:4] if len(cust_cols) > 3 else
+                       cust_cols)
+
+    wide = ["c_customer_id", "c_first_name", "c_last_name",
+            "c_preferred_cust_flag", "c_birth_country", "c_login",
+            "c_email_address"]
+    if "q4" in queries:
+        def v4(col):
+            return pc.divide(pc.add(pc.subtract(pc.subtract(
+                col("PFX_ext_list_price"), col("PFX_ext_wholesale_cost")),
+                col("PFX_ext_discount_amt")), col("PFX_ext_sales_price")),
+                2)
+        out["q4"] = year_over_year(
+            wide, (v4, ["PFX_ext_list_price", "PFX_ext_wholesale_cost",
+                        "PFX_ext_discount_amt", "PFX_ext_sales_price"]),
+            ("s", "c", "w"), (2001, 2002),
+            lambda r: pc.and_(pc.greater(r["c"], r["s"]),
+                              pc.greater(r["c"], r["w"])))
+    if "q11" in queries:
+        # q11's CASE gives 0.0 where q4's and q74's give NULL; every
+        # first-year total that reaches it is positive
+        out["q11"] = year_over_year(
+            wide, (lambda col: pc.subtract(col("PFX_ext_list_price"),
+                                           col("PFX_ext_discount_amt")),
+                   ["PFX_ext_list_price", "PFX_ext_discount_amt"]),
+            ("s", "w"), (2001, 2002),
+            lambda r: pc.greater(r["w"], r["s"]))
+    if "q74" in queries:
+        out["q74"] = year_over_year(
+            wide[:3], (lambda col: col("PFX_net_paid"), ["PFX_net_paid"]),
+            ("s", "w"), (1999, 2000), lambda r: pc.greater(r["w"], r["s"]))
+    if "q8" in queries:
+        ca = read("customer_address", ["ca_address_sk", "ca_zip"])
+        ca = ca.append_column("z5", pc.utf8_slice_codeunits(
+            ca["ca_zip"], 0, 5))
+        listed = set(pc.unique(pc.filter(ca["z5"], isin(
+            pc.utf8_slice_codeunits(ca["ca_zip"], 0, 2),
+            list(Q8_PREFIXES)))).to_pylist())
+        c = read("customer", ["c_current_addr_sk", "c_preferred_cust_flag"])
+        c = c.filter(pc.equal(c["c_preferred_cust_flag"], "Y"))
+        g = join(c, ca, "c_current_addr_sk", "ca_address_sk").group_by(
+            "z5").aggregate([("c_preferred_cust_flag", "count")])
+        g = g.filter(pc.greater(g["c_preferred_cust_flag_count"], 1))
+        zips = listed & set(g["z5"].to_pylist())
+        # the join on two-digit prefixes repeats a store's rows once per
+        # zip of its prefix
+        per_prefix = collections.Counter(z[:2] for z in zips)
+        ss = join(read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                       "ss_net_profit"]),
+                  dates(["d_qoy", "d_year"], ("d_qoy", eq(2)),
+                        ("d_year", eq(1998))), "ss_sold_date_sk",
+                  "d_date_sk")
+        g = ss.group_by("ss_store_sk").aggregate([("ss_net_profit", "sum")])
+        profit = dict(rows_of(g, ["ss_store_sk", "ss_net_profit_sum"]))
+        by_name = collections.defaultdict(list)
+        for sk, name, zip_ in rows_of(read("store", [
+                "s_store_sk", "s_store_name", "s_zip"]),
+                ["s_store_sk", "s_store_name", "s_zip"]):
+            n = per_prefix.get(zip_[:2], 0) if zip_ is not None else 0
+            if sk in profit and n:
+                by_name[name].append(None if profit[sk] is None else
+                                     profit[sk] * n)
+        out["q8"] = [(k, _sum_or_null(v)) for k, v in by_name.items()]
+    if "q23" in queries:
+        years = ("d_year", lambda c: isin(c, [2000, 2001, 2002, 2003]))
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                                  "ss_customer_sk", "ss_quantity",
+                                  "ss_sales_price"])
+        ss = ss.append_column("csales", pc.multiply(ss["ss_quantity"],
+                                                    ss["ss_sales_price"]))
+        it = read("item", ["i_item_sk", "i_item_desc"])
+        j = join(join(ss, dates(["d_date", "d_year"], years),
+                      "ss_sold_date_sk", "d_date_sk"), it, "ss_item_sk",
+                 "i_item_sk")
+        j = j.append_column("desc30", pc.utf8_slice_codeunits(
+            j["i_item_desc"], 0, 30))
+        g = j.group_by(["desc30", "ss_item_sk", "d_date"]).aggregate(
+            [("ss_sold_date_sk", "count")])
+        frequent = pc.unique(g.filter(pc.greater(
+            g["ss_sold_date_sk_count"], 4))["ss_item_sk"])
+        cust = read("customer", ["c_customer_sk"])
+        sc = join(ss, cust, "ss_customer_sk", "c_customer_sk")
+        g = join(sc, dates(["d_year"], years), "ss_sold_date_sk",
+                 "d_date_sk").group_by("ss_customer_sk").aggregate(
+            [("csales", "sum")])
+        cmax = pc.max(g["csales_sum"]).as_py()
+        g = sc.group_by("ss_customer_sk").aggregate([("csales", "sum")])
+        best = pc.unique(g.filter(pc.greater(
+            g["csales_sum"], 0.5 * cmax))["ss_customer_sk"]) \
+            if cmax is not None else pa.array([], pa.int64())
+        parts = []
+        for p, fact in (("cs", "catalog_sales"), ("ws", "web_sales")):
+            f = join(read(fact, [f"{p}_sold_date_sk", f"{p}_item_sk",
+                                 f"{p}_bill_customer_sk", f"{p}_quantity",
+                                 f"{p}_list_price"]),
+                     dates(["d_year", "d_moy"], ("d_year", eq(2000)),
+                           ("d_moy", eq(2))), f"{p}_sold_date_sk",
+                     "d_date_sk")
+            f = f.filter(pc.and_(
+                pc.is_in(f[f"{p}_item_sk"], value_set=frequent),
+                pc.is_in(f[f"{p}_bill_customer_sk"], value_set=best)))
+            parts += pc.multiply(f[f"{p}_quantity"],
+                                 f[f"{p}_list_price"]).to_pylist()
+        out["q23"] = [(_sum_or_null(parts),)]
+
+    def three_channels(key, item_ok, year, moy):
+        """q33/q56/q60: each channel's sales of (year, moy) to addresses
+        at GMT offset -5 of the items ``item_ok`` keeps, summed by
+        ``key``; then the three channels' sums summed by ``key``."""
+        it = read("item", ["i_item_sk", key, "i_category", "i_color"])
+        it = it.filter(item_ok(it))
+        ca = read("customer_address", ["ca_address_sk", "ca_gmt_offset"])
+        ca = ca.filter(pc.equal(ca["ca_gmt_offset"], -5))
+        d = dates(["d_year", "d_moy"], ("d_year", eq(year)),
+                  ("d_moy", eq(moy)))
+        totals = collections.defaultdict(list)
+        for p, fact, addr in (("ss", "store_sales", "ss_addr_sk"),
+                              ("cs", "catalog_sales", "cs_bill_addr_sk"),
+                              ("ws", "web_sales", "ws_bill_addr_sk")):
+            price = f"{p}_ext_sales_price"
+            f = read(fact, [f"{p}_sold_date_sk", f"{p}_item_sk", addr,
+                            price])
+            j = join(join(join(f, d, f"{p}_sold_date_sk", "d_date_sk"), ca,
+                          addr, "ca_address_sk"), it, f"{p}_item_sk",
+                     "i_item_sk")
+            g = j.group_by(key).aggregate([(price, "sum")])
+            for k, v in rows_of(g, [key, f"{price}_sum"]):
+                totals[k].append(v)
+        return [(k, _sum_or_null(v)) for k, v in totals.items()]
+
+    def item_in(key, col, values):
+        """``key in (select key from item where col in values)``."""
+        def keep(it):
+            return pc.is_in(it[key], value_set=pc.unique(pc.drop_null(
+                it.filter(isin(it[col], values))[key])))
+        return keep
+    if "q33" in queries:
+        out["q33"] = three_channels(
+            "i_manufact_id", item_in("i_manufact_id", "i_category",
+                                     ["Books"]), 1998, 1)
+    if "q56" in queries:
+        out["q56"] = three_channels(
+            "i_item_id", item_in("i_item_id", "i_color",
+                                 ["red", "blue", "green"]), 2000, 2)
+    if "q60" in queries:
+        out["q60"] = three_channels(
+            "i_item_id", item_in("i_item_id", "i_category", ["Music"]),
+            1998, 9)
+
+    def name_date_keys(p, fact, cust):
+        """The distinct (last name, first name, sold date) of a channel
+        in months 1200-1211, as one string key per row (a NULL part and
+        an empty one stay apart)."""
+        f = read(fact, [f"{p}_sold_date_sk", cust])
+        j = join(join(f, dates(["d_date", "d_month_seq"], (
+            "d_month_seq", lambda c: between(c, 1200, 1211))),
+            f"{p}_sold_date_sk", "d_date_sk"),
+            read("customer", ["c_customer_sk", "c_last_name",
+                              "c_first_name"]), cust, "c_customer_sk")
+        parts = [pc.fill_null(pc.binary_join_element_wise("v", j[c], ""),
+                              "n") for c in ("c_last_name", "c_first_name")]
+        parts.append(pc.fill_null(pc.binary_join_element_wise(
+            "v", pc.cast(j["d_date"], pa.string()), ""), "n"))
+        return pc.unique(pc.binary_join_element_wise(*parts, "\x00"))
+    if "q38" in queries or "q87" in queries:
+        ks = name_date_keys("ss", "store_sales", "ss_customer_sk")
+        kc = name_date_keys("cs", "catalog_sales", "cs_bill_customer_sk")
+        kw = name_date_keys("ws", "web_sales", "ws_bill_customer_sk")
+        def count(mask):
+            return pc.sum(pc.cast(mask, pa.int64())).as_py() or 0
+        in_c = pc.is_in(ks, value_set=kc)
+        in_w = pc.is_in(ks, value_set=kw)
+        if "q38" in queries:
+            out["q38"] = [(count(pc.and_(in_c, in_w)),)]
+        if "q87" in queries:
+            out["q87"] = [(count(pc.invert(pc.or_(in_c, in_w))),)]
+    if "q66" in queries:
+        wcols = ["w_warehouse_name", "w_warehouse_sq_ft", "w_city",
+                 "w_county", "w_state", "w_country"]
+        wh = read("warehouse", ["w_warehouse_sk"] + wcols)
+        d = dates(["d_year", "d_moy"], ("d_year", eq(2001)))
+        tm = read("time_dim", ["t_time_sk", "t_time"])
+        tm = tm.filter(between(tm["t_time"], 30838, 30838 + 28800))
+        sm = read("ship_mode", ["sm_ship_mode_sk", "sm_carrier"])
+        sm = sm.filter(isin(sm["sm_carrier"], ["DHL", "UPS"]))
+        months = [f"s{m}" for m in range(1, 13)] + \
+            [f"n{m}" for m in range(1, 13)]
+        inner = []
+        for p, fact, price, net in (
+                ("ws", "web_sales", "ws_ext_sales_price", "ws_net_paid"),
+                ("cs", "catalog_sales", "cs_sales_price",
+                 "cs_net_paid_inc_ship")):
+            f = read(fact, [f"{p}_warehouse_sk", f"{p}_sold_date_sk",
+                            f"{p}_sold_time_sk", f"{p}_ship_mode_sk",
+                            price, net, f"{p}_quantity"])
+            j = join(join(join(join(f, wh, f"{p}_warehouse_sk",
+                                    "w_warehouse_sk"), d,
+                               f"{p}_sold_date_sk", "d_date_sk"), tm,
+                          f"{p}_sold_time_sk", "t_time_sk"), sm,
+                     f"{p}_ship_mode_sk", "sm_ship_mode_sk")
+            for m in range(1, 13):
+                hit = pc.equal(j["d_moy"], m)
+                for tag, col in (("s", price), ("n", net)):
+                    j = j.append_column(f"{tag}{m}", pc.if_else(
+                        hit, pc.multiply(j[col], j[f"{p}_quantity"]), 0.0))
+            g = j.group_by(wcols + ["d_year"]).aggregate(
+                [(c, "sum") for c in months])
+            inner += rows_of(g, wcols + ["d_year"] +
+                             [f"{c}_sum" for c in months])
+        merged = collections.defaultdict(list)
+        for r in inner:
+            merged[r[:6] + ("DHL,UPS", r[6])].append(r[7:])
+        out["q66"] = [k + tuple(_sum_or_null(col) for col in zip(*vs))
+                      for k, vs in merged.items()]
+    if "q71" in queries:
+        d = dates(["d_year", "d_moy"], ("d_moy", eq(11)),
+                  ("d_year", eq(1999)))
+        parts = []
+        for p, fact in (("ws", "web_sales"), ("ss", "store_sales")):
+            f = join(read(fact, [f"{p}_ext_sales_price", f"{p}_sold_date_sk",
+                                 f"{p}_item_sk", f"{p}_sold_time_sk"]), d,
+                     f"{p}_sold_date_sk", "d_date_sk")
+            parts.append(f.select([f"{p}_ext_sales_price", f"{p}_item_sk",
+                                   f"{p}_sold_time_sk"]).rename_columns(
+                ["ext_price", "sold_item_sk", "time_sk"]))
+        u = pa.concat_tables(parts)
+        it = read("item", ["i_item_sk", "i_brand_id", "i_brand",
+                           "i_manager_id"])
+        it = it.filter(pc.equal(it["i_manager_id"], 1))
+        tm = read("time_dim", ["t_time_sk", "t_hour", "t_minute"])
+        tm = tm.filter(isin(tm["t_hour"], [8, 9]))
+        j = join(join(u, it, "sold_item_sk", "i_item_sk"), tm, "time_sk",
+                 "t_time_sk")
+        g = j.group_by(["i_brand_id", "i_brand", "t_hour",
+                        "t_minute"]).aggregate([("ext_price", "sum")])
+        out["q71"] = rows_of(g, ["i_brand_id", "i_brand", "t_hour",
+                                 "t_minute", "ext_price_sum"])
+    if "q76" in queries:
+        it = read("item", ["i_item_sk", "i_category"])
+        d = read("date_dim", ["d_date_sk", "d_year", "d_qoy"])
+        parts = []
+        for channel, col_name, p, fact in (
+                ("store", "ss_store_sk", "ss", "store_sales"),
+                ("web", "ws_ship_customer_sk", "ws", "web_sales"),
+                ("catalog", "cs_ship_mode_sk", "cs", "catalog_sales")):
+            f = read(fact, [col_name, f"{p}_sold_date_sk", f"{p}_item_sk",
+                            f"{p}_ext_sales_price"])
+            f = f.filter(pc.is_null(f[col_name]))
+            j = join(join(f, it, f"{p}_item_sk", "i_item_sk"), d,
+                     f"{p}_sold_date_sk", "d_date_sk")
+            n = j.num_rows
+            parts.append(pa.table({
+                "channel": pa.array([channel] * n, pa.string()),
+                "col_name": pa.array([col_name] * n, pa.string()),
+                "d_year": j["d_year"], "d_qoy": j["d_qoy"],
+                "i_category": j["i_category"],
+                "price": j[f"{p}_ext_sales_price"]}))
+        keys = ["channel", "col_name", "d_year", "d_qoy", "i_category"]
+        g = pa.concat_tables(parts).group_by(keys).aggregate(
+            [("price", "count", pc.CountOptions(mode="all")),
+             ("price", "sum")])
+        out["q76"] = rows_of(g, keys + ["price_count", "price_sum"])
+    if "q83" in queries:
+        d = read("date_dim", ["d_date_sk", "d_date", "d_week_seq", "d_year",
+                              "d_moy", "d_dom"])
+        day = d.filter(pc.and_(pc.and_(pc.equal(d["d_year"], 2000),
+                                       pc.equal(d["d_moy"], 6)),
+                               pc.equal(d["d_dom"], 30)))
+        week = d.filter(pc.is_in(d["d_week_seq"],
+                                 value_set=day["d_week_seq"]))
+        days = d.filter(pc.is_in(d["d_date"], value_set=week["d_date"]))
+        it = read("item", ["i_item_sk", "i_item_id"])
+        qty = []
+        for p, fact in (("sr", "store_returns"), ("cr", "catalog_returns"),
+                        ("wr", "web_returns")):
+            f = read(fact, [f"{p}_item_sk", f"{p}_returned_date_sk",
+                            f"{p}_return_quantity"])
+            j = join(join(f, it, f"{p}_item_sk", "i_item_sk"), days,
+                     f"{p}_returned_date_sk", "d_date_sk")
+            g = j.group_by("i_item_id").aggregate(
+                [(f"{p}_return_quantity", "sum")])
+            qty.append(dict(rows_of(g, ["i_item_id",
+                                        f"{p}_return_quantity_sum"])))
+        rows = []
+        for item, sr in qty[0].items():
+            if item is None or item not in qty[1] or item not in qty[2]:
+                continue
+            cr, wr = qty[1][item], qty[2][item]
+            total = None if None in (sr, cr, wr) else sr + cr + wr
+
+            def dev(x):
+                return None if x is None or total is None or total == 0 \
+                    else x / total / 3.0 * 100
+            rows.append((item, sr, dev(sr), cr, dev(cr), wr, dev(wr),
+                         None if total is None else total / 3.0))
+        out["q83"] = rows
+    return out
+
+
+#: each phase-10 query's plan at SF10's row estimates, as DS7_PLANS lists
+#: them.  A Distinct is an aggregate; q4, q11 and q74 read one branch of
+#: their ``year_total`` union per self-join (the filter over the union
+#: leaves the other branches empty, with no operator); INTERSECT and
+#: EXCEPT are semi and anti joins, shuffled where both sides are fact
+#: rows (q38, q87) and broadcast where one side is q8's zip list
+_BSEMI = "TpuBroadcastHashJoin[semi, build=right]"
+_YEAR_TOTAL = _AGG + [_BR, _BL]           # one channel's year of q4/q11/q74
+_CHANNEL = _AGG + [_BSEMI, _BR, _BR, _BR]   # one channel of q33, q56, q60
+_NAME_DATES = _AGG + [_BR, _BR]             # one DISTINCT set of q38, q87
+_HOT_ITEMS = [_SSEMI, _SSEMI, _BR] + _AGG + [_BR, _BR] + _AGG + [_BR]
+DS10_PLANS = {
+    "q2": ["TpuSort", _SR, _BR] + _AGG + [_BR, _BR] + _AGG + [_BR],
+    "q4": _LS + [_SR] * 5 + _YEAR_TOTAL * 6,
+    "q8": _LS + _AGG + [_BR] * 3 + _AGG + [_BSEMI] + _AGG + [_BL],
+    "q11": _LS + [_SR] * 3 + _YEAR_TOTAL * 4,
+    "q23": ["TpuGlobalLimit"] + _AGG + _HOT_ITEMS * 2,
+    "q33": _LS + _AGG + _CHANNEL * 3,
+    "q38": ["TpuGlobalLimit"] + _AGG * 2 + [_SSEMI] + _AGG + [_SSEMI] +
+           _NAME_DATES * 3,
+    "q56": _LS + _AGG + _CHANNEL * 3,
+    "q60": _LS + _AGG + _CHANNEL * 3,
+    "q66": _LS + _AGG + (_AGG + [_BR] * 4) * 2,
+    "q71": _LS + _AGG + [_BR, _BL, _BR, _BR],
+    "q74": _LS + [_SR] * 3 + _YEAR_TOTAL * 4,
+    "q76": _LS + _AGG + [_BR] * 6,
+    "q83": _LS + [_BR, _SR] + (_AGG + [_BSEMI, _BR, _BR, _BSEMI]) * 3,
+    "q87": _AGG * 2 + [_SANTI] + _AGG + [_SANTI] + _NAME_DATES * 3}
+
+
+#: the optimizer rules that make each read of q4's CTE one branch's year
+PUSHDOWN_RULES = ("_rewrite_filter_union", "_rewrite_filter_aggregate",
+                  "_fold_constants")
+
+
+def q4_without_pushdown(session, text: str, ref: list) -> None:
+    """On the CPU rehearsal: q4's wall once more with PUSHDOWN_RULES
+    switched off, so that every read of its CTE aggregates every branch
+    over every year, beside the same rows."""
+    from spark_rapids_tpu_torch.plan import logical_opt
+    saved = {n: getattr(logical_opt, n) for n in PUSHDOWN_RULES}
+    try:
+        for n in PUSHDOWN_RULES:
+            setattr(logical_opt, n, lambda f: f)
+        t0 = time.perf_counter()
+        table = SqlRun(session, text, False).to_arrow()
+        wall = time.perf_counter() - t0
+    finally:
+        for n, rule in saved.items():
+            setattr(logical_opt, n, rule)
+    check_rows("q4", table, ref, DS10_ORDER["q4"])
+    print(f"q4 without the union and group-key push-downs and the constant "
+          f"folding (CPU): {wall:.4f}s, the same rows", flush=True)
+
+
+def tpcds10_phase(args, kernels_used, data_dir: str, session) -> dict:
+    """Phase 10: the verbatim text of the 15 TPC-DS queries with set
+    operations, SELECT DISTINCT and DATE columns (DS10_QUERIES) through
+    the port's ``session.sql`` on phase 7's tables, directory and
+    session.  Each must plan DS10_PLANS' operators at SF10, equal
+    ``ds10_references`` (1e-9, ORDER BY kept, ties as a multiset, also at
+    the LIMIT's cut), give the same bytes on two warm runs, and return
+    rows unless DS10_EMPTY names it.  A run is ``session.sql(text)
+    .to_arrow()`` (``SqlRun``), as in phase 9.  Below SF10 the broadcast
+    threshold shrinks with the scale, as in phases 7-9, and q4 runs once
+    more without its push-down rules (``q4_without_pushdown``).  q4 (its
+    ``year_total`` CTE, a three-branch union, read six times) and q87
+    (two EXCEPTs of DISTINCT sets keyed on a DATE) run once more under
+    the profiler.  Returns the kernels' launches on this path."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    t0 = time.perf_counter()
+    refs = ds10_references(data_dir)
+    print(f"tpcds10: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    rows = {t: max(int(n * args.ds_sf), 64) for t, n in
+            {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        for q in DS10_QUERIES:
+            tq = time.perf_counter()
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 10 imported JAX or the JAX package")
+            plan = session.sql(QUERIES[q]).explain()
+            check(plan_signature(plan) == DS10_PLANS[q] or args.ds_sf < 10,
+                  f"{q}: not the planned operators:\n{plan}")
+            run = SqlRun(session, QUERIES[q], on_card)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, run, on_card)
+            for name, v in cuda_ops.LAUNCHES.items():
+                launches[name] += v
+            order, limit = DS10_ORDER[q], DS10_LIMIT.get(q, 100)
+            full = check_rows(q, cold, refs[q], order, limit)
+            for t in warm:
+                check_rows(q, t, refs[q], order, limit)
+            check(same_bytes(warm[0], warm[1]),
+                  f"{q}: the two warm runs are not byte-identical")
+            check(cold.num_rows > 0 or q in DS10_EMPTY or args.ds_sf < 10,
+                  f"{q}: no rows (not in DS10_EMPTY)")
+            fact = rows[DS10_FACT[q]]
+            got = cuda_ops.LAUNCHES
+            lower = run.lower_s
+            print(f"{q}: {cold.num_rows} rows of {full}; cold {cold_s:.4f}s "
+                  f"(lowering and its subqueries {lower[0]:.4f}s; host "
+                  f"read {read_s:.4f}s, upload {upload_s:.4f}s); warm "
+                  f"{warm_s[0]:.4f}s {warm_s[1]:.4f}s (lowering "
+                  f"{lower[2]:.4f}s); warm {fact / warm_s[1] / 1e6:.3f} "
+                  f"Mrows/s of {DS10_FACT[q]}; peak device memory {peak} B; "
+                  f"launches (3 runs) B1 {got['hash_partition_ids']}, B2 "
+                  f"{got['table_reduce']}, probe {got['join_probe']}; "
+                  f"byte-identical warm runs; matches pyarrow at "
+                  f"{EXACT_REL}; first rows {cold.slice(0, 2).to_pylist()}; "
+                  f"{time.perf_counter() - tq:.1f}s with the plan and checks",
+                  flush=True)
+        if not on_card:
+            q4_without_pushdown(session, QUERIES["q4"], refs["q4"])
+        for q in ("q4", "q87"):
+            print(f"plan {q}:\n" + session.sql(QUERIES[q]).explain())
+            if on_card:
+                tq = time.perf_counter()
+                before = dict(cuda_ops.LAUNCHES)
+                print(f"profile {q}:")
+                profile_query(session.sql(QUERIES[q]))
+                print(f"profile {q}: kernel launches " + str(
+                    {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()})
+                    + f"; {time.perf_counter() - tq:.1f}s with the trace's "
+                    f"processing", flush=True)
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
+        cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the phase 10 path")
+    print(f"tpcds10: launches of the phase (3 runs of each query) {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=64_000_000)
@@ -3940,7 +4538,8 @@ def main(argv=None) -> int:
 
     # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
     # TPC-DS queries, 8. those with derived tables and CTEs, 9. those with
-    # expression subqueries, on the same tables, session and directory
+    # expression subqueries, 10. those with set operations, DISTINCT and
+    # DATE columns, on the same tables, session and directory
     used = ["hash_partition_ids", "join_probe"] \
         if args.device == "cuda" else []
     with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
@@ -3953,6 +4552,8 @@ def main(argv=None) -> int:
         phase_done("8")
         results["tpcds9"] = tpcds9_phase(args, used, data_dir, session)
         phase_done("9")
+        results["tpcds10"] = tpcds10_phase(args, used, data_dir, session)
+        phase_done("10")
         session = None
 
     if args.device != "cuda":
@@ -3961,10 +4562,10 @@ def main(argv=None) -> int:
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            # phases 6-9 need not take B2: their string keys, keyless
+            # phases 6-10 need not take B2: their string keys, keyless
             # aggregates and wide key ranges run the sort path
             check(got > 0 or (mode in ("tpcds", "tpcds7", "tpcds8",
-                                       "tpcds9") and
+                                       "tpcds9", "tpcds10") and
                               name == "table_reduce"),
                   f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]

@@ -5,8 +5,17 @@ runs:
 
 - ``WITH name AS (query) [, ...]`` before a query: each CTE is a view
   while the query is lowered, and a later CTE reads an earlier one;
-- ``SELECT`` lists of expressions with aliases (``AS`` optional) and
-  ``*``;
+- set operations with the reference's semantics (``lower_setop``):
+  ``UNION ALL`` (a Union under the left side's names, each column
+  widened to the wider numeric type as Spark widens it), ``UNION``,
+  ``INTERSECT`` and ``EXCEPT`` (a Distinct of the union, or of a semi /
+  anti join on null-safe keys: two NULLs match), chained left to right
+  with INTERSECT binding tighter (Spark's precedence), parenthesised
+  operands, a trailing ``ORDER BY`` / ``LIMIT`` of the whole operation,
+  a WITH on its leftmost SELECT in scope for all of it, anywhere a
+  query goes (a CTE, a derived table, a subquery);
+- ``SELECT [DISTINCT]`` lists of expressions with aliases (``AS``
+  optional) and ``*``; DISTINCT's ORDER BY names selected columns;
 - ``FROM`` lists of temp views, CTEs and derived tables (``(query)
   [AS] alias``) as comma joins and ``[INNER | LEFT [OUTER] | RIGHT
   [OUTER] | FULL [OUTER] | LEFT SEMI | LEFT ANTI] JOIN ... ON`` or
@@ -27,10 +36,12 @@ runs:
 - ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``;
   ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric values;
   ``substring`` / ``substr`` with literal positions (in characters),
-  ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` of numbers,
+  ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` (numbers or strings),
   ``round(x[, d])`` (HALF_UP), ``upper`` / ``ucase`` and ``lower`` /
   ``lcase`` (ASCII letters, as the reference);
 - integer, decimal (read as double), string and ``NULL`` literals;
+  DATE columns (date32 in Parquet) compare with DATE columns, key
+  joins, group-bys, DISTINCT and sorts, and are collected as date32;
 - ``GROUP BY`` expressions, ordinals or select aliases, with or
   without aggregates; the aggregates ``count(*)``, ``count``, ``sum``,
   ``max`` (also of strings), ``avg`` / ``mean``, ``stddev`` /
@@ -61,20 +72,23 @@ runs:
   ``sql_to_plan`` without a session raises ``SqlError`` for it.
 
 Anything else raises ``SqlError`` naming the construct, before any
-device work (a subquery may have run): set operations, windows,
-``DISTINCT``, ``CAST``, a correlated ``IN (query)``, a correlation other
-than equalities of a scalar query, a correlated subquery outside a
-conjunct of WHERE, an OR of ``EXISTS`` whose key sets differ in type
-(the union's children must have equal types while ``CAST`` is not
-ported) and the rest of Spark SQL.  The plan is built in Spark's order:
+device work (a subquery may have run): ``INTERSECT ALL`` and ``EXCEPT
+ALL`` (the reference answers them as the distinct forms, which is not
+Spark's answer), a union of columns with no common type (a string and
+a number), windows, ``count(DISTINCT ...)``, ``CAST``, DATE literals,
+``INTERVAL`` and date arithmetic, a DATE compared with a number or a
+string, a correlated ``IN (query)``, a correlation other than
+equalities of a scalar query, a correlated subquery outside a conjunct
+of WHERE, and the rest of Spark SQL.  The plan is built in Spark's order:
 the FROM relations as a left-deep join tree, WHERE as a filter over it
 (its subquery conjuncts as joins under that filter), the aggregate (its
 keys and every aggregate call of the select list, HAVING and ORDER BY
 as columns), HAVING as a filter over it, the sort, the projection of
-the select list, the limit; then ``plan/logical_opt.optimize`` turns
-the comma joins and WHERE equalities into equi-joins with the filters
-below them, also through a derived table's projection and a semi or
-anti join.
+the select list (for DISTINCT: the projection, its Distinct, then the
+sort), the limit; then ``plan/logical_opt.optimize`` turns the comma
+joins and WHERE equalities into equi-joins with the filters below them,
+also through a derived table's projection, a semi or anti join, a union
+and an aggregate's group keys.
 """
 from __future__ import annotations
 
@@ -272,8 +286,25 @@ class Select:
     order_by: List[OrderItem] = dataclasses.field(default_factory=list)
     limit: Optional[int] = None
     #: ``WITH name AS (query), ...``: (name, query) in order
-    ctes: List[Tuple[str, "Select"]] = dataclasses.field(
-        default_factory=list)
+    ctes: List[Tuple[str, Any]] = dataclasses.field(default_factory=list)
+    #: ``SELECT DISTINCT``
+    distinct: bool = False
+    #: written in parentheses: its ORDER BY and LIMIT are its own, not a
+    #: set operation's around it
+    parenthesized: bool = False
+
+
+@dataclasses.dataclass
+class SetOp:
+    """``left UNION [ALL] | INTERSECT [ALL] | EXCEPT [ALL] right``, each
+    side a Select or a SetOp; ``order_by`` and ``limit`` belong to the
+    whole operation."""
+    op: str                 # union | intersect | except
+    all: bool
+    left: Any
+    right: Any
+    order_by: List[OrderItem] = dataclasses.field(default_factory=list)
+    limit: Optional[int] = None
 
 
 def _kids(a) -> List[Any]:
@@ -340,8 +371,6 @@ _KEYWORDS = {
 }
 #: constructs of Spark SQL the port does not parse, by their keyword
 _UNSUPPORTED = {
-    "union": "UNION",
-    "intersect": "INTERSECT", "except": "EXCEPT", "distinct": "DISTINCT",
     "over": "window functions (OVER)",
     "offset": "OFFSET", "cast": "CAST", "interval": "INTERVAL",
     "true": "boolean literals", "false": "boolean literals",
@@ -416,16 +445,82 @@ class _Parser:
             self._fail("")
 
     # -- statements ----------------------------------------------------------
-    def parse(self) -> Select:
-        if self.at_op("("):
-            self._fail("subqueries are not supported by the port; expected "
-                       "SELECT")
-        q = self.select()
+    def parse(self):
+        q = self.query_expr()
         if self.at_op(";"):
             self.advance()
         if self.tok.kind != "end":
             self._fail("expected end of query")
         return q
+
+    def query_expr(self):
+        """A query: SELECTs joined by ``UNION [ALL]`` and ``EXCEPT
+        [ALL]``, left to right, over terms joined by ``INTERSECT [ALL]``,
+        which binds tighter (Spark's precedence; the reference gives the
+        three one level), with a trailing ORDER BY / LIMIT that belongs
+        to the whole set operation."""
+        left = self.intersect_term()
+        while self.at("union", "except"):
+            op = self.advance().text.lower()
+            left = SetOp(op, self._set_all(), left, self.intersect_term())
+        if not isinstance(left, SetOp):
+            return left
+        self.order_limit(left)
+        if not left.order_by and left.limit is None:
+            # an unparenthesised last SELECT took the trailing ORDER BY /
+            # LIMIT while it was parsed: they belong to the whole query
+            last = left
+            while isinstance(last.right, SetOp):
+                last = last.right
+            rb = last.right
+            if not rb.parenthesized and (rb.order_by or
+                                         rb.limit is not None):
+                left.order_by, left.limit = rb.order_by, rb.limit
+                rb.order_by, rb.limit = [], None
+        return left
+
+    def intersect_term(self):
+        left = self.query_term()
+        while self.at("intersect"):
+            self.advance()
+            left = SetOp("intersect", self._set_all(), left,
+                         self.query_term())
+        return left
+
+    def _set_all(self) -> bool:
+        """``ALL`` after a set operator (``DISTINCT`` is the default)."""
+        if self.at("all"):
+            self.advance()
+            return True
+        if self.at("distinct"):
+            self.advance()
+        return False
+
+    def query_term(self):
+        """A SELECT, or a query in parentheses."""
+        if self.at_op("("):
+            self.advance()
+            q = self.query_expr()
+            self.expect_op(")")
+            if isinstance(q, Select):
+                q.parenthesized = True
+            return q
+        return self.select()
+
+    def order_limit(self, q) -> None:
+        """``[ORDER BY ...] [LIMIT n]`` into ``q``."""
+        if self.at("order"):
+            self.advance()
+            self.expect("by")
+            q.order_by = [self.order_item()]
+            while self.at_op(","):
+                self.advance()
+                q.order_by.append(self.order_item())
+        if self.at("limit"):
+            self.advance()
+            if self.tok.kind != "num" or not self.tok.text.isdigit():
+                self._fail("expected an integer LIMIT")
+            q.limit = int(self.advance().text)
 
     def select(self) -> Select:
         ctes = []
@@ -435,12 +530,15 @@ class _Parser:
                 name = self.name()
                 self.expect("as")
                 self.expect_op("(")
-                ctes.append((name, self.select()))
+                ctes.append((name, self.query_expr()))
                 self.expect_op(")")
                 if not self.at_op(","):
                     break
                 self.advance()
         self.expect("select")
+        distinct = self.at("distinct")
+        if distinct:
+            self.advance()
         self._unsupported_here()
         items = [self.select_item()]
         while self.at_op(","):
@@ -453,7 +551,7 @@ class _Parser:
         while self.at_op(","):
             self.advance()
             from_.append(self.join_tree())
-        q = Select(items, from_, ctes=ctes)
+        q = Select(items, from_, ctes=ctes, distinct=distinct)
         if self.at("where"):
             self.advance()
             q.where = self.expr()
@@ -469,18 +567,7 @@ class _Parser:
             self.advance()
             q.having = self.expr()
         self._unsupported_here()
-        if self.at("order"):
-            self.advance()
-            self.expect("by")
-            q.order_by = [self.order_item()]
-            while self.at_op(","):
-                self.advance()
-                q.order_by.append(self.order_item())
-        if self.at("limit"):
-            self.advance()
-            if self.tok.kind != "num" or not self.tok.text.isdigit():
-                self._fail("expected an integer LIMIT")
-            q.limit = int(self.advance().text)
+        self.order_limit(q)
         self._unsupported_here()
         return q
 
@@ -716,12 +803,12 @@ class _Parser:
             return Ident(self.name(), name)
         return Ident(name)
 
-    def subquery(self) -> Select:
-        """``(query)``."""
+    def subquery(self):
+        """``(query)``: a SELECT or a set operation."""
         self.expect_op("(")
-        if not self.at("select", "with"):
+        if not (self.at("select", "with") or self.at_op("(")):
             self._fail("expected a query in parentheses")
-        q = self.select()
+        q = self.query_expr()
         self.expect_op(")")
         return q
 
@@ -729,7 +816,8 @@ class _Parser:
         self.advance()                                  # (
         fname = name.lower()
         if self.at("distinct"):
-            self._fail("")
+            raise SqlError(f"{fname}(DISTINCT ...) is not supported by the "
+                           f"port (at {self.tok.pos})")
         if self.at_op("*"):
             self.advance()
             self.expect_op(")")
@@ -746,7 +834,7 @@ class _Parser:
         return Call(fname, tuple(args))
 
 
-def parse_sql(sql: str) -> Select:
+def parse_sql(sql: str):
     return _Parser(sql).parse()
 
 
@@ -844,7 +932,25 @@ def _literal_of(e: ec.Expression):
     return e.value
 
 
+def _check_comparable(left: ec.Expression, right: ec.Expression) -> None:
+    """Two sides a comparison can take: one type, NULL, or numbers.  A
+    DATE compares with a DATE alone (the port has no date literal or
+    CAST to meet an integer or a string)."""
+    lt, rt = left.dtype(), right.dtype()
+    try:
+        T.common_type(lt, rt)
+    except ValueError:
+        raise SqlError(f"a comparison of {lt} with {rt} is not supported "
+                       f"by the port") from None
+
+
+def _no_date_arithmetic(*args: ec.Expression) -> None:
+    if any(x.dtype() == T.DATE for x in args):
+        raise SqlError("date arithmetic is not supported by the port")
+
+
 def _comparison(op: str, left: ec.Expression, right: ec.Expression):
+    _check_comparable(left, right)
     if op == "<>":
         return ep.Not(ep.EqualTo(left, right))
     return _COMPARISONS[op](left, right)
@@ -881,7 +987,7 @@ class _Lowerer:
             return plan, _Scope.of(plan.schema,
                                    (ref.alias or ref.name).lower())
         if isinstance(ref, SubqueryRef):
-            plan = self.select(ref.query)
+            plan = self.query(ref.query)
             return plan, _Scope.of(plan.schema, ref.alias.lower())
         lplan, lscope = self.relation(ref.left)
         rplan, rscope = self.relation(ref.right)
@@ -955,17 +1061,20 @@ class _Lowerer:
                     isinstance(child.value, (int, float)) and \
                     not isinstance(child.value, bool):
                 return ec.Literal(-child.value)
+            _no_date_arithmetic(child)
             return ea.UnaryMinus(child)
         if isinstance(a, NotOp):
             return ep.Not(self.expr(a.child, schema))
         if isinstance(a, Between):
             e = self.expr(a.child, schema)
-            cond = ep.And(ep.GreaterThanOrEqual(e, self.expr(a.lo, schema)),
-                          ep.LessThanOrEqual(e, self.expr(a.hi, schema)))
+            cond = ep.And(_comparison(">=", e, self.expr(a.lo, schema)),
+                          _comparison("<=", e, self.expr(a.hi, schema)))
             return ep.Not(cond) if a.negated else cond
         if isinstance(a, InList):
             e = self.expr(a.child, schema)
             items = [self.expr(i, schema) for i in a.items]
+            for i in items:
+                _check_comparable(e, i)
             if all(isinstance(i, ec.Literal) for i in items):
                 out = ep.In(e, [i.value for i in items])
             else:
@@ -986,7 +1095,7 @@ class _Lowerer:
         if isinstance(a, Case):
             if a.operand is not None:
                 op = self.expr(a.operand, schema)
-                branches = [(ep.EqualTo(op, self.expr(c, schema)),
+                branches = [(_comparison("=", op, self.expr(c, schema)),
                              self.expr(v, schema)) for c, v in a.whens]
             else:
                 branches = [(self.expr(c, schema), self.expr(v, schema))
@@ -1010,6 +1119,7 @@ class _Lowerer:
             if a.op in _FLIP:
                 return _comparison(a.op, left, right)
             if a.op in _ARITHMETIC:
+                _no_date_arithmetic(left, right)
                 return _ARITHMETIC[a.op](left, right)
             raise SqlError(f"operator {a.op!r} is not supported by the port")
         if isinstance(a, Call):
@@ -1031,9 +1141,9 @@ class _Lowerer:
         raise SqlError(f"unsupported expression {a!r}")
 
     # -- expression subqueries -----------------------------------------------
-    def _uncorrelated(self, q: Select, what: str) -> L.LogicalPlan:
+    def _uncorrelated(self, q, what: str) -> L.LogicalPlan:
         try:
-            return self.select(q)
+            return self.query(q)
         except SqlError as err:
             raise SqlError(f"{what} inside an expression must be "
                            f"uncorrelated (the port decorrelates only a "
@@ -1097,7 +1207,7 @@ class _Lowerer:
                     isinstance(c.right, ScalarSub):
                 sub = c.right if isinstance(c.right, ScalarSub) else c.left
                 try:
-                    sub_plan = self.select(sub.query)
+                    sub_plan = self.query(sub.query)
                 except SqlError as err:
                     plan = self.scalar_cmp(c, plan, scope, err)
                     continue
@@ -1113,7 +1223,7 @@ class _Lowerer:
         """``x IN (query)`` as a semi join; ``x NOT IN (query)`` as an
         anti join in three-valued logic: an empty set keeps every row, a
         NULL in the set keeps none, a NULL ``x`` never matches."""
-        sub = self.select(c.query)
+        sub = self.query(c.query)
         if len(sub.schema) != 1:
             raise SqlError("IN (query) must select one column")
         f = sub.schema.fields[0]
@@ -1138,7 +1248,7 @@ class _Lowerer:
         """An uncorrelated ``[NOT] EXISTS`` runs now, to a constant; a
         correlated one is a semi or anti join (``exists_parts``)."""
         try:
-            sub = self.select(c.query)
+            sub = self.query(c.query)
         except SqlError:
             okeys, inner, ikeys, cond = self.exists_parts(c, plan, scope)
             return L.Join(plan, inner, "anti" if c.negated else "semi",
@@ -1170,9 +1280,11 @@ class _Lowerer:
         inner columns it reads projected under fresh ``__rc`` names
         (q16's ``cs1.cs_warehouse_sk <> cs2.cs_warehouse_sk``)."""
         q = c.query
-        if q.group_by or q.having is not None or q.ctes:
-            raise SqlError("a correlated EXISTS with GROUP BY, HAVING or "
-                           "WITH is not supported by the port")
+        if not isinstance(q, Select) or q.group_by or \
+                q.having is not None or q.ctes or q.distinct:
+            raise SqlError("a correlated EXISTS with GROUP BY, HAVING, "
+                           "WITH, DISTINCT or a set operation is not "
+                           "supported by the port")
         inner, iscope = self.from_clause(q.from_)
         local, residual, okeys, ikeys = [], [], [], []
         for cj in _split(q.where, "and") if q.where is not None else []:
@@ -1250,7 +1362,8 @@ class _Lowerer:
         sub, outer = (c.right, c.left) if right else (c.left, c.right)
         op = c.op if right else _FLIP[c.op]
         q = sub.query
-        if q.group_by or q.having is not None or q.ctes or \
+        if not isinstance(q, Select) or q.group_by or \
+                q.having is not None or q.ctes or q.distinct or \
                 len(q.items) != 1 or isinstance(q.items[0][0], Star) or \
                 not _has_agg(q.items[0][0]):
             raise SqlError(f"a correlated scalar query must select one "
@@ -1313,11 +1426,9 @@ class _Lowerer:
                 return ea.Round(args[0], scale)
             if n in ("coalesce", "nvl", "ifnull") and args:
                 out = econd.Coalesce(*args)
-                if out.dtype() == T.STRING:
-                    raise SqlError(f"{n}() of strings is not supported by "
-                                   f"the port")
+                out.dtype()             # arguments of no common type raise
                 return out
-        except NotImplementedError as err:
+        except (NotImplementedError, ValueError) as err:
             raise SqlError(str(err)) from None
         raise SqlError(f"function {n}() is not supported by the port")
 
@@ -1353,11 +1464,84 @@ class _Lowerer:
         if q.ctes:
             self.views = dict(views)
             for name, sub in q.ctes:
-                self.views[name.lower()] = self.select(sub)
+                self.views[name.lower()] = self.query(sub)
         try:
             return self._select_body(q)
         finally:
             self.views = views
+
+    # -- set operations ------------------------------------------------------
+    def query(self, q) -> L.LogicalPlan:
+        """The plan of a SELECT or a set operation."""
+        return self.setop(q) if isinstance(q, SetOp) else self.select(q)
+
+    def setop(self, s: SetOp) -> L.LogicalPlan:
+        """A set operation, with the reference's semantics
+        (``lower_setop``) where Spark agrees: ``UNION ALL`` is a Union
+        under the left side's names (its columns widened to the wider
+        type, as Spark widens them), ``UNION`` a Distinct of it, and
+        ``INTERSECT`` / ``EXCEPT`` a Distinct of a semi / anti join on
+        null-safe keys (``_null_safe_keys``).  A WITH on the leftmost
+        SELECT is in scope for the whole operation.  ``INTERSECT ALL``
+        and ``EXCEPT ALL`` raise: the reference answers them as the
+        distinct forms, which is not Spark's answer."""
+        if s.all and s.op != "union":
+            raise SqlError(f"{s.op.upper()} ALL is not supported by the "
+                           f"port")
+        leftmost = s.left
+        while isinstance(leftmost, SetOp):
+            leftmost = leftmost.left
+        if leftmost.ctes:
+            views = self.views
+            self.views = dict(views)
+            for name, sub in leftmost.ctes:
+                self.views[name.lower()] = self.query(sub)
+            try:
+                return self.setop(_strip_leftmost_ctes(s))
+            finally:
+                self.views = views
+        left, right = self.query(s.left), self.query(s.right)
+        if len(left.schema) != len(right.schema):
+            raise SqlError(f"the two sides of {s.op.upper()} select "
+                           f"{len(left.schema)} and {len(right.schema)} "
+                           f"columns")
+        try:
+            if s.op == "union":
+                names = left.schema.names
+                if right.schema.names != names:
+                    right = L.Project([ec.Alias(ec.AttributeReference(
+                        f.name).resolve(right.schema), n)
+                        for f, n in zip(right.schema, names)], right)
+                plan = L.Union([left, right])
+                if not s.all:
+                    plan = L.Distinct(plan)
+            else:
+                lkeys, rkeys = _null_safe_keys(left.schema, right.schema)
+                plan = L.Distinct(L.Join(
+                    left, right, "semi" if s.op == "intersect" else "anti",
+                    lkeys, rkeys))
+        except ValueError as err:
+            raise SqlError(f"{s.op.upper()}: {err}") from None
+        return self.order_and_limit(plan, s.order_by, s.limit)
+
+    def order_and_limit(self, plan: L.LogicalPlan, order_by, limit):
+        """A set operation's ORDER BY (output columns, by name or
+        ordinal) and LIMIT over its rows."""
+        if order_by:
+            schema = plan.schema
+            scope = _Scope.of(schema)
+            orders = []
+            for o in order_by:
+                a = o.expr
+                if isinstance(a, Lit) and isinstance(a.value, int):
+                    if not 1 <= a.value <= len(schema):
+                        raise SqlError(f"ORDER BY position {a.value} is not "
+                                       f"in the select list")
+                    a = Res(schema.names[a.value - 1])
+                orders.append(L.SortOrder(self.expr(scope.canon(a), schema),
+                                          o.ascending, o.nulls_first))
+            plan = L.Sort(orders, plan)
+        return L.Limit(limit, plan) if limit is not None else plan
 
     def _select_body(self, q: Select) -> L.LogicalPlan:
         # 1. FROM: a left-deep join tree, comma relations as cross joins
@@ -1432,7 +1616,8 @@ class _Lowerer:
         schema = plan.schema
         if having is not None:
             plan = L.Filter(self.expr(having, schema), plan)
-        if orders:
+        distinct_orders = orders if q.distinct else []
+        if orders and not q.distinct:
             plan = L.Sort([L.SortOrder(self.expr(a, schema), o.ascending,
                                        o.nulls_first) for a, o in orders],
                           plan)
@@ -1442,6 +1627,17 @@ class _Lowerer:
             outs.append(e if isinstance(e, ec.AttributeReference) and
                         e.col_name == name else ec.Alias(e, name))
         plan = L.Project(outs, plan)
+        if q.distinct:
+            # the sort runs over the distinct rows, by selected columns
+            plan = L.Distinct(plan)
+            out_orders = []
+            for a, o in distinct_orders:
+                if a not in items:
+                    raise SqlError("ORDER BY of a SELECT DISTINCT must "
+                                   "name a selected column")
+                out_orders.append(OrderItem(Res(names[items.index(a)]),
+                                            o.ascending, o.nulls_first))
+            return self.order_and_limit(plan, out_orders, q.limit)
         if q.limit is not None:
             plan = L.Limit(q.limit, plan)
         return plan
@@ -1488,10 +1684,49 @@ class _Lowerer:
         return L.Aggregate(group_exprs, aggs, plan), items, having, orders
 
 
+def _strip_leftmost_ctes(s: SetOp) -> SetOp:
+    """``s`` with its leftmost SELECT's WITH list dropped (its CTEs are
+    views by then)."""
+    if isinstance(s.left, SetOp):
+        return dataclasses.replace(s, left=_strip_leftmost_ctes(s.left))
+    return dataclasses.replace(s, left=dataclasses.replace(s.left, ctes=[]))
+
+
+#: the value a NULL stands in as in a null-safe key, by type (the
+#: reference's ``lower_setop``: a string's is '', a date's 1970-01-01)
+_NULL_SAFE_DEFAULT = {T.STRING: "", T.DATE: T.EPOCH, T.BOOL: False,
+                      T.INT32: 0, T.INT64: 0, T.FLOAT32: 0.0,
+                      T.FLOAT64: 0.0}
+
+
+def _null_safe_keys(left, right):
+    """(left keys, right keys) under which two NULLs match (``IS NOT
+    DISTINCT FROM``): a column nullable on either side keys on its null
+    flag and on its value with NULL replaced by its type's default (no
+    value key where a side is all NULL); the flag keeps a real default
+    (``''``, 1970-01-01, 0) apart from a NULL."""
+    lkeys, rkeys = [], []
+    for lf, rf in zip(left, right):
+        refs = [ec.AttributeReference(f.name, f.dtype, f.nullable)
+                for f in (lf, rf)]
+        if not (lf.nullable or rf.nullable):
+            lkeys.append(refs[0])
+            rkeys.append(refs[1])
+            continue
+        lkeys.append(ep.IsNull(refs[0]))
+        rkeys.append(ep.IsNull(refs[1]))
+        if T.NULL not in (lf.dtype, rf.dtype):
+            lkeys.append(econd.Coalesce(refs[0], ec.Literal(
+                _NULL_SAFE_DEFAULT[lf.dtype], lf.dtype)))
+            rkeys.append(econd.Coalesce(refs[1], ec.Literal(
+                _NULL_SAFE_DEFAULT[rf.dtype], rf.dtype)))
+    return lkeys, rkeys
+
+
 def sql_to_plan(sql: str, views: Dict[str, L.LogicalPlan],
                 session=None) -> L.LogicalPlan:
     """The optimized logical plan of a query over ``views`` (lower-case
     names -> plans).  An uncorrelated subquery runs while the query is
     lowered, on ``session``'s device; without a session it raises
     ``SqlError``."""
-    return optimize(_Lowerer(views, session).select(parse_sql(sql)))
+    return optimize(_Lowerer(views, session).query(parse_sql(sql)))

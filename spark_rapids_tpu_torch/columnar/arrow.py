@@ -1,8 +1,9 @@
 """pyarrow <-> device tensor interop.
 
 Counterpart of ``spark_rapids_tpu/columnar/arrow.py`` for fixed-width
-types and strings.  Uploads move only live rows and pad on the device; a
-string column moves its offsets (rebased to 0) and its bytes.
+types, dates and strings (a date32 moves as its int32 days).  Uploads
+move only live rows and pad on the device; a string column moves its
+offsets (rebased to 0) and its bytes.
 """
 from __future__ import annotations
 
@@ -64,6 +65,8 @@ def _column_from_arrow(arr, dtype: T.DType, cap: int, device) -> Column:
     if isinstance(dtype, T.UnsupportedType):
         raise NotImplementedError(f"column type {arr.type} is not "
                                   f"supported by the port")
+    if dtype == T.DATE:
+        arr = arr.cast(pa.int32())
     n = len(arr)
     if arr.null_count:
         valid_np = ~np.asarray(arr.is_null())
@@ -108,6 +111,9 @@ def to_arrow(batch: ColumnarBatch) -> pa.Table:
     for f, c in zip(batch.schema, batch.columns):
         if isinstance(c, StringColumn):
             arrays.append(_string_to_arrow(c, n))
+            continue
+        if f.dtype == T.NULL:
+            arrays.append(pa.nulls(n))
             continue
         data = c.data[:n].cpu().numpy()
         valid = c.validity[:n].cpu().numpy()

@@ -56,6 +56,8 @@ class Column:
                                device=device)
             return Column(dtype, data, torch.zeros(capacity, dtype=torch.bool,
                                                    device=device))
+        if dtype == T.DATE:
+            value = T.date_to_days(value)
         data = torch.full((capacity,), value, dtype=dtype.torch_dtype,
                           device=device)
         return Column(dtype, data, torch.ones(capacity, dtype=torch.bool,

@@ -1,5 +1,5 @@
-"""Engine data types: the fixed-width subset the port carries, and
-strings.
+"""Engine data types: the fixed-width subset the port carries, dates,
+and strings.
 
 Counterpart of ``spark_rapids_tpu/columnar/dtypes.py``.  Each dtype knows
 its device buffer type (a torch dtype) and its numpy/arrow types for
@@ -7,11 +7,18 @@ host interop.  Nulls travel in a separate validity mask, Arrow-style.
 A string column has no single buffer type: it is int32 offsets plus
 uint8 bytes (``columnar/column.StringColumn``).
 
-A file may hold columns of a type the port does not carry (a date, say):
-``from_arrow`` types them ``UnsupportedType`` so the file's schema still
-reads, and reading such a column raises.
+A DATE is the reference's ``DateType``: int32 days since 1970-01-01 on
+the device, arrow ``date32`` on the host.  It is neither integral nor
+fractional: it compares, keys joins, group-bys and sorts (its key word is
+the int32's), and takes no arithmetic.
+
+A file may hold columns of a type the port does not carry (a timestamp,
+say): ``from_arrow`` types them ``UnsupportedType`` so the file's schema
+still reads, and reading such a column raises.
 """
 from __future__ import annotations
+
+import datetime
 
 import numpy as np
 import pyarrow as pa
@@ -83,6 +90,15 @@ class StringType(DType):
     arrow_type = pa.string()
 
 
+class DateType(DType):
+    """Days since 1970-01-01 as int32; a host value is a
+    ``datetime.date``."""
+    name = "date"
+    np_dtype = np.dtype(np.int32)
+    torch_dtype = torch.int32
+    arrow_type = pa.date32()
+
+
 class NullType(DType):
     """The type of a bare ``NULL`` literal; a conditional takes its
     result type from its other branches."""
@@ -114,6 +130,7 @@ INT64 = LongType()
 FLOAT32 = FloatType()
 FLOAT64 = DoubleType()
 STRING = StringType()
+DATE = DateType()
 NULL = NullType()
 
 _ALL = (BOOL, INT32, INT64, FLOAT32, FLOAT64)
@@ -132,7 +149,7 @@ def from_arrow(at: pa.DataType, lenient: bool = False) -> DType:
     """The engine dtype of an arrow type.  An arrow type the port does not
     carry raises, or with ``lenient`` (a file's schema) types as
     ``UnsupportedType``."""
-    for t in _ALL:
+    for t in _ALL + (DATE,):
         if t.arrow_type == at:
             return t
     if pa.types.is_string(at) or pa.types.is_large_string(at):
@@ -153,3 +170,11 @@ def common_type(a: DType, b: DType) -> DType:
         return _NUMERIC_ORDER[max(_NUMERIC_ORDER.index(a),
                                   _NUMERIC_ORDER.index(b))]
     raise ValueError(f"no common type for {a} and {b}")
+
+
+#: the epoch a DATE counts its days from
+EPOCH = datetime.date(1970, 1, 1)
+
+
+def date_to_days(value: datetime.date) -> int:
+    return (value - EPOCH).days

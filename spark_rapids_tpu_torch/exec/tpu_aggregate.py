@@ -77,7 +77,7 @@ def buffer_schema(group_exprs, aggs: List[AggExpr]) -> Schema:
 
 
 def _key_ok(dt) -> bool:
-    return dt.is_integral or dt == T.BOOL
+    return dt.is_integral or dt in (T.BOOL, T.DATE)
 
 
 class TpuHashAggregate(TpuExec):

@@ -14,6 +14,7 @@ from ..columnar.arrow import from_arrow
 from ..columnar.batch import ColumnarBatch
 from ..columnar.schema import Field, Schema
 from ..expr import core as ec
+from ..expr.cast import Cast, can_widen
 from ..kernels.basic import compact_indices
 
 Partitions = List[List[ColumnarBatch]]
@@ -230,13 +231,16 @@ class TpuGlobalLimit(TpuExec):
 
 class TpuUnion(TpuExec):
     """UNION ALL: every child's partitions in turn, each batch relabelled
-    with the union's schema (``plan/logical.Union``: the children's column
-    types are equal, so no batch is converted)."""
+    with the union's schema; a column whose type is narrower than the
+    union's (``plan/logical.union_types``) is widened (``expr/cast``),
+    where the reference's ``_align_schema`` casts to the first child's
+    type."""
 
     def __init__(self, schema: Schema, children: List[TpuExec]):
         for c in children:
             types = [f.dtype for f in c.output_schema]
-            if types != [f.dtype for f in schema]:
+            if len(types) != len(schema) or not all(
+                    can_widen(t, f.dtype) for t, f in zip(types, schema)):
                 raise ValueError(f"a union child of column types {types} "
                                  f"under a union of {schema}")
         self.schema = schema
@@ -249,7 +253,20 @@ class TpuUnion(TpuExec):
     def num_partitions(self) -> int:
         return sum(c.num_partitions() for c in self.children)
 
+    def _widen(self, child: TpuExec):
+        """Per column, the cast to the union's type (None: same type)."""
+        return [None if f.dtype == u.dtype else
+                Cast(ec.BoundReference(i, f.dtype, f.nullable), u.dtype)
+                for i, (f, u) in enumerate(zip(child.output_schema,
+                                               self.schema))]
+
     def execute(self) -> Partitions:
-        return [[ColumnarBatch(self.schema, b.columns, b.rows,
-                               device=b.device) for b in part]
-                for c in self.children for part in c.execute()]
+        out = []
+        for c in self.children:
+            casts = self._widen(c)
+            for part in c.execute():
+                out.append([ColumnarBatch(self.schema, [
+                    col if e is None else ec.eval_as_column(e, b)
+                    for col, e in zip(b.columns, casts)], b.rows,
+                    device=b.device) for b in part])
+        return out

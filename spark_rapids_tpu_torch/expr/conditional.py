@@ -1,7 +1,8 @@
 """Conditional expressions: If, CaseWhen, Coalesce and Nvl.
 
 Counterpart of ``spark_rapids_tpu/expr/conditional.py`` for fixed-width
-results (the slice has no string-valued CASE).  The result type is the
+results (the slice has no string-valued CASE) and a string ``coalesce``
+(the null-safe keys of INTERSECT and EXCEPT).  The result type is the
 common type of the value branches, a bare ``NULL`` taking the others'
 type (``_result_dtype``); branches are chosen row by row with
 ``torch.where``, the first true condition winning (``_select_columns``).
@@ -14,6 +15,7 @@ import torch
 
 from ..columnar import dtypes as T
 from ..columnar.column import Column
+from ..kernels import strings
 from .core import Expression, Literal, eval_as_column
 
 
@@ -141,7 +143,8 @@ class Coalesce(Expression):
 
     def columnar_eval(self, batch):
         out_t = self.dtype()
-        _check_fixed_width(out_t, "coalesce")
+        if out_t == T.STRING:
+            return self._strings(batch)
         cap = batch.capacity
         data = torch.zeros(cap, dtype=out_t.torch_dtype, device=batch.device)
         valid = torch.zeros(cap, dtype=torch.bool, device=batch.device)
@@ -153,6 +156,20 @@ class Coalesce(Expression):
             data = torch.where(take, c.data.to(out_t.torch_dtype), data)
             valid = valid | c.validity
         return Column(out_t, data, valid)
+
+    def _strings(self, batch):
+        """Each row's bytes from its first valid argument
+        (``strings.choose_rows``)."""
+        cols = [eval_as_column(ch, batch) for ch in self.children
+                if ch.dtype() != T.NULL]
+        which = torch.zeros(batch.capacity, dtype=torch.int64,
+                            device=batch.device)
+        valid = torch.zeros(batch.capacity, dtype=torch.bool,
+                            device=batch.device)
+        for i, c in enumerate(cols):
+            which = torch.where(c.validity & ~valid, i, which)
+            valid = valid | c.validity
+        return strings.choose_rows(cols, which, valid)
 
     def __repr__(self):
         return f"coalesce({', '.join(map(repr, self.children))})"

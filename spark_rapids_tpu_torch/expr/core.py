@@ -8,6 +8,7 @@ carried in the validity mask.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 from typing import Any, List, Optional
 
 from ..columnar import dtypes as T
@@ -148,6 +149,10 @@ class BoundReference(Expression):
 
 
 class Literal(Expression):
+    """A constant.  A DATE literal (a ``datetime.date``) exists inside the
+    engine only, as the null-safe keys' default: SQL text has no date
+    literal in the port."""
+
     def __init__(self, value, dt: Optional[T.DType] = None):
         if dt is None:
             if value is None:
@@ -160,6 +165,9 @@ class Literal(Expression):
                 dt = T.FLOAT64
             elif isinstance(value, str):
                 dt = T.STRING
+            elif isinstance(value, datetime.date) and \
+                    not isinstance(value, datetime.datetime):
+                dt = T.DATE
             else:
                 raise ValueError(f"cannot infer literal type for {value!r}")
         self.value = value
@@ -214,21 +222,3 @@ def output_name(e: Expression) -> str:
 def eval_as_column(expr: Expression, batch) -> Column:
     """Evaluate to a Column, broadcasting scalars to the batch capacity."""
     return as_column(expr.columnar_eval(batch), batch)
-
-
-class Cast(Expression):
-    """Numeric cast (the subset comparison promotion needs)."""
-
-    def __init__(self, child: Expression, to: T.DType):
-        self.children = [child]
-        self.to = to
-
-    def dtype(self):
-        return self.to
-
-    def columnar_eval(self, batch):
-        c = eval_as_column(self.children[0], batch)
-        return Column(self.to, c.data.to(self.to.torch_dtype), c.validity)
-
-    def __repr__(self):
-        return f"cast({self.children[0]!r} as {self.to})"

@@ -15,7 +15,8 @@ from ..columnar import dtypes as T
 from ..columnar.column import Column
 from ..kernels import strings
 from ..kernels.canon import words_less
-from .core import Cast, Expression, Literal, eval_as_column
+from .cast import Cast
+from .core import Expression, Literal, eval_as_column
 
 
 def promote_comparison_sides(left: Expression, right: Expression):
@@ -240,6 +241,8 @@ class In(Expression):
         if c.dtype == T.STRING:
             return strings.equal_literal(
                 c, strings.held_literal(self._lits, str(v)))
+        if c.dtype == T.DATE:
+            return c.data == T.date_to_days(v)
         a = c.data
         if a.is_floating_point() and isinstance(v, float) and v != v:
             return torch.isnan(a)          # Spark: NaN equals NaN

@@ -5,7 +5,8 @@ maps to uint64 words (held as int64 bit patterns) whose unsigned
 lexicographic order is the SQL order of the values; group-bys, joins and
 the hash exchange all key on these words.
 
-- signed ints -> x XOR 0x8000... (order-preserving bias to unsigned)
+- signed ints -> x XOR 0x8000... (order-preserving bias to unsigned);
+                 a DATE is its int32 days, as in the reference
 - floats      -> NaNs canonicalized to +NaN and -0.0 to 0.0, then the
                  IEEE trick: sign set -> flip all bits, else set the sign.
                  Hopper has native float64 bitcasts, so a DOUBLE is the
@@ -68,10 +69,14 @@ def value_words(col: Column, str_words: int = None) -> List[torch.Tensor]:
         return strings.string_key_words(col, str_words)
     if dt == T.BOOL:
         return [col.data.to(torch.int64)]
-    if dt.is_integral:
+    if dt.is_integral or dt == T.DATE:
         return [_ints_to_words(col.data)]
     if dt.is_fractional:
         return _float_to_words(col.data)
+    if dt == T.NULL:
+        # every row is NULL: its rank word alone orders it
+        return [torch.zeros(col.data.shape[0], dtype=torch.int64,
+                            device=col.data.device)]
     raise NotImplementedError(f"key encoding for {dt}")
 
 

@@ -122,6 +122,24 @@ def gather_strings(col, indices: torch.Tensor, live: torch.Tensor = None):
     return StringColumn(offsets, data, valid, col.max_bytes)
 
 
+def choose_rows(cols, which: torch.Tensor, valid: torch.Tensor):
+    """Row i of ``cols[which[i]]`` (string columns of one capacity) as a
+    new column; rows where ``valid`` is False come out null and empty."""
+    from ..columnar.column import StringColumn
+    starts, lens, base = [], [], 0
+    for c in cols:
+        starts.append(c.offsets[:-1].to(torch.int64) + base)
+        lens.append(string_lengths(c.offsets))
+        base += int(c.data.shape[0])
+    rows = torch.arange(which.shape[0], device=which.device)
+    start = torch.stack(starts)[which, rows]
+    n = torch.where(valid, torch.stack(lens)[which, rows], 0)
+    mb = max(c.max_bytes for c in cols)
+    offsets, data = copy_rows(torch.cat([c.data for c in cols]), start, n,
+                              mb)
+    return StringColumn(offsets, data, valid, mb)
+
+
 def _shift_case(col, lo: int, hi: int, delta: int):
     """``col`` with each byte in [lo, hi] moved by ``delta``: the ASCII
     letters alone, as the reference's byte tables do (a byte of a

@@ -2,7 +2,7 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, limited to the nodes
 the port plans: local relation, file scan, project, filter, aggregate,
-join, sort, limit and union.
+join, sort, limit, union and distinct.
 """
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ from typing import Dict, List, Optional
 
 import pyarrow as pa
 
-from ..columnar.arrow import schema_from_arrow
+from ..columnar.arrow import empty_table, schema_from_arrow
+from ..columnar.dtypes import common_type
 from ..columnar.schema import Field, Schema
 from ..expr import core as ec
 from ..expr.aggregates import AggregateFunction
@@ -46,6 +47,19 @@ class LocalRelation(LogicalPlan):
 
     def estimated_rows(self):
         return self.table.num_rows
+
+
+class EmptyRelation(LocalRelation):
+    """No rows of ``schema``: what the optimizer leaves of a filter that
+    no row passes (``logical_opt._fold_constants``)."""
+
+    def __init__(self, schema: Schema):
+        super().__init__(empty_table(schema))
+        self._schema = schema
+
+    @property
+    def schema(self):
+        return self._schema
 
 
 class Scan(LogicalPlan):
@@ -198,27 +212,58 @@ class Limit(LogicalPlan):
 
 
 class Union(LogicalPlan):
-    """UNION ALL of children whose columns have the same types, under the
-    first child's names; a column is nullable if it is in any child.  The
-    port has no CAST, so children of other types raise ``ValueError``
-    rather than being cast."""
+    """UNION ALL under the first child's names.  Each column takes the
+    widest of the children's types, as Spark widens a union
+    (``union_types``), and is nullable if it is in any child."""
 
     def __init__(self, children: List[LogicalPlan]):
         self.children = list(children)
-        first = [f.dtype for f in self.children[0].schema]
-        for c in self.children[1:]:
-            types = [f.dtype for f in c.schema]
-            if types != first:
-                raise ValueError(f"a union's children must have the same "
-                                 f"column types (the port has no CAST): "
-                                 f"{first} and {types}")
+        union_types([c.schema for c in self.children])
 
     @property
     def schema(self):
         schemas = [c.schema for c in self.children]
-        return Schema(Field(f.name, f.dtype, any(s[i].nullable
-                                                  for s in schemas))
-                      for i, f in enumerate(schemas[0]))
+        return Schema(Field(f.name, t, any(s[i].nullable for s in schemas))
+                      for i, (f, t) in enumerate(zip(schemas[0],
+                                                     union_types(schemas))))
 
     def estimated_rows(self):
         return sum(c.estimated_rows() for c in self.children)
+
+
+def union_types(schemas: List[Schema]):
+    """Per column, the type every child widens to: the wider of two
+    numeric types (int32 < int64 < float32 < float64), the other type
+    for a NULL column.  Children of other column counts, or a column
+    with no such type (a string against a number, a date against
+    either), raise ``ValueError``; the reference casts every child to
+    the first child's types instead, narrowing a double to a bigint."""
+    widths = {len(s) for s in schemas}
+    if len(widths) != 1:
+        raise ValueError(f"a union's children have {sorted(widths)} "
+                         f"columns")
+    out = []
+    for i, f in enumerate(schemas[0]):
+        t = f.dtype
+        for s in schemas[1:]:
+            try:
+                t = common_type(t, s[i].dtype)
+            except ValueError:
+                raise ValueError(f"a union's column {i + 1} ({f.name}) is "
+                                 f"{t} in one child and {s[i].dtype} in "
+                                 f"another: no common type") from None
+        out.append(t)
+    return out
+
+
+class Distinct(LogicalPlan):
+    """The distinct rows of the child (``SELECT DISTINCT``, and UNION,
+    INTERSECT and EXCEPT without ALL); planned as an aggregate grouped by
+    every column."""
+
+    def __init__(self, child: LogicalPlan):
+        self.children = [child]
+
+    @property
+    def schema(self):
+        return self.children[0].schema

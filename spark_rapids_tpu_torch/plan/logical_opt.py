@@ -15,15 +15,23 @@ the conjuncts over its pass-through columns rewritten to the names below
 and sunk under it (``_rewrite_filter_project``), so they go on sinking
 into the joins inside; a Filter over a semi or anti join has its
 conjuncts over the left side sunk into it (``_rewrite_filter_semi``); a
-Filter stays above an Aggregate, a Sort and a Limit.  ``prune_scan_columns`` narrows every scan, and every projection,
-to the columns the plan above reads.
+Filter over a Union goes into every child (``_rewrite_filter_union``),
+and one over an Aggregate sinks the conjuncts over its plain group keys
+below it (``_rewrite_filter_aggregate``), two rules of Spark's
+``PushPredicateThroughNonJoin``; a Filter stays above a Sort, a Limit
+and a Distinct.  Before any rule, conjuncts over literals alone are
+decided (``_fold_constants``): a false one leaves an ``EmptyRelation``.
+``prune_scan_columns`` narrows every scan, and every projection, to the
+columns the plan above reads, a union's children by position.
 """
 from __future__ import annotations
 
 import copy
+import datetime
 from typing import List, Optional, Set
 
 from ..expr import core as ec
+from ..expr.cast import Cast
 from ..expr import predicates as ep
 from . import logical as L
 
@@ -176,16 +184,18 @@ def _rewrite_filter_semi(f: L.Filter) -> L.LogicalPlan:
 
 def _rewrite_filter_project(f: L.Filter) -> L.LogicalPlan:
     """Filter conjuncts through a Project whose columns they read are
-    pure pass-throughs (a column, or a column under an alias): each is
-    rewritten to the source names and sinks below the Project; the rest
-    stay above."""
+    pure pass-throughs (a column, or a column under an alias) or
+    constants: each is rewritten to the source names and the constants
+    (q4's ``sale_type = 's'`` over a branch that selects ``'c'
+    sale_type`` becomes ``'c' = 's'``, which ``_fold_constants`` then
+    decides) and sinks below the Project; the rest stay above."""
     pj = f.children[0]
     if not isinstance(pj, L.Project):
         return f
-    mapping = {}                     # output name -> source column
+    mapping = {}            # output name -> source column or constant
     for e in pj.exprs:
         src = e.children[0] if isinstance(e, ec.Alias) else e
-        if isinstance(src, ec.AttributeReference):
+        if isinstance(src, (ec.AttributeReference, ec.Literal)):
             mapping[ec.output_name(e)] = src
 
     def rewrite(e: ec.Expression):
@@ -210,6 +220,127 @@ def _rewrite_filter_project(f: L.Filter) -> L.LogicalPlan:
         return f
     below = optimize(_filter_over(push, pj.children[0]))
     return _filter_over(rest, L.Project(pj.exprs, below))
+
+
+def _substitute(e: ec.Expression, mapping) -> ec.Expression:
+    """``e`` with each column named in ``mapping`` replaced."""
+    if isinstance(e, ec.AttributeReference):
+        return mapping.get(e.col_name, e)
+    return e.map_children(lambda c: _substitute(c, mapping))
+
+
+def _rewrite_filter_union(f: L.Filter) -> L.LogicalPlan:
+    """A Filter over a Union goes into each child, its columns renamed
+    by position to the child's (under a cast where the union widened the
+    child's type), as Spark's ``PushPredicateThroughNonJoin`` does.  q4
+    reads its three-branch ``year_total`` CTE six times, each read
+    filtering one channel and one year: inside each branch the year
+    filter reaches ``date_dim`` and the channel filter becomes a
+    constant."""
+    u = f.children[0]
+    if not isinstance(u, L.Union) or _refs(f.condition) is None:
+        return f
+    out = u.schema
+    children = []
+    for c in u.children:
+        mapping = {}
+        for uf, cf in zip(out, c.schema):
+            ref = ec.AttributeReference(cf.name, cf.dtype, cf.nullable)
+            mapping[uf.name] = ref if cf.dtype == uf.dtype else \
+                Cast(ref, uf.dtype)
+        children.append(optimize(L.Filter(
+            _substitute(f.condition, mapping), c)))
+    return L.Union(children)
+
+
+def _rewrite_filter_aggregate(f: L.Filter) -> L.LogicalPlan:
+    """Conjuncts of a Filter over an Aggregate that read only its plain
+    group keys (a column grouped under its own name) sink below it: a
+    group's key values are its rows' values, so filtering rows or
+    groups by them keeps the same groups (Spark's
+    ``PushPredicateThroughNonJoin``).  A conjunct that reads no column
+    stays: over a keyless aggregate it decides whether its one row
+    exists."""
+    a = f.children[0]
+    if not isinstance(a, L.Aggregate):
+        return f
+    keys = {e.col_name for e in a.group_exprs
+            if isinstance(e, ec.AttributeReference)}
+    push, rest = [], []
+    for c in _flatten_and(f.condition):
+        refs = _refs(c)
+        (push if refs and refs <= keys else rest).append(c)
+    if not push:
+        return f
+    below = optimize(_filter_over(push, a.children[0]))
+    return _filter_over(rest, L.Aggregate(a.group_exprs, a.aggs, below))
+
+
+#: the comparisons ``_constant`` decides, by their Python operator
+_COMPARE = {ep.EqualTo: lambda a, b: a == b, ep.LessThan: lambda a, b: a < b,
+            ep.LessThanOrEqual: lambda a, b: a <= b,
+            ep.GreaterThan: lambda a, b: a > b,
+            ep.GreaterThanOrEqual: lambda a, b: a >= b}
+#: ``_constant``'s answer for an expression it does not decide
+_UNKNOWN = object()
+
+
+def _kind(v):
+    """The kind of values a literal compares with in Python as SQL does
+    (NaN and booleans are left alone)."""
+    if isinstance(v, bool) or (isinstance(v, float) and v != v):
+        return None
+    if isinstance(v, (int, float)):
+        return "number"
+    return type(v).__name__ if isinstance(v, (str, datetime.date)) else None
+
+
+def _constant(e: ec.Expression):
+    """The value of a condition over literals alone: True, False, None
+    (NULL), or ``_UNKNOWN`` for anything else."""
+    if isinstance(e, ec.Literal):
+        return e.value if e.value is None or isinstance(e.value, bool) \
+            else _UNKNOWN
+    if type(e) in _COMPARE:
+        a, b = e.children
+        if not (isinstance(a, ec.Literal) and isinstance(b, ec.Literal)):
+            return _UNKNOWN
+        if a.value is None or b.value is None:
+            return None
+        if _kind(a.value) is None or _kind(a.value) != _kind(b.value):
+            return _UNKNOWN
+        return _COMPARE[type(e)](a.value, b.value)
+    vals = [_constant(c) for c in e.children]
+    if any(v is _UNKNOWN for v in vals):
+        return _UNKNOWN
+    if isinstance(e, ep.Not):
+        return None if vals[0] is None else not vals[0]
+    if isinstance(e, ep.And):
+        if False in vals:
+            return False
+        return None if None in vals else True
+    if isinstance(e, ep.Or):
+        if True in vals:
+            return True
+        return None if None in vals else False
+    return _UNKNOWN
+
+
+def _fold_constants(f: L.Filter) -> L.LogicalPlan:
+    """A Filter's conjuncts over literals alone, decided now: a true one
+    goes, and a false or NULL one makes the Filter an ``EmptyRelation``
+    of its schema, so nothing below it runs (Spark's ``PruneFilters``).
+    q4's branches of the wrong channel become empty this way."""
+    keep = []
+    for c in _flatten_and(f.condition):
+        v = _constant(c)
+        if v is _UNKNOWN:
+            keep.append(c)
+        elif v is not True:
+            return L.EmptyRelation(f.schema)
+    if len(keep) == len(_flatten_and(f.condition)):
+        return f
+    return _filter_over(keep, f.children[0])
 
 
 def _collect_cross_tree(p: L.LogicalPlan, rels: List[L.LogicalPlan]) -> bool:
@@ -271,8 +402,12 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
         if isinstance(child, L.Filter):
             return optimize(L.Filter(ep.And(plan.condition, child.condition),
                                      child.children[0]))
-        plan = _reorder_cross_joins(plan)
-        for rule in (_rewrite_filter_join, _rewrite_filter_semi):
+        folded = _fold_constants(plan)
+        if not isinstance(folded, L.Filter):
+            return folded
+        plan = _reorder_cross_joins(folded)
+        for rule in (_rewrite_filter_join, _rewrite_filter_semi,
+                     _rewrite_filter_union, _rewrite_filter_aggregate):
             out = rule(plan)
             if out is not plan:
                 return out
@@ -337,7 +472,10 @@ def prune_scan_columns(plan: L.LogicalPlan,
         needs = [_u(need, _refs_many([o.expr for o in plan.orders]))]
     elif isinstance(plan, L.Limit):
         needs = [need]
+    elif isinstance(plan, L.Union):
+        return _prune_union(plan, need)
     else:
+        # a Distinct's rows are all its columns: it needs every one
         needs = [None] * len(plan.children)
     new_children = [prune_scan_columns(c, n)
                     for c, n in zip(plan.children, needs)]
@@ -345,4 +483,29 @@ def prune_scan_columns(plan: L.LogicalPlan,
         return plan
     out = copy.copy(plan)
     out.children = new_children
+    return out
+
+
+def _prune_union(plan: L.Union, need: Optional[Set[str]]) -> L.LogicalPlan:
+    """A union needs, of each child, the columns at the positions of the
+    union's columns the plan above reads (the reference's rule, by
+    position); a child that keeps more columns than those is projected
+    to them, so every child keeps the same positions."""
+    if need is None:
+        pos = list(range(len(plan.schema)))
+    else:
+        pos = [i for i, n in enumerate(plan.schema.names) if n in need] \
+            or [0]
+    children = []
+    for c in plan.children:
+        names = [c.schema.names[i] for i in pos]
+        pruned = prune_scan_columns(c, set(names))
+        if pruned.schema.names != names:
+            pruned = L.Project([ec.AttributeReference(n).resolve(
+                pruned.schema) for n in names], pruned)
+        children.append(pruned)
+    if all(n is o for n, o in zip(children, plan.children)):
+        return plan
+    out = copy.copy(plan)
+    out.children = children
     return out

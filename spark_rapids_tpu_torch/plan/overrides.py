@@ -33,7 +33,11 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   reaches it);
 - a union is a ``TpuUnion`` of its children's partitions, one after the
   other.  The semi and anti joins of SQL's ``IN (query)`` and ``EXISTS``
-  take the broadcast or shuffle choice of every other join.
+  take the broadcast or shuffle choice of every other join, as do those
+  of INTERSECT and EXCEPT on their null-safe keys;
+- a distinct is the aggregate of every column with no aggregate
+  function (the reference's rule): partial, exchange on all columns,
+  final.
 """
 from __future__ import annotations
 
@@ -119,6 +123,11 @@ def _plan(node: L.LogicalPlan, conf: C.TpuConf,
         return TpuGlobalLimit(node.n, TpuCoalescePartitions(local))
     if isinstance(node, L.Union):
         return TpuUnion(node.schema, [go(c) for c in node.children])
+    if isinstance(node, L.Distinct):
+        keys = [ec.AttributeReference(f.name, f.dtype, f.nullable)
+                for f in node.schema]
+        return _plan_aggregate(L.Aggregate(keys, [], node.children[0]),
+                               conf, device, go)
     raise NotImplementedError(f"no device operator for {type(node).__name__}")
 
 

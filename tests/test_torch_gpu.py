@@ -662,3 +662,54 @@ def test_tpcds_expression_subqueries_on_card_equal_cpu(tpcds7_dir, q):
         out.append(s.sql(QUERIES[q]).to_arrow())
     assert out[0].num_rows > 0
     _close_tables(out[1], out[0])
+
+
+def _setop_tables(n=20_000, seed=11):
+    """Two tables of one shape: int64 keys, strings with '' and NULL,
+    DATE keys with NULLs, doubles."""
+    import datetime
+    import pyarrow as pa
+    out = {}
+    for name, s in (("a", seed), ("b", seed + 1)):
+        rng = np.random.default_rng(s)
+        k = rng.integers(0, 500, n).astype(object)
+        k[rng.random(n) < 0.05] = None
+        st = rng.choice(np.array(["x", "yy", "", "zzz"], dtype=object), n)
+        st[rng.random(n) < 0.05] = None
+        days = rng.integers(0, 60, n)
+        d = [None if rng.random() < 0.05 else
+             datetime.date(2000, 1, 1) + datetime.timedelta(days=int(x))
+             for x in days]
+        out[name] = pa.table({
+            "k": pa.array(list(k), pa.int64()),
+            "s": pa.array(list(st), pa.string()),
+            "d": pa.array(d, pa.date32()),
+            "x": pa.array(rng.random(n) * 100, pa.float64())})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", [
+    "select k, s, x from a union all select k, s, x from b",
+    "select s, d from a where k < 100 intersect select s, d from b",
+    "select distinct k, d from a",
+    "select s, count(*) n, sum(x) sx from (select s, x from a union all "
+    "select s, x from b) t group by s"])
+def test_setops_on_card_equal_cpu(sql):
+    """A union, an INTERSECT on a string and a DATE key (null-safe keys
+    through B1's exchange and the probe) and a SELECT DISTINCT (an
+    aggregate of every column) on the card against the port on the CPU,
+    as multisets."""
+    _need_card()
+    tables = _setop_tables()
+    out = []
+    for device in ("cpu", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 12}), device=device)
+        for name, t in tables.items():
+            s.create_dataframe(t, num_partitions=4) \
+                .create_or_replace_temp_view(name)
+        t = s.sql(sql).to_arrow()
+        out.append(t.sort_by([(c, "ascending") for c in t.column_names]))
+    assert out[0].num_rows > 0
+    _close_tables(out[1], out[0])

@@ -181,7 +181,7 @@ def test_order_by_limit_over_more_groups_with_string_keys():
 
 
 UNSUPPORTED = {
-    "select distinct k from fact": "DISTINCT",
+    "select count(distinct k) from fact": "DISTINCT",
     "select k from fact f1 where k = 1 or d in (select dk from dim where "
     "dv = f1.k)": "must be uncorrelated",
     "select k from fact where s like 'M_sic'": "LIKE 'M_sic'",
@@ -190,8 +190,8 @@ UNSUPPORTED = {
         "EXISTS is supported only as a conjunct",
     "select cast(k as double) from fact": "CAST",
     "select k, sum(x) over (partition by k) from fact": "OVER",
-    "select k from fact union select k from fact": "UNION",
-    "select k from fact intersect select k from fact": "INTERSECT",
+    "select k from fact union select s from fact": "no common type",
+    "select k from fact intersect all select k from fact": "INTERSECT ALL",
     "select k from fact right semi join dim on d = dk": "expected JOIN",
     "select k from fact f1 where x > (select avg(x) from fact f2 where "
     "f2.k < f1.k)": "equalities",

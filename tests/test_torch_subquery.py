@@ -243,14 +243,19 @@ def test_filter_sinks_through_derived_table_to_its_join():
 
 
 def test_filter_stays_above_aggregate():
-    """A conjunct on a derived table's group key sinks through its
-    projection and stops at the Aggregate, as in the reference."""
+    """A conjunct on a derived table's aggregate sinks through its
+    projection and stops at the Aggregate; one on a plain group key goes
+    on below it (``logical_opt._rewrite_filter_aggregate``, a rule the
+    reference lacks)."""
     plan = sql_to_plan("select k, n from (select k, count(*) n from fact "
-                       "group by k) t where k = 2", _views())
+                       "group by k) t where k = 2 and n > 1", _views())
     aggs = _find_logical(plan, L.Aggregate)
     assert len(aggs) == 1
     filters = _find_logical(plan, L.Filter)
-    assert len(filters) == 1 and filters[0].children[0] is aggs[0]
+    above = [f for f in filters if f.children[0] is aggs[0]]
+    assert len(above) == 1 and "col(k)" not in repr(above[0].condition)
+    below = _find_logical(aggs[0].children[0], L.Filter)
+    assert len(below) == 1 and "col(k)" in repr(below[0].condition)
 
 
 def test_cte_used_twice_is_one_plan_renamed():

@@ -167,7 +167,7 @@ REFUSED = {
                             "* from fact where k = dv)",
     "union_of_other_types": "select dk from dim where exists (select * from "
                             "fact where d = dk) or exists (select * from "
-                            "fact where k = dk)",
+                            "fact where s = dk)",
     "correlated_non_equality": "select k from fact f1 where x > (select "
                                "avg(x) from fact f2 where f2.k < f1.k)",
     "correlated_not_aggregate": "select k from fact f1 where x > (select "
@@ -253,14 +253,22 @@ def test_union_concatenates_children_under_the_first_names(parts):
 
 
 def test_union_refuses_differing_types():
+    """Children of column types with no common type (a string against a
+    number) raise; a narrower numeric child widens to the union's type,
+    and ``TpuUnion`` refuses a child that cannot widen to it."""
     s, plans, _ = _union_inputs(1)
+    words = s.create_dataframe(pa.table({
+        "x": pa.array(["a", "b"]), "y": pa.array([0.5, 1.5])}))._plan
+    with pytest.raises(ValueError, match="no common type"):
+        L.Union([plans[0], words])
     narrow = s.create_dataframe(pa.table({
         "x": pa.array([1, 2], pa.int32()),
         "y": pa.array([0.5, 1.5])}))._plan
-    with pytest.raises(ValueError, match="same column types"):
-        L.Union([plans[0], narrow])
+    union = L.Union([narrow, plans[0]])
+    assert [f.dtype.name for f in union.schema] == ["bigint", "double"]
+    assert s.execute_to_arrow(union).column(0).to_pylist()[:2] == [1, 2]
     with pytest.raises(ValueError, match="column types"):
-        TpuUnion(L.Union(plans).schema, [s.plan(plans[0]), s.plan(narrow)])
+        TpuUnion(L.Union(plans).schema, [s.plan(plans[0]), s.plan(words)])
 
 
 WORDS = ["straße", "ÉCOLE", "Mixed Case 1", "ñandú", "", "ASCII only",

@@ -39,12 +39,22 @@ against the JAX package's engine and oracle (q24 and q58 return no rows
 there), and on phase 7's files at scale 0.1 against the oracle, where
 every query but q24 and q58 returns rows; at SF10's row estimates each
 plans DS9_PLANS' operators.
+
+The 15 queries of phase 10 (``chip_smoke.DS10_QUERIES``: UNION ALL,
+INTERSECT and EXCEPT, SELECT DISTINCT, DATE keys) run the same ways
+against ``chip_smoke.ds10_references``; q76 and q83 return no rows on
+either file set and q23 one NULL sum, so each also runs on generate's
+tables changed to give it rows (NULL foreign keys for q76, store_sales
+written five times for q23, returns moved into q83's week), against the
+JAX package's engine, its oracle and the references.
 """
+import datetime
 import os
 import re
 import shutil
 import sys
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.compute  # noqa: F401
 import pyarrow.parquet as papq
@@ -493,3 +503,129 @@ def test_phase6_baskets_are_tickets(tmp_path):
     assert sum(1 for n in lines if not 8 <= n <= 16) <= chip_smoke.DS_PARTS
     for c in shared:
         assert set(g[f"{c}_count_distinct"].to_pylist()) == {1}, c
+
+
+def _ds10_rows(data_dir, q, refs=None):
+    table = _views(TpuSession(device="cpu"), data_dir).sql(
+        tpcds.QUERIES[q]).to_arrow()
+    refs = refs if refs is not None else \
+        chip_smoke.ds10_references(data_dir, [q])[q]
+    chip_smoke.check_rows(q, table, refs, chip_smoke.DS10_ORDER[q],
+                          chip_smoke.DS10_LIMIT.get(q, 100))
+    return [tuple(r.values()) for r in table.to_pylist()]
+
+
+#: phase-10 queries with no rows, or one NULL row, on generate's files at
+#: scale 0.02 and on phase 7's at 0.1: q76 reads NULL foreign keys, which
+#: neither generator draws; no item of q83 is returned in all three
+#: channels in its week; q23's sum is NULL (no item sells more than four
+#: times on one date).  ``test_ds10_*_with_rows`` give each its rows.
+DS10_NO_ROWS = {"q76", "q83"}
+DS10_NULL_SUM = {"q23"}
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS10_QUERIES)
+def test_ds10_query_matches_jax_oracle_and_pyarrow(one_file, q):
+    got = _ds10_rows(one_file, q)
+    assert bool(got) == (q not in DS10_NO_ROWS), f"{q}: {len(got)} rows"
+    for engine in (with_tpu_session, with_cpu_session):
+        _compare_rows(canon_rows(_jax_on(one_file, q, engine)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS10_QUERIES)
+def test_ds10_query_on_drawn_returns_matches_oracle(drawn, q):
+    got = _ds10_rows(drawn, q)
+    assert bool(got) == (q not in DS10_NO_ROWS), f"{q}: {len(got)} rows"
+    assert (got == [(None,)]) == (q in DS10_NULL_SUM)
+    _compare_rows(canon_rows(_jax_on(drawn, q, with_cpu_session)),
+                  canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS10_QUERIES)
+def test_sf10_estimates_plan_phase10(drawn, q):
+    """At SF10's row counts each phase-10 query plans DS10_PLANS'
+    operators: q4, q11 and q74 aggregate one channel's year per read of
+    their CTE (the filter over the union empties the other branches),
+    q38's and q87's semi and anti joins of DISTINCT sets shuffle, and no
+    query plans a cross join."""
+    plan = _sf10_plan(drawn, q)
+    assert chip_smoke.plan_signature(plan) == chip_smoke.DS10_PLANS[q]
+    assert "TpuNestedLoopJoin" not in plan and "cross" not in plan
+
+
+def _copy_tables(src, dst, change):
+    """``src``'s tables under ``dst``, each passed through ``change(name,
+    table)`` first."""
+    os.makedirs(dst)
+    for t in tpcds.TABLES:
+        path = os.path.join(src, f"{t}.parquet")
+        if os.path.exists(path):
+            papq.write_table(change(t, papq.read_table(path)),
+                             os.path.join(dst, f"{t}.parquet"))
+    return dst
+
+
+def _check_ds10_with_rows(data_dir, q):
+    got = _ds10_rows(data_dir, q)
+    assert got and got != [(None,)], f"{q}: {got}"
+    for engine in (with_tpu_session, with_cpu_session):
+        _compare_rows(canon_rows(_jax_on(data_dir, q, engine)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+def test_ds10_q76_with_rows(one_file, tmp_path):
+    """q76 on generate's tables with 5% of ss_store_sk,
+    ws_ship_customer_sk and cs_ship_mode_sk NULL (TPC-DS's own generator
+    leaves such keys NULL; ``generate`` draws none)."""
+    nulls = {"store_sales": "ss_store_sk", "web_sales": "ws_ship_customer_sk",
+             "catalog_sales": "cs_ship_mode_sk"}
+    rng = pa.array(np.random.default_rng(76).random(1 << 20) < 0.05)
+
+    def change(name, t):
+        if name not in nulls:
+            return t
+        i = t.schema.get_field_index(nulls[name])
+        col = pa.compute.if_else(rng[:t.num_rows], pa.scalar(
+            None, t.schema.field(i).type), t.column(i))
+        return t.set_column(i, nulls[name], col)
+    _check_ds10_with_rows(_copy_tables(one_file, str(tmp_path / "q76"),
+                                       change), "q76")
+
+
+def test_ds10_q23_with_rows(one_file, tmp_path):
+    """q23 on generate's tables with each store_sales row written five
+    times: every item sold on a date sells more than four times there,
+    and the best customers stay the best (every sum five times larger)."""
+    def change(name, t):
+        return pa.concat_tables([t] * 5) if name == "store_sales" else t
+    _check_ds10_with_rows(_copy_tables(one_file, str(tmp_path / "q23"),
+                                       change), "q23")
+
+
+def test_ds10_q83_with_rows(one_file, tmp_path):
+    """q83 on generate's tables with the first 40 rows of each returns
+    table returned on 2000-06-30 (q83's week) and of one of 8 items, so
+    that items are returned in all three channels that week."""
+    d = papq.read_table(os.path.join(one_file, "date_dim.parquet"))
+    day = d.filter(pa.compute.equal(d["d_date"], pa.scalar(
+        datetime.date(2000, 6, 30), pa.date32())))["d_date_sk"][0].as_py()
+    items = papq.read_table(os.path.join(one_file, "item.parquet"))
+    sks = items["i_item_sk"].to_pylist()[:8]
+    returns = {"store_returns": "sr", "catalog_returns": "cr",
+               "web_returns": "wr"}
+
+    def change(name, t):
+        if name not in returns:
+            return t
+        p = returns[name]
+        n = min(40, t.num_rows)
+        for col, vals in ((f"{p}_returned_date_sk", [day] * n),
+                          (f"{p}_item_sk", [sks[i % 8] for i in range(n)])):
+            i = t.schema.get_field_index(col)
+            new = pa.concat_arrays([pa.array(vals, t.schema.field(i).type),
+                                    t.column(i).slice(n).combine_chunks()])
+            t = t.set_column(i, col, new)
+        return t
+    _check_ds10_with_rows(_copy_tables(one_file, str(tmp_path / "q83"),
+                                       change), "q83")
