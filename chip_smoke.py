@@ -7,6 +7,8 @@ Runs from the repository root:
     python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
                                                # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
+    python3 chip_smoke.py --only 11            # phase 11 alone (no
+                                               # contract line)
 
 Phases (any failure exits non-zero):
 1. probe: a CUDA device is required; prints its name, count and
@@ -85,7 +87,17 @@ Phases (any failure exits non-zero):
    (``ds10_references``), warm runs byte-identical, rows unless
    DS10_EMPTY names the query, peak memory and B1, B2 and probe launches
    per query; q4 and q87 run once more under the profiler.  B1 and the
-   join probe must launch.
+   join probe must launch;
+11. TPC-DS with window functions: the 10 queries of DS11_QUERIES
+   (revenue shares of an item class, month and quarter outliers against
+   a partition's mean, ranks, q51's running totals over a full outer
+   join) verbatim through the same session on the same tables, timed as
+   in phase 9, each with DS11_PLANS' operators (every window over a hash
+   exchange on its PARTITION BY keys or a coalesce), a cold and two warm
+   runs against pyarrow and numpy (``ds11_references``), warm runs
+   byte-identical, rows unless DS11_EMPTY names the query, peak memory
+   and B1, B2 and probe launches per query; q51 runs once more under the
+   profiler.  B1 and the join probe must launch.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2692,12 +2704,28 @@ DS7_FACT = {"q7": "store_sales", "q13": "store_sales",
             "q91": "catalog_returns", "q99": "catalog_sales"}
 
 
-def _sort_rows(rows, order):
+def _order_value(row, item):
+    """A row's ORDER BY value: its column at position ``item``, or
+    ``item(row)`` for an expression that is no select column."""
+    return item(row) if callable(item) else row[item]
+
+
+def _near(v):
+    """A float to 9 significant digits (EXACT_REL's grain), so that two
+    sums of one value added in different orders sort as ties."""
+    return float(f"{v:.9g}") if isinstance(v, float) and v == v else v
+
+
+def _sort_rows(rows, order, near: bool = False):
     """Rows in ORDER BY order (Spark's nulls: first ascending, last
-    descending), stable."""
+    descending), stable; ``near``: float keys equal to 9 significant
+    digits tie."""
     out = list(rows)
     for i, asc in reversed(order or []):
-        out.sort(key=lambda r: (0,) if r[i] is None else (1, r[i]),
+        def value(r, i=i):
+            v = _order_value(r, i)
+            return _near(v) if near else v
+        out.sort(key=lambda r: (0,) if value(r) is None else (1, value(r)),
                  reverse=not asc)
     return out
 
@@ -2721,23 +2749,26 @@ def check_rows(q: str, table, full: list, order, limit: int = 100) -> int:
     position's order keys those of the reference's row there, and each
     row one of the reference's rows with those keys (so ties, also at
     the LIMIT's cut, compare as a multiset); strings, integers and nulls
-    equal, floats within EXACT_REL.  Returns the reference's row
-    count."""
+    equal, floats within EXACT_REL.  Float order keys equal to 9
+    significant digits are ties (``_near``): two engines that add one
+    group's values in different orders may order two equal averages
+    either way (q53's manufacturers of one mean).  Returns the
+    reference's row count."""
     rows = [tuple(r.values()) for r in table.to_pylist()]
-    ref = _sort_rows(full, order)
+    ref = _sort_rows(full, order, near=True)
     want = min(limit, len(ref)) if order is not None else len(ref)
     check(len(rows) == want,
           f"{q}: {len(rows)} rows where the reference has {want}")
 
     def key(r):
-        return tuple(r[i] for i, _ in order or [])
+        return tuple(_order_value(r, i) for i, _ in order or [])
 
     def same_key(a, b):
         return all(_close(x, y) for x, y in zip(key(a), key(b)))
     check([key(r) for r in _sort_rows(rows, order)] ==
           [key(r) for r in rows], f"{q}: rows out of ORDER BY order")
     used = set()
-    for i, r in enumerate(rows):
+    for i, r in enumerate(_sort_rows(rows, order, near=True)):
         check(same_key(r, ref[i]),
               f"{q}: row {i} has order keys {key(r)}, the reference "
               f"{key(ref[i])}")
@@ -4434,6 +4465,416 @@ def tpcds10_phase(args, kernels_used, data_dir: str, session) -> dict:
     return launches
 
 
+DS11_QUERIES = ("q12", "q20", "q44", "q47", "q51", "q53", "q57", "q63",
+                "q89", "q98")
+#: queries allowed an empty answer at SF10, with the reason
+DS11_EMPTY = {
+    "q44": "its HAVING compares with a scalar query over the store_sales "
+           "rows whose ss_hdemo_sk is NULL, and neither generator draws a "
+           "NULL key: the scalar is NULL and no item passes"}
+
+
+def _less_avg(s: int, a: int):
+    """An ORDER BY item that is no select column: ``sum_sales -
+    avg_monthly_sales`` of the row (select positions ``s`` and ``a``)."""
+    def key(r):
+        return None if r[s] is None or r[a] is None else r[s] - r[a]
+    return key
+
+
+#: ORDER BY of each query as (select column position, or a function of
+#: the row for an expression that is no select column, ascending)
+DS11_ORDER = {
+    "q12": [(2, True), (3, True), (0, True), (1, True), (6, True)],
+    "q20": [(2, True), (3, True), (0, True), (1, True), (6, True)],
+    "q98": [(2, True), (3, True), (0, True), (1, True), (6, True)],
+    "q44": _ASC[:1], "q51": _ASC[:2],
+    "q47": [(_less_avg(6, 5), True), (0, True), (1, True), (2, True),
+            (4, True)],
+    "q57": [(_less_avg(6, 5), True), (0, True), (1, True), (2, True),
+            (4, True)],
+    "q89": [(_less_avg(6, 7), True), (3, True), (0, True), (1, True),
+            (2, True), (5, True)],
+    "q53": [(2, True), (1, True), (0, True)],
+    "q63": [(0, True), (2, True), (1, True)]}
+#: the table whose rows a query's Mrows/s counts (its largest scan)
+DS11_FACT = {q: "store_sales" for q in DS11_QUERIES}
+DS11_FACT.update({"q12": "web_sales", "q20": "catalog_sales",
+                  "q57": "catalog_sales"})
+
+
+def ds11_references(data_dir: str, queries=DS11_QUERIES) -> dict:
+    """Each phase-11 query's full result (every row before its LIMIT), in
+    its select list's order, by pyarrow group-bys and joins and Python
+    or numpy windows written apart from the port: a whole-partition
+    window is a dict of the partition's ``math.fsum``, a rank counts the
+    rows that sort before, and q51's running sums and maxima run per
+    item in numpy (``np.cumsum``, ``np.fmax.accumulate``) after a full
+    outer join of the two channels by one combined key."""
+    import collections
+    import datetime
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, between = _ds7_tools(data_dir)
+    out = {}
+
+    def rows_of(t, cols):
+        return list(zip(*[t[c].to_pylist() for c in cols]))
+
+    def dates(cols, *conds):
+        d = read("date_dim", ["d_date_sk"] + cols)
+        for col, fn in conds:
+            d = d.filter(fn(d[col]))
+        return d
+
+    def eq(v):
+        return lambda c: pc.equal(c, v)
+
+    def part_avg(rows, part, value):
+        """avg(value) over (partition by part) per row: the mean of the
+        partition's non-NULL values, None if it has none."""
+        vals = collections.defaultdict(list)
+        for r in rows:
+            if r[value] is not None:
+                vals[part(r)].append(r[value])
+        return [math.fsum(vals[part(r)]) / len(vals[part(r)])
+                if vals[part(r)] else None for r in rows]
+
+    def deviates(s, a, positive):
+        """``case when avg > 0 (or <> 0) then abs(s - a) / a else null end
+        > 0.1``."""
+        if s is None or a is None or not (a > 0 if positive else a != 0):
+            return False
+        return abs(s - a) / a > 0.1
+
+    for q, fact, p in (("q12", "web_sales", "ws"),
+                       ("q20", "catalog_sales", "cs"),
+                       ("q98", "store_sales", "ss")):
+        if q not in queries:
+            continue
+        keys = ["i_item_id", "i_item_desc", "i_category", "i_class",
+                "i_current_price"]
+        it = read("item", ["i_item_sk"] + keys)
+        it = it.filter(isin(it["i_category"], ["Sports", "Books", "Home"]))
+        d = dates(["d_year", "d_moy"], ("d_year", eq(1999)),
+                  ("d_moy", lambda c: between(c, 2, 3)))
+        f = read(fact, [f"{p}_item_sk", f"{p}_sold_date_sk",
+                        f"{p}_ext_sales_price"])
+        j = join(join(f, it, f"{p}_item_sk", "i_item_sk"), d,
+                 f"{p}_sold_date_sk", "d_date_sk")
+        rows = _grouped(j, keys, [(f"{p}_ext_sales_price", "sum")],
+                        keys + [f"{p}_ext_sales_price_sum"])
+        per_class = collections.defaultdict(list)
+        for r in rows:
+            if r[5] is not None:
+                per_class[r[3]].append(r[5])
+        total = {c: math.fsum(v) for c, v in per_class.items()}
+        out[q] = [r + (None if r[5] is None or r[3] not in total or
+                       total[r[3]] == 0 else r[5] * 100.0 / total[r[3]],)
+                  for r in rows]
+
+    for q, key, period in (("q53", "i_manufact_id", "d_qoy"),
+                           ("q63", "i_manager_id", "d_moy")):
+        if q not in queries:
+            continue
+        it = read("item", ["i_item_sk", key, "i_category", "i_class"])
+        it = it.filter(pc.or_(
+            pc.and_(isin(it["i_category"], ["Books", "Home", "Sports"]),
+                    isin(it["i_class"], ["classical", "fishing",
+                                         "football"])),
+            pc.and_(isin(it["i_category"], ["Women", "Music", "Men"]),
+                    isin(it["i_class"], ["shirts", "dresses", "pants"]))))
+        d = dates(["d_month_seq", period],
+                  ("d_month_seq", lambda c: isin(c, list(range(1200,
+                                                               1212)))))
+        f = read("store_sales", ["ss_item_sk", "ss_sold_date_sk",
+                                 "ss_store_sk", "ss_sales_price"])
+        j = join(join(join(f, it, "ss_item_sk", "i_item_sk"), d,
+                      "ss_sold_date_sk", "d_date_sk"),
+                 read("store", ["s_store_sk"]), "ss_store_sk", "s_store_sk")
+        rows = _grouped(j, [key, period], [("ss_sales_price", "sum")],
+                        [key, period, "ss_sales_price_sum"])
+        avgs = part_avg(rows, lambda r: r[0], 2)
+        out[q] = [(r[0], r[2], a) for r, a in zip(rows, avgs)
+                  if deviates(r[2], a, True)]
+
+    if "q89" in queries:
+        it = read("item", ["i_item_sk", "i_category", "i_class", "i_brand"])
+        it = it.filter(pc.or_(
+            pc.and_(isin(it["i_category"], ["Books", "Music", "Sports"]),
+                    isin(it["i_class"], ["classical", "fishing",
+                                         "football"])),
+            pc.and_(isin(it["i_category"], ["Men", "Women", "Home"]),
+                    isin(it["i_class"], ["pants", "shirts", "dresses"]))))
+        d = dates(["d_year", "d_moy"], ("d_year", eq(1999)))
+        f = read("store_sales", ["ss_item_sk", "ss_sold_date_sk",
+                                 "ss_store_sk", "ss_sales_price"])
+        j = join(join(join(f, it, "ss_item_sk", "i_item_sk"), d,
+                      "ss_sold_date_sk", "d_date_sk"),
+                 read("store", ["s_store_sk", "s_store_name",
+                                "s_company_id"]),
+                 "ss_store_sk", "s_store_sk")
+        keys = ["i_category", "i_class", "i_brand", "s_store_name",
+                "s_company_id", "d_moy"]
+        rows = _grouped(j, keys, [("ss_sales_price", "sum")],
+                        keys + ["ss_sales_price_sum"])
+        avgs = part_avg(rows, lambda r: (r[0], r[2], r[3], r[4]), 6)
+        out["q89"] = [r + (a,) for r, a in zip(rows, avgs)
+                      if deviates(r[6], a, False)]
+
+    for q, fact, p, dim in (
+            ("q47", "store_sales", "ss",
+             ("store", "ss_store_sk", "s_store_sk",
+              ["s_store_name", "s_company_id"])),
+            ("q57", "catalog_sales", "cs",
+             ("call_center", "cs_call_center_sk", "cc_call_center_sk",
+              ["cc_name"]))):
+        if q not in queries:
+            continue
+        it = read("item", ["i_item_sk", "i_category", "i_brand"])
+        d = dates(["d_year", "d_moy"], ("d_year", eq(1999)))
+        f = read(fact, [f"{p}_item_sk", f"{p}_sold_date_sk", dim[1],
+                        f"{p}_sales_price"])
+        j = join(join(join(f, it, f"{p}_item_sk", "i_item_sk"), d,
+                      f"{p}_sold_date_sk", "d_date_sk"),
+                 read(dim[0], [dim[2]] + dim[3]), dim[1], dim[2])
+        keys = ["i_category", "i_brand"] + dim[3] + ["d_year", "d_moy"]
+        rows = _grouped(j, keys, [(f"{p}_sales_price", "sum")],
+                        keys + [f"{p}_sales_price_sum"])
+        nk = len(keys)
+        avgs = part_avg(rows, lambda r: r[:nk - 1], nk)
+        # v1's rank() is computed and not selected; the outer query keeps
+        # the category, brand, store or call center name, year and month
+        out[q] = [(r[0], r[1], r[2], r[nk - 2], r[nk - 1], a, r[nk])
+                  for r, a in zip(rows, avgs) if deviates(r[nk], a, True)]
+
+    if "q44" in queries:
+        f = read("store_sales", ["ss_item_sk", "ss_store_sk", "ss_hdemo_sk",
+                                 "ss_net_profit"])
+        f = f.filter(pc.equal(f["ss_store_sk"], 4))
+        base = f.filter(pc.is_null(f["ss_hdemo_sk"]))
+        bound = None
+        if base.num_rows:
+            v = [x for x in base["ss_net_profit"].to_pylist()
+                 if x is not None]
+            bound = math.fsum(v) / len(v) if v else None
+        items = _grouped(f, ["ss_item_sk"], [("ss_net_profit", "mean")],
+                         ["ss_item_sk", "ss_net_profit_mean"])
+        kept = [(i, a) for i, a in items if bound is not None and
+                a is not None and a > 0.9 * bound]
+        name = dict(rows_of(read("item", ["i_item_sk", "i_product_name"]),
+                            ["i_item_sk", "i_product_name"]))
+
+        def ranked(desc):
+            vals = [a for _, a in kept]
+            return [(i, 1 + sum(1 for b in vals
+                                if (b > a if desc else b < a)))
+                    for i, a in kept]
+        asc = [(i, r) for i, r in ranked(False) if r < 11]
+        desc = [(i, r) for i, r in ranked(True) if r < 11]
+        out["q44"] = [(ra, name[ia], name[idc]) for ia, ra in asc
+                      for idc, rd in desc if ra == rd and ia in name and
+                      idc in name]
+
+    if "q51" in queries:
+        d = dates(["d_date", "d_month_seq"],
+                  ("d_month_seq", lambda c: between(c, 1200, 1211)))
+        span = 1 << 20                  # key = item * span + days
+
+        def cumulative(fact, p):
+            f = read(fact, [f"{p}_item_sk", f"{p}_sold_date_sk",
+                            f"{p}_sales_price"])
+            f = f.filter(pc.is_valid(f[f"{p}_item_sk"]))
+            g = join(f, d, f"{p}_sold_date_sk", "d_date_sk").group_by(
+                [f"{p}_item_sk", "d_date"]).aggregate(
+                [(f"{p}_sales_price", "sum")])
+            check(g[f"{p}_sales_price_sum"].null_count == 0,
+                  "q51: a NULL daily sum")
+            item = g[f"{p}_item_sk"].to_numpy()
+            days = g["d_date"].cast(pa.int32()).to_numpy().astype(np.int64)
+            val = g[f"{p}_sales_price_sum"].to_numpy()
+            key = item * span + days
+            order = np.argsort(key, kind="stable")
+            key, item, val = key[order], item[order], val[order]
+            cuts = np.flatnonzero(item[1:] != item[:-1]) + 1
+            cum = np.concatenate([np.cumsum(c) for c in np.split(val, cuts)]) \
+                if len(val) else val
+            return key, cum
+
+        kw, cw = cumulative("web_sales", "ws")
+        ks, cs = cumulative("store_sales", "ss")
+        keys = np.union1d(kw, ks)
+        web = np.full(len(keys), np.nan)
+        store = np.full(len(keys), np.nan)
+        web[np.searchsorted(keys, kw)] = cw
+        store[np.searchsorted(keys, ks)] = cs
+        item = keys // span
+        cuts = np.flatnonzero(item[1:] != item[:-1]) + 1
+
+        def running_max(v):
+            return np.concatenate([np.fmax.accumulate(c)
+                                   for c in np.split(v, cuts)]) \
+                if len(v) else v
+        wmax, smax = running_max(web), running_max(store)
+        keep = np.flatnonzero(wmax > smax)
+        epoch = datetime.date(1970, 1, 1)
+
+        def val(x):
+            return None if np.isnan(x) else float(x)
+        out["q51"] = [(int(item[i]),
+                       epoch + datetime.timedelta(days=int(keys[i] % span)),
+                       val(web[i]), val(store[i]), val(wmax[i]),
+                       val(smax[i])) for i in keep]
+    return out
+
+
+#: each query's plan at SF10's row estimates: its limit, sort, aggregate,
+#: join and window operators, top down, a window as ``TpuWindow<hash>``
+#: (a hash exchange on its PARTITION BY keys below it) or
+#: ``TpuWindow<coalesce>`` (no PARTITION BY, or two specs of different
+#: keys: one stream)
+_WH, _WC = "TpuWindow<hash>", "TpuWindow<coalesce>"
+_BRL = [_BR, _BR, _BL]                    # the item, date and store stars
+DS11_PLANS = {
+    "q12": _LS + [_WH] + _AGG + [_BR, _BR],
+    "q20": _LS + [_WH] + _AGG + [_BR, _BR],
+    "q98": _LS + [_WH] + _AGG + [_BR, _BR],
+    "q44": _LS + [_BR, _BR, _SR] + ([_WC] + _AGG) * 2,
+    "q47": _LS + [_WC] + _AGG + _BRL,
+    "q57": _LS + [_WC] + _AGG + _BRL,
+    "q51": _LS + [_WH, "TpuShuffledHashJoin[full, build=right]"] +
+           ([_WH] + _AGG + [_BR]) * 2,
+    "q53": _LS + [_WH] + _AGG + _BRL,
+    "q63": _LS + [_WH] + _AGG + _BRL,
+    "q89": _LS + [_WH] + _AGG + _BRL}
+
+
+def window_plan_signature(explain: str) -> list:
+    """``plan_signature`` with each window, and what is below it."""
+    lines = [ln.strip() for ln in explain.splitlines()]
+    out = []
+    for i, ln in enumerate(lines):
+        if ln.startswith("TpuWindow"):
+            below = lines[i + 1] if i + 1 < len(lines) else ""
+            kind = "hash" if below.startswith(
+                "TpuShuffleExchange[HashPartitioner") else \
+                "coalesce" if below.startswith("TpuCoalescePartitions") \
+                else "none"
+            out.append(f"TpuWindow<{kind}>")
+        elif (m := _PLAN_OP.match(ln)):
+            out.append(m.group(1))
+    return out
+
+
+def tpcds11_phase(args, kernels_used, data_dir: str, session) -> dict:
+    """Phase 11: the verbatim text of the 10 TPC-DS queries with window
+    functions (DS11_QUERIES: revenue shares of an item class, month and
+    quarter outliers against a partition's mean, ranks and running
+    totals) through the port's ``session.sql`` on phase 7's tables,
+    directory and session.  Each must plan DS11_PLANS' operators at SF10
+    (each window over a hash exchange on its PARTITION BY keys, or a
+    coalesce), equal ``ds11_references`` (1e-9, ORDER BY kept, ties as a
+    multiset, also at the LIMIT's cut), give the same bytes on two warm
+    runs, and return rows unless DS11_EMPTY names it.  A run is
+    ``session.sql(text).to_arrow()`` (``SqlRun``), as in phases 9 and
+    10; below SF10 the broadcast threshold shrinks with the scale.  q51
+    (two running sums, a full outer join, two running maxima) runs once
+    more under the profiler.  Returns the kernels' launches on this
+    path."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    t0 = time.perf_counter()
+    refs = ds11_references(data_dir)
+    print(f"tpcds11: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    rows = {t: max(int(n * args.ds_sf), 64) for t, n in
+            {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        for q in DS11_QUERIES:
+            tq = time.perf_counter()
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 11 imported JAX or the JAX package")
+            plan = session.sql(QUERIES[q]).explain()
+            check(window_plan_signature(plan) == DS11_PLANS[q] or
+                  args.ds_sf < 10, f"{q}: not the planned operators:\n{plan}")
+            run = SqlRun(session, QUERIES[q], on_card)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, run, on_card)
+            for name, v in cuda_ops.LAUNCHES.items():
+                launches[name] += v
+            order = DS11_ORDER[q]
+            full = check_rows(q, cold, refs[q], order)
+            for t in warm:
+                check_rows(q, t, refs[q], order)
+            check(same_bytes(warm[0], warm[1]),
+                  f"{q}: the two warm runs are not byte-identical")
+            check(cold.num_rows > 0 or q in DS11_EMPTY or args.ds_sf < 10,
+                  f"{q}: no rows (not in DS11_EMPTY)")
+            fact = rows[DS11_FACT[q]]
+            got = cuda_ops.LAUNCHES
+            lower = run.lower_s
+            print(f"{q}: {cold.num_rows} rows of {full}; cold {cold_s:.4f}s "
+                  f"(lowering and its subqueries {lower[0]:.4f}s; host "
+                  f"read {read_s:.4f}s, upload {upload_s:.4f}s); warm "
+                  f"{warm_s[0]:.4f}s {warm_s[1]:.4f}s (lowering "
+                  f"{lower[2]:.4f}s); warm {fact / warm_s[1] / 1e6:.3f} "
+                  f"Mrows/s of {DS11_FACT[q]}; peak device memory {peak} B; "
+                  f"launches (3 runs) B1 {got['hash_partition_ids']}, B2 "
+                  f"{got['table_reduce']}, probe {got['join_probe']}; "
+                  f"byte-identical warm runs; matches pyarrow at "
+                  f"{EXACT_REL}; first rows {cold.slice(0, 2).to_pylist()}; "
+                  f"{time.perf_counter() - tq:.1f}s with the plan and checks",
+                  flush=True)
+        print("plan q51:\n" + session.sql(QUERIES["q51"]).explain())
+        if on_card:
+            tq = time.perf_counter()
+            before = dict(cuda_ops.LAUNCHES)
+            print("profile q51:")
+            profile_query(session.sql(QUERIES["q51"]))
+            print("profile q51: kernel launches " + str(
+                {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()}) +
+                f"; {time.perf_counter() - tq:.1f}s with the trace's "
+                f"processing", flush=True)
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
+        cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the phase 11 path")
+    print(f"tpcds11: launches of the phase (3 runs of each query) {launches}")
+    return launches
+
+
+def ds_tables_alone(args, data_dir: str):
+    """Phases 6 and 7's tables under ``data_dir`` and phase 6's session
+    over them, without their queries (``--only 11``)."""
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "benchmarks"))
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.config import TpuConf
+    t0 = time.perf_counter()
+    make_tpcds(data_dir, args.ds_sf, args.seed)
+    make_tpcds7(data_dir, args.ds_sf, args.seed)
+    print(f"tpcds data: sf {args.ds_sf}, written in "
+          f"{time.perf_counter() - t0:.1f}s")
+    session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                  DS_BATCH_ROWS}), device=args.device)
+    for t in DS_TABLES + DS7_TABLES:
+        session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
+            .create_or_replace_temp_view(t)
+    return session
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=64_000_000)
@@ -4447,6 +4888,9 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: also time its "
                          "kernels at the raw-row and probe shapes with "
                          "this timer")
+    ap.add_argument("--only", type=int, choices=(11,), default=None,
+                    help="after the build, run this phase alone on "
+                         "freshly written tables (no contract line)")
     args = ap.parse_args(argv)
     start = time.perf_counter()
 
@@ -4480,9 +4924,23 @@ def main(argv=None) -> int:
                                            "spill")):
                     print(f"  {name}: {line.strip()}")
 
-        # 3. kernels against their plain versions
-        kernels = kernel_phase(np.random.default_rng(args.seed), args.parent)
-        phase_done("3")
+        if args.only is None:
+            # 3. kernels against their plain versions
+            kernels = kernel_phase(np.random.default_rng(args.seed),
+                                   args.parent)
+            phase_done("3")
+
+    if args.only == 11:
+        used = ["hash_partition_ids", "join_probe"] \
+            if args.device == "cuda" else []
+        with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
+            session = ds_tables_alone(args, data_dir)
+            phase_done("tables")
+            tpcds11_phase(args, used, data_dir, session)
+            phase_done("11")
+            session = None
+        print("phase 11 alone: no contract result")
+        return 0
 
     # 4. the headline query
     t0 = time.perf_counter()
@@ -4539,7 +4997,8 @@ def main(argv=None) -> int:
     # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
     # TPC-DS queries, 8. those with derived tables and CTEs, 9. those with
     # expression subqueries, 10. those with set operations, DISTINCT and
-    # DATE columns, on the same tables, session and directory
+    # DATE columns, 11. those with window functions, on the same tables,
+    # session and directory
     used = ["hash_partition_ids", "join_probe"] \
         if args.device == "cuda" else []
     with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
@@ -4554,6 +5013,8 @@ def main(argv=None) -> int:
         phase_done("9")
         results["tpcds10"] = tpcds10_phase(args, used, data_dir, session)
         phase_done("10")
+        results["tpcds11"] = tpcds11_phase(args, used, data_dir, session)
+        phase_done("11")
         session = None
 
     if args.device != "cuda":
@@ -4562,10 +5023,10 @@ def main(argv=None) -> int:
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            # phases 6-10 need not take B2: their string keys, keyless
+            # phases 6-11 need not take B2: their string keys, keyless
             # aggregates and wide key ranges run the sort path
             check(got > 0 or (mode in ("tpcds", "tpcds7", "tpcds8",
-                                       "tpcds9", "tpcds10") and
+                                       "tpcds9", "tpcds10", "tpcds11") and
                               name == "table_reduce"),
                   f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]

@@ -1,8 +1,8 @@
 """DataFrame API: the PySpark-flavoured surface that builds logical plans.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py`` (select,
-with_column, filter, group_by().agg(), join, sort, limit, temp views,
-collect, to_arrow).
+with_column, with_window, filter, group_by().agg(), join, sort, limit,
+temp views, collect, to_arrow).
 """
 from __future__ import annotations
 
@@ -71,6 +71,29 @@ class DataFrame:
         return DataFrame(L.Project(exprs, self._plan), self.session)
 
     withColumn = with_column
+
+    def with_window(self, alias: str, func, partition_by=None,
+                    order_by=None, frame=("rows", None, 0)) -> "DataFrame":
+        """Add the column ``alias``: a window function (``functions``'
+        ``row_number``, ``rank``, ``lead``, ...) or an aggregate over the
+        frame ``(kind, lo, hi)`` (``plan/logical.WindowSpec``; the
+        default, as the reference's, is the running ROWS frame)."""
+        from ..exec.tpu_window import check_window_func
+        pb = [_to_expr(c, self.schema) for c in (partition_by or [])]
+        ob = []
+        for c in order_by or []:
+            if isinstance(c, L.SortOrder):
+                ob.append(L.SortOrder(_resolve(c.expr, self.schema),
+                                      c.ascending, c.nulls_first))
+            else:
+                ob.append(L.SortOrder(_to_expr(c, self.schema)))
+        f = _resolve(func.expr if isinstance(func, Col) else func,
+                     self.schema)
+        wf = L.WindowFunc(f, L.WindowSpec(pb, ob, tuple(frame)), alias)
+        check_window_func(wf)
+        return DataFrame(L.Window([wf], self._plan), self.session)
+
+    withWindow = with_window
 
     def filter(self, cond) -> "DataFrame":
         return DataFrame(L.Filter(_to_expr(cond, self.schema), self._plan),
@@ -219,6 +242,9 @@ class GroupedData:
             e = _resolve(e, schema)
             if not isinstance(e, eagg.AggregateFunction):
                 raise TypeError(f"agg() takes aggregate functions, got {e!r}")
+            if isinstance(e, eagg.Min):
+                raise NotImplementedError("min() as a grouped aggregate is "
+                                          "not ported (only over a window)")
             agg_exprs.append(L.AggExpr(e, alias or repr(e)))
         return DataFrame(L.Aggregate(self.keys, agg_exprs, self.df._plan),
                          self.df.session)

@@ -1,5 +1,5 @@
-"""functions: col, the aggregates, conditionals, ``round`` and string
-functions.
+"""functions: col, the aggregates, conditionals, ``abs``, ``round``,
+string functions and window functions.
 
 Counterpart of ``spark_rapids_tpu/api/functions.py`` (the port's
 subset).
@@ -11,6 +11,7 @@ from ..expr import arithmetic as ea
 from ..expr import conditional as econd
 from ..expr import core as ec
 from ..expr import string_ops as es
+from ..expr import window_funcs as wf
 from .column import Col, _expr
 
 
@@ -34,6 +35,12 @@ def count(c="*") -> Col:
     if isinstance(c, str) and c == "*":
         return Col(eagg.Count())
     return Col(eagg.Count(_arg(c)))
+
+
+def min(c) -> Col:  # noqa: A001
+    """min over a window (``DataFrame.with_window``); a grouped min is not
+    ported."""
+    return Col(eagg.Min(_arg(c)))
 
 
 def max(c) -> Col:  # noqa: A001
@@ -93,6 +100,46 @@ def concat(*cols) -> Col:
     return Col(es.ConcatStrings(*[_arg(c) for c in cols]))
 
 
+def abs(c) -> Col:  # noqa: A001
+    return Col(ea.Abs(_arg(c)))
+
+
 def round(c, scale: int = 0) -> Col:  # noqa: A001
     """Spark's ``round`` (HALF_UP) to ``scale`` decimal places."""
     return Col(ea.Round(_arg(c), scale))
+
+
+# -- window functions (``DataFrame.with_window``) ---------------------------
+
+def row_number() -> Col:
+    return Col(wf.RowNumber())
+
+
+def rank() -> Col:
+    return Col(wf.Rank())
+
+
+def dense_rank() -> Col:
+    return Col(wf.DenseRank())
+
+
+def ntile(n: int) -> Col:
+    return Col(wf.NTile(n))
+
+
+def percent_rank() -> Col:
+    return Col(wf.PercentRank())
+
+
+def cume_dist() -> Col:
+    return Col(wf.CumeDist())
+
+
+def lead(c, offset: int = 1) -> Col:
+    """The value ``offset`` rows on in the window's order (no default, as
+    the reference's: NULL past the partition's edge)."""
+    return Col(wf.Lead(_arg(c), offset))
+
+
+def lag(c, offset: int = 1) -> Col:
+    return Col(wf.Lag(_arg(c), offset))

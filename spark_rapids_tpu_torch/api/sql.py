@@ -34,11 +34,11 @@ runs:
   ``_factor_or``, for WHERE and ``JOIN ... ON`` alike), so join
   equalities written inside the arms become join keys;
 - ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``;
-  ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric values;
-  ``substring`` / ``substr`` with literal positions (in characters),
-  ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` (numbers or strings),
-  ``round(x[, d])`` (HALF_UP), ``upper`` / ``ucase`` and ``lower`` /
-  ``lcase`` (ASCII letters, as the reference);
+  ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric or DATE
+  values; ``substring`` / ``substr`` with literal positions (in
+  characters), ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` (numbers,
+  DATEs or strings), ``abs``, ``round(x[, d])`` (HALF_UP), ``upper`` /
+  ``ucase`` and ``lower`` / ``lcase`` (ASCII letters, as the reference);
 - integer, decimal (read as double), string and ``NULL`` literals;
   DATE columns (date32 in Parquet) compare with DATE columns, key
   joins, group-bys, DISTINCT and sorts, and are collected as date32;
@@ -51,6 +51,21 @@ runs:
   whose aggregates need not be selected;
 - ``ORDER BY`` expressions, select aliases or ordinals with ``ASC`` /
   ``DESC`` and ``NULLS FIRST`` / ``LAST``; ``LIMIT``;
+- window functions in the select list and ORDER BY (the reference's
+  ``lower_window``): ``f(...) OVER ([PARTITION BY ...] [ORDER BY ...]
+  [ROWS | RANGE BETWEEN bound AND bound])``, a bound ``UNBOUNDED
+  PRECEDING`` / ``FOLLOWING``, ``CURRENT ROW`` or ``n PRECEDING`` /
+  ``FOLLOWING``; SQL's default frame is ``RANGE BETWEEN UNBOUNDED
+  PRECEDING AND CURRENT ROW`` with ORDER BY, the whole partition
+  without.  ``f`` is ``row_number``, ``rank``, ``dense_rank``,
+  ``ntile(n)``, ``percent_rank``, ``cume_dist``, ``lead`` / ``lag(x[,
+  n[, NULL]])``, or ``sum``, ``count``, ``avg``, ``min`` or ``max`` of
+  numbers (``count``, ``min`` and ``max`` also of DATEs); a RANGE frame
+  with offsets takes one integer or DATE order key.  The windows run
+  after the aggregate and HAVING, before the ORDER BY and the
+  projection, so ``sum(sum(x)) OVER (...)`` and ``x * 100.0 /
+  sum(sum(x)) OVER (...)`` lower, and a filter on a window's column in
+  an outer query stays above the window;
 - expression subqueries, with the reference's semantics
   (``spark_rapids_tpu/api/sql.py``'s ``lower_where``):
   an uncorrelated scalar query anywhere an expression goes (WHERE, the
@@ -74,8 +89,12 @@ runs:
 Anything else raises ``SqlError`` naming the construct, before any
 device work (a subquery may have run): ``INTERSECT ALL`` and ``EXCEPT
 ALL`` (the reference answers them as the distinct forms, which is not
-Spark's answer), a union of columns with no common type (a string and
-a number), windows, ``count(DISTINCT ...)``, ``CAST``, DATE literals,
+Spark's answer), ``lead`` / ``lag`` with a default other than NULL (the
+reference answers NULL at the partition's edge, Spark the default), a
+grouped ``min`` (``min`` runs over a window only), a window outside the
+select list and ORDER BY, ``collect_list`` and the moments over a
+window, a union of columns with no common type (a string and a
+number), ``count(DISTINCT ...)``, ``CAST``, DATE literals,
 ``INTERVAL`` and date arithmetic, a DATE compared with a number or a
 string, a correlated ``IN (query)``, a correlation other than
 equalities of a scalar query, a correlated subquery outside a conjunct
@@ -83,12 +102,12 @@ of WHERE, and the rest of Spark SQL.  The plan is built in Spark's order:
 the FROM relations as a left-deep join tree, WHERE as a filter over it
 (its subquery conjuncts as joins under that filter), the aggregate (its
 keys and every aggregate call of the select list, HAVING and ORDER BY
-as columns), HAVING as a filter over it, the sort, the projection of
-the select list (for DISTINCT: the projection, its Distinct, then the
-sort), the limit; then ``plan/logical_opt.optimize`` turns the comma
-joins and WHERE equalities into equi-joins with the filters below them,
-also through a derived table's projection, a semi or anti join, a union
-and an aggregate's group keys.
+as columns), HAVING as a filter over it, the windows, the sort, the
+projection of the select list (for DISTINCT: the projection, its
+Distinct, then the sort), the limit; then ``plan/logical_opt.optimize``
+turns the comma joins and WHERE equalities into equi-joins with the
+filters below them, also through a derived table's projection, a semi
+or anti join, a union and an aggregate's group keys.
 """
 from __future__ import annotations
 
@@ -103,6 +122,8 @@ from ..expr import conditional as econd
 from ..expr import core as ec
 from ..expr import predicates as ep
 from ..expr import string_ops as es
+from ..expr import window_funcs as ewin
+from ..exec.tpu_window import check_window_func
 from ..plan import logical as L
 from ..plan.logical_opt import optimize
 
@@ -248,6 +269,17 @@ class Case:
     els: Any = None
 
 
+@dataclasses.dataclass(frozen=True)
+class WindowE:
+    """``func(...) OVER (PARTITION BY ... ORDER BY ... [frame])``;
+    ``order`` holds (expression, ascending, nulls first) triples and
+    ``frame`` is ``(kind, lo, hi)`` or None for SQL's default."""
+    func: Call
+    partition: Tuple[Any, ...]
+    order: Tuple[Tuple[Any, bool, Optional[bool]], ...]
+    frame: Optional[Tuple[str, Optional[int], Optional[int]]] = None
+
+
 @dataclasses.dataclass
 class TableRef:
     name: str
@@ -309,7 +341,12 @@ class SetOp:
 
 def _kids(a) -> List[Any]:
     """The expression nodes directly under ``a``; a subquery's own
-    expressions are not (only an ``IN (query)``'s operand is)."""
+    expressions are not (only an ``IN (query)``'s operand is), nor is a
+    window's function call (its arguments are: ``sum(sum(x)) OVER``
+    aggregates ``sum(x)`` and is no aggregate itself)."""
+    if isinstance(a, WindowE):
+        return list(a.func.args) + list(a.partition) + \
+            [e for e, _, _ in a.order]
     if isinstance(a, Case):
         out = [a.operand] if a.operand is not None else []
         for c, v in a.whens:
@@ -335,6 +372,12 @@ def _walk(a):
 
 def _transform_kids(a, f):
     """``a`` with ``f`` applied to each of its direct expression nodes."""
+    if isinstance(a, WindowE):
+        return WindowE(Call(a.func.name, tuple(f(x) for x in a.func.args),
+                            a.func.star),
+                       tuple(f(p) for p in a.partition),
+                       tuple((f(e), asc, nf) for e, asc, nf in a.order),
+                       a.frame)
     if isinstance(a, Case):
         return Case(f(a.operand) if a.operand is not None else None,
                     tuple((f(c), f(v)) for c, v in a.whens),
@@ -371,7 +414,6 @@ _KEYWORDS = {
 }
 #: constructs of Spark SQL the port does not parse, by their keyword
 _UNSUPPORTED = {
-    "over": "window functions (OVER)",
     "offset": "OFFSET", "cast": "CAST", "interval": "INTERVAL",
     "true": "boolean literals", "false": "boolean literals",
     "using": "JOIN ... USING",
@@ -387,6 +429,13 @@ _AGGREGATES = {"sum": eagg.Sum, "count": eagg.Count, "max": eagg.Max,
                "std": eagg.StddevSamp, "stddev_pop": eagg.StddevPop,
                "variance": eagg.VarianceSamp, "var_samp": eagg.VarianceSamp,
                "var_pop": eagg.VariancePop}
+#: the aggregates a window takes (``min`` only there)
+_WINDOW_AGGREGATES = {**_AGGREGATES, "min": eagg.Min}
+#: window functions that are no aggregate, by their argument count
+_WINDOW_FUNCTIONS = {"row_number": (0, 0), "rank": (0, 0),
+                     "dense_rank": (0, 0), "percent_rank": (0, 0),
+                     "cume_dist": (0, 0), "ntile": (1, 1), "lead": (1, 3),
+                     "lag": (1, 3)}
 _COMPARISONS = {"=": ep.EqualTo, "<": ep.LessThan, "<=": ep.LessThanOrEqual,
                 ">": ep.GreaterThan, ">=": ep.GreaterThanOrEqual}
 _ARITHMETIC = {"+": ea.Add, "-": ea.Subtract, "*": ea.Multiply,
@@ -821,17 +870,70 @@ class _Parser:
         if self.at_op("*"):
             self.advance()
             self.expect_op(")")
-            return Call(fname, (), star=True)
-        args = []
-        if not self.at_op(")"):
-            args.append(self.expr())
+            call = Call(fname, (), star=True)
+        else:
+            args = []
+            if not self.at_op(")"):
+                args.append(self.expr())
+                while self.at_op(","):
+                    self.advance()
+                    args.append(self.expr())
+            self.expect_op(")")
+            call = Call(fname, tuple(args))
+        return self.over_clause(call) if self.at("over") else call
+
+    def over_clause(self, f: Call) -> WindowE:
+        """``OVER ([PARTITION BY ...] [ORDER BY ...] [ROWS | RANGE BETWEEN
+        bound AND bound])``."""
+        self.advance()
+        self.expect_op("(")
+        partition, order, frame = [], [], None
+        if self.at("partition"):
+            self.advance()
+            self.expect("by")
+            partition.append(self.expr())
             while self.at_op(","):
                 self.advance()
-                args.append(self.expr())
+                partition.append(self.expr())
+        if self.at("order"):
+            self.advance()
+            self.expect("by")
+            while True:
+                o = self.order_item()
+                order.append((o.expr, o.ascending, o.nulls_first))
+                if not self.at_op(","):
+                    break
+                self.advance()
+        if self.at("rows", "range"):
+            kind = self.advance().text.lower()
+            self.expect("between")
+            lo = self.frame_bound()
+            self.expect("and")
+            frame = (kind, lo, self.frame_bound())
         self.expect_op(")")
-        if self.at("over"):
-            self._fail("")
-        return Call(fname, tuple(args))
+        return WindowE(f, tuple(partition), tuple(order), frame)
+
+    def frame_bound(self) -> Optional[int]:
+        """``UNBOUNDED PRECEDING | FOLLOWING`` (None), ``CURRENT ROW``
+        (0), ``n PRECEDING`` (-n) or ``n FOLLOWING`` (n)."""
+        if self.at("unbounded"):
+            self.advance()
+            if not self.at("preceding", "following"):
+                self._fail("expected PRECEDING or FOLLOWING")
+            self.advance()
+            return None
+        if self.at("current"):
+            self.advance()
+            self.expect("row")
+            return 0
+        if self.tok.kind != "num" or not self.tok.text.isdigit():
+            self._fail("expected a frame bound")
+        n = int(self.advance().text)
+        if self.at("preceding"):
+            self.advance()
+            return -n
+        self.expect("following")
+        return n
 
 
 def parse_sql(sql: str):
@@ -859,6 +961,8 @@ def _sql_text(a) -> str:
         return f"(- {_sql_text(a.child)})"
     if isinstance(a, Case):
         return "CASE"
+    if isinstance(a, WindowE):
+        return f"{_sql_text(a.func)} OVER (...)"
     return type(a).__name__.lower()
 
 
@@ -1125,7 +1229,15 @@ class _Lowerer:
         if isinstance(a, Call):
             if a.name in _AGGREGATES:
                 raise SqlError(f"aggregate {a.name}() is not allowed here")
+            if a.name == "min":
+                raise SqlError("min() as a grouped aggregate is not "
+                               "supported by the port (only over a window)")
+            if a.name in _WINDOW_FUNCTIONS:
+                raise SqlError(f"{a.name}() needs an OVER clause")
             return self.function(a, schema)
+        if isinstance(a, WindowE):
+            raise SqlError("window functions are only allowed in SELECT and "
+                           "ORDER BY")
         if isinstance(a, Star):
             raise SqlError("* is only allowed as a select item or count(*)")
         if isinstance(a, ScalarSub):
@@ -1416,6 +1528,12 @@ class _Lowerer:
                     len(args) == 1 and args[0].dtype() == T.STRING:
                 return (es.Upper if n in ("upper", "ucase") else
                         es.Lower)(args[0])
+            if n == "abs" and len(args) == 1:
+                dt = args[0].dtype()
+                if not (dt.is_integral or dt.is_fractional):
+                    raise SqlError(f"abs() of a {dt} is not supported by the "
+                                   f"port")
+                return ea.Abs(args[0])
             if n == "round" and len(args) in (1, 2):
                 scale = _literal_of(args[1]) if len(args) == 2 else 0
                 dt = args[0].dtype()
@@ -1432,7 +1550,10 @@ class _Lowerer:
             raise SqlError(str(err)) from None
         raise SqlError(f"function {n}() is not supported by the port")
 
-    def agg_func(self, a: Call, schema) -> eagg.AggregateFunction:
+    def agg_func(self, a: Call, schema, window: bool = False
+                 ) -> eagg.AggregateFunction:
+        """The aggregate of a call (``window``: over a window, where
+        ``min`` runs too)."""
         if a.star:
             if a.name != "count":
                 raise SqlError(f"{a.name}(*) is not supported")
@@ -1450,7 +1571,56 @@ class _Lowerer:
             # the reference's engine does, is no answer
             raise SqlError(f"{a.name}() of a {dt} column is not supported "
                            f"by the port")
-        return _AGGREGATES[a.name](arg)
+        return (_WINDOW_AGGREGATES if window else _AGGREGATES)[a.name](arg)
+
+    def window(self, w: WindowE, alias: str, schema) -> L.WindowFunc:
+        """The reference's ``lower_window``: the function, PARTITION BY,
+        ORDER BY and frame, SQL's default frame being ``RANGE BETWEEN
+        UNBOUNDED PRECEDING AND CURRENT ROW`` with ORDER BY and the whole
+        partition without.  ``lead`` / ``lag`` with a default other than
+        NULL raise: the reference ignores the default and answers NULL at
+        the partition's edge, where Spark answers the default."""
+        f, n = w.func, w.func.name
+        if n in _WINDOW_FUNCTIONS:
+            least, most = _WINDOW_FUNCTIONS[n]
+            if f.star or not least <= len(f.args) <= most:
+                raise SqlError(f"{n}() takes {least} to {most} arguments")
+            args = [self.expr(x, schema) for x in f.args]
+            if n in ("lead", "lag"):
+                offset = _literal_of(args[1]) if len(args) > 1 else 1
+                if len(args) > 2 and _literal_of(args[2]) is not None:
+                    raise SqlError(f"{n}() with a default value is not "
+                                   f"supported by the port")
+                if not isinstance(offset, int) or isinstance(offset, bool):
+                    raise SqlError(f"{n}() takes an integer offset")
+                func = (ewin.Lead if n == "lead" else ewin.Lag)(args[0],
+                                                               offset)
+            elif n == "ntile":
+                try:
+                    func = ewin.NTile(_literal_of(args[0]))
+                except ValueError as err:
+                    raise SqlError(str(err)) from None
+            else:
+                func = {"row_number": ewin.RowNumber, "rank": ewin.Rank,
+                        "dense_rank": ewin.DenseRank,
+                        "percent_rank": ewin.PercentRank,
+                        "cume_dist": ewin.CumeDist}[n]()
+        elif n in _WINDOW_AGGREGATES:
+            func = self.agg_func(f, schema, window=True)
+        else:
+            raise SqlError(f"{n}() over a window is not supported by the "
+                           f"port")
+        pb = [self.expr(p, schema) for p in w.partition]
+        ob = [L.SortOrder(self.expr(e, schema), asc, nf)
+              for e, asc, nf in w.order]
+        frame = w.frame or (("range", None, 0) if ob else
+                            ("rows", None, None))
+        wf = L.WindowFunc(func, L.WindowSpec(pb, ob, frame), alias)
+        try:
+            check_window_func(wf)
+        except NotImplementedError as err:
+            raise SqlError(str(err)) from None
+        return wf
 
     # -- SELECT --------------------------------------------------------------
     def select(self, q: Select) -> L.LogicalPlan:
@@ -1616,6 +1786,24 @@ class _Lowerer:
         schema = plan.schema
         if having is not None:
             plan = L.Filter(self.expr(having, schema), plan)
+        # 6. the window functions of the select list and ORDER BY, over
+        # the aggregate's rows, each a column of one Window node
+        wins: List[WindowE] = []
+        for a in items + [a for a, _ in orders]:
+            for n in _walk(a):
+                if isinstance(n, WindowE) and n not in wins:
+                    wins.append(n)
+        if wins:
+            names_of = {w: self.fresh("win") for w in wins}
+            plan = L.Window([self.window(w, names_of[w], schema)
+                             for w in wins], plan)
+            schema = plan.schema
+
+            def rw(a):
+                return _transform(a, lambda n: Res(names_of[n]) if
+                                  isinstance(n, WindowE) else n)
+            items = [rw(a) for a in items]
+            orders = [(rw(a), o) for a, o in orders]
         distinct_orders = orders if q.distinct else []
         if orders and not q.distinct:
             plan = L.Sort([L.SortOrder(self.expr(a, schema), o.ascending,

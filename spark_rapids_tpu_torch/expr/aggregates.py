@@ -1,5 +1,5 @@
 """Aggregate functions: sum, count, max (also of strings), avg and the
-central moments.
+central moments; ``min`` over a window only.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``.  Each function
 declares its partial buffers, how a batch updates them (``update``), how
@@ -105,6 +105,20 @@ class Max(AggregateFunction):
 
     def merge(self, plan, buffers):
         return self.update(plan, buffers)
+
+
+class Min(AggregateFunction):
+    """min, as a window function (``exec/tpu_window.py`` reduces it); a
+    grouped ``min`` is not ported, and raises before any device work."""
+
+    def dtype(self):
+        return self.children[0].dtype()
+
+    def update(self, plan, cols):
+        raise NotImplementedError("min() as a grouped aggregate is not "
+                                  "ported (only over a window)")
+
+    merge = update
 
 
 class Average(AggregateFunction):

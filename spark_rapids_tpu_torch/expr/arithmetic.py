@@ -1,5 +1,5 @@
-"""Arithmetic: +, -, *, /, %, unary minus and ``round`` with Spark's null
-and type rules.
+"""Arithmetic: +, -, *, /, %, unary minus, ``abs`` and ``round`` with
+Spark's null and type rules.
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``.  Operands promote
 to their common type (int < bigint < float < double); ``/`` is always
@@ -113,6 +113,24 @@ class UnaryMinus(Expression):
 
     def __repr__(self):
         return f"(- {self.children[0]!r})"
+
+
+class Abs(Expression):
+    """``abs(x)`` of a number, in its own type (the most negative integer
+    wraps to itself, as in non-ANSI Spark)."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def dtype(self):
+        return self.children[0].dtype()
+
+    def columnar_eval(self, batch):
+        c = eval_as_column(self.children[0], batch)
+        return Column(c.dtype, c.data.abs(), c.validity)
+
+    def __repr__(self):
+        return f"abs({self.children[0]!r})"
 
 
 class Round(Expression):

@@ -1,8 +1,10 @@
 """Conditional expressions: If, CaseWhen, Coalesce and Nvl.
 
 Counterpart of ``spark_rapids_tpu/expr/conditional.py`` for fixed-width
-results (the slice has no string-valued CASE) and a string ``coalesce``
-(the null-safe keys of INTERSECT and EXCEPT).  The result type is the
+results, DATE ones included (q51's ``case when web.d_date is not null
+then web.d_date else store.d_date end``; the port has no string-valued
+CASE), and a string ``coalesce`` (the null-safe keys of INTERSECT and
+EXCEPT).  The result type is the
 common type of the value branches, a bare ``NULL`` taking the others'
 type (``_result_dtype``); branches are chosen row by row with
 ``torch.where``, the first true condition winning (``_select_columns``).
@@ -60,6 +62,8 @@ def _select_columns(branches, batch, out_t: T.DType):
 
 
 def _scalar_of(value, out_t: T.DType):
+    if out_t == T.DATE:
+        return T.date_to_days(value)
     return float(value) if out_t.is_fractional else \
         (bool(value) if out_t == T.BOOL else int(value))
 

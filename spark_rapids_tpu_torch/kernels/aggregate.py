@@ -88,6 +88,19 @@ def seg_tree_sum(plan: GroupPlan, contrib: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(cap, device=contrib.device)
     seg = plan.seg_id
     pos = idx - plan.head_pos.clamp(0, cap - 1)[seg.clamp(0, cap - 1)]
+    out = tree_sum_at_heads(seg, pos, contrib)[
+        plan.head_pos.clamp(0, cap - 1)]
+    return torch.where(idx < plan.num_groups, out, torch.zeros_like(out))
+
+
+def tree_sum_at_heads(seg: torch.Tensor, pos: torch.Tensor,
+                      contrib: torch.Tensor) -> torch.Tensor:
+    """``seg_tree_sum``'s pairwise tree over rows sorted by segment
+    (``seg`` ids, ``pos`` each row's place in its segment): each
+    segment's sum lands on its first row.  The window operator reads it
+    there for a whole-partition sum."""
+    cap = contrib.shape[0]
+    idx = torch.arange(cap, device=contrib.device)
     v = contrib
     s = 1
     while s < cap:
@@ -96,8 +109,7 @@ def seg_tree_sum(plan: GroupPlan, contrib: torch.Tensor) -> torch.Tensor:
             (seg[partner] == seg)
         v = torch.where(take, v + v[partner], v)
         s *= 2
-    out = v[plan.head_pos.clamp(0, cap - 1)]
-    return torch.where(idx < plan.num_groups, out, torch.zeros_like(out))
+    return v
 
 
 def seg_sum(plan: GroupPlan, values, validity, out_dtype=None):

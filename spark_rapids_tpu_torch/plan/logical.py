@@ -2,12 +2,12 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, limited to the nodes
 the port plans: local relation, file scan, project, filter, aggregate,
-join, sort, limit, union and distinct.
+join, sort, limit, union, distinct and window.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import pyarrow as pa
 
@@ -267,3 +267,48 @@ class Distinct(LogicalPlan):
     @property
     def schema(self):
         return self.children[0].schema
+
+
+@dataclasses.dataclass
+class WindowSpec:
+    """PARTITION BY, ORDER BY and the frame ``(kind, lo, hi)``: ``kind``
+    "rows" (offsets in rows) or "range" (offsets in the order key's
+    values), ``lo`` / ``hi`` offsets from the current row (negative
+    preceding, 0 the current row; for RANGE, its peers), None
+    unbounded."""
+    partition_by: List[ec.Expression]
+    order_by: List[SortOrder]
+    frame: Tuple[str, Optional[int], Optional[int]] = ("rows", None, None)
+
+    def sort_key(self) -> str:
+        """Specs of one key sort their rows the same way."""
+        return repr(([repr(e) for e in self.partition_by],
+                     [(repr(o.expr), o.ascending, o.nulls_first)
+                      for o in self.order_by]))
+
+
+class WindowFunc:
+    """A window function (or an aggregate over a window), its spec and
+    the name of the column it adds."""
+
+    def __init__(self, func: ec.Expression, spec: WindowSpec, alias: str):
+        self.func = func
+        self.spec = spec
+        self.alias = alias
+
+    def __repr__(self):
+        return f"{self.func!r} OVER {self.spec.frame} AS {self.alias}"
+
+
+class Window(LogicalPlan):
+    """The child's columns and one more per window function."""
+
+    def __init__(self, window_funcs: List[WindowFunc], child: LogicalPlan):
+        self.window_funcs = window_funcs
+        self.children = [child]
+
+    @property
+    def schema(self):
+        base = list(self.children[0].schema)
+        return Schema(base + [Field(wf.alias, wf.func.dtype(), True)
+                              for wf in self.window_funcs])

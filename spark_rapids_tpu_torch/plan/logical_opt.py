@@ -18,11 +18,14 @@ conjuncts over the left side sunk into it (``_rewrite_filter_semi``); a
 Filter over a Union goes into every child (``_rewrite_filter_union``),
 and one over an Aggregate sinks the conjuncts over its plain group keys
 below it (``_rewrite_filter_aggregate``), two rules of Spark's
-``PushPredicateThroughNonJoin``; a Filter stays above a Sort, a Limit
-and a Distinct.  Before any rule, conjuncts over literals alone are
-decided (``_fold_constants``): a false one leaves an ``EmptyRelation``.
+``PushPredicateThroughNonJoin``; a Filter stays above a Sort, a Limit,
+a Distinct and a Window (q44's ``rnk < 11`` reads the window's column;
+no rule moves a filter through a window).  Before any rule, conjuncts
+over literals alone are decided (``_fold_constants``): a false one
+leaves an ``EmptyRelation``.
 ``prune_scan_columns`` narrows every scan, and every projection, to the
-columns the plan above reads, a union's children by position.
+columns the plan above reads, a union's children by position; below a
+Window, those and the columns its functions, keys and orders read.
 """
 from __future__ import annotations
 
@@ -474,6 +477,14 @@ def prune_scan_columns(plan: L.LogicalPlan,
         needs = [need]
     elif isinstance(plan, L.Union):
         return _prune_union(plan, need)
+    elif isinstance(plan, L.Window):
+        aliases = {wf.alias for wf in plan.window_funcs}
+        base = None if need is None else need - aliases
+        needs = [_u(base, *[_u(_refs(wf.func),
+                               _refs_many(wf.spec.partition_by),
+                               _refs_many([o.expr for o in
+                                           wf.spec.order_by]))
+                            for wf in plan.window_funcs])]
     else:
         # a Distinct's rows are all its columns: it needs every one
         needs = [None] * len(plan.children)

@@ -37,7 +37,13 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   of INTERSECT and EXCEPT on their null-safe keys;
 - a distinct is the aggregate of every column with no aggregate
   function (the reference's rule): partial, exchange on all columns,
-  final.
+  final;
+- a window over more than one partition (the reference's
+  ``_plan_window``): when every function of the node has the same
+  PARTITION BY keys, a hash exchange on them into the smaller of
+  ``shuffle.partitions`` and the child's partitions; with no PARTITION BY
+  or with mixed keys, a coalesce into one partition.  Each partition is
+  then one ``TpuWindow`` batch.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from ..exec.tpu_basic import (TpuExec, TpuFilter, TpuGlobalLimit,
 from ..exec.tpu_join import (TpuBroadcastHashJoin, TpuNestedLoopJoin,
                              TpuShuffledHashJoin)
 from ..exec.tpu_sort import TpuSort, TpuTopN
+from ..exec.tpu_window import TpuWindow
 from ..io.planner import TpuFileScan, to_arrow_filters
 from ..shuffle.partitioners import HashPartitioner, RangePartitioner
 from . import logical as L
@@ -128,7 +135,25 @@ def _plan(node: L.LogicalPlan, conf: C.TpuConf,
                 for f in node.schema]
         return _plan_aggregate(L.Aggregate(keys, [], node.children[0]),
                                conf, device, go)
+    if isinstance(node, L.Window):
+        return _plan_window(node, conf, go(node.children[0]))
     raise NotImplementedError(f"no device operator for {type(node).__name__}")
+
+
+def _plan_window(node: L.Window, conf: C.TpuConf, child: TpuExec) -> TpuExec:
+    nparts = child.num_partitions()
+    keys = node.window_funcs[0].spec.partition_by
+    same_keys = all([repr(e) for e in wf.spec.partition_by] ==
+                    [repr(e) for e in keys] for wf in node.window_funcs)
+    if nparts > 1:
+        if keys and same_keys:
+            child = TpuShuffleExchange(
+                HashPartitioner(keys, min(conf.get(C.SHUFFLE_PARTITIONS),
+                                          nparts)),
+                child, conf.get(C.BATCH_SIZE_ROWS))
+        else:
+            child = TpuCoalescePartitions(child)
+    return TpuWindow(node, child)
 
 
 def _plan_aggregate(node: L.Aggregate, conf: C.TpuConf,

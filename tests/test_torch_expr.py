@@ -108,6 +108,11 @@ EXPRESSIONS = {
     "like_equal": lambda m: _c(m, "s").like("Home"),
     "concat_with_nulls": lambda m: m.F.concat(_c(m, "s"), m.F.lit(", "),
                                               _c(m, "t")),
+    "abs_int": lambda m: m.F.abs(_c(m, "a")),
+    "abs_int32": lambda m: m.F.abs(_c(m, "d")),
+    "abs_double": lambda m: m.F.abs(_c(m, "x")),
+    "abs_of_difference": lambda m: m.F.abs(_c(m, "x") - _c(m, "a")) /
+    _c(m, "x"),
 }
 
 
@@ -311,3 +316,64 @@ def test_numeric_aggregate_of_a_string_raises(agg):
                                            f"group by k"):
         with pytest.raises(SqlError, match="STRING|string"):
             s.sql(sql)
+
+
+def _date_table(n: int = 200, seed: int = 9) -> pa.Table:
+    """Two DATE columns with NULLs (q51's ``web.d_date`` and
+    ``store.d_date`` after a full outer join) and an int key."""
+    import datetime
+    rng = np.random.default_rng(seed)
+    day0 = datetime.date(2000, 1, 1)
+
+    def dates():
+        return [None if rng.random() < 0.3 else
+                day0 + datetime.timedelta(days=int(x))
+                for x in rng.integers(0, 400, n)]
+    return pa.table({"k": pa.array(rng.integers(0, 5, n)),
+                     "a": pa.array(dates(), pa.date32()),
+                     "b": pa.array(dates(), pa.date32())})
+
+
+@pytest.mark.parametrize("sql", [
+    "select k, case when a is not null then a else b end d from t",
+    "select k, case when k > 2 then a when k = 1 then b end d from t",
+    "select k, case k when 0 then b else a end d from t",
+    "select k, coalesce(a, b) d from t",
+    "select k, d from (select k, case when a is not null then a else b "
+    "end d from t) x where d is not null order by d, k",
+])
+def test_date_case_matches_jax(sql):
+    """CASE and coalesce whose values are DATEs (q51's select list), in
+    SQL text, against the JAX engine and its oracle."""
+    table = _date_table()
+
+    def run(s):
+        s.create_dataframe(table, num_partitions=2) \
+            .create_or_replace_temp_view("t")
+        return s.sql(sql).collect()
+    got = run(TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                  64}), device="cpu"))
+    assert any(r[1] is not None for r in got)
+    for engine in (with_tpu_session, with_cpu_session):
+        _compare_rows(canon_rows(engine(run)), canon_rows(got))
+
+
+def test_abs_in_sql_and_its_refusals():
+    """``abs`` of numbers in SQL text keeps the type; of a string or a
+    DATE it raises ``SqlError``."""
+    from spark_rapids_tpu_torch.api.sql import SqlError
+    s = TpuSession(device="cpu")
+    s.create_dataframe(_table()).create_or_replace_temp_view("t")
+    got = s.sql("select abs(a) aa, abs(d) ad, abs(x) ax from t").to_arrow()
+    assert [f.type for f in got.schema] == [pa.int64(), pa.int32(),
+                                           pa.float64()]
+    want = with_tpu_session(lambda js: (js.create_dataframe(_table())
+                                        .create_or_replace_temp_view("t"),
+                                        js.sql("select abs(a) aa, abs(d) "
+                                               "ad, abs(x) ax from t")
+                                        .collect())[1])
+    _compare_rows(canon_rows(want), canon_rows(
+        [tuple(r.values()) for r in got.to_pylist()]))
+    for bad in ("select abs(s) from t", "select abs(a, d) from t"):
+        with pytest.raises(SqlError):
+            s.sql(bad)

@@ -713,3 +713,103 @@ def test_setops_on_card_equal_cpu(sql):
         out.append(t.sort_by([(c, "ascending") for c in t.column_names]))
     assert out[0].num_rows > 0
     _close_tables(out[1], out[0])
+
+
+def _window_table(n=20_000, seed=5):
+    """int64 keys and orders with NULLs and ties, a string and a DATE key
+    with NULLs, int64 and double values with NULLs, a unique id."""
+    import datetime
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+
+    def nulls(a, share=0.05):
+        a = a.astype(object)
+        a[rng.random(n) < share] = None
+        return list(a)
+    d = [None if rng.random() < 0.05 else
+         datetime.date(2000, 1, 1) + datetime.timedelta(days=int(x))
+         for x in rng.integers(0, 90, n)]
+    return pa.table({
+        "id": pa.array(rng.permutation(n).astype(np.int64)),
+        "k": pa.array(nulls(rng.integers(0, 300, n)), pa.int64()),
+        "s": pa.array(nulls(rng.choice(np.array(["x", "yy", "", "zzz"],
+                                                dtype=object), n)),
+                      pa.string()),
+        "d": pa.array(d, pa.date32()),
+        "o": pa.array(nulls(rng.integers(0, 200, n)), pa.int64()),
+        "v": pa.array(nulls(rng.integers(-1000, 1000, n)), pa.int64()),
+        "x": pa.array(nulls(rng.random(n) * 200 - 50), pa.float64())})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", [
+    "select id, rank() over (partition by k order by x desc nulls last) a, "
+    "dense_rank() over (partition by k order by x desc nulls last) b, "
+    "row_number() over (partition by k order by o, id) c, "
+    "ntile(3) over (partition by k order by o, id) e, "
+    "percent_rank() over (partition by k order by o) f, "
+    "cume_dist() over (partition by k order by o) g from t order by id",
+    "select id, sum(x) over (partition by s) a, avg(x) over (partition by "
+    "s) b, count(*) over (partition by s) c from t order by id",
+    "select id, sum(x) over (partition by k order by d, id rows between "
+    "unbounded preceding and current row) a, max(x) over (partition by k "
+    "order by d, id rows between unbounded preceding and current row) b, "
+    "sum(v) over (partition by k order by d, id rows between unbounded "
+    "preceding and current row) c from t order by id",
+    "select id, sum(x) over (partition by k order by o, id rows between 3 "
+    "preceding and 2 following) a, min(v) over (partition by k order by "
+    "o, id rows between 3 preceding and 2 following) b, max(x) over "
+    "(partition by k order by o, id rows between 1 preceding and "
+    "unbounded following) c from t order by id",
+    "select id, sum(x) over (partition by s order by o range between 5 "
+    "preceding and 5 following) a, count(v) over (partition by s order by "
+    "d range between 3 preceding and 3 following) b, min(x) over "
+    "(partition by s order by o desc range between 2 preceding and "
+    "unbounded following) c, sum(x) over (partition by d order by o) e "
+    "from t order by id",
+    "select id, lead(s) over (partition by k order by o, id) a, lag(x, 2) "
+    "over (partition by k order by o, id) b, max(d) over (partition by k) "
+    "c from t order by id",
+    "select id, rank() over (order by o desc nulls last) a, row_number() "
+    "over (partition by s order by id) b from t order by id"])
+def test_windows_on_card_equal_cpu(sql):
+    """Window functions on the card against the port on the CPU (integers
+    bit for bit, floats within 1e-12): ranks, whole-partition, running,
+    bounded and RANGE frames over int, string and DATE keys, lead and
+    lag, a window without PARTITION BY and two of mixed keys; the card
+    gives the same bytes twice."""
+    _need_card()
+    t = _window_table()
+    out = []
+    for device in ("cpu", "cuda", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 12}), device=device)
+        s.create_dataframe(t, num_partitions=4) \
+            .create_or_replace_temp_view("t")
+        out.append(s.sql(sql).to_arrow())
+    assert out[0].num_rows == t.num_rows
+    _close_tables(out[1], out[0])
+    assert chip_smoke.same_bytes(out[1], out[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q12", "q47", "q51", "q63"])
+def test_tpcds_windows_on_card_equal_cpu(tpcds7_dir, q):
+    """Four of phase 11's queries at scale 0.1 on the card against the
+    port on the CPU: a class's revenue share, a mean and a rank over two
+    specs, q51's running sums and maxima over a full outer join, and a
+    window over B2's aggregate."""
+    _need_card()
+    import sys
+    sys.path.insert(0, "benchmarks")
+    from tpcds_queries import QUERIES
+    out = []
+    for device in ("cpu", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 16}), device=device)
+        for t in chip_smoke.DS_TABLES + chip_smoke.DS7_TABLES:
+            s.read.parquet(f"{tpcds7_dir}/{t}.parquet") \
+                .create_or_replace_temp_view(t)
+        out.append(s.sql(QUERIES[q]).to_arrow())
+    assert out[0].num_rows > 0
+    _close_tables(out[1], out[0])

@@ -47,6 +47,17 @@ either file set and q23 one NULL sum, so each also runs on generate's
 tables changed to give it rows (NULL foreign keys for q76, store_sales
 written five times for q23, returns moved into q83's week), against the
 JAX package's engine, its oracle and the references.
+
+The 10 queries of phase 11 (``chip_smoke.DS11_QUERIES``: window
+functions over aggregates, ranks over a HAVING, q51's running totals
+over a full outer join) run the same ways against
+``chip_smoke.ds11_references``: on ``generate``'s files at scale 0.02
+against the JAX package's engine and oracle, and on phase 7's files at
+0.1 against the oracle; at SF10's row estimates each plans DS11_PLANS'
+operators (every window over a hash exchange on its PARTITION BY keys,
+or a coalesce).  q44 returns no rows on either file set (its scalar
+subquery reads NULL ``ss_hdemo_sk``, which neither generator draws), so
+it also runs on generate's tables with 5% of ``ss_hdemo_sk`` NULL.
 """
 import datetime
 import os
@@ -629,3 +640,96 @@ def test_ds10_q83_with_rows(one_file, tmp_path):
         return t
     _check_ds10_with_rows(_copy_tables(one_file, str(tmp_path / "q83"),
                                        change), "q83")
+
+
+def _ds11_rows(data_dir, q):
+    table = _views(TpuSession(device="cpu"), data_dir).sql(
+        tpcds.QUERIES[q]).to_arrow()
+    chip_smoke.check_rows(q, table, chip_smoke.ds11_references(
+        data_dir, [q])[q], chip_smoke.DS11_ORDER[q])
+    return [tuple(r.values()) for r in table.to_pylist()]
+
+
+#: phase-11 queries with no rows on generate's files at 0.02 and on
+#: phase 7's at 0.1: q44's scalar subquery reads NULL ss_hdemo_sk, which
+#: neither generator draws (``test_ds11_q44_with_rows`` gives it some)
+DS11_NO_ROWS = {"q44"}
+#: phase-11 queries whose OR arms hold IN lists of different values
+#: (``(i_category in (...) and i_class in (...)) or (...)``), which the
+#: JAX package factors as one conjunct (its fault 4, as in q13, q48 and
+#: q85): its engine and oracle answer the first arm alone
+#: (``test_reference_keeps_q53s_first_arm``), so these are held to
+#: pyarrow alone
+DS11_IN_FAULT = {"q53", "q63", "q89"}
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS11_QUERIES)
+def test_ds11_query_matches_jax_oracle_and_pyarrow(one_file, q):
+    got = _ds11_rows(one_file, q)
+    assert bool(got) == (q not in DS11_NO_ROWS), f"{q}: {len(got)} rows"
+    if q in DS11_IN_FAULT:
+        return
+    for engine in (with_tpu_session, with_cpu_session):
+        _compare_rows(canon_rows(_jax_on(one_file, q, engine)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS11_QUERIES)
+def test_ds11_query_on_drawn_returns_matches_oracle(drawn, q):
+    got = _ds11_rows(drawn, q)
+    assert bool(got) == (q not in DS11_NO_ROWS), f"{q}: {len(got)} rows"
+    if q not in DS11_IN_FAULT:
+        _compare_rows(canon_rows(_jax_on(drawn, q, with_cpu_session)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+def test_reference_keeps_q53s_first_arm(one_file):
+    """The JAX package's q53 equals the port's q53 with its second OR arm
+    deleted: its ``_factor_or`` matches the two arms' ``IN`` lists by a
+    ``repr`` that prints no values and factors them out as one; the
+    port's answer with both arms differs, and equals pyarrow's."""
+    text = tpcds.QUERIES["q53"]
+    first = text.replace("""or (i_category in ('Women', 'Music', 'Men')
+                  and i_class in ('shirts', 'dresses', 'pants'))""", "")
+    assert first != text
+    jax = canon_rows(_jax_on(one_file, "q53", with_tpu_session))
+    _compare_rows(jax, canon_rows(_views(TpuSession(device="cpu"),
+                                         one_file).sql(first).collect()),
+                  rel=DEFAULT_FLOAT_REL)
+    assert jax != canon_rows(_ds11_rows(one_file, "q53"))
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS11_QUERIES)
+def test_sf10_estimates_plan_phase11(drawn, q):
+    """At SF10's row counts each phase-11 query plans DS11_PLANS'
+    operators: one PARTITION BY over the node hash-exchanges on it (q51's
+    three windows on the item), none (q44's ranks) or two of different
+    keys (q47's and q57's mean and rank) coalesce, and no query plans a
+    cross join."""
+    plan = _sf10_plan(drawn, q)
+    assert chip_smoke.window_plan_signature(plan) == \
+        chip_smoke.DS11_PLANS[q]
+    assert "TpuNestedLoopJoin" not in plan and "cross" not in plan
+
+
+def test_ds11_q44_with_rows(one_file, tmp_path):
+    """q44 on generate's tables with 5% of ss_hdemo_sk NULL (TPC-DS's own
+    generator leaves such keys NULL; ``generate`` draws none): its scalar
+    is the mean profit of store 4's lines without a household, and the
+    items above 90% of it are ranked both ways."""
+    rng = pa.array(np.random.default_rng(44).random(1 << 20) < 0.05)
+
+    def change(name, t):
+        if name != "store_sales":
+            return t
+        i = t.schema.get_field_index("ss_hdemo_sk")
+        col = pa.compute.if_else(rng[:t.num_rows], pa.scalar(
+            None, t.schema.field(i).type), t.column(i))
+        return t.set_column(i, "ss_hdemo_sk", col)
+    d = _copy_tables(one_file, str(tmp_path / "q44"), change)
+    got = _ds11_rows(d, "q44")
+    assert got, "q44: no rows"
+    assert {r[0] for r in got} <= set(range(1, 11))
+    for engine in (with_tpu_session, with_cpu_session):
+        _compare_rows(canon_rows(_jax_on(d, "q44", engine)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
