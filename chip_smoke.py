@@ -7,8 +7,8 @@ Runs from the repository root:
     python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
                                                # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
-    python3 chip_smoke.py --only 11            # phase 11 alone (no
-                                               # contract line)
+    python3 chip_smoke.py --only 11            # phase 11 (or 12) alone
+                                               # (no contract line)
 
 Phases (any failure exits non-zero):
 1. probe: a CUDA device is required; prints its name, count and
@@ -49,7 +49,7 @@ Phases (any failure exits non-zero):
    match a pyarrow computation (1e-9, ORDER BY kept, ties as a
    multiset), and give the same bytes on two warm runs; cold and warm
    times, peak memory and a profile of q3 are printed.  B1 must launch;
-7. flat TPC-DS: the 17 more tables of the 21 queries without subqueries
+7. flat TPC-DS: the 18 more tables of the 21 queries without subqueries
    (DS7_QUERIES) in the same directory, with returns drawn from sales
    (``make_tpcds7`` lists every departure from ``generate``), and each
    query's text through the same session: its plan's limit, sort,
@@ -97,7 +97,22 @@ Phases (any failure exits non-zero):
    runs against pyarrow and numpy (``ds11_references``), warm runs
    byte-identical, rows unless DS11_EMPTY names the query, peak memory
    and B1, B2 and probe launches per query; q51 runs once more under the
+   profiler.  B1 and the join probe must launch;
+12. TPC-DS with CAST, DATE literals and INTERVAL, count(DISTINCT) and
+   ROLLUP: the 18 queries of DS12_QUERIES (channel reports with
+   subtotals, inventory and sales rollups with ``grouping()``, distinct
+   order counts of shipping audits, ratios under CAST) verbatim through
+   the same session on the same tables (``make_tpcds7`` writes
+   catalog_page too), timed as in phase 9, each with DS12_PLANS'
+   operators (a ``TpuExpand`` under each ROLLUP's partial aggregate, two
+   stacked aggregates for each count(DISTINCT)), a cold and two warm
+   runs against pyarrow and numpy (``ds12_references``), warm runs
+   byte-identical, rows unless DS12_EMPTY names the query, peak memory
+   and B1, B2 and probe launches per query; q67 runs once more under the
    profiler.  B1 and the join probe must launch.
+Phases 8-12's pyarrow references are computed in one reference process
+from the moment phase 7 has written its tables, while the card runs the
+queries (``references_ahead``); each phase waits for its own.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -106,11 +121,14 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import multiprocessing
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -1131,8 +1149,10 @@ def join_references(tables) -> dict:
 
 
 def same_bytes(a, b) -> bool:
-    """Two arrow tables equal buffer for buffer."""
-    return a.equals(b) and all(
+    """Two arrow tables of one schema equal buffer for buffer (a NaN
+    equals itself here, where ``Table.equals`` calls two tables with a
+    NaN different)."""
+    return a.schema.equals(b.schema) and a.num_rows == b.num_rows and all(
         x.combine_chunks().buffers() == y.combine_chunks().buffers()
         for x, y in zip(a.columns, b.columns))
 
@@ -1737,8 +1757,8 @@ DS7_ROWS_PER_SF = {"customer": 100_000, "customer_address": 50_000,
                    "web_returns": 72_000, "inventory": 1_000_000}
 DS7_TABLES = ("customer", "customer_address", "customer_demographics",
               "income_band", "promotion", "warehouse", "ship_mode",
-              "reason", "call_center", "web_site", "web_page",
-              "catalog_sales", "web_sales", "store_returns",
+              "reason", "call_center", "catalog_page", "web_site",
+              "web_page", "catalog_sales", "web_sales", "store_returns",
               "catalog_returns", "web_returns", "inventory")
 #: part files of catalog_sales and web_sales
 DS7_PARTS = 8
@@ -1800,7 +1820,7 @@ def _returns_of(r, sold_date, cols: dict, k: int) -> dict:
 
 
 def make_tpcds7(data_dir: str, scale: float, seed: int) -> dict:
-    """The 17 tables phase 7 adds to phase 6's (``make_tpcds``, which
+    """The 18 tables phase 7 adds to phase 6's (``make_tpcds``, which
     must have written store_sales under ``data_dir``), with the
     formulas, names and types of ``benchmarks/tpcds.py`` ``generate`` at
     ``scale``, except:
@@ -1967,6 +1987,11 @@ def make_tpcds7(data_dir: str, scale: float, seed: int) -> dict:
     ncs, nws = n["catalog_sales"], n["web_sales"]
     ncr, nwr = n["catalog_returns"], n["web_returns"]
     ncp = max(int(11_718 * scale), 64)
+    write("catalog_page", pa.table({
+        "cp_catalog_page_sk": np.arange(ncp, dtype=np.int64),
+        "cp_catalog_page_id": np.array([f"AAAAAAAA{i:08d}"
+                                        for i in range(ncp)]),
+    }))
 
     def sales_parts(name, total, returns, make):
         """Write ``name`` in DS7_PARTS part files on threads; each part
@@ -2798,13 +2823,15 @@ def plan_signature(explain: str) -> list:
             if (m := _PLAN_OP.match(ln.strip()))]
 
 
-def tpcds7_phase(args, kernels_used, data_dir: str, session) -> dict:
+def tpcds7_phase(args, kernels_used, data_dir: str, session,
+                 tables_written=None) -> dict:
     """Phase 7: the verbatim text of the 21 flat TPC-DS queries
     (DS7_QUERIES) through the port's ``session.sql`` over Parquet temp
     views at scale ``--ds-sf``, on phase 6's tables and session with the
-    17 more tables of ``make_tpcds7``.  Below SF10 the broadcast
-    threshold shrinks with the scale, so the plans are SF10's.  Returns
-    B1's launches on this path."""
+    18 more tables of ``make_tpcds7`` (``tables_written()`` is called
+    once they are written).  Below SF10 the broadcast threshold shrinks
+    with the scale, so the plans are SF10's.  Returns B1's launches on
+    this path."""
     import os
     from tpcds_queries import QUERIES
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
@@ -2814,6 +2841,8 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session) -> dict:
 
     t0 = time.perf_counter()
     rows = make_tpcds7(data_dir, args.ds_sf, args.seed)
+    if tables_written is not None:
+        tables_written()
     t1 = time.perf_counter()
     refs = ds7_references(data_dir)
     print(f"tpcds7 data: sf {args.ds_sf}, {rows}, written in "
@@ -3386,7 +3415,8 @@ def ds8_references(data_dir: str, queries=DS8_QUERIES) -> dict:
     return out
 
 
-def tpcds8_phase(args, kernels_used, data_dir: str, session) -> dict:
+def tpcds8_phase(args, kernels_used, data_dir: str, session,
+                  refs_ahead=None) -> dict:
     """Phase 8: the verbatim text of the 15 TPC-DS queries with derived
     tables or CTEs (DS8_QUERIES) through the port's ``session.sql`` on
     phase 7's tables, directory and session.  Each must plan DS8_PLANS'
@@ -3403,9 +3433,7 @@ def tpcds8_phase(args, kernels_used, data_dir: str, session) -> dict:
     from spark_rapids_tpu_torch.plan import overrides
     on_card = args.device == "cuda"
 
-    t0 = time.perf_counter()
-    refs = ds8_references(data_dir)
-    print(f"tpcds8: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    refs = phase_references(8, ds8_references, data_dir, refs_ahead)
     rows = {"store_sales": max(int(DS_ROWS_PER_SF["store_sales"] *
                                    args.ds_sf), 64),
             "inventory": max(int(DS7_ROWS_PER_SF["inventory"] * args.ds_sf),
@@ -3798,7 +3826,8 @@ class SqlRun:
         return df.to_arrow()
 
 
-def tpcds9_phase(args, kernels_used, data_dir: str, session) -> dict:
+def tpcds9_phase(args, kernels_used, data_dir: str, session,
+                  refs_ahead=None) -> dict:
     """Phase 9: the verbatim text of the 12 TPC-DS queries with
     expression subqueries (DS9_QUERIES: scalar, IN, EXISTS and their
     correlated forms) through the port's ``session.sql`` on phase 7's
@@ -3818,9 +3847,7 @@ def tpcds9_phase(args, kernels_used, data_dir: str, session) -> dict:
     from spark_rapids_tpu_torch.plan import overrides
     on_card = args.device == "cuda"
 
-    t0 = time.perf_counter()
-    refs = ds9_references(data_dir)
-    print(f"tpcds9: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    refs = phase_references(9, ds9_references, data_dir, refs_ahead)
     rows = {t: max(int(n * args.ds_sf), 64) for t, n in
             {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
     cache = DeviceScanCache.get()
@@ -4375,7 +4402,8 @@ def q4_without_pushdown(session, text: str, ref: list) -> None:
           f"folding (CPU): {wall:.4f}s, the same rows", flush=True)
 
 
-def tpcds10_phase(args, kernels_used, data_dir: str, session) -> dict:
+def tpcds10_phase(args, kernels_used, data_dir: str, session,
+                  refs_ahead=None) -> dict:
     """Phase 10: the verbatim text of the 15 TPC-DS queries with set
     operations, SELECT DISTINCT and DATE columns (DS10_QUERIES) through
     the port's ``session.sql`` on phase 7's tables, directory and
@@ -4395,9 +4423,7 @@ def tpcds10_phase(args, kernels_used, data_dir: str, session) -> dict:
     from spark_rapids_tpu_torch.plan import overrides
     on_card = args.device == "cuda"
 
-    t0 = time.perf_counter()
-    refs = ds10_references(data_dir)
-    print(f"tpcds10: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    refs = phase_references(10, ds10_references, data_dir, refs_ahead)
     rows = {t: max(int(n * args.ds_sf), 64) for t, n in
             {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
     cache = DeviceScanCache.get()
@@ -4750,11 +4776,14 @@ DS11_PLANS = {
 
 
 def window_plan_signature(explain: str) -> list:
-    """``plan_signature`` with each window, and what is below it."""
+    """``plan_signature`` with each window, and what is below it, and
+    each ``TpuExpand`` (phase 12's grouping sets)."""
     lines = [ln.strip() for ln in explain.splitlines()]
     out = []
     for i, ln in enumerate(lines):
-        if ln.startswith("TpuWindow"):
+        if ln.startswith("TpuExpand"):
+            out.append("TpuExpand")
+        elif ln.startswith("TpuWindow"):
             below = lines[i + 1] if i + 1 < len(lines) else ""
             kind = "hash" if below.startswith(
                 "TpuShuffleExchange[HashPartitioner") else \
@@ -4766,7 +4795,8 @@ def window_plan_signature(explain: str) -> list:
     return out
 
 
-def tpcds11_phase(args, kernels_used, data_dir: str, session) -> dict:
+def tpcds11_phase(args, kernels_used, data_dir: str, session,
+                  refs_ahead=None) -> dict:
     """Phase 11: the verbatim text of the 10 TPC-DS queries with window
     functions (DS11_QUERIES: revenue shares of an item class, month and
     quarter outliers against a partition's mean, ranks and running
@@ -4787,9 +4817,7 @@ def tpcds11_phase(args, kernels_used, data_dir: str, session) -> dict:
     from spark_rapids_tpu_torch.plan import overrides
     on_card = args.device == "cuda"
 
-    t0 = time.perf_counter()
-    refs = ds11_references(data_dir)
-    print(f"tpcds11: pyarrow references in {time.perf_counter() - t0:.1f}s")
+    refs = phase_references(11, ds11_references, data_dir, refs_ahead)
     rows = {t: max(int(n * args.ds_sf), 64) for t, n in
             {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
     cache = DeviceScanCache.get()
@@ -4854,6 +4882,884 @@ def tpcds11_phase(args, kernels_used, data_dir: str, session) -> dict:
     return launches
 
 
+# -- phase 12: CAST, DATE literals and INTERVAL, count(DISTINCT), ROLLUP ------
+
+DS12_QUERIES = ("q5", "q14", "q16", "q18", "q22", "q27", "q36", "q49",
+                "q54", "q61", "q67", "q75", "q77", "q80", "q86", "q90",
+                "q94", "q95")
+#: the queries grouped by ROLLUP (an Expand under their partial
+#: aggregate) and by count(DISTINCT) (two stacked aggregates)
+DS12_ROLLUP = ("q5", "q14", "q18", "q22", "q27", "q36", "q67", "q77", "q80",
+               "q86")
+DS12_DISTINCT = ("q16", "q94", "q95")
+#: queries allowed an empty answer at SF10, with the reason
+DS12_EMPTY: dict = {}
+#: ORDER BY of each query as (select column position, ascending); None
+#: for q95, which has a LIMIT and no ORDER BY (one row)
+DS12_ORDER = {
+    "q5": _ASC[:2], "q77": _ASC[:2], "q80": _ASC[:2], "q14": _ASC[:4],
+    "q16": _ASC[:1], "q94": _ASC[:1], "q95": None, "q90": _ASC[:1],
+    "q18": [(1, True), (2, True), (3, True), (0, True)],
+    "q22": [(4, True), (0, True), (1, True), (2, True), (3, True)],
+    "q27": _ASC[:2],
+    "q36": [(3, False), (1, True), (2, True)],
+    "q86": [(3, False), (1, True), (2, True)],
+    "q49": [(0, True), (3, True), (4, True), (1, True)],
+    "q54": _ASC[:2], "q61": _ASC[:2], "q67": _ASC[:10],
+    "q75": [(8, True), (9, True)]}
+#: the table whose rows a query's Mrows/s counts (its largest scan)
+DS12_FACT = {q: "store_sales" for q in DS12_QUERIES}
+DS12_FACT.update({"q16": "catalog_sales", "q18": "catalog_sales",
+                  "q22": "inventory", "q86": "web_sales", "q90": "web_sales",
+                  "q94": "web_sales", "q95": "web_sales"})
+
+
+def _minus(a, b):
+    return None if a is None or b is None else a - b
+
+
+def ds12_references(data_dir: str, queries=DS12_QUERIES) -> dict:
+    """Each phase-12 query's full result (every row before its LIMIT), in
+    its select list's order, by pyarrow joins and group-bys and numpy
+    written apart from the port: a grouping-sets result is one pyarrow
+    ``group_by`` per set, the keys outside it NULL, concatenated
+    (``gsets``); a DISTINCT count is pyarrow's ``count_distinct``;
+    ``date 'd' + interval n days`` is Python's ``timedelta``; a CAST to
+    int truncates in Python; q67's rank counts the larger sums of its
+    category in numpy."""
+    import bisect
+    import datetime
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, between = _ds7_tools(data_dir)
+    out = {}
+
+    def rows_of(t, cols):
+        return list(zip(*[t[c].to_pylist() for c in cols]))
+
+    def member(col, values):
+        """``col IN values`` with a typed value set (NULL is no member)."""
+        vs = pa.chunked_array([values], col.type).combine_chunks() \
+            if not isinstance(values, (pa.Array, pa.ChunkedArray)) \
+            else pc.unique(values)
+        vs = vs.combine_chunks() if isinstance(vs, pa.ChunkedArray) else vs
+        return pc.fill_null(pc.is_in(col, value_set=vs), False)
+
+    def dates(cols, *conds):
+        d = read("date_dim", ["d_date_sk"] + cols)
+        for col, fn in conds:
+            d = d.filter(fn(d[col]))
+        return d
+
+    def window(start, days):
+        """date_dim's days from ``start`` to ``start`` + ``days``."""
+        lo = datetime.date.fromisoformat(start)
+        return dates(["d_date"], ("d_date", lambda c: between(
+            c, pa.scalar(lo, pa.date32()),
+            pa.scalar(lo + datetime.timedelta(days=days), pa.date32()))))
+
+    def eq(v):
+        return lambda c: pc.equal(c, v)
+
+    def zero(col):
+        return pc.coalesce(col, pa.scalar(0, col.type))
+
+    def gsets(t, keys, sets, aggs):
+        """GROUP BY GROUPING SETS: for each set (key names), one pyarrow
+        group_by, the other keys NULL; rows (keys, aggregates, set
+        position).  No input row gives no row, as Spark's Expand."""
+        rows = []
+        if t.num_rows == 0:
+            return rows
+        names = [f"{c}_{fn}" for c, fn in aggs]
+        for gid, s in enumerate(sets):
+            g = t.group_by(list(s)).aggregate(aggs)
+            cols = [g[k].to_pylist() if k in s else [None] * g.num_rows
+                    for k in keys]
+            rows += [r + (gid,) for r in zip(*cols, *[g[n].to_pylist()
+                                                       for n in names])]
+        return rows
+
+    def rollup(keys):
+        return [tuple(keys[:i]) for i in range(len(keys), -1, -1)]
+
+    # -- count(DISTINCT): q16, q94, q95 --------------------------------------
+    for q, fact, p, ret, rp, dim, dkey, fkey, cond, start, state in (
+            ("q16", "catalog_sales", "cs", "catalog_returns", "cr",
+             "call_center", "cc_call_center_sk", "cs_call_center_sk",
+             ("cc_county", "Williamson County"), "2002-02-01", "GA"),
+            ("q94", "web_sales", "ws", "web_returns", "wr", "web_site",
+             "web_site_sk", "ws_web_site_sk", ("web_company_name", "pri"),
+             "1999-02-01", "GA")):
+        if q not in queries:
+            continue
+        o, w = f"{p}_order_number", f"{p}_warehouse_sk"
+        f = read(fact, [f"{p}_ship_date_sk", f"{p}_ship_addr_sk", fkey, w, o,
+                        f"{p}_ext_ship_cost", f"{p}_net_profit"])
+        # EXISTS another line of the order from another warehouse: the
+        # line's warehouse is valid and the order has two or more
+        fw = f.filter(pc.is_valid(f[w]))
+        wh = fw.group_by([o]).aggregate([(w, "count_distinct")])
+        multi = wh.filter(pc.greater(wh[f"{w}_count_distinct"], 1))[o]
+        returned = read(ret, [f"{rp}_order_number"])[f"{rp}_order_number"]
+        ca = read("customer_address", ["ca_address_sk", "ca_state"])
+        ca = ca.filter(pc.equal(ca["ca_state"], state))
+        dm = read(dim, [dkey, cond[0]])
+        dm = dm.filter(pc.equal(dm[cond[0]], cond[1]))
+        j = join(join(join(f, window(start, 60), f"{p}_ship_date_sk",
+                           "d_date_sk"), ca, f"{p}_ship_addr_sk",
+                      "ca_address_sk"), dm, fkey, dkey)
+        j = j.filter(pc.and_(pc.is_valid(j[w]), member(j[o], multi)))
+        j = j.filter(pc.invert(member(j[o], returned)))
+        out[q] = [(pc.count_distinct(j[o]).as_py(),
+                   _sum_or_null(j[f"{p}_ext_ship_cost"].to_pylist()),
+                   _sum_or_null(j[f"{p}_net_profit"].to_pylist()))]
+
+    if "q95" in queries:
+        f = read("web_sales", ["ws_ship_date_sk", "ws_ship_addr_sk",
+                               "ws_web_site_sk", "ws_warehouse_sk",
+                               "ws_order_number", "ws_ext_ship_cost",
+                               "ws_net_profit"])
+        fw = f.filter(pc.is_valid(f["ws_warehouse_sk"]))
+        wh = fw.group_by(["ws_order_number"]).aggregate(
+            [("ws_warehouse_sk", "count_distinct")])
+        won = wh.filter(pc.greater(wh["ws_warehouse_sk_count_distinct"],
+                                   1))["ws_order_number"]
+        wr = read("web_returns", ["wr_order_number"])["wr_order_number"]
+        d = dates(["d_year", "d_moy"], ("d_year", eq(1999)),
+                  ("d_moy", lambda c: between(c, 2, 3)))
+        ca = read("customer_address", ["ca_address_sk", "ca_state"])
+        ca = ca.filter(pc.equal(ca["ca_state"], "CA"))
+        site = read("web_site", ["web_site_sk", "web_name"])
+        site = site.filter(pc.equal(site["web_name"], "site_0"))
+        j = join(join(join(f, d, "ws_ship_date_sk", "d_date_sk"), ca,
+                      "ws_ship_addr_sk", "ca_address_sk"), site,
+                 "ws_web_site_sk", "web_site_sk")
+        j = j.filter(member(j["ws_order_number"], won))
+        j = j.filter(member(j["ws_order_number"],
+                            wr.filter(member(wr, won))))
+        out["q95"] = [(pc.count_distinct(j["ws_order_number"]).as_py(),
+                       _sum_or_null(j["ws_ext_ship_cost"].to_pylist()),
+                       _sum_or_null(j["ws_net_profit"].to_pylist()))]
+
+    # -- ROLLUP with grouping(): q22, q27, q36, q86, q18 ---------------------
+    if "q22" in queries:
+        d = dates(["d_month_seq"],
+                  ("d_month_seq", lambda c: between(c, 1200, 1211)))
+        keys = ["i_product_name", "i_brand", "i_class", "i_category"]
+        j = join(join(read("inventory", ["inv_date_sk", "inv_item_sk",
+                                         "inv_quantity_on_hand"]),
+                      d, "inv_date_sk", "d_date_sk"),
+                 read("item", ["i_item_sk"] + keys), "inv_item_sk",
+                 "i_item_sk")
+        out["q22"] = [r[:5] for r in gsets(
+            j, keys, rollup(keys), [("inv_quantity_on_hand", "mean")])]
+
+    if "q27" in queries:
+        cd = read("customer_demographics", ["cd_demo_sk", "cd_gender",
+                                            "cd_marital_status",
+                                            "cd_education_status"])
+        cd = cd.filter(pc.and_(pc.and_(
+            pc.equal(cd["cd_gender"], "M"),
+            pc.equal(cd["cd_marital_status"], "S")),
+            pc.equal(cd["cd_education_status"], "College")))
+        vals = ["ss_quantity", "ss_list_price", "ss_coupon_amt",
+                "ss_sales_price"]
+        f = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                                 "ss_store_sk", "ss_cdemo_sk"] + vals)
+        j = join(join(join(join(f, cd, "ss_cdemo_sk", "cd_demo_sk"),
+                           dates(["d_year"], ("d_year", eq(2002))),
+                           "ss_sold_date_sk", "d_date_sk"),
+                      read("store", ["s_store_sk", "s_state"]),
+                      "ss_store_sk", "s_store_sk"),
+                 read("item", ["i_item_sk", "i_item_id"]), "ss_item_sk",
+                 "i_item_sk")
+        keys = ["i_item_id", "s_state"]
+        out["q27"] = [(r[0], r[1], 1 if r[6] > 0 else 0) + r[2:6]
+                      for r in gsets(j, keys, rollup(keys),
+                                     [(v, "mean") for v in vals])]
+
+    for q, fact, p, value, dcond, stores in (
+            ("q36", "store_sales", "ss", None,
+             ("d_year", eq(2001)), ["TN", "SD", "AL", "GA"]),
+            ("q86", "web_sales", "ws", "ws_net_paid",
+             ("d_month_seq", lambda c: between(c, 1200, 1211)), None)):
+        if q not in queries:
+            continue
+        vals = [value] if value else ["ss_net_profit", "ss_ext_sales_price"]
+        f = read(fact, [f"{p}_sold_date_sk", f"{p}_item_sk"] +
+                 ([f"{p}_store_sk"] if stores else []) + vals)
+        j = join(join(f, dates([dcond[0]], dcond), f"{p}_sold_date_sk",
+                      "d_date_sk"),
+                 read("item", ["i_item_sk", "i_category", "i_class"]),
+                 f"{p}_item_sk", "i_item_sk")
+        if stores:
+            s = read("store", ["s_store_sk", "s_state"])
+            j = join(j, s.filter(isin(s["s_state"], stores)),
+                     "ss_store_sk", "s_store_sk")
+        keys = ["i_category", "i_class"]
+        lochierarchy = {0: 0, 1: 1, 2: 2}     # grouping(cat) + (class)
+        rows = gsets(j, keys, rollup(keys), [(v, "sum") for v in vals])
+        if value:
+            out[q] = [(r[2], r[0], r[1], lochierarchy[r[3]]) for r in rows]
+        else:
+            out[q] = [(None if r[2] is None or r[3] is None or r[3] == 0
+                       else r[2] / r[3], r[0], r[1], lochierarchy[r[4]])
+                      for r in rows]
+
+    if "q18" in queries:
+        cd = read("customer_demographics", ["cd_demo_sk", "cd_gender",
+                                            "cd_education_status"])
+        cd = cd.filter(pc.and_(pc.equal(cd["cd_gender"], "F"),
+                               pc.equal(cd["cd_education_status"],
+                                        "Unknown")))
+        c = read("customer", ["c_customer_sk", "c_current_addr_sk",
+                              "c_birth_month", "c_birth_year"])
+        c = c.filter(isin(c["c_birth_month"], [1, 6, 8, 9, 12, 2]))
+        ca = read("customer_address", ["ca_address_sk", "ca_country",
+                                       "ca_state", "ca_county"])
+        ca = ca.filter(isin(ca["ca_state"], ["MS", "IN", "ND", "OK", "NM",
+                                             "VA", "TN"]))
+        vals = ["cs_quantity", "cs_list_price", "cs_coupon_amt",
+                "cs_sales_price", "cs_net_profit"]
+        f = read("catalog_sales", ["cs_sold_date_sk", "cs_item_sk",
+                                   "cs_bill_cdemo_sk",
+                                   "cs_bill_customer_sk"] + vals)
+        j = join(join(join(join(join(
+            f, cd, "cs_bill_cdemo_sk", "cd_demo_sk"),
+            c, "cs_bill_customer_sk", "c_customer_sk"),
+            ca, "c_current_addr_sk", "ca_address_sk"),
+            dates(["d_year"], ("d_year", eq(1998))), "cs_sold_date_sk",
+            "d_date_sk"), read("item", ["i_item_sk", "i_item_id"]),
+            "cs_item_sk", "i_item_sk")
+        keys = ["i_item_id", "ca_country", "ca_state", "ca_county"]
+        out["q18"] = [r[:10] for r in gsets(
+            j, keys, rollup(keys),
+            [(v, "mean") for v in vals + ["c_birth_year"]])]
+
+    # -- ROLLUP over a union of channels: q5, q77, q80, q14 ------------------
+    def channel_rollup(parts, id_type):
+        """``group by rollup(channel, id)`` of sum(sales), sum(returns),
+        sum(profit) over (channel, id, sales, returns, profit) rows."""
+        names = ("channel", "id", "sales", "returns_amt", "profit")
+        types = (pa.string(), id_type) + (pa.float64(),) * 3
+        t = pa.table({n: pa.array([r[i] for r in parts], ty)
+                      for i, (n, ty) in enumerate(zip(names, types))})
+        return [r[:5] for r in gsets(t, names[:2], rollup(names[:2]),
+                                     [(n, "sum") for n in names[2:]])]
+
+    def grouped_sums(t, key, cols):
+        return {r[0]: r[1:] for r in _grouped(
+            t, [key], [(c, "sum") for c in cols],
+            [key] + [f"{c}_sum" for c in cols])}
+
+    if "q5" in queries:
+        d = window("2000-08-23", 14)
+        parts = []
+        for chan, prefix, sales, rets, dim, dkey, did in (
+                ("store channel", "store",
+                 ("store_sales", "ss_store_sk", "ss_sold_date_sk",
+                  "ss_ext_sales_price", "ss_net_profit"),
+                 ("store_returns", "sr_store_sk", "sr_returned_date_sk",
+                  "sr_return_amt", "sr_net_loss"),
+                 "store", "s_store_sk", "s_store_id"),
+                ("catalog channel", "catalog_page",
+                 ("catalog_sales", "cs_catalog_page_sk", "cs_sold_date_sk",
+                  "cs_ext_sales_price", "cs_net_profit"),
+                 ("catalog_returns", "cr_catalog_page_sk",
+                  "cr_returned_date_sk", "cr_return_amount", "cr_net_loss"),
+                 "catalog_page", "cp_catalog_page_sk", "cp_catalog_page_id"),
+                ("web channel", "web_site",
+                 ("web_sales", "ws_web_site_sk", "ws_sold_date_sk",
+                  "ws_ext_sales_price", "ws_net_profit"),
+                 None, "web_site", "web_site_sk", "web_site_id")):
+            s = read(sales[0], list(sales[1:]))
+            s = s.rename_columns(["sk", "date_sk", "sales", "profit"])
+            if rets is not None:
+                r = read(rets[0], list(rets[1:]))
+                r = r.rename_columns(["sk", "date_sk", "ret", "loss"])
+            else:
+                # web returns carry the site of their sale (a left join)
+                wr = read("web_returns", ["wr_item_sk", "wr_order_number",
+                                          "wr_returned_date_sk",
+                                          "wr_return_amt", "wr_net_loss"])
+                ws = read("web_sales", ["ws_item_sk", "ws_order_number",
+                                        "ws_web_site_sk"])
+                r = wr.join(ws, keys=["wr_item_sk", "wr_order_number"],
+                            right_keys=["ws_item_sk", "ws_order_number"],
+                            join_type="left outer")
+                r = pa.table({"sk": r["ws_web_site_sk"],
+                              "date_sk": r["wr_returned_date_sk"],
+                              "ret": r["wr_return_amt"],
+                              "loss": r["wr_net_loss"]})
+            zeros = pa.array([0.0] * s.num_rows, pa.float64())
+            rz = pa.array([0.0] * r.num_rows, pa.float64())
+            u = pa.concat_tables([
+                pa.table({"sk": s["sk"], "date_sk": s["date_sk"],
+                          "sales": s["sales"], "profit": s["profit"],
+                          "ret": zeros, "loss": zeros}),
+                pa.table({"sk": r["sk"], "date_sk": r["date_sk"],
+                          "sales": rz, "profit": rz, "ret": r["ret"],
+                          "loss": r["loss"]})])
+            j = join(join(u, d, "date_sk", "d_date_sk"),
+                     read(dim, [dkey, did]), "sk", dkey)
+            for k, (sa, pr, re_, lo) in grouped_sums(
+                    j, did, ["sales", "profit", "ret", "loss"]).items():
+                parts.append((chan, None if k is None else prefix + k, sa,
+                              re_, _minus(pr, lo)))
+        out["q5"] = channel_rollup(parts, pa.string())
+
+    if "q77" in queries:
+        d = window("2000-08-03", 30)
+
+        def by(fact, date_col, key, cols, dim=None):
+            t = join(read(fact, [date_col, key] + cols), d, date_col,
+                     "d_date_sk")
+            if dim is not None:
+                t = join(t, read(dim[0], [dim[1]]), key, dim[1])
+            return grouped_sums(t, key, cols)
+        ss = by("store_sales", "ss_sold_date_sk", "ss_store_sk",
+                ["ss_ext_sales_price", "ss_net_profit"],
+                ("store", "s_store_sk"))
+        sr = by("store_returns", "sr_returned_date_sk", "sr_store_sk",
+                ["sr_return_amt", "sr_net_loss"], ("store", "s_store_sk"))
+        cs = by("catalog_sales", "cs_sold_date_sk", "cs_call_center_sk",
+                ["cs_ext_sales_price", "cs_net_profit"])
+        cr = by("catalog_returns", "cr_returned_date_sk",
+                "cr_call_center_sk", ["cr_return_amount", "cr_net_loss"])
+        ws = by("web_sales", "ws_sold_date_sk", "ws_web_page_sk",
+                ["ws_ext_sales_price", "ws_net_profit"],
+                ("web_page", "wp_web_page_sk"))
+        wr = by("web_returns", "wr_returned_date_sk", "wr_web_page_sk",
+                ["wr_return_amt", "wr_net_loss"],
+                ("web_page", "wp_web_page_sk"))
+        parts = []
+        for chan, sales, rets in (("store channel", ss, sr),
+                                  ("web channel", ws, wr)):
+            for k, (sa, pr) in sales.items():
+                # a left join on the key: NULL keys meet no return
+                ret, loss = rets.get(k, (None, None)) if k is not None \
+                    else (None, None)
+                parts.append((chan, k, sa, 0.0 if ret is None else ret,
+                              _minus(pr, 0.0 if loss is None else loss)))
+        for k, (sa, pr) in cs.items():          # a cross join
+            for ret, loss in cr.values():
+                parts.append(("catalog channel", k, sa, ret,
+                              _minus(pr, loss)))
+        out["q77"] = channel_rollup(parts, pa.int64())
+
+    if "q80" in queries:
+        d = window("2000-08-23", 30)
+        it = read("item", ["i_item_sk", "i_current_price"])
+        it = it.filter(pc.greater(it["i_current_price"], 50))
+        pr = read("promotion", ["p_promo_sk", "p_channel_tv"])
+        pr = pr.filter(pc.equal(pr["p_channel_tv"], "N"))
+        parts = []
+        for chan, prefix, p, fact, num, ret, rp, ramt, dim, dkey, fdim, \
+                did in (
+                ("store channel", "store", "ss", "store_sales",
+                 "ss_ticket_number", "store_returns", "sr",
+                 "sr_return_amt", "store", "s_store_sk", "ss_store_sk",
+                 "s_store_id"),
+                ("catalog channel", "catalog_page", "cs", "catalog_sales",
+                 "cs_order_number", "catalog_returns", "cr",
+                 "cr_return_amount", "catalog_page", "cp_catalog_page_sk",
+                 "cs_catalog_page_sk", "cp_catalog_page_id"),
+                ("web channel", "web_site", "ws", "web_sales",
+                 "ws_order_number", "web_returns", "wr", "wr_return_amt",
+                 "web_site", "web_site_sk", "ws_web_site_sk",
+                 "web_site_id")):
+            rnum = f"{rp}_ticket_number" if rp == "sr" else \
+                f"{rp}_order_number"
+            f = read(fact, [f"{p}_item_sk", num, f"{p}_sold_date_sk",
+                            fdim, f"{p}_promo_sk", f"{p}_ext_sales_price",
+                            f"{p}_net_profit"])
+            r = read(ret, [f"{rp}_item_sk", rnum, ramt, f"{rp}_net_loss"])
+            j = f.join(r, keys=[f"{p}_item_sk", num],
+                       right_keys=[f"{rp}_item_sk", rnum],
+                       join_type="left outer")
+            j = join(join(join(join(j, d, f"{p}_sold_date_sk", "d_date_sk"),
+                               read(dim, [dkey, did]), fdim, dkey),
+                          it, f"{p}_item_sk", "i_item_sk"),
+                     pr, f"{p}_promo_sk", "p_promo_sk")
+            j = j.append_column("ret", zero(j[ramt])).append_column(
+                "profit", pc.subtract(j[f"{p}_net_profit"],
+                                      zero(j[f"{rp}_net_loss"])))
+            for k, (sa, re_, pf) in grouped_sums(
+                    j, did, [f"{p}_ext_sales_price", "ret",
+                             "profit"]).items():
+                parts.append((chan, None if k is None else prefix + k, sa,
+                              re_, pf))
+        out["q80"] = channel_rollup(parts, pa.string())
+
+    if "q14" in queries:
+        span = dates(["d_year"], ("d_year", lambda c: between(c, 1999, 2001)))
+        it = read("item", ["i_item_sk", "i_brand_id", "i_class_id",
+                           "i_category_id"])
+        trip = ["i_brand_id", "i_class_id", "i_category_id"]
+        sets, lines = [], []
+        for fact, p in (("store_sales", "ss"), ("catalog_sales", "cs"),
+                        ("web_sales", "ws")):
+            f = join(read(fact, [f"{p}_item_sk", f"{p}_sold_date_sk",
+                                 f"{p}_quantity", f"{p}_list_price"]),
+                     span, f"{p}_sold_date_sk", "d_date_sk")
+            sold = join(f, it, f"{p}_item_sk", "i_item_sk").group_by(
+                trip).aggregate([])                     # DISTINCT triples
+            sets.append(set(rows_of(sold, trip)))
+            lines.append(pc.multiply(pc.cast(f[f"{p}_quantity"],
+                                             pa.float64()),
+                                     f[f"{p}_list_price"]))
+        common = sets[0] & sets[1] & sets[2]      # INTERSECT (distinct)
+        cross = [sk for sk, *t in rows_of(it, ["i_item_sk"] + trip)
+                 if None not in t and tuple(t) in common]
+        average = pc.mean(pa.chunked_array(
+            [c for ln in lines for c in ln.chunks], pa.float64())).as_py()
+        d = dates(["d_year", "d_moy"], ("d_year", eq(2001)),
+                  ("d_moy", eq(11)))
+        parts = []
+        for chan, fact, p in (("store", "store_sales", "ss"),
+                              ("catalog", "catalog_sales", "cs"),
+                              ("web", "web_sales", "ws")):
+            f = read(fact, [f"{p}_item_sk", f"{p}_sold_date_sk",
+                            f"{p}_quantity", f"{p}_list_price"])
+            f = f.filter(member(f[f"{p}_item_sk"], pa.array(cross,
+                                                            pa.int64())))
+            j = join(join(f, it, f"{p}_item_sk", "i_item_sk"), d,
+                     f"{p}_sold_date_sk", "d_date_sk")
+            j = j.append_column("v", pc.multiply(
+                pc.cast(j[f"{p}_quantity"], pa.float64()),
+                j[f"{p}_list_price"]))
+            for b, c, g, s, n in _grouped(
+                    j, trip, [("v", "sum"), ("v", "count",
+                                             pc.CountOptions("all"))],
+                    trip + ["v_sum", "v_count"]):
+                if s is not None and average is not None and s > average:
+                    parts.append((chan, b, c, g, s, n))
+        t = pa.table({"channel": pa.array([r[0] for r in parts],
+                                          pa.string()),
+                      **{k: pa.array([r[i + 1] for r in parts], pa.int64())
+                         for i, k in enumerate(trip)},
+                      "sales": pa.array([r[4] for r in parts], pa.float64()),
+                      "n": pa.array([r[5] for r in parts], pa.int64())})
+        keys = ["channel"] + trip
+        out["q14"] = [r[:6] for r in gsets(
+            t, keys, rollup(keys), [("sales", "sum"), ("n", "sum")])]
+
+    # -- CAST: q49, q54, q61, q75, q90 ---------------------------------------
+    if "q49" in queries:
+        d = dates(["d_year", "d_moy"], ("d_year", eq(2001)),
+                  ("d_moy", eq(12)))
+        rows = []
+        for chan, fact, p, num, ret, rp, rnum, rqty, ramt in (
+                ("web", "web_sales", "ws", "ws_order_number", "web_returns",
+                 "wr", "wr_order_number", "wr_return_quantity",
+                 "wr_return_amt"),
+                ("catalog", "catalog_sales", "cs", "cs_order_number",
+                 "catalog_returns", "cr", "cr_order_number",
+                 "cr_return_quantity", "cr_return_amount"),
+                ("store", "store_sales", "ss", "ss_ticket_number",
+                 "store_returns", "sr", "sr_ticket_number",
+                 "sr_return_quantity", "sr_return_amt")):
+            f = read(fact, [num, f"{p}_item_sk", f"{p}_sold_date_sk",
+                            f"{p}_quantity", f"{p}_net_paid",
+                            f"{p}_net_profit"])
+            f = f.filter(pc.and_(pc.and_(
+                pc.greater(f[f"{p}_net_profit"], 1),
+                pc.greater(f[f"{p}_net_paid"], 0)),
+                pc.greater(f[f"{p}_quantity"], 0)))
+            r = read(ret, [rnum, f"{rp}_item_sk", rqty, ramt])
+            # the left join's NULL return amounts fail ``> 100``
+            r = r.filter(pc.greater(r[ramt], 100))
+            j = join(f.join(r, keys=[num, f"{p}_item_sk"],
+                            right_keys=[rnum, f"{rp}_item_sk"],
+                            join_type="inner"),
+                     d, f"{p}_sold_date_sk", "d_date_sk")
+            g = _grouped(j, [f"{p}_item_sk"],
+                         [(rqty, "sum"), (f"{p}_quantity", "sum"),
+                          (ramt, "sum"), (f"{p}_net_paid", "sum")],
+                         [f"{p}_item_sk", f"{rqty}_sum",
+                          f"{p}_quantity_sum", f"{ramt}_sum",
+                          f"{p}_net_paid_sum"])
+
+            def ratio(a, b):
+                a = 0.0 if a is None else float(a)
+                b = 0.0 if b is None else float(b)
+                return None if b == 0 else a / b
+            items = [(i, ratio(rq, sq), ratio(ra, sp))
+                     for i, rq, sq, ra, sp in g]
+            ranks = []
+            for pos in (1, 2):
+                # rank() ascending, NULLs first: 1 + the rows before
+                vals = sorted(x[pos] for x in items if x[pos] is not None)
+                nulls = len(items) - len(vals)
+                ranks.append([1 if x[pos] is None else
+                              1 + nulls + bisect.bisect_left(vals, x[pos])
+                              for x in items])
+            for (i, rr, _), a, b in zip(items, *ranks):
+                if a <= 10 or b <= 10:
+                    rows.append((chan, i, rr, a, b))
+        out["q49"] = rows
+
+    if "q54" in queries:
+        it = read("item", ["i_item_sk", "i_category", "i_class"])
+        it = it.filter(pc.and_(pc.equal(it["i_category"], "Women"),
+                               pc.equal(it["i_class"], "dresses")))
+        d = dates(["d_year", "d_moy"], ("d_year", eq(1998)),
+                  ("d_moy", eq(12)))
+        sold = pa.concat_tables([
+            read("catalog_sales", ["cs_sold_date_sk", "cs_bill_customer_sk",
+                                   "cs_item_sk"]).rename_columns(
+                ["sold_date_sk", "customer_sk", "item_sk"]),
+            read("web_sales", ["ws_sold_date_sk", "ws_bill_customer_sk",
+                               "ws_item_sk"]).rename_columns(
+                ["sold_date_sk", "customer_sk", "item_sk"])])
+        c = read("customer", ["c_customer_sk", "c_current_addr_sk"])
+        mine = join(join(join(sold, d, "sold_date_sk", "d_date_sk"), it,
+                         "item_sk", "i_item_sk"), c, "customer_sk",
+                    "c_customer_sk")
+        mine = pa.table({"c_customer_sk": mine["customer_sk"],
+                         "c_current_addr_sk": mine["c_current_addr_sk"]})
+        mine = mine.group_by(["c_customer_sk", "c_current_addr_sk"]) \
+            .aggregate([])                               # DISTINCT
+        seqs = dates(["d_year", "d_moy", "d_month_seq"], ("d_year", eq(1998)),
+                     ("d_moy", eq(12)))
+        seq = set(seqs["d_month_seq"].to_pylist())
+        check(len(seq) == 1, "q54: December 1998 spans several months")
+        seq = seq.pop()
+        months = dates(["d_month_seq"], ("d_month_seq", lambda c: between(
+            c, seq + 1, seq + 3)))
+        ss = read("store_sales", ["ss_customer_sk", "ss_sold_date_sk",
+                                  "ss_ext_sales_price"])
+        j = join(join(mine, ss, "c_customer_sk", "ss_customer_sk"), months,
+                 "ss_sold_date_sk", "d_date_sk")
+        j = join(j, read("customer_address", ["ca_address_sk", "ca_county",
+                                              "ca_state"]),
+                 "c_current_addr_sk", "ca_address_sk")
+        j = join(j, read("store", ["s_county", "s_state"]),
+                 ["ca_county", "ca_state"], ["s_county", "s_state"])
+        revenue = _grouped(j, ["c_customer_sk"],
+                           [("ss_ext_sales_price", "sum")],
+                           ["c_customer_sk", "ss_ext_sales_price_sum"])
+        counts = {}
+        for _, r in revenue:
+            seg = None if r is None else int(r / 50)   # CAST AS int
+            counts[seg] = counts.get(seg, 0) + 1
+        out["q54"] = [(s, n, None if s is None else s * 50)
+                      for s, n in counts.items()]
+
+    if "q61" in queries:
+        st = read("store", ["s_store_sk", "s_gmt_offset"])
+        st = st.filter(pc.equal(st["s_gmt_offset"], -5.0))
+        ca = read("customer_address", ["ca_address_sk", "ca_gmt_offset"])
+        ca = ca.filter(pc.equal(ca["ca_gmt_offset"], -5.0))
+        it = read("item", ["i_item_sk", "i_category"])
+        it = it.filter(pc.equal(it["i_category"], "Books"))
+        pr = read("promotion", ["p_promo_sk", "p_channel_dmail",
+                                "p_channel_email", "p_channel_tv"])
+        pr = pr.filter(pc.or_(pc.or_(pc.equal(pr["p_channel_dmail"], "Y"),
+                                     pc.equal(pr["p_channel_email"], "Y")),
+                              pc.equal(pr["p_channel_tv"], "Y")))
+        d = dates(["d_year", "d_moy"], ("d_year", eq(1998)),
+                  ("d_moy", eq(11)))
+        f = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                 "ss_promo_sk", "ss_customer_sk",
+                                 "ss_item_sk", "ss_ext_sales_price"])
+        j = join(join(join(join(join(f, d, "ss_sold_date_sk", "d_date_sk"),
+                                st, "ss_store_sk", "s_store_sk"),
+                           read("customer", ["c_customer_sk",
+                                             "c_current_addr_sk"]),
+                           "ss_customer_sk", "c_customer_sk"),
+                      ca, "c_current_addr_sk", "ca_address_sk"),
+                 it, "ss_item_sk", "i_item_sk")
+        total = _sum_or_null(j["ss_ext_sales_price"].to_pylist())
+        promo = _sum_or_null(join(j, pr, "ss_promo_sk", "p_promo_sk")[
+            "ss_ext_sales_price"].to_pylist())
+        out["q61"] = [(promo, total,
+                       None if promo is None or total is None or total == 0
+                       else promo / total * 100)]
+
+    if "q75" in queries:
+        it = read("item", ["i_item_sk", "i_brand_id", "i_class_id",
+                           "i_category_id", "i_manufact_id", "i_category"])
+        it = it.filter(pc.equal(it["i_category"], "Books"))
+        keys = ["d_year", "i_brand_id", "i_class_id", "i_category_id",
+                "i_manufact_id"]
+        details = []
+        for fact, p, num, ret, rp, rnum, rqty, ramt in (
+                ("catalog_sales", "cs", "cs_order_number", "catalog_returns",
+                 "cr", "cr_order_number", "cr_return_quantity",
+                 "cr_return_amount"),
+                ("store_sales", "ss", "ss_ticket_number", "store_returns",
+                 "sr", "sr_ticket_number", "sr_return_quantity",
+                 "sr_return_amt"),
+                ("web_sales", "ws", "ws_order_number", "web_returns", "wr",
+                 "wr_order_number", "wr_return_quantity", "wr_return_amt")):
+            f = read(fact, [f"{p}_item_sk", f"{p}_sold_date_sk", num,
+                            f"{p}_quantity", f"{p}_ext_sales_price"])
+            j = join(join(f, it, f"{p}_item_sk", "i_item_sk"),
+                     read("date_dim", ["d_date_sk", "d_year"]),
+                     f"{p}_sold_date_sk", "d_date_sk")
+            r = read(ret, [rnum, f"{rp}_item_sk", rqty, ramt])
+            j = j.join(r, keys=[num, f"{p}_item_sk"],
+                       right_keys=[rnum, f"{rp}_item_sk"],
+                       join_type="left outer")
+            details.append(pa.table({
+                **{k: j[k] for k in keys},
+                "cnt": pc.subtract(pc.cast(j[f"{p}_quantity"], pa.int64()),
+                                   pc.cast(zero(j[rqty]), pa.int64())),
+                "amt": pc.subtract(j[f"{p}_ext_sales_price"],
+                                   zero(j[ramt]))}))
+        g = _grouped(pa.concat_tables(details), keys,
+                     [("cnt", "sum"), ("amt", "sum")],
+                     keys + ["cnt_sum", "amt_sum"])
+        prev = {}
+        for r in g:
+            if r[0] == 2001 and None not in r[1:5]:
+                prev.setdefault(r[1:5], []).append(r)
+        rows = []
+        for c in g:
+            if c[0] != 2002 or None in c[1:5]:
+                continue
+            for p_ in prev.get(c[1:5], []):
+                if c[5] is None or p_[5] is None or p_[5] == 0 or \
+                        not float(c[5]) / float(p_[5]) < 0.9:
+                    continue
+                rows.append((p_[0], c[0]) + c[1:5] + (
+                    p_[5], c[5], _minus(c[5], p_[5]), _minus(c[6], p_[6])))
+        out["q75"] = rows
+
+    if "q90" in queries:
+        f = read("web_sales", ["ws_sold_time_sk", "ws_web_page_sk",
+                               "ws_ship_customer_sk"])
+        f = f.filter(pc.is_valid(f["ws_ship_customer_sk"]))
+        f = f.append_column("hd", pc.cast(
+            pc.subtract(f["ws_web_page_sk"], pc.multiply(pc.divide(
+                f["ws_web_page_sk"], 7200), 7200)), pa.int64()))
+        hd = read("household_demographics", ["hd_demo_sk", "hd_dep_count"])
+        hd = hd.filter(pc.equal(hd["hd_dep_count"], 6))
+        wp = read("web_page", ["wp_web_page_sk", "wp_char_count"])
+        wp = wp.filter(between(wp["wp_char_count"], 5000, 5200))
+        j = join(join(f, hd, "hd", "hd_demo_sk"), wp, "ws_web_page_sk",
+                 "wp_web_page_sk")
+        td = read("time_dim", ["t_time_sk", "t_hour"])
+        am, pm = (join(j, td.filter(between(td["t_hour"], lo, lo + 1)),
+                       "ws_sold_time_sk", "t_time_sk").num_rows
+                  for lo in (8, 19))
+        out["q90"] = [(None if pm == 0 else am / pm,)]
+
+    if "q67" in queries:
+        import numpy as np
+        d = dates(["d_year", "d_qoy", "d_moy", "d_month_seq"],
+                  ("d_month_seq", lambda c: between(c, 1200, 1211)))
+        keys = ["i_category", "i_class", "i_brand", "i_product_name",
+                "d_year", "d_qoy", "d_moy", "s_store_id"]
+        f = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                                 "ss_store_sk", "ss_sales_price",
+                                 "ss_quantity"])
+        j = join(join(join(f, d, "ss_sold_date_sk", "d_date_sk"),
+                      read("store", ["s_store_sk", "s_store_id"]),
+                      "ss_store_sk", "s_store_sk"),
+                 read("item", ["i_item_sk"] + keys[:4]), "ss_item_sk",
+                 "i_item_sk")
+        # sums in whole cents (the prices are cents), exact: a set's
+        # subtotal equals its finer set's where one key is constant (one
+        # d_year), and the two tie in rank as they do in Spark's answer
+        price = j["ss_sales_price"].to_numpy(zero_copy_only=False)
+        qty = j["ss_quantity"].to_numpy(zero_copy_only=False)
+        cents = np.rint(price * 100)
+        check(bool(np.all(np.isnan(cents) | (np.abs(price * 100 - cents)
+                                             < 1e-6))),
+              "q67: a price that is no whole number of cents")
+        v = np.where(np.isnan(cents) | np.isnan(qty), 0,
+                     np.nan_to_num(cents) * np.nan_to_num(qty))
+        j = j.append_column("v", pa.array(v.astype(np.int64)))
+        tables = []
+        for s in rollup(keys):
+            if not j.num_rows:
+                break
+            g = j.group_by(list(s)).aggregate([("v", "sum")])
+            tables.append(pa.table({k: g[k] if k in s else pa.nulls(
+                g.num_rows, j.schema.field(k).type) for k in keys} |
+                {"v_sum": pc.divide(pc.cast(g["v_sum"], pa.float64()),
+                                    100.0)}))
+        rows = []
+        if tables:
+            t = pa.concat_tables(tables)
+            cat = pc.fill_null(pc.dictionary_encode(
+                t["i_category"].combine_chunks()).indices, -1)
+            cat = cat.to_numpy(zero_copy_only=False).astype(np.int64)
+            v = t["v_sum"].to_numpy()
+            order = np.lexsort((-v, cat))
+            sc, sv = cat[order], v[order]
+            n = len(order)
+            idx = np.arange(n)
+            new_part = np.r_[True, sc[1:] != sc[:-1]]
+            new_run = new_part | np.r_[True, sv[1:] != sv[:-1]]
+            part0 = np.maximum.accumulate(np.where(new_part, idx, 0))
+            run0 = np.maximum.accumulate(np.where(new_run, idx, 0))
+            rank = np.empty(n, np.int64)
+            rank[order] = run0 - part0 + 1
+            keep = np.flatnonzero(rank <= 100)
+            kept = t.take(pa.array(keep))
+            rows = [r + (int(rank[i]),) for r, i in zip(
+                rows_of(kept, keys + ["v_sum"]), keep)]
+        out["q67"] = rows
+    return out
+
+
+_EXPAND = "TpuExpand"
+_BANTI = "TpuBroadcastHashJoin[anti, build=right]"
+_ROLLUP = _LS + _AGG + [_EXPAND]            # ROLLUP under its ORDER BY
+_DISTINCT = _AGG * 2                        # count(DISTINCT)
+_CROSS_ITEMS = _AGG + [_SSEMI] + _AGG + [_SSEMI] + [_BR] * 6  # q14's CTE
+_Q14_CHANNEL = _AGG + [_SSEMI, _BR, _BR, _BL] + _CROSS_ITEMS
+_RETURNS = [_BR, _BR, _SLO]                 # q75: a channel, its returns
+#: each query's plan at SF10's row estimates, top down: its limit, sort,
+#: aggregate, join and window operators and its Expand
+#: (``window_plan_signature``)
+DS12_PLANS = {
+    "q5": _ROLLUP + (_AGG + [_BR, _BR]) * 3 + [_SLO],
+    "q14": _ROLLUP + _Q14_CHANNEL * 3,
+    "q16": _LS + _DISTINCT + [_SANTI, _SSEMI, _BR, _BR, _BR],
+    "q18": _ROLLUP + [_BR] * 5,
+    "q22": _ROLLUP + [_BR] * 2,
+    "q27": _ROLLUP + [_BR] * 4,
+    "q36": _ROLLUP + [_BR] * 3,
+    "q49": _LS + [_WC] + _AGG + [_BR, _BLO] +
+           ([_WC] + _AGG + [_BR, _SLO]) * 2,
+    "q54": _LS + _AGG * 2 + [_BR, _BR, _BR, _SL] + _AGG + [_BR] * 3,
+    "q61": _LS + [_NL] + _AGG + [_BR] * 6 + _AGG + [_BR] * 5,
+    "q67": _LS + [_WH] + _AGG + [_EXPAND] + [_BR] * 3,
+    "q75": _LS + [_SR] + (_AGG + [_SLO, _BR, _BR, _SLO, _BR, _BR, _BLO,
+                                  _BR, _BR]) * 2,
+    "q77": _ROLLUP + [_SLO] + _AGG + [_BR, _BR] + _AGG + [_BR, _BR, _NL] +
+           _AGG + [_BR] + _AGG + [_BR, _BLO] + (_AGG + [_BR, _BR]) * 2,
+    "q80": _ROLLUP + _AGG + [_BR] * 4 + [_SLO] + _AGG + [_BR] * 4 +
+           [_SLO] + _AGG + [_BR] * 4 + [_BLO],
+    "q86": _ROLLUP + [_BR] * 2,
+    "q90": _LS + [_NL] + (_AGG + [_BR] * 3) * 2,
+    "q94": _LS + _DISTINCT + [_BANTI, _SSEMI, _BR, _BR, _BR],
+    "q95": ["TpuGlobalLimit"] + _DISTINCT + [_SSEMI, _SSEMI, _BR, _BR, _BR,
+                                             _SR, _BL, _SR]}
+
+
+def tpcds12_phase(args, kernels_used, data_dir: str, session,
+                  refs_ahead=None) -> dict:
+    """Phase 12: the verbatim text of the 18 TPC-DS queries with CAST,
+    DATE literals and INTERVAL, count(DISTINCT) and ROLLUP
+    (DS12_QUERIES: channel reports with subtotals, inventory and sales
+    rollups, distinct order counts of shipping audits) through the
+    port's ``session.sql`` on phase 7's tables, directory and session.
+    Each must plan DS12_PLANS' operators at SF10 (a ``TpuExpand`` under
+    the partial aggregate of each ROLLUP, two stacked aggregates, each
+    partial, exchange and final, for each count(DISTINCT)), equal
+    ``ds12_references`` (1e-9, ORDER BY kept, ties as a multiset, also at
+    the LIMIT's cut), give the same bytes on two warm runs, and return
+    rows unless DS12_EMPTY names it.  A run is
+    ``session.sql(text).to_arrow()`` (``SqlRun``), as in phases 9-11;
+    below SF10 the broadcast threshold shrinks with the scale.  q67 (a
+    year of store_sales rolled up over 8 keys into 9 sets, ranked per
+    category) runs once more under the profiler.  Returns the kernels'
+    launches on this path."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    refs = phase_references(12, ds12_references, data_dir, refs_ahead)
+    rows = {t: max(int(n * args.ds_sf), 64) for t, n in
+            {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        for q in DS12_QUERIES:
+            tq = time.perf_counter()
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 12 imported JAX or the JAX package")
+            plan = session.sql(QUERIES[q]).explain()
+            check(window_plan_signature(plan) == DS12_PLANS[q] or
+                  args.ds_sf < 10, f"{q}: not the planned operators:\n{plan}")
+            run = SqlRun(session, QUERIES[q], on_card)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, run, on_card)
+            for name, v in cuda_ops.LAUNCHES.items():
+                launches[name] += v
+            order = DS12_ORDER[q]
+            full = check_rows(q, cold, refs[q], order)
+            for t in warm:
+                check_rows(q, t, refs[q], order)
+            check(same_bytes(warm[0], warm[1]),
+                  f"{q}: the two warm runs are not byte-identical")
+            check(cold.num_rows > 0 or q in DS12_EMPTY or args.ds_sf < 10,
+                  f"{q}: no rows (not in DS12_EMPTY)")
+            fact = rows[DS12_FACT[q]]
+            got = cuda_ops.LAUNCHES
+            lower = run.lower_s
+            print(f"{q}: {cold.num_rows} rows of {full}; cold {cold_s:.4f}s "
+                  f"(lowering and its subqueries {lower[0]:.4f}s; host "
+                  f"read {read_s:.4f}s, upload {upload_s:.4f}s); warm "
+                  f"{warm_s[0]:.4f}s {warm_s[1]:.4f}s (lowering "
+                  f"{lower[2]:.4f}s); warm {fact / warm_s[1] / 1e6:.3f} "
+                  f"Mrows/s of {DS12_FACT[q]}; peak device memory {peak} B; "
+                  f"launches (3 runs) B1 {got['hash_partition_ids']}, B2 "
+                  f"{got['table_reduce']}, probe {got['join_probe']}; "
+                  f"byte-identical warm runs; matches pyarrow at "
+                  f"{EXACT_REL}; first rows {cold.slice(0, 2).to_pylist()}; "
+                  f"{time.perf_counter() - tq:.1f}s with the plan and checks",
+                  flush=True)
+        print("plan q67:\n" + session.sql(QUERIES["q67"]).explain())
+        if on_card:
+            tq = time.perf_counter()
+            before = dict(cuda_ops.LAUNCHES)
+            print("profile q67:")
+            profile_query(session.sql(QUERIES["q67"]))
+            print("profile q67: kernel launches " + str(
+                {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()}) +
+                f"; {time.perf_counter() - tq:.1f}s with the trace's "
+                f"processing", flush=True)
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
+        cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the phase 12 path")
+    print(f"tpcds12: launches of the phase (3 runs of each query) {launches}")
+    return launches
+
+
+def _reference_worker() -> None:
+    """A reference process's pyarrow takes half the host's cores; the
+    other half serve the process that drives the card."""
+    import pyarrow
+    pyarrow.set_cpu_count(max(1, (os.cpu_count() or 2) // 2))
+
+
+def references_ahead(pool, data_dir: str) -> dict:
+    """Futures of phases 8-12's pyarrow references, computed one after
+    another in ``pool``'s process while the card runs phases 8-12 (~200
+    s of host work the phases would otherwise wait for)."""
+    return {n: pool.submit(fn, data_dir) for n, fn in (
+        (8, ds8_references), (9, ds9_references), (10, ds10_references),
+        (11, ds11_references), (12, ds12_references))}
+
+
+def phase_references(phase: int, fn, data_dir: str, ahead=None) -> dict:
+    """A phase's references: ``ahead``'s result (``references_ahead``), or
+    ``fn(data_dir)`` computed here."""
+    t0 = time.perf_counter()
+    refs = fn(data_dir) if ahead is None else ahead.result()
+    how = "computed" if ahead is None else \
+        "waited for (a reference process computes them beside the card)"
+    print(f"tpcds{phase}: pyarrow references {how} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return refs
+
+
 def ds_tables_alone(args, data_dir: str):
     """Phases 6 and 7's tables under ``data_dir`` and phase 6's session
     over them, without their queries (``--only 11``)."""
@@ -4888,7 +5794,7 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: also time its "
                          "kernels at the raw-row and probe shapes with "
                          "this timer")
-    ap.add_argument("--only", type=int, choices=(11,), default=None,
+    ap.add_argument("--only", type=int, choices=(11, 12), default=None,
                     help="after the build, run this phase alone on "
                          "freshly written tables (no contract line)")
     args = ap.parse_args(argv)
@@ -4930,16 +5836,17 @@ def main(argv=None) -> int:
                                    args.parent)
             phase_done("3")
 
-    if args.only == 11:
+    if args.only is not None:
         used = ["hash_partition_ids", "join_probe"] \
             if args.device == "cuda" else []
+        phase = {11: tpcds11_phase, 12: tpcds12_phase}[args.only]
         with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
             session = ds_tables_alone(args, data_dir)
             phase_done("tables")
-            tpcds11_phase(args, used, data_dir, session)
-            phase_done("11")
+            phase(args, used, data_dir, session)
+            phase_done(str(args.only))
             session = None
-        print("phase 11 alone: no contract result")
+        print(f"phase {args.only} alone: no contract result")
         return 0
 
     # 4. the headline query
@@ -4997,24 +5904,29 @@ def main(argv=None) -> int:
     # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
     # TPC-DS queries, 8. those with derived tables and CTEs, 9. those with
     # expression subqueries, 10. those with set operations, DISTINCT and
-    # DATE columns, 11. those with window functions, on the same tables,
+    # DATE columns, 11. those with window functions, 12. those with CAST,
+    # DATE literals, count(DISTINCT) and ROLLUP, on the same tables,
     # session and directory
     used = ["hash_partition_ids", "join_probe"] \
         if args.device == "cuda" else []
-    with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir, \
+            ProcessPoolExecutor(1, mp_context=spawn,
+                                initializer=_reference_worker) as pool:
         phase_done("5")
         results["tpcds"], session = tpcds_phase(args, used, data_dir)
         phase_done("6")
-        results["tpcds7"] = tpcds7_phase(args, used, data_dir, session)
+        ahead = {}
+        results["tpcds7"] = tpcds7_phase(
+            args, used, data_dir, session,
+            lambda: ahead.update(references_ahead(pool, data_dir)))
         phase_done("7")
-        results["tpcds8"] = tpcds8_phase(args, used, data_dir, session)
-        phase_done("8")
-        results["tpcds9"] = tpcds9_phase(args, used, data_dir, session)
-        phase_done("9")
-        results["tpcds10"] = tpcds10_phase(args, used, data_dir, session)
-        phase_done("10")
-        results["tpcds11"] = tpcds11_phase(args, used, data_dir, session)
-        phase_done("11")
+        for n, phase in ((8, tpcds8_phase), (9, tpcds9_phase),
+                         (10, tpcds10_phase), (11, tpcds11_phase),
+                         (12, tpcds12_phase)):
+            results[f"tpcds{n}"] = phase(args, used, data_dir, session,
+                                         ahead[n])
+            phase_done(str(n))
         session = None
 
     if args.device != "cuda":
@@ -5023,10 +5935,11 @@ def main(argv=None) -> int:
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
         for mode, got in by_path.items():
-            # phases 6-11 need not take B2: their string keys, keyless
+            # phases 6-12 need not take B2: their string keys, keyless
             # aggregates and wide key ranges run the sort path
             check(got > 0 or (mode in ("tpcds", "tpcds7", "tpcds8",
-                                       "tpcds9", "tpcds10", "tpcds11") and
+                                       "tpcds9", "tpcds10", "tpcds11",
+                                       "tpcds12") and
                               name == "table_reduce"),
                   f"{name} never launched on the {mode} path")
         kernels[name]["launches"] = by_path["exact"]

@@ -83,6 +83,13 @@ class Col:
     def alias(self, name: str) -> "Col":
         return Col(ec.Alias(self.expr, name))
 
+    def cast(self, to) -> "Col":
+        """``CAST(self AS to)``: ``to`` a dtype or a type name
+        (``expr/cast.TYPE_NAMES``)."""
+        from ..expr.cast import TYPE_NAMES, Cast
+        return Col(Cast(self.expr, TYPE_NAMES[to] if isinstance(to, str)
+                        else to))
+
     def between(self, lo, hi) -> "Col":
         """``lo <= self <= hi``, as SQL's BETWEEN lowers."""
         return (self >= lo) & (self <= hi)

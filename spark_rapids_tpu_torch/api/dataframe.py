@@ -1,8 +1,8 @@
 """DataFrame API: the PySpark-flavoured surface that builds logical plans.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py`` (select,
-with_column, with_window, filter, group_by().agg(), join, sort, limit,
-temp views, collect, to_arrow).
+with_column, with_window, filter, group_by().agg(), rollup().agg(),
+cube().agg(), join, sort, limit, temp views, collect, to_arrow).
 """
 from __future__ import annotations
 
@@ -105,6 +105,19 @@ class DataFrame:
         return GroupedData(self, [_to_expr(c, self.schema) for c in cols])
 
     groupBy = group_by
+
+    def rollup(self, *cols) -> "GroupedData":
+        """Grouping sets of every prefix of ``cols``, the keys outside a
+        set NULL (``plan/logical.build_grouping_sets``)."""
+        keys = [_to_expr(c, self.schema) for c in cols]
+        return GroupedData(self, keys, L.rollup_sets(
+            [ec.output_name(e) for e in keys]))
+
+    def cube(self, *cols) -> "GroupedData":
+        """Grouping sets of every subset of ``cols``."""
+        keys = [_to_expr(c, self.schema) for c in cols]
+        return GroupedData(self, keys, L.cube_sets(
+            [ec.output_name(e) for e in keys]))
 
     def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":
@@ -226,11 +239,20 @@ def _extract_equi_keys(cond: ec.Expression, lschema: Schema,
 
 
 class GroupedData:
-    def __init__(self, df: DataFrame, keys: List[ec.Expression]):
+    """Keys of a ``group_by``, or of a ``rollup`` / ``cube`` with their
+    grouping sets (tuples of key names)."""
+
+    def __init__(self, df: DataFrame, keys: List[ec.Expression],
+                 grouping_sets=None):
         self.df = df
         self.keys = keys
+        self.grouping_sets = grouping_sets
 
     def agg(self, *aggs) -> DataFrame:
+        """The aggregates (``functions.count_distinct`` and
+        ``sum_distinct`` as the reference's DISTINCT rewrite); a grouped
+        ``min`` and several DISTINCT arguments raise
+        ``NotImplementedError``."""
         schema = self.df.schema
         agg_exprs = []
         for a in aggs:
@@ -245,6 +267,11 @@ class GroupedData:
             if isinstance(e, eagg.Min):
                 raise NotImplementedError("min() as a grouped aggregate is "
                                           "not ported (only over a window)")
-            agg_exprs.append(L.AggExpr(e, alias or repr(e)))
-        return DataFrame(L.Aggregate(self.keys, agg_exprs, self.df._plan),
-                         self.df.session)
+            agg_exprs.append(L.AggExpr(e, alias or repr(e),
+                                       getattr(e, "_distinct", False)))
+        if self.grouping_sets is not None:
+            return DataFrame(L.build_grouping_sets(
+                self.keys, self.grouping_sets, agg_exprs, self.df._plan),
+                self.df.session)
+        return DataFrame(L.build_aggregate(self.keys, agg_exprs,
+                                           self.df._plan), self.df.session)

@@ -1,5 +1,6 @@
-"""functions: col, the aggregates, conditionals, ``abs``, ``round``,
-string functions and window functions.
+"""functions: col, the aggregates (``count_distinct`` and
+``sum_distinct`` too), conditionals, ``abs``, ``round``, string
+functions, DATE functions and window functions.
 
 Counterpart of ``spark_rapids_tpu/api/functions.py`` (the port's
 subset).
@@ -10,6 +11,7 @@ from ..expr import aggregates as eagg
 from ..expr import arithmetic as ea
 from ..expr import conditional as econd
 from ..expr import core as ec
+from ..expr import datetime as edt
 from ..expr import string_ops as es
 from ..expr import window_funcs as wf
 from .column import Col, _expr
@@ -41,6 +43,24 @@ def min(c) -> Col:  # noqa: A001
     """min over a window (``DataFrame.with_window``); a grouped min is not
     ported."""
     return Col(eagg.Min(_arg(c)))
+
+
+def _distinct(agg) -> Col:
+    """An aggregate of the distinct values of its input (the reference
+    marks it ``_distinct``; ``GroupedData.agg`` rewrites it)."""
+    agg._distinct = True
+    return Col(agg)
+
+
+def count_distinct(c) -> Col:
+    return _distinct(eagg.Count(_arg(c)))
+
+
+countDistinct = count_distinct
+
+
+def sum_distinct(c) -> Col:
+    return _distinct(eagg.Sum(_arg(c)))
 
 
 def max(c) -> Col:  # noqa: A001
@@ -107,6 +127,37 @@ def abs(c) -> Col:  # noqa: A001
 def round(c, scale: int = 0) -> Col:  # noqa: A001
     """Spark's ``round`` (HALF_UP) to ``scale`` decimal places."""
     return Col(ea.Round(_arg(c), scale))
+
+
+# -- DATE functions ------------------------------------------------------------
+
+def _date_field(cls):
+    def f(c) -> Col:
+        return Col(cls(_arg(c)))
+    f.__name__ = cls.__name__.lower()
+    return f
+
+
+year = _date_field(edt.Year)
+month = _date_field(edt.Month)
+dayofmonth = _date_field(edt.DayOfMonth)
+quarter = _date_field(edt.Quarter)
+dayofweek = _date_field(edt.DayOfWeek)
+weekday = _date_field(edt.WeekDay)
+dayofyear = _date_field(edt.DayOfYear)
+last_day = _date_field(edt.LastDay)
+
+
+def date_add(c, days) -> Col:
+    return Col(edt.DateAdd(_arg(c), _expr(days)))
+
+
+def date_sub(c, days) -> Col:
+    return Col(edt.DateSub(_arg(c), _expr(days)))
+
+
+def datediff(end, start) -> Col:
+    return Col(edt.DateDiff(_arg(end), _arg(start)))
 
 
 # -- window functions (``DataFrame.with_window``) ---------------------------

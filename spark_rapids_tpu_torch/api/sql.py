@@ -33,22 +33,36 @@ runs:
   to every arm of an OR are factored out of it (``plan/logical_opt``'s
   ``_factor_or``, for WHERE and ``JOIN ... ON`` alike), so join
   equalities written inside the arms become join keys;
-- ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``;
+- ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``; ``CAST(x AS
+  t)`` among the numbers, BOOL and DATE (``boolean``, ``int``,
+  ``bigint``, ``float``, ``double``, ``date``; Spark's non-ANSI rules,
+  ``expr/cast.py``);
   ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric or DATE
   values; ``substring`` / ``substr`` with literal positions (in
   characters), ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` (numbers,
   DATEs or strings), ``abs``, ``round(x[, d])`` (HALF_UP), ``upper`` /
   ``ucase`` and ``lower`` / ``lcase`` (ASCII letters, as the reference);
 - integer, decimal (read as double), string and ``NULL`` literals;
-  DATE columns (date32 in Parquet) compare with DATE columns, key
-  joins, group-bys, DISTINCT and sorts, and are collected as date32;
+  ``DATE 'yyyy-mm-dd'`` literals; DATE columns (date32 in Parquet)
+  compare with DATEs, key joins, group-bys, DISTINCT and sorts, and are
+  collected as date32; ``date ± INTERVAL n DAY[S]``, ``INTERVAL n DAYS +
+  date`` and ``date ± n`` for an integer ``n``; ``year``, ``month``,
+  ``day`` / ``dayofmonth``, ``quarter``, ``dayofweek``, ``weekday``,
+  ``dayofyear``, ``last_day``, ``date_add``, ``date_sub`` and
+  ``datediff`` (``expr/datetime.py``);
 - ``GROUP BY`` expressions, ordinals or select aliases, with or
-  without aggregates; the aggregates ``count(*)``, ``count``, ``sum``,
-  ``max`` (also of strings), ``avg`` / ``mean``, ``stddev`` /
-  ``stddev_samp`` / ``std``, ``stddev_pop``, ``variance`` /
+  without aggregates, or ``ROLLUP (...)``, ``CUBE (...)`` and ``GROUPING
+  SETS ((...), x, (), ...)`` of them (the reference's Expand rewrite,
+  ``plan/logical.build_grouping_sets``), with ``grouping(key)``, also
+  inside arithmetic and ORDER BY; the aggregates ``count(*)``,
+  ``count``, ``sum``, ``max`` (also of strings), ``avg`` / ``mean``,
+  ``stddev`` / ``stddev_samp`` / ``std``, ``stddev_pop``, ``variance`` /
   ``var_samp``, ``var_pop`` (all but ``count`` and ``max`` of numbers
-  only), and expressions over them and over the group keys; ``HAVING``,
-  whose aggregates need not be selected;
+  only), ``count``, ``sum`` and ``avg`` of ``DISTINCT x`` (one argument
+  shared by every DISTINCT call: the reference's two-level rewrite,
+  ``build_aggregate``), and expressions over them and over the group
+  keys; ``HAVING``, whose aggregates need not be selected; a call that
+  ORDER BY or HAVING repeats is the select list's column;
 - ``ORDER BY`` expressions, select aliases or ordinals with ``ASC`` /
   ``DESC`` and ``NULLS FIRST`` / ``LAST``; ``LIMIT``;
 - window functions in the select list and ORDER BY (the reference's
@@ -94,9 +108,13 @@ reference answers NULL at the partition's edge, Spark the default), a
 grouped ``min`` (``min`` runs over a window only), a window outside the
 select list and ORDER BY, ``collect_list`` and the moments over a
 window, a union of columns with no common type (a string and a
-number), ``count(DISTINCT ...)``, ``CAST``, DATE literals,
-``INTERVAL`` and date arithmetic, a DATE compared with a number or a
-string, a correlated ``IN (query)``, a correlation other than
+number), DISTINCT calls of more than one argument, ``DISTINCT`` in
+another aggregate or over a window, a CAST from or to STRING (the
+reference's is a host loop), DECIMAL or TIMESTAMP, or between a DATE
+and a number, an ``INTERVAL`` of another unit than days or away from a
+DATE's ``+`` / ``-``, other date arithmetic, ``tinyint`` and
+``smallint``, a DATE compared with a number or a string, a correlated
+``IN (query)``, a correlation other than
 equalities of a scalar query, a correlated subquery outside a conjunct
 of WHERE, and the rest of Spark SQL.  The plan is built in Spark's order:
 the FROM relations as a left-deep join tree, WHERE as a filter over it
@@ -112,14 +130,17 @@ or anti join, a union and an aggregate's group keys.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..columnar import dtypes as T
 from ..expr import aggregates as eagg
 from ..expr import arithmetic as ea
+from ..expr import cast as ecast
 from ..expr import conditional as econd
 from ..expr import core as ec
+from ..expr import datetime as edt
 from ..expr import predicates as ep
 from ..expr import string_ops as es
 from ..expr import window_funcs as ewin
@@ -194,6 +215,23 @@ class Call:
     name: str
     args: Tuple[Any, ...]
     star: bool = False
+    #: ``f(DISTINCT x)``
+    distinct: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class CastE:
+    """``CAST(child AS typename)``."""
+    child: Any
+    typename: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Interval:
+    """``INTERVAL n unit``; it lowers only beside ``+`` / ``-`` of a
+    DATE."""
+    n: int
+    unit: str
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,6 +362,9 @@ class Select:
     #: written in parentheses: its ORDER BY and LIMIT are its own, not a
     #: set operation's around it
     parenthesized: bool = False
+    #: ``GROUP BY ROLLUP / CUBE / GROUPING SETS``: each set as positions
+    #: in ``group_by``; None for a plain GROUP BY
+    group_sets: Optional[List[Tuple[int, ...]]] = None
 
 
 @dataclasses.dataclass
@@ -359,7 +400,7 @@ def _kids(a) -> List[Any]:
         return [a.child, a.lo, a.hi]
     if isinstance(a, BinOp):
         return [a.left, a.right]
-    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp, InSub)):
+    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp, InSub, CastE)):
         return [a.child]
     return []
 
@@ -374,7 +415,7 @@ def _transform_kids(a, f):
     """``a`` with ``f`` applied to each of its direct expression nodes."""
     if isinstance(a, WindowE):
         return WindowE(Call(a.func.name, tuple(f(x) for x in a.func.args),
-                            a.func.star),
+                            a.func.star, a.func.distinct),
                        tuple(f(p) for p in a.partition),
                        tuple((f(e), asc, nf) for e, asc, nf in a.order),
                        a.frame)
@@ -383,14 +424,14 @@ def _transform_kids(a, f):
                     tuple((f(c), f(v)) for c, v in a.whens),
                     f(a.els) if a.els is not None else None)
     if isinstance(a, Call):
-        return Call(a.name, tuple(f(x) for x in a.args), a.star)
+        return Call(a.name, tuple(f(x) for x in a.args), a.star, a.distinct)
     if isinstance(a, InList):
         return InList(f(a.child), tuple(f(x) for x in a.items), a.negated)
     if isinstance(a, Between):
         return Between(f(a.child), f(a.lo), f(a.hi), a.negated)
     if isinstance(a, BinOp):
         return BinOp(a.op, f(a.left), f(a.right))
-    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp, InSub)):
+    if isinstance(a, (NotOp, Neg, LikeOp, IsNullOp, InSub, CastE)):
         return dataclasses.replace(a, child=f(a.child))
     return a
 
@@ -414,14 +455,12 @@ _KEYWORDS = {
 }
 #: constructs of Spark SQL the port does not parse, by their keyword
 _UNSUPPORTED = {
-    "offset": "OFFSET", "cast": "CAST", "interval": "INTERVAL",
+    "offset": "OFFSET",
     "true": "boolean literals", "false": "boolean literals",
     "using": "JOIN ... USING",
     "natural": "NATURAL JOIN",
-    "rollup": "ROLLUP", "cube": "CUBE", "grouping": "GROUPING SETS",
     "window": "WINDOW", "qualify": "QUALIFY", "lateral": "LATERAL",
-    "all": "ALL", "rlike": "RLIKE", "date": "DATE literals",
-    "timestamp": "TIMESTAMP literals",
+    "all": "ALL", "rlike": "RLIKE", "timestamp": "TIMESTAMP literals",
 }
 _AGGREGATES = {"sum": eagg.Sum, "count": eagg.Count, "max": eagg.Max,
                "avg": eagg.Average, "mean": eagg.Average,
@@ -436,6 +475,13 @@ _WINDOW_FUNCTIONS = {"row_number": (0, 0), "rank": (0, 0),
                      "dense_rank": (0, 0), "percent_rank": (0, 0),
                      "cume_dist": (0, 0), "ntile": (1, 1), "lead": (1, 3),
                      "lag": (1, 3)}
+#: the aggregates that take DISTINCT
+_DISTINCT_AGGREGATES = ("count", "sum", "avg", "mean")
+#: the DATE functions of one argument, by their SQL names
+_DATE_FIELDS = {"year": edt.Year, "month": edt.Month, "day": edt.DayOfMonth,
+                "dayofmonth": edt.DayOfMonth, "quarter": edt.Quarter,
+                "dayofweek": edt.DayOfWeek, "weekday": edt.WeekDay,
+                "dayofyear": edt.DayOfYear, "last_day": edt.LastDay}
 _COMPARISONS = {"=": ep.EqualTo, "<": ep.LessThan, "<=": ep.LessThanOrEqual,
                 ">": ep.GreaterThan, ">=": ep.GreaterThanOrEqual}
 _ARITHMETIC = {"+": ea.Add, "-": ea.Subtract, "*": ea.Multiply,
@@ -607,11 +653,7 @@ class _Parser:
         if self.at("group"):
             self.advance()
             self.expect("by")
-            self._unsupported_here()
-            q.group_by = [self.expr()]
-            while self.at_op(","):
-                self.advance()
-                q.group_by.append(self.expr())
+            self.group_by(q)
         if self.at("having"):
             self.advance()
             q.having = self.expr()
@@ -619,6 +661,58 @@ class _Parser:
         self.order_limit(q)
         self._unsupported_here()
         return q
+
+    def _expr_list(self) -> List[Any]:
+        """``(expr, ...)``; ``()`` is the empty list."""
+        self.expect_op("(")
+        out = []
+        if not self.at_op(")"):
+            out.append(self.expr())
+            while self.at_op(","):
+                self.advance()
+                out.append(self.expr())
+        self.expect_op(")")
+        return out
+
+    def _next_is(self, *texts: str) -> bool:
+        return self.toks[self.i + 1].text.lower() in texts
+
+    def group_by(self, q: Select) -> None:
+        """GROUP BY's keys: expressions, ``ROLLUP (...)``, ``CUBE (...)``
+        or ``GROUPING SETS ((...), x, (), ...)``, each set kept as the
+        positions of its members in ``q.group_by`` (the reference's
+        ``rollup_sets`` / ``cube_sets`` order)."""
+        if self.at("rollup", "cube") and self._next_is("("):
+            kind = self.advance().text.lower()
+            q.group_by = self._expr_list()
+            if not q.group_by:
+                self._fail("expected a key")
+            make = L.rollup_sets if kind == "rollup" else L.cube_sets
+            q.group_sets = make(list(range(len(q.group_by))))
+            return
+        if self.at("grouping") and self._next_is("sets"):
+            self.advance()
+            self.advance()
+            self.expect_op("(")
+            q.group_by, q.group_sets = [], []
+            while True:
+                members = self._expr_list() if self.at_op("(") else \
+                    [self.expr()]
+                for m in members:
+                    if m not in q.group_by:
+                        q.group_by.append(m)
+                q.group_sets.append(tuple(dict.fromkeys(
+                    q.group_by.index(m) for m in members)))
+                if not self.at_op(","):
+                    break
+                self.advance()
+            self.expect_op(")")
+            return
+        self._unsupported_here()
+        q.group_by = [self.expr()]
+        while self.at_op(","):
+            self.advance()
+            q.group_by.append(self.expr())
 
     def _alias(self) -> Optional[str]:
         if self.at("as"):
@@ -824,6 +918,21 @@ class _Parser:
             return Lit(None)
         if self.at("case"):
             return self.case_expr()
+        if self.at("cast") and self._next_is("("):
+            return self.cast_expr()
+        if self.at("interval"):
+            return self.interval()
+        if self.at("date") and self.toks[self.i + 1].kind == "str":
+            self.advance()
+            lit = self.advance()
+            try:
+                return Lit(datetime.date.fromisoformat(lit.text[1:-1]))
+            except ValueError:
+                raise SqlError(f"not a DATE literal: {lit.text} (at "
+                               f"{lit.pos})") from None
+        if self.at("grouping") and self._next_is("("):
+            self.advance()
+            return self.call("grouping")
         if t.kind == "num":
             self.advance()
             txt = t.text
@@ -852,6 +961,41 @@ class _Parser:
             return Ident(self.name(), name)
         return Ident(name)
 
+    def cast_expr(self) -> CastE:
+        """``CAST(expr AS type[(p[, s])])``: the type name as written
+        (``expr/cast.TYPE_NAMES`` decides when it lowers)."""
+        self.advance()
+        self.expect_op("(")
+        e = self.expr()
+        self.expect("as")
+        t = self.tok
+        if t.kind != "id":
+            self._fail("expected a type name")
+        self.advance()
+        name = t.text.lower()
+        if self.at_op("("):                     # decimal(p, s)
+            self.advance()
+            while not self.at_op(")") and self.tok.kind != "end":
+                self.advance()
+            self.expect_op(")")
+            name += "(...)"
+        self.expect_op(")")
+        return CastE(e, name)
+
+    def interval(self) -> Interval:
+        """``INTERVAL n unit`` (``n`` a number or a quoted number)."""
+        self.advance()
+        t = self.tok
+        text = t.text[1:-1] if t.kind == "str" else t.text
+        if t.kind not in ("num", "str") or not re.fullmatch(r"-?\d+", text):
+            self._fail("expected an integer INTERVAL")
+        self.advance()
+        if self.tok.kind != "id":
+            self._fail("expected an INTERVAL unit")
+        unit = self.advance().text.lower()
+        return Interval(int(text), unit[:-1] if unit.endswith("s")
+                        else unit)
+
     def subquery(self):
         """``(query)``: a SELECT or a set operation."""
         self.expect_op("(")
@@ -864,10 +1008,12 @@ class _Parser:
     def call(self, name: str) -> Call:
         self.advance()                                  # (
         fname = name.lower()
-        if self.at("distinct"):
-            raise SqlError(f"{fname}(DISTINCT ...) is not supported by the "
-                           f"port (at {self.tok.pos})")
+        distinct = self.at("distinct")
+        if distinct:
+            self.advance()
         if self.at_op("*"):
+            if distinct:
+                self._fail(f"{fname}(DISTINCT *) is not valid")
             self.advance()
             self.expect_op(")")
             call = Call(fname, (), star=True)
@@ -879,7 +1025,7 @@ class _Parser:
                     self.advance()
                     args.append(self.expr())
             self.expect_op(")")
-            call = Call(fname, tuple(args))
+            call = Call(fname, tuple(args), distinct=distinct)
         return self.over_clause(call) if self.at("over") else call
 
     def over_clause(self, f: Call) -> WindowE:
@@ -949,10 +1095,16 @@ def _sql_text(a) -> str:
     if isinstance(a, Res):
         return a.cname
     if isinstance(a, Lit):
+        if isinstance(a.value, datetime.date):
+            return f"DATE '{a.value.isoformat()}'"
         return "NULL" if a.value is None else repr(a.value)
     if isinstance(a, Call):
         inner = "*" if a.star else ", ".join(_sql_text(x) for x in a.args)
-        return f"{a.name}({inner})"
+        return f"{a.name}({'DISTINCT ' if a.distinct else ''}{inner})"
+    if isinstance(a, CastE):
+        return f"CAST({_sql_text(a.child)} AS {a.typename.upper()})"
+    if isinstance(a, Interval):
+        return f"INTERVAL '{a.n}' {a.unit.upper()}"
     if isinstance(a, BinOp):
         return f"({_sql_text(a.left)} {a.op} {_sql_text(a.right)})"
     if isinstance(a, NotOp):
@@ -1038,8 +1190,8 @@ def _literal_of(e: ec.Expression):
 
 def _check_comparable(left: ec.Expression, right: ec.Expression) -> None:
     """Two sides a comparison can take: one type, NULL, or numbers.  A
-    DATE compares with a DATE alone (the port has no date literal or
-    CAST to meet an integer or a string)."""
+    DATE compares with a DATE alone (a DATE literal or CAST meets it;
+    Spark's implicit cast of a string is not ported)."""
     lt, rt = left.dtype(), right.dtype()
     try:
         T.common_type(lt, rt)
@@ -1049,8 +1201,27 @@ def _check_comparable(left: ec.Expression, right: ec.Expression) -> None:
 
 
 def _no_date_arithmetic(*args: ec.Expression) -> None:
+    """Arithmetic of a DATE other than ``date ± days``."""
     if any(x.dtype() == T.DATE for x in args):
-        raise SqlError("date arithmetic is not supported by the port")
+        raise SqlError("date arithmetic other than a DATE plus or minus "
+                       "days is not supported by the port")
+
+
+def _cast_type(name: str) -> T.DType:
+    if name in ecast.TYPE_NAMES:
+        return ecast.TYPE_NAMES[name]
+    raise SqlError(f"CAST to {name.upper()} is not supported by the port")
+
+
+def _days_shift(op: str, left: ec.Expression, right: ec.Expression):
+    """``date + n``, ``n + date`` and ``date - n`` for an integer ``n``
+    (Spark's ``date_add`` / ``date_sub``); None for any other operands."""
+    lt, rt = left.dtype(), right.dtype()
+    if lt == T.DATE and rt.is_integral and op in ("+", "-"):
+        return (edt.DateAdd if op == "+" else edt.DateSub)(left, right)
+    if rt == T.DATE and lt.is_integral and op == "+":
+        return edt.DateAdd(right, left)
+    return None
 
 
 def _comparison(op: str, left: ec.Expression, right: ec.Expression):
@@ -1210,10 +1381,24 @@ class _Lowerer:
                 raise SqlError("a string-valued CASE is not supported by "
                                "the port")
             return out
+        if isinstance(a, CastE):
+            out = ecast.Cast(self.expr(a.child, schema),
+                             _cast_type(a.typename))
+            try:
+                out.dtype()             # a cast the port lacks raises
+                return out
+            except NotImplementedError as err:
+                raise SqlError(str(err)) from None
+        if isinstance(a, Interval):
+            raise SqlError("INTERVAL is supported only beside + or - of a "
+                           "DATE")
         if isinstance(a, BinOp):
             if a.op == "||":
                 parts = [self.expr(p, schema) for p in _split(a, "||")]
                 return es.ConcatStrings(*parts)
+            if a.op in ("+", "-") and (isinstance(a.right, Interval) or (
+                    a.op == "+" and isinstance(a.left, Interval))):
+                return self.date_shift(a, schema)
             left = self.expr(a.left, schema)
             right = self.expr(a.right, schema)
             if a.op == "and":
@@ -1223,6 +1408,9 @@ class _Lowerer:
             if a.op in _FLIP:
                 return _comparison(a.op, left, right)
             if a.op in _ARITHMETIC:
+                shifted = _days_shift(a.op, left, right)
+                if shifted is not None:
+                    return shifted
                 _no_date_arithmetic(left, right)
                 return _ARITHMETIC[a.op](left, right)
             raise SqlError(f"operator {a.op!r} is not supported by the port")
@@ -1251,6 +1439,21 @@ class _Lowerer:
             raise SqlError("EXISTS is supported only as a conjunct of "
                            "WHERE")
         raise SqlError(f"unsupported expression {a!r}")
+
+    def date_shift(self, a: BinOp, schema) -> ec.Expression:
+        """``date ± INTERVAL n DAY[S]`` and ``INTERVAL n DAY[S] + date``
+        (the reference's ``lower_bin``)."""
+        iv, base = (a.right, a.left) if isinstance(a.right, Interval) \
+            else (a.left, a.right)
+        if iv.unit != "day":
+            raise SqlError(f"INTERVAL of unit {iv.unit!r} is not supported "
+                           f"by the port (days only)")
+        e = self.expr(base, schema)
+        if e.dtype() != T.DATE:
+            raise SqlError(f"INTERVAL beside a {e.dtype()}: only a DATE "
+                           f"takes days")
+        return (edt.DateAdd if a.op == "+" else edt.DateSub)(
+            e, ec.Literal(iv.n))
 
     # -- expression subqueries -----------------------------------------------
     def _uncorrelated(self, q, what: str) -> L.LogicalPlan:
@@ -1546,8 +1749,22 @@ class _Lowerer:
                 out = econd.Coalesce(*args)
                 out.dtype()             # arguments of no common type raise
                 return out
+            out = None
+            if n in _DATE_FIELDS and len(args) == 1:
+                out = _DATE_FIELDS[n](args[0])
+            elif n in ("date_add", "date_sub") and len(args) == 2:
+                out = (edt.DateAdd if n == "date_add" else edt.DateSub)(
+                    *args)
+            elif n == "datediff" and len(args) == 2:
+                out = edt.DateDiff(*args)
+            if out is not None:
+                out.dtype()             # an argument of another type raises
+                return out
         except (NotImplementedError, ValueError) as err:
             raise SqlError(str(err)) from None
+        if n == "grouping":
+            raise SqlError("grouping() takes one key of GROUP BY ROLLUP, "
+                           "CUBE or GROUPING SETS")
         raise SqlError(f"function {n}() is not supported by the port")
 
     def agg_func(self, a: Call, schema, window: bool = False
@@ -1560,15 +1777,22 @@ class _Lowerer:
             return eagg.Count()
         if len(a.args) != 1:
             raise SqlError(f"{a.name}() takes one argument")
+        if a.distinct and (window or a.name not in _DISTINCT_AGGREGATES):
+            raise SqlError(f"{a.name}(DISTINCT ...)"
+                           f"{' over a window' if window else ''} is not "
+                           f"supported by the port")
         if _has_agg(a.args[0]):
             raise SqlError("nested aggregates are not allowed")
         arg = self.expr(a.args[0], schema)
         dt = arg.dtype()
-        if a.name not in ("count", "max") and not (
+        # min of a DATE runs over a window (a grouped min is not ported);
+        # check_window_func refuses the other types
+        any_type = ("count", "max", "min") if window else ("count", "max")
+        if a.name not in any_type and not (
                 dt.is_integral or dt.is_fractional) and dt != T.NULL:
             # Spark casts the input to double (null for a word that is no
-            # number); CAST is not ported, and adding a string's bytes, as
-            # the reference's engine does, is no answer
+            # number); a cast of a string is not ported, and adding a
+            # string's bytes, as the reference's engine does, is no answer
             raise SqlError(f"{a.name}() of a {dt} column is not supported "
                            f"by the port")
         return (_WINDOW_AGGREGATES if window else _AGGREGATES)[a.name](arg)
@@ -1780,9 +2004,10 @@ class _Lowerer:
         having = scope.canon(q.having) if q.having is not None else None
         # 5. the aggregate: group keys and every aggregate call of the
         # select list, HAVING and ORDER BY become its columns
-        if keys or having is not None or any(_has_agg(a) for a in items):
+        if keys or having is not None or q.group_sets is not None or \
+                any(_has_agg(a) for a in items):
             plan, items, having, orders = self.aggregate(
-                plan, keys, items, having, orders)
+                plan, keys, items, having, orders, q.group_sets)
         schema = plan.schema
         if having is not None:
             plan = L.Filter(self.expr(having, schema), plan)
@@ -1830,24 +2055,29 @@ class _Lowerer:
             plan = L.Limit(q.limit, plan)
         return plan
 
-    def aggregate(self, plan, keys, items, having, orders):
-        """The Aggregate node, and the select items, HAVING and ORDER BY
+    def aggregate(self, plan, keys, items, having, orders, sets=None):
+        """The aggregate, and the select items, HAVING and ORDER BY
         rewritten over its columns: a key that is a column keeps its name,
-        other keys and the aggregate calls take fresh ones."""
+        other keys and the aggregate calls take fresh ones.  DISTINCT
+        calls take the reference's two-level rewrite
+        (``plan/logical.build_aggregate``); with grouping sets (``sets``:
+        positions in ``keys``) the aggregate runs over an Expand
+        (``build_grouping_sets``) and ``grouping(k)`` reads the set id:
+        1 in the sets without ``k``, else 0."""
         schema = plan.schema
         subst: Dict[Any, str] = {}
-        group_exprs = []
+        group_exprs, key_names = [], []
         for k in keys:
-            if k in subst:
-                continue
-            e = self.expr(k, schema)
-            if isinstance(k, Res):
-                name = k.cname
-            else:
-                name = self.fresh("grp")
-                e = ec.Alias(e, name)
-            subst[k] = name
-            group_exprs.append(e)
+            if k not in subst:
+                e = self.expr(k, schema)
+                if isinstance(k, Res):
+                    name = k.cname
+                else:
+                    name = self.fresh("grp")
+                    e = ec.Alias(e, name)
+                subst[k] = name
+                group_exprs.append(e)
+            key_names.append(subst[k])
         calls: List[Call] = []
         for a in items + [having] + [a for a, _ in orders]:
             if a is not None:
@@ -1855,12 +2085,19 @@ class _Lowerer:
         aggs = []
         for c in calls:
             name = self.fresh("agg")
-            aggs.append(L.AggExpr(self.agg_func(c, schema), name))
+            aggs.append(L.AggExpr(self.agg_func(c, schema), name,
+                                  c.distinct))
             subst[c] = name
+        named_sets = None if sets is None else \
+            [tuple(dict.fromkeys(key_names[i] for i in st)) for st in sets]
+        gsub = self._grouping_calls(items, having, orders, subst,
+                                    named_sets)
 
         def rw(a):
-            """Top down: a key or call is replaced whole, before its
-            parts are."""
+            """Top down: a grouping() call, a key or an aggregate call is
+            replaced whole, before its parts are."""
+            if a in gsub:
+                return gsub[a]
             if a in subst:
                 return Res(subst[a])
             if not _kids(a):
@@ -1869,7 +2106,40 @@ class _Lowerer:
         items = [rw(a) for a in items]
         having = rw(having) if having is not None else None
         orders = [(rw(a), o) for a, o in orders]
-        return L.Aggregate(group_exprs, aggs, plan), items, having, orders
+        try:
+            if named_sets is None:
+                out = L.build_aggregate(group_exprs, aggs, plan)
+            else:
+                out = L.build_grouping_sets(group_exprs, named_sets, aggs,
+                                            plan, keep_gid=bool(gsub))
+        except NotImplementedError as err:
+            raise SqlError(str(err)) from None
+        return out, items, having, orders
+
+    @staticmethod
+    def _grouping_calls(items, having, orders, subst, sets):
+        """Each ``grouping(k)`` call of the select list, HAVING and ORDER
+        BY, as the reference lowers it: ``CASE WHEN __gid IN (the sets
+        without k) THEN 1 ELSE 0 END``."""
+        out = {}
+        roots = items + [a for a, _ in orders] + \
+            ([having] if having is not None else [])
+        for root in roots:
+            for n in _walk(root):
+                if not (isinstance(n, Call) and n.name == "grouping") or \
+                        n in out:
+                    continue
+                key = subst.get(n.args[0]) if len(n.args) == 1 and \
+                    not n.star and not n.distinct else None
+                if sets is None or \
+                        key not in {m for st in sets for m in st}:
+                    raise SqlError("grouping() takes one key of GROUP BY "
+                                   "ROLLUP, CUBE or GROUPING SETS")
+                rolled = tuple(Lit(i) for i, st in enumerate(sets)
+                               if key not in st)
+                out[n] = Case(None, ((InList(Res(L.GID), rolled), Lit(1)),),
+                              Lit(0)) if rolled else Lit(0)
+        return out
 
 
 def _strip_leftmost_ctes(s: SetOp) -> SetOp:

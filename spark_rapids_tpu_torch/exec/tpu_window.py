@@ -211,7 +211,9 @@ class TpuWindow(TpuExec):
         cap = batch.capacity
         if f.children:
             src = ec.eval_as_column(f.children[0].bind(batch.schema), batch)
-            sv = src.data[s.perm]
+            # a count reads the validity alone: a string's bytes are no
+            # per-row data to gather by the row permutation
+            sv = None if isinstance(f, eagg.Count) else src.data[s.perm]
             sok = src.validity[s.perm] & s.live
         else:                                   # count(*)
             sv = torch.ones(cap, dtype=torch.int64, device=batch.device)

@@ -1,18 +1,42 @@
-"""Numeric widening casts.
+"""Casts among the numbers, BOOL and DATE.
 
-Trimmed counterpart of ``spark_rapids_tpu/expr/cast.py``'s ``Cast``: only
-the widenings the port makes itself, from one numeric type to a wider one
-in ``dtypes.common_type``'s order (int32 -> int64 -> float32 -> float64),
-or from a bare NULL to any type.  Comparisons and join keys widen their
-narrower side, and a union widens each child's columns to the union's
-types, as Spark does.  Every other cast, and ``CAST`` in SQL text, is not
-ported.
+Counterpart of ``spark_rapids_tpu/expr/cast.py``'s ``Cast`` with Spark's
+non-ANSI rules (the reference's ``_cast_numeric``):
+
+- a float to an integer truncates toward zero, NaN gives 0, and the
+  value saturates at the type's bounds (``_float_to_int``);
+- an integer to a narrower integer wraps;
+- an integer or a float to a float rounds to the nearest;
+- BOOL to a number gives 0 or 1, a number to BOOL is ``x != 0`` (NaN is
+  true);
+- a DATE to a DATE, and a bare NULL to any type.
+
+Comparisons, join keys and unions widen their narrower side through the
+same class (``can_widen``: int32 -> int64 -> float32 -> float64).  A
+cast from or to STRING (the reference's is a per-row host loop), from a
+DATE to a number or back, and DECIMAL and TIMESTAMP are not ported:
+``Cast`` raises ``NotImplementedError`` naming the cast when it is
+typed (``dtype()``), before any device work.  ``TYPE_NAMES`` are the
+reference's type names (``_TYPE_MAP``) of the types the port carries.
 """
 from __future__ import annotations
 
+import torch
+
 from ..columnar import dtypes as T
-from ..columnar.column import Column
+from ..columnar.column import Column, null_column
 from .core import Expression, eval_as_column
+
+#: the largest double below 2^63: every double up to it converts to an
+#: int64 exactly (the reference's ``_float_to_i64_exact`` bound)
+_I64_LIMIT = 9223372036854774784.0
+_INT_BOUNDS = {T.INT32: (-(1 << 31), (1 << 31) - 1),
+               T.INT64: (-(1 << 63), (1 << 63) - 1)}
+_NUMBERS = (T.BOOL, T.INT32, T.INT64, T.FLOAT32, T.FLOAT64)
+TYPE_NAMES = {"boolean": T.BOOL, "bool": T.BOOL, "int": T.INT32,
+              "integer": T.INT32, "bigint": T.INT64, "long": T.INT64,
+              "float": T.FLOAT32, "real": T.FLOAT32, "double": T.FLOAT64,
+              "date": T.DATE}
 
 
 def can_widen(src: T.DType, to: T.DType) -> bool:
@@ -25,16 +49,47 @@ def can_widen(src: T.DType, to: T.DType) -> bool:
         return False
 
 
+def can_cast(src: T.DType, to: T.DType) -> bool:
+    """Whether the port casts ``src`` to ``to``."""
+    if src == to or src == T.NULL:
+        return True
+    return src in _NUMBERS and to in _NUMBERS
+
+
+def _float_to_int(a: torch.Tensor, to: T.DType) -> torch.Tensor:
+    """Spark's float -> integer: NaN gives 0, the value truncates toward
+    zero and saturates at ``to``'s bounds.  The clamp runs on integers:
+    a narrower type's bound clamped in float space can land one ulp
+    short (the reference's note)."""
+    x = a.to(torch.float64)
+    x = torch.trunc(torch.where(torch.isnan(x), 0.0, x))
+    i64 = x.clamp(-_I64_LIMIT, _I64_LIMIT).to(torch.int64)
+    lo, hi = _INT_BOUNDS[to]
+    i64 = torch.where(x > _I64_LIMIT, (1 << 63) - 1, i64)
+    i64 = torch.where(x < -_I64_LIMIT, -(1 << 63), i64)
+    return i64.clamp(lo, hi).to(to.torch_dtype)
+
+
+def cast_data(a: torch.Tensor, src: T.DType, to: T.DType) -> torch.Tensor:
+    """The data of a cast of ``a`` (of ``src``) to ``to``."""
+    if to == T.BOOL:
+        return a if src == T.BOOL else a != 0
+    if to.is_integral and src.is_fractional:
+        return _float_to_int(a, to)
+    # integers wrap (two's complement), floats round to the nearest
+    return a.to(to.torch_dtype)
+
+
 class Cast(Expression):
     def __init__(self, child: Expression, to: T.DType):
-        src = child.dtype()
-        if not can_widen(src, to):
-            raise NotImplementedError(f"a cast of {src} to {to} is not "
-                                      f"ported (only numeric widenings)")
         self.children = [child]
         self.to = to
 
     def dtype(self):
+        src = self.children[0].dtype()
+        if not can_cast(src, self.to):
+            raise NotImplementedError(f"CAST of a {src} to {self.to} is not "
+                                      f"supported by the port")
         return self.to
 
     @property
@@ -45,7 +100,10 @@ class Cast(Expression):
         c = eval_as_column(self.children[0], batch)
         if c.dtype == self.to:
             return c
-        return Column(self.to, c.data.to(self.to.torch_dtype), c.validity)
+        if c.dtype == T.NULL:
+            return null_column(self.to, c.capacity, c.device)
+        return Column(self.to, cast_data(c.data, c.dtype, self.to),
+                      c.validity)
 
     def __repr__(self):
         return f"cast({self.children[0]!r} as {self.to})"

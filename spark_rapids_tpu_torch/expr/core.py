@@ -149,9 +149,8 @@ class BoundReference(Expression):
 
 
 class Literal(Expression):
-    """A constant.  A DATE literal (a ``datetime.date``) exists inside the
-    engine only, as the null-safe keys' default: SQL text has no date
-    literal in the port."""
+    """A constant; a ``datetime.date`` is a DATE literal (SQL's ``DATE
+    'yyyy-mm-dd'``, and the null-safe keys' default)."""
 
     def __init__(self, value, dt: Optional[T.DType] = None):
         if dt is None:

@@ -2,7 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, limited to the nodes
 the port plans: local relation, file scan, project, filter, aggregate,
-join, sort, limit, union, distinct and window.
+join, sort, limit, union, distinct, window and expand; and the
+reference's two aggregate rewrites, DISTINCT aggregates
+(``build_aggregate``) and grouping sets (``build_grouping_sets``).
 """
 from __future__ import annotations
 
@@ -109,12 +111,15 @@ class Filter(LogicalPlan):
 
 
 class AggExpr:
-    def __init__(self, func: AggregateFunction, alias: str):
+    def __init__(self, func: AggregateFunction, alias: str,
+                 distinct: bool = False):
         self.func = func
         self.alias = alias
+        self.distinct = distinct
 
     def __repr__(self):
-        return f"{self.func!r} AS {self.alias}"
+        d = "DISTINCT " if self.distinct else ""
+        return f"{d}{self.func!r} AS {self.alias}"
 
 
 class Aggregate(LogicalPlan):
@@ -131,6 +136,167 @@ class Aggregate(LogicalPlan):
         fields += [Field(a.alias, a.func.dtype(), a.func.nullable)
                    for a in self.aggs]
         return Schema(fields)
+
+
+DISTINCT_KEY = "__distinct_key"
+GID = "__gid"
+
+
+def build_aggregate(group_exprs: List[ec.Expression], aggs: List[AggExpr],
+                    child: LogicalPlan) -> LogicalPlan:
+    """An aggregate, with its DISTINCT aggregates rewritten as two
+    (the reference's ``build_aggregate``, Spark's
+    ``RewriteDistinctAggregates``): the inner aggregate groups by the
+    keys and the distinct argument and partially aggregates every other
+    function (``sum``, ``min`` and ``max`` as themselves, ``count`` as
+    a count that the outer one sums, ``avg`` as a sum and a count); the
+    outer one groups by the keys and applies the distinct functions to
+    the now unique argument; a projection gives the select list's types
+    (a count over no rows 0, not NULL).  Every DISTINCT function shares
+    one argument; several raise ``NotImplementedError``."""
+    from ..expr import aggregates as eagg
+    from ..expr import arithmetic as earith
+    from ..expr import conditional as econd
+    from ..expr.cast import Cast
+    from ..columnar import dtypes as T
+    if not any(a.distinct for a in aggs):
+        return Aggregate(group_exprs, aggs, child)
+    dargs = {repr(a.func.children[0]) for a in aggs if a.distinct}
+    if len(dargs) != 1:
+        raise NotImplementedError("DISTINCT aggregates of more than one "
+                                  "argument are not supported by the port")
+    dexpr = next(a.func.children[0] for a in aggs if a.distinct)
+    keys = [ec.AttributeReference(ec.output_name(e), e.dtype(), True)
+            for e in group_exprs]
+    inner_aggs: List[AggExpr] = []
+    outer_aggs: List[AggExpr] = []
+    final: List[ec.Expression] = list(keys)
+
+    def ref(name, dt):
+        return ec.AttributeReference(name, dt, True)
+    dref = ref(DISTINCT_KEY, dexpr.dtype())
+    for i, a in enumerate(aggs):
+        f = a.func
+        if a.distinct:
+            outer_aggs.append(AggExpr(f.with_children([dref]), a.alias))
+            final.append(ref(a.alias, f.dtype()))
+        elif isinstance(f, (eagg.Sum, eagg.Min, eagg.Max)):
+            # the partials merge by the same function
+            inner_aggs.append(AggExpr(f, f"__p{i}"))
+            outer_aggs.append(AggExpr(type(f)(ref(f"__p{i}", f.dtype())),
+                                      a.alias))
+            final.append(ref(a.alias, f.dtype()))
+        elif isinstance(f, eagg.Count):
+            inner_aggs.append(AggExpr(f, f"__p{i}"))
+            outer_aggs.append(AggExpr(eagg.Sum(ref(f"__p{i}", T.INT64)),
+                                      a.alias))
+            final.append(ec.Alias(econd.Coalesce(
+                ref(a.alias, T.INT64), ec.Literal(0)), a.alias))
+        elif isinstance(f, eagg.Average):
+            arg = f.children[0]
+            s, c = eagg.Sum(arg), eagg.Count(arg)
+            inner_aggs += [AggExpr(s, f"__ps{i}"), AggExpr(c, f"__pc{i}")]
+            outer_aggs += [
+                AggExpr(eagg.Sum(ref(f"__ps{i}", s.dtype())), f"__s{i}"),
+                AggExpr(eagg.Sum(ref(f"__pc{i}", T.INT64)), f"__c{i}")]
+            final.append(ec.Alias(earith.Divide(
+                Cast(ref(f"__s{i}", s.dtype()), T.FLOAT64),
+                Cast(ref(f"__c{i}", T.INT64), T.FLOAT64)), a.alias))
+        else:
+            raise NotImplementedError(f"{f.name.lower()}() beside a DISTINCT "
+                                      f"aggregate is not supported by the "
+                                      f"port")
+    inner = Aggregate(list(group_exprs) + [ec.Alias(dexpr, DISTINCT_KEY)],
+                      inner_aggs, child)
+    return Project(final, Aggregate(keys, outer_aggs, inner))
+
+
+def build_grouping_sets(group_exprs: List[ec.Expression],
+                        sets: List[Tuple[str, ...]], aggs: List[AggExpr],
+                        child: LogicalPlan,
+                        keep_gid: bool = False) -> LogicalPlan:
+    """GROUP BY ROLLUP / CUBE / GROUPING SETS through an ``Expand`` (the
+    reference's ``build_grouping_sets``, Spark's rewrite before
+    ``GpuExpandExec``): a projection gives every key and every aggregate
+    input a column of its own (the inputs never read a null-filled key
+    copy); the Expand emits each row once per set (``sets``: the key
+    names in each), the keys outside the set NULL, with ``__gid``, the
+    set's position; the aggregate groups by the keys and ``__gid``, so a
+    NULL key in the data stays apart from a subtotal's NULL.  The result
+    has the keys and the aggregates, and ``__gid`` when ``keep_gid``
+    (``grouping()`` reads it)."""
+    from ..columnar import dtypes as T
+    key_names = [ec.output_name(e) for e in group_exprs]
+    pre: List[ec.Expression] = []
+    key_fields, ain_fields = [], []
+    for e, n in zip(group_exprs, key_names):
+        pre.append(e if isinstance(e, ec.Alias) else ec.Alias(e, n))
+        key_fields.append(Field(n, e.dtype(), True))
+    aggs2 = []
+    for i, a in enumerate(aggs):
+        kids = []
+        for j, x in enumerate(a.func.children):
+            name = f"__ain{i}_{j}"
+            pre.append(ec.Alias(x, name))
+            kids.append(ec.AttributeReference(name, x.dtype(), True))
+            ain_fields.append(Field(name, x.dtype(), True))
+        f2 = a.func.with_children(kids) if kids else a.func
+        aggs2.append(AggExpr(f2, a.alias, a.distinct))
+    base = Project(pre, child)
+    projections = []
+    for gid, members in enumerate(sets):
+        proj: List[ec.Expression] = []
+        for f in key_fields:
+            proj.append(ec.AttributeReference(f.name, f.dtype, True)
+                        if f.name in members else
+                        ec.Alias(ec.Literal(None, f.dtype), f.name))
+        proj += [ec.AttributeReference(f.name, f.dtype, True)
+                 for f in ain_fields]
+        proj.append(ec.Alias(ec.Literal(gid, T.INT64), GID))
+        projections.append(proj)
+    expand = Expand(projections, Schema(key_fields + ain_fields +
+                                        [Field(GID, T.INT64, False)]),
+                    base)
+    keys = [ec.AttributeReference(f.name, f.dtype, True)
+            for f in key_fields] + [ec.AttributeReference(GID, T.INT64,
+                                                          False)]
+    agg = build_aggregate(keys, aggs2, expand)
+    final = [ec.AttributeReference(f.name, f.dtype, True)
+             for f in key_fields]
+    final += [ec.AttributeReference(a.alias, a.func.dtype(), True)
+              for a in aggs]
+    if keep_gid:
+        final.append(ec.AttributeReference(GID, T.INT64, False))
+    return Project(final, agg)
+
+
+def rollup_sets(names: List) -> List[tuple]:
+    """ROLLUP's sets: every prefix of the keys, longest first."""
+    return [tuple(names[:i]) for i in range(len(names), -1, -1)]
+
+
+def cube_sets(names: List) -> List[tuple]:
+    """CUBE's sets: every subset of the keys, larger first."""
+    import itertools
+    out = []
+    for r in range(len(names), -1, -1):
+        out.extend(itertools.combinations(names, r))
+    return out
+
+
+class Expand(LogicalPlan):
+    """Each child row once per projection (the grouping sets' copies,
+    the reference's ``Expand``)."""
+
+    def __init__(self, projections: List[List[ec.Expression]],
+                 output: Schema, child: LogicalPlan):
+        self.projections = projections
+        self._schema = output
+        self.children = [child]
+
+    @property
+    def schema(self):
+        return self._schema
 
 
 JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")

@@ -19,13 +19,15 @@ Filter over a Union goes into every child (``_rewrite_filter_union``),
 and one over an Aggregate sinks the conjuncts over its plain group keys
 below it (``_rewrite_filter_aggregate``), two rules of Spark's
 ``PushPredicateThroughNonJoin``; a Filter stays above a Sort, a Limit,
-a Distinct and a Window (q44's ``rnk < 11`` reads the window's column;
-no rule moves a filter through a window).  Before any rule, conjuncts
+a Distinct, a Window (q44's ``rnk < 11`` reads the window's column;
+no rule moves a filter through a window) and an Expand (a grouping
+set's copies; no conjunct is folded below it either).  Before any rule, conjuncts
 over literals alone are decided (``_fold_constants``): a false one
 leaves an ``EmptyRelation``.
 ``prune_scan_columns`` narrows every scan, and every projection, to the
 columns the plan above reads, a union's children by position; below a
-Window, those and the columns its functions, keys and orders read.
+Window, those and the columns its functions, keys and orders read;
+below an Expand, every column its projections read.
 """
 from __future__ import annotations
 
@@ -477,6 +479,9 @@ def prune_scan_columns(plan: L.LogicalPlan,
         needs = [need]
     elif isinstance(plan, L.Union):
         return _prune_union(plan, need)
+    elif isinstance(plan, L.Expand):
+        needs = [_refs_many([e for proj in plan.projections
+                             for e in proj])]
     elif isinstance(plan, L.Window):
         aliases = {wf.alias for wf in plan.window_funcs}
         base = None if need is None else need - aliases

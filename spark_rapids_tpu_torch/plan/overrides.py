@@ -43,7 +43,10 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   PARTITION BY keys, a hash exchange on them into the smaller of
   ``shuffle.partitions`` and the child's partitions; with no PARTITION BY
   or with mixed keys, a coalesce into one partition.  Each partition is
-  then one ``TpuWindow`` batch.
+  then one ``TpuWindow`` batch;
+- an expand (grouping sets) is a ``TpuExpand`` over its child's
+  partitions (the reference's rule); the aggregate over it plans as
+  every aggregate: partial, exchange on the keys and ``__gid``, final.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
 from ..exec.tpu_basic import (TpuExec, TpuFilter, TpuGlobalLimit,
                               TpuLocalLimit, TpuLocalScan, TpuProject,
                               TpuUnion)
+from ..exec.tpu_expand import TpuExpand
 from ..exec.tpu_join import (TpuBroadcastHashJoin, TpuNestedLoopJoin,
                              TpuShuffledHashJoin)
 from ..exec.tpu_sort import TpuSort, TpuTopN
@@ -137,6 +141,8 @@ def _plan(node: L.LogicalPlan, conf: C.TpuConf,
                                conf, device, go)
     if isinstance(node, L.Window):
         return _plan_window(node, conf, go(node.children[0]))
+    if isinstance(node, L.Expand):
+        return TpuExpand(node, go(node.children[0]))
     raise NotImplementedError(f"no device operator for {type(node).__name__}")
 
 

@@ -813,3 +813,103 @@ def test_tpcds_windows_on_card_equal_cpu(tpcds7_dir, q):
         out.append(s.sql(QUERIES[q]).to_arrow())
     assert out[0].num_rows > 0
     _close_tables(out[1], out[0])
+
+
+def _slice12_table(n=20_000, seed=12):
+    """Doubles with NaN, infinities and values past int32 and int64,
+    int64s past int32, BOOL, DATEs from 1899 to 2101 across leap years,
+    string, int32 and int64 keys with NULLs, int64 values with NULLs."""
+    import datetime
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+
+    def nulls(a, share=0.05):
+        a = a.astype(object)
+        a[rng.random(n) < share] = None
+        return list(a)
+    x = rng.random(n) * 4e10 - 2e10
+    x[rng.random(n) < 0.02] = np.nan
+    x[rng.random(n) < 0.01] = np.inf
+    x[rng.random(n) < 0.01] = -1e19
+    d = [None if rng.random() < 0.05 else
+         datetime.date(1899, 1, 1) + datetime.timedelta(days=int(v))
+         for v in rng.integers(0, 74_000, n)]
+    return pa.table({
+        "id": pa.array(rng.permutation(n).astype(np.int64)),
+        "x": pa.array(nulls(x), pa.float64()),
+        "i": pa.array(nulls(rng.integers(-2**40, 2**40, n)), pa.int64()),
+        "b": pa.array(nulls(rng.random(n) < 0.5), pa.bool_()),
+        "d": pa.array(d, pa.date32()),
+        "s": pa.array(nulls(rng.choice(np.array(["x", "yy", "", "zzz"],
+                                                dtype=object), n)),
+                      pa.string()),
+        "h": pa.array(nulls(rng.integers(0, 5, n)), pa.int32()),
+        "k": pa.array(nulls(rng.integers(0, 300, n)), pa.int64()),
+        "v": pa.array(nulls(rng.integers(-1000, 1000, n)), pa.int64())})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", [
+    "select id, cast(x as int) a, cast(x as bigint) b, cast(i as int) c, "
+    "cast(x as float) e, cast(i as double) f, cast(b as int) g, "
+    "cast(x as boolean) h, cast(v as double) / 7 r from t order by id",
+    "select id, year(d) a, month(d) b, day(d) c, quarter(d) e, "
+    "dayofweek(d) f, weekday(d) g, dayofyear(d) h, last_day(d) l, "
+    "datediff(d, date '1970-01-01') m, d + interval 45 days n, "
+    "date_sub(d, 400) o, d - h p from t order by id",
+    "select id from t where d between date '1999-12-01' and "
+    "date '1999-12-01' + interval 90 days order by id",
+    "select s, h, sum(v) sv, count(*) n, avg(x) ax, grouping(s) gs, "
+    "grouping(s) + grouping(h) lvl from t group by rollup(s, h) "
+    "order by lvl, s, h",
+    "select h, k % 3 m, count(*) n, max(v) mv from t group by "
+    "cube(h, k % 3) order by h, m",
+    "select s, h, sum(v) sv from t group by grouping sets ((s, h), s, ()) "
+    "order by s, h",
+    "select count(distinct k) dk, sum(v) sv, count(*) n from t",
+    "select h, count(distinct k) dk, sum(distinct k) sd, avg(x) ax, "
+    "count(v) cv from t group by h order by h",
+    "select s, avg(distinct v) av, max(x) mx from t group by s order by s"])
+def test_slice12_on_card_equal_cpu(sql):
+    """Casts, DATE functions and intervals, ROLLUP / CUBE / GROUPING SETS
+    (an Expand under B2's or the sort path's partial aggregate and B1's
+    exchange) and DISTINCT aggregates (two stacked aggregates) on the
+    card against the port on the CPU (integers bit for bit, floats within
+    1e-12); the card gives the same bytes twice."""
+    _need_card()
+    t = _slice12_table()
+    out = []
+    for device in ("cpu", "cuda", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 12}), device=device)
+        s.create_dataframe(t, num_partitions=4) \
+            .create_or_replace_temp_view("t")
+        out.append(s.sql(sql).to_arrow())
+    assert out[0].num_rows > 0
+    assert chip_smoke.same_bytes(out[1], out[2])
+    # subtotals tie in ORDER BY with NULL keys of the data: as multisets
+    _close_tables(*[o.sort_by([(c, "ascending") for c in o.column_names])
+                    for o in out[1::-1]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q5", "q16", "q22", "q67", "q75"])
+def test_tpcds_slice12_on_card_equal_cpu(tpcds7_dir, q):
+    """Five of phase 12's queries at scale 0.1 on the card against the
+    port on the CPU: a channel rollup over a union, a DISTINCT count
+    under EXISTS and NOT EXISTS, a four-key rollup of averages, q67's
+    eight-key rollup ranked per category, and q75's CASTs."""
+    _need_card()
+    import sys
+    sys.path.insert(0, "benchmarks")
+    from tpcds_queries import QUERIES
+    out = []
+    for device in ("cpu", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 16}), device=device)
+        for t in chip_smoke.DS_TABLES + chip_smoke.DS7_TABLES:
+            s.read.parquet(f"{tpcds7_dir}/{t}.parquet") \
+                .create_or_replace_temp_view(t)
+        out.append(s.sql(QUERIES[q]).to_arrow())
+    assert out[0].num_rows > 0
+    _close_tables(out[1], out[0])

@@ -291,9 +291,9 @@ def test_null_safe_keys_keep_default_apart_from_null(values, other,
 
 
 @pytest.mark.parametrize("sql", [
-    "select count(distinct k) from a",
+    "select count(distinct k), count(distinct x) from a",
     "select cast(k as string) from a",
-    "select k from a where d = date '2000-01-01'",
+    "select k from a where d = timestamp '2000-01-01 00:00:00'",
     "select distinct k from a order by x"])
 def test_outside_the_slice_raises(sql):
     with pytest.raises(SqlError):

@@ -58,6 +58,16 @@ operators (every window over a hash exchange on its PARTITION BY keys,
 or a coalesce).  q44 returns no rows on either file set (its scalar
 subquery reads NULL ``ss_hdemo_sk``, which neither generator draws), so
 it also runs on generate's tables with 5% of ``ss_hdemo_sk`` NULL.
+
+The 18 queries of phase 12 (``chip_smoke.DS12_QUERIES``: CAST, DATE
+literals with INTERVAL, count(DISTINCT), ROLLUP with ``grouping()``)
+run the same ways against ``chip_smoke.ds12_references``: on
+``generate``'s files at scale 0.02 against the JAX package's engine and
+oracle, and on phase 7's files at 0.1 against the oracle (and q49, which
+has no rows on generate's files, against the engine too: its returns
+match no sale there); at SF10's row estimates each plans DS12_PLANS'
+operators, a ``TpuExpand`` under each ROLLUP's partial aggregate and
+two stacked aggregates for each count(DISTINCT).
 """
 import datetime
 import os
@@ -733,3 +743,61 @@ def test_ds11_q44_with_rows(one_file, tmp_path):
     for engine in (with_tpu_session, with_cpu_session):
         _compare_rows(canon_rows(_jax_on(d, "q44", engine)),
                       canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+def _ds12_rows(data_dir, q):
+    table = _views(TpuSession(device="cpu"), data_dir).sql(
+        tpcds.QUERIES[q]).to_arrow()
+    chip_smoke.check_rows(q, table, chip_smoke.ds12_references(
+        data_dir, [q])[q], chip_smoke.DS12_ORDER[q])
+    return [tuple(r.values()) for r in table.to_pylist()]
+
+
+#: phase-12 queries with no rows on generate's files at 0.02: q49 keeps
+#: the sales whose returns match on (order, item), and ``generate`` draws
+#: its returns apart from its sales (phase 7's files give it rows)
+DS12_NO_ROWS = {"q49"}
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS12_QUERIES)
+def test_ds12_query_matches_jax_oracle_and_pyarrow(one_file, q):
+    got = _ds12_rows(one_file, q)
+    assert bool(got) == (q not in DS12_NO_ROWS), f"{q}: {len(got)} rows"
+    for engine in (with_tpu_session, with_cpu_session):
+        _compare_rows(canon_rows(_jax_on(one_file, q, engine)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS12_QUERIES)
+def test_ds12_query_on_drawn_returns_matches_oracle(drawn, q):
+    got = _ds12_rows(drawn, q)
+    assert got, f"{q}: no rows"
+    engines = (with_cpu_session, with_tpu_session) if q in DS12_NO_ROWS \
+        else (with_cpu_session,)
+    for engine in engines:
+        _compare_rows(canon_rows(_jax_on(drawn, q, engine)),
+                      canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+@pytest.mark.parametrize("q", chip_smoke.DS12_QUERIES)
+def test_sf10_estimates_plan_phase12(drawn, q):
+    """At SF10's row counts each phase-12 query plans DS12_PLANS'
+    operators: each ROLLUP a ``TpuExpand`` right under its partial
+    aggregate, which a hash exchange separates from the final one; each
+    count(DISTINCT) two aggregates, each partial, exchange and final,
+    one over the other."""
+    plan = _sf10_plan(drawn, q)
+    assert chip_smoke.window_plan_signature(plan) == \
+        chip_smoke.DS12_PLANS[q]
+    ops = [ln.strip() for ln in plan.splitlines()]
+    if q in chip_smoke.DS12_ROLLUP:
+        i = next(i for i, ln in enumerate(ops)
+                 if ln.startswith("TpuExpand"))
+        assert ops[i - 1].startswith("TpuHashAggregate[partial")
+        assert ops[i - 2].startswith("TpuShuffleExchange[HashPartitioner")
+        assert ops[i - 3].startswith("TpuHashAggregate[final")
+    if q in chip_smoke.DS12_DISTINCT:
+        i = ops.index("TpuHashAggregate[final]")
+        assert [ln.split("[")[0] for ln in ops[i:i + 6]] == [
+            "TpuHashAggregate", "TpuCoalescePartitions", "TpuHashAggregate",
+            "TpuHashAggregate", "TpuShuffleExchange", "TpuHashAggregate"]

@@ -190,6 +190,19 @@ CASES = {
                            [("id", True, None)], ("rows", None, 0)),
     "date_max": ("max(d)", lambda: F.max("d"), ["g"], [],
                  ("rows", None, None)),
+    # count of a string counts its valid rows (ROADMAP C4); min of a DATE
+    # in SQL text as through with_window (C5)
+    "count_string": ("count(s)", lambda: F.count("s"), ["g"], [],
+                     ("rows", None, None)),
+    "running_count_string": ("count(s)", lambda: F.count("s"), ["g"],
+                             [("o", True, None), ("id", True, None)],
+                             ("rows", None, 0)),
+    "range_count_string": ("count(s)", lambda: F.count("s"), ["g"],
+                           [("o", True, None)], ("range", -3, 2)),
+    "date_min": ("min(d)", lambda: F.min("d"), ["g"], [],
+                 ("rows", None, None)),
+    "bounded_date_min": ("min(d)", lambda: F.min("d"), ["s"],
+                         [("id", True, None)], ("rows", -2, 1)),
 }
 
 
@@ -226,10 +239,17 @@ def _port_rows(name: str, api: str):
 #: its pandas frames fail on a DATE ``max`` over NULLs ("agg function
 #: failed [how->max,dtype->object]") and on a string ``lead`` past the
 #: edge (its NaN fill is no string: "Expected bytes, got a 'float'")
-ORACLE_FAILS = {"date_max", "lead_string", "abs_and_date_case"}
+ORACLE_FAILS = {"date_max", "lead_string", "abs_and_date_case", "date_min"}
+#: cases the JAX package's engine refuses, held to its oracle alone: a
+#: count of a string over a window (``NotImplementedError: string window
+#: aggregates``; Spark counts the valid rows, as the oracle does)
+ENGINE_FAILS = {"count_string", "running_count_string",
+                "range_count_string"}
 
 
 def _engines(name):
+    if name in ENGINE_FAILS:
+        return ("oracle",)
     return ("jax",) if name in ORACLE_FAILS else ("jax", "oracle")
 
 
@@ -392,7 +412,53 @@ def test_running_sum_depends_on_its_segment_alone():
         assert abs(alone[i] - acc) <= 1e-12 * acc
 
 
+@pytest.mark.parametrize("api", ["sql", "dataframe"])
+def test_date_min_matches_pyarrow(api):
+    """``min(d)`` over each ``g`` (ROADMAP C5; the JAX package's oracle
+    fails on it) against pyarrow's per-group min."""
+    import pyarrow.compute as pc
+    got = dict(_port_rows("date_min", api))
+    mins = {r["g"]: r["d_min"] for r in TABLE.group_by("g").aggregate(
+        [("d", "min")]).to_pylist()}
+    for i, g in zip(TABLE["id"].to_pylist(), TABLE["g"].to_pylist()):
+        assert got[i] == mins[g]
+    assert None not in got.values() or pc.any(pc.is_null(TABLE["d"]))
+
+
+def test_reference_range_peers_use_first_key():
+    """``sum(x) over (order by o, f)`` (SQL's default frame: RANGE from
+    UNBOUNDED PRECEDING to CURRENT ROW) and the same frame written out,
+    over two ORDER BY keys: Spark's peers, and the port's, are the rows
+    equal on (o, f); the JAX engine and its oracle take the rows equal
+    on ``o`` alone (``exec/tpu_window.py`` ``spec.order_by[0]``,
+    ``exec/cpu_window.py`` ``skeys[0]``).  Sums worked out by hand."""
+    data = pa.table({"id": pa.array([0, 1, 2, 3, 4], pa.int64()),
+                     "o": pa.array([1, 1, 1, 2, 2], pa.int64()),
+                     "f": pa.array([1.0, 2.0, 2.0, 1.0, 3.0]),
+                     "x": pa.array([1.0, 10.0, 100.0, 1000.0, 10000.0])})
+    spark = [(0, 1.0), (1, 111.0), (2, 111.0), (3, 1111.0), (4, 11111.0)]
+    first_key = [(0, 111.0), (1, 111.0), (2, 111.0), (3, 11111.0),
+                 (4, 11111.0)]
+    for frame in ("", " range between unbounded preceding and current "
+                      "row"):
+        sql = f"select id, sum(x) over (order by o, f{frame}) w from t"
+
+        def run(js):
+            js.create_dataframe(data, num_partitions=2) \
+                .create_or_replace_temp_view("t")
+            return sorted(js.sql(sql).collect())
+        for engine in (with_tpu_session, with_cpu_session):
+            got = engine(run)
+            assert got == first_key and got != spark
+        s = TpuSession(device="cpu")
+        s.create_dataframe(data, num_partitions=2) \
+            .create_or_replace_temp_view("t")
+        assert sorted(s.sql(sql).collect()) == spark
+
+
 @pytest.mark.parametrize("sql", [
+    "select id, max(s) over (partition by g) m from t",
+    "select id, avg(s) over (partition by g) m from t",
     "select min(v) from t",
     "select g, min(v) from t group by g",
     "select id from t where rank() over (order by o) < 3",
