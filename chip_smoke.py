@@ -7,7 +7,7 @@ Runs from the repository root:
     python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
                                                # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
-    python3 chip_smoke.py --only 11            # phase 11 (or 12) alone
+    python3 chip_smoke.py --only 11            # phase 11 (12, 13) alone
                                                # (no contract line)
 
 Phases (any failure exits non-zero):
@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
    nvcc and prints each one's registers and shared memory;
 3. kernels: each kernel against its plain torch version on the card at
    the main path's shapes (B1: the exchange's split and the ids alone;
-   B2: the table core's reduce stage and the TPU kernel's raw rows; the
+   B2: the table core's reduce stage, its min and first/last kinds, each
+   with a kernel line of its own, and the TPU kernel's raw rows; the
    join probe at q17's and q78's join partitions, at one key, at the star
    joins' four dimensions and at a build past the L2), device-timed
    behind a sleep kernel (``time_cuda``) beside its byte bound (3.35
@@ -66,7 +67,7 @@ Phases (any failure exits non-zero):
    DS8_PLANS' operators, a cold and two warm runs against a pyarrow
    computation (``ds8_references``), warm runs byte-identical, rows
    unless DS8_EMPTY names the query, and B1, B2 and probe launches per
-   query; q78 and q64 run once more under the profiler.  B1 and the
+   query; q78 runs once more under the profiler.  B1 and the
    join probe must launch;
 9. TPC-DS with expression subqueries: the 12 queries of DS9_QUERIES
    (scalar, ``IN``, ``EXISTS`` and correlated scalar queries) verbatim
@@ -86,7 +87,7 @@ Phases (any failure exits non-zero):
    and two warm runs against a pyarrow computation
    (``ds10_references``), warm runs byte-identical, rows unless
    DS10_EMPTY names the query, peak memory and B1, B2 and probe launches
-   per query; q4 and q87 run once more under the profiler.  B1 and the
+   per query; q87 runs once more under the profiler.  B1 and the
    join probe must launch;
 11. TPC-DS with window functions: the 10 queries of DS11_QUERIES
    (revenue shares of an item class, month and quarter outliers against
@@ -109,8 +110,20 @@ Phases (any failure exits non-zero):
    runs against pyarrow and numpy (``ds12_references``), warm runs
    byte-identical, rows unless DS12_EMPTY names the query, peak memory
    and B1, B2 and probe launches per query; q67 runs once more under the
-   profiler.  B1 and the join probe must launch.
-Phases 8-12's pyarrow references are computed in one reference process
+   profiler.  B1 and the join probe must launch;
+13. the last four TPC-DS texts (q6, q41 with its correlation inside an
+   OR, q70 with an alias inside its ORDER BY's CASE, q72's ~800M
+   catalog_sales x inventory pairs filtered per chunk) verbatim, and
+   F1-F3 over the function library (DS13_TEXTS: grouped min / first /
+   last on B2's table core and on the sort path, the scalar library over
+   all of store_sales) through the same session on the same tables,
+   timed as in phase 9, each with a cold and two warm runs against
+   pyarrow and numpy (``ds13_references``), warm runs byte-identical,
+   rows, peak memory and launches per query; q72 must plan its
+   quantity condition as a shuffled join's residual, F1 must launch B2's
+   min and first/last kinds, F2 must take the sort path.  B1 and the
+   join probe must launch.
+Phases 8-13's pyarrow references are computed in one reference process
 from the moment phase 7 has written its tables, while the card runs the
 queries (``references_ahead``); each phase waits for its own.
 The line before the last is a JSON object of every kernel's numbers; the
@@ -431,9 +444,10 @@ def star_probe_inputs(rng, dim: str, device: str = "cuda"):
 
 def check_join_probe(inputs, what: str, old=None):
     """The join probe on ``inputs`` (``probe_inputs`` or
-    ``star_probe_inputs``) against its plain version (two ``_bsearch``
-    loops), bit for bit, and with ``old`` (the parent checkout's
-    ``cuda_ops``) also the parent's kernel, equal and timed.  On one key
+    ``star_probe_inputs``) against its plain version
+    (``kernels/join.bounds``, a stable merge of build and probe words),
+    bit for bit, and with ``old`` (the parent checkout's ``cuda_ops``)
+    also the parent's kernel, equal and timed.  On one key
     (2 words) it also times ``torch.searchsorted`` of the value word,
     lower and upper bound, over the build's live rows: the library
     call."""
@@ -449,7 +463,7 @@ def check_join_probe(inputs, what: str, old=None):
                                           rank)
     torch.cuda.synchronize()
     err = int(max((lo - plo).abs().max(), (cnt - pcnt).abs().max()))
-    check(err == 0, f"join_probe differs from _bsearch{what}: {err}")
+    check(err == 0, f"join_probe differs from its plain version{what}: {err}")
     check(int(cnt.sum()) >= build_live,
           f"join_probe{what}: fewer matches than build rows")
     extra = {}
@@ -601,14 +615,19 @@ def query_stage_inputs(rng, n: int, table: int, stage: str):
     built by the table core's own code (``TpuHashAggregate._stage_col``):
     ``partial`` (count(*), sum(z), max(x) over n input rows, exact),
     ``final`` (the merge of partial buffers: sum, count, max) or
-    ``variable`` (the partial in variable float mode)."""
+    ``variable`` (the partial in variable float mode); B2's min and
+    first/last kinds (F1's) at the same shapes: ``min`` (min(z) and min
+    of an int64 column, exact), ``minv`` (min(z), variable), ``firstlast``
+    (first(x) of a column with 10% nulls, last(x) with ignore_nulls
+    false), and ``min_final`` / ``firstlast_final`` over the partial
+    tables' rows."""
     import torch
     from spark_rapids_tpu_torch.columnar import dtypes as T
     from spark_rapids_tpu_torch.columnar.column import Column
     from spark_rapids_tpu_torch.exec.tpu_aggregate import TpuHashAggregate
     from spark_rapids_tpu_torch.kernels.cuda_ops import StageCol
     keys = rng.integers(0, 1000, n)
-    if stage == "final":       # partial tables: ~1000 live groups of 4096
+    if stage.endswith("final"):  # partial tables: ~1000 live groups of 4096
         live = np.zeros(n, bool)
         live[np.arange(n) % table < 1000] = True
         keys = np.arange(n) % table
@@ -621,26 +640,74 @@ def query_stage_inputs(rng, n: int, table: int, stage: str):
     live_t = t(live).cuda()
     ones = torch.ones(n, dtype=torch.bool, device="cuda")
 
-    def col(v):
-        return Column(T.FLOAT64, t(v).cuda(), ones)
-    kinds = {"partial": ("fsum64", "fmax64"), "variable": ("fsumv", "fmax"),
-             "final": ("fsum64", "icount", "fmax64")}[stage]
+    def col(v, valid=None):
+        return Column(T.FLOAT64, t(v).cuda(),
+                      ones if valid is None else t(valid).cuda())
+    ints = Column(T.INT64, t(rng.integers(-50_000, 50_000, n)).cuda(), ones)
+    kinds, values = {
+        "partial": (("fsum64", "fmax64"), [col(z), col(x)]),
+        "variable": (("fsumv", "fmax"), [col(z), col(x)]),
+        "final": (("fsum64", "icount", "fmax64"),
+                  [col(z * 60), Column(T.INT64, t(rng.integers(
+                      0, 60_000, n)).cuda(), ones), col(x)]),
+        "min": (("fmin64", "fmin64"), [col(z), ints]),
+        "min_final": (("fmin64", "fmin64"), [col(z), ints]),
+        "minv": (("fmin",), [col(z)]),
+        "firstlast": (("first", "last_all"),
+                      [col(x, rng.random(n) >= 0.1), col(x)]),
+        "firstlast_final": (("first", "last_all"),
+                            [col(x, rng.random(n) >= 0.1), col(x)]),
+    }[stage]
     cols = [StageCol("count")]
-    for kind, c in zip(kinds, [col(z), col(x)] if stage != "final" else
-                       [col(z * 60), Column(T.INT64, t(rng.integers(
-                           0, 60_000, n)).cuda(), ones), col(x)]):
+    for kind, c in zip(kinds, values):
         sc, _ = TpuHashAggregate._stage_col(kind, c, live_t)
         cols.append(sc)
     return bucket, cols
 
 
-def check_table_stage(rng, n: int, table: int, stage: str):
+#: B2's kinds of this slice, each with a kernel line of its own
+NEW_B2_KINDS = ("table_reduce_min", "table_reduce_firstlast")
+
+
+def stage_library(bucket, table: int, cols, stage: str):
+    """One PyTorch call (two for first and last) computing what B2's min
+    or first/last kinds compute at this shape: ``scatter_reduce_``
+    "amin" of the values, or "amin" and "amax" of the valid rows'
+    positions (prepared outside the timing); None for the other
+    stages."""
+    import torch
+    b = bucket.to(torch.int64)
+    if stage.startswith("min"):
+        v = cols[1].data
+        return lambda: torch.full((table + 1,), float("inf"), dtype=v.dtype,
+                                  device=v.device).scatter_reduce_(
+            0, b, v, "amin")
+    if stage.startswith("firstlast"):
+        n = b.shape[0]
+        pos = torch.arange(n, device=b.device)
+        lo = torch.where(cols[1].valid, pos, n)
+
+        def both():
+            torch.full((table + 1,), n, dtype=torch.int64, device=b.device) \
+                .scatter_reduce_(0, b, lo, "amin")
+            torch.full((table + 1,), -1, dtype=torch.int64,
+                       device=b.device).scatter_reduce_(0, b, pos, "amax")
+        return both
+    return None
+
+
+def check_table_stage(rng, n: int, table: int, stage: str,
+                      name: str = "table_reduce"):
     """B2 redesigned: the table core's whole reduce stage against its
-    plain version.  Integer tables bit for bit; f64 value sums (variable
-    mode) within B2_SUM_RTOL of the bucket's sum of |v|."""
+    plain version.  Integer tables bit for bit (the min kinds' words and
+    the first/last positions too); f64 value sums (variable mode) within
+    B2_SUM_RTOL of the bucket's sum of |v|.  ``name``: the kernel line's
+    name (B2's min or first/last kind, which also carry a library
+    time)."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops
     bucket, cols = query_stage_inputs(rng, n, table, stage)
+    library = stage_library(bucket, table, cols, stage)
     got = cuda_ops.table_stage(bucket, table, cols)
     want = cuda_ops.table_stage_plain(bucket, table, cols)
     torch.cuda.synchronize()
@@ -668,13 +735,15 @@ def check_table_stage(rng, n: int, table: int, stage: str):
                            for t in (c.data, c.valid) if t is not None)
     out_bytes = sum(t.numel() * t.element_size() for g in got for t in g)
     return kernel_entry(
-        "table_reduce", "table_reduce.cu", "128",
+        name, "table_reduce.cu", "128",
         f"stage {stage}: {n} rows, table {table}, kinds "
         f"{[c.kind for c in cols]}", err,
         time_cuda(lambda: cuda_ops.table_stage(bucket, table, cols)),
         time_cuda(lambda: cuda_ops.table_stage_plain(bucket, table, cols),
                   iters=5, queued=False)[0],
-        in_bytes + out_bytes, design="whole reduce stage")
+        in_bytes + out_bytes,
+        time_cuda(library)[0] if library is not None else None,
+        design="whole reduce stage")
 
 
 def load_parent_ops(path: str):
@@ -709,6 +778,10 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     # each kernel's main-path check comes first among its checks
     split_main = lambda: check_hash_split(rng, 4096, 1, 8, 0.25)
     stage_main = lambda: check_table_stage(rng, big, 4096, "partial")
+    min_main = lambda: check_table_stage(rng, big, 4096, "min",
+                                         "table_reduce_min")
+    firstlast_main = lambda: check_table_stage(rng, big, 4096, "firstlast",
+                                               "table_reduce_firstlast")
     probe_main = probe(lambda: probe_inputs(rng, 3), " (q17's join)")
     checks = [
         # B1: the split at the main path's shape (a partial table of 4096
@@ -741,6 +814,16 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
                                    np.float32, "stage kernel"),
         lambda: check_table_reduce(cuda_ops, rng, big, 4096, 5, 1,
                                    np.float64, "stage kernel"),
+        # B2's min and first/last kinds (F1's): the headline's shape, the
+        # merge of its partial tables, and the variable-mode min
+        min_main,
+        lambda: check_table_stage(rng, 4 * 4096, 4096, "min_final",
+                                  "table_reduce_min"),
+        lambda: check_table_stage(rng, big, 4096, "minv",
+                                  "table_reduce_min"),
+        firstlast_main,
+        lambda: check_table_stage(rng, 4 * 4096, 4096, "firstlast_final",
+                                  "table_reduce_firstlast"),
         # the join probe: q17's 3-key join, q78's 2-key store_sales /
         # store_returns join, one key beside torch.searchsorted, the star
         # joins' dimensions, and a 6-word build past the L2
@@ -763,7 +846,8 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     main = {}
     for measure in checks:
         entry = measure()
-        if measure in (split_main, stage_main, probe_main):
+        if measure in (split_main, stage_main, probe_main, min_main,
+                       firstlast_main):
             main[entry["name"]] = entry
         print("kernel", json.dumps(entry), flush=True)
     main["join_probe"]["tradeoff"] = {
@@ -3425,8 +3509,8 @@ def tpcds8_phase(args, kernels_used, data_dir: str, session,
     ``ds8_references`` (1e-9, ORDER BY kept, ties as a multiset, also at
     the LIMIT's cut), give the same bytes on two warm runs, and return
     rows unless DS8_EMPTY names it.  Below SF10 the broadcast threshold
-    shrinks with the scale, as in phase 7.  q78 and q64 run once more
-    under the profiler.  Returns the kernels' launches on this path."""
+    shrinks with the scale, as in phase 7.  q78 runs once more under the
+    profiler.  Returns the kernels' launches on this path."""
     from tpcds_queries import QUERIES
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.kernels import cuda_ops
@@ -3481,7 +3565,9 @@ def tpcds8_phase(args, kernels_used, data_dir: str, session,
                   f"{cold.slice(0, 2).to_pylist()}", flush=True)
         for q in ("q78", "q64"):
             print(f"plan {q}:\n" + session.sql(QUERIES[q]).explain())
-            if on_card:
+            # q64's trace (~264,000 launches, PERF.md 5) took minutes to
+            # process: since phase 13 its time goes to the newest phase
+            if on_card and q != "q64":
                 before = dict(cuda_ops.LAUNCHES)
                 print(f"profile {q}:")
                 profile_query(session.sql(QUERIES[q]))
@@ -4413,10 +4499,9 @@ def tpcds10_phase(args, kernels_used, data_dir: str, session,
     rows unless DS10_EMPTY names it.  A run is ``session.sql(text)
     .to_arrow()`` (``SqlRun``), as in phase 9.  Below SF10 the broadcast
     threshold shrinks with the scale, as in phases 7-9, and q4 runs once
-    more without its push-down rules (``q4_without_pushdown``).  q4 (its
-    ``year_total`` CTE, a three-branch union, read six times) and q87
-    (two EXCEPTs of DISTINCT sets keyed on a DATE) run once more under
-    the profiler.  Returns the kernels' launches on this path."""
+    more without its push-down rules (``q4_without_pushdown``).  q87 (two
+    EXCEPTs of DISTINCT sets keyed on a DATE) runs once more under the
+    profiler.  Returns the kernels' launches on this path."""
     from tpcds_queries import QUERIES
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.kernels import cuda_ops
@@ -4472,7 +4557,9 @@ def tpcds10_phase(args, kernels_used, data_dir: str, session,
             q4_without_pushdown(session, QUERIES["q4"], refs["q4"])
         for q in ("q4", "q87"):
             print(f"plan {q}:\n" + session.sql(QUERIES[q]).explain())
-            if on_card:
+            # q4's trace (~270,000 launches) took ~40 s to process: since
+            # phase 13 its time goes to the newest phase
+            if on_card and q != "q4":
                 tq = time.perf_counter()
                 before = dict(cuda_ops.LAUNCHES)
                 print(f"profile {q}:")
@@ -5732,6 +5819,375 @@ def tpcds12_phase(args, kernels_used, data_dir: str, session,
     return launches
 
 
+# -- phase 13: the last four TPC-DS texts and the function library ------------
+
+DS13_QUERIES = ("q6", "q41", "q70", "q72", "F1", "F2", "F3")
+#: phase 13's own queries over the numeric, conditional and hash
+#: functions and the grouped min / first / last: F1 on B2's table core
+#: (integer keys), F2 on the sort path (a string key, ~180,000 groups),
+#: F3 one keyless aggregate of the scalar library over all of
+#: store_sales
+DS13_TEXTS = {
+    "F1": """
+    select ss_store_sk, d_moy, min(ss_sales_price) min_price,
+           max(ss_sales_price) max_price, min(ss_quantity) min_qty,
+           max(ss_quantity) max_qty, first(d_year) yr, last(d_qoy) qoy,
+           count(*) cnt
+    from store_sales, date_dim
+    where ss_sold_date_sk = d_date_sk and d_year = 2000
+    group by ss_store_sk, d_moy
+    order by ss_store_sk, d_moy
+    limit 100""",
+    "F2": """
+    select i_item_id, min(i_brand) min_brand,
+           min(ss_net_profit) min_profit, first(i_current_price) price,
+           last(i_item_desc) descr
+    from store_sales, item
+    where ss_item_sk = i_item_sk
+    group by i_item_id
+    order by min(ss_net_profit), i_item_id
+    limit 100""",
+    "F3": """
+    select count(*) cnt, sum(pmod(ss_item_sk, 97)) pm,
+           sum(floor(ss_sales_price)) fl, sum(ceil(ss_sales_price)) ce,
+           sum(greatest(ss_list_price, ss_sales_price, ss_wholesale_cost))
+             gr,
+           sum(least(ss_list_price, ss_sales_price, ss_wholesale_cost)) le,
+           sum(sqrt(ss_quantity)) sq, sum(ln(ss_list_price + 1)) lnp,
+           sum(pow(ss_quantity, 2)) pw, count(nullif(ss_quantity, 1)) nn,
+           sum(if(ss_net_profit > 0, 1, 0)) pos,
+           sum(signum(ss_net_profit)) sg,
+           sum(hash(ss_item_sk, ss_customer_sk) % 1000) h
+    from store_sales"""}
+#: ORDER BY of each query as (select column position or a function of
+#: the row, ascending)
+DS13_ORDER = {
+    "q6": [(1, True), (0, True)], "q41": [(0, True)],
+    "q70": [(3, False), (lambda r: r[1] if r[3] == 0 else None, True),
+            (4, True)],
+    "q72": [(5, False), (0, True), (1, True), (2, True)],
+    "F1": [(0, True), (1, True)], "F2": [(2, True), (0, True)],
+    "F3": None}
+#: the table whose rows a query's Mrows/s counts (its largest scan)
+DS13_FACT = {q: "store_sales" for q in DS13_QUERIES}
+DS13_FACT.update({"q41": "item", "q72": "catalog_sales"})
+#: queries allowed an empty answer at SF10, with the reason
+DS13_EMPTY: dict = {}
+
+
+def _np_mix64(x):
+    """murmur3 fmix64 over uint64 (``kernels/basic.mix64``)."""
+    x = x ^ (x >> np.uint64(33))
+    x = x * np.uint64(0xff51afd7ed558ccd)
+    x = x ^ (x >> np.uint64(33))
+    x = x * np.uint64(0xc4ceb9fe1a85ec53)
+    return x ^ (x >> np.uint64(33))
+
+
+def np_hash_longs(*cols):
+    """Spark-side ``hash(a, b, ...)`` of non-null bigint columns in numpy:
+    seed 42, each value's order word ``v ^ 2^63`` mixed in turn
+    (``kernels/basic.hash_words`` over ``canon.value_words``), as int64."""
+    h = np.full(len(cols[0]), 42, np.uint64)
+    with np.errstate(over="ignore"):
+        for c in cols:
+            h = _np_mix64(h ^ (c.astype(np.int64).view(np.uint64) ^
+                               np.uint64(1 << 63)))
+    return h.view(np.int64)
+
+
+def ds13_references(data_dir: str, queries=DS13_QUERIES) -> dict:
+    """Each phase-13 query's full result in its select list's order, by
+    pyarrow and numpy written apart from the port.  q72's pairs are not
+    formed: catalog_sales, filtered by its dimensions and its sale date's
+    1999 week, joins inventory on (item, week) — the text's own
+    ``d1.d_week_seq = d2.d_week_seq`` as a key; ``pairs`` counts what
+    the port's plan expands instead (catalog_sales x inventory on the
+    item alone).  q70's ranks and q41's correlated count are Python over
+    the grouped rows; F3's hash is ``np_hash_longs``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, between = _ds7_tools(data_dir)
+    out = {}
+
+    def rows_of(t, cols):
+        return list(zip(*[t[c].to_pylist() for c in cols]))
+
+    if "q6" in queries:
+        d = read("date_dim", ["d_date_sk", "d_month_seq", "d_year", "d_moy"])
+        seqs = set(pc.filter(d["d_month_seq"], pc.and_(
+            pc.equal(d["d_year"], 2001), pc.equal(d["d_moy"], 1))).to_pylist())
+        check(len(seqs) == 1, "q6: the month's d_month_seq is not one value")
+        days = d.filter(pc.equal(d["d_month_seq"], seqs.pop()))
+        it = read("item", ["i_item_sk", "i_current_price", "i_category"])
+        avg = it.group_by("i_category").aggregate(
+            [("i_current_price", "mean")])
+        it = join(it, avg, "i_category", "i_category")
+        it = it.filter(pc.greater(it["i_current_price"], pc.multiply(
+            it["i_current_price_mean"], 1.2)))
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                                  "ss_customer_sk"])
+        ss = ss.filter(isin(ss["ss_sold_date_sk"], days["d_date_sk"]))
+        ss = ss.filter(isin(ss["ss_item_sk"], it["i_item_sk"]))
+        c = read("customer", ["c_customer_sk", "c_current_addr_sk"])
+        a = read("customer_address", ["ca_address_sk", "ca_state"])
+        j = join(join(ss, c, "ss_customer_sk", "c_customer_sk"), a,
+                 "c_current_addr_sk", "ca_address_sk")
+        g = j.group_by("ca_state").aggregate([([], "count_all")])
+        out["q6"] = [r for r in rows_of(g, ["ca_state", "count_all"])
+                     if r[1] >= 10]
+    if "q41" in queries:
+        cols = ["i_manufact_id", "i_manufact", "i_category", "i_color",
+                "i_units", "i_size", "i_product_name"]
+        it = read("item", cols)
+        arms = (("Women", ("red", "blue"), ("Each", "Dozen"),
+                 ("small", "medium")),
+                ("Women", ("green", "yellow"), ("Case", "Pallet"),
+                 ("large", "extra large")),
+                ("Men", ("purple", "orange"), ("Each", "Case"),
+                 ("petite", "economy")),
+                ("Men", ("white", "black"), ("Dozen", "Pallet"),
+                 ("small", "medium")),
+                ("Sports", ("red", "green"), ("Each", "Dozen"),
+                 ("small", "large")),
+                ("Music", ("blue", "white"), ("Case", "Each"),
+                 ("medium", "petite")),
+                ("Books", ("yellow", "black"), ("Dozen", "Pallet"),
+                 ("economy", "small")),
+                ("Home", ("orange", "purple"), ("Case", "Pallet"),
+                 ("large", "extra large")))
+        counted = {m for _, m, cat, color, units, size, _ in rows_of(it, cols)
+                   if any(cat == a[0] and color in a[1] and units in a[2] and
+                          size in a[3] for a in arms)}
+        out["q41"] = sorted({(name,) for mid, m, *_, name in
+                             rows_of(it, cols) if mid is not None and
+                             700 <= mid <= 740 and m in counted})
+    if "q70" in queries:
+        d = read("date_dim", ["d_date_sk", "d_month_seq"])
+        d = d.filter(between(d["d_month_seq"], 1200, 1211))
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_net_profit"])
+        ss = ss.filter(isin(ss["ss_sold_date_sk"], d["d_date_sk"]))
+        s = read("store", ["s_store_sk", "s_state", "s_county"])
+        j = join(ss, s, "ss_store_sk", "s_store_sk")
+        # every state ranks first in its own partition: the IN keeps all
+        g = j.group_by(["s_state", "s_county"]).aggregate(
+            [("ss_net_profit", "sum")])
+        fine = rows_of(g, ["s_state", "s_county", "ss_net_profit_sum"])
+        states = {}
+        for st, _, v in fine:
+            states[st] = states.get(st, 0.0) + v
+        rows = [(v, st, co, 0) for st, co, v in fine] + \
+            [(v, st, None, 1) for st, v in states.items()] + \
+            [(sum(v for _, _, v in fine), None, None, 2)] if fine else []
+
+        def rank_within(r):
+            part = [x for x in rows if x[3] == r[3] and
+                    (r[3] != 0 or x[1] == r[1])]
+            return 1 + sum(1 for x in part if x[0] > r[0])
+        out["q70"] = [r + (rank_within(r),) for r in rows]
+    if "q72" in queries:
+        dd = read("date_dim", ["d_date_sk", "d_week_seq", "d_year"])
+        d1 = dd.filter(pc.equal(dd["d_year"], 1999))
+        cs = read("catalog_sales", [
+            "cs_sold_date_sk", "cs_ship_date_sk", "cs_item_sk",
+            "cs_bill_cdemo_sk", "cs_bill_hdemo_sk", "cs_promo_sk",
+            "cs_quantity"])
+        inv = read("inventory", ["inv_date_sk", "inv_item_sk",
+                                 "inv_warehouse_sk", "inv_quantity_on_hand"])
+        # the pairs the port's plan expands: catalog_sales x inventory on
+        # the item alone
+        ni = int(max(pc.max(cs["cs_item_sk"]).as_py(),
+                     pc.max(inv["inv_item_sk"]).as_py())) + 1
+        pairs = int(np.dot(
+            np.bincount(cs["cs_item_sk"].to_numpy(), minlength=ni),
+            np.bincount(inv["inv_item_sk"].to_numpy(), minlength=ni)))
+        cd = read("customer_demographics", ["cd_demo_sk",
+                                            "cd_marital_status"])
+        hd = read("household_demographics", ["hd_demo_sk",
+                                             "hd_buy_potential"])
+        cs = cs.filter(isin(cs["cs_bill_cdemo_sk"], pc.filter(
+            cd["cd_demo_sk"], pc.equal(cd["cd_marital_status"], "D"))))
+        cs = cs.filter(isin(cs["cs_bill_hdemo_sk"], pc.filter(
+            hd["hd_demo_sk"], pc.equal(hd["hd_buy_potential"], ">10000"))))
+        cs = cs.filter(isin(cs["cs_ship_date_sk"], dd["d_date_sk"]))
+        cs = join(cs, d1.select(["d_date_sk", "d_week_seq"]),
+                  "cs_sold_date_sk", "d_date_sk")
+        cs = cs.filter(pc.greater(cs["cs_ship_date_sk"],
+                                  pc.add(cs["cs_sold_date_sk"], 3)))
+        inv = join(inv, dd.select(["d_date_sk", "d_week_seq"]).rename_columns(
+            ["inv_d_sk", "inv_week_seq"]), "inv_date_sk", "inv_d_sk")
+        j = join(cs, inv, ["cs_item_sk", "d_week_seq"],
+                 ["inv_item_sk", "inv_week_seq"])
+        j = j.filter(pc.less(j["inv_quantity_on_hand"], j["cs_quantity"]))
+        w = read("warehouse", ["w_warehouse_sk", "w_warehouse_name"])
+        it = read("item", ["i_item_sk", "i_item_desc"])
+        p = read("promotion", ["p_promo_sk"])
+        j = join(join(j, w, "inv_warehouse_sk", "w_warehouse_sk"), it,
+                 "cs_item_sk", "i_item_sk")
+        promo = isin(j["cs_promo_sk"], p["p_promo_sk"])
+        one, zero = pa.scalar(1, pa.int64()), pa.scalar(0, pa.int64())
+        j = j.append_column("no_promo", pc.if_else(promo, zero, one))
+        j = j.append_column("promo", pc.if_else(promo, one, zero))
+        g = j.group_by(["i_item_desc", "w_warehouse_name", "d_week_seq"]) \
+            .aggregate([("no_promo", "sum"), ("promo", "sum"),
+                        ([], "count_all")])
+        out["q72"] = rows_of(g, ["i_item_desc", "w_warehouse_name",
+                                 "d_week_seq", "no_promo_sum", "promo_sum",
+                                 "count_all"])
+        out["q72_pairs"] = pairs
+    if "F1" in queries:
+        d = read("date_dim", ["d_date_sk", "d_year", "d_moy"])
+        d = d.filter(pc.equal(d["d_year"], 2000))
+        ss = read("store_sales", ["ss_sold_date_sk", "ss_store_sk",
+                                  "ss_sales_price", "ss_quantity"])
+        j = join(ss, d, "ss_sold_date_sk", "d_date_sk")
+        g = j.group_by(["ss_store_sk", "d_moy"]).aggregate([
+            ("ss_sales_price", "min"), ("ss_sales_price", "max"),
+            ("ss_quantity", "min"), ("ss_quantity", "max"),
+            ([], "count_all")])
+        out["F1"] = [(st, m, a, b, c, e, 2000, (m - 1) // 3 + 1, n)
+                     for st, m, a, b, c, e, n in rows_of(g, [
+                         "ss_store_sk", "d_moy", "ss_sales_price_min",
+                         "ss_sales_price_max", "ss_quantity_min",
+                         "ss_quantity_max", "count_all"])]
+    if "F2" in queries:
+        ss = read("store_sales", ["ss_item_sk", "ss_net_profit"])
+        g = ss.group_by("ss_item_sk").aggregate([("ss_net_profit", "min")])
+        it = read("item", ["i_item_sk", "i_item_id", "i_brand",
+                           "i_current_price", "i_item_desc"])
+        j = join(g, it, "ss_item_sk", "i_item_sk")
+        # one item row per i_item_id: min, first and last are its own
+        check(pc.count_distinct(it["i_item_id"]).as_py() == it.num_rows,
+              "F2: i_item_id is not one item's")
+        out["F2"] = rows_of(j, ["i_item_id", "i_brand", "ss_net_profit_min",
+                                "i_current_price", "i_item_desc"])
+    if "F3" in queries:
+        ss = read("store_sales", [
+            "ss_item_sk", "ss_customer_sk", "ss_quantity", "ss_sales_price",
+            "ss_list_price", "ss_wholesale_cost", "ss_net_profit"])
+        col = {c: ss[c].to_numpy() for c in ss.column_names}
+        item, q = col["ss_item_sk"], col["ss_quantity"].astype(np.int64)
+        sp, lp = col["ss_sales_price"], col["ss_list_price"]
+        wc, npf = col["ss_wholesale_cost"], col["ss_net_profit"]
+        prices = np.stack([lp, sp, wc])
+        r = np.fmod(item, 97)
+        h = np.fmod(np_hash_longs(item, col["ss_customer_sk"]), 1000)
+        out["F3"] = [(
+            len(item), int(np.where(r < 0, np.fmod(r + 97, 97), r).sum()),
+            int(np.floor(sp).astype(np.int64).sum()),
+            int(np.ceil(sp).astype(np.int64).sum()),
+            float(prices.max(0).sum()), float(prices.min(0).sum()),
+            float(np.sqrt(q).sum()), float(np.log(lp + 1).sum()),
+            float((q.astype(np.float64) ** 2).sum()), int((q != 1).sum()),
+            int((npf > 0).sum()), float(np.sign(npf).sum()),
+            int(h.sum()))]
+    return out
+
+
+def tpcds13_phase(args, kernels_used, data_dir: str, session,
+                  refs_ahead=None) -> dict:
+    """Phase 13: the last four TPC-DS texts (q6, q41, q70, q72) verbatim
+    and F1-F3 over the function library and the grouped min / first /
+    last (DS13_TEXTS), through the port's ``session.sql`` on phase 7's
+    tables, directory and session.  Each must equal ``ds13_references``
+    (1e-9, ORDER BY kept, ties as a multiset), give the same bytes on two
+    warm runs, and return rows.  q72 must join catalog_sales to inventory
+    in a ``TpuShuffledHashJoin`` whose residual condition holds
+    ``inv_quantity_on_hand < cs_quantity`` (evaluated on each chunk of
+    expanded pairs); F1 must run B2's min and first/last kinds
+    (``LAUNCHES["table_reduce_min"]``, ``["table_reduce_firstlast"]``)
+    and F2 the sort path.  Returns the kernels' launches on this path."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+
+    refs = phase_references(13, ds13_references, data_dir, refs_ahead)
+    texts = {**QUERIES, **DS13_TEXTS}
+    rows = {t: max(int(n * args.ds_sf), 64) for t, n in
+            {**DS_ROWS_PER_SF, **DS7_ROWS_PER_SF}.items()}
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        for q in DS13_QUERIES:
+            tq = time.perf_counter()
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 13 imported JAX or the JAX package")
+            run = SqlRun(session, texts[q], on_card)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, run, on_card)
+            got = dict(cuda_ops.LAUNCHES)
+            for name, v in got.items():
+                launches[name] += v
+            plan = session.last_physical_plan
+            extra = ""
+            if q == "q72":
+                joins = [j for j in _find(plan, "TpuShuffledHashJoin")
+                         if j.join.condition is not None and
+                         "inv_quantity_on_hand" in repr(j.join.condition)]
+                check(len(joins) == 1 or args.ds_sf < 10,
+                      f"q72: no shuffled join of catalog_sales and "
+                      f"inventory with the quantity residual:\n"
+                      f"{plan.tree_string()}")
+                chunks = [j.expand_counts for j in joins]
+                extra = (f"; catalog_sales x inventory {refs['q72_pairs']} "
+                         f"pairs on the item, expanded in {chunks} (the "
+                         f"last run's batches and chunks)")
+            if q == "F1":
+                aggs = _find(plan, "TpuHashAggregate")
+                check(all(a.path_counts["table"] > 0 and
+                          a.path_counts["sort"] == 0 for a in aggs),
+                      "F1: not the table core")
+                check(not on_card or (got["table_reduce_min"] > 0 and
+                                      got["table_reduce_firstlast"] > 0),
+                      f"F1: B2's min or first/last kind never launched "
+                      f"({got})")
+            if q == "F2":
+                aggs = _find(plan, "TpuHashAggregate")
+                check(all(a.path_counts["table"] == 0 for a in aggs) and
+                      any(a.path_counts["sort"] > 0 for a in aggs),
+                      "F2: not the sort path")
+            order = DS13_ORDER[q]
+            full = check_rows(q, cold, refs[q], order)
+            for t in warm:
+                check_rows(q, t, refs[q], order)
+            check(same_bytes(warm[0], warm[1]),
+                  f"{q}: the two warm runs are not byte-identical")
+            check(cold.num_rows > 0 or q in DS13_EMPTY or args.ds_sf < 10,
+                  f"{q}: no rows (not in DS13_EMPTY)")
+            fact = rows[DS13_FACT[q]]
+            lower = run.lower_s
+            print(f"{q}: {cold.num_rows} rows of {full}; cold {cold_s:.4f}s "
+                  f"(lowering and its subqueries {lower[0]:.4f}s; host "
+                  f"read {read_s:.4f}s, upload {upload_s:.4f}s); warm "
+                  f"{warm_s[0]:.4f}s {warm_s[1]:.4f}s; warm "
+                  f"{fact / warm_s[1] / 1e6:.3f} Mrows/s of {DS13_FACT[q]}; "
+                  f"peak device memory {peak} B; launches (3 runs) B1 "
+                  f"{got['hash_partition_ids']}, B2 {got['table_reduce']} "
+                  f"(min kind {got['table_reduce_min']}, first/last kind "
+                  f"{got['table_reduce_firstlast']}), probe "
+                  f"{got['join_probe']}; byte-identical warm runs; matches "
+                  f"{'numpy' if q == 'F3' else 'pyarrow'} at {EXACT_REL}"
+                  f"{extra}; first rows {cold.slice(0, 2).to_pylist()}; "
+                  f"{time.perf_counter() - tq:.1f}s with the checks",
+                  flush=True)
+        print("plan q72:\n" + session.sql(QUERIES["q72"]).explain())
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
+        cache.clear()
+    for name in kernels_used:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the phase 13 path")
+    print(f"tpcds13: launches of the phase (3 runs of each query) {launches}")
+    return launches
+
+
 def _reference_worker() -> None:
     """A reference process's pyarrow takes half the host's cores; the
     other half serve the process that drives the card."""
@@ -5740,12 +6196,13 @@ def _reference_worker() -> None:
 
 
 def references_ahead(pool, data_dir: str) -> dict:
-    """Futures of phases 8-12's pyarrow references, computed one after
-    another in ``pool``'s process while the card runs phases 8-12 (~200
+    """Futures of phases 8-13's pyarrow references, computed one after
+    another in ``pool``'s process while the card runs phases 8-13 (~200
     s of host work the phases would otherwise wait for)."""
     return {n: pool.submit(fn, data_dir) for n, fn in (
         (8, ds8_references), (9, ds9_references), (10, ds10_references),
-        (11, ds11_references), (12, ds12_references))}
+        (11, ds11_references), (12, ds12_references),
+        (13, ds13_references))}
 
 
 def phase_references(phase: int, fn, data_dir: str, ahead=None) -> dict:
@@ -5794,7 +6251,7 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: also time its "
                          "kernels at the raw-row and probe shapes with "
                          "this timer")
-    ap.add_argument("--only", type=int, choices=(11, 12), default=None,
+    ap.add_argument("--only", type=int, choices=(11, 12, 13), default=None,
                     help="after the build, run this phase alone on "
                          "freshly written tables (no contract line)")
     args = ap.parse_args(argv)
@@ -5839,7 +6296,8 @@ def main(argv=None) -> int:
     if args.only is not None:
         used = ["hash_partition_ids", "join_probe"] \
             if args.device == "cuda" else []
-        phase = {11: tpcds11_phase, 12: tpcds12_phase}[args.only]
+        phase = {11: tpcds11_phase, 12: tpcds12_phase,
+                 13: tpcds13_phase}[args.only]
         with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
             session = ds_tables_alone(args, data_dir)
             phase_done("tables")
@@ -5899,14 +6357,15 @@ def main(argv=None) -> int:
 
     # 5. shuffled joins at TPC-H scale
     results["join"] = join_phase(
-        args, list(kernels) if args.device == "cuda" else [])
+        args, [k for k in kernels if k not in NEW_B2_KINDS]
+        if args.device == "cuda" else [])
 
     # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
     # TPC-DS queries, 8. those with derived tables and CTEs, 9. those with
     # expression subqueries, 10. those with set operations, DISTINCT and
     # DATE columns, 11. those with window functions, 12. those with CAST,
-    # DATE literals, count(DISTINCT) and ROLLUP, on the same tables,
-    # session and directory
+    # DATE literals, count(DISTINCT) and ROLLUP, 13. the last four texts
+    # and the function library, on the same tables, session and directory
     used = ["hash_partition_ids", "join_probe"] \
         if args.device == "cuda" else []
     spawn = multiprocessing.get_context("spawn")
@@ -5923,7 +6382,7 @@ def main(argv=None) -> int:
         phase_done("7")
         for n, phase in ((8, tpcds8_phase), (9, tpcds9_phase),
                          (10, tpcds10_phase), (11, tpcds11_phase),
-                         (12, tpcds12_phase)):
+                         (12, tpcds12_phase), (13, tpcds13_phase)):
             results[f"tpcds{n}"] = phase(args, used, data_dir, session,
                                          ahead[n])
             phase_done(str(n))
@@ -5934,15 +6393,16 @@ def main(argv=None) -> int:
         return 0
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
+        # B2's min and first/last kinds run on phase 13's path (F1) alone
+        own = "tpcds13" if name in NEW_B2_KINDS else None
         for mode, got in by_path.items():
-            # phases 6-12 need not take B2: their string keys, keyless
+            # phases 6-13 need not take B2: their string keys, keyless
             # aggregates and wide key ranges run the sort path
-            check(got > 0 or (mode in ("tpcds", "tpcds7", "tpcds8",
-                                       "tpcds9", "tpcds10", "tpcds11",
-                                       "tpcds12") and
-                              name == "table_reduce"),
+            check(got > 0 or (mode.startswith("tpcds") and
+                              name == "table_reduce") or
+                  (own is not None and mode != own),
                   f"{name} never launched on the {mode} path")
-        kernels[name]["launches"] = by_path["exact"]
+        kernels[name]["launches"] = by_path[own or "exact"]
         kernels[name]["launches_by_path"] = by_path
     print(json.dumps({"kernels": list(kernels.values())}))
     print(f"nvidia-smi: {nvidia_smi_line()}")

@@ -109,6 +109,12 @@ class Col:
 
     isNotNull = is_not_null
 
+    def eq_null_safe(self, o) -> "Col":
+        """``self <=> o``: two nulls are equal; never null."""
+        return Col(ep.EqualNullSafe(self.expr, _expr(o)))
+
+    eqNullSafe = eq_null_safe
+
     def like(self, pattern: str) -> "Col":
         return Col(es.Like(self.expr, ec.Literal(pattern)))
 

@@ -250,9 +250,8 @@ class GroupedData:
 
     def agg(self, *aggs) -> DataFrame:
         """The aggregates (``functions.count_distinct`` and
-        ``sum_distinct`` as the reference's DISTINCT rewrite); a grouped
-        ``min`` and several DISTINCT arguments raise
-        ``NotImplementedError``."""
+        ``sum_distinct`` as the reference's DISTINCT rewrite); several
+        DISTINCT arguments raise ``NotImplementedError``."""
         schema = self.df.schema
         agg_exprs = []
         for a in aggs:
@@ -264,9 +263,6 @@ class GroupedData:
             e = _resolve(e, schema)
             if not isinstance(e, eagg.AggregateFunction):
                 raise TypeError(f"agg() takes aggregate functions, got {e!r}")
-            if isinstance(e, eagg.Min):
-                raise NotImplementedError("min() as a grouped aggregate is "
-                                          "not ported (only over a window)")
             agg_exprs.append(L.AggExpr(e, alias or repr(e),
                                        getattr(e, "_distinct", False)))
         if self.grouping_sets is not None:

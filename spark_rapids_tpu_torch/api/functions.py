@@ -1,6 +1,7 @@
 """functions: col, the aggregates (``count_distinct`` and
-``sum_distinct`` too), conditionals, ``abs``, ``round``, string
-functions, DATE functions and window functions.
+``sum_distinct`` too, ``min``, ``first`` and ``last``), conditionals and
+the null and NaN functions, the math functions, ``hash`` and the ids,
+string functions, DATE functions and window functions.
 
 Counterpart of ``spark_rapids_tpu/api/functions.py`` (the port's
 subset).
@@ -12,6 +13,8 @@ from ..expr import arithmetic as ea
 from ..expr import conditional as econd
 from ..expr import core as ec
 from ..expr import datetime as edt
+from ..expr import misc as emisc
+from ..expr import predicates as ep
 from ..expr import string_ops as es
 from ..expr import window_funcs as wf
 from .column import Col, _expr
@@ -40,9 +43,17 @@ def count(c="*") -> Col:
 
 
 def min(c) -> Col:  # noqa: A001
-    """min over a window (``DataFrame.with_window``); a grouped min is not
-    ported."""
     return Col(eagg.Min(_arg(c)))
+
+
+def first(c, ignore_nulls: bool = False) -> Col:
+    """The first value of a group in input order; nulls count unless
+    ``ignore_nulls`` (Spark's default, where the reference skips them)."""
+    return Col(eagg.First(_arg(c), ignore_nulls))
+
+
+def last(c, ignore_nulls: bool = False) -> Col:
+    return Col(eagg.Last(_arg(c), ignore_nulls))
 
 
 def _distinct(agg) -> Col:
@@ -112,6 +123,18 @@ def coalesce(*cols) -> Col:
     return Col(econd.Coalesce(*[_arg(c) for c in cols]))
 
 
+def isnull(c) -> Col:
+    return Col(ep.IsNull(_arg(c)))
+
+
+def isnan(c) -> Col:
+    return Col(ep.IsNaN(_arg(c)))
+
+
+def nanvl(a, b) -> Col:
+    return Col(econd.NaNvl(_arg(a), _expr(b)))
+
+
 def substring(c, pos: int, length: int) -> Col:
     return Col(es.Substring(_arg(c), ec.Literal(pos), ec.Literal(length)))
 
@@ -127,6 +150,61 @@ def abs(c) -> Col:  # noqa: A001
 def round(c, scale: int = 0) -> Col:  # noqa: A001
     """Spark's ``round`` (HALF_UP) to ``scale`` decimal places."""
     return Col(ea.Round(_arg(c), scale))
+
+
+def _u(cls):
+    def f(c) -> Col:
+        return Col(cls(_arg(c)))
+    f.__name__ = cls.__name__.lower()
+    return f
+
+
+sqrt = _u(ea.Sqrt)
+exp = _u(ea.Exp)
+log = _u(ea.Log)
+log2 = _u(ea.Log2)
+log10 = _u(ea.Log10)
+sin = _u(ea.Sin)
+cos = _u(ea.Cos)
+tan = _u(ea.Tan)
+asin = _u(ea.Asin)
+acos = _u(ea.Acos)
+atan = _u(ea.Atan)
+floor = _u(ea.Floor)
+ceil = _u(ea.Ceil)
+signum = _u(ea.Signum)
+degrees = _u(ea.ToDegrees)
+radians = _u(ea.ToRadians)
+
+
+def pow(a, b) -> Col:  # noqa: A001
+    return Col(ea.Pow(_arg(a), _expr(b)))
+
+
+def pmod(a, b) -> Col:
+    """Spark's ``pmod``: ``(r + b) % b`` where ``r = a % b`` is negative
+    (``expr/arithmetic.Pmod``)."""
+    return Col(ea.Pmod(_arg(a), _expr(b)))
+
+
+def greatest(*cols) -> Col:
+    return Col(ea.Greatest(*[_arg(c) for c in cols]))
+
+
+def least(*cols) -> Col:
+    return Col(ea.Least(*[_arg(c) for c in cols]))
+
+
+def hash(*cols) -> Col:  # noqa: A001
+    return Col(emisc.Murmur3Hash(*[_arg(c) for c in cols]))
+
+
+def monotonically_increasing_id() -> Col:
+    return Col(emisc.MonotonicallyIncreasingID())
+
+
+def spark_partition_id() -> Col:
+    return Col(emisc.SparkPartitionID())
 
 
 # -- DATE functions ------------------------------------------------------------

@@ -33,15 +33,26 @@ runs:
   to every arm of an OR are factored out of it (``plan/logical_opt``'s
   ``_factor_or``, for WHERE and ``JOIN ... ON`` alike), so join
   equalities written inside the arms become join keys;
+  ``<=>`` is not parsed (``Col.eq_null_safe`` has it);
 - ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``; ``CAST(x AS
   t)`` among the numbers, BOOL and DATE (``boolean``, ``int``,
   ``bigint``, ``float``, ``double``, ``date``; Spark's non-ANSI rules,
   ``expr/cast.py``);
-  ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` with numeric or DATE
-  values; ``substring`` / ``substr`` with literal positions (in
-  characters), ``concat``, ``coalesce`` / ``nvl`` / ``ifnull`` (numbers,
-  DATEs or strings), ``abs``, ``round(x[, d])`` (HALF_UP), ``upper`` /
-  ``ucase`` and ``lower`` / ``lcase`` (ASCII letters, as the reference);
+  ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` and ``if(c, a, b)`` with
+  numeric, DATE or string values; ``substring`` / ``substr`` with
+  literal positions (in characters), ``concat``, ``coalesce`` / ``nvl``
+  / ``ifnull`` (numbers, DATEs or strings), ``nullif``, ``isnull`` /
+  ``isnotnull``, ``isnan``, ``nanvl``, ``abs``, ``round(x[, d])``
+  (HALF_UP), ``upper`` / ``ucase`` and ``lower`` / ``lcase`` (ASCII
+  letters, as the reference); the math functions of a number ``sqrt``,
+  ``exp``, ``ln`` / ``log`` (one argument), ``log2``, ``log10`` (the
+  logarithms NULL at 0 and below, Spark's answer), ``sin``, ``cos``,
+  ``tan``, ``asin``, ``acos``, ``atan``, ``degrees``, ``radians``,
+  ``floor``, ``ceil`` / ``ceiling`` (a bigint of a double),
+  ``sign`` / ``signum``, and of two ``pow`` / ``power``, ``atan2``,
+  ``mod`` and ``pmod`` (Spark's, also with a negative divisor);
+  ``greatest`` / ``least`` of numbers or DATEs (a NaN above every
+  number); ``hash(x, ...)`` (``expr/misc.Murmur3Hash``);
 - integer, decimal (read as double), string and ``NULL`` literals;
   ``DATE 'yyyy-mm-dd'`` literals; DATE columns (date32 in Parquet)
   compare with DATEs, key joins, group-bys, DISTINCT and sorts, and are
@@ -54,17 +65,22 @@ runs:
   without aggregates, or ``ROLLUP (...)``, ``CUBE (...)`` and ``GROUPING
   SETS ((...), x, (), ...)`` of them (the reference's Expand rewrite,
   ``plan/logical.build_grouping_sets``), with ``grouping(key)``, also
-  inside arithmetic and ORDER BY; the aggregates ``count(*)``,
-  ``count``, ``sum``, ``max`` (also of strings), ``avg`` / ``mean``,
+  inside arithmetic, ORDER BY and a window's PARTITION BY; the
+  aggregates ``count(*)``, ``count``, ``sum``, ``min`` and ``max`` (also
+  of strings and DATEs), ``first`` / ``first_value`` and ``last`` /
+  ``last_value`` (Spark's default: NULL rows count), ``avg`` / ``mean``,
   ``stddev`` / ``stddev_samp`` / ``std``, ``stddev_pop``, ``variance`` /
-  ``var_samp``, ``var_pop`` (all but ``count`` and ``max`` of numbers
-  only), ``count``, ``sum`` and ``avg`` of ``DISTINCT x`` (one argument
-  shared by every DISTINCT call: the reference's two-level rewrite,
+  ``var_samp``, ``var_pop`` (all but ``count``, ``min``, ``max``,
+  ``first`` and ``last`` of numbers only), ``count``, ``sum`` and
+  ``avg`` of ``DISTINCT x`` (one argument shared by every DISTINCT
+  call: the reference's two-level rewrite,
   ``build_aggregate``), and expressions over them and over the group
   keys; ``HAVING``, whose aggregates need not be selected; a call that
   ORDER BY or HAVING repeats is the select list's column;
 - ``ORDER BY`` expressions, select aliases or ordinals with ``ASC`` /
-  ``DESC`` and ``NULLS FIRST`` / ``LAST``; ``LIMIT``;
+  ``DESC`` and ``NULLS FIRST`` / ``LAST``, and select aliases inside an
+  expression (q70's ``case when lochierarchy = 0 then s_state end``,
+  substituted through the tree as the reference does); ``LIMIT``;
 - window functions in the select list and ORDER BY (the reference's
   ``lower_window``): ``f(...) OVER ([PARTITION BY ...] [ORDER BY ...]
   [ROWS | RANGE BETWEEN bound AND bound])``, a bound ``UNBOUNDED
@@ -96,20 +112,29 @@ runs:
   of correlated ``EXISTS`` on the same outer keys is one semi join
   against the union of their key sets (q10); ``x CMP (query)`` with a
   correlated query of one aggregate is that query grouped by its
-  correlation keys, an inner join and a filter (q1, q32).  A subquery
-  that runs while the text is lowered runs on the session's device:
+  correlation keys, an inner join and a filter (q1, q32).  A correlated
+  query's WHERE has the conjuncts common to the arms of its ORs
+  factored out first (the reference's AST-level ``_factor_or``): q41's
+  ``i_manufact = i1.i_manufact`` inside both arms becomes a
+  correlation.  A subquery that runs while the text is lowered runs on
+  the session's device:
   ``sql_to_plan`` without a session raises ``SqlError`` for it.
 
 Anything else raises ``SqlError`` naming the construct, before any
 device work (a subquery may have run): ``INTERSECT ALL`` and ``EXCEPT
 ALL`` (the reference answers them as the distinct forms, which is not
 Spark's answer), ``lead`` / ``lag`` with a default other than NULL (the
-reference answers NULL at the partition's edge, Spark the default), a
-grouped ``min`` (``min`` runs over a window only), a window outside the
-select list and ORDER BY, ``collect_list`` and the moments over a
-window, a union of columns with no common type (a string and a
-number), DISTINCT calls of more than one argument, ``DISTINCT`` in
-another aggregate or over a window, a CAST from or to STRING (the
+reference answers NULL at the partition's edge, Spark the default),
+``first`` / ``last`` with an ``ignoreNulls`` argument (``true`` is no
+literal here; the DataFrame API takes it), a window outside the
+select list and ORDER BY, ``first``, ``last``, ``collect_list`` and the
+moments over a window, ``greatest`` / ``least`` of strings, the string
+functions of the reference's host loops (``replace``, ``lpad``,
+``rpad``, ``repeat``, ``initcap``, ``regexp_*``, ``locate``, ``instr``),
+``md5``, ``rand``, ``to_date``, ``length`` and the trims, a union of
+columns with no common type (a string and a number), DISTINCT calls
+of more than one argument, ``DISTINCT`` in another aggregate or over a
+window, a CAST from or to STRING (the
 reference's is a host loop), DECIMAL or TIMESTAMP, or between a DATE
 and a number, an ``INTERVAL`` of another unit than days or away from a
 DATE's ``+`` / ``-``, other date arithmetic, ``tinyint`` and
@@ -141,6 +166,7 @@ from ..expr import cast as ecast
 from ..expr import conditional as econd
 from ..expr import core as ec
 from ..expr import datetime as edt
+from ..expr import misc as emisc
 from ..expr import predicates as ep
 from ..expr import string_ops as es
 from ..expr import window_funcs as ewin
@@ -463,13 +489,17 @@ _UNSUPPORTED = {
     "all": "ALL", "rlike": "RLIKE", "timestamp": "TIMESTAMP literals",
 }
 _AGGREGATES = {"sum": eagg.Sum, "count": eagg.Count, "max": eagg.Max,
+               "min": eagg.Min, "first": eagg.First,
+               "first_value": eagg.First, "last": eagg.Last,
+               "last_value": eagg.Last,
                "avg": eagg.Average, "mean": eagg.Average,
                "stddev": eagg.StddevSamp, "stddev_samp": eagg.StddevSamp,
                "std": eagg.StddevSamp, "stddev_pop": eagg.StddevPop,
                "variance": eagg.VarianceSamp, "var_samp": eagg.VarianceSamp,
                "var_pop": eagg.VariancePop}
-#: the aggregates a window takes (``min`` only there)
-_WINDOW_AGGREGATES = {**_AGGREGATES, "min": eagg.Min}
+#: the aggregates a window takes
+_WINDOW_AGGREGATES = {n: f for n, f in _AGGREGATES.items()
+                      if not issubclass(f, eagg.First)}
 #: window functions that are no aggregate, by their argument count
 _WINDOW_FUNCTIONS = {"row_number": (0, 0), "rank": (0, 0),
                      "dense_rank": (0, 0), "percent_rank": (0, 0),
@@ -486,6 +516,16 @@ _COMPARISONS = {"=": ep.EqualTo, "<": ep.LessThan, "<=": ep.LessThanOrEqual,
                 ">": ep.GreaterThan, ">=": ep.GreaterThanOrEqual}
 _ARITHMETIC = {"+": ea.Add, "-": ea.Subtract, "*": ea.Multiply,
                "/": ea.Divide, "%": ea.Remainder}
+#: the math functions of one number, by their SQL names
+_MATH = {"sqrt": ea.Sqrt, "exp": ea.Exp, "ln": ea.Log, "log": ea.Log,
+         "log2": ea.Log2, "log10": ea.Log10, "sin": ea.Sin, "cos": ea.Cos,
+         "tan": ea.Tan, "asin": ea.Asin, "acos": ea.Acos, "atan": ea.Atan,
+         "degrees": ea.ToDegrees, "radians": ea.ToRadians,
+         "floor": ea.Floor, "ceil": ea.Ceil, "ceiling": ea.Ceil,
+         "sign": ea.Signum, "signum": ea.Signum}
+#: the functions of two numbers
+_MATH2 = {"pow": ea.Pow, "power": ea.Pow, "atan2": ea.Atan2,
+          "mod": ea.Remainder, "pmod": ea.Pmod}
 
 
 class _Parser:
@@ -930,9 +970,8 @@ class _Parser:
             except ValueError:
                 raise SqlError(f"not a DATE literal: {lit.text} (at "
                                f"{lit.pos})") from None
-        if self.at("grouping") and self._next_is("("):
-            self.advance()
-            return self.call("grouping")
+        if self.at("grouping", "first", "last") and self._next_is("("):
+            return self.call(self._word(self.advance()))
         if t.kind == "num":
             self.advance()
             txt = t.text
@@ -1144,6 +1183,34 @@ def _and(parts: List[Any]):
     for p in parts:
         out = p if out is None else BinOp("and", out, p)
     return out
+
+
+def _factor_or(a):
+    """``(A and P1) or (A and P2)`` as ``A and (P1 or P2)``, recursively:
+    exact in three-valued logic (AND distributes over OR).  The
+    reference's AST-level ``_factor_or``, run on a correlated subquery's
+    WHERE before its conjuncts are split: q41 hides its correlation
+    ``i_manufact = i1.i_manufact`` inside both arms of an OR."""
+    if isinstance(a, BinOp) and a.op == "and":
+        return BinOp("and", _factor_or(a.left), _factor_or(a.right))
+    if not (isinstance(a, BinOp) and a.op == "or"):
+        return a
+    arms = [_split(_factor_or(d), "and") for d in _split(a, "or")]
+    common = [c for c in arms[0] if all(c in arm for arm in arms[1:])]
+    if not common:
+        return a
+    rests = []
+    for arm in arms:
+        rest = list(arm)
+        for c in common:
+            rest.remove(c)
+        rests.append(_and(rest))
+    if any(r is None for r in rests):
+        return _and(common)                 # A or (A and P) is A
+    disj = rests[0]
+    for r in rests[1:]:
+        disj = BinOp("or", disj, r)
+    return _and(common + [disj])
 
 
 #: a comparison with its sides swapped
@@ -1377,9 +1444,10 @@ class _Lowerer:
                             for c, v in a.whens]
             els = self.expr(a.els, schema) if a.els is not None else None
             out = econd.CaseWhen(branches, els)
-            if out.dtype() == T.STRING:
-                raise SqlError("a string-valued CASE is not supported by "
-                               "the port")
+            try:
+                out.dtype()             # values of no common type raise
+            except ValueError as err:
+                raise SqlError(str(err)) from None
             return out
         if isinstance(a, CastE):
             out = ecast.Cast(self.expr(a.child, schema),
@@ -1417,9 +1485,6 @@ class _Lowerer:
         if isinstance(a, Call):
             if a.name in _AGGREGATES:
                 raise SqlError(f"aggregate {a.name}() is not allowed here")
-            if a.name == "min":
-                raise SqlError("min() as a grouped aggregate is not "
-                               "supported by the port (only over a window)")
             if a.name in _WINDOW_FUNCTIONS:
                 raise SqlError(f"{a.name}() needs an OVER clause")
             return self.function(a, schema)
@@ -1602,7 +1667,8 @@ class _Lowerer:
                            "supported by the port")
         inner, iscope = self.from_clause(q.from_)
         local, residual, okeys, ikeys = [], [], [], []
-        for cj in _split(q.where, "and") if q.where is not None else []:
+        for cj in _split(_factor_or(q.where), "and") \
+                if q.where is not None else []:
             try:
                 local.append(iscope.canon(cj))
                 continue
@@ -1685,7 +1751,8 @@ class _Lowerer:
                            f"aggregate expression ({err})")
         _, iscope = self.from_clause(q.from_)
         local, ikeys, okeys = [], [], []
-        for cj in _split(q.where, "and") if q.where is not None else []:
+        for cj in _split(_factor_or(q.where), "and") \
+                if q.where is not None else []:
             try:
                 iscope.canon(cj)
                 local.append(cj)
@@ -1749,7 +1816,10 @@ class _Lowerer:
                 out = econd.Coalesce(*args)
                 out.dtype()             # arguments of no common type raise
                 return out
-            out = None
+            out = self.library(n, args)
+            if out is not None:
+                out.dtype()             # arguments of no common type raise
+                return out
             if n in _DATE_FIELDS and len(args) == 1:
                 out = _DATE_FIELDS[n](args[0])
             elif n in ("date_add", "date_sub") and len(args) == 2:
@@ -1766,6 +1836,47 @@ class _Lowerer:
             raise SqlError("grouping() takes one key of GROUP BY ROLLUP, "
                            "CUBE or GROUPING SETS")
         raise SqlError(f"function {n}() is not supported by the port")
+
+    @staticmethod
+    def library(n: str, args: List[ec.Expression]) -> Optional[ec.Expression]:
+        """The numeric, conditional and null functions of the reference's
+        function table (``spark_rapids_tpu/api/sql.py``'s ``lower_func``),
+        or None for another name or arity: the math functions of numbers,
+        ``mod`` / ``pmod``, ``greatest`` / ``least`` of numbers or DATEs,
+        ``nullif``, ``if``, ``isnull`` / ``isnotnull``, ``isnan``,
+        ``nanvl`` and ``hash``."""
+        def numbers(k):
+            if len(args) != k or not all(
+                    a.dtype().is_integral or a.dtype().is_fractional or
+                    a.dtype() == T.NULL for a in args):
+                raise SqlError(f"{n}() takes {k} number"
+                               f"{'s' if k > 1 else ''}")
+        if n in _MATH:
+            numbers(1)
+            return _MATH[n](args[0])
+        if n in _MATH2:
+            numbers(2)
+            return _MATH2[n](*args)
+        if n in ("greatest", "least") and len(args) >= 2:
+            if any(a.dtype() == T.STRING for a in args):
+                raise SqlError(f"{n}() of strings is not supported by the "
+                               f"port")
+            return (ea.Greatest if n == "greatest" else ea.Least)(*args)
+        if n == "nullif" and len(args) == 2:
+            return econd.If(_comparison("=", args[0], args[1]),
+                            ec.Literal(None, args[0].dtype()), args[0])
+        if n == "if" and len(args) == 3:
+            return econd.If(*args)
+        if n in ("isnull", "isnotnull") and len(args) == 1:
+            return (ep.IsNull if n == "isnull" else ep.IsNotNull)(args[0])
+        if n == "isnan" and len(args) == 1:
+            return ep.IsNaN(args[0])
+        if n == "nanvl":
+            numbers(2)
+            return econd.NaNvl(*args)
+        if n == "hash" and args:
+            return emisc.Murmur3Hash(*args)
+        return None
 
     def agg_func(self, a: Call, schema, window: bool = False
                  ) -> eagg.AggregateFunction:
@@ -1785,9 +1896,9 @@ class _Lowerer:
             raise SqlError("nested aggregates are not allowed")
         arg = self.expr(a.args[0], schema)
         dt = arg.dtype()
-        # min of a DATE runs over a window (a grouped min is not ported);
-        # check_window_func refuses the other types
-        any_type = ("count", "max", "min") if window else ("count", "max")
+        # check_window_func refuses the types a window does not take
+        any_type = ("count", "max", "min", "first", "first_value", "last",
+                    "last_value")
         if a.name not in any_type and not (
                 dt.is_integral or dt.is_fractional) and dt != T.NULL:
             # Spark casts the input to double (null for a word that is no
@@ -1981,7 +2092,16 @@ class _Lowerer:
                     a.name.lower() in by_name:
                 a = by_name[a.name.lower()]
             else:
-                a = scope.canon(a)
+                try:
+                    a = scope.canon(a)
+                except SqlError:
+                    # select aliases inside an ORDER BY expression (q70's
+                    # ``case when lochierarchy = 0 then s_state end``):
+                    # substituted through the tree, as the reference does
+                    a = scope.canon(_transform(a, lambda n: by_name[
+                        n.name.lower()] if isinstance(n, Ident) and
+                        n.qualifier is None and n.name.lower() in by_name
+                        else n))
             orders.append((a, o))
         keys = []
         for g in q.group_by:

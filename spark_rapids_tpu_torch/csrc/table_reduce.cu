@@ -29,6 +29,17 @@
 //             the rows the same way)
 //   FSUMV   [u32 cnt, f64 sum]                     (variable float mode)
 //   FMAX    [u32 cnt, non-NaN cnt, u32 max of flip32(f32(v))]
+//   FMIN64, FMIN: FMAX64's and FMAX's sub-rows with the max word
+//             complemented (~flip64(v), ~flip32(f32(v))): the max of the
+//             complement is the min, in the same OP_MAX lanes, and an
+//             empty bucket's word stays 0 (no non-NaN word complements to
+//             0).  The reference lowers min as a max of the negated value
+//             (its `fminmax64` / `fminmax` / `iminmax` descs).
+//   FIRST   [u32 max of ~row]      LAST [u32 max of row + 1]
+//             the winning row position of the bucket's valid rows (every
+//             live row when the column has no mask: first/last with
+//             ignore_nulls false); 0 = no row.  The reference's
+//             `firstlast` desc maxes the f32 position, negated for first.
 //   SUM32, SUM64, MAX32: the TPU kernel's own raw f32/f64 sum rows and f32
 //             max rows (canonical NaN wins, as XLA's max).  Their column is
 //             a [k, n] matrix and each of its k rows is one sub-row, so k
@@ -85,7 +96,7 @@
 
 enum {
   K_COUNT = 0, K_ICOUNT, K_FSUM64, K_FMAX64, K_FSUMV, K_FMAX, K_SUM32,
-  K_SUM64, K_MAX32
+  K_SUM64, K_MAX32, K_FMIN64, K_FMIN, K_FIRST, K_LAST
 };
 enum { OP_ADD32 = 0, OP_ADD64, OP_ADDF32, OP_ADDF64, OP_MAX32, OP_MAX64 };
 
@@ -114,9 +125,13 @@ struct Plan {
 __device__ __forceinline__ int sub_op(int kind, int j) {
   switch (kind) {
     case K_ICOUNT: return OP_ADD64;
-    case K_FMAX64: return j == 2 ? OP_MAX64 : OP_ADD32;
+    case K_FMAX64:
+    case K_FMIN64: return j == 2 ? OP_MAX64 : OP_ADD32;
     case K_FSUMV: return j == 1 ? OP_ADDF64 : OP_ADD32;
-    case K_FMAX: return j == 2 ? OP_MAX32 : OP_ADD32;
+    case K_FMAX:
+    case K_FMIN: return j == 2 ? OP_MAX32 : OP_ADD32;
+    case K_FIRST:
+    case K_LAST: return OP_MAX32;
     case K_SUM32: return OP_ADDF32;
     case K_SUM64: return OP_ADDF64;
     case K_MAX32: return OP_MAX32;
@@ -208,9 +223,11 @@ __device__ __forceinline__ void add_chunks(const Slot& s, int slot, float f,
   }
 }
 
-// One valid row of one piece into its bucket's shared slots.
+// One valid row (at position `row`) of one piece into its bucket's shared
+// slots.
 __device__ __forceinline__ void apply(int kind, const Slot& s, int slot,
-                                      unsigned long long raw, int emax) {
+                                      unsigned long long raw, int emax,
+                                      long long row) {
   switch (kind) {
     case K_COUNT:
       s.add32(0, slot, 1);
@@ -233,13 +250,15 @@ __device__ __forceinline__ void apply(int kind, const Slot& s, int slot,
       }
       break;
     }
-    case K_FMAX64: {
+    case K_FMAX64:
+    case K_FMIN64: {
       double v = __longlong_as_double((long long)raw);
       if (v == 0.0) v = 0.0;
       s.add32(0, slot, 1);
       if (!isnan(v)) {
         s.add32(1, slot, 1);
-        s.max64(2, slot, flip64(v));
+        const unsigned long long w = flip64(v);
+        s.max64(2, slot, kind == K_FMAX64 ? w : ~w);
       }
       break;
     }
@@ -249,16 +268,24 @@ __device__ __forceinline__ void apply(int kind, const Slot& s, int slot,
       if (v != 0.0) s.addf64(1, slot, v);
       break;
     }
-    case K_FMAX: {
+    case K_FMAX:
+    case K_FMIN: {
       double v = __longlong_as_double((long long)raw);
       if (v == 0.0) v = 0.0;
       s.add32(0, slot, 1);
       if (!isnan(v)) {
         s.add32(1, slot, 1);
-        s.max32(2, slot, flip32(__double2float_rn(v)));
+        const unsigned w = flip32(__double2float_rn(v));
+        s.max32(2, slot, kind == K_FMAX ? w : ~w);
       }
       break;
     }
+    case K_FIRST:
+      s.max32(0, slot, ~(unsigned)row);
+      break;
+    case K_LAST:
+      s.max32(0, slot, (unsigned)row + 1u);
+      break;
   }
 }
 
@@ -416,7 +443,7 @@ table_stage_kernel(const int* __restrict__ bucket, long long n, int table,
 #pragma unroll
         for (int k = 0; k < V; ++k)
           if (slot[k] >= 0 && ok[q][k]) apply(kind, s, slot[k], raw[q][k],
-                                               semax[q]);
+                                               semax[q], i + k);
       }
     }
   }

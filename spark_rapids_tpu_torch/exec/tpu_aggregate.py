@@ -18,9 +18,17 @@ arrays beside its reduce kernel:
   float order (``flip64``).  The reference's two-stage u32 max of the
   f32 pair hi + lo ranks the rows the same way but keeps about 48 bits
   of the winner, so ``x = max(x)`` missed the row it came from; the H100
-  has f64.  An integer max takes the same word for a magnitude of at
-  most 2^48 (the pair form's bound); a batch with a larger one runs the
-  sort path.
+  has f64.  An integer or DATE max takes the same word for a magnitude
+  of at most 2^48 (the pair form's bound); a batch with a larger one
+  runs the sort path.  A min maxes the complemented word (``fmin64``;
+  the reference's ``fminmax64`` / ``iminmax``), NaN only where every
+  value is NaN;
+- first / last (the reference's ``firstlast``): the max of each row's
+  complemented (first) or plain (last) position over the valid rows, or
+  over every live row with ``ignore_nulls`` false; the finish gathers
+  the winning row's value.  Merging partials, which are concatenated
+  in order, takes the earlier partial's first and the later one's last.
+  A STRING first / last or min runs the sort path, as in the reference.
 
 The batch's largest exponent and the fit conditions stay torch ops
 before the launch.  A device fit flag says whether the batch fit the
@@ -34,8 +42,8 @@ takes its maxes in f32.
 An ``avg`` over a fractional column takes the table core too (the
 reference's ``favg64`` / ``avg``): its f64 sum row gives the sum and
 that row's count the count; merging partials sums buffer 0 and adds the
-counts of buffer 1.  Integer inputs other than max, and the moments,
-take the sort path, as in the reference.
+counts of buffer 1.  Integer sums and averages, and the moments, take
+the sort path, as in the reference.
 
 A string group key never enters the table core: its batches take the
 sort path, and its output keys are gathered from one row per group.  An
@@ -250,6 +258,7 @@ class TpuHashAggregate(TpuExec):
             f = a.func
             cdt = bs[0].dtype() if bs else None
             frac = cdt is not None and cdt.is_fractional
+            fixed = frac or (cdt is not None and _key_ok(cdt))
             if isinstance(f, ea.Count):
                 kind = "count" if update else "icount"
                 descs.append((kind, [(kind, 0)]))
@@ -258,12 +267,15 @@ class TpuHashAggregate(TpuExec):
             elif isinstance(f, ea.Average) and frac:
                 descs.append(("avg", [(fsum, 0)] if update else
                               [(fsum, 0), ("icount", 1)]))
-            elif isinstance(f, ea.Max) and frac:
-                kind = "fmax" if self.variable_float else "fmax64"
+            elif isinstance(f, (ea.Max, ea.Min)) and fixed and \
+                    cdt != T.BOOL:
+                kind = ("fmax" if isinstance(f, ea.Max) else "fmin") + \
+                    ("" if frac and self.variable_float else "64")
                 descs.append((kind, [(kind, 0)]))
-            elif isinstance(f, ea.Max) and cdt is not None and \
-                    cdt.is_integral:
-                descs.append(("fmax64", [("fmax64", 0)]))
+            elif isinstance(f, ea.First) and fixed:
+                kind = ("last" if f.last else "first") + \
+                    ("" if f.ignore_nulls else "_all")
+                descs.append((kind, [(kind, 0)]))
             else:
                 return None
         return descs
@@ -272,6 +284,10 @@ class TpuHashAggregate(TpuExec):
     def _stage_col(kind: str, c: Column, live: torch.Tensor):
         """(the stage's input column for one aggregate, its fit flag)."""
         valid = c.validity.contiguous()
+        if kind.startswith(("first", "last")):
+            # positions need no column; "_all" counts every live row
+            return StageCol(kind.split("_")[0], None, None if
+                            kind.endswith("_all") else valid), True
         if kind in ("count", "icount"):
             data = c.data.to(torch.int64).contiguous() \
                 if kind == "icount" else None
@@ -292,9 +308,10 @@ class TpuHashAggregate(TpuExec):
             # exponent spread beyond the window -> exact sort path
             fit = fit & ((emax - emin) <= CH_W0 - 25)
             return StageCol(kind, v, valid, emax), fit
-        # fmax: a finite f64 whose f32 overflows would alias inf
+        # fmax / fmin: a finite f64 whose f32 overflows would alias inf
         fit = torch.where(ok & torch.isfinite(v), torch.isfinite(
-            v.to(torch.float32)), True).all() if kind == "fmax" else True
+            v.to(torch.float32)), True).all() \
+            if kind in ("fmax", "fmin") else True
         if c.dtype == T.INT64:
             fit = fit & torch.where(ok, (c.data >= -INT_MAX_EXACT) &
                                     (c.data <= INT_MAX_EXACT), True).all()
@@ -383,6 +400,11 @@ class TpuHashAggregate(TpuExec):
         for ai, (kind, stages) in enumerate(descs):
             slot = slots[ai][0]
             t = tabs[slot]
+            if kind.startswith(("first", "last")):
+                pos = compact(t[0])
+                has = (pos >= 0) & live_g
+                out_cols.append(icols[ai][0].gather(pos, has))
+                continue
             if kind in ("count", "icount"):
                 data = torch.where(live_g, compact(t[0]), 0)
                 out_cols.append(Column(T.INT64, data.to(torch.int64),
@@ -402,12 +424,17 @@ class TpuHashAggregate(TpuExec):
                 out_cols.append(Column(T.FLOAT64, fsum(slot, kind), valid))
             else:
                 nnv = compact(t[1])
-                if kind == "fmax":
-                    m = compact(t[2]).to(torch.float64)
+                w = compact(t[2])
+                if kind in ("fmax", "fmin"):
+                    m = w.to(torch.float64)
                 else:
-                    m = unflip64(compact(t[2]))
-                # any NaN in the group wins
-                m = torch.where(cntv > nnv, float("nan"), m)
+                    m = unflip64(w if kind == "fmax64" else ~w)
+                if kind.startswith("fmax"):
+                    # any NaN in the group wins
+                    m = torch.where(cntv > nnv, float("nan"), m)
+                else:
+                    # NaN is the min only of a group of NaNs
+                    m = torch.where(nnv > 0, m, float("nan"))
                 dt = self.aggs[ai].func.buffer_dtypes()[0]
                 out_cols.append(Column(dt, m.to(dt.torch_dtype), valid))
         out = ColumnarBatch(buffer_schema(self.group_exprs, self.aggs),

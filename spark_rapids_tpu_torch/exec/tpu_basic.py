@@ -15,6 +15,7 @@ from ..columnar.batch import ColumnarBatch
 from ..columnar.schema import Field, Schema
 from ..expr import core as ec
 from ..expr.cast import Cast, can_widen
+from ..expr.misc import TaskContext, needs_task
 from ..kernels.basic import compact_indices
 
 Partitions = List[List[ColumnarBatch]]
@@ -68,6 +69,24 @@ def apply_ops_masked(pre_ops, batch: ColumnarBatch, live: torch.Tensor):
             cols = [ec.eval_as_column(e, b) for e in payload]
             b = MaskedBatch(out_schema, cols, b.capacity, b.device)
     return b, live
+
+
+def task_batches(parts: Partitions, exprs) -> Partitions:
+    """``parts`` as they are, or, where an expression of ``exprs`` reads
+    its task (``expr/misc``), each batch as a view that carries its
+    ``TaskContext``: the partition's index and the rows before it."""
+    if not any(needs_task(e) for e in exprs):
+        return parts
+    out = []
+    for pi, part in enumerate(parts):
+        views, start = [], 0
+        for b in part:
+            v = ColumnarBatch(b.schema, b.columns, b.rows, device=b.device)
+            v.task_context = TaskContext(pi, start)
+            start = start + b.rows
+            views.append(v)
+        out.append(views)
+    return out
 
 
 class TpuLocalScan(TpuExec):
@@ -133,7 +152,7 @@ class TpuProject(TpuExec):
         bound = [e.bind(in_schema) for e in self.exprs]
         out_schema = self.output_schema
         out = []
-        for part in self.children[0].execute():
+        for part in task_batches(self.children[0].execute(), bound):
             res = []
             for b in part:
                 cols = [ec.eval_as_column(e, b) for e in bound]
@@ -161,7 +180,7 @@ class TpuFilter(TpuExec):
     def execute(self) -> Partitions:
         bound = self.condition.bind(self.children[0].output_schema)
         out = []
-        for part in self.children[0].execute():
+        for part in task_batches(self.children[0].execute(), [bound]):
             res = []
             for b in part:
                 pred = ec.eval_as_column(bound, b)

@@ -241,10 +241,14 @@ class TpuHashJoinBase(TpuExec):
             if flags is not None:
                 join_k.mark_matched(flags, b_idx, keep)
             if how not in ("semi", "anti"):
+                # the surviving pairs at their own capacity: a chunk may
+                # keep few of its pairs (q72's keeps ~5%), and the chunks
+                # of a batch all wait for the next operator
                 idx, kept = compact_indices(keep, n)
-                yield ColumnarBatch(self.output_schema,
-                                    pairs.gather(idx, kept).columns, kept,
-                                    device=self.device)
+                kept = int(kept)
+                yield ColumnarBatch(self.output_schema, pairs.gather(
+                    idx[:bucket_capacity(kept)], kept).columns, kept,
+                    device=self.device)
         surv = surv[:-1]
         if how == "semi":
             yield self._select(sb, surv)

@@ -1,5 +1,5 @@
-"""Aggregate functions: sum, count, max (also of strings), avg and the
-central moments; ``min`` over a window only.
+"""Aggregate functions: sum, count, min and max (also of strings),
+first and last, avg and the central moments.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``.  Each function
 declares its partial buffers, how a batch updates them (``update``), how
@@ -108,17 +108,64 @@ class Max(AggregateFunction):
 
 
 class Min(AggregateFunction):
-    """min, as a window function (``exec/tpu_window.py`` reduces it); a
-    grouped ``min`` is not ported, and raises before any device work."""
+    """min; of a string column, the smallest string in byte order (the
+    reverse of ``Max``'s); of doubles, NaN only where every value is
+    NaN (Spark's order puts it above every number)."""
 
     def dtype(self):
         return self.children[0].dtype()
 
     def update(self, plan, cols):
-        raise NotImplementedError("min() as a grouped aggregate is not "
-                                  "ported (only over a window)")
+        c = cols[0]
+        if isinstance(c, StringColumn):
+            rows = agg_k.seg_argmax_words(
+                plan, string_key_words(c), c.validity, largest=False)
+            return [c.gather(rows.clamp(min=0), rows >= 0)]
+        m = agg_k.seg_min(plan, c.data, c.validity)
+        cnt = agg_k.seg_count(plan, c.validity)
+        return [Column(self.dtype(), m.to(self.dtype().torch_dtype),
+                       cnt > 0)]
 
-    merge = update
+    def merge(self, plan, buffers):
+        return self.update(plan, buffers)
+
+
+class First(AggregateFunction):
+    """first(x[, ignore_nulls]): the value of a group's first row in
+    input order, or of its first non-null row with ``ignore_nulls``.
+    Spark's default keeps nulls (``ignoreNulls = false``); the
+    reference's skips them.  Merging partials takes them in order, the
+    earlier partial's value first (the reference's ``merge = update``).
+    Spark fixes no row order across an exchange."""
+    last = False
+
+    def __init__(self, child: Optional[Expression] = None,
+                 ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def dtype(self):
+        return self.children[0].dtype()
+
+    def update(self, plan, cols):
+        c = cols[0]
+        rows, has = agg_k.seg_first_index(plan, c.validity,
+                                          self.ignore_nulls, self.last)
+        return [c.gather(rows, has)]
+
+    def merge(self, plan, buffers):
+        return self.update(plan, buffers)
+
+    def __repr__(self):
+        name = "last" if self.last else "first"
+        flag = "" if self.ignore_nulls else ", false"
+        return f"{name}({self.children[0]!r}{flag})"
+
+
+class Last(First):
+    """last(x[, ignore_nulls]): the value of a group's last row (last
+    non-null row) in input order; merging takes the later partial's."""
+    last = True
 
 
 class Average(AggregateFunction):

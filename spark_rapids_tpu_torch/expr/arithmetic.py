@@ -1,18 +1,34 @@
-"""Arithmetic: +, -, *, /, %, unary minus, ``abs`` and ``round`` with
-Spark's null and type rules.
+"""Arithmetic and math: +, -, *, /, ``div``, %, ``pmod``, unary minus
+and plus, ``abs``, ``round``, the double-valued math functions,
+``signum``, ``floor``, ``ceil``, ``pow``, ``atan2``, ``greatest``,
+``least``, and the bitwise and shift operators, with Spark's null and
+type rules.
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``.  Operands promote
 to their common type (int < bigint < float < double); ``/`` is always
-double; a null operand gives null, and so does a zero divisor of ``/``
-and ``%``.  Integer results wrap (two's complement), as in non-ANSI
-Spark.
+double; a null operand gives null, and so does a zero divisor of ``/``,
+``div``, ``%`` and ``pmod``.  Integer results wrap (two's complement), as
+in non-ANSI Spark.
+
+Four answers are Spark's where the reference's are not: an integer
+quotient or remainder is exact (the reference truncates an f64 division,
+inexact past 2^53); ``pmod`` with a negative divisor is Spark's ``(r +
+n) % n`` (the reference adds ``|n|``: ``pmod(-7, -3)`` is 2 there, -1 in
+Spark); a logarithm at or below its asymptote is null (the reference's
+``ln(0)`` is -inf); and ``greatest`` / ``least`` order a NaN above
+every number (the reference never takes a NaN after the first
+argument).
 """
 from __future__ import annotations
+
+import math
+from typing import Callable
 
 import torch
 
 from ..columnar import dtypes as T
 from ..columnar.column import Column
+from .cast import _float_to_int
 from .core import Expression, eval_as_column
 
 
@@ -87,6 +103,22 @@ class Divide(BinaryArithmetic):
         return b == 0
 
 
+class IntegralDivide(BinaryArithmetic):
+    """Spark's ``div``: a bigint quotient truncated toward zero, exact on
+    the int64 values; a zero divisor gives null."""
+    symbol = "div"
+
+    def result_type(self, lt, rt):
+        return T.INT64
+
+    def op(self, a, b):
+        safe_b = torch.where(b == 0, torch.ones_like(b), b)
+        return torch.div(a, safe_b, rounding_mode="trunc")
+
+    def extra_null_mask(self, a, b):
+        return b == 0
+
+
 class Remainder(BinaryArithmetic):
     """Java remainder: the sign follows the dividend; a zero divisor
     gives null."""
@@ -100,37 +132,145 @@ class Remainder(BinaryArithmetic):
         return b == 0
 
 
-class UnaryMinus(Expression):
+class Pmod(BinaryArithmetic):
+    """Spark's ``pmod(a, n)``: ``r = a % n``, and ``(r + n) % n`` where
+    ``r`` is negative (Java remainders throughout); a zero divisor gives
+    null."""
+    symbol = "pmod"
+
+    def op(self, a, b):
+        safe_b = torch.where(b == 0, torch.ones_like(b), b)
+        r = torch.fmod(a, safe_b)
+        return torch.where(r < 0, torch.fmod(r + safe_b, safe_b), r)
+
+    def extra_null_mask(self, a, b):
+        return b == 0
+
+    def __repr__(self):
+        return f"pmod({self.children[0]!r}, {self.children[1]!r})"
+
+
+class UnaryExpression(Expression):
+    """A function of one column, row by row, nulls kept: ``op`` maps the
+    child's data to the data of ``dtype()``."""
+
     def __init__(self, child: Expression):
         self.children = [child]
 
     def dtype(self):
         return self.children[0].dtype()
 
+    def op(self, a: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
     def columnar_eval(self, batch):
         c = eval_as_column(self.children[0], batch)
-        return Column(c.dtype, -c.data, c.validity)
+        return Column(self.dtype(), self.op(c.data), c.validity)
+
+    def __repr__(self):
+        return f"{type(self).__name__.lower()}({self.children[0]!r})"
+
+
+class UnaryMinus(UnaryExpression):
+    def op(self, a):
+        return -a
 
     def __repr__(self):
         return f"(- {self.children[0]!r})"
 
 
-class Abs(Expression):
+class UnaryPositive(UnaryExpression):
+    def op(self, a):
+        return a
+
+
+class Abs(UnaryExpression):
     """``abs(x)`` of a number, in its own type (the most negative integer
     wraps to itself, as in non-ANSI Spark)."""
 
-    def __init__(self, child: Expression):
-        self.children = [child]
+    def op(self, a):
+        return a.abs()
+
+
+class _MathUnary(UnaryExpression):
+    """A double-valued function of a number (``fn`` over its f64 value).
+    The logarithms are null at or below their asymptote (``floor``:
+    Spark's ``UnaryLogExpression``; the reference answers -inf or NaN)."""
+    fn: Callable = staticmethod(torch.sqrt)
+    floor = None
 
     def dtype(self):
-        return self.children[0].dtype()
+        return T.FLOAT64
 
     def columnar_eval(self, batch):
         c = eval_as_column(self.children[0], batch)
-        return Column(c.dtype, c.data.abs(), c.validity)
+        x = c.data.to(torch.float64)
+        valid = c.validity if self.floor is None else \
+            c.validity & (x > self.floor)
+        return Column(T.FLOAT64, type(self).fn(x), valid)
 
-    def __repr__(self):
-        return f"abs({self.children[0]!r})"
+
+def _make_math(name: str, fn, floor=None) -> type:
+    return type(name, (_MathUnary,), {"fn": staticmethod(fn),
+                                      "floor": floor})
+
+
+Sqrt = _make_math("Sqrt", torch.sqrt)
+Exp = _make_math("Exp", torch.exp)
+Expm1 = _make_math("Expm1", torch.expm1)
+Log = _make_math("Log", torch.log, 0.0)
+Log1p = _make_math("Log1p", torch.log1p, -1.0)
+Log2 = _make_math("Log2", torch.log2, 0.0)
+Log10 = _make_math("Log10", torch.log10, 0.0)
+Sin = _make_math("Sin", torch.sin)
+Cos = _make_math("Cos", torch.cos)
+Tan = _make_math("Tan", torch.tan)
+Asin = _make_math("Asin", torch.asin)
+Acos = _make_math("Acos", torch.acos)
+Atan = _make_math("Atan", torch.atan)
+Sinh = _make_math("Sinh", torch.sinh)
+Cosh = _make_math("Cosh", torch.cosh)
+Tanh = _make_math("Tanh", torch.tanh)
+Asinh = _make_math("Asinh", torch.asinh)
+Acosh = _make_math("Acosh", torch.acosh)
+Atanh = _make_math("Atanh", torch.atanh)
+Cbrt = _make_math("Cbrt", lambda a: torch.sign(a) * a.abs().pow(1.0 / 3))
+ToDegrees = _make_math("ToDegrees", lambda a: a * (180.0 / math.pi))
+ToRadians = _make_math("ToRadians", lambda a: a * (math.pi / 180.0))
+Rint = _make_math("Rint", torch.round)
+
+
+class Signum(UnaryExpression):
+    """-1.0, 0.0 or 1.0 as a double (NaN stays NaN)."""
+
+    def dtype(self):
+        return T.FLOAT64
+
+    def op(self, a):
+        return torch.sign(a.to(torch.float64))
+
+
+class Floor(UnaryExpression):
+    """An integer unchanged; a float's floor as a bigint (Spark's cast:
+    NaN gives 0, the value saturates)."""
+
+    def dtype(self):
+        ct = self.children[0].dtype()
+        return ct if ct.is_integral else T.INT64
+
+    def op(self, a):
+        if not a.is_floating_point():
+            return a
+        return _float_to_int(torch.floor(a.to(torch.float64)), T.INT64)
+
+
+class Ceil(Floor):
+    """An integer unchanged; a float's ceiling as a bigint."""
+
+    def op(self, a):
+        if not a.is_floating_point():
+            return a
+        return _float_to_int(torch.ceil(a.to(torch.float64)), T.INT64)
 
 
 class Round(Expression):
@@ -157,3 +297,146 @@ class Round(Expression):
 
     def __repr__(self):
         return f"round({self.children[0]!r}, {self.scale})"
+
+
+class Pow(BinaryArithmetic):
+    """``pow(a, b)`` in double."""
+    symbol = "**"
+
+    def result_type(self, lt, rt):
+        return T.FLOAT64
+
+    def op(self, a, b):
+        return torch.pow(a, b)
+
+
+class Atan2(BinaryArithmetic):
+    symbol = "atan2"
+
+    def result_type(self, lt, rt):
+        return T.FLOAT64
+
+    def op(self, a, b):
+        return torch.atan2(a, b)
+
+    def __repr__(self):
+        return f"atan2({self.children[0]!r}, {self.children[1]!r})"
+
+
+class Greatest(Expression):
+    """The largest non-null argument, in the arguments' common type
+    (null only where every argument is); a NaN is the largest double."""
+    take_larger = True
+
+    def __init__(self, *children: Expression):
+        self.children = list(children)
+
+    def dtype(self):
+        dt = self.children[0].dtype()
+        for c in self.children[1:]:
+            dt = T.common_type(dt, c.dtype())
+        return dt
+
+    def _beats(self, a, best):
+        if a.is_floating_point():
+            # Spark's order: NaN above every number
+            an, bn = torch.isnan(a), torch.isnan(best)
+            gt = (a > best) | (an & ~bn)
+            lt = (a < best) | (bn & ~an)
+        else:
+            gt, lt = a > best, a < best
+        return gt if self.take_larger else lt
+
+    def columnar_eval(self, batch):
+        out_t = self.dtype()
+        best = bestv = None
+        for ch in self.children:
+            c = eval_as_column(ch, batch)
+            a = c.data.to(out_t.torch_dtype)
+            if best is None:
+                best, bestv = a, c.validity
+                continue
+            take = c.validity & (~bestv | self._beats(a, best))
+            best = torch.where(take, a, best)
+            bestv = bestv | c.validity
+        return Column(out_t, best, bestv)
+
+    def __repr__(self):
+        name = "greatest" if self.take_larger else "least"
+        return f"{name}({', '.join(map(repr, self.children))})"
+
+
+class Least(Greatest):
+    """The smallest non-null argument (a NaN only where it is the only
+    value)."""
+    take_larger = False
+
+
+class BitwiseAnd(BinaryArithmetic):
+    symbol = "&"
+
+    def op(self, a, b):
+        return a & b
+
+
+class BitwiseOr(BinaryArithmetic):
+    symbol = "|"
+
+    def op(self, a, b):
+        return a | b
+
+
+class BitwiseXor(BinaryArithmetic):
+    symbol = "^"
+
+    def op(self, a, b):
+        return a ^ b
+
+
+class BitwiseNot(UnaryExpression):
+    def op(self, a):
+        return ~a
+
+
+class _Shift(BinaryArithmetic):
+    """A shift of the left operand by the right one modulo its width, in
+    the left operand's type (Java's rule)."""
+
+    def result_type(self, lt, rt):
+        return lt
+
+    def columnar_eval(self, batch):
+        lc = eval_as_column(self.children[0], batch)
+        rc = eval_as_column(self.children[1], batch)
+        bits = 64 if lc.data.dtype == torch.int64 else 32
+        n = rc.data.to(torch.int64) & (bits - 1)
+        return Column(lc.dtype, self.shift(lc.data.to(torch.int64), n, bits)
+                      .to(lc.data.dtype), lc.validity & rc.validity)
+
+
+class ShiftLeft(_Shift):
+    symbol = "<<"
+
+    @staticmethod
+    def shift(a, n, bits):
+        return a << n              # an int32 result wraps in the cast
+
+
+class ShiftRight(_Shift):
+    symbol = ">>"
+
+    @staticmethod
+    def shift(a, n, bits):
+        return a >> n
+
+
+class ShiftRightUnsigned(_Shift):
+    symbol = ">>>"
+
+    @staticmethod
+    def shift(a, n, bits):
+        if bits == 32:
+            return (a & 0xFFFFFFFF) >> n
+        # int64: an arithmetic shift with the copies of the sign cleared
+        keep = (torch.ones_like(a) << (64 - n).clamp(max=63)) - 1
+        return torch.where(n == 0, a, (a >> n) & keep)

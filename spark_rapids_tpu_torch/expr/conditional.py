@@ -1,13 +1,15 @@
-"""Conditional expressions: If, CaseWhen, Coalesce and Nvl.
+"""Conditional expressions: If, CaseWhen, Coalesce, Nvl and NaNvl.
 
-Counterpart of ``spark_rapids_tpu/expr/conditional.py`` for fixed-width
-results, DATE ones included (q51's ``case when web.d_date is not null
-then web.d_date else store.d_date end``; the port has no string-valued
-CASE), and a string ``coalesce`` (the null-safe keys of INTERSECT and
-EXCEPT).  The result type is the
-common type of the value branches, a bare ``NULL`` taking the others'
-type (``_result_dtype``); branches are chosen row by row with
-``torch.where``, the first true condition winning (``_select_columns``).
+Counterpart of ``spark_rapids_tpu/expr/conditional.py``.  The result
+type is the common type of the value branches, a bare ``NULL`` taking
+the others' type (``_result_dtype``); each row takes the value of its
+first true condition.  Fixed-width values (DATEs included: q51's ``case
+when web.d_date is not null then web.d_date else store.d_date end``)
+are chosen with ``torch.where`` (``_select_columns``); STRING values
+(q70's ``case when grouping(s_county) = 0 then s_state end``) by one
+gather of each row's source string from the chosen branch
+(``_select_strings`` over ``strings.choose_rows``, the reference's
+``_select_strings``).
 """
 from __future__ import annotations
 
@@ -31,9 +33,10 @@ def _result_dtype(exprs: List[Expression]) -> T.DType:
     return dt if dt is not None else T.NULL
 
 
-def _check_fixed_width(out_t: T.DType, what: str) -> None:
-    if out_t == T.STRING:
-        raise NotImplementedError(f"a string-valued {what} is not ported")
+def _is_null(val: Expression) -> bool:
+    """A bare ``NULL``, or a NULL literal of a type (``nullif``'s)."""
+    return val.dtype() == T.NULL or (isinstance(val, Literal) and
+                                     val.value is None)
 
 
 def _select_columns(branches, batch, out_t: T.DType):
@@ -47,7 +50,7 @@ def _select_columns(branches, batch, out_t: T.DType):
     for cond, val in branches:
         take = cond & ~decided
         decided = decided | cond
-        if val.dtype() == T.NULL:
+        if _is_null(val):
             valid = valid & ~take
             continue
         if isinstance(val, Literal):
@@ -59,6 +62,31 @@ def _select_columns(branches, batch, out_t: T.DType):
         data = torch.where(take, c.data.to(out_t.torch_dtype), data)
         valid = torch.where(take, c.validity, valid)
     return data, valid
+
+
+def _select_strings(branches, batch):
+    """``_select_columns`` of STRING values: each row's branch index and
+    validity, then one gather of the rows' bytes from the branches'
+    columns (``strings.choose_rows``)."""
+    dev = batch.device
+    which = torch.zeros(batch.capacity, dtype=torch.int64, device=dev)
+    valid = torch.zeros(batch.capacity, dtype=torch.bool, device=dev)
+    decided = torch.zeros_like(valid)
+    cols = []
+    for cond, val in branches:
+        take = cond & ~decided
+        decided = decided | cond
+        if _is_null(val):
+            valid = valid & ~take
+            continue
+        c = eval_as_column(val, batch)
+        which = torch.where(take, len(cols), which)
+        valid = torch.where(take, c.validity, valid)
+        cols.append(c)
+    if not cols:
+        return Literal(None, T.STRING).columnar_eval(batch).to_column(
+            batch.capacity, dev)
+    return strings.choose_rows(cols, which, valid)
 
 
 def _scalar_of(value, out_t: T.DType):
@@ -83,10 +111,11 @@ class If(Expression):
 
     def columnar_eval(self, batch):
         out_t = self.dtype()
-        _check_fixed_width(out_t, "IF")
         p = _truth(self.children[0], batch)
-        data, valid = _select_columns(
-            [(p, self.children[1]), (~p, self.children[2])], batch, out_t)
+        branches = [(p, self.children[1]), (~p, self.children[2])]
+        if out_t == T.STRING:
+            return _select_strings(branches, batch)
+        data, valid = _select_columns(branches, batch, out_t)
         return Column(out_t, data, valid)
 
     def __repr__(self):
@@ -121,11 +150,12 @@ class CaseWhen(Expression):
 
     def columnar_eval(self, batch):
         out_t = self.dtype()
-        _check_fixed_width(out_t, "CASE")
         sel = [(_truth(c, batch), v) for c, v in self.branches]
         if self.else_value is not None:
             sel.append((torch.ones(batch.capacity, dtype=torch.bool,
                                    device=batch.device), self.else_value))
+        if out_t == T.STRING:
+            return _select_strings(sel, batch)
         data, valid = _select_columns(sel, batch, out_t)
         return Column(out_t, data, valid)
 
@@ -153,7 +183,7 @@ class Coalesce(Expression):
         data = torch.zeros(cap, dtype=out_t.torch_dtype, device=batch.device)
         valid = torch.zeros(cap, dtype=torch.bool, device=batch.device)
         for ch in self.children:
-            if ch.dtype() == T.NULL:
+            if _is_null(ch):
                 continue
             c = eval_as_column(ch, batch)
             take = c.validity & ~valid
@@ -181,3 +211,27 @@ class Coalesce(Expression):
 
 def Nvl(a: Expression, b: Expression) -> Coalesce:
     return Coalesce(a, b)
+
+
+class NaNvl(Expression):
+    """``nanvl(a, b)``: ``a`` unless ``a`` is NaN, then ``b``."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = [left, right]
+
+    def dtype(self):
+        return T.common_type(self.children[0].dtype(),
+                             self.children[1].dtype())
+
+    def columnar_eval(self, batch):
+        out_t = self.dtype()
+        ac, bc = (eval_as_column(c, batch) for c in self.children)
+        a = ac.data.to(out_t.torch_dtype)
+        b = bc.data.to(out_t.torch_dtype)
+        use_b = torch.isnan(a) & ac.validity if a.is_floating_point() \
+            else torch.zeros_like(ac.validity)
+        return Column(out_t, torch.where(use_b, b, a),
+                      torch.where(use_b, bc.validity, ac.validity))
+
+    def __repr__(self):
+        return f"nanvl({self.children[0]!r}, {self.children[1]!r})"

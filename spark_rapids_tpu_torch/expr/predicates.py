@@ -45,14 +45,16 @@ class BinaryComparison(Expression):
         raise NotImplementedError
 
     def _string_eval(self, batch):
+        """(result, left validity, right validity) of strings."""
         left, right = self.children
         if isinstance(left, Literal):
             left, right = right, left
-        if isinstance(self, EqualTo) and isinstance(right, Literal) and \
+        if type(self) is EqualTo and isinstance(right, Literal) and \
                 right.value is not None and not isinstance(left, Literal):
             c = eval_as_column(left, batch)
             lit = strings.held_literal(self._lits, right.value)
-            return Column(T.BOOL, strings.equal_literal(c, lit), c.validity)
+            return strings.equal_literal(c, lit), c.validity, \
+                torch.ones_like(c.validity)
         left, right = self.children
         lc = eval_as_column(left, batch)
         rc = eval_as_column(right, batch)
@@ -65,9 +67,18 @@ class BinaryComparison(Expression):
         eq = torch.ones_like(lt)
         for a, b in zip(lw, rw):
             eq = eq & (a == b)
-        return Column(T.BOOL, self.compare(lt, eq), lc.validity & rc.validity)
+        return self.compare(lt, eq), lc.validity, rc.validity
 
     def columnar_eval(self, batch):
+        res, lv, rv = self._eval(batch)
+        return Column(T.BOOL, res, lv & rv)
+
+    def _eval(self, batch):
+        """(result where both sides are valid, left validity, right
+        validity)."""
+        if T.NULL in (self.children[0].dtype(), self.children[1].dtype()):
+            lc, rc = (eval_as_column(c, batch) for c in self.children)
+            return torch.zeros_like(lc.validity), lc.validity, rc.validity
         if T.STRING in (self.children[0].dtype(), self.children[1].dtype()):
             if self.children[0].dtype() != self.children[1].dtype():
                 raise NotImplementedError(
@@ -85,7 +96,7 @@ class BinaryComparison(Expression):
         else:
             lt = a < b
             eq = a == b
-        return Column(T.BOOL, self.compare(lt, eq), lc.validity & rc.validity)
+        return self.compare(lt, eq), lc.validity, rc.validity
 
     def __repr__(self):
         return f"({self.children[0]!r} {self.symbol} {self.children[1]!r})"
@@ -124,6 +135,20 @@ class LessThanOrEqual(BinaryComparison):
 
     def compare(self, lt, eq):
         return lt | eq
+
+
+class EqualNullSafe(BinaryComparison):
+    """``<=>``: two nulls are equal, a null and a value are not; never
+    null."""
+    symbol = "<=>"
+
+    def compare(self, lt, eq):
+        return eq
+
+    def columnar_eval(self, batch):
+        eq, lv, rv = self._eval(batch)
+        out = torch.where(~lv & ~rv, True, eq & lv & rv)
+        return Column(T.BOOL, out, torch.ones_like(out))
 
 
 class Not(Expression):
@@ -219,6 +244,30 @@ class IsNotNull(Expression):
 
     def __repr__(self):
         return f"isnotnull({self.children[0]!r})"
+
+
+class IsNaN(Expression):
+    """True for a NaN double; false for a number, a null or a non-float
+    type (never null)."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def dtype(self):
+        return T.BOOL
+
+    @property
+    def nullable(self):
+        return False
+
+    def columnar_eval(self, batch):
+        c = eval_as_column(self.children[0], batch)
+        nan = torch.isnan(c.data) if c.data.is_floating_point() else \
+            torch.zeros_like(c.validity)
+        return Column(T.BOOL, nan & c.validity, torch.ones_like(c.validity))
+
+    def __repr__(self):
+        return f"isnan({self.children[0]!r})"
 
 
 class In(Expression):

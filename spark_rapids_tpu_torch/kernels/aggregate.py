@@ -179,24 +179,68 @@ def seg_max(plan: GroupPlan, values, validity):
                              include_self=True)
 
 
+def seg_min(plan: GroupPlan, values, validity):
+    """Per-group min of the valid values.  Spark's order: a NaN is the
+    largest double, so it is the min only of a group of NaNs; -0.0 ==
+    0.0."""
+    cap = values.shape[0]
+    v, ok = _sorted_vals(plan, values, validity)
+    if v.is_floating_point():
+        v = torch.where(v == 0.0, torch.zeros_like(v), v)
+        num = ok & ~torch.isnan(v)
+        contrib = torch.where(num, v, float("inf"))
+        m = torch.full((cap,), float("inf"), dtype=v.dtype, device=v.device)
+        m.scatter_reduce_(0, plan.seg_id, contrib, "amin", include_self=True)
+        has_num = seg_prefix_sum(plan, num.to(torch.int64)) > 0
+        return torch.where(has_num, m, float("nan"))
+    ident = torch.iinfo(v.dtype).max if v.dtype != torch.bool else True
+    contrib = torch.where(ok, v, torch.full_like(v, ident))
+    m = torch.full((cap,), ident, dtype=v.dtype, device=v.device)
+    return m.scatter_reduce_(0, plan.seg_id, contrib, "amin",
+                             include_self=True)
+
+
+def seg_first_index(plan: GroupPlan, validity: torch.Tensor,
+                    ignore_nulls: bool = True, last: bool = False):
+    """Per group: the input row of its first (``last``: its last) row,
+    valid rows only unless ``ignore_nulls`` is False, and whether the
+    group has one.  The sort is stable, so a group's rows keep their
+    input order: the first is the smallest sorted position."""
+    cap = validity.shape[0]
+    ok = plan.live_sorted
+    if ignore_nulls:
+        ok = ok & validity[plan.perm]
+    pos = torch.arange(cap, device=validity.device)
+    none = -1 if last else cap
+    best = torch.full((cap,), none, dtype=torch.int64,
+                      device=validity.device)
+    best.scatter_reduce_(0, plan.seg_id, torch.where(ok, pos, none),
+                         "amax" if last else "amin", include_self=True)
+    has = best != none
+    return plan.perm[best.clamp(0, cap - 1)], has
+
+
 def seg_argmax_words(plan: GroupPlan, words: List[torch.Tensor],
-                     validity: torch.Tensor) -> torch.Tensor:
-    """Per group: the input row whose word tuple is the largest of its
-    valid rows in unsigned lexicographic order (a string's key words give
-    byte order), or -1 where the group has none.  Each row's rank in one
-    stable sort of the words is maxed per segment, and the best rank maps
-    back to its row."""
+                     validity: torch.Tensor,
+                     largest: bool = True) -> torch.Tensor:
+    """Per group: the input row whose word tuple is the largest (or, with
+    ``largest`` False, the smallest) of its valid rows in unsigned
+    lexicographic order (a string's key words give byte order), or -1
+    where the group has none.  Each row's rank in one stable sort of the
+    words is maxed (minned) per segment, and the best rank maps back to
+    its row."""
     cap = validity.shape[0]
     order = sort_permutation(words)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(cap, device=order.device)
     r, ok = _sorted_vals(plan, rank, validity)
-    best = torch.full((cap,), -1, dtype=torch.int64, device=order.device)
-    best.scatter_reduce_(0, plan.seg_id, torch.where(ok, r, -1), "amax",
-                         include_self=True)
+    none = -1 if largest else cap
+    best = torch.full((cap,), none, dtype=torch.int64, device=order.device)
+    best.scatter_reduce_(0, plan.seg_id, torch.where(ok, r, none),
+                         "amax" if largest else "amin", include_self=True)
     gi = torch.arange(cap, device=order.device)
-    best = torch.where(gi < plan.num_groups, best, -1)
-    return torch.where(best >= 0, order[best.clamp(min=0)], -1)
+    found = (gi < plan.num_groups) & (best != none)
+    return torch.where(found, order[best.clamp(0, cap - 1)], -1)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,8 @@ from .aggregate import (CH_LANES, flip32, flip64, part_chunk_lanes,
                         unflip32)
 from .basic import SIGN64, hash_to_partition, hash_words
 
+_MASK32 = 0xFFFFFFFF
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -38,9 +40,12 @@ SOURCES = {"hash_partition": "hash_partition.cu",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: kernel launches per wrapper since the last ``reset_launches()``
+#: kernel launches per wrapper since the last ``reset_launches()``; the
+#: table stage's launches that reduce a min kind, and a first or last
+#: kind, are also counted apart
 LAUNCHES: Dict[str, int] = {"hash_partition_ids": 0, "table_reduce": 0,
-                            "join_probe": 0}
+                            "table_reduce_min": 0,
+                            "table_reduce_firstlast": 0, "join_probe": 0}
 _MAX_WORDS = 32
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -327,16 +332,21 @@ class StageCol:
 
 
 _KIND_IDS = {"count": 0, "icount": 1, "fsum64": 2, "fmax64": 3, "fsumv": 4,
-             "fmax": 5, "sum32": 6, "sum64": 7, "max32": 8}
+             "fmax": 5, "sum32": 6, "sum64": 7, "max32": 8, "fmin64": 9,
+             "fmin": 10, "first": 11, "last": 12}
 #: bytes per bucket of each sub-row of a kind; a 64-bit one comes last.
 #: A raw kind has one sub-row per row of its column.
 _SUB_BYTES = {"count": (4,), "icount": (8,), "fsum64": (4,) * 19,
               "fmax64": (4, 4, 8), "fsumv": (4, 8), "fmax": (4, 4, 4),
-              "sum32": (4,), "sum64": (8,), "max32": (4,)}
+              "sum32": (4,), "sum64": (8,), "max32": (4,),
+              "fmin64": (4, 4, 8), "fmin": (4, 4, 4), "first": (4,),
+              "last": (4,)}
 _IN_DTYPE = {"count": None, "icount": torch.int64, "fsum64": torch.float64,
              "fmax64": torch.float64, "fsumv": torch.float64,
              "fmax": torch.float64, "sum32": torch.float32,
-             "sum64": torch.float64, "max32": torch.float32}
+             "sum64": torch.float64, "max32": torch.float32,
+             "fmin64": torch.float64, "fmin": torch.float64, "first": None,
+             "last": None}
 _RAW_KINDS = ("sum32", "sum64", "max32")
 
 
@@ -412,11 +422,37 @@ def decode_max32(key: torch.Tensor) -> torch.Tensor:
     return torch.where(key == 0, float("-inf"), unflip32(key))
 
 
+def decode_min32(key: torch.Tensor) -> torch.Tensor:
+    """Complemented f32 max words (0 = empty) -> the f32 min, empty ->
+    +inf."""
+    w = key.to(torch.int64) & _MASK32
+    return torch.where(w == 0, float("inf"), unflip32(~w & _MASK32))
+
+
+def decode_position(kind: str, key: torch.Tensor) -> torch.Tensor:
+    """``first`` / ``last`` position words (u32, 0 = no row) -> the row
+    position as int64, -1 for none."""
+    w = key.to(torch.int64) & _MASK32
+    if kind == "first":
+        return torch.where(w == 0, -1, ~w & _MASK32)
+    return w - 1
+
+
+def position_words(kind: str, n: int, ok: torch.Tensor) -> torch.Tensor:
+    """The u32 words (in int64) ``first`` / ``last`` max per bucket: the
+    row's complemented position, or its position + 1; 0 where not
+    ``ok``."""
+    pos = torch.arange(n, dtype=torch.int64, device=ok.device)
+    w = ~pos & _MASK32 if kind == "first" else pos + 1
+    return torch.where(ok, w, 0)
+
+
 def table_stage_plain(bucket: torch.Tensor, table: int,
                       cols: Sequence[StageCol]) -> List[tuple]:
     """Plain torch version of ``table_stage``: index_add_ for the counts
     and sums, the chunk lanes of ``part_chunk_lanes``, and scatter_reduce_
-    for the max words."""
+    for the max words (a min's complemented, a first's or last's the
+    position words)."""
     b = torch.where((bucket >= 0) & (bucket < table), bucket,
                     table).to(torch.int64)
 
@@ -447,6 +483,10 @@ def table_stage_plain(bucket: torch.Tensor, table: int,
             continue
         ok = c.valid if c.valid is not None else \
             torch.ones_like(b, dtype=torch.bool)
+        if k in ("first", "last"):
+            w = tab(position_words(k, b.shape[0], ok), torch.int64, "amax")
+            res.append((decode_position(k, w),))
+            continue
         cnt = tab(ok, torch.int32)
         if k == "count":
             res.append((cnt,))
@@ -469,18 +509,22 @@ def table_stage_plain(bucket: torch.Tensor, table: int,
                         tab(ok & (v == float("inf")), torch.int32),
                         tab(ok & (v == float("-inf")), torch.int32),
                         lane_tab[:table].T.contiguous()))
-        else:                                        # fmax64, fmax
+        else:                              # fmax64, fmax, fmin64, fmin
             v = torch.where(v == 0.0, 0.0, v)        # -0.0 == 0.0
             okn = ok & ~torch.isnan(v)
             nn = tab(okn, torch.int32)
-            if k == "fmax":
-                key = torch.where(okn, flip32(v.to(torch.float32)), 0)
-                res.append((cnt, nn,
-                            decode_max32(tab(key, torch.int64, "amax"))))
+            if k in ("fmax", "fmin"):
+                key = flip32(v.to(torch.float32))
+                if k == "fmin":
+                    key = ~key & _MASK32
+                key = tab(torch.where(okn, key, 0), torch.int64, "amax")
+                res.append((cnt, nn, decode_max32(key) if k == "fmax"
+                            else decode_min32(key)))
                 continue
-            # the u64 word flip64(v) as int64 bits, maxed as a signed max
-            # with the top bit flipped
-            w = tab(torch.where(okn, flip64(v) ^ SIGN64, SIGN64),
+            # the u64 word flip64(v) (complemented for a min) as int64
+            # bits, maxed as a signed max with the top bit flipped
+            key = flip64(v) if k == "fmax64" else ~flip64(v)
+            w = tab(torch.where(okn, key ^ SIGN64, SIGN64),
                     torch.int64, "amax", SIGN64)
             res.append((cnt, nn, w ^ SIGN64))
     return res
@@ -563,8 +607,13 @@ def table_stage(bucket: torch.Tensor, table: int,
     - fsum64: (count, NaN count, +inf count, -inf count int32,
       chunk lanes int32[CH_LANES, table])
     - fmax64: (count, non-NaN count int32, u64 max word as int64 bits)
+    - fmin64: (count, non-NaN count int32, u64 max of the complemented
+      word as int64 bits: ``unflip64(~w)`` is the min)
     - fsumv:  (count int32, sum float64)
     - fmax:   (count, non-NaN count int32, max float32)
+    - fmin:   (count, non-NaN count int32, min float32; empty +inf)
+    - first / last, no column (valid: the rows that count, None for
+      every row): (row position int64, -1 for none)
     - sum32 / sum64 / max32, a [k, n] column: (float32 / float64 sums
       [k, table],) / (float32 maxes [k, table],)
 
@@ -609,6 +658,9 @@ def table_stage(bucket: torch.Tensor, table: int,
                               out.numel() * 8, stream)
     _raise_on(lib, what, err)
     LAUNCHES["table_reduce"] += 1
+    kinds = {c.kind for c in cols}
+    LAUNCHES["table_reduce_min"] += bool(kinds & {"fmin64", "fmin"})
+    LAUNCHES["table_reduce_firstlast"] += bool(kinds & {"first", "last"})
     res = []
     for c, (g32, g64) in zip(cols, sp.rows):
         sb = sub_bytes(*_shape(c))
@@ -627,8 +679,12 @@ def _kernel_outputs(kind: str, r32: torch.Tensor, r64: torch.Tensor):
         return (r64[0],)
     if kind == "fsum64":
         return (r32[0], r32[1], r32[2], r32[3], r32[4:])
-    if kind == "fmax64":
+    if kind in ("fmax64", "fmin64"):
         return (r32[0], r32[1], r64[0])
+    if kind == "fmin":
+        return (r32[0], r32[1], decode_min32(r32[2]))
+    if kind in ("first", "last"):
+        return (decode_position(kind, r32[0]),)
     if kind == "fsumv":
         return (r32[0], r64[0].view(torch.float64))
     if kind == "fmax":
@@ -741,11 +797,10 @@ def probe_index(sorted_words: List[torch.Tensor], budget: int = None,
 def join_probe_plain(build_words: List[torch.Tensor],
                      probe_words: List[torch.Tensor], live: torch.Tensor,
                      rank_words: Sequence[int]):
-    """Plain torch version of ``join_probe``: two binary searches of
-    ``kernels/join._bsearch``, a torch loop over the search steps."""
-    from .join import _bsearch
-    lo = _bsearch(build_words, probe_words, upper=False)
-    hi = _bsearch(build_words, probe_words, upper=True)
+    """Plain torch version of ``join_probe``: the bounds of
+    ``kernels/join.bounds``, a stable merge of build and probe words."""
+    from .join import bounds
+    lo, hi = bounds(build_words, probe_words)
     usable = live
     for i in rank_words:
         usable = usable & (probe_words[i] == 1)

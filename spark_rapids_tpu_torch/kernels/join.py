@@ -4,21 +4,22 @@ Counterpart of ``spark_rapids_tpu/kernels/join.py``.  The build side is
 sorted by its canonical key words (on the card, with the probe kernel's
 index, ``cuda_ops.probe_index``, made once); each probe row searches its
 lower and upper bound (``cuda_ops.join_probe``: one launch on the card;
-``_bsearch``, a torch loop over the search steps, is its plain version),
-and (lo, count) pairs expand into flat gather
-maps by a prefix sum and ``searchsorted``.  Join types other than inner
-change the counts before the expansion (``outer_counts``); semi and
-anti joins select probe rows by compaction instead of expanding them
-(``basic.compact_indices``).  Counts and their prefix sums are int64.
+``bounds``, a stable merge of build and probe words, is its plain
+version), and (lo, count) pairs expand into flat gather maps by a prefix
+sum and ``searchsorted``.  Join types other than inner change the counts
+before the expansion (``outer_counts``); semi and anti joins select probe
+rows by compaction instead of expanding them (``basic.compact_indices``).
+Counts and their prefix sums are int64.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
-from . import canon, cuda_ops
+from . import cuda_ops
+from .basic import SIGN64
 from .sort import sorted_words
 
 
@@ -38,34 +39,42 @@ def build(words: List[torch.Tensor]) -> BuildTable:
     return BuildTable(ws, perm, int(perm.shape[0]), index)
 
 
-def _bsearch(build_words: List[torch.Tensor],
-             probe_words: List[torch.Tensor], upper: bool) -> torch.Tensor:
-    """Lower (or upper) bound of each probe tuple in the sorted build:
-    the plain version of ``cuda_ops.join_probe``."""
-    bcap = build_words[0].shape[0]
-    pcap = probe_words[0].shape[0]
+def bounds(build_words: List[torch.Tensor],
+           probe_words: List[torch.Tensor]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lower and upper bound of each probe tuple in the sorted build
+    (unsigned lexicographic): the plain version of ``cuda_ops.join_probe``.
+
+    Build and probe tuples merge by one stable sort per word, last word
+    first, so a build tuple sorts before an equal probe tuple.  A probe
+    row's upper bound is then the number of build rows before it, and its
+    lower bound that number less the build rows in its run of equal
+    tuples."""
+    n = build_words[0].shape[0]
+    m = probe_words[0].shape[0]
     dev = probe_words[0].device
-    lo = torch.zeros(pcap, dtype=torch.int64, device=dev)
-    if bcap == 0:
-        return lo
-    steps = max(1, (bcap - 1).bit_length() + 1)
-    hi = torch.full((pcap,), bcap, dtype=torch.int64, device=dev)
-    prows = torch.arange(pcap, device=dev)
-    for _ in range(steps):
-        mid = (lo + hi) // 2
-        midc = mid.clamp(0, bcap - 1)
-        if upper:
-            # first index where probe < build[mid]
-            go_right = ~canon.words_less(probe_words, prows, build_words,
-                                         midc)
-        else:
-            # first index where NOT build[mid] < probe
-            go_right = canon.words_less(build_words, midc, probe_words,
-                                        prows)
-        active = lo < hi
-        lo = torch.where(active & go_right, mid + 1, lo)
-        hi = torch.where(active & ~go_right, mid, hi)
-    return lo
+    keys = [torch.cat([b, p]) ^ SIGN64
+            for b, p in zip(build_words, probe_words)]
+    order = torch.arange(n + m, device=dev)
+    for w in reversed(keys):
+        order = order[torch.argsort(w[order], stable=True)]
+    is_build = order < n
+    before = torch.cumsum(is_build, 0)
+    new_run = torch.zeros(n + m, dtype=torch.bool, device=dev)
+    new_run[:1] = True
+    for w in keys:
+        s = w[order]
+        new_run[1:] |= s[1:] != s[:-1]
+    run = torch.cumsum(new_run, 0) - 1
+    run_builds = torch.zeros(n + m, dtype=torch.int64, device=dev)
+    run_builds.index_add_(0, run, is_build.to(torch.int64))
+    probe = ~is_build
+    at = order[probe] - n
+    lo = torch.empty(m, dtype=torch.int64, device=dev)
+    hi = torch.empty(m, dtype=torch.int64, device=dev)
+    lo[at] = (before - run_builds[run])[probe]
+    hi[at] = before[probe]
+    return lo, hi
 
 
 @dataclasses.dataclass

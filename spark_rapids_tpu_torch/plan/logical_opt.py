@@ -9,7 +9,15 @@ each arm become conjuncts), then its relations reordered so each one
 joins one already joined through an equality (``_reorder_cross_joins``),
 then its conjuncts split over the join (``_rewrite_filter_join``):
 those of one side sink into that side, equalities across the sides
-become join keys, the rest stay above.  A Filter over a Project (a
+become join keys, other conditions over both sides join the join's
+residual condition (evaluated on each chunk of expanded pairs: q72's
+``inv_quantity_on_hand < cs_quantity`` keeps ~5% of catalog_sales x
+inventory's pairs at the join, not after its chain), and conjuncts
+over no column stay above.  Over a LEFT join the conjuncts over its
+left side alone sink into that side (Spark's
+``PushPredicateThroughJoin``: its rows are the left rows, null-extended
+or not), so q72's WHERE reaches the inner joins under its ``left outer
+join promotion``.  A Filter over a Project (a
 derived table's or a CTE's select list, or a self-join's renaming) has
 the conjuncts over its pass-through columns rewritten to the names below
 and sunk under it (``_rewrite_filter_project``), so they go on sinking
@@ -37,6 +45,7 @@ from typing import List, Optional, Set
 
 from ..expr import core as ec
 from ..expr.cast import Cast
+from ..expr.misc import needs_task
 from ..expr import predicates as ep
 from . import logical as L
 
@@ -125,13 +134,15 @@ def _filter_over(conjuncts: List[ec.Expression],
 
 def _rewrite_filter_join(f: L.Filter) -> L.LogicalPlan:
     j = f.children[0]
+    if isinstance(j, L.Join) and j.how == "left":
+        return _rewrite_filter_left_join(f)
     if not isinstance(j, L.Join) or j.how not in ("inner", "cross"):
         return f
     left, right = j.children
     lnames, rnames = set(left.schema.names), set(right.schema.names)
     if lnames & rnames:
         return f                  # ambiguous column names: leave alone
-    lpush, rpush, rest = [], [], []
+    lpush, rpush, rest, residual = [], [], [], []
     lkeys, rkeys = list(j.left_keys), list(j.right_keys)
     for c in _conjuncts(f.condition):
         refs = _refs(c)
@@ -151,15 +162,40 @@ def _rewrite_filter_join(f: L.Filter) -> L.LogicalPlan:
                 lkeys.append(b)
                 rkeys.append(a)
             else:
-                rest.append(c)
+                residual.append(c)
+        elif refs <= lnames | rnames:
+            residual.append(c)
         else:
             rest.append(c)
-    if not lpush and not rpush and len(lkeys) == len(j.left_keys):
+    if not lpush and not rpush and not residual and \
+            len(lkeys) == len(j.left_keys):
         return f
     new_left = optimize(_filter_over(lpush, left))
     new_right = optimize(_filter_over(rpush, right))
     how = "inner" if lkeys else j.how
-    joined = L.Join(new_left, new_right, how, lkeys, rkeys, j.condition)
+    cond = _and_all(([j.condition] if j.condition is not None else []) +
+                    residual) if residual else j.condition
+    joined = L.Join(new_left, new_right, how, lkeys, rkeys, cond)
+    return _filter_over(rest, joined)
+
+
+def _rewrite_filter_left_join(f: L.Filter) -> L.LogicalPlan:
+    """Filter over a LEFT join: the conjuncts over the left side alone
+    sink into it; the others stay above (a right column there may be a
+    null of an unmatched row)."""
+    j = f.children[0]
+    left = j.children[0]
+    lnames = set(left.schema.names)
+    if lnames & set(j.children[1].schema.names):
+        return f                  # ambiguous column names: leave alone
+    push, rest = [], []
+    for c in _conjuncts(f.condition):
+        refs = _refs(c)
+        (push if refs and refs <= lnames else rest).append(c)
+    if not push:
+        return f
+    joined = L.Join(optimize(_filter_over(push, left)), j.children[1], j.how,
+                    j.left_keys, j.right_keys, j.condition)
     return _filter_over(rest, joined)
 
 
@@ -193,9 +229,13 @@ def _rewrite_filter_project(f: L.Filter) -> L.LogicalPlan:
     constants: each is rewritten to the source names and the constants
     (q4's ``sale_type = 's'`` over a branch that selects ``'c'
     sale_type`` becomes ``'c' = 's'``, which ``_fold_constants`` then
-    decides) and sinks below the Project; the rest stay above."""
+    decides) and sinks below the Project; the rest stay above.  No
+    conjunct sinks below a Project that numbers its rows
+    (``monotonically_increasing_id``, ``spark_partition_id``): a filter
+    under it would change the ids, as Spark keeps it above."""
     pj = f.children[0]
-    if not isinstance(pj, L.Project):
+    if not isinstance(pj, L.Project) or any(needs_task(e)
+                                            for e in pj.exprs):
         return f
     mapping = {}            # output name -> source column or constant
     for e in pj.exprs:

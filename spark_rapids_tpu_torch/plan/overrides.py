@@ -54,6 +54,7 @@ import torch
 
 from .. import config as C
 from ..expr import core as ec
+from ..expr.misc import needs_task
 from ..exec.exchange import (TpuBroadcastExchange, TpuCoalescePartitions,
                              TpuShuffleExchange)
 from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
@@ -77,9 +78,13 @@ BROADCAST_ROW_THRESHOLD = 1 << 20
 
 def _stage_ops(node: L.LogicalPlan):
     """Peel the filter/project chain under an aggregate: (source node,
-    [(kind, bound payload, output schema)] in execution order)."""
+    [(kind, bound payload, output schema)] in execution order).  The
+    chain stops at a node that reads its task (``expr/misc.needs_task``):
+    that node runs as its own operator."""
     chain = []
-    while isinstance(node, (L.Filter, L.Project)):
+    while isinstance(node, (L.Filter, L.Project)) and not any(
+            needs_task(e) for e in (node.exprs if isinstance(node, L.Project)
+                                    else [node.condition])):
         chain.append(node)
         node = node.children[0]
     ops = []

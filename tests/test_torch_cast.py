@@ -27,8 +27,8 @@ from spark_rapids_tpu_torch.api.sql import SqlError
 from spark_rapids_tpu_torch.columnar import dtypes as T
 from spark_rapids_tpu_torch.config import TpuConf
 
-from tests.harness import (DEFAULT_FLOAT_REL, _compare_rows, canon_rows,
-                           with_cpu_session, with_tpu_session)
+from tests.harness import DEFAULT_FLOAT_REL, _compare_rows, canon_rows
+from tests.jax_reference import with_cpu_session, with_tpu_session
 
 torch.set_num_threads(1)
 

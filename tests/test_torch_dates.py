@@ -44,8 +44,8 @@ from spark_rapids_tpu_torch.expr import conditional as econd
 from spark_rapids_tpu_torch.expr import core as ec
 from spark_rapids_tpu_torch.kernels import canon
 
-from tests.harness import (DEFAULT_FLOAT_REL, _compare_rows, canon_rows,
-                           with_cpu_session, with_tpu_session)
+from tests.harness import DEFAULT_FLOAT_REL, _compare_rows, canon_rows
+from tests.jax_reference import with_cpu_session, with_tpu_session
 
 torch.set_num_threads(1)
 

@@ -21,7 +21,8 @@ from spark_rapids_tpu_torch.api import TpuSession
 from spark_rapids_tpu_torch.config import TpuConf
 
 from tests.harness import (DEFAULT_FLOAT_REL, FAST_FLOAT_REL, _compare_rows,
-                           canon_rows, with_cpu_session, with_tpu_session)
+                           canon_rows)
+from tests.jax_reference import with_cpu_session, with_tpu_session
 
 # the port's CPU runs here are many small torch ops: one intra-op thread
 # per test process, so parallel test workers do not oversubscribe the

@@ -150,7 +150,12 @@ def _stage_values(rng, n):
     (("fsum64", "fmax64", "count"), 100_001, 60_000, True, 0),  # chunks
     (("fsum64", "fmax", "fsumv", "icount", "count"), 50_003, 512, False,
      1),                                                    # unaligned
-], ids=["partial", "final", "variable", "ysplit", "chunks", "unaligned"])
+    (("fmin64", "fmax64", "first", "last"), 1 << 20, 4096, False, 0),
+    (("fmin", "first_all", "last_all", "fmin64"), 50_003, 512, False, 1),
+    (("fmin64", "last", "first_all"), 1 << 20, 1 << 14, False, 0),
+    (("fmin64", "first", "count"), 100_001, 60_000, True, 0),
+], ids=["partial", "final", "variable", "ysplit", "chunks", "unaligned",
+        "min_first_last", "min_unaligned", "min_ysplit", "min_chunks"])
 def test_table_stage_kernel_matches_plain(kinds, n, table, beyond_f32,
                                           offset):
     """Every table of the stage kernel against its plain version: integer
@@ -180,9 +185,13 @@ def test_table_stage_kernel_matches_plain(kinds, n, table, beyond_f32,
             # fmax64 word is the f64's own bits and takes it
             assert bool(fit) == (kind != "fsum64")
         cols.append(sc)
-    before = cuda_ops.LAUNCHES["table_reduce"]
+    before = dict(cuda_ops.LAUNCHES)
     got = cuda_ops.table_stage(bucket, table, cols)
-    assert cuda_ops.LAUNCHES["table_reduce"] == before + 1
+    assert cuda_ops.LAUNCHES["table_reduce"] == before["table_reduce"] + 1
+    for name, ks in (("table_reduce_min", ("fmin64", "fmin")),
+                     ("table_reduce_firstlast", ("first", "last"))):
+        assert cuda_ops.LAUNCHES[name] - before[name] == \
+            any(c.kind in ks for c in cols)
     want = cuda_ops.table_stage_plain(bucket, table, cols)
     for c, g, w in zip(cols, got, want):
         for a, b in zip(g, w):
@@ -216,7 +225,10 @@ def test_headline_query_on_card_matches_numpy(variable):
     df = chip_smoke.build_df(TpuSession(conf), data, dim, 4)
     cuda_ops.reset_launches()
     table = df.to_arrow()
-    assert all(v > 0 for v in cuda_ops.LAUNCHES.values())
+    # every kernel of the headline's path: B1, B2 and the probe (B2's min
+    # and first/last kinds are not on it)
+    assert all(cuda_ops.LAUNCHES[k] > 0 for k in (
+        "hash_partition_ids", "table_reduce", "join_probe"))
     rel = chip_smoke.VARIABLE_REL if variable else chip_smoke.EXACT_REL
     chip_smoke.compare(table, chip_smoke.numpy_reference(data, dim), rel,
                        "card")
@@ -503,7 +515,7 @@ def test_tpcds_flat_queries_on_card_equal_cpu(tpcds7_dir, q):
 def test_join_probe_kernel_matches_plain(keys):
     """The join probe at a phase 7/8 join partition (a store_sales batch
     against store_returns' sorted lines), bit for bit against its plain
-    version, the two ``_bsearch`` loops; one launch per call."""
+    version, ``kernels/join.bounds``; one launch per call."""
     _need_card()
     bt, words, live, rank = chip_smoke.probe_inputs(
         np.random.default_rng(keys), keys)
@@ -890,6 +902,39 @@ def test_slice12_on_card_equal_cpu(sql):
     # subtotals tie in ORDER BY with NULL keys of the data: as multisets
     _close_tables(*[o.sort_by([(c, "ascending") for c in o.column_names])
                     for o in out[1::-1]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", [
+    "select h, min(x) mn, max(x) mx, min(i) mi, min(d) md, first(v) fv, "
+    "last(i) li, count(*) n from t group by h order by h",
+    "select s, min(s) ms, min(x) mn, first(b) fb, last(d) ld from t "
+    "group by s order by s",
+    "select id, sqrt(abs(x)) a, ln(abs(i) + 1) b, floor(x / 3) c, "
+    "ceil(x) e, signum(v) f, pow(h, 3) g, pmod(v, 7) p, pmod(i, -5) q, "
+    "greatest(x, i, v) r, least(v, h) l, nullif(h, 2) n, "
+    "if(b, s, 'none') o, isnan(x) w, nanvl(x, 0.0) y, hash(i, s, d) z, "
+    "case when h = 1 then s end cs from t order by id"])
+def test_slice13_on_card_equal_cpu(sql):
+    """Grouped min, first and last (an integer key on B2's min and
+    first/last kinds, a string key on the sort path) and the function
+    library on the card against the port on the CPU (one partition: first
+    and last follow its order); the card gives the same bytes twice."""
+    _need_card()
+    t = _slice12_table()
+    out = []
+    before = dict(cuda_ops.LAUNCHES)
+    for device in ("cpu", "cuda", "cuda"):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 12}), device=device)
+        s.create_dataframe(t).create_or_replace_temp_view("t")
+        out.append(s.sql(sql).to_arrow())
+    assert out[0].num_rows > 0
+    assert chip_smoke.same_bytes(out[1], out[2])
+    _close_tables(out[1], out[0])
+    if sql.startswith("select h,"):
+        for name in ("table_reduce_min", "table_reduce_firstlast"):
+            assert cuda_ops.LAUNCHES[name] > before[name]
 
 
 @pytest.mark.gpu

@@ -43,8 +43,8 @@ from spark_rapids_tpu_torch.plan import overrides
 from spark_rapids_tpu_torch.plan.logical import AggExpr
 from spark_rapids_tpu_torch.shuffle.partitioners import HashPartitioner
 
-from tests.harness import (DEFAULT_FLOAT_REL, _compare_rows, _row_key,
-                           with_cpu_session, with_tpu_session)
+from tests.harness import DEFAULT_FLOAT_REL, _compare_rows, _row_key
+from tests.jax_reference import with_cpu_session, with_tpu_session
 
 BATCH = "spark.rapids.tpu.sql.batchSizeRows"
 PARTS = "spark.rapids.tpu.sql.shuffle.partitions"

@@ -78,7 +78,7 @@ def test_stride_at_the_main_path_shapes():
 def test_rows_equal_sorted_words(keys, build_n, budget):
     rng = np.random.default_rng(build_n + keys)
     bt = join_k.build(_torch(_keys(rng, build_n, keys, 50, 0.1)))
-    assert bt.index is None                       # the CPU takes _bsearch
+    assert bt.index is None                       # the CPU takes bounds
     idx = cuda_ops.probe_index(bt.sorted_words, budget)
     k = 2 * keys
     assert idx.words == k and idx.rows.dtype == torch.int64
@@ -97,8 +97,38 @@ def test_odd_word_count_pads_a_zero_word():
     assert idx.stride == 4 and idx.seps.shape == (25, 4)    # 32 rows fit
 
 
+@pytest.mark.parametrize("words,build_n,probe_n", [
+    (1, 0, 9), (1, 1, 9), (1, 40, 0), (1, 40, 60), (2, 33, 50),
+    (3, 57, 41), (6, 90, 70)])
+def test_plain_bounds_count_the_tuples_below(words, build_n, probe_n):
+    """``bounds``, the probe's plain version, against a count in Python:
+    the build tuples less than each probe tuple, and not greater, in
+    unsigned lexicographic order.  Words are drawn from few values that
+    include 0, -1 and the sign bit, so equal runs and the unsigned order
+    both show."""
+    rng = np.random.default_rng(words * 100 + build_n + probe_n)
+    pool = np.array([0, 1, 2, -1, -(1 << 63), (1 << 63) - 1, 12345],
+                    dtype=np.int64)
+    build = [torch.from_numpy(rng.choice(pool, build_n))
+             for _ in range(words)]
+    probe = [torch.from_numpy(rng.choice(pool, probe_n))
+             for _ in range(words)]
+    if build_n:
+        build = join_k.build(build).sorted_words
+    lo, hi = join_k.bounds(build, probe)
+
+    def tup(ws, i):
+        return tuple(int(w[i]) & ((1 << 64) - 1) for w in ws)
+    rows = [tup(build, i) for i in range(build_n)]
+    assert rows == sorted(rows)
+    for i in range(probe_n):
+        t = tup(probe, i)
+        assert int(lo[i]) == sum(r < t for r in rows)
+        assert int(hi[i]) == sum(r <= t for r in rows)
+
+
 def _lower(build_words, probe_words):
-    return join_k._bsearch(build_words, probe_words, upper=False)
+    return join_k.bounds(build_words, probe_words)[0]
 
 
 @pytest.mark.parametrize("keys,build_n,distinct,budget", [

@@ -39,7 +39,8 @@ from spark_rapids_tpu_torch.expr import core as ec
 from spark_rapids_tpu_torch.plan.logical import AggExpr
 
 from tests.harness import (DEFAULT_FLOAT_REL, FAST_FLOAT_REL, _compare_rows,
-                           _row_key, with_cpu_session, with_tpu_session)
+                           _row_key)
+from tests.jax_reference import with_cpu_session, with_tpu_session
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VFA = "spark.rapids.tpu.sql.variableFloatAgg.enabled"

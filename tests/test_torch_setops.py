@@ -40,8 +40,8 @@ from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan import logical_opt
 
-from tests.harness import (DEFAULT_FLOAT_REL, _compare_rows, canon_rows,
-                           with_cpu_session, with_tpu_session)
+from tests.harness import DEFAULT_FLOAT_REL, _compare_rows, canon_rows
+from tests.jax_reference import with_cpu_session, with_tpu_session
 
 torch.set_num_threads(1)
 

@@ -222,7 +222,7 @@ def test_substring_of_non_ascii_strings_matches_oracle():
     from spark_rapids_tpu.api import functions as JF
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.api import functions as PF
-    from tests.harness import with_cpu_session
+    from tests.jax_reference import with_cpu_session
     got = sorted(_substrings(PF, TpuSession(device="cpu")))
     want = sorted(with_cpu_session(lambda s: _substrings(JF, s)))
     assert got == want
@@ -235,6 +235,6 @@ def test_reference_substring_cuts_a_character():
     bytes, so substring('héllo', 1, 2) keeps 'h' and the first byte of
     'é', which decodes as U+FFFD."""
     from spark_rapids_tpu.api import functions as JF
-    from tests.harness import with_tpu_session
+    from tests.jax_reference import with_tpu_session
     rows = sorted(with_tpu_session(lambda s: _substrings(JF, s)))
     assert rows[0][1] == "h\ufffd"

@@ -24,8 +24,8 @@ from spark_rapids_tpu_torch.api.sql import sql_to_plan
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.plan import logical as L
 
-from tests.harness import (DEFAULT_FLOAT_REL, _compare_rows, canon_rows,
-                           with_cpu_session, with_tpu_session)
+from tests.harness import DEFAULT_FLOAT_REL, _compare_rows, canon_rows
+from tests.jax_reference import with_cpu_session, with_tpu_session
 from tests.test_torch_sql import _jax_rows, _port_rows, _register, _tables
 
 torch.set_num_threads(1)

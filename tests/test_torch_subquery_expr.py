@@ -31,8 +31,8 @@ from spark_rapids_tpu_torch.exec.tpu_basic import TpuUnion
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan import logical_opt
 
-from tests.harness import (DEFAULT_FLOAT_REL, _compare_rows, canon_rows,
-                           with_cpu_session)
+from tests.harness import DEFAULT_FLOAT_REL, _compare_rows, canon_rows
+from tests.jax_reference import with_cpu_session
 from tests.test_torch_sql import _jax_rows, _port_rows, _register, _tables
 
 torch.set_num_threads(1)

@@ -70,6 +70,7 @@ operators, a ``TpuExpand`` under each ROLLUP's partial aggregate and
 two stacked aggregates for each count(DISTINCT).
 """
 import datetime
+import functools
 import os
 import re
 import shutil
@@ -86,8 +87,8 @@ import chip_smoke
 from spark_rapids_tpu_torch.api import TpuSession
 from spark_rapids_tpu_torch.plan import logical as L
 
-from tests.harness import (DEFAULT_FLOAT_REL, _compare_rows, canon_rows,
-                           with_cpu_session, with_tpu_session)
+from tests.harness import DEFAULT_FLOAT_REL, _compare_rows, canon_rows
+from tests.jax_reference import with_cpu_session, with_tpu_session
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks"))
@@ -138,7 +139,10 @@ def _port(data_dir):
     return s
 
 
+@functools.lru_cache(maxsize=None)
 def _jax(data_dir, q, engine):
+    """The JAX package's rows of ``q`` (run once per worker, directory,
+    query and engine: several tests read them)."""
     def fn(s):
         tpcds.register(s, data_dir)
         return s.sql(tpcds.QUERIES[q]).collect()
@@ -272,6 +276,7 @@ def _views(session, data_dir):
     return session
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_on(data_dir, q, engine):
     return engine(lambda s: _views(s, data_dir).sql(
         tpcds.QUERIES[q]).collect())
@@ -801,3 +806,52 @@ def test_sf10_estimates_plan_phase12(drawn, q):
         assert [ln.split("[")[0] for ln in ops[i:i + 6]] == [
             "TpuHashAggregate", "TpuCoalescePartitions", "TpuHashAggregate",
             "TpuHashAggregate", "TpuShuffleExchange", "TpuHashAggregate"]
+
+
+def _ds13_rows(data_dir, q):
+    table = _views(TpuSession(device="cpu"), data_dir).sql(
+        tpcds.QUERIES[q]).to_arrow()
+    chip_smoke.check_rows(q, table, chip_smoke.ds13_references(
+        data_dir, [q])[q], chip_smoke.DS13_ORDER[q])
+    return [tuple(r.values()) for r in table.to_pylist()]
+
+
+@pytest.mark.parametrize("q", ["q6", "q41", "q70"])
+def test_ds13_query_matches_jax_and_pyarrow(one_file, q):
+    """The last three TPC-DS texts the port's SQL refused or no phase
+    ran: q6 (a correlated average per category), q41 (its correlation
+    inside both arms of an OR) and q70 (a select alias inside an ORDER
+    BY's CASE, a string CASE in a window's PARTITION BY over a ROLLUP)
+    against ``ds13_references`` and the JAX engine.  q72 runs in phase
+    13 and its CPU rehearsal: the JAX engine takes ~50 s on it here."""
+    got = _ds13_rows(one_file, q)
+    assert got, f"{q}: no rows"
+    _compare_rows(canon_rows(_jax_on(one_file, q, with_tpu_session)),
+                  canon_rows(got), rel=DEFAULT_FLOAT_REL)
+
+
+def test_sf10_q72_filters_each_chunk_of_its_pairs(one_file):
+    """At SF10's row counts q72 joins catalog_sales to inventory in a
+    shuffled join on the item whose residual condition holds
+    ``inv_quantity_on_hand < cs_quantity`` (evaluated on each chunk of
+    ~800M expanded pairs), its WHERE pushed through the LEFT join of
+    promotion; d1's week equals d2's as a join key."""
+    sf10 = {**{t: int(v * 10) for t, v in chip_smoke.DS_ROWS_PER_SF.items()},
+            **{t: int(v * 10) for t, v in
+               chip_smoke.DS7_ROWS_PER_SF.items()}}
+    s = _views(TpuSession(device="cpu"), one_file)
+    for view in s._views.values():
+        for scan in _scans(view):
+            name = os.path.basename(scan.paths[0]).split(".")[0]
+            scan._rows = sf10.get(name, scan.estimated_rows())
+    plan = s.plan(s.sql(tpcds.QUERIES["q72"])._plan)
+    joins = [n for n in _nodes(plan) if type(n).__name__.endswith("Join")]
+    shuffled = [j for j in joins if type(j).__name__ == "TpuShuffledHashJoin"]
+    assert len(shuffled) == 1
+    j = shuffled[0].join
+    assert repr(j.condition) == \
+        "(col(inv_quantity_on_hand) < col(cs_quantity))"
+    assert [repr(k) for k in j.left_keys + j.right_keys] == [
+        "col(cs_item_sk)", "col(inv_item_sk)"]
+    assert any("d_week_seq" in repr(n.join.left_keys) for n in joins)
+    assert joins[0].join.how == "left" and joins[0].join.condition is None
