@@ -7,7 +7,7 @@ Runs from the repository root:
     python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
                                                # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
-    python3 chip_smoke.py --only 11            # phase 11 (12, 13) alone
+    python3 chip_smoke.py --only 11            # phase 11 (12, 13, 14) alone
                                                # (no contract line)
 
 Phases (any failure exits non-zero):
@@ -122,10 +122,26 @@ Phases (any failure exits non-zero):
    rows, peak memory and launches per query; q72 must plan its
    quantity condition as a shuffled join's residual, F1 must launch B2's
    min and first/last kinds, F2 must take the sort path.  B1 and the
-   join probe must launch.
-Phases 8-13's pyarrow references are computed in one reference process
-from the moment phase 7 has written its tables, while the card runs the
-queries (``references_ahead``); each phase waits for its own.
+   join probe must launch;
+14. the memory tiers (``memory_phase``), on phase 7's tables with the
+   scan cache off: S1 sorts all of store_sales by three keys out of
+   core, at the default device budget and under a 1 GiB budget with 1
+   GiB of pinned host, which must spill to the host and to disk, give
+   the same bytes, peak lower, and equal pyarrow (the key columns of its
+   stable sort, the rows as a multiset); S2 runs q78's four shuffled
+   LEFT joins under both budgets against phase 8's answer.  No catalog
+   entry or spill file may outlive a query.  B1 and the join probe must
+   launch.
+A reference process writes phases 6 and 7's tables while the card runs
+phases 4 and 5 (``write_ds_tables``), then computes phase 7's and 14's
+pyarrow references.  Phases 8-13 run in three processes of their own
+(PHASE_GROUPS: 8-9, 10-11, 12-13), each on a session of its own beside
+the main process's phases 6, 7 and 14, each with one more process that
+computes its phases' references; a group's output is printed once it
+ends.  Phases 7-13's references come query by query
+(``QueryReferences``): a query waits for its own.  The walls of phases
+6-14 are therefore taken while other processes share the card and the
+host.
 The line before the last is a JSON object of every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -137,6 +153,7 @@ import math
 import multiprocessing
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1273,8 +1290,9 @@ def join_output(session, df):
     import pyarrow as pa
     from spark_rapids_tpu_torch.columnar.arrow import to_arrow
     join = _find(session.plan(df._plan), "TpuShuffledHashJoin")[0]
-    return join, pa.concat_tables(to_arrow(b) for part in join.execute()
-                                  for b in part)
+    tables = [to_arrow(b) for part in join.execute() for b in part]
+    join.close()
+    return join, pa.concat_tables(tables)
 
 
 def _find(node, kind: str):
@@ -1314,7 +1332,9 @@ def join_phase(args, kernels_used) -> dict:
     frames = join_frames(session, tables)
     t0 = time.perf_counter()
     for df in frames.values():
-        session.plan(df._plan).execute()        # uploads the table once
+        for part in session.plan(df._plan).execute():
+            for _ in part:                      # uploads the table once
+                pass
     sync()
     print(f"join tables uploaded in {time.perf_counter() - t0:.3f}s")
 
@@ -1745,18 +1765,23 @@ def cold_and_warm(session, df, on_card: bool):
     read_s = sum(s.timings["read_s"] for s in scans)
     upload_s = sum(s.timings["upload_s"] for s in scans)
     warm, warm_s = zip(*[run() for _ in range(2)])
-    peak = torch.cuda.max_memory_allocated() if on_card else None
+    peak = None
+    if on_card:
+        peak = torch.cuda.max_memory_allocated()
+        # the card's memory that this query's allocator kept goes back:
+        # the processes of phases 8-13 share the card (PHASE_GROUPS)
+        torch.cuda.empty_cache()
     return cold, cold_s, read_s, upload_s, warm, warm_s, peak
 
 
-def tpcds_phase(args, kernels_used, data_dir: str):
+def tpcds_phase(args, kernels_used, data_dir: str, tables: dict):
     """Phase 6: the verbatim text of TPC-DS q3, q42, q52 and q96 through
     the port's ``session.sql`` over Parquet temp views at scale
-    ``--ds-sf``, written under ``data_dir``.  Returns B1's launches on
-    this path and the session (phase 7 goes on with it)."""
+    ``--ds-sf``, written under ``data_dir`` ahead of the phase
+    (``write_ds_tables``'s ``tables``).  Returns B1's launches on this
+    path and the session (phase 7 goes on with it)."""
     import os
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "benchmarks"))
+    _benchmarks_on_path()
     from tpcds_queries import QUERIES
     check("spark_rapids_tpu" not in sys.modules,
           "the query corpus imported the JAX package")
@@ -1766,13 +1791,11 @@ def tpcds_phase(args, kernels_used, data_dir: str):
     from spark_rapids_tpu_torch.kernels import cuda_ops
     on_card = args.device == "cuda"
 
-    t0 = time.perf_counter()
-    rows = make_tpcds(data_dir, args.ds_sf, args.seed)
-    t1 = time.perf_counter()
-    refs = ds_references(data_dir)
+    rows, refs = tables["rows6"], tables["refs6"]
     print(f"tpcds data: sf {args.ds_sf}, {rows}, store_sales in "
-          f"{DS_PARTS} files, written in {t1 - t0:.1f}s; pyarrow "
-          f"references in {time.perf_counter() - t1:.1f}s")
+          f"{DS_PARTS} files, written in {tables['write6_s']:.1f}s; "
+          f"pyarrow references in {tables['refs6_s']:.1f}s (a reference "
+          f"process, beside phases 4 and 5)")
     session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
                                   DS_BATCH_ROWS}), device=args.device)
     for t in DS_TABLES:
@@ -2908,14 +2931,14 @@ def plan_signature(explain: str) -> list:
 
 
 def tpcds7_phase(args, kernels_used, data_dir: str, session,
-                 tables_written=None) -> dict:
+                 tables: dict, refs_ahead) -> dict:
     """Phase 7: the verbatim text of the 21 flat TPC-DS queries
     (DS7_QUERIES) through the port's ``session.sql`` over Parquet temp
     views at scale ``--ds-sf``, on phase 6's tables and session with the
-    18 more tables of ``make_tpcds7`` (``tables_written()`` is called
-    once they are written).  Below SF10 the broadcast threshold shrinks
-    with the scale, so the plans are SF10's.  Returns B1's launches on
-    this path."""
+    18 more tables of ``make_tpcds7`` (written ahead: ``tables``; the
+    references: ``refs_ahead``).  Below SF10 the broadcast
+    threshold shrinks with the scale, so the plans are SF10's.  Returns
+    B1's launches on this path."""
     import os
     from tpcds_queries import QUERIES
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
@@ -2923,15 +2946,11 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session,
     from spark_rapids_tpu_torch.plan import overrides
     on_card = args.device == "cuda"
 
-    t0 = time.perf_counter()
-    rows = make_tpcds7(data_dir, args.ds_sf, args.seed)
-    if tables_written is not None:
-        tables_written()
-    t1 = time.perf_counter()
-    refs = ds7_references(data_dir)
+    rows = dict(tables["rows7"])
     print(f"tpcds7 data: sf {args.ds_sf}, {rows}, written in "
-          f"{t1 - t0:.1f}s; pyarrow references in "
-          f"{time.perf_counter() - t1:.1f}s")
+          f"{tables['write7_s']:.1f}s (a reference process, beside phases "
+          f"4 and 5)")
+    refs = phase_references(7, ds7_references, data_dir, refs_ahead)
     rows.update({"store_sales": max(int(DS_ROWS_PER_SF["store_sales"] *
                                         args.ds_sf), 64)})
     for t in DS7_TABLES:
@@ -6188,26 +6207,309 @@ def tpcds13_phase(args, kernels_used, data_dir: str, session,
     return launches
 
 
+#: phase 14's S1: a sorted export of the whole fact table
+S1_TEXT = ("SELECT * FROM store_sales "
+           "ORDER BY ss_customer_sk, ss_ticket_number, ss_item_sk")
+S1_KEYS = ("ss_customer_sk", "ss_ticket_number", "ss_item_sk")
+#: S1's out-of-core chunk and batch rows at SF10: each ~3.6M-row range
+#: partition arrives as ~4 batches, so it sorts as ~4 runs and merges
+#: out of core in ~4 chunks
+S1_CHUNK_ROWS = 1 << 20
+#: run (b): on an 80 GB card 1% less the 1 GiB reserve is below the
+#: 1 GiB floor, so the device budget is 1 GiB; 1 GiB of pinned host
+MEMORY_SMALL = {"spark.rapids.tpu.memory.pool.fraction": 0.01,
+                "spark.rapids.tpu.memory.host.spillStorageSize": 1 << 30}
+_NULL_BITS = -0x61C8864680B583EB          # a null's word in row_hashes
+
+
+def _srl(x, k: int):
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix64_t(x):
+    """murmur3 fmix64 over int64 bit patterns (torch, wrapping)."""
+    x = x ^ _srl(x, 33)
+    x = x * -0x00AE502812AA7333          # 0xff51afd7ed558ccd
+    x = x ^ _srl(x, 33)
+    x = x * -0x3B314601E57A13AD          # 0xc4ceb9fe1a85ec53
+    return x ^ _srl(x, 33)
+
+
+def row_hashes(table, device: str = "cpu"):
+    """One 64-bit hash per row of every column's bits (a null hashes a
+    fixed word), sorted: two tables hold the same rows as a multiset iff
+    these agree (up to hash collisions).  Host numpy result."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import torch
+    h = torch.full((table.num_rows,), 42, dtype=torch.int64, device=device)
+    for col in table.columns:
+        col = col.combine_chunks() if isinstance(col, pa.ChunkedArray) \
+            else col
+        if pa.types.is_date32(col.type):
+            col = col.cast(pa.int32())
+        vals = pc.fill_null(col, 0).to_numpy(zero_copy_only=False)
+        bits = vals.view(np.int64) if vals.dtype.itemsize == 8 else \
+            vals.astype(np.int64)
+        x = torch.from_numpy(np.ascontiguousarray(bits)).to(device)
+        if col.null_count:
+            valid = torch.from_numpy(
+                ~np.asarray(col.is_null())).to(device)
+            x = torch.where(valid, x, _NULL_BITS)
+        h = _mix64_t(h ^ x)
+    return torch.sort(h).values.cpu().numpy()
+
+
+def ds14_references(data_dir: str) -> dict:
+    """Phase 14's references: q78's pyarrow answer (``ds8_references``)
+    and, for S1, pyarrow's stable sort of store_sales' three keys (nulls
+    first, Spark's ascending default) and the sorted row hashes of the
+    whole table, written beside the tables (``s1_keys.arrow``,
+    ``s1_hashes.npy``)."""
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+    refs = ds8_references(data_dir, ("q78",))
+    table = papq.read_table(os.path.join(data_dir, "store_sales.parquet"))
+    keys = table.select(list(S1_KEYS)).sort_by(
+        [(k, "ascending") for k in S1_KEYS], null_placement="at_start")
+    keys_path = os.path.join(data_dir, "s1_keys.arrow")
+    with pa.OSFile(keys_path, "wb") as f, \
+            pa.ipc.new_file(f, keys.schema) as w:
+        w.write_table(keys)
+    hashes_path = os.path.join(data_dir, "s1_hashes.npy")
+    np.save(hashes_path, row_hashes(table))
+    refs.update(s1_rows=table.num_rows, s1_keys=keys_path,
+                s1_hashes=hashes_path)
+    return refs
+
+
+def _same_values(a, b) -> bool:
+    """Two arrow columns of one type hold the same values and nulls."""
+    import pyarrow.compute as pc
+    a, b = a.combine_chunks(), b.combine_chunks()
+    return a.type == b.type and len(a) == len(b) and np.array_equal(
+        np.asarray(a.is_null()), np.asarray(b.is_null())) and \
+        np.array_equal(pc.fill_null(a, 0).to_numpy(zero_copy_only=False),
+                       pc.fill_null(b, 0).to_numpy(zero_copy_only=False))
+
+
+def memory_session(args, data_dir: str, spill_dir: str, batch_rows: int,
+                   extra: dict):
+    """A session over phase 7's tables with the scan cache off, spill
+    files under ``spill_dir`` and ``extra``'s settings; below SF10 the
+    device and host limits shrink with the scale (the budget's 1 GiB
+    floor would hold a small table whole)."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.memory.catalog import BufferCatalog
+    scale = min(args.ds_sf, 10.0) / 10.0
+    session = TpuSession(TpuConf({
+        "spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+        "spark.rapids.tpu.sql.sort.outOfCore.chunkRows":
+            max(1024, int(S1_CHUNK_ROWS * scale)),
+        "spark.rapids.tpu.io.deviceScanCache.enabled": False,
+        "spark.rapids.tpu.memory.spill.dir": spill_dir, **extra}),
+        device=args.device)
+    if extra and scale < 1:
+        cat = BufferCatalog.get()
+        cat.device_limit = max(1 << 16, int(cat.device_limit * scale))
+        cat.host_limit = max(1 << 16, int(cat.host_limit * scale))
+    for t in DS_TABLES + DS7_TABLES:
+        session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
+            .create_or_replace_temp_view(t)
+    return session
+
+
+def memory_run(session, text: str, spill_dir: str, on_card: bool,
+               what: str) -> dict:
+    """One cold run of ``text`` (the scan cache is off): its table, wall,
+    peak device bytes, the catalog's movements, out-of-core chunks and
+    launches; no catalog entry and no spill file may outlive it."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.memory.catalog import BufferCatalog
+    cuda_ops.reset_launches()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # as ``cold_and_warm`` ends
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = session.sql(text).to_arrow()
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cat = BufferCatalog.get()
+    left = os.listdir(spill_dir) if os.path.isdir(spill_dir) else []
+    check(cat.stats()["num_buffers"] == 0 and not left,
+          f"{what}: {cat.stats()['num_buffers']} catalog entries and "
+          f"{len(left)} spill files outlived the query")
+    sorts = _find(session.last_physical_plan, "TpuSort")
+    out = dict(table=table, wall=wall,
+               peak=torch.cuda.max_memory_allocated() if on_card else None,
+               memory=dict(session.last_query_memory),
+               shortfalls=cat.stats()["pinned_shortfalls"],
+               chunks=sum(s.ooc_counts["chunks"] for s in sorts),
+               launches=dict(cuda_ops.LAUNCHES))
+    got = out["launches"]
+    print(f"{what}: {table.num_rows} rows; cold wall {wall:.4f}s (files "
+          f"in the page cache); peak device memory {out['peak']} B; "
+          f"catalog {out['memory']} (spills short of their target: "
+          f"{out['shortfalls']}); out-of-core chunks {out['chunks']}; "
+          f"launches B1 {got['hash_partition_ids']}, B2 "
+          f"{got['table_reduce']}, probe {got['join_probe']}", flush=True)
+    return out
+
+
+def memory_phase(args, kernels_used, data_dir: str, refs_ahead=None) -> dict:
+    """Phase 14: the memory tiers.  S1 sorts all of store_sales (every
+    column) by three keys with ``sort.outOfCore.chunkRows`` S1_CHUNK_ROWS
+    and the scan cache off, (a) at the default budget and (b) under
+    MEMORY_SMALL: both must give the same bytes, their key columns those
+    of pyarrow's stable sort and their rows pyarrow's as a multiset
+    (``row_hashes``); (b) must spill to the host and to disk and peak
+    below (a).  S2 runs q78 (four shuffled LEFT joins) at the default
+    budget and under MEMORY_SMALL, both with the scan cache off: each
+    must equal phase 8's pyarrow answer, and (b) must spill, with B1 and
+    the probe launched.  No catalog entry or spill file may outlive a
+    query.  Returns the launches of (b)'s q78."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+    refs = phase_references(14, ds14_references, data_dir, refs_ahead)
+    DeviceScanCache.get().clear()
+    threshold = overrides.BROADCAST_ROW_THRESHOLD
+    overrides.BROADCAST_ROW_THRESHOLD = max(
+        1, int(threshold * min(args.ds_sf, 10.0) / 10.0))
+    try:
+        return _memory_phase(args, kernels_used, data_dir, refs, QUERIES,
+                             on_card)
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD = threshold
+
+
+def _memory_phase(args, kernels_used, data_dir, refs, QUERIES, on_card):
+    import pyarrow as pa
+    spill_dir = os.path.join(data_dir, "spill")
+    s1_batch = max(1024, int(S1_CHUNK_ROWS * min(args.ds_sf, 10.0) / 10.0))
+    runs = {}
+    for name, extra in (("a", {}), ("b", MEMORY_SMALL)):
+        session = memory_session(args, data_dir, spill_dir, s1_batch, extra)
+        runs[name] = memory_run(session, S1_TEXT, spill_dir, on_card,
+                                f"S1 ({name})")
+        session = None
+    a, b = runs["a"], runs["b"]
+    t0 = time.perf_counter()
+    check(a["table"].num_rows == refs["s1_rows"],
+          f"S1: {a['table'].num_rows} rows of {refs['s1_rows']}")
+    check(same_bytes(a["table"], b["table"]),
+          "S1: runs (a) and (b) differ in their bytes")
+    with pa.memory_map(refs["s1_keys"]) as f:
+        ref_keys = pa.ipc.open_file(f).read_all()
+        check(all(_same_values(a["table"].column(k), ref_keys.column(k))
+                  for k in S1_KEYS),
+              "S1: the key columns differ from pyarrow's stable sort")
+    got_hashes = row_hashes(a["table"], args.device)
+    check(np.array_equal(got_hashes, np.load(refs["s1_hashes"])),
+          "S1: the rows differ from store_sales' as a multiset")
+    check(b["memory"]["spilled_device_to_host"] > 0 and
+          b["memory"]["spilled_host_to_disk"] > 0,
+          f"S1 (b) did not spill to the host and to disk: {b['memory']}")
+    check(a["chunks"] > 0 and b["chunks"] == a["chunks"],
+          f"S1: out-of-core chunks {a['chunks']} and {b['chunks']}")
+    check(not on_card or b["peak"] < a["peak"],
+          f"S1: (b)'s peak {b['peak']} B is not below (a)'s {a['peak']} B")
+    print(f"S1: (a) and (b) byte-identical; key columns equal pyarrow's "
+          f"stable sort, rows equal store_sales' as a multiset; (b) peak "
+          f"{b['peak']} B against (a) {a['peak']} B; checks "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    runs = None
+    a = b = None
+    q78 = {}
+    for name, extra in (("default", {}), ("b", MEMORY_SMALL)):
+        session = memory_session(args, data_dir, spill_dir, DS_BATCH_ROWS,
+                                 extra)
+        q78[name] = r = memory_run(session, QUERIES["q78"], spill_dir,
+                                   on_card, f"S2 q78 ({name})")
+        check_rows("q78", r["table"], refs["q78"], DS8_ORDER["q78"])
+        session = None
+    got = q78["b"]["launches"]
+    check(q78["b"]["memory"]["spilled_device_to_host"] > 0,
+          f"S2 q78 (b) spilled nothing: {q78['b']['memory']}")
+    check(not on_card or all(got[k] > 0 for k in kernels_used),
+          f"S2 q78 (b): {kernels_used} must launch ({got})")
+    print(f"S2: q78 matches pyarrow at {EXACT_REL} under both budgets; "
+          f"wall {q78['b']['wall']:.4f}s and peak {q78['b']['peak']} B "
+          f"under (b) against {q78['default']['wall']:.4f}s and "
+          f"{q78['default']['peak']} B at the default budget", flush=True)
+    return got
+
+
 def _reference_worker() -> None:
     """A reference process's pyarrow takes half the host's cores; the
-    other half serve the process that drives the card."""
+    other half serve the processes that drive the card.  It ends with the
+    process that started it."""
+    import threading
     import pyarrow
     pyarrow.set_cpu_count(max(1, (os.cpu_count() or 2) // 2))
+    threading.Thread(target=_end_with_parent, daemon=True).start()
 
 
-def references_ahead(pool, data_dir: str) -> dict:
-    """Futures of phases 8-13's pyarrow references, computed one after
-    another in ``pool``'s process while the card runs phases 8-13 (~200
-    s of host work the phases would otherwise wait for)."""
-    return {n: pool.submit(fn, data_dir) for n, fn in (
-        (8, ds8_references), (9, ds9_references), (10, ds10_references),
-        (11, ds11_references), (12, ds12_references),
-        (13, ds13_references))}
+def _end_with_parent(stop=lambda: os._exit(1)) -> None:
+    """Waits for the end of the process that started this one, then
+    ``stop()``s."""
+    multiprocessing.parent_process().join()
+    stop()
 
 
-def phase_references(phase: int, fn, data_dir: str, ahead=None) -> dict:
-    """A phase's references: ``ahead``'s result (``references_ahead``), or
+#: each phase's pyarrow references, from phase 7's tables on
+REFERENCES = {7: ds7_references, 8: ds8_references, 9: ds9_references,
+              10: ds10_references, 11: ds11_references,
+              12: ds12_references, 13: ds13_references,
+              14: ds14_references}
+
+
+#: the queries of each phase whose references come query by query
+PHASE_QUERIES = {7: DS7_QUERIES, 8: DS8_QUERIES, 9: DS9_QUERIES,
+                 10: DS10_QUERIES, 11: DS11_QUERIES, 12: DS12_QUERIES,
+                 13: DS13_QUERIES}
+
+
+class QueryReferences:
+    """A phase's references as futures, one for each query in the order
+    the phase runs them: ``refs[key]`` waits for them in turn until one
+    holds ``key``, so that a query waits for its own reference alone, not
+    for the whole phase's.  ``waited`` sums the seconds spent waiting."""
+
+    def __init__(self, futures):
+        self._pending, self._done, self.waited = list(futures), {}, 0.0
+
+    def __getitem__(self, key):
+        t0 = time.perf_counter()
+        while key not in self._done and self._pending:
+            self._done.update(self._pending.pop(0).result())
+        self.waited += time.perf_counter() - t0
+        return self._done[key]
+
+
+def references_ahead(pool, data_dir: str, phases) -> dict:
+    """``phases``' pyarrow references, computed one after another in
+    ``pool``'s process while the card runs the queries: query by query
+    (QueryReferences) where PHASE_QUERIES lists the phase, else one
+    future."""
+    return {n: QueryReferences(pool.submit(REFERENCES[n], data_dir, (q,))
+                               for q in PHASE_QUERIES[n])
+            if n in PHASE_QUERIES else pool.submit(REFERENCES[n], data_dir)
+            for n in phases}
+
+
+def phase_references(phase: int, fn, data_dir: str, ahead=None):
+    """A phase's references: ``ahead`` (``references_ahead``), or
     ``fn(data_dir)`` computed here."""
+    if isinstance(ahead, QueryReferences):
+        print(f"tpcds{phase}: pyarrow references query by query from a "
+              f"reference process beside the card")
+        return ahead
     t0 = time.perf_counter()
     refs = fn(data_dir) if ahead is None else ahead.result()
     how = "computed" if ahead is None else \
@@ -6217,19 +6519,42 @@ def phase_references(phase: int, fn, data_dir: str, ahead=None) -> dict:
     return refs
 
 
-def ds_tables_alone(args, data_dir: str):
-    """Phases 6 and 7's tables under ``data_dir`` and phase 6's session
-    over them, without their queries (``--only 11``)."""
-    import os
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "benchmarks"))
+def references_waited(phase: int, refs) -> None:
+    """Prints the seconds a phase waited for its references query by
+    query."""
+    if isinstance(refs, QueryReferences):
+        print(f"tpcds{phase}: waited {refs.waited:.1f}s for its references")
+
+
+def _benchmarks_on_path() -> None:
+    """``benchmarks/`` (its ``tpcds_queries``) on ``sys.path``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmarks")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def write_ds_tables(data_dir: str, scale: float, seed: int) -> dict:
+    """Phases 6 and 7's tables under ``data_dir`` and phase 6's pyarrow
+    references (``make_tpcds``, ``ds_references``, ``make_tpcds7``), with
+    the seconds of each step: a reference process writes them while the
+    card runs phases 4 and 5."""
+    t0 = time.perf_counter()
+    rows6 = make_tpcds(data_dir, scale, seed)
+    t1 = time.perf_counter()
+    refs6 = ds_references(data_dir)
+    t2 = time.perf_counter()
+    rows7 = make_tpcds7(data_dir, scale, seed)
+    return dict(rows6=rows6, refs6=refs6, rows7=rows7, write6_s=t1 - t0,
+                refs6_s=t2 - t1, write7_s=time.perf_counter() - t2)
+
+
+def ds_session(args, data_dir: str):
+    """A session at phase 6's batch size over phases 6 and 7's tables
+    under ``data_dir``, each registered as a temp view."""
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.config import TpuConf
-    t0 = time.perf_counter()
-    make_tpcds(data_dir, args.ds_sf, args.seed)
-    make_tpcds7(data_dir, args.ds_sf, args.seed)
-    print(f"tpcds data: sf {args.ds_sf}, written in "
-          f"{time.perf_counter() - t0:.1f}s")
+    _benchmarks_on_path()
     session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
                                   DS_BATCH_ROWS}), device=args.device)
     for t in DS_TABLES + DS7_TABLES:
@@ -6238,76 +6563,120 @@ def ds_tables_alone(args, data_dir: str):
     return session
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=64_000_000)
-    ap.add_argument("--sf", type=float, default=10.0,
-                    help="TPC-H scale factor of phase 5's tables")
-    ap.add_argument("--ds-sf", type=float, default=10.0,
-                    help="TPC-DS scale factor of phase 6's tables")
-    ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: also time its "
-                         "kernels at the raw-row and probe shapes with "
-                         "this timer")
-    ap.add_argument("--only", type=int, choices=(11, 12, 13), default=None,
-                    help="after the build, run this phase alone on "
-                         "freshly written tables (no contract line)")
-    args = ap.parse_args(argv)
-    start = time.perf_counter()
+def ds_tables_alone(args, data_dir: str):
+    """Phases 6 and 7's tables under ``data_dir`` and a session over
+    them, without their queries (``--only 11``)."""
+    t0 = time.perf_counter()
+    make_tpcds(data_dir, args.ds_sf, args.seed)
+    make_tpcds7(data_dir, args.ds_sf, args.seed)
+    print(f"tpcds data: sf {args.ds_sf}, written in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return ds_session(args, data_dir)
 
-    def phase_done(name):
-        print(f"phase {name} done at {time.perf_counter() - start:.1f}s",
-              flush=True)
 
+#: phases 8-13 in groups, each group in a process of its own beside the
+#: main one (phases 6, 7 and 14): the card is idle most of a query's wall
+#: (PERF.md 5), so the processes overlap their host work on one card
+PHASE_GROUPS = ((8, 9), (10, 11), (12, 13))
+
+
+def group_log(data_dir: str, group) -> str:
+    """The file a group's process prints into; its launches go beside it
+    as ``.json``."""
+    return os.path.join(data_dir, "phases_" + "_".join(map(str, group)) +
+                        ".log")
+
+
+def _phase_worker(group, args, used, data_dir: str, start: float) -> None:
+    """Phases ``group`` in a process of their own, on a session of their
+    own over phases 6 and 7's tables, their references computed in one
+    more process beside it.  Prints into ``group_log`` and writes each
+    phase's launches beside it.  A SIGTERM, or the end of the process
+    that started it, stops it and its reference process."""
+    import threading
+
+    def stop(*_):
+        for p in multiprocessing.active_children():
+            p.terminate()
+        os._exit(1)
+
+    signal.signal(signal.SIGTERM, stop)
+    threading.Thread(target=_end_with_parent, args=(stop,),
+                     daemon=True).start()
+    phases = {8: tpcds8_phase, 9: tpcds9_phase, 10: tpcds10_phase,
+              11: tpcds11_phase, 12: tpcds12_phase, 13: tpcds13_phase}
+    log_path, out, results = group_log(data_dir, group), sys.stdout, {}
+    with open(log_path, "w", buffering=1) as log:
+        sys.stdout = log
+        try:
+            cpu_share(args)
+            session = ds_session(args, data_dir)
+            spawn = multiprocessing.get_context("spawn")
+            with ProcessPoolExecutor(1, mp_context=spawn,
+                                     initializer=_reference_worker) as pool:
+                try:
+                    ahead = references_ahead(pool, data_dir, group)
+                    for n in group:
+                        results[f"tpcds{n}"] = phases[n](
+                            args, used, data_dir, session, ahead[n])
+                        references_waited(n, ahead[n])
+                        print(f"phase {n} done at "
+                              f"{time.time() - start:.1f}s")
+                except BaseException:
+                    for p in multiprocessing.active_children():
+                        p.terminate()
+                    raise
+        finally:
+            sys.stdout = out
+    with open(log_path + ".json", "w") as f:
+        json.dump(results, f)
+
+
+def cpu_share(args) -> None:
+    """Off the card, each of the processes that run queries side by side
+    takes its share of the host's cores for torch's threads."""
+    if args.device == "cpu":
+        import torch
+        torch.set_num_threads(max(1, (os.cpu_count() or 4) //
+                                  (len(PHASE_GROUPS) + 1)))
+
+
+def start_phase_workers(spawn, args, used, data_dir: str,
+                        start: float) -> list:
+    """One process for each of PHASE_GROUPS, started; this process's
+    torch threads take their share too (``cpu_share``)."""
+    cpu_share(args)
+    procs = [spawn.Process(target=_phase_worker, name=f"phases {g}",
+                           args=(g, args, used, data_dir, start))
+             for g in PHASE_GROUPS]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_phase_workers(procs, data_dir: str) -> dict:
+    """Waits for each group's process in turn and prints what it printed;
+    a group that failed fails the run.  Returns each phase's launches."""
+    results = {}
+    for group, p in zip(PHASE_GROUPS, procs):
+        p.join()
+        log = group_log(data_dir, group)
+        if os.path.exists(log):
+            with open(log) as f:
+                print(f.read(), end="", flush=True)
+        check(p.exitcode == 0,
+              f"phases {group} failed (exit code {p.exitcode})")
+        with open(log + ".json") as f:
+            results.update(json.load(f))
+    return results
+
+
+def headline_phase(args) -> dict:
+    """Phase 4: the headline query in exact and variable mode.  Returns
+    each mode's launches."""
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.config import TpuConf
-    from spark_rapids_tpu_torch.kernels import cuda_ops
-
-    # 1. probe
-    if args.device == "cuda":
-        check(torch.cuda.is_available(), "no CUDA device: nothing to smoke")
-        kind = torch.cuda.get_device_name(0)
-        count = torch.cuda.device_count()
-        smi = nvidia_smi_line()
-        print(f"device: {kind} x{count}; torch {torch.__version__} "
-              f"cuda {torch.version.cuda}")
-        print(f"nvidia-smi: {smi}")
-
-        # 2. build
-        t0 = time.perf_counter()
-        reports = cuda_ops.build_all()
-        print(f"build: {len(reports)} kernels in "
-              f"{time.perf_counter() - t0:.1f}s")
-        for name, rep in reports.items():
-            for line in rep.splitlines():
-                if any(w in line for w in ("registers", "Compiling entry",
-                                           "spill")):
-                    print(f"  {name}: {line.strip()}")
-
-        if args.only is None:
-            # 3. kernels against their plain versions
-            kernels = kernel_phase(np.random.default_rng(args.seed),
-                                   args.parent)
-            phase_done("3")
-
-    if args.only is not None:
-        used = ["hash_partition_ids", "join_probe"] \
-            if args.device == "cuda" else []
-        phase = {11: tpcds11_phase, 12: tpcds12_phase,
-                 13: tpcds13_phase}[args.only]
-        with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
-            session = ds_tables_alone(args, data_dir)
-            phase_done("tables")
-            phase(args, used, data_dir, session)
-            phase_done(str(args.only))
-            session = None
-        print(f"phase {args.only} alone: no contract result")
-        return 0
-
-    # 4. the headline query
     t0 = time.perf_counter()
     data, dim = make_data(args.rows, args.seed)
     ref = numpy_reference(data, dim)
@@ -6351,42 +6720,133 @@ def main(argv=None) -> int:
               f"{'byte-identical runs; ' if not variable else ''}matches "
               f"numpy at {rel} (worst error/limit {worst!r})")
     print("plan:\n" + df.explain())
-    df = session = None         # phase 4's table leaves the card
+    return results
 
-    phase_done("4")
 
-    # 5. shuffled joins at TPC-H scale
-    results["join"] = join_phase(
-        args, [k for k in kernels if k not in NEW_B2_KINDS]
-        if args.device == "cuda" else [])
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=64_000_000)
+    ap.add_argument("--sf", type=float, default=10.0,
+                    help="TPC-H scale factor of phase 5's tables")
+    ap.add_argument("--ds-sf", type=float, default=10.0,
+                    help="TPC-DS scale factor of phase 6's tables")
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: also time its "
+                         "kernels at the raw-row and probe shapes with "
+                         "this timer")
+    ap.add_argument("--only", type=int, choices=(11, 12, 13, 14),
+                    default=None,
+                    help="after the build, run this phase alone on "
+                         "freshly written tables (no contract line)")
+    args = ap.parse_args(argv)
+    start = time.time()         # the phases' processes share this clock
+    # a SIGTERM unwinds, so that the processes this one started stop too
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
 
-    # 6. the TPC-DS quartet through session.sql over Parquet; 7. the flat
-    # TPC-DS queries, 8. those with derived tables and CTEs, 9. those with
-    # expression subqueries, 10. those with set operations, DISTINCT and
-    # DATE columns, 11. those with window functions, 12. those with CAST,
-    # DATE literals, count(DISTINCT) and ROLLUP, 13. the last four texts
-    # and the function library, on the same tables, session and directory
+    def phase_done(name):
+        print(f"phase {name} done at {time.time() - start:.1f}s",
+              flush=True)
+
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+
+    # 1. probe
+    if args.device == "cuda":
+        check(torch.cuda.is_available(), "no CUDA device: nothing to smoke")
+        kind = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
+        smi = nvidia_smi_line()
+        print(f"device: {kind} x{count}; torch {torch.__version__} "
+              f"cuda {torch.version.cuda}")
+        print(f"nvidia-smi: {smi}")
+
+        # 2. build
+        t0 = time.perf_counter()
+        reports = cuda_ops.build_all()
+        print(f"build: {len(reports)} kernels in "
+              f"{time.perf_counter() - t0:.1f}s")
+        for name, rep in reports.items():
+            for line in rep.splitlines():
+                if any(w in line for w in ("registers", "Compiling entry",
+                                           "spill")):
+                    print(f"  {name}: {line.strip()}")
+
+        if args.only is None:
+            # 3. kernels against their plain versions
+            kernels = kernel_phase(np.random.default_rng(args.seed),
+                                   args.parent)
+            phase_done("3")
+
+    if args.only is not None:
+        used = ["hash_partition_ids", "join_probe"] \
+            if args.device == "cuda" else []
+        phase = {11: tpcds11_phase, 12: tpcds12_phase,
+                 13: tpcds13_phase}.get(args.only)
+        with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
+            session = ds_tables_alone(args, data_dir)
+            phase_done("tables")
+            if phase is None:
+                session = None
+                memory_phase(args, used, data_dir)
+            else:
+                phase(args, used, data_dir, session)
+            phase_done(str(args.only))
+            session = None
+        print(f"phase {args.only} alone: no contract result")
+        return 0
+
+    # 4-14: phases 6-14 share one directory of TPC-DS tables, which a
+    # reference process writes while the card runs phases 4 and 5; from
+    # phase 6 on, phases 8-13 run in PHASE_GROUPS' processes beside this
+    # one (phases 6, 7 and 14)
     used = ["hash_partition_ids", "join_probe"] \
         if args.device == "cuda" else []
     spawn = multiprocessing.get_context("spawn")
+    results = {}
     with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir, \
             ProcessPoolExecutor(1, mp_context=spawn,
                                 initializer=_reference_worker) as pool:
-        phase_done("5")
-        results["tpcds"], session = tpcds_phase(args, used, data_dir)
-        phase_done("6")
-        ahead = {}
-        results["tpcds7"] = tpcds7_phase(
-            args, used, data_dir, session,
-            lambda: ahead.update(references_ahead(pool, data_dir)))
-        phase_done("7")
-        for n, phase in ((8, tpcds8_phase), (9, tpcds9_phase),
-                         (10, tpcds10_phase), (11, tpcds11_phase),
-                         (12, tpcds12_phase), (13, tpcds13_phase)):
-            results[f"tpcds{n}"] = phase(args, used, data_dir, session,
-                                         ahead[n])
-            phase_done(str(n))
-        session = None
+        try:
+            tables = pool.submit(write_ds_tables, data_dir, args.ds_sf,
+                                 args.seed)
+            ahead = references_ahead(pool, data_dir, (7, 14))
+            # 4. the headline query
+            results.update(headline_phase(args))
+            phase_done("4")
+            # 5. shuffled joins at TPC-H scale
+            results["join"] = join_phase(
+                args, [k for k in kernels if k not in NEW_B2_KINDS]
+                if args.device == "cuda" else [])
+            phase_done("5")
+            tables = tables.result()
+            workers = start_phase_workers(spawn, args, used, data_dir,
+                                          start)
+            # 6. the TPC-DS quartet through session.sql over Parquet; 7.
+            # the flat TPC-DS queries, on the same session
+            results["tpcds"], session = tpcds_phase(args, used, data_dir,
+                                                    tables)
+            phase_done("6")
+            results["tpcds7"] = tpcds7_phase(args, used, data_dir, session,
+                                             tables, ahead[7])
+            references_waited(7, ahead[7])
+            phase_done("7")
+            session = None
+            # 14. the memory tiers, on sessions of their own
+            results["tpcds14"] = memory_phase(args, used, data_dir,
+                                              ahead[14])
+            phase_done("14")
+            # 8. derived tables and CTEs, 9. expression subqueries, 10.
+            # set operations, DISTINCT and DATE columns, 11. window
+            # functions, 12. CAST, DATE literals, count(DISTINCT) and
+            # ROLLUP, 13. the last four texts and the function library
+            results.update(join_phase_workers(workers, data_dir))
+            phase_done("4-14")
+        except BaseException:
+            for p in multiprocessing.active_children():
+                p.terminate()
+            raise
 
     if args.device != "cuda":
         print("cpu rehearsal: no device result")

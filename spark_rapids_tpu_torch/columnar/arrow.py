@@ -3,7 +3,8 @@
 Counterpart of ``spark_rapids_tpu/columnar/arrow.py`` for fixed-width
 types, dates and strings (a date32 moves as its int32 days).  Uploads
 move only live rows and pad on the device; a string column moves its
-offsets (rebased to 0) and its bytes.
+offsets (rebased to 0) and its bytes.  An upload that meets a device
+OOM frees what it can and runs once more (``memory/pressure.oom_retry``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from ..memory.pressure import oom_retry
 from . import dtypes as T
 from .batch import ColumnarBatch
 from .column import Column, StringColumn, bucket_capacity
@@ -80,6 +82,10 @@ def _column_from_arrow(arr, dtype: T.DType, cap: int, device) -> Column:
 
 def from_arrow(table: pa.Table, device) -> ColumnarBatch:
     """Upload an arrow table as one batch padded to bucket_capacity."""
+    return oom_retry(_from_arrow, table, device)
+
+
+def _from_arrow(table: pa.Table, device) -> ColumnarBatch:
     schema = schema_from_arrow(table.schema)
     n = table.num_rows
     cap = bucket_capacity(n)

@@ -60,6 +60,17 @@ class ColumnarBatch:
             self._rows_host = int(self.rows_dev.item())
         return self._rows_host
 
+    def nbytes(self) -> int:
+        """Device bytes the batch's buffers hold (a string slice counts
+        the byte buffer it shares with the batch it was cut from)."""
+        n = 0
+        for c in self.columns:
+            n += c.data.numel() * c.data.element_size() + c.validity.numel()
+            offsets = getattr(c, "offsets", None)
+            if offsets is not None:
+                n += offsets.numel() * offsets.element_size()
+        return n
+
     def live_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.device) < self.rows_dev
 

@@ -6,6 +6,8 @@ never silently ignored.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Any, Dict, Optional
 
 import torch
@@ -15,6 +17,15 @@ BATCH_SIZE_ROWS = "spark.rapids.tpu.sql.batchSizeRows"
 AGG_TABLE_SIZE = "spark.rapids.tpu.sql.agg.tableSize"
 SHUFFLE_PARTITIONS = "spark.rapids.tpu.sql.shuffle.partitions"
 JOIN_GATHER_CHUNK_ROWS = "spark.rapids.tpu.sql.join.gather.chunkRows"
+HBM_POOL_FRACTION = "spark.rapids.tpu.memory.pool.fraction"
+HBM_RESERVE = "spark.rapids.tpu.memory.reserve"
+HOST_SPILL_LIMIT = "spark.rapids.tpu.memory.host.spillStorageSize"
+SPILL_DIR = "spark.rapids.tpu.memory.spill.dir"
+CONCURRENT_TPU_TASKS = "spark.rapids.tpu.sql.concurrentTpuTasks"
+SORT_OOC_CHUNK_ROWS = "spark.rapids.tpu.sql.sort.outOfCore.chunkRows"
+SORT_OOC_SAMPLES = "spark.rapids.tpu.sql.sort.outOfCore.samplesPerRun"
+SCAN_CACHE = "spark.rapids.tpu.io.deviceScanCache.enabled"
+SCAN_CACHE_BYTES = "spark.rapids.tpu.io.deviceScanCache.bytes"
 
 #: the hash split's partition limit (kernels/cuda_ops.SPLIT_MAX_PARTS)
 MAX_SHUFFLE_PARTITIONS = 4096
@@ -32,6 +43,28 @@ _DEFAULTS: Dict[str, Any] = {
     # Join output rows gathered per expansion chunk: a stream batch whose
     # match total is larger expands in pieces of at most this many rows.
     JOIN_GATHER_CHUNK_ROWS: 1 << 22,
+    # Share of the card's memory the catalog's device tier may hold, less
+    # the reserve below (memory/arena.DeviceManager).
+    HBM_POOL_FRACTION: 0.9,
+    # Device bytes held back from the budget for temporaries.
+    HBM_RESERVE: 1 << 30,
+    # Pinned host bytes of spilled buffers before the disk tier.
+    HOST_SPILL_LIMIT: 8 << 30,
+    # Directory of the disk tier's files (one per spilled buffer).
+    SPILL_DIR: os.path.join(tempfile.gettempdir(),
+                            "spark_rapids_tpu_torch_spill"),
+    # Queries admitted to the device at once (the collect's permits).
+    CONCURRENT_TPU_TASKS: 2,
+    # A sort partition of more buffered rows than this merges out of
+    # core, in range chunks of about this many rows.
+    SORT_OOC_CHUNK_ROWS: 1 << 22,
+    # Key samples kept per sorted run to choose the merge's cuts.
+    SORT_OOC_SAMPLES: 256,
+    # Keep uploaded file-scan batches on the device across queries.
+    SCAN_CACHE: True,
+    # Device bytes the scan cache may hold (the reference's default is
+    # 6 GiB; 24 GiB holds every table phases 6-13 of chip_smoke read).
+    SCAN_CACHE_BYTES: 24 << 30,
 }
 
 
@@ -56,8 +89,12 @@ class TpuConf:
         if not 1 <= parts <= MAX_SHUFFLE_PARTITIONS:
             raise ValueError(f"{SHUFFLE_PARTITIONS} = {parts}: the hash "
                              f"split takes 1..{MAX_SHUFFLE_PARTITIONS}")
-        if self.get(JOIN_GATHER_CHUNK_ROWS) < 1:
-            raise ValueError(f"{JOIN_GATHER_CHUNK_ROWS} must be at least 1")
+        for key in (JOIN_GATHER_CHUNK_ROWS, SORT_OOC_CHUNK_ROWS,
+                    SORT_OOC_SAMPLES, CONCURRENT_TPU_TASKS):
+            if self.get(key) < 1:
+                raise ValueError(f"{key} must be at least 1")
+        if not 0.0 < self.get(HBM_POOL_FRACTION) <= 1.0:
+            raise ValueError(f"{HBM_POOL_FRACTION} must lie in (0, 1]")
 
     def get(self, key: str):
         return self._settings.get(key, _DEFAULTS[key])

@@ -4,10 +4,36 @@ Counterpart of ``spark_rapids_tpu/exec/exchange.py`` (in-process only).
 """
 from __future__ import annotations
 
-from typing import Optional
+import itertools
+from typing import List, Optional
 
 from ..columnar.batch import ColumnarBatch, concat_batches
+from ..memory.arena import DeviceManager
+from ..memory.catalog import SHUFFLE_OUTPUT_PRIORITY
+from ..memory.spillable import SpillableBatch
 from .tpu_basic import Partitions, TpuExec
+
+
+class _MapOutput:
+    """The map side of one ``execute()``: every reduce partition's
+    blocks, each a ``SpillableBatch`` in the catalog, made when the
+    first reduce partition is read."""
+
+    def __init__(self, exchange: "TpuShuffleExchange"):
+        self.exchange = exchange
+        self.blocks: Optional[List[List[SpillableBatch]]] = None
+
+    def partition(self, pid: int) -> List[SpillableBatch]:
+        if self.blocks is None:
+            self.blocks = [[] for _ in
+                           range(self.exchange.partitioner.num_partitions)]
+            self.exchange.write_blocks(self.blocks)
+        return self.blocks[pid]
+
+    def close(self) -> None:
+        for part in self.blocks or ():
+            while part:
+                part.pop().close()
 
 
 class TpuShuffleExchange(TpuExec):
@@ -17,12 +43,25 @@ class TpuShuffleExchange(TpuExec):
     does: each map batch would otherwise reach a join as
     ``num_partitions`` small batches, each probed on its own (a join
     over a join's output would probe ``num_partitions^2`` batches per
-    map batch)."""
+    map batch).
+
+    The map side pulls its child batch by batch and registers each
+    non-empty slice as a ``SpillableBatch`` at the shuffle priority,
+    after ``DeviceManager.reserve`` of its bytes: past the budget the
+    catalog spills blocks (these first) to the host and to disk.  A
+    reduce partition materialises its blocks one at a time and closes
+    each once it is in a batch.  A range exchange first stages its whole
+    input, whose bounds need every row: each batch's key columns stay on
+    the device for the bounds, and the batch itself is registered under
+    the budget like a block (the reference keeps the staged input out of
+    its budget), then split once the bounds are known."""
 
     def __init__(self, partitioner, child: TpuExec, target_rows: int):
         self.partitioner = partitioner
         self.children = [child]
         self.target_rows = target_rows
+        #: the map outputs of execute() calls, until close()
+        self._outputs: List[_MapOutput] = []
 
     @property
     def output_schema(self):
@@ -35,36 +74,73 @@ class TpuShuffleExchange(TpuExec):
         return self.partitioner.num_partitions
 
     def execute(self) -> Partitions:
-        n = self.partitioner.num_partitions
-        out = [[] for _ in range(n)]
-        batches = [b for part in self.children[0].execute() for b in part
-                   if b.rows_known != 0]
+        output = _MapOutput(self)
+        self._outputs.append(output)
+        return [self._read(output, pid)
+                for pid in range(self.partitioner.num_partitions)]
+
+    def close(self) -> None:
+        while self._outputs:
+            self._outputs.pop().close()
+        super().close()
+
+    def write_blocks(self, blocks: List[List[SpillableBatch]]) -> None:
+        """The map side: every child batch split, its slices registered
+        in ``blocks`` (one list per reduce partition)."""
+        batches = (b for part in self.children[0].execute() for b in part
+                   if b.rows_known != 0)
+        manager = DeviceManager.get()
         if hasattr(self.partitioner, "fit"):
-            # a range exchange places rows by bounds from all its input
-            batches = [b for b in batches if b.num_rows > 0]
-            self.partitioner.fit(batches)
+            batches = self._staged(batches, manager)
         for batch in batches:
             split = self.partitioner.split(batch)
-            for pid in range(n):
+            del batch
+            for pid, part in enumerate(blocks):
                 s = split.partition_slice(pid)
                 if s is not None:
-                    out[pid].append(s)
-        return [_coalesce(part, self.target_rows) for part in out]
+                    manager.reserve(s.nbytes())
+                    part.append(SpillableBatch(s, SHUFFLE_OUTPUT_PRIORITY))
 
+    def _staged(self, batches, manager: DeviceManager):
+        """A range exchange's input: every batch staged in the catalog and
+        its key columns kept for the bounds; then, once the partitioner
+        is fit, each batch in order, unstaged as it is taken."""
+        keys, staged = [], []
+        try:
+            for b in batches:
+                if b.num_rows == 0:
+                    continue
+                keys.append((self.partitioner.key_columns(b), b.num_rows))
+                manager.reserve(b.nbytes())
+                staged.append(SpillableBatch(b))
+            b = None
+            self.partitioner.fit(keys)
+            keys = None
+            for sb in staged:
+                batch = sb.materialize()
+                sb.close()
+                yield batch
+        finally:
+            for sb in staged:
+                sb.close()
 
-def _coalesce(batches, target_rows: int):
-    """Consecutive batches (host row counts known) concatenated while
-    they fit ``target_rows``; a larger one stays whole."""
-    out, group, rows = [], [], 0
-    for b in batches:
-        if group and rows + b.num_rows > target_rows:
-            out.append(concat_batches(group))
-            group, rows = [], 0
-        group.append(b)
-        rows += b.num_rows
-    if group:
-        out.append(concat_batches(group))
-    return out
+    def _read(self, output: _MapOutput, pid: int):
+        """Reduce partition ``pid``: consecutive blocks concatenated
+        while they fit ``target_rows`` (a larger one stays whole), each
+        block closed once it is in a batch."""
+        blocks = output.partition(pid)
+        while blocks:
+            rows, take = blocks[0].num_rows, 1
+            while take < len(blocks) and \
+                    rows + blocks[take].num_rows <= self.target_rows:
+                rows += blocks[take].num_rows
+                take += 1
+            group = blocks[:take]
+            batch = concat_batches([b.materialize() for b in group])
+            del blocks[:take]
+            for b in group:
+                b.close()
+            yield batch
 
 
 class TpuBroadcastExchange(TpuExec):
@@ -88,8 +164,11 @@ class TpuBroadcastExchange(TpuExec):
         return concat_batches(batches)
 
     def execute(self) -> Partitions:
-        b = self.broadcast_batch()
-        return [[b] if b is not None else []]
+        def one():
+            b = self.broadcast_batch()
+            if b is not None:
+                yield b
+        return [one()]
 
 
 class TpuCoalescePartitions(TpuExec):
@@ -106,4 +185,4 @@ class TpuCoalescePartitions(TpuExec):
         return 1
 
     def execute(self) -> Partitions:
-        return [[b for part in self.children[0].execute() for b in part]]
+        return [itertools.chain.from_iterable(self.children[0].execute())]

@@ -126,29 +126,29 @@ class TpuHashAggregate(TpuExec):
     # -- driver -------------------------------------------------------------
     def execute(self):
         self.path_counts = {"table": 0, "sort": 0}
-        out = []
-        for part in self.children[0].execute():
-            batches = [b for b in part if b.rows_known != 0]
-            if self.mode == PARTIAL:
-                partials = [self._aggregate(b, update=True) for b in batches]
-                if not partials:
-                    out.append([])
-                    continue
-                merged = concat_batches(partials)
-                if len(partials) > 1:
-                    merged = self._aggregate(merged, update=False)
-                out.append([merged])
-            else:
-                if not batches and self.group_exprs:
-                    out.append([])
-                    continue
-                if not batches:
-                    batches = [ColumnarBatch.empty(
-                        self.children[0].output_schema, self.device)]
-                merged = self._aggregate(concat_batches(batches),
-                                         update=False)
-                out.append([self._finalize(merged)])
-        return out
+        run = self._partial if self.mode == PARTIAL else self._final
+        return [run(part) for part in self.children[0].execute()]
+
+    def _partial(self, part):
+        """One buffer batch of a partition: each input batch aggregated
+        as it arrives, then the partials merged."""
+        partials = [self._aggregate(b, update=True) for b in part
+                    if b.rows_known != 0]
+        if partials:
+            merged = concat_batches(partials)
+            if len(partials) > 1:
+                merged = self._aggregate(merged, update=False)
+            yield merged
+
+    def _final(self, part):
+        batches = [b for b in part if b.rows_known != 0]
+        if not batches and self.group_exprs:
+            return
+        if not batches:
+            batches = [ColumnarBatch.empty(
+                self.children[0].output_schema, self.device)]
+        merged = self._aggregate(concat_batches(batches), update=False)
+        yield self._finalize(merged)
 
     def _aggregate(self, batch: ColumnarBatch, update: bool) -> ColumnarBatch:
         """One batch to buffer rows: the table core when the batch fits,

@@ -1,12 +1,17 @@
 """Scan, project, filter, limit and union operators.
 
 Counterpart of ``spark_rapids_tpu/exec/tpu_basic.py``.  An operator's
-``execute()`` returns its partitions, each a list of device batches;
-PyTorch runs eagerly, so each operator runs when its consumer asks.
+``execute()`` returns its partitions, each a lazy iterator of device
+batches (the reference's contract, ``exec/base.py``): a batch is made
+when its consumer asks for it, so a partition's batches need not all be
+on the device at once.  A partition is read once.  ``close()`` lets go
+of what partitions that were not read to their end still hold (shuffle
+blocks, sorted runs); the collect calls it on the plan's root.
 """
 from __future__ import annotations
 
-from typing import List
+import functools
+from typing import Iterator, List
 
 import torch
 
@@ -18,7 +23,7 @@ from ..expr.cast import Cast, can_widen
 from ..expr.misc import TaskContext, needs_task
 from ..kernels.basic import compact_indices
 
-Partitions = List[List[ColumnarBatch]]
+Partitions = List[Iterator[ColumnarBatch]]
 
 
 class TpuExec:
@@ -30,6 +35,12 @@ class TpuExec:
 
     def execute(self) -> Partitions:
         raise NotImplementedError
+
+    def close(self) -> None:
+        """Release what the last ``execute()``'s partitions still hold
+        in the catalog, here and below."""
+        for c in self.children:
+            c.close()
 
     def num_partitions(self) -> int:
         """Partitions ``execute()`` returns (the planner's count)."""
@@ -77,21 +88,22 @@ def task_batches(parts: Partitions, exprs) -> Partitions:
     ``TaskContext``: the partition's index and the rows before it."""
     if not any(needs_task(e) for e in exprs):
         return parts
-    out = []
-    for pi, part in enumerate(parts):
-        views, start = [], 0
-        for b in part:
-            v = ColumnarBatch(b.schema, b.columns, b.rows, device=b.device)
-            v.task_context = TaskContext(pi, start)
-            start = start + b.rows
-            views.append(v)
-        out.append(views)
-    return out
+    return [_task_views(pi, part) for pi, part in enumerate(parts)]
+
+
+def _task_views(pi: int, part):
+    start = 0
+    for b in part:
+        v = ColumnarBatch(b.schema, b.columns, b.rows, device=b.device)
+        v.task_context = TaskContext(pi, start)
+        start = start + b.rows
+        yield v
 
 
 class TpuLocalScan(TpuExec):
     """Uploads an arrow table as ``num_partitions`` contiguous partitions
-    of batches of at most ``batch_rows`` rows, once per relation."""
+    of batches of at most ``batch_rows`` rows, batch by batch, once per
+    relation (a partition read to its end is kept on the relation)."""
 
     def __init__(self, relation, batch_rows: int, device: torch.device):
         self.relation = relation
@@ -111,26 +123,26 @@ class TpuLocalScan(TpuExec):
 
     def execute(self) -> Partitions:
         key = (str(self.device), self.batch_rows)
-        parts = self.relation.device_cache.get(key)
-        if parts is not None:
-            return parts
+        done = self.relation.device_cache.setdefault(
+            key, [None] * self.relation.num_partitions)
+        return [self._partition(done, i) for i in range(len(done))]
+
+    def _partition(self, done, i: int):
+        if done[i] is not None:
+            yield from done[i]
+            return
         table = self.relation.table
-        nparts = self.relation.num_partitions
         n = table.num_rows
-        per = -(-n // nparts) if n else 0
-        parts = []
-        for i in range(nparts):
-            lo = min(i * per, n)
-            hi = min(lo + per, n)
-            batches = []
-            pos = lo
-            while pos < hi:
-                k = min(self.batch_rows, hi - pos)
-                batches.append(from_arrow(table.slice(pos, k), self.device))
-                pos += k
-            parts.append(batches)
-        self.relation.device_cache[key] = parts
-        return parts
+        per = -(-n // len(done)) if n else 0
+        lo = min(i * per, n)
+        hi = min(lo + per, n)
+        batches = []
+        for pos in range(lo, hi, self.batch_rows):
+            b = from_arrow(table.slice(pos, min(self.batch_rows, hi - pos)),
+                           self.device)
+            batches.append(b)
+            yield b
+        done[i] = batches
 
 
 class TpuProject(TpuExec):
@@ -151,15 +163,13 @@ class TpuProject(TpuExec):
         in_schema = self.children[0].output_schema
         bound = [e.bind(in_schema) for e in self.exprs]
         out_schema = self.output_schema
-        out = []
-        for part in task_batches(self.children[0].execute(), bound):
-            res = []
-            for b in part:
-                cols = [ec.eval_as_column(e, b) for e in bound]
-                res.append(ColumnarBatch(out_schema, cols, b.rows,
-                                         device=b.device))
-            out.append(res)
-        return out
+
+        def project(b):
+            return ColumnarBatch(out_schema,
+                                 [ec.eval_as_column(e, b) for e in bound],
+                                 b.rows, device=b.device)
+        return [map(project, part) for part in
+                task_batches(self.children[0].execute(), bound)]
 
 
 class TpuFilter(TpuExec):
@@ -179,29 +189,27 @@ class TpuFilter(TpuExec):
 
     def execute(self) -> Partitions:
         bound = self.condition.bind(self.children[0].output_schema)
-        out = []
-        for part in task_batches(self.children[0].execute(), [bound]):
-            res = []
-            for b in part:
-                pred = ec.eval_as_column(bound, b)
-                keep = pred.data.to(torch.bool) & pred.validity
-                order, count = compact_indices(keep, b.rows_dev)
-                res.append(b.gather(order, count))
-            out.append(res)
-        return out
+
+        def keep_rows(b):
+            pred = ec.eval_as_column(bound, b)
+            keep = pred.data.to(torch.bool) & pred.validity
+            order, count = compact_indices(keep, b.rows_dev)
+            return b.gather(order, count)
+        return [map(keep_rows, part) for part in
+                task_batches(self.children[0].execute(), [bound])]
 
 
-def _take_rows(batches, n: int) -> List[ColumnarBatch]:
+def _take_rows(batches, n: int):
     """The first ``n`` rows of the batches in order (reads each batch's
-    row count until they are found)."""
-    out = []
+    row count, and stops pulling once they are found)."""
+    if n <= 0:
+        return
     for b in batches:
-        if n <= 0:
-            break
         k = min(b.num_rows, n)
-        out.append(b if k == b.num_rows else b.slice(0, k))
+        yield b if k == b.num_rows else b.slice(0, k)
         n -= k
-    return out
+        if n <= 0:
+            return
 
 
 class TpuLocalLimit(TpuExec):
@@ -279,13 +287,14 @@ class TpuUnion(TpuExec):
                 for i, (f, u) in enumerate(zip(child.output_schema,
                                                self.schema))]
 
+    def _relabel(self, casts, b: ColumnarBatch) -> ColumnarBatch:
+        return ColumnarBatch(self.schema, [
+            col if e is None else ec.eval_as_column(e, b)
+            for col, e in zip(b.columns, casts)], b.rows, device=b.device)
+
     def execute(self) -> Partitions:
         out = []
         for c in self.children:
-            casts = self._widen(c)
-            for part in c.execute():
-                out.append([ColumnarBatch(self.schema, [
-                    col if e is None else ec.eval_as_column(e, b)
-                    for col, e in zip(b.columns, casts)], b.rows,
-                    device=b.device) for b in part])
+            relabel = functools.partial(self._relabel, self._widen(c))
+            out.extend(map(relabel, part) for part in c.execute())
         return out

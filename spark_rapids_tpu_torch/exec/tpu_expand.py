@@ -70,7 +70,7 @@ class TpuExpand(TpuExec):
 
     def execute(self) -> Partitions:
         luts = {}           # per device: each column's table over the sets
-        return [[self._stacked(b, luts) for b in part]
+        return [map(lambda b: self._stacked(b, luts), part)
                 for part in self.children[0].execute()]
 
     def _stacked(self, b: ColumnarBatch, luts) -> ColumnarBatch:

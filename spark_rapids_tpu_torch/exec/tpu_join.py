@@ -24,9 +24,15 @@ schema where every column is nullable; the join type's rows follow from
 the pairs that survive.  The output keeps the logical column order, left
 then right, whichever side is built.
 
-String keys of both sides take one word width (``canon.common_str_words``
-over the build and every stream batch), so their words compare.  A
-broadcast join has as many partitions as its stream side.
+String keys of both sides take one word width, so their words compare:
+a shuffled join's over the build and stream batches of the partition
+(``canon.common_str_words``), a broadcast join's over the build alone,
+its stream batches read one at a time.  A stream string longer than that
+width keeps only its leading words, but its length word differs from
+every build row's, so it matches nothing, as it should; the build's
+order and every match are those of the wider words.  A broadcast join
+has as many partitions as its stream side.  A shuffled join reads
+partition i of both sides before it touches partition i + 1.
 
 The nested-loop join pairs every left row with every row of the
 broadcast right side, in chunks of at most ``join.gather.chunkRows``
@@ -40,6 +46,7 @@ rows no pair matched are known once every left row was seen.
 """
 from __future__ import annotations
 
+import itertools
 from typing import List
 
 import torch
@@ -148,13 +155,12 @@ class TpuHashJoinBase(TpuExec):
 
     # -- one partition --------------------------------------------------------
     def _run_partition(self, build: ColumnarBatch, bt: join_k.BuildTable,
-                       stream_batches, skeys, str_words
-                       ) -> List[ColumnarBatch]:
+                       stream_batches, skeys, str_words):
         how = self.join.how
         residual = self.join.condition is not None
         flags = torch.zeros(build.capacity + 1, dtype=torch.bool,
                             device=self.device) if how == "full" else None
-        out, probed = [], []
+        probed = []
         # phase A: probe every stream batch
         for sb in stream_batches:
             live = sb.live_mask()
@@ -162,7 +168,7 @@ class TpuHashJoinBase(TpuExec):
             jc = join_k.probe_counts(bt, words, live, rank_pos)
             if how in ("semi", "anti") and not residual:
                 keep = jc.matched if how == "semi" else ~jc.matched & live
-                out.append(self._select(sb, keep))
+                yield self._select(sb, keep)
                 continue
             counts = jc.counts
             if how in _OUTER and not residual:
@@ -176,16 +182,15 @@ class TpuHashJoinBase(TpuExec):
         # phase B: expand and gather
         for (sb, live, jc, counts), total in zip(probed, totals):
             if residual:
-                out.extend(self._expand_residual(sb, live, build, bt, jc,
-                                                 total, flags))
+                yield from self._expand_residual(sb, live, build, bt, jc,
+                                                 total, flags)
             else:
-                out.extend(self._expand(sb, build, bt, jc, counts, total,
-                                        flags))
+                yield from self._expand(sb, build, bt, jc, counts, total,
+                                        flags)
         if flags is not None:
             tail = self._unmatched_build_rows(build, flags)
             if tail is not None:
-                out.append(tail)
-        return out
+                yield tail
 
     def _select(self, sb: ColumnarBatch, keep: torch.Tensor):
         """Semi/anti output: the kept stream rows, counted on the device."""
@@ -286,12 +291,16 @@ class TpuShuffledHashJoin(TpuHashJoinBase):
         if len(bparts) != len(sparts):
             raise ValueError(f"join sides have {len(bparts)} and "
                              f"{len(sparts)} partitions")
-        out = []
-        for bpart, spart in zip(bparts, sparts):
-            sw = _str_words(bkeys, bpart, skeys, spart)
-            build, bt = self._build(bpart, bexec.output_schema, bkeys, sw)
-            out.append(self._run_partition(build, bt, spart, skeys, sw))
-        return out
+        return [self._partition(bpart, spart, bexec.output_schema, bkeys,
+                                skeys)
+                for bpart, spart in zip(bparts, sparts)]
+
+    def _partition(self, bpart, spart, bschema, bkeys, skeys):
+        bpart, spart = list(bpart), list(spart)
+        sw = _str_words(bkeys, bpart, skeys, spart)
+        build, bt = self._build(bpart, bschema, bkeys, sw)
+        del bpart
+        yield from self._run_partition(build, bt, spart, skeys, sw)
 
 
 class TpuBroadcastHashJoin(TpuHashJoinBase):
@@ -313,14 +322,21 @@ class TpuBroadcastHashJoin(TpuHashJoinBase):
     def execute(self) -> Partitions:
         self.expand_counts = {"batches": 0, "chunks": 0}
         bexec, sexec, bkeys, skeys = self._sides()
-        b = bexec.broadcast_batch()
-        bpart = [b] if b is not None else []
-        sparts = sexec.execute()
-        sw = _str_words(bkeys, bpart, skeys,
-                        [sb for part in sparts for sb in part])
-        build, bt = self._build(bpart, bexec.output_schema, bkeys, sw)
-        return [self._run_partition(build, bt, part, skeys, sw)
-                for part in sparts]
+        built = []
+
+        def build_once():
+            if not built:
+                b = bexec.broadcast_batch()
+                bpart = [b] if b is not None else []
+                sw = _str_words(bkeys, bpart, skeys, [])
+                built.extend(self._build(bpart, bexec.output_schema, bkeys,
+                                         sw) + (sw,))
+            return built
+
+        def partition(part):
+            build, bt, sw = build_once()
+            yield from self._run_partition(build, bt, part, skeys, sw)
+        return [partition(part) for part in sexec.execute()]
 
 
 class TpuNestedLoopJoin(TpuExec):
@@ -359,22 +375,25 @@ class TpuNestedLoopJoin(TpuExec):
         if rb is None:
             rb = ColumnarBatch.empty(right.output_schema, self.device)
         lparts = left.execute()
-        flags = None
-        if self.join.how in ("right", "full"):
-            # the right rows no pair matched, known after every left row
-            flags = torch.zeros(rb.capacity + 1, dtype=torch.bool,
-                                device=self.device)
-            lparts = [[b for part in lparts for b in part]]
-        out = [[ob for lb in part for ob in self._join_batch(lb, rb, flags)]
-               for part in lparts]
+        if self.join.how not in ("right", "full"):
+            return [self._join_part(part, rb, None) for part in lparts]
+        # the right rows no pair matched, known after every left row
+        return [self._join_part(itertools.chain.from_iterable(lparts), rb,
+                                torch.zeros(rb.capacity + 1,
+                                            dtype=torch.bool,
+                                            device=self.device))]
+
+    def _join_part(self, part, rb: ColumnarBatch, flags):
+        for lb in part:
+            yield from self._join_batch(lb, rb, flags)
         if flags is not None:
             keep = ~flags[:-1] & rb.live_mask()
             idx, n = compact_indices(keep, rb.rows_dev)
-            out[0].append(ColumnarBatch(
+            yield ColumnarBatch(
                 self.output_schema,
-                _null_columns(left.output_schema, rb.capacity, self.device) +
-                rb.gather(idx, n).columns, n, device=self.device))
-        return out
+                _null_columns(self.children[0].output_schema, rb.capacity,
+                              self.device) +
+                rb.gather(idx, n).columns, n, device=self.device)
 
     def _join_batch(self, lb: ColumnarBatch, rb: ColumnarBatch, flags):
         how = self.join.how

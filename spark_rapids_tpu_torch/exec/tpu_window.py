@@ -130,12 +130,12 @@ class TpuWindow(TpuExec):
         return f"TpuWindow[{[wf.alias for wf in self.window_funcs]}]"
 
     def execute(self) -> Partitions:
-        out = []
-        for part in self.children[0].execute():
-            batches = [b for b in part if b.num_rows > 0]
-            out.append([self._apply(concat_batches(batches))]
-                       if batches else [])
-        return out
+        return [self._partition(part) for part in self.children[0].execute()]
+
+    def _partition(self, part):
+        batches = [b for b in part if b.num_rows > 0]
+        if batches:
+            yield self._apply(concat_batches(batches))
 
     def _apply(self, batch: ColumnarBatch) -> ColumnarBatch:
         sorts: Dict[str, _Sorted] = {}

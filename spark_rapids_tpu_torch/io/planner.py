@@ -4,8 +4,13 @@ Counterpart of ``TpuFileScan`` in ``spark_rapids_tpu/io/planner.py`` and
 of ``spark_rapids_tpu/io/pushdown.py`` (Parquet only).  The scan's files
 are spread over partitions by size (one file each when there are no
 more files than ``shuffle.partitions``); each file's table is cut into
-batches of at most ``batchSizeRows`` rows and uploaded once per batch.
-Uploaded batches go into the device scan cache (``io/scan_cache.py``).
+batches of at most ``batchSizeRows`` rows and uploaded once per batch,
+as the partition is read.  With ``io.deviceScanCache.enabled`` the
+scan's batches go into the device scan cache (``io/scan_cache.py``) once
+every partition has been read to its end, unless they exceed
+``io.deviceScanCache.bytes``; the cache is looked up when the first
+partition is read, so a second scan of the same files in one query finds
+the first's batches.  With the cache off a scan streams file by file.
 """
 from __future__ import annotations
 
@@ -81,7 +86,10 @@ class TpuFileScan(TpuExec):
         self.partitions = split_files_into_partitions(
             self.files, conf.get(C.SHUFFLE_PARTITIONS))
         self.pushed_filters = pushed_filters
+        self.cache_enabled = conf.get(C.SCAN_CACHE)
+        self.cache_bytes = conf.get(C.SCAN_CACHE_BYTES)
         self.children = []
+        self._readers: List[FilePartitionReader] = []
         #: host seconds of the last uncached execute(): waiting for the
         #: files' tables, and uploading them
         self.timings = {"read_s": 0.0, "upload_s": 0.0}
@@ -106,29 +114,73 @@ class TpuFileScan(TpuExec):
                 repr(self.pushed_filters), self.batch_rows)
 
     def execute(self) -> Partitions:
-        key = self.cache_key()
-        cache = DeviceScanCache.get()
-        parts = cache.lookup(key)
-        if parts is not None:
-            return parts
-        reader = FilePartitionReader(
-            [f for part in self.partitions for f in part],
-            self.scan.schema.names, self.pushed_filters)
-        tables = iter(reader)
-        parts = []
-        read_s = upload_s = 0.0
-        for files in self.partitions:
-            batches = []
-            for _ in files:
-                t0 = time.perf_counter()
-                table = next(tables)
+        run = _ScanRun(self)
+        return [run.partition(i) for i in range(len(self.partitions))]
+
+    def close(self) -> None:
+        while self._readers:
+            self._readers.pop().close()
+
+    def stream(self, reader: FilePartitionReader, first: int, files):
+        """The batches of ``files`` (the reader's files ``first`` on)."""
+        for k in range(len(files)):
+            t0 = time.perf_counter()
+            table = reader.table(first + k)
+            self.timings["read_s"] += time.perf_counter() - t0
+            for pos in range(0, table.num_rows, self.batch_rows):
                 t1 = time.perf_counter()
-                for pos in range(0, table.num_rows, self.batch_rows):
-                    batches.append(from_arrow(
-                        table.slice(pos, self.batch_rows), self.device))
-                read_s += t1 - t0
-                upload_s += time.perf_counter() - t1
-            parts.append(batches)
-        self.timings = {"read_s": read_s, "upload_s": upload_s}
-        cache.insert(key, parts)
-        return parts
+                b = from_arrow(table.slice(pos, self.batch_rows), self.device)
+                self.timings["upload_s"] += time.perf_counter() - t1
+                yield b
+
+
+class _ScanRun:
+    """One ``execute()`` of a file scan: a cache hit's batches, or the
+    files streamed (and collected for the cache while it is on and they
+    fit), decided when the first partition is read."""
+
+    def __init__(self, scan: TpuFileScan):
+        self.scan = scan
+        self.resolved = False
+        self.cached = None
+        self.collected = None
+        self.bytes = 0
+        self.done = [False] * len(scan.partitions)
+        self.reader = None
+
+    def _resolve(self):
+        self.resolved = True
+        scan = self.scan
+        if scan.cache_enabled:
+            self.key = scan.cache_key()
+            self.cached = DeviceScanCache.get().lookup(self.key)
+            if self.cached is not None:
+                return
+            self.collected = [[] for _ in scan.partitions]
+        scan.timings = {"read_s": 0.0, "upload_s": 0.0}
+        self.reader = FilePartitionReader(
+            [f for part in scan.partitions for f in part],
+            scan.scan.schema.names, scan.pushed_filters)
+        scan._readers.append(self.reader)
+
+    def partition(self, i: int):
+        if not self.resolved:
+            self._resolve()
+        if self.cached is not None:
+            yield from self.cached[i]
+            return
+        first = sum(len(p) for p in self.scan.partitions[:i])
+        for b in self.scan.stream(self.reader, first,
+                                  self.scan.partitions[i]):
+            if self.collected is not None:
+                self.bytes += b.nbytes()
+                if self.bytes > self.scan.cache_bytes:
+                    self.collected = None     # too large to cache
+                else:
+                    self.collected[i].append(b)
+            yield b
+        self.done[i] = True
+        if all(self.done) and self.collected is not None:
+            DeviceScanCache.get().insert(self.key, self.collected,
+                                         self.bytes, self.scan.cache_bytes)
+            self.collected = None

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import os
-from typing import Iterator, List, Optional
+from typing import List, Optional
 
 import pyarrow as pa
 import pyarrow.parquet as papq
@@ -70,22 +70,42 @@ def split_files_into_partitions(files: List[str],
 
 
 class FilePartitionReader:
-    """Host arrow tables of a list of files, in order, read by a thread
-    pool with the scan's columns and pushed filters."""
+    """Host arrow tables of a list of files, read with the scan's columns
+    and pushed filters by a thread pool that runs ``READ_THREADS`` files
+    ahead of the one asked for."""
 
     def __init__(self, files: List[str], columns: List[str],
                  pushed_filters: Optional[list] = None):
         self.files = files
         self.columns = columns
         self.pushed_filters = pushed_filters
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._futures = {}
+        self._submitted = 0
 
     def read(self, path: str) -> pa.Table:
         return papq.read_table(path, columns=self.columns,
                                filters=self.pushed_filters or None)
 
-    def __iter__(self) -> Iterator[pa.Table]:
-        if len(self.files) <= 1:
-            yield from (self.read(f) for f in self.files)
-            return
-        with concurrent.futures.ThreadPoolExecutor(READ_THREADS) as pool:
-            yield from pool.map(self.read, self.files)
+    def table(self, i: int) -> pa.Table:
+        """File ``i``'s table (each file is asked for once)."""
+        ahead = min(len(self.files), i + 1 + READ_THREADS)
+        while self._submitted < ahead:
+            if self._pool is None:
+                self._pool = concurrent.futures.ThreadPoolExecutor(
+                    READ_THREADS)
+            self._futures[self._submitted] = self._pool.submit(
+                self.read, self.files[self._submitted])
+            self._submitted += 1
+        if self._submitted == len(self.files) and self._pool is not None:
+            # the submitted reads run on; the threads end after them
+            self._pool.shutdown(wait=False)
+            self._pool = None
+        return self._futures.pop(i).result()
+
+    def close(self) -> None:
+        """Cancel the reads not started yet."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+        self._futures.clear()

@@ -5,9 +5,11 @@ Counterpart of ``spark_rapids_tpu/io/scan_cache.py``.  A file scan's
 batches are keyed on the files (path, size, modification time), the
 columns read, the pushed filters, the batch size and the device; a warm
 query reuses them, so its wall time measures the device path and a cold
-one the read and the upload.  The cache holds at most ``max_bytes`` of
-device memory, least recently used first out, and ``clear()`` empties
-it.
+one the read and the upload.  The cache holds at most the bytes its
+caller allows (``io.deviceScanCache.bytes``), least recently used first
+out; ``clear()`` empties it, and a device OOM empties it first
+(``clear_on_pressure``, ``memory/pressure.oom_retry``): every entry can
+be read again from its files.
 """
 from __future__ import annotations
 
@@ -15,28 +17,14 @@ import threading
 from collections import OrderedDict
 from typing import List, Optional, Tuple
 
-#: default device bytes the cache may hold
-DEFAULT_MAX_BYTES = 24 << 30
-
-
-def batch_bytes(batch) -> int:
-    n = 0
-    for c in batch.columns:
-        n += c.data.numel() * c.data.element_size()
-        n += c.validity.numel()
-        offsets = getattr(c, "offsets", None)
-        if offsets is not None:
-            n += offsets.numel() * offsets.element_size()
-    return n
 
 
 class DeviceScanCache:
     _instance: Optional["DeviceScanCache"] = None
     _lock = threading.Lock()
 
-    def __init__(self, max_bytes: int = DEFAULT_MAX_BYTES):
+    def __init__(self):
         self._store: "OrderedDict[tuple, Tuple[list, int]]" = OrderedDict()
-        self.max_bytes = max_bytes
         self.bytes = 0
 
     @classmethod
@@ -54,11 +42,12 @@ class DeviceScanCache:
             self._store.move_to_end(key)
             return hit[0]
 
-    def insert(self, key: tuple, parts: List[list]) -> None:
-        """Keep ``parts`` unless they alone exceed the budget; evict the
-        least recently used entries past it."""
-        nbytes = sum(batch_bytes(b) for part in parts for b in part)
-        if nbytes > self.max_bytes:
+    def insert(self, key: tuple, parts: List[list], nbytes: int,
+               cap_bytes: int) -> None:
+        """Keep ``parts`` (``nbytes`` on the device) unless they alone
+        exceed ``cap_bytes``; evict the least recently used entries past
+        it."""
+        if nbytes > cap_bytes:
             return
         with self._lock:
             old = self._store.pop(key, None)
@@ -66,7 +55,7 @@ class DeviceScanCache:
                 self.bytes -= old[1]
             self._store[key] = (parts, nbytes)
             self.bytes += nbytes
-            while self.bytes > self.max_bytes:
+            while self.bytes > cap_bytes:
                 _, (_, nb) = self._store.popitem(last=False)
                 self.bytes -= nb
 
@@ -74,3 +63,14 @@ class DeviceScanCache:
         with self._lock:
             self._store.clear()
             self.bytes = 0
+
+
+def clear_on_pressure() -> int:
+    """Drop every cached scan (the device-OOM hook); returns the device
+    bytes the cache held."""
+    cache = DeviceScanCache._instance
+    if cache is None:
+        return 0
+    held = cache.bytes
+    cache.clear()
+    return held

@@ -130,7 +130,8 @@ def _plan(node: L.LogicalPlan, conf: C.TpuConf,
         if nparts > 1:
             child = TpuShuffleExchange(RangePartitioner(node.orders, nparts),
                                        child, conf.get(C.BATCH_SIZE_ROWS))
-        return TpuSort(node.orders, child)
+        return TpuSort(node.orders, child, conf.get(C.SORT_OOC_CHUNK_ROWS),
+                       conf.get(C.SORT_OOC_SAMPLES))
     if isinstance(node, L.Limit):
         if isinstance(node.children[0], L.Sort):
             sort = node.children[0]

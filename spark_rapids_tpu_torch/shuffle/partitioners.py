@@ -13,13 +13,13 @@ batch's longest string, so the reference's id of one string changes with
 the batch it arrives in and one key can land in several partitions.
 
 The range partitioner (global sort) picks its bounds from all its input
-rows' order words, read to the host in one read, and places each row by
+rows' order words, sorted on the device, and places each row by
 comparing it with the bounds on the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from ..columnar.column import StringColumn
 from ..kernels import canon, strings
 from ..kernels.basic import as_signed64
 from ..kernels.cuda_ops import hash_split
+from ..kernels.sort import sort_permutation
 
 #: word hashed for a null key
 NULL_WORD = as_signed64(0x9E3779B97F4A7C15)
@@ -87,8 +88,8 @@ class HashPartitioner:
 
 
 class RangePartitioner:
-    """Sample-free range partitioning for a global sort: ``fit`` reads the
-    order words of every input row to the host at once, sorts them and
+    """Sample-free range partitioning for a global sort: ``fit`` sorts the
+    order words of every input row (one stable sort on the device) and
     takes n - 1 bound rows at even quantiles; a row's partition is the
     number of bounds at or below it.  String keys take one width over
     every batch, so bounds and rows compare."""
@@ -102,44 +103,47 @@ class RangePartitioner:
     def __repr__(self):
         return f"RangePartitioner({self.num_partitions})"
 
-    def _cols(self, batch: ColumnarBatch):
+    def key_columns(self, batch: ColumnarBatch):
+        """The batch's sort key columns (what ``fit`` needs of it)."""
         return [ec.eval_as_column(o.expr.bind(batch.schema), batch)
                 for o in self.orders]
 
-    def _order_words(self, batch: ColumnarBatch, cols=None):
+    def _order_words(self, cols, live: torch.Tensor):
         return canon.batch_key_words(
-            cols or self._cols(batch), batch.live_mask(),
-            descending=[not o.ascending for o in self.orders],
+            cols, live, descending=[not o.ascending for o in self.orders],
             nulls_last=[not o.nulls_first for o in self.orders],
             str_words=self.str_words)
 
-    def fit(self, batches: Sequence[ColumnarBatch]) -> None:
-        col_sets = [self._cols(b) for b in batches]
-        self.str_words = canon.common_str_words(col_sets) \
-            if col_sets else None
-        acc = [[w[:b.num_rows] for w in self._order_words(b, cols)]
-               for b, cols in zip(batches, col_sets)]
-        rows = sum(b.num_rows for b in batches)
+    def fit(self, keys: Sequence[Tuple[list, int]]) -> None:
+        """Bounds over every input row; ``keys`` holds each input batch's
+        ``key_columns`` and its row count."""
+        self.str_words = canon.common_str_words([c for c, _ in keys]) \
+            if keys else None
+        rows = sum(n for _, n in keys)
         if rows == 0:
             self.bound_words = None
             return
-        dev = batches[0].device
-        merged = torch.stack([torch.cat([a[i] for a in acc])
-                              for i in range(len(acc[0]))]).cpu().numpy()
-        # unsigned order: numpy sorts the words as uint64
-        order = np.lexsort(tuple(reversed(merged.view(np.uint64))))
+        acc = []
+        for cols, n in keys:
+            live = torch.arange(cols[0].capacity,
+                                device=cols[0].device) < n
+            acc.append([w[:n] for w in self._order_words(cols, live)])
+        merged = [torch.cat([a[i] for a in acc])
+                  for i in range(len(acc[0]))]
+        del acc
         qpos = [min(int(rows * (i + 1) / self.num_partitions), rows - 1)
                 for i in range(self.num_partitions - 1)]
-        pick = order[qpos]
-        self.bound_words = [torch.from_numpy(m[pick].copy()).to(dev)
-                            for m in merged]
+        pick = sort_permutation(merged)[
+            torch.tensor(qpos, dtype=torch.int64, device=merged[0].device)]
+        self.bound_words = [m[pick] for m in merged]
 
     def partition_ids(self, batch: ColumnarBatch) -> torch.Tensor:
         cap = batch.capacity
         pid = torch.zeros(cap, dtype=torch.int64, device=batch.device)
         if self.bound_words is None:
             return pid
-        words = self._order_words(batch)
+        words = self._order_words(self.key_columns(batch),
+                                  batch.live_mask())
         rows = torch.arange(cap, device=batch.device)
         for bi in range(self.num_partitions - 1):
             bidx = torch.full((cap,), bi, dtype=torch.int64,

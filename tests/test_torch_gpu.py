@@ -1,5 +1,6 @@
-"""The port on a CUDA device: kernels against their plain versions and the
-headline query against numpy.
+"""The port on a CUDA device: kernels against their plain versions, the
+headline query against numpy, and the memory tiers (a round trip through
+pinned host and disk, a real OOM answered by the retry).
 
 Every test here is marked ``gpu`` and skips without a card.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -958,3 +959,102 @@ def test_tpcds_slice12_on_card_equal_cpu(tpcds7_dir, q):
         out.append(s.sql(QUERIES[q]).to_arrow())
     assert out[0].num_rows > 0
     _close_tables(out[1], out[0])
+
+
+def _tier_table(n=50_000, seed=3):
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=n)
+    d[::7] = np.nan
+    d[3::11] = -0.0
+    return pa.table({
+        "i": pa.array(rng.integers(-10**12, 10**12, n), pa.int64(),
+                      mask=rng.random(n) < 0.05),
+        "d": pa.array(d, pa.float64()),
+        "b": pa.array(rng.random(n) < 0.5),
+        "s": pa.array([None if i % 13 == 0 else "ä" * (i % 9)
+                       for i in range(n)], pa.string()),
+    })
+
+
+def _buffers(batch):
+    out = []
+    for c in batch.columns:
+        bufs = [c.data, c.validity] + ([c.offsets] if hasattr(c, "offsets")
+                                       else [])
+        out += [b.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+                for b in bufs]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("host_limit", [1 << 40, 0])
+def test_memory_tiers_round_trip_on_card(tmp_path, host_limit):
+    """A CUDA batch through pinned host (and disk) and back, bit for bit;
+    a slice of the spilled batch uploads alone."""
+    _need_card()
+    from spark_rapids_tpu_torch.columnar.arrow import from_arrow
+    from spark_rapids_tpu_torch.memory.catalog import (BufferCatalog,
+                                                       StorageTier)
+    from spark_rapids_tpu_torch.memory.spillable import SpillableBatch
+    cat = BufferCatalog.reset(spill_dir=str(tmp_path), host_limit=host_limit)
+    batch = from_arrow(_tier_table(), "cuda")
+    want = _buffers(batch)
+    sb = SpillableBatch(batch, catalog=cat)
+    del batch
+    cat.spill_device_to_fit(cat.device_limit)
+    e = cat._entries[sb.buffer_id]
+    assert e.tier == (StorageTier.DISK if host_limit == 0
+                      else StorageTier.HOST)
+    if host_limit:
+        assert all(b.is_pinned() for b in e.host.buffers)
+    part = sb.materialize_slice(1000, 3000)
+    assert cat.tier(sb.buffer_id) == e.tier and part.device.type == "cuda"
+    assert _buffers(part.slice(0, 2000))[::2] == \
+        _buffers(from_arrow(_tier_table().slice(1000, 2000), "cuda")
+                 .slice(0, 2000))[::2]
+    got = sb.materialize()
+    assert got.device.type == "cuda" and _buffers(got) == want
+    sb.close()
+    assert cat.stats()["num_buffers"] == 0
+
+
+@pytest.mark.gpu
+def test_real_device_oom_is_answered_by_oom_retry(tmp_path):
+    """Under a per-process memory fraction of 2 GiB, a spillable filler
+    holds 1.2 GiB; an upload of 1 GiB, 1.125 GiB with its validity,
+    raises the allocator's real ``OutOfMemoryError`` on its own, and
+    through ``oom_retry`` spills the filler and succeeds."""
+    _need_card()
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.arrow import _from_arrow
+    from spark_rapids_tpu_torch.memory.catalog import (BufferCatalog,
+                                                       StorageTier)
+    from spark_rapids_tpu_torch.memory.pressure import oom_retry
+    from spark_rapids_tpu_torch.memory.spillable import SpillableBatch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allowed = 2 << 30
+    torch.cuda.set_per_process_memory_fraction(
+        allowed / torch.cuda.mem_get_info()[1])
+    cat = BufferCatalog.reset(spill_dir=str(tmp_path))
+    try:
+        n = allowed * 6 // 10 // 9
+        sb = SpillableBatch(ColumnarBatch(
+            Schema([Field("f", T.INT64)]),
+            [Column(T.INT64, torch.zeros(n, dtype=torch.int64,
+                                         device="cuda"),
+                    torch.ones(n, dtype=torch.bool, device="cuda"))], n),
+            catalog=cat)
+        big = pa.table({"x": np.arange(1 << 27, dtype=np.int64)})
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            _from_arrow(big, "cuda")
+        got = oom_retry(_from_arrow, big, "cuda")
+        assert got.num_rows == big.num_rows
+        assert cat.tier(sb.buffer_id) == StorageTier.HOST
+        assert cat.oom_retries == 1
+        del got
+        sb.close()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()

@@ -400,6 +400,7 @@ def test_expand_stacks_the_sets_of_a_batch():
     def rows(t):
         return [tuple(r.values()) for r in t.to_pylist()]
     for part, inputs in zip(got, child.execute()):
+        part, inputs = list(part), list(inputs)
         assert len(part) == len(inputs)
         for out, b in zip(part, inputs):
             want = []
