@@ -7,7 +7,8 @@ Runs from the repository root:
     python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
                                                # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
-    python3 chip_smoke.py --only 11            # phase 11 (12, 13, 14) alone
+    python3 chip_smoke.py --only 11            # phase 11 (12, 13, 14) alone;
+                                               # 15: phases 5 and 15 (b)
                                                # (no contract line)
 
 Phases (any failure exits non-zero):
@@ -20,7 +21,9 @@ Phases (any failure exits non-zero):
    B2: the table core's reduce stage, its min and first/last kinds, each
    with a kernel line of its own, and the TPU kernel's raw rows; the
    join probe at q17's and q78's join partitions, at one key, at the star
-   joins' four dimensions and at a build past the L2), device-timed
+   joins' four dimensions and at a build past the L2; the direct-address
+   probe at the four star dimensions, beside the search at each, and
+   equal to its (lo, counts)), device-timed
    behind a sleep kernel (``time_cuda``) beside its byte bound (3.35
    TB/s), its host cost per call, the plain version and a one-call
    PyTorch yardstick where one exists; the probe's separator table
@@ -39,8 +42,10 @@ Phases (any failure exits non-zero):
    them: a year of orders joined to late lineitems as an inner, left,
    right, full, semi and anti join (J1-J6), and Q9's two-key join of
    lineitem and partsupp (J7), each grouped.  Each must plan a
-   ``TpuShuffledHashJoin`` over two exchanges built on the expected
-   side, match numpy at 1e-9 and give the same bytes twice; J1 runs once
+   ``TpuAdaptiveShuffledJoin`` (AQE is on, as by default) built on the
+   expected side, which runs shuffled or, a build of at most
+   ``autoBroadcastJoinBytes`` (not a full join's), broadcast; each must
+   match numpy at 1e-9 and give the same bytes twice; J1 runs once
    more under the profiler, and J2's join rows must not change when it
    expands in small chunks.  B1 and B2 must launch on this path;
 6. TPC-DS: the six tables of q3, q42, q52 and q96 at scale ``--ds-sf``
@@ -120,7 +125,7 @@ Phases (any failure exits non-zero):
    timed as in phase 9, each with a cold and two warm runs against
    pyarrow and numpy (``ds13_references``), warm runs byte-identical,
    rows, peak memory and launches per query; q72 must plan its
-   quantity condition as a shuffled join's residual, F1 must launch B2's
+   quantity condition as an adaptive join's residual, F1 must launch B2's
    min and first/last kinds, F2 must take the sort path.  B1 and the
    join probe must launch;
 14. the memory tiers (``memory_phase``), on phase 7's tables with the
@@ -131,7 +136,19 @@ Phases (any failure exits non-zero):
    stable sort, the rows as a multiset); S2 runs q78's four shuffled
    LEFT joins under both budgets against phase 8's answer.  No catalog
    entry or spill file may outlive a query.  B1 and the join probe must
-   launch.
+   launch;
+15. adaptive execution: (a) every phase 5, 7 and 8 query whose plan
+   holds an adaptive operator runs once more with AQE off right after
+   its AQE-on runs in its phase (``aqe_off_run``): rows equal to numpy or
+   pyarrow and to AQE on's as a multiset; each adaptive operator's
+   choice, the joins that probed by direct address, and the warm wall
+   and peak of both settings are printed as "15 (a)" lines; (b)
+   (``skew_phase``) a JCC-H skewed join (40% of phase 5's lineitem on
+   one (l_partkey, l_suppkey) pair, joined to partsupp on both keys)
+   that must run shuffled, split its hot partition and equal numpy, and
+   once more unsplit (``skewedPartitionFactor`` past reach).
+From phase 6 on a path passes if it launched either join probe (the
+search or the direct-address one).
 A reference process writes phases 6 and 7's tables while the card runs
 phases 4 and 5 (``write_ds_tables``), then computes phase 7's and 14's
 pyarrow references.  Phases 8-13 run in three processes of their own
@@ -459,6 +476,67 @@ def star_probe_inputs(rng, dim: str, device: str = "cuda"):
                         [first + rng.permutation(rows)], device)
 
 
+def star_direct_inputs(rng, dim: str, device: str = "cuda"):
+    """``star_probe_inputs`` and what the direct-address probe reads:
+    (build table, probe words, live mask, rank word positions, the
+    build key's tables (``kernels/join.direct_tables``), the stream's key
+    column, its live rows as a device count)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    from spark_rapids_tpu_torch.kernels.basic import SIGN64
+    bt, words, live, rank = star_probe_inputs(rng, dim, device)
+    # the build's keys back from its sorted words (rank 0 null, 1 valid,
+    # 2 dead: the live rows come first), and the stream's from its words
+    ranks = bt.sorted_words[0]
+    key = Column(T.INT64, bt.sorted_words[1] ^ SIGN64, ranks == 1)
+    stream = Column(T.INT64, words[1] ^ SIGN64, words[0] == 1)
+    return bt, words, live, rank, join_k.direct_tables(
+        key, int((ranks < 2).sum())), stream, live.sum()
+
+
+def check_direct_probe(inputs, what: str):
+    """The direct-address probe on ``star_direct_inputs`` against its plain
+    version and against the search's (lo, counts), bit for bit; timed
+    beside the search (``join_probe`` over the build's index) at the same
+    shape.  Bound: what the lookup needs, each stream row's key as the
+    column stores it and its validity byte read, lo and counts written
+    (int64 each, as the expansion takes them), the live count and the
+    two int32 tables read once."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    bt, words, live, rank, dt, key, rows = inputs
+    check(dt is not None, f"direct_probe{what}: no direct tables")
+    n, slots = live.shape[0], dt.hist.shape[0]
+    args = (key.data, key.validity, rows, dt.smin, dt.smax, dt.hist,
+            dt.excl, dt.nnull, dt.nvalid)
+    lo, cnt = cuda_ops.direct_probe(*args)
+    plo, pcnt = cuda_ops.direct_probe_plain(*args)
+    slo, scnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank,
+                                    bt.index)
+    torch.cuda.synchronize()
+    err = int(max((lo - plo).abs().max(), (cnt - pcnt).abs().max()))
+    check(err == 0, f"direct_probe differs from its plain version{what}: "
+                    f"{err}")
+    check(torch.equal(lo, slo) and torch.equal(cnt, scnt),
+          f"direct_probe{what}: not the search's lo and counts")
+    search = time_cuda(lambda: cuda_ops.join_probe(
+        bt.sorted_words, words, live, rank, bt.index))
+    return kernel_entry(
+        "direct_probe", "join_probe.cu",
+        "spark_rapids_tpu/exec/tpu_join.py:351",
+        f"probe {n} rows ({int(live.sum())} live) by direct address over "
+        f"{dt.nvalid} build keys ({slots} slots){what}", float(err),
+        time_cuda(lambda: cuda_ops.direct_probe(*args)),
+        time_cuda(lambda: cuda_ops.direct_probe_plain(*args), iters=3,
+                  queued=False)[0],
+        n * (key.data.element_size() + 1) + 2 * n * 8 + 8 + 2 * slots * 4,
+        design="one grid-stride pass: the key column's value and validity "
+               "byte in, two table reads from L2, lo and counts out",
+        search_ms=search[0], search_host_ms=search[1])
+
+
 def check_join_probe(inputs, what: str, old=None):
     """The join probe on ``inputs`` (``probe_inputs`` or
     ``star_probe_inputs``) against its plain version
@@ -684,6 +762,14 @@ def query_stage_inputs(rng, n: int, table: int, stage: str):
 
 #: B2's kinds of this slice, each with a kernel line of its own
 NEW_B2_KINDS = ("table_reduce_min", "table_reduce_firstlast")
+#: the two probes of the join: a path must launch one of them (a join
+#: whose build has one integer key of a narrow range probes directly)
+PROBES = "join_probe|direct_probe"
+
+
+def launched(counts: dict, name: str) -> int:
+    """Launches of ``name`` in ``counts``; ``a|b`` adds a's and b's."""
+    return sum(counts.get(k, 0) for k in name.split("|"))
 
 
 def stage_library(bucket, table: int, cols, stage: str):
@@ -800,6 +886,8 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     firstlast_main = lambda: check_table_stage(rng, big, 4096, "firstlast",
                                                "table_reduce_firstlast")
     probe_main = probe(lambda: probe_inputs(rng, 3), " (q17's join)")
+    direct_main = lambda: check_direct_probe(
+        star_direct_inputs(rng, "date_dim"), " (date_dim star)")
     checks = [
         # B1: the split at the main path's shape (a partial table of 4096
         # slots, ~1000 live), at a whole batch, and at the partition limit
@@ -851,6 +939,12 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
           for d in STAR_BUILDS],
         probe(lambda: probe_inputs(rng, 3, build_rows=PROBE_BIG_BUILD),
               " (a build past the L2)"),
+        # the direct-address probe at the four star dimensions, beside the
+        # search at the same shape
+        direct_main,
+        *[lambda d=d: check_direct_probe(star_direct_inputs(rng, d),
+                                         f" ({d} star)")
+          for d in STAR_BUILDS if d != "date_dim"],
     ]
     if parent:
         checks += [
@@ -864,7 +958,7 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     for measure in checks:
         entry = measure()
         if measure in (split_main, stage_main, probe_main, min_main,
-                       firstlast_main):
+                       firstlast_main, direct_main):
             main[entry["name"]] = entry
         print("kernel", json.dumps(entry), flush=True)
     main["join_probe"]["tradeoff"] = {
@@ -1096,6 +1190,26 @@ def join_scale(sf: float):
             max(16, int(JOIN_CHUNK_ROWS * shrink)))
 
 
+def join_broadcast_bytes(sf: float) -> int:
+    """``adaptive.autoBroadcastJoinBytes`` that keeps SF10's strategies at
+    scale ``sf`` (every J query shuffles): the default below SF10 shrinks
+    with the tables."""
+    from spark_rapids_tpu_torch import config as C
+    return max(1, int(C.TpuConf().get(C.ADAPTIVE_BROADCAST_BYTES) *
+                      min(1.0, sf / 10)))
+
+
+def skew_conf(sf: float) -> dict:
+    """``adaptive.skewedPartitionThresholdBytes`` and
+    ``targetPartitionBytes`` that split phase 15's skewed join at scale
+    ``sf`` as at SF10 (the defaults, shrunk below SF10 with the
+    tables)."""
+    from spark_rapids_tpu_torch import config as C
+    return {k: max(1, int(C.TpuConf().get(k) * min(1.0, sf / 10)))
+            for k in (C.ADAPTIVE_SKEW_MIN_BYTES,
+                      C.ADAPTIVE_TARGET_PARTITION_BYTES)}
+
+
 def make_tpch(sf: float, seed: int):
     """orders, lineitem and partsupp in TPC-H's shapes (spec 4.2.3), the
     fixed-width columns only, dates as int32 days since 1970-01-01."""
@@ -1289,7 +1403,7 @@ def join_output(session, df):
     run, as one arrow table."""
     import pyarrow as pa
     from spark_rapids_tpu_torch.columnar.arrow import to_arrow
-    join = _find(session.plan(df._plan), "TpuShuffledHashJoin")[0]
+    join = _find(session.plan(df._plan), "TpuAdaptiveShuffledJoin")[0]
     tables = [to_arrow(b) for part in join.execute() for b in part]
     join.close()
     return join, pa.concat_tables(tables)
@@ -1302,10 +1416,11 @@ def _find(node, kind: str):
     return out
 
 
-def join_phase(args, kernels_used) -> dict:
-    """Phase 5: J1-J7 through the port at TPC-H scale ``--sf``.  Returns
-    the B1/B2 launches of the join path (the queries' first and second
-    runs)."""
+def join_phase(args, kernels_used):
+    """Phase 5: J1-J7 through the port at TPC-H scale ``--sf``, each also
+    with AQE off (phase 15 (a), ``aqe_off_run``).  Returns the launches of
+    the join path (the queries' AQE-on runs) and phase 15 (b)'s skewed
+    tables (``skew_tables``)."""
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.api import functions as F
@@ -1327,7 +1442,9 @@ def join_phase(args, kernels_used) -> dict:
     batch_rows, threshold, chunk_rows = join_scale(args.sf)
     default_threshold = overrides.BROADCAST_ROW_THRESHOLD
     overrides.BROADCAST_ROW_THRESHOLD = threshold   # until the phase ends
-    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows}
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.adaptive.autoBroadcastJoinBytes":
+            join_broadcast_bytes(args.sf)}
     session = TpuSession(TpuConf(conf), device=args.device)
     frames = join_frames(session, tables)
     t0 = time.perf_counter()
@@ -1346,38 +1463,59 @@ def join_phase(args, kernels_used) -> dict:
         return table, time.perf_counter() - t0
 
     cuda_ops.reset_launches()
+    by_path = {k: 0 for k in cuda_ops.LAUNCHES}
     for q, (how, side) in JOIN_QUERIES.items():
         df = join_query(F, frames, q)
         physical = session.plan(df._plan)
         plan = physical.tree_string()
-        node = f"TpuShuffledHashJoin[{how}, build={side}]"
+        node = _adaptive(how, side)
         check(node in plan, f"{q}: {node} not planned:\n{plan}")
-        join = _find(physical, "TpuShuffledHashJoin")[0]
-        check([type(c).__name__ for c in join.children] ==
+        join = _find(physical, "TpuAdaptiveShuffledJoin")[0]
+        check([type(c).__name__ for c in join.exchanges] ==
               ["TpuShuffleExchange"] * 2,
-              f"{q}: the join is not over two exchanges:\n{plan}")
+              f"{q}: the join has not two exchanges:\n{plan}")
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         before = dict(cuda_ops.LAUNCHES)
-        (t1, cold), (t2, warm) = run(df), run(df)
-        peak = torch.cuda.max_memory_allocated() if on_card else None
+        t1, cold = run(df)
+        peak = warm_peak = None
+        if on_card:
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t2, warm = run(df)
+        if on_card:
+            warm_peak = torch.cuda.max_memory_allocated()
+            peak = max(peak, warm_peak)
         launches = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()}
+        for k, v in launches.items():
+            by_path[k] += v
         worst = max(compare_groups(table_groups(t), refs[q], EXACT_REL,
                                    f"{q} run {i}")
                     for i, t in enumerate((t1, t2)))
         check(same_bytes(t1, t2), f"{q}: the two runs are not byte-identical")
+        ran = _find(df._last_physical_plan, "TpuAdaptiveShuffledJoin")[0]
+        # a build side of at most autoBroadcastJoinBytes converts, but a
+        # full join's, whose unmatched build rows need one partition each
+        check(ran.strategy == "shuffled" or
+              (ran.strategy == "broadcast" and how != "full"),
+              f"{q}: the join ran {ran.strategy}")
         sides = ("orders", "lineitem") if q != "J7" else \
             ("lineitem", "partsupp")
         in_rows = rows[sides[0]] + rows[sides[1]]
         # every joined row lands in one group, null keys included
         join_out = sum(t1.column("cnt").to_pylist())
-        print(f"{q} {how:5s} build={side:5s}: {t1.num_rows} groups; "
+        print(f"{q} {how:5s} build={side:5s}: {ran._node_string()}; "
+              f"{t1.num_rows} groups; "
               f"input rows {in_rows}, join output rows {join_out}; cold "
               f"{cold:.4f}s warm {warm:.4f}s; warm {in_rows / warm / 1e6:.3f} "
               f"Mrows/s; peak device memory {peak} B; launches (2 runs) "
               f"{launches}; byte-identical runs; matches numpy at "
               f"{EXACT_REL} (worst error/limit {worst!r})")
-    by_path = dict(cuda_ops.LAUNCHES)
+        aqe_off_run(q, session, lambda q=q: join_query(F, frames, q),
+                    (t2, warm, warm_peak, df._last_physical_plan),
+                    lambda t, q=q: compare_groups(
+                        table_groups(t), refs[q], EXACT_REL,
+                        f"15 (a) {q} AQE off"), on_card=on_card)
     print("plan J7:\n" + join_query(F, frames, "J7").explain())
 
     # J1 under the profiler; J2 again with small expansion chunks
@@ -1407,10 +1545,10 @@ def join_phase(args, kernels_used) -> dict:
           f"byte-identical to J2's; matches numpy at {EXACT_REL} (worst "
           f"error/limit {worst!r})")
     for name in kernels_used:
-        check(by_path.get(name, 0) > 0,
+        check(launched(by_path, name) > 0,
               f"{name} never launched on the join path")
     overrides.BROADCAST_ROW_THRESHOLD = default_threshold
-    return by_path
+    return by_path, skew_tables(tables, args.seed)
 
 
 # -- phase 6: the TPC-DS quartet over Parquet at SF10 -------------------------
@@ -1424,6 +1562,14 @@ DS_TABLES = ("date_dim", "time_dim", "item", "store",
 DS_QUERIES = ("q3", "q42", "q52", "q96")
 DS_PARTS = 8                        # store_sales part files
 DS_BATCH_ROWS = 1 << 22             # batchSizeRows of phase 6
+
+
+def ds_batch_rows(sf: float) -> int:
+    """batchSizeRows of the TPC-DS sessions at scale ``sf``: DS_BATCH_ROWS
+    at SF10, shrunk with the tables below it, so that every exchange and
+    window plans the widths of SF10 (an aggregate's exchange width is its
+    estimated rows over the batch size)."""
+    return max(1024, int(DS_BATCH_ROWS * min(1.0, sf / 10)))
 #: share of each store_sales part's rows that are baskets (``_baskets``),
 #: and a basket's lines, low and high (exclusive)
 DS_BASKET_SHARE = 0.1
@@ -1438,8 +1584,9 @@ STAR_BUILDS = {"store": ("ss_store_sk", 120, 0),
 #: the physical plan of each query, one operator per line, top down
 _DS_STAR = ["TpuGlobalLimit", "TpuCoalescePartitions", "TpuLocalLimit",
             "TpuProject", "TpuSort",
-            "TpuShuffleExchange[RangePartitioner(8)]",
-            "TpuHashAggregate[final", "TpuShuffleExchange[HashPartitioner(8)]",
+            "TpuShuffleExchange[RangePartitioner(",
+            "TpuHashAggregate[final", "TpuAQEShuffleRead",
+            "TpuShuffleExchange[HashPartitioner(",
             "TpuHashAggregate[partial",
             "TpuBroadcastHashJoin[inner, build=right]",
             "TpuBroadcastHashJoin[inner, build=left]",
@@ -1737,12 +1884,13 @@ def check_ds_rows(q: str, table, full: list) -> int:
     return len(full)
 
 
-def cold_and_warm(session, df, on_card: bool):
+def cold_and_warm(session, df, on_card: bool, peaks: dict = None):
     """A query's cold run (the device scan cache emptied, the kernels'
     launch counts and the peak memory reset) and two warm runs: (cold
     table, cold s, the cold scans' host read s and upload s, warm tables,
     warm s, peak device bytes or None off the card).  ``cuda_ops.LAUNCHES``
-    then holds the three runs' launches."""
+    then holds the three runs' launches; ``peaks`` (a dict), if given,
+    takes the warm runs' own peak as ``"warm"``."""
     import torch
     from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
     from spark_rapids_tpu_torch.kernels import cuda_ops
@@ -1764,10 +1912,16 @@ def cold_and_warm(session, df, on_card: bool):
     scans = _find(session.last_physical_plan, "TpuFileScan")
     read_s = sum(s.timings["read_s"] for s in scans)
     upload_s = sum(s.timings["upload_s"] for s in scans)
+    if on_card:
+        cold_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     warm, warm_s = zip(*[run() for _ in range(2)])
     peak = None
     if on_card:
-        peak = torch.cuda.max_memory_allocated()
+        warm_peak = torch.cuda.max_memory_allocated()
+        peak = max(cold_peak, warm_peak)
+        if peaks is not None:
+            peaks["warm"] = warm_peak
         # the card's memory that this query's allocator kept goes back:
         # the processes of phases 8-13 share the card (PHASE_GROUPS)
         torch.cuda.empty_cache()
@@ -1797,7 +1951,8 @@ def tpcds_phase(args, kernels_used, data_dir: str, tables: dict):
           f"pyarrow references in {tables['refs6_s']:.1f}s (a reference "
           f"process, beside phases 4 and 5)")
     session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
-                                  DS_BATCH_ROWS}), device=args.device)
+                                  ds_batch_rows(args.ds_sf)}),
+                         device=args.device)
     for t in DS_TABLES:
         session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
             .create_or_replace_temp_view(t)
@@ -1843,7 +1998,7 @@ def tpcds_phase(args, kernels_used, data_dir: str, tables: dict):
         check(b1 > 0, "q3's profiled run launched no hash_split")
     cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the TPC-DS path")
     return launches, session
 
@@ -1884,8 +2039,13 @@ DS7_EMPTY: dict = {}
 #: exchanges between them are not listed)
 _BR = "TpuBroadcastHashJoin[inner, build=right]"
 _BL = "TpuBroadcastHashJoin[inner, build=left]"
-_SR = "TpuShuffledHashJoin[inner, build=right]"
-_SL = "TpuShuffledHashJoin[inner, build=left]"
+def _adaptive(how: str, side: str = "right") -> str:
+    """A shuffled join as AQE (on by default) plans it, before it runs."""
+    return f"TpuAdaptiveShuffledJoin[{how}, strategy=pending, build={side}]"
+
+
+_SR = _adaptive("inner")
+_SL = _adaptive("inner", "left")
 _AGG = ["TpuHashAggregate[final", "TpuHashAggregate[partial"]
 _TOP = ["TpuGlobalLimit", "TpuSort"] + _AGG
 DS7_PLANS = {
@@ -1899,7 +2059,7 @@ DS7_PLANS = {
     "q26": _TOP + [_BR] * 4,
     "q29": _TOP + [_BR] * 5 + [_SR] * 2,
     "q37": _TOP + [_SL] + [_BR] + [_BL],
-    "q40": _TOP + [_BR] * 3 + ["TpuShuffledHashJoin[left, build=right]"],
+    "q40": _TOP + [_BR] * 3 + [_adaptive("left")],
     "q43": _TOP + [_BR] + [_BL],
     "q48": _AGG + [_BR] * 4,
     "q50": _TOP + [_BR] * 3 + [_SR],
@@ -2920,6 +3080,7 @@ def check_rows(q: str, table, full: list, order, limit: int = 100) -> int:
 
 _PLAN_OP = re.compile(r"^(TpuGlobalLimit|TpuTopN|TpuSort|"
                       r"TpuHashAggregate\[\w+|Tpu\w*HashJoin\[[^\]]*\]|"
+                      r"TpuAdaptiveShuffledJoin\[[^\]]*\]|"
                       r"TpuNestedLoopJoin\[\w+\])")
 
 
@@ -2970,8 +3131,9 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session,
             check(plan_signature(plan) == DS7_PLANS[q] and
                   "cross" not in plan,
                   f"{q}: not the planned operators:\n{plan}")
+            peaks = {}
             cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
-                cold_and_warm(session, df, on_card)
+                cold_and_warm(session, df, on_card, peaks)
             for name, v in cuda_ops.LAUNCHES.items():
                 launches[name] += v
             full = check_ds7_rows(q, cold, refs[q])
@@ -2992,6 +3154,12 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session,
                   f"{cuda_ops.LAUNCHES['table_reduce']}; byte-identical warm "
                   f"runs; matches pyarrow at {EXACT_REL}; first rows "
                   f"{cold.slice(0, 2).to_pylist()}")
+            aqe_off_run(
+                q, session, lambda q=q: session.sql(QUERIES[q]),
+                (warm[1], warm_s[1], peaks.get("warm"),
+                 df._last_physical_plan),
+                lambda t, q=q: check_ds7_rows(q, t, refs[q]), DS7_ORDER[q],
+                on_card=on_card)
         print("plan q17:\n" + session.sql(QUERIES["q17"]).explain())
         if on_card:
             before = cuda_ops.LAUNCHES["hash_partition_ids"]
@@ -3003,7 +3171,7 @@ def tpcds7_phase(args, kernels_used, data_dir: str, session,
         overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the phase 7 path")
     return launches
 
@@ -3042,7 +3210,7 @@ DS8_NESTED = ("q28", "q88")
 #: each query's plan at SF10's row estimates, as DS7_PLANS lists them
 _NL = "TpuNestedLoopJoin[cross]"
 _BLO = "TpuBroadcastHashJoin[left, build=right]"
-_SLO = "TpuShuffledHashJoin[left, build=right]"
+_SLO = _adaptive("left")
 _LS = ["TpuGlobalLimit", "TpuSort"]
 _TICKETS = _LS + [_BR] + _AGG + [_BR] * 3            # q34, q73, q79
 _BOUGHT = _LS + [_BR] * 2 + _AGG + [_BR] * 4         # q46, q68
@@ -3061,7 +3229,7 @@ DS8_PLANS = {
     "q78": _LS + [_SLO] * 2 + _AGG + [_BR, _SLO] + _AGG + [_BR, _BLO] +
     _AGG + [_BR, _SLO],
     "q97": ["TpuGlobalLimit"] + _AGG +
-    ["TpuShuffledHashJoin[full, build=right]"] + (_AGG + [_BR]) * 2}
+    [_adaptive("full")] + (_AGG + [_BR]) * 2}
 
 
 def ds8_references(data_dir: str, queries=DS8_QUERIES) -> dict:
@@ -3559,8 +3727,9 @@ def tpcds8_phase(args, kernels_used, data_dir: str, session,
                    args.ds_sf < 10) and
                   ("TpuNestedLoopJoin" in plan) == (q in DS8_NESTED),
                   f"{q}: not the planned operators:\n{plan}")
+            peaks = {}
             cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
-                cold_and_warm(session, df, on_card)
+                cold_and_warm(session, df, on_card, peaks)
             for name, v in cuda_ops.LAUNCHES.items():
                 launches[name] += v
             order, limit = DS8_ORDER[q], DS8_LIMIT.get(q, 100)
@@ -3579,9 +3748,16 @@ def tpcds8_phase(args, kernels_used, data_dir: str, session,
                   f"{fact / warm_s[1] / 1e6:.3f} Mrows/s of {DS8_FACT[q]}; "
                   f"peak device memory {peak} B; launches (3 runs) B1 "
                   f"{got['hash_partition_ids']}, B2 {got['table_reduce']}, "
-                  f"probe {got['join_probe']}; byte-identical warm runs; "
+                  f"probe {got['join_probe']}, direct probe "
+                  f"{got['direct_probe']}; byte-identical warm runs; "
                   f"matches pyarrow at {EXACT_REL}; first rows "
                   f"{cold.slice(0, 2).to_pylist()}", flush=True)
+            aqe_off_run(
+                q, session, lambda q=q: session.sql(QUERIES[q]),
+                (warm[1], warm_s[1], peaks.get("warm"),
+                 df._last_physical_plan),
+                lambda t, q=q, o=order, n=limit: check_rows(
+                    q, t, refs[q], o, n), order, limit, on_card)
         for q in ("q78", "q64"):
             print(f"plan {q}:\n" + session.sql(QUERIES[q]).explain())
             # q64's trace (~264,000 launches, PERF.md 5) took minutes to
@@ -3596,7 +3772,7 @@ def tpcds8_phase(args, kernels_used, data_dir: str, session,
         overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the phase 8 path")
     return launches
 
@@ -3619,8 +3795,8 @@ DS9_LIMIT: dict = {}
 #: outer query reads reason alone: its fifteen scalar queries run, and are
 #: planned, while its text is lowered; q45's IN (query) sits inside an OR
 #: and runs then too, to an IN list)
-_SSEMI = "TpuShuffledHashJoin[semi, build=right]"
-_SANTI = "TpuShuffledHashJoin[anti, build=right]"
+_SSEMI = _adaptive("semi")
+_SANTI = _adaptive("anti")
 _RETURNS = [_BR, _BR] + _AGG * 2 + [_BR, _BR]        # q30's, q81's CTE twice
 _DISCOUNT = ["TpuGlobalLimit"] + _AGG + [_SR, _BR, _BR] + _AGG + [_BR]
 DS9_PLANS = {
@@ -4009,7 +4185,7 @@ def tpcds9_phase(args, kernels_used, data_dir: str, session,
         overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the phase 9 path")
     print(f"tpcds9: launches of the phase (3 runs of each query) {launches}")
     return launches
@@ -4591,7 +4767,7 @@ def tpcds10_phase(args, kernels_used, data_dir: str, session,
         overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the phase 10 path")
     print(f"tpcds10: launches of the phase (3 runs of each query) {launches}")
     return launches
@@ -4874,7 +5050,7 @@ DS11_PLANS = {
     "q44": _LS + [_BR, _BR, _SR] + ([_WC] + _AGG) * 2,
     "q47": _LS + [_WC] + _AGG + _BRL,
     "q57": _LS + [_WC] + _AGG + _BRL,
-    "q51": _LS + [_WH, "TpuShuffledHashJoin[full, build=right]"] +
+    "q51": _LS + [_WH, _adaptive("full")] +
            ([_WH] + _AGG + [_BR]) * 2,
     "q53": _LS + [_WH] + _AGG + _BRL,
     "q63": _LS + [_WH] + _AGG + _BRL,
@@ -4892,7 +5068,8 @@ def window_plan_signature(explain: str) -> list:
         elif ln.startswith("TpuWindow"):
             below = lines[i + 1] if i + 1 < len(lines) else ""
             kind = "hash" if below.startswith(
-                "TpuShuffleExchange[HashPartitioner") else \
+                ("TpuShuffleExchange[HashPartitioner",
+                 "TpuAQEShuffleRead")) else \
                 "coalesce" if below.startswith("TpuCoalescePartitions") \
                 else "none"
             out.append(f"TpuWindow<{kind}>")
@@ -4982,7 +5159,7 @@ def tpcds11_phase(args, kernels_used, data_dir: str, session,
         overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the phase 11 path")
     print(f"tpcds11: launches of the phase (3 runs of each query) {launches}")
     return launches
@@ -5832,7 +6009,7 @@ def tpcds12_phase(args, kernels_used, data_dir: str, session,
         overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the phase 12 path")
     print(f"tpcds12: launches of the phase (3 runs of each query) {launches}")
     return launches
@@ -6112,7 +6289,7 @@ def tpcds13_phase(args, kernels_used, data_dir: str, session,
     tables, directory and session.  Each must equal ``ds13_references``
     (1e-9, ORDER BY kept, ties as a multiset), give the same bytes on two
     warm runs, and return rows.  q72 must join catalog_sales to inventory
-    in a ``TpuShuffledHashJoin`` whose residual condition holds
+    in a ``TpuAdaptiveShuffledJoin`` whose residual condition holds
     ``inv_quantity_on_hand < cs_quantity`` (evaluated on each chunk of
     expanded pairs); F1 must run B2's min and first/last kinds
     (``LAUNCHES["table_reduce_min"]``, ``["table_reduce_firstlast"]``)
@@ -6147,7 +6324,7 @@ def tpcds13_phase(args, kernels_used, data_dir: str, session,
             plan = session.last_physical_plan
             extra = ""
             if q == "q72":
-                joins = [j for j in _find(plan, "TpuShuffledHashJoin")
+                joins = [j for j in _find(plan, "TpuAdaptiveShuffledJoin")
                          if j.join.condition is not None and
                          "inv_quantity_on_hand" in repr(j.join.condition)]
                 check(len(joins) == 1 or args.ds_sf < 10,
@@ -6201,7 +6378,7 @@ def tpcds13_phase(args, kernels_used, data_dir: str, session,
         overrides.BROADCAST_ROW_THRESHOLD = threshold
         cache.clear()
     for name in kernels_used:
-        check(launches.get(name, 0) > 0,
+        check(launched(launches, name) > 0,
               f"{name} never launched on the phase 13 path")
     print(f"tpcds13: launches of the phase (3 runs of each query) {launches}")
     return launches
@@ -6436,13 +6613,231 @@ def _memory_phase(args, kernels_used, data_dir, refs, QUERIES, on_card):
     got = q78["b"]["launches"]
     check(q78["b"]["memory"]["spilled_device_to_host"] > 0,
           f"S2 q78 (b) spilled nothing: {q78['b']['memory']}")
-    check(not on_card or all(got[k] > 0 for k in kernels_used),
+    check(not on_card or all(launched(got, k) > 0 for k in kernels_used),
           f"S2 q78 (b): {kernels_used} must launch ({got})")
     print(f"S2: q78 matches pyarrow at {EXACT_REL} under both budgets; "
           f"wall {q78['b']['wall']:.4f}s and peak {q78['b']['peak']} B "
           f"under (b) against {q78['default']['wall']:.4f}s and "
           f"{q78['default']['peak']} B at the default budget", flush=True)
     return got
+
+
+# -- phase 15: adaptive execution (AQE on and off; a skewed join) -----------
+
+#: the switch of phase 15 (a)'s AQE-off run of each query
+AQE_OFF = {"spark.rapids.tpu.sql.adaptive.enabled": False}
+#: share of lineitem's rows re-keyed to one (l_partkey, l_suppkey) pair
+#: that partsupp holds: a JCC-H heavy hitter (Boncz et al., TPCTC 2017)
+SKEW_SHARE = 0.4
+#: ``adaptive.skewedPartitionFactor`` past reach: the skewed join unsplit
+SKEW_PAST_REACH = 1e12
+
+
+def adaptive_nodes(plan) -> list:
+    """The node strings of a plan's adaptive operators, top down."""
+    return [n._node_string() for n in _walk(plan) if type(n).__name__ in (
+        "TpuAdaptiveShuffledJoin", "TpuAQEShuffleRead")]
+
+
+def direct_joins(plan) -> tuple:
+    """(hash joins that probed by direct address, hash joins) of a plan
+    that ran."""
+    from spark_rapids_tpu_torch.exec.tpu_join import TpuHashJoinBase
+    joins = [n for n in _walk(plan) if isinstance(n, TpuHashJoinBase)]
+    return sum(j.probes["direct"] > 0 for j in joins), len(joins)
+
+
+def _walk(plan):
+    yield plan
+    for c in plan.children:
+        yield from _walk(c)
+
+
+def _timed_run(df, on_card: bool):
+    """(table, seconds, peak device bytes or None) of one run."""
+    import torch
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = df.to_arrow()
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    return table, time.perf_counter() - t0, peak
+
+
+def rows_before_cut(table, order, limit: int):
+    """A result's rows as a sorted list, without the rows that tie with
+    the last one on its ORDER BY keys when the LIMIT cut the result (two
+    plans may keep different rows of such a tie)."""
+    rows = [tuple(r.values()) for r in table.to_pylist()]
+    if order and len(rows) == limit:
+        last = tuple(_near(_order_value(rows[-1], i)) for i, _ in order)
+        rows = [r for r in rows if tuple(_near(_order_value(r, i))
+                                         for i, _ in order) != last]
+    return sorted(rows, key=lambda r: tuple((v is None, str(type(v)),
+                                             _near(v) if v is not None
+                                             else 0) for v in r))
+
+
+def same_multiset(q: str, a, b, order, limit: int) -> None:
+    """Two results of one query hold the same rows, floats within
+    EXACT_REL (``rows_before_cut``)."""
+    ra, rb = rows_before_cut(a, order, limit), rows_before_cut(b, order,
+                                                               limit)
+    check(len(ra) == len(rb) and all(
+        len(x) == len(y) and all(_close(u, v) for u, v in zip(x, y))
+        for x, y in zip(ra, rb)),
+        f"{q}: AQE on and off give different rows")
+
+
+def aqe_off_run(what: str, session, make_df, on: tuple, check_one,
+                order=None, limit: int = 100, on_card: bool = True):
+    """Phase 15 (a) for one query that just ran warm with AQE on (``on``:
+    its table, warm seconds, warm peak and the plan that ran): one warm
+    run with AQE off on the same session, its rows checked
+    (``check_one``) and equal to AQE on's as a multiset; prints both
+    settings' walls and peaks, each adaptive operator's choice, the
+    joins that probed by direct address and the off run's launches,
+    which no path's count takes: the main path runs with AQE on.  A plan
+    without adaptive operators is not run again."""
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    table, secs, peak, plan = on
+    state = adaptive_nodes(plan)
+    if not state:
+        return
+    check(not any("pending" in n for n in state),
+          f"15 (a) {what}: an adaptive operator did not run: {state}")
+    direct = direct_joins(plan)
+    conf = session.conf
+    session.conf = TpuConf({**conf._settings, **AQE_OFF})
+    before = dict(cuda_ops.LAUNCHES)
+    try:
+        off, off_s, off_peak = _timed_run(make_df(), on_card)
+    finally:
+        session.conf = conf
+    launches = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items()}
+    check_one(off)
+    same_multiset(f"15 (a) {what}", table, off, order, limit)
+    print(f"15 (a) {what}: AQE on warm {secs:.4f}s peak {peak} B, off warm "
+          f"{off_s:.4f}s peak {off_peak} B; direct-address joins "
+          f"{direct[0]} of {direct[1]}; {state}; AQE off launches "
+          f"{launches}; off equals on as a multiset and the reference at "
+          f"{EXACT_REL}", flush=True)
+
+
+def skew_tables(tables, seed: int):
+    """Phase 5's lineitem with SKEW_SHARE of its rows, drawn with numpy
+    from ``seed``, re-keyed to part 1's first supplier (a pair partsupp
+    holds), and partsupp; the key and price columns only."""
+    li, ps = tables["lineitem"], tables["partsupp"]
+    rng = np.random.default_rng(seed)
+    hot = rng.random(len(li["l_partkey"])) < SKEW_SHARE
+    partkey = np.where(hot, ps["ps_partkey"][0], li["l_partkey"])
+    suppkey = np.where(hot, ps["ps_suppkey"][0], li["l_suppkey"])
+    return ({"l_partkey": partkey, "l_suppkey": suppkey,
+             "l_extendedprice": li["l_extendedprice"]},
+            {"ps_partkey": ps["ps_partkey"], "ps_suppkey": ps["ps_suppkey"],
+             "ps_supplycost": ps["ps_supplycost"]})
+
+
+def skew_reference(li, ps) -> dict:
+    """{l_suppkey: (count, sum of l_extendedprice)} of the skewed join by
+    numpy: each line counts once per partsupp row of its pair."""
+    supps = int(max(ps["ps_suppkey"].max(), li["l_suppkey"].max())) + 1
+    pkey = np.sort(ps["ps_partkey"] * supps + ps["ps_suppkey"])
+    lkey = li["l_partkey"] * supps + li["l_suppkey"]
+    order = np.argsort(lkey)           # sorted needles search far faster
+    lkey = lkey[order]
+    n = np.searchsorted(pkey, lkey, side="right") - \
+        np.searchsorted(pkey, lkey)
+    supp = li["l_suppkey"][order]
+    cnt = np.bincount(supp, weights=n, minlength=supps)
+    total = np.bincount(supp, weights=n * li["l_extendedprice"][order],
+                        minlength=supps)
+    return {int(s): (int(cnt[s]), float(total[s]))
+            for s in np.nonzero(cnt)[0]}
+
+
+def skew_query(F, session, li, ps):
+    a = session.create_dataframe(li, num_partitions=PARTITIONS)
+    b = session.create_dataframe(ps, num_partitions=PARTITIONS)
+    return a.join(b, (a["l_partkey"] == b["ps_partkey"]) &
+                  (a["l_suppkey"] == b["ps_suppkey"]), "inner") \
+        .group_by("l_suppkey").agg(F.count().alias("cnt"),
+                                   F.sum("l_extendedprice").alias("price"))
+
+
+def skew_phase(args, kernels_used, skew) -> dict:
+    """Phase 15 (b): a JCC-H skewed join.  ``skew``: phase 5's lineitem
+    with SKEW_SHARE of its rows on one (l_partkey, l_suppkey) pair and
+    partsupp (``skew_tables``), joined on both keys in 8 partitions and
+    grouped by supplier: it must run shuffled, split the hot partition
+    into slices, and equal numpy at 1e-9; then once more with
+    ``skewedPartitionFactor`` past reach, unsplit.  Prints the warm wall,
+    peak and launches of both.  (Phase 15 (a), AQE on against off, runs
+    inside phases 5, 7 and 8: ``aqe_off_run``.)  Returns the launches of
+    the split run, the phase's path; the unsplit control's count in no
+    path."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+    li, ps = skew
+    t0 = time.perf_counter()
+    want = skew_reference(li, ps)
+    print(f"15 (b): {len(li['l_partkey'])} lineitems, {SKEW_SHARE:.0%} on "
+          f"one pair, against {len(ps['ps_partkey'])} partsupp rows; numpy "
+          f"reference in {time.perf_counter() - t0:.1f}s", flush=True)
+    batch_rows, threshold, _ = join_scale(args.sf)
+    default_threshold = overrides.BROADCAST_ROW_THRESHOLD
+    base = {"spark.rapids.tpu.sql.batchSizeRows": batch_rows,
+            "spark.rapids.tpu.sql.adaptive.autoBroadcastJoinBytes":
+            join_broadcast_bytes(args.sf), **skew_conf(args.sf)}
+    launches = None
+    runs = {}
+    for name, extra in (("split", {}), ("unsplit", {
+            "spark.rapids.tpu.sql.adaptive.skewedPartitionFactor":
+            SKEW_PAST_REACH})):
+        s = TpuSession(TpuConf({**base, **extra}), device=args.device)
+        df = skew_query(F, s, li, ps)
+        cuda_ops.reset_launches()
+        try:
+            overrides.BROADCAST_ROW_THRESHOLD = threshold
+            df.to_arrow()                   # uploads the two tables
+            table, secs, peak = _timed_run(df, on_card)
+        finally:
+            overrides.BROADCAST_ROW_THRESHOLD = default_threshold
+        got = dict(cuda_ops.LAUNCHES)
+        if name == "split":
+            launches = got
+        join = _find(df._last_physical_plan, "TpuAdaptiveShuffledJoin")[0]
+        compare_groups(table_groups(table), want, EXACT_REL,
+                       f"15 (b) {name}")
+        check(join.strategy == "shuffled" and join.width == 8,
+              f"15 (b) {name}: {join._node_string()}, not shuffled in 8")
+        check(bool(join.splits) == (name == "split"),
+              f"15 (b) {name}: {join._node_string()}")
+        runs[name] = (secs, peak)
+        print(f"15 (b) {name}: {join._node_string()}; {table.num_rows} "
+              f"suppliers; warm {secs:.4f}s peak {peak} B; launches (2 "
+              f"runs) {got}; equals numpy at {EXACT_REL}", flush=True)
+        s = df = None
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"15 (b): warm {runs['split'][0]:.4f}s peak {runs['split'][1]} B "
+          f"with the split, {runs['unsplit'][0]:.4f}s peak "
+          f"{runs['unsplit'][1]} B without", flush=True)
+    for name in kernels_used:
+        check(launched(launches, name) > 0,
+              f"{name} never launched on the phase 15 path")
+    return launches
 
 
 def _reference_worker() -> None:
@@ -6556,7 +6951,8 @@ def ds_session(args, data_dir: str):
     from spark_rapids_tpu_torch.config import TpuConf
     _benchmarks_on_path()
     session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
-                                  DS_BATCH_ROWS}), device=args.device)
+                                  ds_batch_rows(args.ds_sf)}),
+                         device=args.device)
     for t in DS_TABLES + DS7_TABLES:
         session.read.parquet(os.path.join(data_dir, f"{t}.parquet")) \
             .create_or_replace_temp_view(t)
@@ -6736,7 +7132,7 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: also time its "
                          "kernels at the raw-row and probe shapes with "
                          "this timer")
-    ap.add_argument("--only", type=int, choices=(11, 12, 13, 14),
+    ap.add_argument("--only", type=int, choices=(11, 12, 13, 14, 15),
                     default=None,
                     help="after the build, run this phase alone on "
                          "freshly written tables (no contract line)")
@@ -6780,10 +7176,19 @@ def main(argv=None) -> int:
             phase_done("3")
 
     if args.only is not None:
-        used = ["hash_partition_ids", "join_probe"] \
+        used = ["hash_partition_ids", PROBES] \
             if args.device == "cuda" else []
         phase = {11: tpcds11_phase, 12: tpcds12_phase,
                  13: tpcds13_phase}.get(args.only)
+        if args.only == 15:
+            # phase 5's joins on and off, then the skewed join; the TPC-DS
+            # half of 15 (a) runs in phases 7 and 8 of the whole script
+            _, skew = join_phase(args, [])
+            phase_done("5")
+            skew_phase(args, used, skew)
+            phase_done("15")
+            print("phase 15 alone: no contract result")
+            return 0
         with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
             session = ds_tables_alone(args, data_dir)
             phase_done("tables")
@@ -6801,7 +7206,7 @@ def main(argv=None) -> int:
     # reference process writes while the card runs phases 4 and 5; from
     # phase 6 on, phases 8-13 run in PHASE_GROUPS' processes beside this
     # one (phases 6, 7 and 14)
-    used = ["hash_partition_ids", "join_probe"] \
+    used = ["hash_partition_ids", PROBES] \
         if args.device == "cuda" else []
     spawn = multiprocessing.get_context("spawn")
     results = {}
@@ -6816,8 +7221,9 @@ def main(argv=None) -> int:
             results.update(headline_phase(args))
             phase_done("4")
             # 5. shuffled joins at TPC-H scale
-            results["join"] = join_phase(
-                args, [k for k in kernels if k not in NEW_B2_KINDS]
+            results["join"], skew = join_phase(
+                args, [k for k in kernels
+                       if k not in NEW_B2_KINDS + ("direct_probe",)]
                 if args.device == "cuda" else [])
             phase_done("5")
             tables = tables.result()
@@ -6837,12 +7243,17 @@ def main(argv=None) -> int:
             results["tpcds14"] = memory_phase(args, used, data_dir,
                                               ahead[14])
             phase_done("14")
+            # 15. adaptive execution: (a) ran in phases 5, 7 and 8; (b)
+            # the skewed join on phase 5's lineitem
+            results["tpcds15"] = skew_phase(args, used, skew)
+            skew = None
+            phase_done("15")
             # 8. derived tables and CTEs, 9. expression subqueries, 10.
             # set operations, DISTINCT and DATE columns, 11. window
             # functions, 12. CAST, DATE literals, count(DISTINCT) and
             # ROLLUP, 13. the last four texts and the function library
             results.update(join_phase_workers(workers, data_dir))
-            phase_done("4-14")
+            phase_done("4-15")
         except BaseException:
             for p in multiprocessing.active_children():
                 p.terminate()
@@ -6856,13 +7267,18 @@ def main(argv=None) -> int:
         # B2's min and first/last kinds run on phase 13's path (F1) alone
         own = "tpcds13" if name in NEW_B2_KINDS else None
         for mode, got in by_path.items():
+            if name in PROBES.split("|"):
+                # a path takes one probe or the other, or both
+                got = launched(results[mode], PROBES)
             # phases 6-13 need not take B2: their string keys, keyless
             # aggregates and wide key ranges run the sort path
             check(got > 0 or (mode.startswith("tpcds") and
                               name == "table_reduce") or
                   (own is not None and mode != own),
                   f"{name} never launched on the {mode} path")
-        kernels[name]["launches"] = by_path[own or "exact"]
+        check(sum(by_path.values()) > 0,
+              f"{name} never launched on the main path")
+        kernels[name]["launches"] = sum(by_path.values())
         kernels[name]["launches_by_path"] = by_path
     print(json.dumps({"kernels": list(kernels.values())}))
     print(f"nvidia-smi: {nvidia_smi_line()}")

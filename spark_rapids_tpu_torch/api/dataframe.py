@@ -39,6 +39,8 @@ class DataFrame:
     def __init__(self, logical: L.LogicalPlan, session):
         self._plan = logical
         self.session = session
+        #: the physical plan of this DataFrame's last collect
+        self._last_physical_plan = None
 
     @property
     def schema(self) -> Schema:
@@ -187,10 +189,22 @@ class DataFrame:
         return list(zip(*cols)) if cols else []
 
     def to_arrow(self) -> pa.Table:
-        return self.session.execute_to_arrow(self._plan)
+        before = self.session.last_physical_plan
+        try:
+            return self.session.execute_to_arrow(self._plan)
+        finally:
+            # the session's plan is this DataFrame's only if planning
+            # got as far as making one
+            plan = self.session.last_physical_plan
+            if plan is not before:
+                self._last_physical_plan = plan
 
     def explain(self) -> str:
-        return self.session.plan(self._plan).tree_string()
+        """The physical plan: after a collect, the plan that ran, with
+        the adaptive operators' choices (``exec/adaptive.py``); before
+        one, a new plan, theirs pending."""
+        plan = self._last_physical_plan or self.session.plan(self._plan)
+        return plan.tree_string()
 
 
 _JOIN_ALIASES = {"left_outer": "left", "right_outer": "right",

@@ -26,6 +26,14 @@ SORT_OOC_CHUNK_ROWS = "spark.rapids.tpu.sql.sort.outOfCore.chunkRows"
 SORT_OOC_SAMPLES = "spark.rapids.tpu.sql.sort.outOfCore.samplesPerRun"
 SCAN_CACHE = "spark.rapids.tpu.io.deviceScanCache.enabled"
 SCAN_CACHE_BYTES = "spark.rapids.tpu.io.deviceScanCache.bytes"
+ADAPTIVE_ENABLED = "spark.rapids.tpu.sql.adaptive.enabled"
+ADAPTIVE_TARGET_PARTITION_BYTES = \
+    "spark.rapids.tpu.sql.adaptive.targetPartitionBytes"
+ADAPTIVE_BROADCAST_BYTES = \
+    "spark.rapids.tpu.sql.adaptive.autoBroadcastJoinBytes"
+ADAPTIVE_SKEW_FACTOR = "spark.rapids.tpu.sql.adaptive.skewedPartitionFactor"
+ADAPTIVE_SKEW_MIN_BYTES = \
+    "spark.rapids.tpu.sql.adaptive.skewedPartitionThresholdBytes"
 
 #: the hash split's partition limit (kernels/cuda_ops.SPLIT_MAX_PARTS)
 MAX_SHUFFLE_PARTITIONS = 4096
@@ -65,6 +73,20 @@ _DEFAULTS: Dict[str, Any] = {
     # Device bytes the scan cache may hold (the reference's default is
     # 6 GiB; 24 GiB holds every table phases 6-13 of chip_smoke read).
     SCAN_CACHE_BYTES: 24 << 30,
+    # Adaptive execution: aggregate and window exchanges read through a
+    # coalescing read, and a shuffled equi-join picks broadcast, shuffle
+    # and skew splits from the exchanges' statistics (exec/adaptive.py).
+    ADAPTIVE_ENABLED: True,
+    # Advisory bytes of one partition after a shuffle: adjacent smaller
+    # reduce partitions are read as one.
+    ADAPTIVE_TARGET_PARTITION_BYTES: 64 << 20,
+    # A shuffled join whose build side's shuffled bytes come to at most
+    # this is broadcast at run time; its probe side is never shuffled.
+    ADAPTIVE_BROADCAST_BYTES: 32 << 20,
+    # A probe partition of more bytes than this many times the median,
+    # and than the threshold below, is split into slices.
+    ADAPTIVE_SKEW_FACTOR: 5.0,
+    ADAPTIVE_SKEW_MIN_BYTES: 16 << 20,
 }
 
 

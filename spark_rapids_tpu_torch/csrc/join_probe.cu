@@ -1,5 +1,7 @@
 // Join probe: the lower bound of every probe row's key in the sorted build
-// side, and its match count.
+// side, and its match count; and the direct-address probe (`direct_probe`,
+// at the end of the file), which gives the same two outputs from two tables
+// over a narrow integer key's range.
 //
 // A kernel of the port alone: no Pallas kernel is replaced.  The reference
 // searches in a jitted loop (spark_rapids_tpu/kernels/join.py:41, `_bsearch`
@@ -288,6 +290,96 @@ extern "C" int join_probe_smem(int per_sm) {
                                 : cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   return v;
+}
+
+// Direct-address probe (`direct_probe`): the lookup of a join whose build
+// side has one integer or DATE key of at most 1<<24 distinct values in its
+// range (the reference's `TpuHashJoinBase._prepare_direct`,
+// spark_rapids_tpu/exec/tpu_join.py:254, looked up at :351-358; no Pallas
+// kernel is replaced).  kernels/join.direct_tables makes two int32 tables
+// over the range [smin, smax] of the build's valid keys once per build:
+//   hist[v - smin] = the valid build rows of key v,
+//   excl[v - smin] = the first of them in the sorted build (nulls sort
+//                    first, so nnull + the valid rows of smaller keys).
+// Each probe row reads its key as the column stores it (int32 or int64,
+// signed) and its validity byte; a row at or past the live count is dead.
+// It writes the same lo and counts as `join_probe` over the same build:
+//   valid, smin <= v <= smax: counts = hist[v - smin], lo = excl[v - smin];
+//   valid, v < smin:          counts = 0, lo = nnull;
+//   valid, v > smax, or dead: counts = 0, lo = nnull + nvalid;
+//   null:                     counts = 0, lo = 0.
+// What bounds it: the stream.  A dimension's tables (2 x 4 B x the range)
+// sit in L2 (date_dim's 2 x 1,825 x 4 B), so each row is its key (4 or 8
+// B) and one validity byte read and 16 bytes written.  A grid-stride loop,
+// coalesced; the live count is read once per thread.
+template <typename K>
+__global__ void __launch_bounds__(JP_MAX_THREADS)
+direct_probe_kernel(const K* __restrict__ keys,
+                    const unsigned char* __restrict__ valid,
+                    const long long* __restrict__ rows_dev,
+                    long long rows_host, long long n, long long smin,
+                    long long smax, const int* __restrict__ hist,
+                    const int* __restrict__ excl, long long nnull,
+                    long long nvalid, long long* __restrict__ lo,
+                    long long* __restrict__ counts) {
+  const long long live = rows_dev != nullptr ? __ldg(rows_dev) : rows_host;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    long long c = 0, l = nnull + nvalid;
+    if (i < live) {
+      const long long v = (long long)__ldg(keys + i);
+      if (!__ldg(valid + i)) {
+        l = 0;
+      } else if (v < smin) {
+        l = nnull;
+      } else if (v <= smax) {
+        const unsigned idx = (unsigned)(v - smin);
+        c = __ldg(hist + idx);
+        l = __ldg(excl + idx);
+      }
+    }
+    lo[i] = l;
+    counts[i] = c;
+  }
+}
+
+// One launch on `stream`; returns a cudaError_t.  `key_bytes` is 4 (int32)
+// or 8 (int64); the live count is `*rows_dev` when that is not null, else
+// `rows_host`.  `slots` is the tables' length, which must exceed
+// smax - smin.
+extern "C" int direct_probe(const void* keys, int key_bytes,
+                            const void* valid, const void* rows_dev,
+                            long long rows_host, long long n, long long smin,
+                            long long smax, const void* hist,
+                            const void* excl, long long slots,
+                            long long nnull, long long nvalid, void* lo,
+                            void* counts, int threads, cudaStream_t stream) {
+  if (threads < 32 || threads > JP_MAX_THREADS || threads % 32 != 0 ||
+      (key_bytes != 4 && key_bytes != 8) || smax < smin ||
+      (u64)smax - (u64)smin >= (u64)slots || slots > (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (n + threads - 1) / threads;
+  const long long most = (long long)sms * (2048 / threads) * 4;
+  if (blocks > most) blocks = most;
+  const unsigned char* v = (const unsigned char*)valid;
+  const long long* r = (const long long*)rows_dev;
+  if (key_bytes == 4)
+    direct_probe_kernel<int><<<(unsigned)blocks, threads, 0, stream>>>(
+        (const int*)keys, v, r, rows_host, n, smin, smax, (const int*)hist,
+        (const int*)excl, nnull, nvalid, (long long*)lo, (long long*)counts);
+  else
+    direct_probe_kernel<long long><<<(unsigned)blocks, threads, 0, stream>>>(
+        (const long long*)keys, v, r, rows_host, n, smin, smax,
+        (const int*)hist, (const int*)excl, nnull, nvalid, (long long*)lo,
+        (long long*)counts);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* error_string(int code) {

@@ -5,7 +5,7 @@ Counterpart of ``spark_rapids_tpu/exec/exchange.py`` (in-process only).
 from __future__ import annotations
 
 import itertools
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..columnar.batch import ColumnarBatch, concat_batches
 from ..memory.arena import DeviceManager
@@ -14,21 +14,89 @@ from ..memory.spillable import SpillableBatch
 from .tpu_basic import Partitions, TpuExec
 
 
-class _MapOutput:
+class MapOutput:
     """The map side of one ``execute()``: every reduce partition's
-    blocks, each a ``SpillableBatch`` in the catalog, made when the
-    first reduce partition is read."""
+    blocks, each a ``SpillableBatch`` in the catalog, and, for an output
+    made ``with_stats`` (an adaptive operator's), each partition's
+    (bytes, rows), made when the first reduce partition or the
+    statistics are asked for.
 
-    def __init__(self, exchange: "TpuShuffleExchange"):
+    A partition's bytes are its rows' own (``SplitBatch.slice_bytes``:
+    no capacity padding, and a string slice's own bytes, not the buffer
+    it shares with its split batch), which the hash split then brings
+    to the host with its row counts.  The statistics and the reads keep
+    the reference's names
+    (``partition_stats``, ``stream_reduce``, ``read_reduce``); a block is
+    closed once it is read, unless more readers of its partition were
+    announced (``share``)."""
+
+    def __init__(self, exchange: "TpuShuffleExchange",
+                 with_stats: bool = False):
         self.exchange = exchange
+        self.with_stats = with_stats
         self.blocks: Optional[List[List[SpillableBatch]]] = None
+        self.stats: Optional[List[List[int]]] = None
+        #: further reads announced for a partition (``share``)
+        self._readers: Dict[int, int] = {}
+
+    def materialize(self) -> "MapOutput":
+        """Run the map side, once."""
+        if self.blocks is None:
+            n = self.exchange.partitioner.num_partitions
+            self.blocks = [[] for _ in range(n)]
+            if self.with_stats:
+                self.stats = [[0, 0] for _ in range(n)]
+            self.exchange.write_blocks(self.blocks, self.stats)
+        return self
 
     def partition(self, pid: int) -> List[SpillableBatch]:
-        if self.blocks is None:
-            self.blocks = [[] for _ in
-                           range(self.exchange.partitioner.num_partitions)]
-            self.exchange.write_blocks(self.blocks)
-        return self.blocks[pid]
+        return self.materialize().blocks[pid]
+
+    def partition_stats(self) -> List[Tuple[int, int]]:
+        """(bytes, rows) of each reduce partition, from what the split
+        already read to the host: no block is read or unspilled."""
+        if not self.with_stats:
+            raise ValueError("partition_stats: a map output made without "
+                             "statistics")
+        return [tuple(s) for s in self.materialize().stats]
+
+    def share(self, pid: int, readers: int) -> None:
+        """Partition ``pid`` will be read ``readers`` times: its blocks
+        stay registered until the last read ends."""
+        self._readers[pid] = readers
+
+    def stream_reduce(self, pid: int, blocks=None):
+        """Reduce partition ``pid`` (or ``blocks``, a part of it):
+        consecutive blocks concatenated while they fit the exchange's
+        ``target_rows`` (a larger one stays whole), materialised one batch
+        at a time."""
+        whole = blocks is None
+        blocks = list(self.partition(pid) if whole else blocks)
+        last = self._readers.get(pid, 1) <= 1
+        target = self.exchange.target_rows
+        i = 0
+        while i < len(blocks):
+            rows, take = blocks[i].num_rows, 1
+            while i + take < len(blocks) and \
+                    rows + blocks[i + take].num_rows <= target:
+                rows += blocks[i + take].num_rows
+                take += 1
+            group = blocks[i:i + take]
+            batch = concat_batches([b.materialize() for b in group])
+            for b in group:
+                if last:
+                    b.close()
+                else:
+                    b.release()
+            i += take
+            yield batch
+        if whole and last:
+            self.partition(pid).clear()
+        elif not last:
+            self._readers[pid] -= 1
+
+    def read_reduce(self, pid: int) -> List[ColumnarBatch]:
+        return list(self.stream_reduce(pid))
 
     def close(self) -> None:
         for part in self.blocks or ():
@@ -54,14 +122,18 @@ class TpuShuffleExchange(TpuExec):
     input, whose bounds need every row: each batch's key columns stay on
     the device for the bounds, and the batch itself is registered under
     the budget like a block (the reference keeps the staged input out of
-    its budget), then split once the bounds are known."""
+    its budget), then split once the bounds are known.  Each reduce
+    partition's own bytes and rows are counted as its blocks are made
+    (``MapOutput.partition_stats``); the adaptive operators
+    (``exec/adaptive.py``) run the map side through ``map_output`` and
+    shape their reads from them."""
 
     def __init__(self, partitioner, child: TpuExec, target_rows: int):
         self.partitioner = partitioner
         self.children = [child]
         self.target_rows = target_rows
         #: the map outputs of execute() calls, until close()
-        self._outputs: List[_MapOutput] = []
+        self._outputs: List[MapOutput] = []
 
     @property
     def output_schema(self):
@@ -74,31 +146,45 @@ class TpuShuffleExchange(TpuExec):
         return self.partitioner.num_partitions
 
     def execute(self) -> Partitions:
-        output = _MapOutput(self)
-        self._outputs.append(output)
-        return [self._read(output, pid)
+        output = self.map_output()
+        return [output.stream_reduce(pid)
                 for pid in range(self.partitioner.num_partitions)]
+
+    def map_output(self, with_stats: bool = False) -> MapOutput:
+        """A new map output of this exchange, written when first read
+        (``MapOutput.materialize``), closed with the exchange;
+        ``with_stats`` counts each reduce partition's bytes and rows."""
+        output = MapOutput(self, with_stats)
+        self._outputs.append(output)
+        return output
 
     def close(self) -> None:
         while self._outputs:
             self._outputs.pop().close()
         super().close()
 
-    def write_blocks(self, blocks: List[List[SpillableBatch]]) -> None:
+    def write_blocks(self, blocks: List[List[SpillableBatch]],
+                     stats: Optional[List[List[int]]] = None) -> None:
         """The map side: every child batch split, its slices registered
-        in ``blocks`` (one list per reduce partition)."""
+        in ``blocks`` (one list per reduce partition) and, unless
+        ``stats`` is None, counted there ([bytes, rows] per reduce
+        partition; a hash split only)."""
         batches = (b for part in self.children[0].execute() for b in part
                    if b.rows_known != 0)
         manager = DeviceManager.get()
         if hasattr(self.partitioner, "fit"):
             batches = self._staged(batches, manager)
         for batch in batches:
-            split = self.partitioner.split(batch)
+            split = self.partitioner.split(batch) if stats is None else \
+                self.partitioner.split(batch, string_bytes=True)
             del batch
             for pid, part in enumerate(blocks):
                 s = split.partition_slice(pid)
                 if s is not None:
                     manager.reserve(s.nbytes())
+                    if stats is not None:
+                        stats[pid][0] += split.slice_bytes(pid, s)
+                        stats[pid][1] += s.num_rows
                     part.append(SpillableBatch(s, SHUFFLE_OUTPUT_PRIORITY))
 
     def _staged(self, batches, manager: DeviceManager):
@@ -123,24 +209,6 @@ class TpuShuffleExchange(TpuExec):
         finally:
             for sb in staged:
                 sb.close()
-
-    def _read(self, output: _MapOutput, pid: int):
-        """Reduce partition ``pid``: consecutive blocks concatenated
-        while they fit ``target_rows`` (a larger one stays whole), each
-        block closed once it is in a batch."""
-        blocks = output.partition(pid)
-        while blocks:
-            rows, take = blocks[0].num_rows, 1
-            while take < len(blocks) and \
-                    rows + blocks[take].num_rows <= self.target_rows:
-                rows += blocks[take].num_rows
-                take += 1
-            group = blocks[:take]
-            batch = concat_batches([b.materialize() for b in group])
-            del blocks[:take]
-            for b in group:
-                b.close()
-            yield batch
 
 
 class TpuBroadcastExchange(TpuExec):

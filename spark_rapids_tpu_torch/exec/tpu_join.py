@@ -12,6 +12,17 @@ then each batch expands and gathers, in chunks of at most
 ``join.gather.chunkRows`` output rows (the reference's JoinGatherer
 role), so even one probe row's matches may split across chunks.
 
+A partition probes by direct address instead of the search when the
+reference would (its ``TpuHashJoinBase`` rule): no residual condition,
+not a full join, one integer or DATE key on both sides, and stream
+batches of at least ``join.DIRECT_MIN_STREAM`` rows of capacity, which
+each partition decides for itself.  Its build then makes
+``join.direct_tables`` (one host read, kept with the build, so a
+broadcast build makes them once) unless its keys span more than
+``join.DIRECT_MAX_RANGE``; each stream batch then takes one
+``direct_probe`` launch over its key column for its (lo, counts).
+``probes`` counts the batches probed each way.
+
 Join types by count surgery:
 - outer: an unmatched stream row gets one row with the build side null;
 - semi:  keep the stream rows with count > 0 (no expansion);
@@ -116,6 +127,9 @@ class TpuHashJoinBase(TpuExec):
         self.device = device
         #: expanded stream batches and their chunks in the last execute()
         self.expand_counts = {"batches": 0, "chunks": 0}
+        #: stream batches probed by direct address and by search in the
+        #: last execute()
+        self.probes = {"direct": 0, "search": 0}
 
     @property
     def output_schema(self) -> Schema:
@@ -153,19 +167,92 @@ class TpuHashJoinBase(TpuExec):
                              self._order(stream_cols, build_cols), rows,
                              device=self.device)
 
+    def _reset_counts(self):
+        self.expand_counts = {"batches": 0, "chunks": 0}
+        self.probes = {"direct": 0, "search": 0}
+
+    def _broadcast(self, make_build, bschema, stream_parts) -> Partitions:
+        """Every stream partition joined to one build batch, made (by
+        ``make_build``, None for no rows) and sorted when the first
+        partition is read; its direct tables are made once too."""
+        _, _, bkeys, skeys = self._sides()
+        built = []
+
+        def build_once():
+            if not built:
+                b = make_build()
+                bpart = [b] if b is not None else []
+                sw = _str_words(bkeys, bpart, skeys, [])
+                built.extend(self._build(bpart, bschema, bkeys, sw) +
+                             (sw, {}))
+            return built
+
+        def partition(part):
+            build, bt, sw, memo = build_once()
+            yield from self._run_partition(build, bt, part, skeys, sw, memo)
+        return [partition(part) for part in stream_parts]
+
+    # -- the direct-address probe ---------------------------------------------
+    def _may_probe_directly(self, skeys) -> bool:
+        """The reference's static half of its rule: no residual, not a
+        full join, one key, an integer or DATE on both sides."""
+        bkeys = self._sides()[2]
+        return (self.join.condition is None and self.join.how != "full"
+                and len(bkeys) == 1 and
+                join_k.direct_keyable(bkeys[0].dtype()) and
+                join_k.direct_keyable(skeys[0].dtype()))
+
+    def _direct(self, build: ColumnarBatch, stream_batches, skeys,
+                memo: dict):
+        """(stream batches, direct tables or None) of one partition, by
+        the reference's rule for each partition: one whose stream
+        capacity reaches ``DIRECT_MIN_STREAM`` probes directly if the
+        build's keys allow it, a smaller one searches.  The build's
+        tables (one host read) are made at the first partition that needs
+        them and kept in ``memo``, which a broadcast build shares across
+        its partitions.  The stream's first batches are read ahead until
+        the capacity is reached."""
+        if not self._may_probe_directly(skeys):
+            return stream_batches, None
+        it = iter(stream_batches)
+        ahead, cap = [], 0
+        for sb in it:
+            ahead.append(sb)
+            cap += sb.capacity
+            if cap >= join_k.DIRECT_MIN_STREAM:
+                break
+        stream = itertools.chain(ahead, it)
+        if cap < join_k.DIRECT_MIN_STREAM:
+            return stream, None
+        if "direct" not in memo:
+            key = ec.eval_as_column(self._sides()[2][0], build)
+            memo["direct"] = join_k.direct_tables(key, build.rows)
+        return stream, memo["direct"]
+
     # -- one partition --------------------------------------------------------
     def _run_partition(self, build: ColumnarBatch, bt: join_k.BuildTable,
-                       stream_batches, skeys, str_words):
+                       stream_batches, skeys, str_words, memo=None):
+        """Join one partition's stream batches to its build.  ``memo``
+        holds what the build's other partitions share (a broadcast
+        join's direct tables)."""
         how = self.join.how
         residual = self.join.condition is not None
         flags = torch.zeros(build.capacity + 1, dtype=torch.bool,
                             device=self.device) if how == "full" else None
+        stream_batches, direct = self._direct(
+            build, stream_batches, skeys, {} if memo is None else memo)
         probed = []
         # phase A: probe every stream batch
         for sb in stream_batches:
             live = sb.live_mask()
-            words, rank_pos = _key_words(skeys, sb, live, str_words)
-            jc = join_k.probe_counts(bt, words, live, rank_pos)
+            if direct is not None:
+                jc = join_k.direct_counts(
+                    direct, ec.eval_as_column(skeys[0], sb), sb.rows)
+                self.probes["direct"] += 1
+            else:
+                words, rank_pos = _key_words(skeys, sb, live, str_words)
+                jc = join_k.probe_counts(bt, words, live, rank_pos)
+                self.probes["search"] += 1
             if how in ("semi", "anti") and not residual:
                 keep = jc.matched if how == "semi" else ~jc.matched & live
                 yield self._select(sb, keep)
@@ -285,7 +372,7 @@ class TpuShuffledHashJoin(TpuHashJoinBase):
     exchanges; partition i of one side joins partition i of the other."""
 
     def execute(self) -> Partitions:
-        self.expand_counts = {"batches": 0, "chunks": 0}
+        self._reset_counts()
         bexec, sexec, bkeys, skeys = self._sides()
         bparts, sparts = bexec.execute(), sexec.execute()
         if len(bparts) != len(sparts):
@@ -320,23 +407,10 @@ class TpuBroadcastHashJoin(TpuHashJoinBase):
         return self._sides()[1].num_partitions()
 
     def execute(self) -> Partitions:
-        self.expand_counts = {"batches": 0, "chunks": 0}
-        bexec, sexec, bkeys, skeys = self._sides()
-        built = []
-
-        def build_once():
-            if not built:
-                b = bexec.broadcast_batch()
-                bpart = [b] if b is not None else []
-                sw = _str_words(bkeys, bpart, skeys, [])
-                built.extend(self._build(bpart, bexec.output_schema, bkeys,
-                                         sw) + (sw,))
-            return built
-
-        def partition(part):
-            build, bt, sw = build_once()
-            yield from self._run_partition(build, bt, part, skeys, sw)
-        return [partition(part) for part in sexec.execute()]
+        self._reset_counts()
+        bexec, sexec, _, _ = self._sides()
+        return self._broadcast(bexec.broadcast_batch,
+                               bexec.output_schema, sexec.execute())
 
 
 class TpuNestedLoopJoin(TpuExec):

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, and their plain torch versions.
 
 Counterpart of ``spark_rapids_tpu/kernels/pallas_ops.py`` (B1, B2), plus
-the join probe, a kernel of the port alone.  Each kernel
+the join probe, a kernel of the port alone, and the direct-address probe
+(the lookup of the reference's ``_prepare_direct``, which no Pallas kernel
+does).  Each kernel
 lives in ``csrc/`` as CUDA C++ with a plain C interface, is compiled at
 first use with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the
 repository root, and is loaded with ``ctypes``.
@@ -45,7 +47,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kind, are also counted apart
 LAUNCHES: Dict[str, int] = {"hash_partition_ids": 0, "table_reduce": 0,
                             "table_reduce_min": 0,
-                            "table_reduce_firstlast": 0, "join_probe": 0}
+                            "table_reduce_firstlast": 0, "join_probe": 0,
+                            "direct_probe": 0}
 _MAX_WORDS = 32
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -156,7 +159,9 @@ _SIGNATURES = {
     "join_probe": {
         "join_probe": [_VP, _VP, _I, _I, _I, ctypes.POINTER(_VP), _VP, _I,
                        ctypes.c_uint, _VP, _VP, _I, _VP],
-        "join_probe_smem": [_I]},
+        "join_probe_smem": [_I],
+        "direct_probe": [_VP, _I, _VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP,
+                         _LL, _LL, _LL, _VP, _VP, _I, _VP]},
 }
 
 
@@ -857,6 +862,81 @@ def join_probe(build_words: List[torch.Tensor],
                              bn, stride.bit_length() - 1, pptrs,
                              live.data_ptr(), n, mask, lo.data_ptr(),
                              counts.data_ptr(), index.threads, stream)
+    _raise_on(lib, what, err)
+    LAUNCHES[what] += 1
+    return lo, counts
+
+
+# -- the direct-address probe -------------------------------------------------
+
+#: threads of a direct_probe block
+DIRECT_THREADS = 256
+
+
+def direct_probe_plain(keys: torch.Tensor, valid: torch.Tensor, rows,
+                       smin: int, smax: int, hist: torch.Tensor,
+                       excl: torch.Tensor, nnull: int, nvalid: int):
+    """Plain torch version of ``direct_probe``."""
+    live = torch.arange(keys.shape[0], device=keys.device) < rows
+    v = keys.to(torch.int64)
+    ok = valid & live
+    hit = ok & (v >= smin) & (v <= smax)
+    idx = torch.where(hit, v - smin, 0)
+    counts = torch.where(hit, hist[idx].to(torch.int64), 0)
+    miss = torch.where(live & ~valid, 0, torch.where(
+        ok & (v < smin), nnull, nnull + nvalid))
+    return torch.where(hit, excl[idx].to(torch.int64), miss), counts
+
+
+def direct_probe(keys: torch.Tensor, valid: torch.Tensor, rows,
+                 smin: int, smax: int, hist: torch.Tensor,
+                 excl: torch.Tensor, nnull: int, nvalid: int):
+    """Each probe row's matches by direct address (``kernels/join.
+    direct_tables``): (lo int64[n], counts int64[n]) equal to
+    ``join_probe``'s over the same build.  ``keys`` is the stream key
+    column's data (int32 or int64, signed values), ``valid`` its validity
+    (bool[n]), ``rows`` its live rows (an int or a device count; rows at
+    or past it are dead); ``smin`` and ``smax`` the build's least and
+    greatest valid key; ``hist`` and ``excl`` int32 over at least
+    ``smax - smin + 1`` slots; ``nnull`` and ``nvalid`` the build's null
+    and valid rows.  On the card, one launch (csrc/join_probe.cu
+    ``direct_probe``), which reads the live count where it lies."""
+    what = "direct_probe"
+    n = keys.shape[0]
+    slots = hist.shape[0]
+    if (keys.dtype not in (torch.int32, torch.int64) or keys.dim() != 1 or
+            valid.dtype != torch.bool or valid.shape != keys.shape):
+        raise ValueError(f"{what}: keys must be int32 or int64[n] and "
+                         f"valid bool[n]")
+    if n >= (1 << 31):
+        raise ValueError(f"{what}: {n} rows exceed int32 indexing")
+    if (hist.dtype != torch.int32 or excl.dtype != torch.int32 or
+            hist.dim() != 1 or excl.shape != hist.shape or
+            not smin <= smax or smax - smin >= slots):
+        raise ValueError(f"{what}: tables must be int32[slots] with slots > "
+                         f"smax - smin")
+    counted = [keys, valid, hist, excl] + (
+        [rows] if isinstance(rows, torch.Tensor) else [])
+    _check_contiguous(counted, what)
+    if _device_kind(counted, what) == "cpu":
+        return direct_probe_plain(keys, valid, rows, smin, smax, hist, excl,
+                                  nnull, nvalid)
+    dev = keys.device
+    lo = torch.empty(n, dtype=torch.int64, device=dev)
+    counts = torch.empty(n, dtype=torch.int64, device=dev)
+    if isinstance(rows, torch.Tensor):
+        rows_dev, rows_host = rows.reshape(()).to(torch.int64), 0
+        rows_ptr = rows_dev.data_ptr()
+    else:
+        rows_ptr, rows_host = None, int(rows)
+    lib = _load("join_probe")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.direct_probe(keys.data_ptr(), keys.element_size(),
+                               valid.data_ptr(), rows_ptr, rows_host, n,
+                               smin, smax, hist.data_ptr(), excl.data_ptr(),
+                               slots, nnull, nvalid, lo.data_ptr(),
+                               counts.data_ptr(), DIRECT_THREADS, stream)
     _raise_on(lib, what, err)
     LAUNCHES[what] += 1
     return lo, counts

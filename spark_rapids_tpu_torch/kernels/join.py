@@ -10,6 +10,14 @@ sum and ``searchsorted``.  Join types other than inner change the counts
 before the expansion (``outer_counts``); semi and anti joins select probe
 rows by compaction instead of expanding them (``basic.compact_indices``).
 Counts and their prefix sums are int64.
+
+A build side of one integer or DATE key whose valid values span at most
+``DIRECT_MAX_RANGE`` may instead be probed by direct address
+(``direct_tables``, the reference's ``_prepare_direct``): two int32
+tables over the key's range give each probe row its count and first
+position in the sorted build (``cuda_ops.direct_probe``, which reads
+the stream key column's values and validity), the same (lo, counts) as
+the search.
 """
 from __future__ import annotations
 
@@ -18,9 +26,19 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from . import cuda_ops
+from ..columnar import dtypes as T
+from ..columnar.column import Column, StringColumn, bucket_capacity
+from . import canon, cuda_ops
 from .basic import SIGN64
 from .sort import sorted_words
+
+#: most slots of a direct-address table (the reference's
+#: ``_DIRECT_MAX_RANGE``: 64 MB of int32 per table)
+DIRECT_MAX_RANGE = 1 << 24
+#: least stream capacity of a partition that probes by direct address
+#: (the reference's rule: a smaller stream keeps the search, which needs
+#: no host read of the build's range)
+DIRECT_MIN_STREAM = 1 << 19
 
 
 @dataclasses.dataclass
@@ -93,6 +111,70 @@ def probe_counts(bt: BuildTable, probe_words: List[torch.Tensor],
     lo, counts = cuda_ops.join_probe(
         bt.sorted_words, [w.contiguous() for w in probe_words],
         probe_live.contiguous(), rank_words, bt.index)
+    return JoinCounts(lo, counts, counts > 0)
+
+
+@dataclasses.dataclass
+class DirectTables:
+    """A build key's direct-address tables: ``hist`` and ``excl`` int32
+    over ``bucket_capacity(smax - smin + 1)`` slots, ``smin`` / ``smax``
+    the least and greatest valid key (signed; the order words are these
+    XOR the sign bit), ``nnull`` and ``nvalid`` the build's live null and
+    valid rows."""
+    smin: int
+    smax: int
+    hist: torch.Tensor
+    excl: torch.Tensor
+    nnull: int
+    nvalid: int
+
+
+def direct_keyable(dtype) -> bool:
+    """Whether a key of ``dtype`` may be probed by direct address."""
+    return dtype.is_integral or dtype == T.DATE
+
+
+def direct_tables(col: Column, rows) -> Optional[DirectTables]:
+    """The direct-address tables of a build key column of ``rows`` live
+    rows (int or device count), or None when the key is not an integer
+    or DATE or its valid values span more than ``DIRECT_MAX_RANGE``.
+    Reads the key's range and null count to the host: one read per
+    build.  ``excl`` indexes the build as ``build`` sorts it: nulls first
+    (rank word 0), then the valid keys, then the dead rows."""
+    if isinstance(col, StringColumn) or not direct_keyable(col.dtype):
+        return None
+    dev = col.data.device
+    live = torch.arange(col.capacity, device=dev) < rows
+    valid = col.validity & live
+    signed = canon.value_words(col)[0] ^ SIGN64
+    big = torch.iinfo(torch.int64)
+    smin, smax, nvalid, nlive = torch.stack([
+        torch.where(valid, signed, big.max).min(),
+        torch.where(valid, signed, big.min).max(),
+        valid.sum(), live.sum()]).tolist()
+    if nvalid == 0:
+        # the reference's empty range: one slot, no row in it
+        smin = smax = big.min
+    span = smax - smin + 1
+    if span <= 0 or span > DIRECT_MAX_RANGE:
+        return None
+    slots = bucket_capacity(span)
+    idx = torch.where(valid, signed - smin, slots)
+    hist = torch.zeros(slots + 1, dtype=torch.int32, device=dev).index_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int32))[:slots]
+    nnull = nlive - nvalid
+    excl = (torch.cumsum(hist, 0) - hist + nnull).to(torch.int32)
+    return DirectTables(smin, smax, hist.contiguous(), excl, nnull, nvalid)
+
+
+def direct_counts(dt: DirectTables, key: Column, rows) -> JoinCounts:
+    """``probe_counts`` of a stream key column of ``rows`` live rows (an
+    int or a device count) by direct address: the kernel reads the
+    column's values and validity as they are."""
+    lo, counts = cuda_ops.direct_probe(key.data.contiguous(),
+                                       key.validity.contiguous(), rows,
+                                       dt.smin, dt.smax, dt.hist, dt.excl,
+                                       dt.nnull, dt.nvalid)
     return JoinCounts(lo, counts, counts > 0)
 
 

@@ -6,14 +6,16 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   pushes the conjuncts pyarrow can apply into the scan, and still runs;
 - a group-by becomes partial aggregate -> hash exchange on the group keys
   -> final aggregate, with the filter/project chain under it staged into
-  the partial aggregate; that exchange has ``shuffle.partitions``
-  partitions.  An aggregate without keys becomes partial -> coalesce ->
-  final (one output row).  Neither is ever planned as one ``complete``
-  aggregate, so no plan merges partitions it did not exchange (the
-  reference takes an operator's partition count from its first child,
-  so a broadcast join built on the left reports one partition and its
-  aggregate runs ``complete`` over many: here each operator reports the
-  partitions it really returns, ``TpuExec.num_partitions``);
+  the partial aggregate; that exchange has ``_pick_partitions`` of the
+  aggregate partitions, at most as many as the partial aggregate's (the
+  reference's width).  An aggregate without keys becomes partial ->
+  coalesce -> final (one output row).  Neither is ever planned as one
+  ``complete`` aggregate, so no plan merges partitions it did not
+  exchange (the reference takes an operator's partition count from its
+  first child, so a broadcast join built on the left reports one
+  partition and its aggregate runs ``complete`` over many: here each
+  operator reports the partitions it really returns,
+  ``TpuExec.num_partitions``);
 - an equi-join builds on the right side, except a right join; an inner
   join builds on the side with fewer estimated rows.  A build side of at
   most ``BROADCAST_ROW_THRESHOLD`` estimated rows is broadcast, unless
@@ -21,6 +23,13 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   their keys into ``_pick_partitions`` partitions and joins partition by
   partition (``TpuShuffledHashJoin``); an exchange reads each partition
   back as batches of up to ``batchSizeRows`` rows;
+- with ``adaptive.enabled`` (the default, as in the reference) every
+  such shuffled join is a ``TpuAdaptiveShuffledJoin`` over the sides
+  before their exchanges (broadcast, shuffle and skew splits chosen at
+  run time, ``exec/adaptive.py``), and the hash exchange of an aggregate
+  or a window is read through a ``TpuAQEShuffleRead``, which groups
+  adjacent reduce partitions up to ``adaptive.targetPartitionBytes``.
+  With it off the plans are the static ones above;
 - a cross join, or a join without equi-keys, is a ``TpuNestedLoopJoin``
   over a ``TpuBroadcastExchange`` of its right side (every join type; a
   right or full one collapses the left side into one partition);
@@ -55,6 +64,7 @@ import torch
 from .. import config as C
 from ..expr import core as ec
 from ..expr.misc import needs_task
+from ..exec.adaptive import TpuAdaptiveShuffledJoin, TpuAQEShuffleRead
 from ..exec.exchange import (TpuBroadcastExchange, TpuCoalescePartitions,
                              TpuShuffleExchange)
 from ..exec.tpu_aggregate import FINAL, PARTIAL, TpuHashAggregate
@@ -152,6 +162,15 @@ def _plan(node: L.LogicalPlan, conf: C.TpuConf,
     raise NotImplementedError(f"no device operator for {type(node).__name__}")
 
 
+def _aqe_read(exchange: TpuShuffleExchange, conf: C.TpuConf) -> TpuExec:
+    """A hash exchange behind a coalescing read when AQE is on (the
+    reference's ``_aqe_read``)."""
+    if not conf.get(C.ADAPTIVE_ENABLED):
+        return exchange
+    return TpuAQEShuffleRead(exchange,
+                             conf.get(C.ADAPTIVE_TARGET_PARTITION_BYTES))
+
+
 def _plan_window(node: L.Window, conf: C.TpuConf, child: TpuExec) -> TpuExec:
     nparts = child.num_partitions()
     keys = node.window_funcs[0].spec.partition_by
@@ -159,10 +178,10 @@ def _plan_window(node: L.Window, conf: C.TpuConf, child: TpuExec) -> TpuExec:
                     [repr(e) for e in keys] for wf in node.window_funcs)
     if nparts > 1:
         if keys and same_keys:
-            child = TpuShuffleExchange(
+            child = _aqe_read(TpuShuffleExchange(
                 HashPartitioner(keys, min(conf.get(C.SHUFFLE_PARTITIONS),
                                           nparts)),
-                child, conf.get(C.BATCH_SIZE_ROWS))
+                child, conf.get(C.BATCH_SIZE_ROWS)), conf)
         else:
             child = TpuCoalescePartitions(child)
     return TpuWindow(node, child)
@@ -179,9 +198,10 @@ def _plan_aggregate(node: L.Aggregate, conf: C.TpuConf,
     if node.group_exprs:
         hash_keys = [ec.AttributeReference(ec.output_name(e))
                      for e in node.group_exprs]
-        merged = TpuShuffleExchange(
-            HashPartitioner(hash_keys, conf.get(C.SHUFFLE_PARTITIONS)),
-            partial, conf.get(C.BATCH_SIZE_ROWS))
+        width = min(_pick_partitions(conf, node), partial.num_partitions())
+        merged = _aqe_read(TpuShuffleExchange(
+            HashPartitioner(hash_keys, width), partial,
+            conf.get(C.BATCH_SIZE_ROWS)), conf)
     else:
         merged = TpuCoalescePartitions(partial)
     return TpuHashAggregate(node.group_exprs, node.aggs, merged, FINAL,
@@ -219,6 +239,13 @@ def _plan_join(node: L.Join, conf: C.TpuConf, device: torch.device,
                                     device)
     n = _pick_partitions(conf, left, right)
     rows = conf.get(C.BATCH_SIZE_ROWS)
+    if conf.get(C.ADAPTIVE_ENABLED):
+        return TpuAdaptiveShuffledJoin(
+            node, lexec, rexec, build_right, n, rows, chunk, device,
+            conf.get(C.ADAPTIVE_BROADCAST_BYTES),
+            conf.get(C.ADAPTIVE_TARGET_PARTITION_BYTES),
+            conf.get(C.ADAPTIVE_SKEW_FACTOR),
+            conf.get(C.ADAPTIVE_SKEW_MIN_BYTES))
     return TpuShuffledHashJoin(
         node, TpuShuffleExchange(HashPartitioner(node.left_keys, n), lexec,
                                  rows),

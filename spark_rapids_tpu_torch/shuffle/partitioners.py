@@ -38,9 +38,12 @@ NULL_WORD = as_signed64(0x9E3779B97F4A7C15)
 
 @dataclasses.dataclass
 class SplitBatch:
-    """A batch sorted by partition id + per-partition row offsets."""
+    """A batch sorted by partition id + per-partition row offsets, and,
+    where the split was asked for them, the string bytes of each
+    partition's rows (summed over the string columns)."""
     batch: ColumnarBatch
     offsets: np.ndarray          # [num_parts + 1] host row offsets
+    string_bytes: Optional[np.ndarray] = None    # [num_parts] host bytes
 
     def partition_slice(self, pid: int) -> Optional[ColumnarBatch]:
         lo, hi = int(self.offsets[pid]), int(self.offsets[pid + 1])
@@ -48,13 +51,43 @@ class SplitBatch:
             return None
         return self.batch.slice(lo, hi - lo)
 
+    def slice_bytes(self, pid: int, piece: ColumnarBatch) -> int:
+        """Bytes of the rows of ``piece`` (partition ``pid``'s slice):
+        each value and validity byte, and a string's offsets and its own
+        bytes (a string slice shares the byte buffer of the whole split
+        batch).  Capacity padding does not count: each slice is padded
+        to a power of two, which would hide part of a skewed partition's
+        excess over the others.  Needs the split's ``string_bytes`` when
+        the batch holds a string column."""
+        n = piece.num_rows
+        own = 0 if self.string_bytes is None else int(self.string_bytes[pid])
+        for c in piece.columns:
+            own += n + (4 * (n + 1) if isinstance(c, StringColumn)
+                        else n * c.data.element_size())
+        return own
+
 
 def _split_by(batch: ColumnarBatch, perm: torch.Tensor, counts,
-              n: int) -> SplitBatch:
-    counts = counts[:n].cpu().numpy()
+              n: int, string_bytes: bool = False) -> SplitBatch:
+    """The split of ``batch`` by ``perm`` (rows in partition order) and
+    the partitions' row counts.  With ``string_bytes``, each string
+    column's bytes per partition come to the host in the counts' one
+    read."""
+    counts = counts[:n].to(torch.int64)
+    host = [counts]
+    strs = [c for c in batch.columns if isinstance(c, StringColumn)] \
+        if string_bytes else []
+    if strs:
+        ends = torch.cumsum(counts, 0)
+        for c in strs:
+            lens = (c.offsets[1:] - c.offsets[:-1]).to(torch.int64)[perm]
+            acc = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+            host.append(acc[ends] - acc[ends - counts])
+    host = torch.stack(host).cpu().numpy()
     offsets = np.zeros(n + 1, dtype=np.int64)
-    offsets[1:] = np.cumsum(counts)
-    return SplitBatch(batch.gather(perm, int(offsets[-1])), offsets)
+    offsets[1:] = np.cumsum(host[0])
+    return SplitBatch(batch.gather(perm, int(offsets[-1])), offsets,
+                      host[1:].sum(axis=0) if string_bytes else None)
 
 
 class HashPartitioner:
@@ -78,13 +111,15 @@ class HashPartitioner:
                              .contiguous())
         return words
 
-    def split(self, batch: ColumnarBatch) -> SplitBatch:
+    def split(self, batch: ColumnarBatch,
+              string_bytes: bool = False) -> SplitBatch:
         """Rows stably ordered by partition id (dead rows last) and the
-        host offsets of each partition's rows."""
+        host offsets of each partition's rows; with ``string_bytes``, also
+        each partition's string bytes (``SplitBatch.slice_bytes``)."""
         n = self.num_partitions
         perm, counts = hash_split(self._key_words(batch),
                                   batch.live_mask().contiguous(), n)
-        return _split_by(batch, perm, counts, n)
+        return _split_by(batch, perm, counts, n, string_bytes)
 
 
 class RangePartitioner:

@@ -216,8 +216,9 @@ def test_group_by_without_aggregates_plans_partial_exchange_final():
         .create_or_replace_temp_view("t")
     df = s.sql("select g, s from t group by g, s")
     lines = [ln.strip() for ln in df.explain().splitlines()]
-    assert lines[1:4] == ["TpuHashAggregate[final]",
-                          "TpuShuffleExchange[HashPartitioner(8)]",
+    assert lines[1:5] == ["TpuHashAggregate[final]",
+                          "TpuAQEShuffleRead[pending]",
+                          "TpuShuffleExchange[HashPartitioner(3)]",
                           "TpuHashAggregate[partial]"]
     got = df.collect()
     t = _table()

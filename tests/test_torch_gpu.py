@@ -263,9 +263,13 @@ def _join(session, how, hot=0):
 
 
 def _sessions(monkeypatch, conf=None):
+    """A card and a CPU session that plan the static shuffled join (AQE
+    off; ``test_adaptive_join_on_card_equals_cpu`` runs the adaptive
+    one)."""
     from spark_rapids_tpu_torch.plan import overrides
     monkeypatch.setattr(overrides, "BROADCAST_ROW_THRESHOLD", 1000)
     conf = TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 1 << 15,
+                    "spark.rapids.tpu.sql.adaptive.enabled": False,
                     **(conf or {})})
     return TpuSession(conf), TpuSession(conf, device="cpu")
 
@@ -1058,3 +1062,129 @@ def test_real_device_oom_is_answered_by_oom_retry(tmp_path):
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0)
         torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", list(chip_smoke.STAR_BUILDS))
+def test_direct_probe_kernel_matches_plain(dim):
+    """The direct-address probe at the star joins' four dimensions (a
+    store_sales batch against the dimension's keys): one launch, bit for
+    bit equal to ``direct_probe_plain`` and to the search's (lo, counts)."""
+    _need_card()
+    bt, words, live, rank, dt, key, rows = chip_smoke.star_direct_inputs(
+        np.random.default_rng(3), dim)
+    args = (key.data, key.validity, rows, dt.smin, dt.smax, dt.hist,
+            dt.excl, dt.nnull, dt.nvalid)
+    before = cuda_ops.LAUNCHES["direct_probe"]
+    lo, cnt = cuda_ops.direct_probe(*args)
+    assert cuda_ops.LAUNCHES["direct_probe"] == before + 1
+    plo, pcnt = cuda_ops.direct_probe_plain(*args)
+    slo, scnt = cuda_ops.join_probe(bt.sorted_words, words, live, rank,
+                                    bt.index)
+    assert torch.equal(lo, plo) and torch.equal(cnt, pcnt)
+    assert torch.equal(lo, slo) and torch.equal(cnt, scnt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int64", "int32", "date"])
+@pytest.mark.parametrize("count_on", ["host", "device"])
+def test_direct_probe_edges_match_search(kind, count_on):
+    """Null, negative, absent and out-of-range keys and dead rows: the
+    kernel's (lo, counts) equal the search's over the same build, with
+    the live count on the host or on the card."""
+    _need_card()
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.arrow import from_arrow
+    from spark_rapids_tpu_torch.kernels import canon
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    rng = np.random.default_rng(5)
+
+    def keys(n, wider):
+        k = rng.integers(-700 - wider, 500 + wider, n)
+        mask = rng.random(n) < 0.1
+        if kind == "int64":
+            return pa.array(k, mask=mask)
+        arr = pa.array(k.astype(np.int32), mask=mask)
+        return arr.cast(pa.date32()) if kind == "date" else arr
+    build = from_arrow(pa.table({"k": keys(5000, 0)}), "cuda")
+    bt = join_k.build(canon.column_key_words(build.columns[0],
+                                             build.live_mask()))
+    dt = join_k.direct_tables(build.columns[0], build.num_rows)
+    probe = from_arrow(pa.table({"k": keys(300_000, 40)}), "cuda")
+    rows = probe.num_rows - 1000
+    live = torch.arange(probe.capacity, device="cuda") < rows
+    words = canon.column_key_words(probe.columns[0], live)
+    if count_on == "device":
+        rows = torch.tensor(rows, device="cuda")
+    before = cuda_ops.LAUNCHES["direct_probe"]
+    got = join_k.direct_counts(dt, probe.columns[0], rows)
+    assert cuda_ops.LAUNCHES["direct_probe"] == before + 1
+    want = join_k.probe_counts(bt, words, live, [0])
+    assert torch.equal(got.lo, want.lo) and torch.equal(got.counts,
+                                                        want.counts)
+
+
+@pytest.mark.gpu
+def test_broadcast_join_probes_directly_on_card():
+    """A broadcast join whose stream partition reaches 1<<19 rows of
+    capacity launches the direct probe, and its rows equal the CPU's."""
+    _need_card()
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.api import functions as F
+    rng = np.random.default_rng(8)
+    stream = pa.table({"k": rng.integers(-50, 2000, 1 << 20),
+                       "v": rng.random(1 << 20)})
+    dim = pa.table({"dk": np.arange(0, 1800, 3), "w": rng.random(600)})
+
+    def rows(device):
+        s = TpuSession(TpuConf(), device=device)
+        a, b = s.create_dataframe(stream, 2), s.create_dataframe(dim)
+        return a.join(b, a["k"] == b["dk"], "inner").group_by("dk").agg(
+            F.count().alias("n"), F.sum("v").alias("sv")).to_arrow() \
+            .sort_by("dk").to_pylist()
+    cuda_ops.reset_launches()
+    got = rows("cuda")
+    assert cuda_ops.LAUNCHES["direct_probe"] > 0
+    assert cuda_ops.LAUNCHES["join_probe"] == 0
+    want = rows("cpu")
+    assert [r["n"] for r in got] == [r["n"] for r in want]
+    assert np.allclose([r["sv"] for r in got], [r["sv"] for r in want],
+                       rtol=1e-9, atol=0)
+
+
+def _skewed_join(session, how):
+    """Half of the left side's 200,000 rows share the key (7, 0), which
+    three right rows hold; the other keys are drawn over 60,000."""
+    import pyarrow as pa
+    rng = np.random.default_rng(12)
+
+    def side(n, prefix, hot):
+        k, k2 = rng.integers(0, 60_000, n), rng.integers(0, 3, n)
+        k[:hot], k2[:hot] = 7, 0
+        return session.create_dataframe(pa.table({
+            f"{prefix}k": k, f"{prefix}k2": k2, f"{prefix}v": rng.random(n),
+            f"{prefix}i": np.arange(n, dtype=np.int32)}), num_partitions=2)
+    a, b = side(200_000, "l", 100_000), side(80_000, "r", 3)
+    return a.join(b, (a["lk"] == b["rk"]) & (a["lk2"] == b["rk2"]), how)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["inner", "left", "full", "semi"])
+def test_adaptive_join_on_card_equals_cpu(monkeypatch, how):
+    """The adaptive join on the card, shuffled with its skewed partition
+    split into slices (a one-byte target and threshold; a full join is
+    never split), equals the port's CPU run row by row."""
+    _need_card()
+    card, cpu = _sessions(monkeypatch, {
+        "spark.rapids.tpu.sql.adaptive.enabled": True,
+        "spark.rapids.tpu.sql.adaptive.autoBroadcastJoinBytes": 1,
+        "spark.rapids.tpu.sql.adaptive.targetPartitionBytes": 1,
+        "spark.rapids.tpu.sql.adaptive.skewedPartitionThresholdBytes": 1,
+        "spark.rapids.tpu.sql.adaptive.skewedPartitionFactor": 1.5})
+    got = _skewed_join(card, how).to_arrow()
+    join = chip_smoke._find(card.last_physical_plan,
+                            "TpuAdaptiveShuffledJoin")[0]
+    assert join.strategy == "shuffled"
+    assert bool(join.splits) == (how != "full")
+    assert got.num_rows > 100_000
+    assert got.equals(_skewed_join(cpu, how).to_arrow())

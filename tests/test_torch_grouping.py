@@ -320,16 +320,18 @@ def _aggs(plan):
 
 def test_plans_expand_under_the_partial_aggregate():
     """ROLLUP plans partial aggregate over ``TpuExpand``, a hash
-    exchange on the keys and ``__gid``, and the final aggregate; a
-    count(DISTINCT) plans two such aggregates, one over the other."""
+    exchange on the keys and ``__gid`` read through AQE's coalescing
+    read, and the final aggregate; a count(DISTINCT) plans two such
+    aggregates, one over the other."""
     s = _port()
     plan = s.sql("select g, h, sum(v) from tn group by rollup(g, h)") \
         .explain().splitlines()
     ops = [ln.strip().split("[")[0] for ln in plan]
     i = ops.index("TpuExpand")
-    assert ops[i - 3:i + 1] == ["TpuHashAggregate", "TpuShuffleExchange",
-                                "TpuHashAggregate", "TpuExpand"]
-    assert "partial" in plan[i - 1] and "final" in plan[i - 3]
+    assert ops[i - 4:i + 1] == ["TpuHashAggregate", "TpuAQEShuffleRead",
+                                "TpuShuffleExchange", "TpuHashAggregate",
+                                "TpuExpand"]
+    assert "partial" in plan[i - 1] and "final" in plan[i - 4]
     plan = s.sql("select h, count(distinct v), sum(x) from tn group by h") \
         .explain()
     assert plan.count("TpuHashAggregate[partial") == 2 and \

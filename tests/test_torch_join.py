@@ -2,8 +2,9 @@
 
 Both packages' ``BROADCAST_ROW_THRESHOLD`` are lowered inside each test
 so that joins of a few thousand rows plan as ``TpuShuffledHashJoin``;
-the reference runs with ``adaptive.enabled`` off, so that it plans the
-same operator and not its adaptive join.  Inputs are made with numpy
+both packages run with ``adaptive.enabled`` off, so that they plan that
+operator and not their adaptive join (``tests/test_torch_adaptive.py``
+holds the adaptive one).  Inputs are made with numpy
 from a seed and handed to both packages; the port runs with
 ``device="cpu"``.
 """
@@ -49,9 +50,10 @@ from tests.jax_reference import with_cpu_session, with_tpu_session
 BATCH = "spark.rapids.tpu.sql.batchSizeRows"
 PARTS = "spark.rapids.tpu.sql.shuffle.partitions"
 CHUNK = "spark.rapids.tpu.sql.join.gather.chunkRows"
-#: both packages: 400-row batches, so a few thousand rows shuffle into 4
-BASE = {BATCH: 400, PARTS: 4}
-JAX_CONF = {**BASE, "spark.rapids.tpu.sql.adaptive.enabled": False}
+#: both packages: 400-row batches, so a few thousand rows shuffle into 4,
+#: and the static planner (no AQE)
+BASE = {BATCH: 400, PARTS: 4, "spark.rapids.tpu.sql.adaptive.enabled": False}
+JAX_CONF = BASE
 HOWS = ["inner", "left", "right", "full", "semi", "anti"]
 
 
@@ -330,19 +332,24 @@ def tpch_small():
 
 @pytest.mark.parametrize("q", list(chip_smoke.JOIN_QUERIES))
 def test_chip_smoke_join_queries_match_oracle(tpch_small, q):
-    """Phase 5's query text at SF 0.002, planned as at SF10 (shuffled,
-    built on the same sides; 4096-row batches keep the probes few): the
-    port, the pyarrow oracle and the phase's own numpy reference
-    agree."""
+    """Phase 5's query text at SF 0.002, planned and run as at SF10
+    (adaptive joins built on the same sides, which run shuffled or, with
+    a build of at most the shrunk broadcast bytes, broadcast, never a
+    full join; 4096-row batches keep the probes few): the port, the
+    pyarrow oracle and the phase's own numpy reference agree."""
     how, side = chip_smoke.JOIN_QUERIES[q]
     tables, refs = tpch_small
     oracle = sorted(with_cpu_session(lambda s: chip_smoke.join_query(
         JF, chip_smoke.join_frames(s, tables), q).collect()),
         key=_row_key)
-    s = TpuSession(TpuConf({BATCH: 4096}), device="cpu")
+    s = TpuSession(TpuConf({
+        BATCH: 4096, "spark.rapids.tpu.sql.adaptive.autoBroadcastJoinBytes":
+        chip_smoke.join_broadcast_bytes(0.002)}), device="cpu")
     df = chip_smoke.join_query(PF, chip_smoke.join_frames(s, tables), q)
-    assert f"TpuShuffledHashJoin[{how}, build={side}]" in df.explain()
+    assert chip_smoke._adaptive(how, side) in df.explain()
     table = df.to_arrow()
+    assert "strategy=shuffled" in df.explain() or (
+        how != "full" and "strategy=broadcast" in df.explain())
     _compare_rows(oracle, sorted(df.collect(), key=_row_key),
                   rel=DEFAULT_FLOAT_REL)
     chip_smoke.compare_groups(chip_smoke.table_groups(table), refs[q],

@@ -162,10 +162,13 @@ def test_spilled_shuffled_join_matches_jax(monkeypatch, tmp_path):
 def test_execute_returns_lazy_iterators(tmp_path):
     """One iterator per partition, nothing made before it is read; a
     partition read in part leaves nothing in the catalog once the plan
-    is closed."""
+    is closed.  (With AQE on, the default, the aggregate's coalescing
+    read writes the map side when it is executed, to group partitions by
+    their bytes: the reference's stage barrier.)"""
     s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 100,
-                            "spark.rapids.tpu.sql.shuffle.partitions": 4}),
-                   device="cpu")
+                            "spark.rapids.tpu.sql.shuffle.partitions": 4,
+                            "spark.rapids.tpu.sql.adaptive.enabled":
+                            False}), device="cpu")
     t = pa.table({"g": np.arange(1000) % 50, "v": np.arange(1000)})
     df = s.create_dataframe(t, num_partitions=3).group_by("g").agg(
         F.sum("v"))
@@ -177,5 +180,21 @@ def test_execute_returns_lazy_iterators(tmp_path):
     assert cat.stats()["num_buffers"] == 0          # no map side yet
     assert next(parts[0]).num_rows > 0
     assert cat.stats()["num_buffers"] > 0   # the other partitions' blocks
+    plan.close()
+    assert cat.stats()["num_buffers"] == 0
+    # AQE on: the map side is in the catalog once the plan is executed,
+    # and its groups (at most the exchange's width) are the partitions
+    on = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows": 100,
+                             "spark.rapids.tpu.sql.shuffle.partitions": 4}),
+                    device="cpu")
+    df = on.create_dataframe(t, num_partitions=3).group_by("g").agg(
+        F.sum("v"))
+    plan = on.plan(df._plan)
+    parts = plan.execute()
+    cat = BufferCatalog.get()               # the new session's catalog
+    assert 1 <= len(parts) <= plan.num_partitions()
+    assert all(iter(p) is p for p in parts)
+    assert cat.stats()["num_buffers"] > 0
+    assert next(parts[0]).num_rows > 0
     plan.close()
     assert cat.stats()["num_buffers"] == 0

@@ -217,10 +217,13 @@ def test_aggregates_are_partial_exchange_final(part_files, q):
     aggs = [n for n in _nodes(plan) if type(n).__name__ == "TpuHashAggregate"]
     assert [a.mode for a in aggs] == ["final", "partial"]
     final, partial = aggs
-    between = type(final.children[0]).__name__
-    assert between == ("TpuCoalescePartitions" if q == "q96"
-                       else "TpuShuffleExchange")
-    assert final.children[0].children[0] is partial
+    between = final.children[0]
+    if q != "q96":      # AQE's coalescing read over the exchange
+        assert type(between).__name__ == "TpuAQEShuffleRead"
+        between = between.children[0]
+    assert type(between).__name__ == ("TpuCoalescePartitions" if q == "q96"
+                                      else "TpuShuffleExchange")
+    assert between.children[0] is partial
     # a broadcast join has its stream side's partitions: store_sales's 4
     # part files, except q96's, whose middle join streams time_dim here
     assert partial.num_partitions() == (1 if q == "q96" else 4)
@@ -800,12 +803,14 @@ def test_sf10_estimates_plan_phase12(drawn, q):
                  if ln.startswith("TpuExpand"))
         assert ops[i - 1].startswith("TpuHashAggregate[partial")
         assert ops[i - 2].startswith("TpuShuffleExchange[HashPartitioner")
-        assert ops[i - 3].startswith("TpuHashAggregate[final")
+        assert ops[i - 3].startswith("TpuAQEShuffleRead")
+        assert ops[i - 4].startswith("TpuHashAggregate[final")
     if q in chip_smoke.DS12_DISTINCT:
         i = ops.index("TpuHashAggregate[final]")
-        assert [ln.split("[")[0] for ln in ops[i:i + 6]] == [
+        assert [ln.split("[")[0] for ln in ops[i:i + 7]] == [
             "TpuHashAggregate", "TpuCoalescePartitions", "TpuHashAggregate",
-            "TpuHashAggregate", "TpuShuffleExchange", "TpuHashAggregate"]
+            "TpuHashAggregate", "TpuAQEShuffleRead", "TpuShuffleExchange",
+            "TpuHashAggregate"]
 
 
 def _ds13_rows(data_dir, q):
@@ -846,7 +851,8 @@ def test_sf10_q72_filters_each_chunk_of_its_pairs(one_file):
             scan._rows = sf10.get(name, scan.estimated_rows())
     plan = s.plan(s.sql(tpcds.QUERIES["q72"])._plan)
     joins = [n for n in _nodes(plan) if type(n).__name__.endswith("Join")]
-    shuffled = [j for j in joins if type(j).__name__ == "TpuShuffledHashJoin"]
+    shuffled = [j for j in joins
+                if type(j).__name__ == "TpuAdaptiveShuffledJoin"]
     assert len(shuffled) == 1
     j = shuffled[0].join
     assert repr(j.condition) == \

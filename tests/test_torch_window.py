@@ -316,7 +316,7 @@ def test_sql_windows_match_jax_and_oracle(name):
 
 @pytest.mark.parametrize("sql,below", [
     ("select id, rank() over (partition by g order by o) r from t",
-     "TpuShuffleExchange[HashPartitioner(3)]"),
+     "TpuAQEShuffleRead[pending]"),
     ("select id, rank() over (order by o) r from t",
      "TpuCoalescePartitions"),
     ("select id, rank() over (partition by g order by o) r, "
@@ -324,15 +324,18 @@ def test_sql_windows_match_jax_and_oracle(name):
      "TpuCoalescePartitions"),
     ("select id, rank() over (partition by g order by o) r, "
      "sum(v) over (partition by g) sv from t",
-     "TpuShuffleExchange[HashPartitioner(3)]")])
+     "TpuAQEShuffleRead[pending]")])
 def test_window_plan_shape(sql, below):
     """One PARTITION BY for every function of the node: a hash exchange on
-    it into min(shuffle.partitions, the child's partitions); none, or
-    mixed keys: one stream.  Over one partition nothing is added."""
+    it into min(shuffle.partitions, the child's partitions), read through
+    AQE's coalescing read; none, or mixed keys: one stream.  Over one
+    partition nothing is added."""
     lines = [ln.strip() for ln in
              _port_session().sql(sql).explain().splitlines()]
     i = next(i for i, ln in enumerate(lines) if ln.startswith("TpuWindow"))
     assert lines[i + 1] == below
+    if below.startswith("TpuAQEShuffleRead"):
+        assert lines[i + 2] == "TpuShuffleExchange[HashPartitioner(3)]"
     one = [ln.strip() for ln in _port_session(parts=1).sql(sql).explain()
            .splitlines()]
     i = next(i for i, ln in enumerate(one) if ln.startswith("TpuWindow"))
