@@ -7,7 +7,7 @@ Runs from the repository root:
     python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
                                                # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
-    python3 chip_smoke.py --only 11            # phase 11 (12, 13, 14) alone;
+    python3 chip_smoke.py --only 11            # phase 11 (12-14, 16) alone;
                                                # 15: phases 5 and 15 (b)
                                                # (no contract line)
 
@@ -146,13 +146,28 @@ Phases (any failure exits non-zero):
    (``skew_phase``) a JCC-H skewed join (40% of phase 5's lineitem on
    one (l_partkey, l_suppkey) pair, joined to partsupp on both keys)
    that must run shuffled, split its hot partition and equal numpy, and
-   once more unsplit (``skewedPartitionFactor`` past reach).
+   once more unsplit (``skewedPartitionFactor`` past reach);
+16. DECIMAL64 (``decimal_phase``): (a) TPC-H Q1 and Q6 over lineitem
+   at scale ``--sf`` with decimal(15,2) money (``make_lineitem16``);
+   (b) q3, q7, q13, q42, q48, q52, q55 and q98 verbatim over store_sales
+   and item with their money columns as decimal(7,2) Parquet decimals
+   (``write_decimal_tables``); (c) D1-D3 (DS16_OWN): a DECIMAL group
+   key on B2's table core behind a B1 exchange with DECIMAL min and
+   max, a semi join on one DECIMAL key probed by direct address, a join
+   on an integer and a DECIMAL key probed by the search.  Each runs cold
+   and twice warm; DECIMAL columns equal pyarrow's over the same Parquet
+   exactly (a value past 18 digits NULL; Q1 prints each group's
+   sum_charge margin to 10^18), doubles at 1e-9, (b) also the float
+   tables' answers at 1e-9; runs byte-identical; D1-D3 must launch B1,
+   B2 and its min kind, ``direct_probe`` and ``join_probe``.
 From phase 6 on a path passes if it launched either join probe (the
 search or the direct-address one).
 A reference process writes phases 6 and 7's tables while the card runs
 phases 4 and 5 (``write_ds_tables``), then computes phase 7's and 14's
-pyarrow references.  Phases 8-13 run in three processes of their own
-(PHASE_GROUPS: 8-9, 10-11, 12-13), each on a session of its own beside
+pyarrow references; from phase 6 on, one more writes phase 16's tables
+and references (``write_decimal_tables``, ``ds16_references``).
+Phases 8-13 run in three processes of their own (PHASE_GROUPS: 8-9,
+10-11, 12-13), each on a session of its own beside
 the main process's phases 6, 7 and 14, each with one more process that
 computes its phases' references; a group's output is printed once it
 ends.  Phases 7-13's references come query by query
@@ -481,17 +496,33 @@ def star_direct_inputs(rng, dim: str, device: str = "cuda"):
     (build table, probe words, live mask, rank word positions, the
     build key's tables (``kernels/join.direct_tables``), the stream's key
     column, its live rows as a device count)."""
-    import torch
     from spark_rapids_tpu_torch.columnar import dtypes as T
+    return direct_inputs(star_probe_inputs(rng, dim, device), T.INT64)
+
+
+def decimal_direct_inputs(rng, device: str = "cuda"):
+    """``star_direct_inputs`` at phase 16's D2: a store_sales batch's
+    ``ss_list_price`` (decimal(7,2), 0.00-240.00) against SF10 item's
+    180,000 ``i_current_price`` values (0.00-99.99), one DECIMAL key."""
+    from spark_rapids_tpu_torch.columnar import dtypes as T
+    return direct_inputs(probe_tables(
+        ["ss_list_price"], [rng.integers(0, 24_001, PROBE_LIVE)],
+        [rng.integers(0, 10_000, 180_000)], device), T.DecimalType(7, 2))
+
+
+def direct_inputs(probe, dtype):
+    """``probe_tables``' inputs with what the direct-address probe reads
+    of a one-key join: the build key's tables and the stream key column,
+    both of ``dtype`` (the int64 key words' values)."""
     from spark_rapids_tpu_torch.columnar.column import Column
     from spark_rapids_tpu_torch.kernels import join as join_k
     from spark_rapids_tpu_torch.kernels.basic import SIGN64
-    bt, words, live, rank = star_probe_inputs(rng, dim, device)
+    bt, words, live, rank = probe
     # the build's keys back from its sorted words (rank 0 null, 1 valid,
     # 2 dead: the live rows come first), and the stream's from its words
     ranks = bt.sorted_words[0]
-    key = Column(T.INT64, bt.sorted_words[1] ^ SIGN64, ranks == 1)
-    stream = Column(T.INT64, words[1] ^ SIGN64, words[0] == 1)
+    key = Column(dtype, bt.sorted_words[1] ^ SIGN64, ranks == 1)
+    stream = Column(dtype, words[1] ^ SIGN64, words[0] == 1)
     return bt, words, live, rank, join_k.direct_tables(
         key, int((ranks < 2).sum())), stream, live.sum()
 
@@ -715,13 +746,14 @@ def query_stage_inputs(rng, n: int, table: int, stage: str):
     of an int64 column, exact), ``minv`` (min(z), variable), ``firstlast``
     (first(x) of a column with 10% nulls, last(x) with ignore_nulls
     false), and ``min_final`` / ``firstlast_final`` over the partial
-    tables' rows."""
+    tables' rows; ``decimal`` is phase 16's D1 (min and max of two
+    decimal(7,2) columns over ~201 DECIMAL price bands)."""
     import torch
     from spark_rapids_tpu_torch.columnar import dtypes as T
     from spark_rapids_tpu_torch.columnar.column import Column
     from spark_rapids_tpu_torch.exec.tpu_aggregate import TpuHashAggregate
     from spark_rapids_tpu_torch.kernels.cuda_ops import StageCol
-    keys = rng.integers(0, 1000, n)
+    keys = rng.integers(0, 201 if stage == "decimal" else 1000, n)
     if stage.endswith("final"):  # partial tables: ~1000 live groups of 4096
         live = np.zeros(n, bool)
         live[np.arange(n) % table < 1000] = True
@@ -739,6 +771,10 @@ def query_stage_inputs(rng, n: int, table: int, stage: str):
         return Column(T.FLOAT64, t(v).cuda(),
                       ones if valid is None else t(valid).cuda())
     ints = Column(T.INT64, t(rng.integers(-50_000, 50_000, n)).cuda(), ones)
+
+    def cents(lo, hi):
+        return Column(T.DecimalType(7, 2), t(rng.integers(lo, hi, n)).cuda(),
+                      ones)
     kinds, values = {
         "partial": (("fsum64", "fmax64"), [col(z), col(x)]),
         "variable": (("fsumv", "fmax"), [col(z), col(x)]),
@@ -752,6 +788,9 @@ def query_stage_inputs(rng, n: int, table: int, stage: str):
                       [col(x, rng.random(n) >= 0.1), col(x)]),
         "firstlast_final": (("first", "last_all"),
                             [col(x, rng.random(n) >= 0.1), col(x)]),
+        "decimal": (("fmin64", "fmax64", "fmin64", "fmax64"),
+                    [cents(0, 24_001), cents(0, 24_001),
+                     cents(-10 ** 6, 10 ** 6), cents(-10 ** 6, 10 ** 6)]),
     }[stage]
     cols = [StageCol("count")]
     for kind, c in zip(kinds, values):
@@ -945,6 +984,12 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
         *[lambda d=d: check_direct_probe(star_direct_inputs(rng, d),
                                          f" ({d} star)")
           for d in STAR_BUILDS if d != "date_dim"],
+        # phase 16's DECIMAL paths: D1's stage (DECIMAL min and max) and
+        # D2's direct probe on one DECIMAL key
+        lambda: check_table_stage(rng, big, 4096, "decimal",
+                                  "table_reduce_min"),
+        lambda: check_direct_probe(decimal_direct_inputs(rng),
+                                   " (D2's DECIMAL key)"),
     ]
     if parent:
         checks += [
@@ -4878,7 +4923,8 @@ def ds11_references(data_dir: str, queries=DS11_QUERIES) -> dict:
                 per_class[r[3]].append(r[5])
         total = {c: math.fsum(v) for c, v in per_class.items()}
         out[q] = [r + (None if r[5] is None or r[3] not in total or
-                       total[r[3]] == 0 else r[5] * 100.0 / total[r[3]],)
+                       total[r[3]] == 0 else
+                       float(r[5]) * 100.0 / total[r[3]],)
                   for r in rows]
 
     for q, key, period in (("q53", "i_manufact_id", "d_qoy"),
@@ -6840,6 +6886,481 @@ def skew_phase(args, kernels_used, skew) -> dict:
     return launches
 
 
+# -- phase 16: DECIMAL64 ------------------------------------------------------
+
+#: store_sales' and item's money columns, decimal(7,2) in TPC-DS
+DS16_SS_MONEY = ("ss_wholesale_cost", "ss_list_price", "ss_sales_price",
+                 "ss_ext_discount_amt", "ss_ext_sales_price",
+                 "ss_ext_wholesale_cost", "ss_ext_list_price", "ss_ext_tax",
+                 "ss_coupon_amt", "ss_net_paid", "ss_net_paid_inc_tax",
+                 "ss_net_profit")
+DS16_ITEM_MONEY = ("i_current_price", "i_wholesale_cost")
+#: phase 16 (b): TPC-DS texts over the DECIMAL copies of store_sales and
+#: item
+DS16_QUERIES = ("q3", "q7", "q13", "q42", "q48", "q52", "q55", "q98")
+#: phase 16 (a): TPC-H Q1 and Q6 (the shapes of benchmarks/tpch.py q1,
+#: q6) in SQL
+TPCH16_TEXTS = {
+    "Q1": """
+select l_returnflag, l_linestatus,
+       sum(l_quantity) as sum_qty,
+       sum(l_extendedprice) as sum_base_price,
+       sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+       avg(l_quantity) as avg_qty,
+       avg(l_extendedprice) as avg_price,
+       avg(l_discount) as avg_disc,
+       count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus""",
+    "Q6": """
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1995-01-01'
+  and l_discount between 0.05 and 0.07
+  and l_quantity < 24"""}
+#: phase 16 (c): a DECIMAL group key on B2's table core behind a B1
+#: exchange on it, with DECIMAL min and max (D1); a semi join on one
+#: DECIMAL key, probed by direct address (D2); a join on an integer and a
+#: DECIMAL key, probed by the search (D3)
+DS16_OWN = {
+    "D1": """
+select cast(ss_sales_price as decimal(7,0)) as price_band,
+       count(*) as cnt, min(ss_list_price) as min_list,
+       max(ss_list_price) as max_list, min(ss_net_profit) as min_profit,
+       max(ss_net_profit) as max_profit
+from store_sales
+group by 1
+order by price_band""",
+    "D2": """
+select count(*) as cnt, sum(ss_ext_sales_price) as sales
+from store_sales
+where ss_list_price in (select i_current_price from item)""",
+    "D3": """
+select count(*) as cnt, sum(ss_net_paid) as paid
+from store_sales, item
+where ss_item_sk = i_item_sk and ss_wholesale_cost = i_wholesale_cost"""}
+#: ORDER BY of each text of phase 16 but q3, q42 and q52 (DS_ORDER)
+DS16_ORDER = {"q7": DS7_ORDER["q7"], "q13": None, "q48": None,
+              "q55": DS7_ORDER["q55"], "q98": DS11_ORDER["q98"],
+              "Q1": _ASC[:2], "Q6": None, "D1": _ASC[:1], "D2": None,
+              "D3": None}
+#: lineitem's Parquet part files
+TPCH16_PARTS = 8
+#: TPC-H's CURRENTDATE (1995-06-17) in days since 1970-01-01
+TPCH_CURRENT = 9298
+
+
+def decimal128_array(unscaled: np.ndarray, precision: int, scale: int):
+    """A ``decimal128(precision, scale)`` array of int64 unscaled values,
+    built from its 16-byte buffer (the int64 and its sign word)."""
+    import pyarrow as pa
+    words = np.empty((len(unscaled), 2), dtype=np.int64)
+    words[:, 0] = unscaled
+    words[:, 1] = unscaled >> 63
+    return pa.Array.from_buffers(pa.decimal128(precision, scale),
+                                 len(unscaled),
+                                 [None, pa.py_buffer(words.tobytes())])
+
+
+def _decimal_copy(src: str, dst: str, money) -> None:
+    """``src``'s Parquet table with its ``money`` columns as
+    ``decimal(7,2)`` of ``round(v * 100)``, written to ``dst``."""
+    import pyarrow.parquet as papq
+    t = papq.read_table(src)
+    for c in money:
+        cents = np.round(t.column(c).to_numpy() * 100).astype(np.int64)
+        t = t.set_column(t.schema.get_field_index(c), c,
+                         decimal128_array(cents, 7, 2))
+    papq.write_table(t, dst)
+
+
+def decimal_dir(data_dir: str) -> str:
+    """Where phase 16's tables are (``write_decimal_tables``)."""
+    return os.path.join(data_dir, "decimal")
+
+
+def make_lineitem16(out_dir: str, sf: float, seed: int) -> int:
+    """TPC-H lineitem's Q1 and Q6 columns by spec 4.2.3 at scale ``sf``,
+    in TPCH16_PARTS Parquet files under ``out_dir``: l_quantity,
+    l_extendedprice, l_discount and l_tax as ``decimal(15,2)`` (drawn as
+    int64 cents), l_returnflag and l_linestatus from the receipt and ship
+    dates against CURRENTDATE, l_shipdate a DATE.  Returns the row
+    count."""
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+    os.makedirs(out_dir)
+    n_orders = max(int(1_500_000 * sf), 1000)
+    parts = max(int(200_000 * sf), 100)
+    bounds = np.linspace(0, n_orders, TPCH16_PARTS + 1).astype(np.int64)
+    total = 0
+    for p in range(TPCH16_PARTS):
+        r = np.random.default_rng([seed, 16, p])
+        m = int(bounds[p + 1] - bounds[p])
+        lines = r.integers(1, 8, m)
+        n = int(lines.sum())
+        # O_ORDERDATE uniform from STARTDATE to ENDDATE - 151 days
+        odate = np.repeat(r.integers(8035, 10441, m), lines)
+        partkey = r.integers(1, parts + 1, n)
+        qty = r.integers(1, 51, n)
+        retail = 90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)
+        ship = odate + r.integers(1, 122, n)
+        receipt = ship + r.integers(1, 31, n)
+        flag = np.where(receipt <= TPCH_CURRENT,
+                        np.where(r.random(n) < 0.5, ord("R"), ord("A")),
+                        ord("N")).astype(np.uint8)
+        status = np.where(ship > TPCH_CURRENT, ord("O"),
+                          ord("F")).astype(np.uint8)
+        offsets = pa.py_buffer(np.arange(n + 1, dtype=np.int32).tobytes())
+        papq.write_table(pa.table({
+            "l_quantity": decimal128_array(qty * 100, 15, 2),
+            "l_extendedprice": decimal128_array(qty * retail, 15, 2),
+            "l_discount": decimal128_array(r.integers(0, 11, n), 15, 2),
+            "l_tax": decimal128_array(r.integers(0, 9, n), 15, 2),
+            "l_returnflag": pa.Array.from_buffers(
+                pa.string(), n, [None, offsets, pa.py_buffer(flag)]),
+            "l_linestatus": pa.Array.from_buffers(
+                pa.string(), n, [None, offsets, pa.py_buffer(status)]),
+            "l_shipdate": pa.array(ship.astype(np.int32)).cast(pa.date32()),
+        }), os.path.join(out_dir, f"part-{p:05d}.parquet"))
+        total += n
+    return total
+
+
+def write_decimal_tables(data_dir: str, sf: float, seed: int) -> dict:
+    """Phase 16's tables under ``decimal_dir(data_dir)``: store_sales and
+    item copied from phases 6 and 7's with their money columns as
+    ``decimal(7,2)`` (Parquet decimals), the other TPC-DS tables linked,
+    and TPC-H's lineitem (``make_lineitem16``) at ``sf``.  A reference
+    process writes them while the card runs phases 6-15."""
+    t0 = time.perf_counter()
+    dst = decimal_dir(data_dir)
+    ss = os.path.join(dst, "store_sales.parquet")
+    os.makedirs(ss)
+    for f in os.listdir(data_dir):
+        if f.endswith(".parquet") and f not in ("store_sales.parquet",
+                                                "item.parquet"):
+            os.symlink(os.path.join(data_dir, f), os.path.join(dst, f))
+    src = os.path.join(data_dir, "store_sales.parquet")
+    for part in sorted(os.listdir(src)):
+        _decimal_copy(os.path.join(src, part), os.path.join(ss, part),
+                      DS16_SS_MONEY)
+    _decimal_copy(os.path.join(data_dir, "item.parquet"),
+                  os.path.join(dst, "item.parquet"), DS16_ITEM_MONEY)
+    t1 = time.perf_counter()
+    rows = make_lineitem16(os.path.join(dst, "lineitem.parquet"), sf, seed)
+    return dict(lineitem=rows, copy_s=t1 - t0,
+                lineitem_s=time.perf_counter() - t1)
+
+
+def tpch16_references(dec: str) -> dict:
+    """Q1 and Q6 by pyarrow over phase 16's lineitem, file by file: the
+    DECIMAL sums exact in ``decimal256`` (a ``decimal128`` product of
+    Q1's charge would need 49 digits), added across files as
+    ``Decimal``s; the averages as float sums over counts."""
+    import collections
+    import datetime
+    import decimal
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as papq
+
+    def day(y, m, d):
+        return pa.scalar(datetime.date(y, m, d), pa.date32())
+    lo, hi, qty24 = (pa.scalar(decimal.Decimal(v), pa.decimal128(15, 2))
+                     for v in ("0.05", "0.07", "24.00"))
+    one = pa.scalar(1, pa.decimal256(1, 0))
+    groups = collections.defaultdict(lambda: [0] * 8)
+    revenue = None
+    path = os.path.join(dec, "lineitem.parquet")
+    for part in sorted(os.listdir(path)):
+        li = papq.read_table(os.path.join(path, part))
+        ship = li["l_shipdate"]
+        wide = {c: li[c].cast(pa.decimal256(20, 2)) for c in
+                ("l_quantity", "l_extendedprice", "l_discount", "l_tax")}
+        keep = pc.and_(pc.and_(pc.greater_equal(ship, day(1994, 1, 1)),
+                               pc.less(ship, day(1995, 1, 1))),
+                       pc.and_(pc.and_(
+                           pc.greater_equal(li["l_discount"], lo),
+                           pc.less_equal(li["l_discount"], hi)),
+                           pc.less(li["l_quantity"], qty24)))
+        rev = pc.sum(pc.multiply(wide["l_extendedprice"].filter(keep),
+                                 wide["l_discount"].filter(keep))).as_py()
+        if rev is not None:
+            revenue = rev if revenue is None else revenue + rev
+        disc = pc.multiply(wide["l_extendedprice"],
+                           pc.subtract(one, wide["l_discount"]))
+        t = pa.table({
+            "f": li["l_returnflag"], "s": li["l_linestatus"],
+            "qty": wide["l_quantity"], "price": wide["l_extendedprice"],
+            "disc": disc,
+            "charge": pc.multiply(disc, pc.add(one, wide["l_tax"])),
+            "qf": li["l_quantity"].cast(pa.float64()),
+            "pf": li["l_extendedprice"].cast(pa.float64()),
+            "df": li["l_discount"].cast(pa.float64())}).filter(
+            pc.less_equal(ship, day(1998, 9, 2)))
+        for r in _grouped(t, ["f", "s"], [
+                (c, "sum") for c in ("qty", "price", "disc", "charge", "qf",
+                                     "pf", "df")] + [([], "count_all")],
+                ["f", "s", "qty_sum", "price_sum", "disc_sum", "charge_sum",
+                 "qf_sum", "pf_sum", "df_sum", "count_all"]):
+            acc = groups[r[:2]]
+            for i, v in enumerate(r[2:]):
+                acc[i] += v
+    q1 = [k + tuple(a[:4]) + tuple(x / a[7] for x in a[4:7]) + (a[7],)
+          for k, a in sorted(groups.items())]
+    return {"Q1": q1, "Q6": [(revenue,)]}
+
+
+def own16_references(dec: str) -> dict:
+    """D1-D3 by pyarrow over phase 16's store_sales and item."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    read, join, isin, _ = _ds7_tools(dec)
+    ss = read("store_sales", ["ss_item_sk", "ss_sales_price",
+                              "ss_list_price", "ss_net_profit",
+                              "ss_ext_sales_price", "ss_wholesale_cost",
+                              "ss_net_paid"])
+    it = read("item", ["i_item_sk", "i_current_price", "i_wholesale_cost"])
+    # Spark's CAST to decimal(7,0) rounds HALF_UP: ties away from zero
+    band = pc.round(ss["ss_sales_price"], ndigits=0,
+                    round_mode="half_towards_infinity").cast(
+        pa.decimal128(7, 0))
+    d1 = _grouped(ss.append_column("band", band), ["band"],
+                  [([], "count_all"), ("ss_list_price", "min"),
+                   ("ss_list_price", "max"), ("ss_net_profit", "min"),
+                   ("ss_net_profit", "max")],
+                  ["band", "count_all", "ss_list_price_min",
+                   "ss_list_price_max", "ss_net_profit_min",
+                   "ss_net_profit_max"])
+    hit = ss.filter(isin(ss["ss_list_price"],
+                         pc.unique(it["i_current_price"]).to_pylist()))
+    j = join(ss, it, ["ss_item_sk", "ss_wholesale_cost"],
+             ["i_item_sk", "i_wholesale_cost"])
+    return {"D1": d1,
+            "D2": [(hit.num_rows, pc.sum(hit["ss_ext_sales_price"]).as_py())],
+            "D3": [(j.num_rows, pc.sum(j["ss_net_paid"]).as_py())]}
+
+
+def ds16_references(data_dir: str) -> dict:
+    """Phase 16's pyarrow references: ``{"decimal": {q: rows}, "float":
+    {q: rows}}``, the DECIMAL tables' (TPC-H, TPC-DS and D1-D3, their
+    sums exact ``Decimal``s) and the float tables' answers of the TPC-DS
+    texts (``ds_references``, ``ds7_references``, ``ds11_references``
+    over each directory)."""
+    dec = decimal_dir(data_dir)
+    out = {}
+    for name, d in (("decimal", dec), ("float", data_dir)):
+        refs = dict(ds_references(d))
+        refs.update(ds7_references(d, ("q7", "q13", "q48", "q55")))
+        refs.update(ds11_references(d, ("q98",)))
+        out[name] = refs
+    out["decimal"].update(tpch16_references(dec))
+    out["decimal"].update(own16_references(dec))
+    return out
+
+
+def fit_decimals(schema, rows: list):
+    """A reference's rows as the port answers them: a value past its
+    DECIMAL column's precision (``schema``'s) is NULL.  Returns (rows,
+    [(row, column, value)] of the values made NULL)."""
+    import pyarrow as pa
+    limits = {i: (f.type.precision, f.type.scale) for i, f in
+              enumerate(schema) if pa.types.is_decimal(f.type)}
+    out, nulled = [], []
+    for ri, r in enumerate(rows):
+        r = list(r)
+        for i, (p, s) in limits.items():
+            if r[i] is not None and abs(r[i].scaleb(s)) > 10 ** p - 1:
+                nulled.append((ri, i, r[i]))
+                r[i] = None
+        out.append(tuple(r))
+    return out, nulled
+
+
+def check_exact_rows(q: str, table, ref: list) -> int:
+    """The port's rows projected on their columns that are no doubles
+    (DECIMALs, integers, strings, DATEs) are, as a multiset, among the
+    reference's rows projected the same: each DECIMAL an exact
+    ``Decimal``.  Returns the count of DECIMAL columns."""
+    import collections
+    import pyarrow as pa
+    keep = [i for i, f in enumerate(table.schema)
+            if not pa.types.is_floating(f.type)]
+    got = collections.Counter(tuple(r[i] for i in keep) for r in
+                              (tuple(x.values()) for x in table.to_pylist()))
+    want = collections.Counter(tuple(r[i] for i in keep) for r in ref)
+    extra = got - want
+    check(not extra, f"{q}: rows {list(extra)[:3]} are no rows of the "
+                     f"exact reference")
+    return sum(pa.types.is_decimal(f.type) for f in table.schema)
+
+
+def check_decimal_query(q: str, table, refs: dict) -> list:
+    """A phase-16 query's rows against ``ds16_references``' (``refs``):
+    a TPC-DS text's exact columns against the DECIMAL tables' answer
+    (``check_exact_rows``) and all of them, as doubles, against the float
+    tables' at 1e-9; any other text's against its DECIMAL answer
+    (``check_rows``: DECIMALs exact, doubles at 1e-9).  A reference value
+    past its column's precision must be NULL (``fit_decimals``); returns
+    those values."""
+    want, nulled = fit_decimals(table.schema, refs["decimal"][q])
+    if q in DS16_QUERIES:
+        check_exact_rows(q, table, want)
+        if q in DS_QUERIES:
+            check_ds_rows(q, as_doubles(table), refs["float"][q])
+        else:
+            check_rows(q, as_doubles(table), refs["float"][q],
+                       DS16_ORDER[q])
+    else:
+        check_rows(q, table, want, DS16_ORDER[q], limit=len(want))
+    return nulled
+
+
+def as_doubles(table):
+    """``table`` with its DECIMAL columns cast to double."""
+    import pyarrow as pa
+    return table.cast(pa.schema([
+        pa.field(f.name, pa.float64()) if pa.types.is_decimal(f.type)
+        else f for f in table.schema]))
+
+
+def decimal_phase(args, kernels_used, data_dir: str, ahead=None) -> dict:
+    """Phase 16: DECIMAL64 through the port's whole path.  (a) TPC-H Q1
+    and Q6 over lineitem (``make_lineitem16``: decimal(15,2) money at
+    TPC-H scale ``--sf``); (b) the TPC-DS texts DS16_QUERIES verbatim
+    over store_sales and item with their money columns as decimal(7,2)
+    (``write_decimal_tables``: Parquet decimals of ``round(v * 100)`` of
+    phases 6 and 7's tables); (c) DS16_OWN: a DECIMAL group key on B2's
+    table core behind a B1 exchange, with DECIMAL min and max (D1), a
+    semi join on one DECIMAL key probed by direct address (D2), a join on
+    an integer and a DECIMAL key probed by the search (D3).  Each query
+    runs cold and twice warm (``cold_and_warm``, as ``session.sql(text)
+    .to_arrow()``); its DECIMAL columns equal pyarrow's answer over the
+    same Parquet exactly (a value past its column's 18-digit precision is
+    NULL: Spark's answer without ANSI mode), its doubles within 1e-9; a
+    TPC-DS text also equals its answer over the float tables within
+    1e-9; the three runs give the same bytes.  D1-D3 must take the table
+    core, the direct and the search probe, and on the card launch B1 and
+    B2 (its min kind), ``direct_probe`` and ``join_probe``.  ``ahead``:
+    the futures of ``write_decimal_tables`` and ``ds16_references`` (else
+    both run here).  Returns the kernels' launches on this path."""
+    from tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.exec.tpu_join import TpuHashJoinBase
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+    t0 = time.perf_counter()
+    written = ahead[0].result() if ahead else \
+        write_decimal_tables(data_dir, args.sf, args.seed)
+    print(f"decimal16: tables waited for {time.perf_counter() - t0:.1f}s; "
+          f"store_sales and item copied as decimal(7,2) in "
+          f"{written['copy_s']:.1f}s, lineitem {written['lineitem']} rows at "
+          f"sf {args.sf} in {written['lineitem_s']:.1f}s", flush=True)
+    dec = decimal_dir(data_dir)
+    session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                  ds_batch_rows(args.ds_sf)}),
+                         device=args.device)
+    for t in DS_TABLES + DS7_TABLES + ("lineitem",):
+        session.read.parquet(os.path.join(dec, f"{t}.parquet")) \
+            .create_or_replace_temp_view(t)
+    texts = {**TPCH16_TEXTS, **{q: QUERIES[q] for q in DS16_QUERIES},
+             **DS16_OWN}
+    refs = None
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    saved = overrides.BROADCAST_ROW_THRESHOLD, join_k.DIRECT_MIN_STREAM
+    # below SF10 the broadcast threshold and the direct probe's stream
+    # limit shrink with the scale, so that the plans are SF10's
+    shrink = min(args.ds_sf, 10.0) / 10.0
+    overrides.BROADCAST_ROW_THRESHOLD = max(1, int(saved[0] * shrink))
+    join_k.DIRECT_MIN_STREAM = max(1024, int(saved[1] * shrink))
+    try:
+        for q, text in texts.items():
+            tq = time.perf_counter()
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 16 imported JAX or the JAX package")
+            run = SqlRun(session, text, on_card)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, run, on_card)
+            got = dict(cuda_ops.LAUNCHES)
+            for name, v in got.items():
+                launches[name] += v
+            plan = session.last_physical_plan
+            if refs is None:
+                tr = time.perf_counter()
+                refs = ahead[1].result() if ahead else \
+                    ds16_references(data_dir)
+                print(f"decimal16: pyarrow references waited for "
+                      f"{time.perf_counter() - tr:.1f}s", flush=True)
+            for t in (cold,) + tuple(warm):
+                nulled = check_decimal_query(q, t, refs)
+            check(same_bytes(cold, warm[0]) and same_bytes(warm[0], warm[1]),
+                  f"{q}: the three runs are not byte-identical")
+            check(cold.num_rows > 0, f"{q}: no rows")
+            ndec = sum(str(f.type).startswith("decimal")
+                       for f in cold.schema)
+            note = ""
+            if q == "Q1":
+                # each group's charge sum against decimal(18,6)'s limit
+                margins = [(r[0] + r[1], 10 ** 18 - 1 -
+                            abs(int(r[5].scaleb(6)))) for r in
+                           refs["decimal"]["Q1"]]
+                note = (f"; sum_charge margin to 10^18 (unscaled, "
+                        f"decimal(18,6)) by group {margins}; "
+                        f"{len(nulled)} values past 18 digits NULL "
+                        f"{[(r, c, str(v)) for r, c, v in nulled]}")
+            if q == "D1":
+                aggs = [n for n in _walk(plan) if type(n).__name__ ==
+                        "TpuHashAggregate" and n.group_exprs and
+                        n.group_exprs[0].dtype().is_decimal]
+                check(aggs and all(a.path_counts["table"] > 0 for a in aggs),
+                      f"D1: the DECIMAL key did not take the table core")
+                need = ("hash_partition_ids", "table_reduce",
+                        "table_reduce_min")
+            elif q in ("D2", "D3"):
+                joins = [n for n in _walk(plan)
+                         if isinstance(n, TpuHashJoinBase)]
+                how = "direct" if q == "D2" else "search"
+                check(joins and all(j.probes[how] > 0 for j in joins),
+                      f"{q}: the DECIMAL join did not probe by {how}: "
+                      f"{[j.probes for j in joins]}")
+                need = ("direct_probe",) if q == "D2" else ("join_probe",)
+            else:
+                need = ()
+            for name in need if on_card else ():
+                check(got[name] > 0, f"{q}: {name} never launched on its "
+                                     f"DECIMAL path")
+            first = [tuple(map(str, r.values()))
+                     for r in cold.slice(0, 2).to_pylist()]
+            print(f"decimal16 {q}: {cold.num_rows} rows, {ndec} DECIMAL "
+                  f"columns equal pyarrow's exactly; cold {cold_s:.4f}s "
+                  f"(host read {read_s:.4f}s, upload {upload_s:.4f}s); "
+                  f"warm {warm_s[0]:.4f}s {warm_s[1]:.4f}s; peak device "
+                  f"memory {peak} B; launches (3 runs) "
+                  f"{ {k: v for k, v in got.items() if v} }; "
+                  f"byte-identical runs{note}; first rows {first}; "
+                  f"{time.perf_counter() - tq:.1f}s with the checks",
+                  flush=True)
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD, join_k.DIRECT_MIN_STREAM = saved
+        cache.clear()
+    for name in kernels_used:
+        check(launched(launches, name) > 0,
+              f"{name} never launched on the phase 16 path")
+    print(f"decimal16: launches of the phase (3 runs of each query) "
+          f"{launches}")
+    return launches
+
+
 def _reference_worker() -> None:
     """A reference process's pyarrow takes half the host's cores; the
     other half serve the processes that drive the card.  It ends with the
@@ -7132,7 +7653,7 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: also time its "
                          "kernels at the raw-row and probe shapes with "
                          "this timer")
-    ap.add_argument("--only", type=int, choices=(11, 12, 13, 14, 15),
+    ap.add_argument("--only", type=int, choices=(11, 12, 13, 14, 15, 16),
                     default=None,
                     help="after the build, run this phase alone on "
                          "freshly written tables (no contract line)")
@@ -7192,7 +7713,10 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
             session = ds_tables_alone(args, data_dir)
             phase_done("tables")
-            if phase is None:
+            if args.only == 16:
+                session = None
+                decimal_phase(args, used, data_dir)
+            elif phase is None:
                 session = None
                 memory_phase(args, used, data_dir)
             else:
@@ -7229,6 +7753,12 @@ def main(argv=None) -> int:
             tables = tables.result()
             workers = start_phase_workers(spawn, args, used, data_dir,
                                           start)
+            # 16's tables and references, in a process of their own
+            dec_pool = ProcessPoolExecutor(1, mp_context=spawn,
+                                           initializer=_reference_worker)
+            dec_ahead = (dec_pool.submit(write_decimal_tables, data_dir,
+                                         args.sf, args.seed),
+                         dec_pool.submit(ds16_references, data_dir))
             # 6. the TPC-DS quartet through session.sql over Parquet; 7.
             # the flat TPC-DS queries, on the same session
             results["tpcds"], session = tpcds_phase(args, used, data_dir,
@@ -7248,12 +7778,17 @@ def main(argv=None) -> int:
             results["tpcds15"] = skew_phase(args, used, skew)
             skew = None
             phase_done("15")
+            # 16. DECIMAL64: TPC-H Q1 and Q6, eight TPC-DS texts and D1-D3
+            results["tpcds16"] = decimal_phase(args, used, data_dir,
+                                               dec_ahead)
+            dec_pool.shutdown()
+            phase_done("16")
             # 8. derived tables and CTEs, 9. expression subqueries, 10.
             # set operations, DISTINCT and DATE columns, 11. window
             # functions, 12. CAST, DATE literals, count(DISTINCT) and
             # ROLLUP, 13. the last four texts and the function library
             results.update(join_phase_workers(workers, data_dir))
-            phase_done("4-15")
+            phase_done("4-16")
         except BaseException:
             for p in multiprocessing.active_children():
                 p.terminate()

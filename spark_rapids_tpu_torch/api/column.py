@@ -85,9 +85,10 @@ class Col:
 
     def cast(self, to) -> "Col":
         """``CAST(self AS to)``: ``to`` a dtype or a type name
-        (``expr/cast.TYPE_NAMES``)."""
-        from ..expr.cast import TYPE_NAMES, Cast
-        return Col(Cast(self.expr, TYPE_NAMES[to] if isinstance(to, str)
+        (``expr/cast.type_of``: ``expr/cast.TYPE_NAMES`` or
+        ``decimal(p, s)``)."""
+        from ..expr.cast import Cast, type_of
+        return Col(Cast(self.expr, type_of(to) if isinstance(to, str)
                         else to))
 
     def between(self, lo, hi) -> "Col":

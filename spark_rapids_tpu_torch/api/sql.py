@@ -36,8 +36,10 @@ runs:
   ``<=>`` is not parsed (``Col.eq_null_safe`` has it);
 - ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``; ``CAST(x AS
   t)`` among the numbers, BOOL and DATE (``boolean``, ``int``,
-  ``bigint``, ``float``, ``double``, ``date``; Spark's non-ANSI rules,
-  ``expr/cast.py``);
+  ``bigint``, ``float``, ``double``, ``date``, ``decimal(p, s)`` /
+  ``numeric(p, s)`` up to 18 digits; Spark's non-ANSI rules,
+  ``expr/cast.py``); DECIMAL columns (Parquet ``decimal128``) in
+  arithmetic, comparisons, CASE, the aggregates, keys and windows;
   ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` and ``if(c, a, b)`` with
   numeric, DATE or string values; ``substring`` / ``substr`` with
   literal positions (in characters), ``concat``, ``coalesce`` / ``nvl``
@@ -53,7 +55,8 @@ runs:
   ``mod`` and ``pmod`` (Spark's, also with a negative divisor);
   ``greatest`` / ``least`` of numbers or DATEs (a NaN above every
   number); ``hash(x, ...)`` (``expr/misc.Murmur3Hash``);
-- integer, decimal (read as double), string and ``NULL`` literals;
+- integer, decimal (read as double, as the reference; Spark's is a
+  DECIMAL), string and ``NULL`` literals;
   ``DATE 'yyyy-mm-dd'`` literals; DATE columns (date32 in Parquet)
   compare with DATEs, key joins, group-bys, DISTINCT and sorts, and are
   collected as date32; ``date ± INTERVAL n DAY[S]``, ``INTERVAL n DAYS +
@@ -135,7 +138,7 @@ functions of the reference's host loops (``replace``, ``lpad``,
 columns with no common type (a string and a number), DISTINCT calls
 of more than one argument, ``DISTINCT`` in another aggregate or over a
 window, a CAST from or to STRING (the
-reference's is a host loop), DECIMAL or TIMESTAMP, or between a DATE
+reference's is a host loop) or TIMESTAMP, or between a DATE
 and a number, an ``INTERVAL`` of another unit than days or away from a
 DATE's ``+`` / ``-``, other date arithmetic, ``tinyint`` and
 ``smallint``, a DATE compared with a number or a string, a correlated
@@ -1012,12 +1015,15 @@ class _Parser:
             self._fail("expected a type name")
         self.advance()
         name = t.text.lower()
-        if self.at_op("("):                     # decimal(p, s)
+        if self.at_op("("):                     # decimal(p[, s])
             self.advance()
+            args = []
             while not self.at_op(")") and self.tok.kind != "end":
+                if not self.at_op(","):
+                    args.append(self.tok.text)
                 self.advance()
             self.expect_op(")")
-            name += "(...)"
+            name += f"({','.join(args)})"
         self.expect_op(")")
         return CastE(e, name)
 
@@ -1275,9 +1281,11 @@ def _no_date_arithmetic(*args: ec.Expression) -> None:
 
 
 def _cast_type(name: str) -> T.DType:
-    if name in ecast.TYPE_NAMES:
-        return ecast.TYPE_NAMES[name]
-    raise SqlError(f"CAST to {name.upper()} is not supported by the port")
+    try:
+        return ecast.type_of(name)
+    except (KeyError, ValueError):
+        raise SqlError(f"CAST to {name.upper()} is not supported by the "
+                       f"port") from None
 
 
 def _days_shift(op: str, left: ec.Expression, right: ec.Expression):
@@ -1800,7 +1808,7 @@ class _Lowerer:
                         es.Lower)(args[0])
             if n == "abs" and len(args) == 1:
                 dt = args[0].dtype()
-                if not (dt.is_integral or dt.is_fractional):
+                if not dt.is_numeric:
                     raise SqlError(f"abs() of a {dt} is not supported by the "
                                    f"port")
                 return ea.Abs(args[0])
@@ -1808,7 +1816,7 @@ class _Lowerer:
                 scale = _literal_of(args[1]) if len(args) == 2 else 0
                 dt = args[0].dtype()
                 if not isinstance(scale, int) or isinstance(scale, bool) or \
-                        not (dt.is_integral or dt.is_fractional):
+                        not dt.is_numeric:
                     raise SqlError("round() takes a number and an integer "
                                    "scale")
                 return ea.Round(args[0], scale)
@@ -1847,8 +1855,8 @@ class _Lowerer:
         ``nanvl`` and ``hash``."""
         def numbers(k):
             if len(args) != k or not all(
-                    a.dtype().is_integral or a.dtype().is_fractional or
-                    a.dtype() == T.NULL for a in args):
+                    a.dtype().is_numeric or a.dtype() == T.NULL
+                    for a in args):
                 raise SqlError(f"{n}() takes {k} number"
                                f"{'s' if k > 1 else ''}")
         if n in _MATH:
@@ -1899,8 +1907,7 @@ class _Lowerer:
         # check_window_func refuses the types a window does not take
         any_type = ("count", "max", "min", "first", "first_value", "last",
                     "last_value")
-        if a.name not in any_type and not (
-                dt.is_integral or dt.is_fractional) and dt != T.NULL:
+        if a.name not in any_type and not dt.is_numeric and dt != T.NULL:
             # Spark casts the input to double (null for a word that is no
             # number); a cast of a string is not ported, and adding a
             # string's bytes, as the reference's engine does, is no answer

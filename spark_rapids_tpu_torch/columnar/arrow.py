@@ -3,7 +3,11 @@
 Counterpart of ``spark_rapids_tpu/columnar/arrow.py`` for fixed-width
 types, dates and strings (a date32 moves as its int32 days).  Uploads
 move only live rows and pad on the device; a string column moves its
-offsets (rebased to 0) and its bytes.  An upload that meets a device
+offsets (rebased to 0) and its bytes.  A ``decimal128(p <= 18, s)``
+moves as its unscaled int64s, read from and written to the 16-byte
+values' buffer at once (the low word of each, its high word checked to
+be the low one's sign); the reference's per-row ``Decimal`` loop would
+take minutes at 28.8M rows.  An upload that meets a device
 OOM frees what it can and runs once more (``memory/pressure.oom_retry``).
 """
 from __future__ import annotations
@@ -59,6 +63,37 @@ def _upload(arr: np.ndarray, dtype: T.DType, cap: int, device) -> torch.Tensor:
     return t
 
 
+def _decimal_words(arr) -> np.ndarray:
+    """The unscaled int64s of a ``decimal128`` array (0 where null)."""
+    n = len(arr)
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                          count=2 * (arr.offset + n))[2 * arr.offset:]
+    lo, hi = words[0::2], words[1::2]
+    valid = ~np.asarray(arr.is_null()) if arr.null_count else None
+    wide = hi != (lo >> 63)
+    if valid is not None:
+        wide &= valid
+    if wide.any():
+        raise ValueError(f"{arr.type}: a value does not fit an int64")
+    return lo if valid is None else np.where(valid, lo, 0)
+
+
+def _decimal_to_arrow(data: np.ndarray, valid: np.ndarray,
+                      dtype: T.DecimalType) -> pa.Array:
+    """A ``decimal128`` array of unscaled int64s: each value's 16 bytes
+    are the int64 and its sign word."""
+    n = len(data)
+    words = np.empty((n, 2), dtype=np.int64)
+    words[:, 0] = data
+    words[:, 1] = data >> 63
+    bitmap = None
+    if not valid.all():
+        bitmap = pa.array(valid, type=pa.bool_()).buffers()[1]
+    return pa.Array.from_buffers(dtype.arrow_type, n, [
+        bitmap, pa.py_buffer(words.tobytes())],
+        null_count=int(n - valid.sum()))
+
+
 def _column_from_arrow(arr, dtype: T.DType, cap: int, device) -> Column:
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks() if arr.num_chunks != 1 else arr.chunk(0)
@@ -67,9 +102,14 @@ def _column_from_arrow(arr, dtype: T.DType, cap: int, device) -> Column:
     if isinstance(dtype, T.UnsupportedType):
         raise NotImplementedError(f"column type {arr.type} is not "
                                   f"supported by the port")
+    n = len(arr)
+    if dtype.is_decimal:
+        valid_np = ~np.asarray(arr.is_null()) if arr.null_count else \
+            np.ones(n, np.bool_)
+        return Column(dtype, _upload(_decimal_words(arr), dtype, cap, device),
+                      _upload(valid_np, T.BOOL, cap, device))
     if dtype == T.DATE:
         arr = arr.cast(pa.int32())
-    n = len(arr)
     if arr.null_count:
         valid_np = ~np.asarray(arr.is_null())
         data_np = np.asarray(arr.fill_null(dtype.np_dtype.type(0)))
@@ -123,6 +163,9 @@ def to_arrow(batch: ColumnarBatch) -> pa.Table:
             continue
         data = c.data[:n].cpu().numpy()
         valid = c.validity[:n].cpu().numpy()
+        if f.dtype.is_decimal:
+            arrays.append(_decimal_to_arrow(data, valid, f.dtype))
+            continue
         mask = None if valid.all() else ~valid
         arrays.append(pa.array(data, type=f.dtype.arrow_type, mask=mask))
     return pa.Table.from_arrays(arrays, names=batch.schema.names)

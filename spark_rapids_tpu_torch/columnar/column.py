@@ -58,6 +58,8 @@ class Column:
                                                    device=device))
         if dtype == T.DATE:
             value = T.date_to_days(value)
+        elif dtype.is_decimal:
+            value = T.unscaled_of(value, dtype.scale)
         data = torch.full((capacity,), value, dtype=dtype.torch_dtype,
                           device=device)
         return Column(dtype, data, torch.ones(capacity, dtype=torch.bool,

@@ -12,6 +12,13 @@ the device, arrow ``date32`` on the host.  It is neither integral nor
 fractional: it compares, keys joins, group-bys and sorts (its key word is
 the int32's), and takes no arithmetic.
 
+A DECIMAL is the reference's DECIMAL64 ``DecimalType(precision,
+scale)``: precision at most 18 (``MAX_PRECISION``; a wider one raises),
+held as the unscaled int64 on the device and as arrow ``decimal128(p,
+s)`` on the host (``columnar/arrow.py``).  It is neither integral nor
+fractional; ``is_numeric`` covers all three kinds.  The arithmetic on
+its unscaled values is ``kernels/decimal.py``.
+
 A file may hold columns of a type the port does not carry (a timestamp,
 say): ``from_arrow`` types them ``UnsupportedType`` so the file's schema
 still reads, and reading such a column raises.
@@ -19,6 +26,7 @@ still reads, and reading such a column raises.
 from __future__ import annotations
 
 import datetime
+import decimal
 
 import numpy as np
 import pyarrow as pa
@@ -34,6 +42,11 @@ class DType:
     arrow_type: pa.DataType = None
     is_integral = False
     is_fractional = False
+    is_decimal = False
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.is_integral or self.is_fractional or self.is_decimal
 
     def __repr__(self) -> str:
         return self.name
@@ -99,6 +112,39 @@ class DateType(DType):
     arrow_type = pa.date32()
 
 
+class DecimalType(DType):
+    """DECIMAL64: ``precision`` digits, ``scale`` of them after the
+    point, held as the unscaled int64 ``value * 10^scale``."""
+    MAX_PRECISION = 18
+    np_dtype = np.dtype(np.int64)
+    torch_dtype = torch.int64
+    is_decimal = True
+
+    def __init__(self, precision: int = 10, scale: int = 0):
+        if not 0 < precision <= self.MAX_PRECISION:
+            raise ValueError(f"DECIMAL precision {precision} is outside "
+                             f"DECIMAL64's 1..{self.MAX_PRECISION}")
+        if not 0 <= scale <= precision:
+            raise ValueError(f"DECIMAL scale {scale} is outside 0.."
+                             f"{precision}")
+        self.precision, self.scale = int(precision), int(scale)
+
+    @property
+    def name(self) -> str:
+        return f"decimal({self.precision},{self.scale})"
+
+    @property
+    def arrow_type(self) -> pa.DataType:
+        return pa.decimal128(self.precision, self.scale)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, DecimalType) and \
+            (other.precision, other.scale) == (self.precision, self.scale)
+
+    def __hash__(self) -> int:
+        return hash(("decimal", self.precision, self.scale))
+
+
 class NullType(DType):
     """The type of a bare ``NULL`` literal; a conditional takes its
     result type from its other branches."""
@@ -154,14 +200,38 @@ def from_arrow(at: pa.DataType, lenient: bool = False) -> DType:
             return t
     if pa.types.is_string(at) or pa.types.is_large_string(at):
         return STRING
+    if pa.types.is_decimal128(at) and \
+            at.precision <= DecimalType.MAX_PRECISION:
+        return DecimalType(at.precision, at.scale)
+    if pa.types.is_decimal(at) and not lenient:
+        raise ValueError(f"{at}: DECIMAL64 holds at most "
+                         f"{DecimalType.MAX_PRECISION} digits")
     if lenient:
         return UnsupportedType(at)
     raise NotImplementedError(f"no engine dtype for arrow {at}")
 
 
+def unscaled_of(value, scale: int) -> int:
+    """The unscaled int of a host number at ``scale`` (HALF_UP); a float
+    goes by its shortest repr, as its SQL text reads."""
+    d = value if isinstance(value, decimal.Decimal) else \
+        decimal.Decimal(repr(value) if isinstance(value, float) else value)
+    return int(d.scaleb(scale).to_integral_value(decimal.ROUND_HALF_UP))
+
+
+def wider_decimal(a: DecimalType, b: DecimalType) -> DecimalType:
+    """Spark's ``widerDecimalType``: the larger scale and the larger
+    count of integer digits, capped at 18 digits (the scale kept)."""
+    scale = max(a.scale, b.scale)
+    whole = max(a.precision - a.scale, b.precision - b.scale)
+    return DecimalType(min(whole + scale, DecimalType.MAX_PRECISION), scale)
+
+
 def common_type(a: DType, b: DType) -> DType:
     """Numeric type promotion following Spark's binary-op coercion; a
-    NULL side takes the other's type."""
+    NULL side takes the other's type.  A DECIMAL with an integer takes
+    the reference's answer, the DECIMAL; two DECIMALs their wider type
+    (``wider_decimal``); a DECIMAL with a float is a double."""
     if a == b:
         return a
     if a == NULL or b == NULL:
@@ -169,6 +239,14 @@ def common_type(a: DType, b: DType) -> DType:
     if a in _NUMERIC_ORDER and b in _NUMERIC_ORDER:
         return _NUMERIC_ORDER[max(_NUMERIC_ORDER.index(a),
                                   _NUMERIC_ORDER.index(b))]
+    if a.is_decimal or b.is_decimal:
+        if a.is_decimal and b.is_decimal:
+            return wider_decimal(a, b)
+        other = b if a.is_decimal else a
+        if other.is_fractional:
+            return FLOAT64
+        if other.is_integral:
+            return a if a.is_decimal else b
     raise ValueError(f"no common type for {a} and {b}")
 
 

@@ -27,6 +27,7 @@ SORT_OOC_SAMPLES = "spark.rapids.tpu.sql.sort.outOfCore.samplesPerRun"
 SCAN_CACHE = "spark.rapids.tpu.io.deviceScanCache.enabled"
 SCAN_CACHE_BYTES = "spark.rapids.tpu.io.deviceScanCache.bytes"
 ADAPTIVE_ENABLED = "spark.rapids.tpu.sql.adaptive.enabled"
+DECIMAL_ENABLED = "spark.rapids.tpu.sql.decimalType.enabled"
 ADAPTIVE_TARGET_PARTITION_BYTES = \
     "spark.rapids.tpu.sql.adaptive.targetPartitionBytes"
 ADAPTIVE_BROADCAST_BYTES = \
@@ -87,6 +88,11 @@ _DEFAULTS: Dict[str, Any] = {
     # and than the threshold below, is split into slices.
     ADAPTIVE_SKEW_FACTOR: 5.0,
     ADAPTIVE_SKEW_MIN_BYTES: 16 << 20,
+    # DECIMAL64 columns and expressions on the device (the reference's
+    # ``spark.rapids.sql.decimalType.enabled``).  Off, the reference
+    # falls back to its CPU engine; the port has none and refuses the
+    # plan, naming this key.
+    DECIMAL_ENABLED: True,
 }
 
 

@@ -29,6 +29,9 @@ arrays beside its reduce kernel:
   the winning row's value.  Merging partials, which are concatenated
   in order, takes the earlier partial's first and the later one's last.
   A STRING first / last or min runs the sort path, as in the reference.
+  A DECIMAL key, min or max takes the core as its unscaled int64 does
+  (the reference's ``iminmax``); a DECIMAL sum runs the sort path
+  (``tpu_aggregate.py:499``, "exact int/decimal sums: sort path").
 
 The batch's largest exponent and the fit conditions stay torch ops
 before the launch.  A device fit flag says whether the batch fit the
@@ -85,7 +88,9 @@ def buffer_schema(group_exprs, aggs: List[AggExpr]) -> Schema:
 
 
 def _key_ok(dt) -> bool:
-    return dt.is_integral or dt in (T.BOOL, T.DATE)
+    """Keys (and min / max inputs) of the table core: the integer family,
+    DECIMALs by their unscaled int64 (``tpu_aggregate.py:453``)."""
+    return dt.is_integral or dt.is_decimal or dt in (T.BOOL, T.DATE)
 
 
 class TpuHashAggregate(TpuExec):
@@ -312,7 +317,7 @@ class TpuHashAggregate(TpuExec):
         fit = torch.where(ok & torch.isfinite(v), torch.isfinite(
             v.to(torch.float32)), True).all() \
             if kind in ("fmax", "fmin") else True
-        if c.dtype == T.INT64:
+        if c.dtype == T.INT64 or c.dtype.is_decimal:
             fit = fit & torch.where(ok, (c.data >= -INT_MAX_EXACT) &
                                     (c.data <= INT_MAX_EXACT), True).all()
         return StageCol(kind, v, valid), fit

@@ -14,8 +14,8 @@ role), so even one probe row's matches may split across chunks.
 
 A partition probes by direct address instead of the search when the
 reference would (its ``TpuHashJoinBase`` rule): no residual condition,
-not a full join, one integer or DATE key on both sides, and stream
-batches of at least ``join.DIRECT_MIN_STREAM`` rows of capacity, which
+not a full join, one integer, DATE or DECIMAL key on both sides, and
+stream batches of at least ``join.DIRECT_MIN_STREAM`` rows of capacity, which
 each partition decides for itself.  Its build then makes
 ``join.direct_tables`` (one host read, kept with the build, so a
 broadcast build makes them once) unless its keys span more than
@@ -195,7 +195,7 @@ class TpuHashJoinBase(TpuExec):
     # -- the direct-address probe ---------------------------------------------
     def _may_probe_directly(self, skeys) -> bool:
         """The reference's static half of its rule: no residual, not a
-        full join, one key, an integer or DATE on both sides."""
+        full join, one key, an integer, DATE or DECIMAL on both sides."""
         bkeys = self._sides()[2]
         return (self.join.condition is None and self.join.how != "full"
                 and len(bkeys) == 1 and

@@ -16,8 +16,12 @@ Then, per function, over the sorted rows (``kernels/window.py``):
 - ``sum``, ``count``, ``avg``, ``min``, ``max`` over the whole partition
   (no ORDER BY, or a frame unbounded on both sides), a ROWS frame
   (offsets in rows), or a RANGE frame: by peers when its bounds are
-  CURRENT ROW or unbounded, by the values of one integer or DATE order
-  key otherwise.
+  CURRENT ROW or unbounded, by the values of one integer, DATE or
+  DECIMAL order key otherwise (a DECIMAL's offsets scale by ``10^s``,
+  as the reference's ``tpu_window.py:376``).  A DECIMAL ``sum`` adds
+  its unscaled int64s exactly (their 32-bit halves apart), NULL where
+  the frame's sum does not fit ``decimal(min(p + 10, 18), s)``; a
+  DECIMAL ``avg`` is a double of the values.
 
 The results go back to input order through the inverse permutation (one
 scatter of ``arange``), so each row keeps its columns and gains one per
@@ -36,6 +40,7 @@ from ..expr import aggregates as eagg
 from ..expr import core as ec
 from ..expr import window_funcs as wfn
 from ..kernels import canon
+from ..kernels import decimal as dk
 from ..kernels import window as wk
 from ..kernels.sort import sorted_words
 from ..plan.logical import Window, WindowFunc, WindowSpec
@@ -64,7 +69,7 @@ def check_window_func(wf: WindowFunc) -> None:
                                   f"supported by the port")
     if f.children:
         dt = f.children[0].dtype()
-        numeric = dt.is_integral or dt.is_fractional
+        numeric = dt.is_numeric
         if isinstance(f, (eagg.Min, eagg.Max)):
             numeric = numeric or dt == T.DATE
         if not numeric and not isinstance(f, eagg.Count):
@@ -78,7 +83,7 @@ def check_window_func(wf: WindowFunc) -> None:
                                       "more than one ORDER BY key is not "
                                       "supported by the port")
         odt = spec.order_by[0].expr.dtype()
-        if not (odt.is_integral or odt == T.DATE):
+        if not (odt.is_integral or odt.is_decimal or odt == T.DATE):
             raise NotImplementedError(f"a RANGE frame with offsets over a "
                                       f"{odt} order key is not supported "
                                       f"by the port")
@@ -249,6 +254,15 @@ class TpuWindow(TpuExec):
         if acc_int:
             x = torch.where(sok, sv.to(torch.int64), 0)
             return wk.prefix_diff(torch.cumsum(x, 0), first, last), has
+        src_t = f.children[0].dtype()
+        if isinstance(f, eagg.Sum) and src_t.is_decimal:
+            hi, lo = dk.split_halves(torch.where(sok, sv, 0))
+            total, ok = dk.join_halves(*(
+                wk.prefix_diff(torch.cumsum(h, 0), first, last)
+                for h in (hi, lo)))
+            return total, has & ok & dk.fits(total, f.dtype().precision)
+        if src_t.is_decimal:
+            sv = dk.to_double(sv, src_t.scale)
         x = torch.where(sok, sv.to(torch.float64), 0.0)
         if whole:
             total = wk.whole_sum(x, segs)
@@ -293,12 +307,16 @@ class TpuWindow(TpuExec):
 
     @staticmethod
     def _range(batch, spec: WindowSpec, s: _Sorted):
-        """A RANGE frame with value offsets over its one integer or DATE
-        order key (``kernels/window.range_positions``)."""
+        """A RANGE frame with value offsets over its one integer, DATE or
+        DECIMAL order key (``kernels/window.range_positions``)."""
         o = spec.order_by[0]
         col = s.ocols[0]
         v = col.data[s.perm].to(torch.int64)
         u = v if o.ascending else -v
         _, lo, hi = spec.frame
+        if col.dtype.is_decimal:
+            # the offsets in the key's unscaled units
+            lo, hi = (None if x is None else T.unscaled_of(x, col.dtype.scale)
+                      for x in (lo, hi))
         return wk.range_positions(u, col.validity[s.perm] & s.live, s.segs,
                                   lo, hi, o.nulls_first)

@@ -6,6 +6,14 @@ declares its partial buffers, how a batch updates them (``update``), how
 partials combine (``merge``) and the final value (``finalize``).  These
 methods run on the sort path's ``GroupPlan``; the table path
 (exec/tpu_aggregate.py) lowers the same functions itself.
+
+A DECIMAL ``sum`` is ``decimal(min(p + 10, 18), s)``, the reference's
+type, summed exactly on the sort path (``seg_sum_exact``); a partial
+past the int64 range is ``kernels/decimal.OVERFLOW``, and a final sum
+that does not fit its precision, or merges such a partial, is NULL
+(Spark's answer; the reference wraps).  A DECIMAL ``avg`` is a double of
+the values (the reference averages the unscaled ints: 100x too large at
+scale 2).
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch
 from ..columnar import dtypes as T
 from ..columnar.column import Column, StringColumn
 from ..kernels import aggregate as agg_k
+from ..kernels import decimal as dk
 from ..kernels.strings import string_key_words
 from .core import Expression
 
@@ -46,20 +55,42 @@ class AggregateFunction(Expression):
         raise AssertionError(f"{self.name} runs inside an aggregate exec")
 
 
+def decimal_sum_type(dt: T.DecimalType) -> T.DecimalType:
+    """The reference's sum type (``aggregates.py:104``); Spark's is
+    ``decimal(p + 10, s)`` up to 38 digits."""
+    return T.DecimalType(min(dt.precision + 10, T.DecimalType.MAX_PRECISION),
+                         dt.scale)
+
+
 class Sum(AggregateFunction):
     def dtype(self):
-        return T.INT64 if self.children[0].dtype().is_integral else T.FLOAT64
+        ct = self.children[0].dtype()
+        if ct.is_decimal:
+            return decimal_sum_type(ct)
+        return T.INT64 if ct.is_integral else T.FLOAT64
 
     def update(self, plan, cols):
         c = cols[0]
         out_t = self.dtype()
+        cnt = agg_k.seg_count(plan, c.validity)
+        if out_t.is_decimal:
+            # a partial past int64, or merging one, stays OVERFLOW
+            s, fits = agg_k.seg_sum_exact(plan, c.data, c.validity)
+            over = agg_k.seg_count(plan, c.validity & (c.data == dk.OVERFLOW))
+            return [Column(out_t, torch.where(fits & (over == 0), s,
+                                              dk.OVERFLOW), cnt > 0)]
         s = agg_k.seg_sum(plan, c.data, c.validity,
                           out_dtype=out_t.torch_dtype)
-        cnt = agg_k.seg_count(plan, c.validity)
         return [Column(out_t, s, cnt > 0)]
 
     def merge(self, plan, buffers):
         return self.update(plan, buffers)
+
+    def finalize(self, buffers):
+        b = buffers[0]
+        if not b.dtype.is_decimal:
+            return b
+        return b.mask_validity(dk.fits(b.data, b.dtype.precision))
 
 
 class Count(AggregateFunction):
@@ -190,7 +221,9 @@ class Average(AggregateFunction):
 
     def update(self, plan, cols):
         c = cols[0]
-        s = agg_k.seg_sum(plan, c.data, c.validity, out_dtype=torch.float64)
+        v = dk.to_double(c.data, c.dtype.scale) if c.dtype.is_decimal \
+            else c.data
+        s = agg_k.seg_sum(plan, v, c.validity, out_dtype=torch.float64)
         return self._buffers(s, agg_k.seg_count(plan, c.validity))
 
     def merge(self, plan, buffers):
@@ -235,7 +268,9 @@ class CentralMoment(AggregateFunction):
 
     def update(self, plan, cols):
         c = cols[0]
-        return self._buffers(*agg_k.seg_moments(plan, c.data, c.validity))
+        v = dk.to_double(c.data, c.dtype.scale) if c.dtype.is_decimal \
+            else c.data
+        return self._buffers(*agg_k.seg_moments(plan, v, c.validity))
 
     def merge(self, plan, buffers):
         cnt, mean, m2 = buffers

@@ -10,6 +10,17 @@ double; a null operand gives null, and so does a zero divisor of ``/``,
 ``div``, ``%`` and ``pmod``.  Integer results wrap (two's complement), as
 in non-ANSI Spark.
 
+A DECIMAL operand of ``+``, ``-`` and ``*`` gives a DECIMAL computed on
+the unscaled int64s (``kernels/decimal.py``) with the reference's result
+types, capped at 18 digits: ``*`` ``decimal(min(p1 + p2, 18), s1 + s2)``,
+``+`` / ``-`` the larger scale and one digit past the wider integer
+part (the reference's ``max(p1, p2) + 1`` where the scales are equal;
+an integer counts 19 digits, as there).  A result that does not fit is
+NULL.  ``/`` of a DECIMAL, and any operator of a DECIMAL and a float,
+is a double of the operands' values (the reference divides and mixes
+the unscaled ints: ``1.50 / 0.5`` is 30.0 there).  ``div``, ``%``,
+``pmod`` and the bitwise operators refuse a DECIMAL.
+
 Four answers are Spark's where the reference's are not: an integer
 quotient or remainder is exact (the reference truncates an f64 division,
 inexact past 2^53); ``pmod`` with a negative divisor is Spark's ``(r +
@@ -28,17 +39,51 @@ import torch
 
 from ..columnar import dtypes as T
 from ..columnar.column import Column
-from .cast import _float_to_int
+from ..kernels import decimal as dk
+from .cast import _float_to_int, as_type
 from .core import Expression, eval_as_column
+
+_MAX_DIGITS = T.DecimalType.MAX_PRECISION
+
+
+def _digits(t: T.DType):
+    """(precision, scale) of a DECIMAL operand; an integer counts 19
+    digits, as the reference's ``_prec``."""
+    return (t.precision, t.scale) if t.is_decimal else (19, 0)
+
+
+def decimal_result(symbol: str, lt: T.DType, rt: T.DType) -> T.DType:
+    """The DECIMAL of ``lt symbol rt`` (``+``, ``-`` or ``*``)."""
+    (pa_, sa), (pb, sb) = _digits(lt), _digits(rt)
+    if symbol == "*":
+        if sa + sb > _MAX_DIGITS:
+            raise NotImplementedError(f"a DECIMAL product of scale "
+                                      f"{sa + sb} is past DECIMAL64's "
+                                      f"{_MAX_DIGITS} digits")
+        return T.DecimalType(min(_MAX_DIGITS, pa_ + pb), sa + sb)
+    scale = max(sa, sb)
+    whole = max(pa_ - sa, pb - sb)
+    return T.DecimalType(min(_MAX_DIGITS, whole + scale + 1), scale)
 
 
 class BinaryArithmetic(Expression):
     symbol = "?"
+    #: whether a DECIMAL operand gives a DECIMAL (``+``, ``-``, ``*``)
+    decimal_op = False
 
     def __init__(self, left: Expression, right: Expression):
         self.children = [left, right]
 
     def result_type(self, lt: T.DType, rt: T.DType) -> T.DType:
+        if (lt.is_decimal or rt.is_decimal) and T.NULL not in (lt, rt):
+            if lt.is_fractional or rt.is_fractional:
+                return T.FLOAT64
+            if not self.decimal_op or not (lt.is_numeric or lt == T.BOOL) \
+                    or not (rt.is_numeric or rt == T.BOOL):
+                raise NotImplementedError(
+                    f"{self.symbol} of a {lt} and a {rt} is not supported "
+                    f"by the port")
+            return decimal_result(self.symbol, lt, rt)
         return T.common_type(lt, rt)
 
     def dtype(self):
@@ -55,13 +100,30 @@ class BinaryArithmetic(Expression):
         lc = eval_as_column(self.children[0], batch)
         rc = eval_as_column(self.children[1], batch)
         out_t = self.dtype()
-        a = lc.data.to(out_t.torch_dtype)
-        b = rc.data.to(out_t.torch_dtype)
+        if out_t.is_decimal:
+            return self._decimal_eval(lc, rc, out_t)
+        a = as_type(lc, out_t).data
+        b = as_type(rc, out_t).data
         valid = lc.validity & rc.validity
         extra = self.extra_null_mask(a, b)
         if extra is not None:
             valid = valid & ~extra
         return Column(out_t, self.op(a, b), valid)
+
+    def _decimal_eval(self, lc: Column, rc: Column, out_t: T.DecimalType):
+        """``+``, ``-``, ``*`` on the unscaled int64s; NULL where the
+        result does not fit ``out_t``."""
+        a, b = lc.data.to(torch.int64), rc.data.to(torch.int64)
+        valid = lc.validity & rc.validity
+        if self.symbol == "*":
+            data, ok = dk.mul_checked(a, b, out_t.precision)
+            return Column(out_t, data, valid & ok)
+        s = out_t.scale
+        a, oka = dk.scale_up(a, s - _digits(lc.dtype)[1], _MAX_DIGITS)
+        b, okb = dk.scale_up(b, s - _digits(rc.dtype)[1], _MAX_DIGITS)
+        data = self.op(a, b)
+        return Column(out_t, data,
+                      valid & oka & okb & dk.fits(data, out_t.precision))
 
     def __repr__(self):
         return f"({self.children[0]!r} {self.symbol} {self.children[1]!r})"
@@ -69,6 +131,7 @@ class BinaryArithmetic(Expression):
 
 class Add(BinaryArithmetic):
     symbol = "+"
+    decimal_op = True
 
     def op(self, a, b):
         return a + b
@@ -76,6 +139,7 @@ class Add(BinaryArithmetic):
 
 class Subtract(BinaryArithmetic):
     symbol = "-"
+    decimal_op = True
 
     def op(self, a, b):
         return a - b
@@ -83,6 +147,7 @@ class Subtract(BinaryArithmetic):
 
 class Multiply(BinaryArithmetic):
     symbol = "*"
+    decimal_op = True
 
     def op(self, a, b):
         return a * b
@@ -109,6 +174,9 @@ class IntegralDivide(BinaryArithmetic):
     symbol = "div"
 
     def result_type(self, lt, rt):
+        if lt.is_decimal or rt.is_decimal:
+            raise NotImplementedError("div of a DECIMAL is not supported by "
+                                      "the port")
         return T.INT64
 
     def op(self, a, b):
@@ -204,7 +272,7 @@ class _MathUnary(UnaryExpression):
 
     def columnar_eval(self, batch):
         c = eval_as_column(self.children[0], batch)
-        x = c.data.to(torch.float64)
+        x = as_type(c, T.FLOAT64).data
         valid = c.validity if self.floor is None else \
             c.validity & (x > self.floor)
         return Column(T.FLOAT64, type(self).fn(x), valid)
@@ -247,16 +315,27 @@ class Signum(UnaryExpression):
         return T.FLOAT64
 
     def op(self, a):
-        return torch.sign(a.to(torch.float64))
+        return torch.sign(a.to(torch.float64))  # a DECIMAL's sign too
 
 
 class Floor(UnaryExpression):
     """An integer unchanged; a float's floor as a bigint (Spark's cast:
-    NaN gives 0, the value saturates)."""
+    NaN gives 0, the value saturates); a DECIMAL's as a bigint, on the
+    unscaled int64."""
+    ceil = False
 
     def dtype(self):
         ct = self.children[0].dtype()
         return ct if ct.is_integral else T.INT64
+
+    def columnar_eval(self, batch):
+        c = eval_as_column(self.children[0], batch)
+        if not c.dtype.is_decimal:
+            return super().columnar_eval(batch)
+        m = 10 ** c.dtype.scale
+        x = -c.data if self.ceil else c.data
+        q = torch.div(x, m, rounding_mode="floor")
+        return Column(T.INT64, -q if self.ceil else q, c.validity)
 
     def op(self, a):
         if not a.is_floating_point():
@@ -266,6 +345,7 @@ class Floor(UnaryExpression):
 
 class Ceil(Floor):
     """An integer unchanged; a float's ceiling as a bigint."""
+    ceil = True
 
     def op(self, a):
         if not a.is_floating_point():
@@ -290,6 +370,16 @@ class Round(Expression):
         c = eval_as_column(self.children[0], batch)
         if c.dtype.is_integral and self.scale >= 0:
             return c
+        if c.dtype.is_decimal:
+            # HALF_UP on the unscaled int64, in the input's type
+            cut = c.dtype.scale - self.scale
+            if cut <= 0:
+                return c
+            if cut > c.dtype.precision:
+                return Column(c.dtype, torch.zeros_like(c.data), c.validity)
+            data = dk.scale_down(c.data, cut) * (10 ** cut)
+            return Column(c.dtype, data, c.validity &
+                          dk.fits(data, c.dtype.precision))
         mult = 10.0 ** self.scale
         scaled = c.data.to(torch.float64) * mult
         out = torch.sign(scaled) * torch.floor(scaled.abs() + 0.5) / mult
@@ -351,8 +441,8 @@ class Greatest(Expression):
         out_t = self.dtype()
         best = bestv = None
         for ch in self.children:
-            c = eval_as_column(ch, batch)
-            a = c.data.to(out_t.torch_dtype)
+            c = as_type(eval_as_column(ch, batch), out_t)
+            a = c.data
             if best is None:
                 best, bestv = a, c.validity
                 continue
@@ -403,6 +493,9 @@ class _Shift(BinaryArithmetic):
     the left operand's type (Java's rule)."""
 
     def result_type(self, lt, rt):
+        if lt.is_decimal or rt.is_decimal:
+            raise NotImplementedError("a shift of a DECIMAL is not "
+                                      "supported by the port")
         return lt
 
     def columnar_eval(self, batch):

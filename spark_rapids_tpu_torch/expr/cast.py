@@ -1,4 +1,4 @@
-"""Casts among the numbers, BOOL and DATE.
+"""Casts among the numbers (DECIMAL64 included), BOOL and DATE.
 
 Counterpart of ``spark_rapids_tpu/expr/cast.py``'s ``Cast`` with Spark's
 non-ANSI rules (the reference's ``_cast_numeric``):
@@ -9,22 +9,34 @@ non-ANSI rules (the reference's ``_cast_numeric``):
 - an integer or a float to a float rounds to the nearest;
 - BOOL to a number gives 0 or 1, a number to BOOL is ``x != 0`` (NaN is
   true);
-- a DATE to a DATE, and a bare NULL to any type.
+- a DATE to a DATE, and a bare NULL to any type;
+- to a DECIMAL: a DECIMAL rescales exactly up and HALF_UP down, an
+  integer or BOOL multiplies by ``10^scale`` exactly, a float rounds
+  HALF_UP from ``value * 10^scale``; a value that does not fit the
+  precision is NULL (Spark's answer; the reference's int64 wraps);
+- from a DECIMAL: an integer truncates toward zero and saturates at the
+  type's bounds (the reference's clip), a float is the nearest to
+  ``unscaled / 10^scale``, BOOL is ``x != 0``.
 
 Comparisons, join keys and unions widen their narrower side through the
 same class (``can_widen``: int32 -> int64 -> float32 -> float64).  A
 cast from or to STRING (the reference's is a per-row host loop), from a
-DATE to a number or back, and DECIMAL and TIMESTAMP are not ported:
-``Cast`` raises ``NotImplementedError`` naming the cast when it is
-typed (``dtype()``), before any device work.  ``TYPE_NAMES`` are the
-reference's type names (``_TYPE_MAP``) of the types the port carries.
+DATE to a number or back, and TIMESTAMP are not ported: ``Cast`` raises
+``NotImplementedError`` naming the cast when it is typed (``dtype()``),
+before any device work.  ``TYPE_NAMES`` are the reference's type names
+(``_TYPE_MAP``) of the types the port carries; ``type_of`` reads them
+and ``decimal(p, s)`` / ``numeric(p, s)`` (the reference's default
+``decimal(10, 0)`` without them).
 """
 from __future__ import annotations
+
+import re
 
 import torch
 
 from ..columnar import dtypes as T
 from ..columnar.column import Column, null_column
+from ..kernels import decimal as dk
 from .core import Expression, eval_as_column
 
 #: the largest double below 2^63: every double up to it converts to an
@@ -37,6 +49,23 @@ TYPE_NAMES = {"boolean": T.BOOL, "bool": T.BOOL, "int": T.INT32,
               "integer": T.INT32, "bigint": T.INT64, "long": T.INT64,
               "float": T.FLOAT32, "real": T.FLOAT32, "double": T.FLOAT64,
               "date": T.DATE}
+_DECIMAL_NAME = re.compile(r"(decimal|numeric|dec)\s*(?:\(\s*(\d+)\s*"
+                           r"(?:,\s*(\d+)\s*)?\))?")
+
+
+def type_of(name: str) -> T.DType:
+    """The type a name gives: ``TYPE_NAMES``, or ``decimal(p, s)``
+    (``numeric``, ``dec``; precision 10 and scale 0 by default, as the
+    reference's SQL).  Raises ``KeyError`` for any other name and
+    ``ValueError`` for a precision DECIMAL64 does not hold."""
+    name = name.strip().lower()
+    if name in TYPE_NAMES:
+        return TYPE_NAMES[name]
+    m = _DECIMAL_NAME.fullmatch(name)
+    if m is None:
+        raise KeyError(name)
+    p = int(m.group(2)) if m.group(2) else 10
+    return T.DecimalType(p, int(m.group(3) or 0))
 
 
 def can_widen(src: T.DType, to: T.DType) -> bool:
@@ -53,7 +82,8 @@ def can_cast(src: T.DType, to: T.DType) -> bool:
     """Whether the port casts ``src`` to ``to``."""
     if src == to or src == T.NULL:
         return True
-    return src in _NUMBERS and to in _NUMBERS
+    return (src in _NUMBERS or src.is_decimal) and \
+        (to in _NUMBERS or to.is_decimal)
 
 
 def _float_to_int(a: torch.Tensor, to: T.DType) -> torch.Tensor:
@@ -80,6 +110,49 @@ def cast_data(a: torch.Tensor, src: T.DType, to: T.DType) -> torch.Tensor:
     return a.to(to.torch_dtype)
 
 
+def _to_decimal(a: torch.Tensor, src: T.DType, to: T.DecimalType):
+    """(unscaled data, fits) of a number cast to ``to``."""
+    if src.is_decimal:
+        return dk.rescale(a, src.scale, to.scale, to.precision)
+    if src.is_fractional:
+        return dk.from_double(a, to.scale, to.precision)
+    return dk.scale_up(a.to(torch.int64), to.scale, to.precision)
+
+
+def _from_decimal(a: torch.Tensor, src: T.DecimalType, to: T.DType):
+    if to == T.BOOL:
+        return a != 0
+    if to.is_fractional:
+        return dk.to_double(a, src.scale).to(to.torch_dtype)
+    lo, hi = _INT_BOUNDS[to]
+    return dk.truncate(a, src.scale).clamp(lo, hi).to(to.torch_dtype)
+
+
+def cast_column(c: Column, to: T.DType) -> Column:
+    """``c`` cast to ``to``: a value a DECIMAL cannot hold becomes
+    NULL."""
+    if c.dtype == to:
+        return c
+    if c.dtype == T.NULL:
+        return null_column(to, c.capacity, c.device)
+    if to.is_decimal:
+        data, ok = _to_decimal(c.data, c.dtype, to)
+        return Column(to, data, c.validity & ok)
+    if c.dtype.is_decimal:
+        return Column(to, _from_decimal(c.data, c.dtype, to), c.validity)
+    return Column(to, cast_data(c.data, c.dtype, to), c.validity)
+
+
+def as_type(c: Column, to: T.DType) -> Column:
+    """``c``'s values in ``to`` for an operator that has promoted its
+    operands: a DECIMAL on either side casts (``cast_column``); any other
+    number converts with torch's ``.to``, as before DECIMAL64 (an
+    integer wraps, a float truncates)."""
+    if c.dtype.is_decimal or to.is_decimal:
+        return cast_column(c, to)
+    return Column(to, c.data.to(to.torch_dtype), c.validity)
+
+
 class Cast(Expression):
     def __init__(self, child: Expression, to: T.DType):
         self.children = [child]
@@ -97,13 +170,7 @@ class Cast(Expression):
         return self.children[0].nullable
 
     def columnar_eval(self, batch):
-        c = eval_as_column(self.children[0], batch)
-        if c.dtype == self.to:
-            return c
-        if c.dtype == T.NULL:
-            return null_column(self.to, c.capacity, c.device)
-        return Column(self.to, cast_data(c.data, c.dtype, self.to),
-                      c.validity)
+        return cast_column(eval_as_column(self.children[0], batch), self.to)
 
     def __repr__(self):
         return f"cast({self.children[0]!r} as {self.to})"

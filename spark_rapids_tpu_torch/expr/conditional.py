@@ -5,7 +5,9 @@ type is the common type of the value branches, a bare ``NULL`` taking
 the others' type (``_result_dtype``); each row takes the value of its
 first true condition.  Fixed-width values (DATEs included: q51's ``case
 when web.d_date is not null then web.d_date else store.d_date end``)
-are chosen with ``torch.where`` (``_select_columns``); STRING values
+are chosen with ``torch.where`` (``_select_columns``), DECIMALs at the
+result's scale (a value that does not fit its precision is NULL, as a
+CAST's); STRING values
 (q70's ``case when grouping(s_county) = 0 then s_state end``) by one
 gather of each row's source string from the chosen branch
 (``_select_strings`` over ``strings.choose_rows``, the reference's
@@ -20,6 +22,7 @@ import torch
 from ..columnar import dtypes as T
 from ..columnar.column import Column
 from ..kernels import strings
+from .cast import as_type
 from .core import Expression, Literal, eval_as_column
 
 
@@ -58,8 +61,8 @@ def _select_columns(branches, batch, out_t: T.DType):
             data = torch.where(take, _scalar_of(val.value, out_t), data)
             valid = valid | take
             continue
-        c = eval_as_column(val, batch)
-        data = torch.where(take, c.data.to(out_t.torch_dtype), data)
+        c = as_type(eval_as_column(val, batch), out_t)
+        data = torch.where(take, c.data, data)
         valid = torch.where(take, c.validity, valid)
     return data, valid
 
@@ -92,6 +95,8 @@ def _select_strings(branches, batch):
 def _scalar_of(value, out_t: T.DType):
     if out_t == T.DATE:
         return T.date_to_days(value)
+    if out_t.is_decimal:
+        return T.unscaled_of(value, out_t.scale)
     return float(value) if out_t.is_fractional else \
         (bool(value) if out_t == T.BOOL else int(value))
 
@@ -185,9 +190,9 @@ class Coalesce(Expression):
         for ch in self.children:
             if _is_null(ch):
                 continue
-            c = eval_as_column(ch, batch)
+            c = as_type(eval_as_column(ch, batch), out_t)
             take = c.validity & ~valid
-            data = torch.where(take, c.data.to(out_t.torch_dtype), data)
+            data = torch.where(take, c.data, data)
             valid = valid | c.validity
         return Column(out_t, data, valid)
 
@@ -225,9 +230,9 @@ class NaNvl(Expression):
 
     def columnar_eval(self, batch):
         out_t = self.dtype()
-        ac, bc = (eval_as_column(c, batch) for c in self.children)
-        a = ac.data.to(out_t.torch_dtype)
-        b = bc.data.to(out_t.torch_dtype)
+        ac, bc = (as_type(eval_as_column(c, batch), out_t)
+                  for c in self.children)
+        a, b = ac.data, bc.data
         use_b = torch.isnan(a) & ac.validity if a.is_floating_point() \
             else torch.zeros_like(ac.validity)
         return Column(out_t, torch.where(use_b, b, a),

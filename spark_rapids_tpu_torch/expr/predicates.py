@@ -2,21 +2,49 @@
 
 Counterpart of ``spark_rapids_tpu/expr/predicates.py``.  Numeric
 comparisons run natively with Spark's order pinned: NaN is greatest and
-equal to itself, -0.0 == 0.0.  Mixed types promote first.  Strings
+equal to itself, -0.0 == 0.0.  Mixed types promote first.  A DECIMAL
+compares exactly with a DECIMAL or an integer (``_decimal_compare``:
+the side of the smaller scale rescales to the larger, and a rescale
+past 18 digits is larger in magnitude than any value of the other side,
+so its sign decides; the reference compares as a double past 18
+digits), and as a double with a float (a literal such as ``100.00`` is
+a double here, as in the reference; a 2-digit decimal's unscaled int
+over 100 is the double nearest its value, so the comparison is exact).  Strings
 compare by bytes: equality with a literal matches the literal's bytes
 (``strings.equal_literal``); any other string comparison runs on both
 sides' key words at one width.
 """
 from __future__ import annotations
 
+import decimal
+
 import torch
 
 from ..columnar import dtypes as T
 from ..columnar.column import Column
+from ..kernels import decimal as dk
 from ..kernels import strings
 from ..kernels.canon import words_less
-from .cast import Cast
+from .cast import Cast, as_type
 from .core import Expression, Literal, eval_as_column
+
+
+def _unscaled(c: Column):
+    """(int64 unscaled values, scale) of a DECIMAL, integer or BOOL
+    column."""
+    return c.data.to(torch.int64), (c.dtype.scale if c.dtype.is_decimal
+                                    else 0)
+
+
+def _decimal_compare(lc: Column, rc: Column):
+    """(lt, eq) of two DECIMAL / integer columns, exact."""
+    (a, sa), (b, sb) = _unscaled(lc), _unscaled(rc)
+    s = max(sa, sb)
+    a2, oka = dk.scale_up(a, s - sa, T.DecimalType.MAX_PRECISION)
+    b2, okb = dk.scale_up(b, s - sb, T.DecimalType.MAX_PRECISION)
+    both = oka & okb
+    lt = torch.where(both, a2 < b2, (~oka & (a < 0)) | (~okb & (b > 0)))
+    return lt, both & (a2 == b2)
 
 
 def promote_comparison_sides(left: Expression, right: Expression):
@@ -85,6 +113,17 @@ class BinaryComparison(Expression):
                     f"comparison of {self.children[0].dtype()} with "
                     f"{self.children[1].dtype()} is not ported")
             return self._string_eval(batch)
+        ltype, rtype = (c.dtype() for c in self.children)
+        if ltype.is_decimal or rtype.is_decimal:
+            lc, rc = (eval_as_column(c, batch) for c in self.children)
+            if ltype.is_fractional or rtype.is_fractional:
+                a, b = (as_type(c, T.FLOAT64).data for c in (lc, rc))
+                an, bn = torch.isnan(a), torch.isnan(b)
+                lt = torch.where(an, False, (a < b) | bn)
+                eq = (a == b) | (an & bn)
+            else:
+                lt, eq = _decimal_compare(lc, rc)
+            return self.compare(lt, eq), lc.validity, rc.validity
         left, right = promote_comparison_sides(*self.children)
         lc = eval_as_column(left, batch)
         rc = eval_as_column(right, batch)
@@ -292,6 +331,15 @@ class In(Expression):
                 c, strings.held_literal(self._lits, str(v)))
         if c.dtype == T.DATE:
             return c.data == T.date_to_days(v)
+        if c.dtype.is_decimal:
+            if isinstance(v, float):
+                return dk.to_double(c.data, c.dtype.scale) == v
+            # an integer or a Decimal (a subquery's IN list), exactly
+            u = decimal.Decimal(v).scaleb(c.dtype.scale)
+            if u != u.to_integral_value() or \
+                    abs(u) > dk.bound(T.DecimalType.MAX_PRECISION):
+                return torch.zeros_like(c.validity)
+            return c.data == int(u)
         a = c.data
         if a.is_floating_point() and isinstance(v, float) and v != v:
             return torch.isnan(a)          # Spark: NaN equals NaN

@@ -1,7 +1,9 @@
 """The file scan operator and the filters it pushes into the reader.
 
 Counterpart of ``TpuFileScan`` in ``spark_rapids_tpu/io/planner.py`` and
-of ``spark_rapids_tpu/io/pushdown.py`` (Parquet only).  The scan's files
+of ``spark_rapids_tpu/io/pushdown.py`` (Parquet only).  A comparison of a
+DECIMAL column with a number pushes down as ``Decimal`` bounds of the
+column's type (``_decimal_leaves``).  The scan's files
 are spread over partitions by size (one file each when there are no
 more files than ``shuffle.partitions``); each file's table is cut into
 batches of at most ``batchSizeRows`` rows and uploaded once per batch,
@@ -14,10 +16,12 @@ the first's batches.  With the cache off a scan streams file by file.
 """
 from __future__ import annotations
 
+import decimal
 import os
 import time
 from typing import List, Optional, Tuple
 
+import pyarrow as pa
 import torch
 
 from .. import config as C
@@ -26,6 +30,7 @@ from ..columnar.arrow import from_arrow
 from ..exec.tpu_basic import Partitions, TpuExec
 from ..expr import core as ec
 from ..expr import predicates as ep
+from ..kernels import decimal as dk
 from ..plan import logical as L
 from .readers import (FilePartitionReader, expand_paths,
                       split_files_into_partitions)
@@ -36,22 +41,49 @@ _OPS = {ep.EqualTo: "==", ep.LessThan: "<", ep.LessThanOrEqual: "<=",
 _FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "=="}
 
 
-def _leaf(e: ec.Expression) -> Optional[Tuple[str, str, object]]:
+def _decimal_leaves(name: str, dt: T.DecimalType, op: str,
+                    value) -> List[Tuple[str, str, object]]:
+    """Filters on a DECIMAL column against a number, as pyarrow
+    ``Decimal`` scalars of the column's type, which prune row groups by
+    their unscaled statistics.  The device compares a float literal as a
+    double (``expr/predicates.py``), so a float's bound widens by one
+    unit of the last digit: the pushed filter keeps every row the
+    device's keeps, and the filter above the scan decides."""
+    if isinstance(value, bool) or not isinstance(value, (int, float)) or \
+            value != value or value in (float("inf"), float("-inf")):
+        return []
+    u = T.unscaled_of(value, dt.scale)
+    slack = 1 if isinstance(value, float) else 0
+    limit = dk.bound(dt.precision)
+
+    def lit(x):
+        return pa.scalar(decimal.Decimal(x).scaleb(-dt.scale), dt.arrow_type)
+    bounds = {">": [(">=", u - slack)] if slack else [(">", u)],
+              ">=": [(">=", u - slack)],
+              "<": [("<=", u + slack)] if slack else [("<", u)],
+              "<=": [("<=", u + slack)],
+              "==": [(">=", u - slack), ("<=", u + slack)]}[op]
+    return [(name, o, lit(x)) for o, x in bounds if -limit <= x <= limit]
+
+
+def _leaf(e: ec.Expression) -> List[Tuple[str, str, object]]:
     op = _OPS.get(type(e))
     if op is None:
-        return None
+        return []
     a, b = e.children
     if isinstance(a, ec.Literal):
         a, b, op = b, a, _FLIP[op]
     if not (isinstance(a, ec.AttributeReference) and
             isinstance(b, ec.Literal)) or b.value is None:
-        return None
+        return []
+    if a._dtype is not None and a._dtype.is_decimal:
+        return _decimal_leaves(a.col_name, a._dtype, op, b.value)
     # floats stay on the device: Spark orders NaN above everything,
     # pyarrow's comparisons do not
     if isinstance(b.value, float) or (a._dtype is not None and
                                       a._dtype.is_fractional):
-        return None
-    return (a.col_name, op, b.value)
+        return []
+    return [(a.col_name, op, b.value)]
 
 
 def to_arrow_filters(cond: ec.Expression) -> Optional[List[tuple]]:
@@ -64,9 +96,7 @@ def to_arrow_filters(cond: ec.Expression) -> Optional[List[tuple]]:
             flatten(x.children[0])
             flatten(x.children[1])
         else:
-            leaf = _leaf(x)
-            if leaf is not None:
-                out.append(leaf)
+            out.extend(_leaf(x))
     flatten(cond)
     return out or None
 

@@ -22,6 +22,7 @@ from typing import List
 import torch
 
 from . import canon
+from . import decimal as dk
 from .basic import SIGN64, compact_indices, umin64
 from .sort import sort_permutation, sorted_words
 
@@ -119,6 +120,17 @@ def seg_sum(plan: GroupPlan, values, validity, out_dtype=None):
     if not contrib.is_floating_point():
         return seg_prefix_sum(plan, contrib.to(torch.int64)).to(acc.dtype)
     return seg_tree_sum(plan, contrib)
+
+
+def seg_sum_exact(plan: GroupPlan, values, validity):
+    """Per-group exact sum of int64 values: ``(sum, fits)``, the sum's
+    int64 where it lies in the int64 range (``fits``), from the sums of
+    the values' 32-bit halves (``kernels/decimal.split_halves``), which
+    cannot wrap."""
+    v, ok = _sorted_vals(plan, values, validity)
+    v = torch.where(ok, v.to(torch.int64), 0)
+    hi, lo = dk.split_halves(v)
+    return dk.join_halves(seg_prefix_sum(plan, hi), seg_prefix_sum(plan, lo))
 
 
 def seg_moments(plan: GroupPlan, values, validity):

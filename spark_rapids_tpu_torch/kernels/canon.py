@@ -6,7 +6,8 @@ lexicographic order is the SQL order of the values; group-bys, joins and
 the hash exchange all key on these words.
 
 - signed ints -> x XOR 0x8000... (order-preserving bias to unsigned);
-                 a DATE is its int32 days, as in the reference
+                 a DATE is its int32 days and a DECIMAL its unscaled
+                 int64, as in the reference (``canon.py:148``)
 - floats      -> NaNs canonicalized to +NaN and -0.0 to 0.0, then the
                  IEEE trick: sign set -> flip all bits, else set the sign.
                  Hopper has native float64 bitcasts, so a DOUBLE is the
@@ -69,7 +70,7 @@ def value_words(col: Column, str_words: int = None) -> List[torch.Tensor]:
         return strings.string_key_words(col, str_words)
     if dt == T.BOOL:
         return [col.data.to(torch.int64)]
-    if dt.is_integral or dt == T.DATE:
+    if dt.is_integral or dt.is_decimal or dt == T.DATE:
         return [_ints_to_words(col.data)]
     if dt.is_fractional:
         return _float_to_words(col.data)

@@ -11,8 +11,8 @@ before the expansion (``outer_counts``); semi and anti joins select probe
 rows by compaction instead of expanding them (``basic.compact_indices``).
 Counts and their prefix sums are int64.
 
-A build side of one integer or DATE key whose valid values span at most
-``DIRECT_MAX_RANGE`` may instead be probed by direct address
+A build side of one integer, DATE or DECIMAL key whose valid values span
+at most ``DIRECT_MAX_RANGE`` may instead be probed by direct address
 (``direct_tables``, the reference's ``_prepare_direct``): two int32
 tables over the key's range give each probe row its count and first
 position in the sorted build (``cuda_ops.direct_probe``, which reads
@@ -130,14 +130,16 @@ class DirectTables:
 
 
 def direct_keyable(dtype) -> bool:
-    """Whether a key of ``dtype`` may be probed by direct address."""
-    return dtype.is_integral or dtype == T.DATE
+    """Whether a key of ``dtype`` may be probed by direct address: an
+    integer, a DATE, or a DECIMAL by its unscaled int64 (the reference's
+    ``tpu_join.py:268``)."""
+    return dtype.is_integral or dtype.is_decimal or dtype == T.DATE
 
 
 def direct_tables(col: Column, rows) -> Optional[DirectTables]:
     """The direct-address tables of a build key column of ``rows`` live
-    rows (int or device count), or None when the key is not an integer
-    or DATE or its valid values span more than ``DIRECT_MAX_RANGE``.
+    rows (int or device count), or None when the key is not an integer,
+    DATE or DECIMAL or its valid values span more than ``DIRECT_MAX_RANGE``.
     Reads the key's range and null count to the host: one read per
     build.  ``excl`` indexes the build as ``build`` sorts it: nulls first
     (rank word 0), then the valid keys, then the dead rows."""

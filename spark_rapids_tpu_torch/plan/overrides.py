@@ -55,7 +55,12 @@ Plays the role of ``spark_rapids_tpu/plan/overrides.py`` for the port:
   then one ``TpuWindow`` batch;
 - an expand (grouping sets) is a ``TpuExpand`` over its child's
   partitions (the reference's rule); the aggregate over it plans as
-  every aggregate: partial, exchange on the keys and ``__gid``, final.
+  every aggregate: partial, exchange on the keys and ``__gid``, final;
+- with ``decimalType.enabled`` off, a plan any of whose operators
+  carries a DECIMAL column (after the scans are narrowed) raises, naming
+  the key:
+  the reference runs such a plan on its CPU engine
+  (``overrides.py:262``), which the port does not have.
 """
 from __future__ import annotations
 
@@ -110,7 +115,25 @@ def _stage_ops(node: L.LogicalPlan):
 
 def plan_physical(node: L.LogicalPlan, conf: C.TpuConf,
                   device: torch.device) -> TpuExec:
-    return _plan(prune_scan_columns(node), conf, device)
+    node = prune_scan_columns(node)
+    if not conf.get(C.DECIMAL_ENABLED):
+        _refuse_decimals(node)
+    return _plan(node, conf, device)
+
+
+def _refuse_decimals(node: L.LogicalPlan, root: bool = True) -> None:
+    """Raises if an operator of the plan (or the plan's only node)
+    carries a DECIMAL column; a leaf's columns that no operator keeps are
+    not read."""
+    dec = [f.name for f in node.schema if f.dtype.is_decimal] \
+        if node.children or root else []
+    if dec:
+        raise NotImplementedError(
+            f"{type(node).__name__} carries DECIMAL columns {dec} and "
+            f"{C.DECIMAL_ENABLED} is off: the port has no CPU engine to "
+            f"fall back to")
+    for c in node.children:
+        _refuse_decimals(c, False)
 
 
 def _plan(node: L.LogicalPlan, conf: C.TpuConf,

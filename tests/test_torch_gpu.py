@@ -1188,3 +1188,124 @@ def test_adaptive_join_on_card_equals_cpu(monkeypatch, how):
     assert bool(join.splits) == (how != "full")
     assert got.num_rows > 100_000
     assert got.equals(_skewed_join(cpu, how).to_arrow())
+
+
+# -- DECIMAL64 (phase 16) ---------------------------------------------------
+
+def _decimal_column(rng, n, lo, hi, scale, device="cuda", null_frac=0.1):
+    """A decimal(12, scale) column of unscaled ints in [lo, hi) with
+    NULLs, on ``device``."""
+    data = torch.from_numpy(rng.integers(lo, hi, n)).to(device)
+    valid = torch.from_numpy(rng.random(n) >= null_frac).to(device)
+    return Column(T.DecimalType(12, scale), data, valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,table", [(1 << 20, 4096), (50_003, 512)])
+def test_table_stage_decimal_key_and_minmax_match_plain(n, table):
+    """B2 with a DECIMAL group key (its unscaled int64's order word, packed
+    by ``table_bucket``) and DECIMAL min / max (the reference's
+    ``iminmax``: ``fmin64`` / ``fmax64`` over the unscaled values): one
+    launch, every table bit for bit equal to ``table_stage_plain``."""
+    _need_card()
+    from spark_rapids_tpu_torch.kernels import aggregate as agg_k
+    from spark_rapids_tpu_torch.kernels import canon
+    rng = np.random.default_rng(n)
+    key = _decimal_column(rng, n, -200, table - 300, 2)
+    live = torch.arange(n, device="cuda") < n - 7
+    bucket, fit, _, _ = agg_k.table_bucket(canon.value_words(key), [
+        key.validity], live, table)
+    assert bool(fit)
+    vals = _decimal_column(rng, n, -10 ** 12, 10 ** 12, 4)
+    cols = [cuda_ops.StageCol("count")]
+    for kind in ("fmin64", "fmax64", "first"):
+        sc, ok = TpuHashAggregate._stage_col(kind, vals, live)
+        assert bool(ok)
+        cols.append(sc)
+    before = dict(cuda_ops.LAUNCHES)
+    got = cuda_ops.table_stage(bucket, table, cols)
+    assert cuda_ops.LAUNCHES["table_reduce"] == before["table_reduce"] + 1
+    assert cuda_ops.LAUNCHES["table_reduce_min"] == \
+        before["table_reduce_min"] + 1
+    want = cuda_ops.table_stage_plain(bucket, table, cols)
+    for c, g, w in zip(cols, got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and torch.equal(a, b), c.kind
+    # a DECIMAL past 2^48 leaves the max word's exact range: sort path
+    big = Column(vals.dtype, vals.data * 10 ** 4, vals.validity)
+    assert not bool(TpuHashAggregate._stage_col("fmax64", big, live)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count_on", ["host", "device"])
+def test_direct_probe_decimal_key_matches_plain_and_search(count_on):
+    """``direct_probe`` on a DECIMAL key (its unscaled int64s, with
+    NULLs, negatives and keys outside the build): one launch, equal to
+    ``direct_probe_plain`` and to the search's (lo, counts)."""
+    _need_card()
+    from spark_rapids_tpu_torch.kernels import canon
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    rng = np.random.default_rng(12)
+    build = _decimal_column(rng, 5000, -70_000, 50_000, 2)
+    blive = torch.ones(5000, dtype=torch.bool, device="cuda")
+    bt = join_k.build(canon.column_key_words(build, blive))
+    dt = join_k.direct_tables(build, 5000)
+    assert dt is not None and dt.smin < 0
+    probe = _decimal_column(rng, 1 << 19, -74_000, 54_000, 2)
+    rows = (1 << 19) - 1000
+    live = torch.arange(1 << 19, device="cuda") < rows
+    words = canon.column_key_words(probe, live)
+    if count_on == "device":
+        rows = torch.tensor(rows, device="cuda")
+    before = cuda_ops.LAUNCHES["direct_probe"]
+    got = join_k.direct_counts(dt, probe, rows)
+    assert cuda_ops.LAUNCHES["direct_probe"] == before + 1
+    plo, pcnt = cuda_ops.direct_probe_plain(
+        probe.data, probe.validity, rows, dt.smin, dt.smax, dt.hist,
+        dt.excl, dt.nnull, dt.nvalid)
+    want = join_k.probe_counts(bt, words, live, [0])
+    assert torch.equal(got.lo, plo) and torch.equal(got.counts, pcnt)
+    assert torch.equal(got.lo, want.lo) and torch.equal(got.counts,
+                                                        want.counts)
+
+
+@pytest.mark.gpu
+def test_decimal_queries_on_card_equal_cpu():
+    """A DECIMAL group key with DECIMAL min and max behind an exchange
+    (B2's table core), and a semi join on one DECIMAL key with a DECIMAL
+    sum (the sort path), on the card: B1, B2 and ``direct_probe`` launch,
+    and the rows equal the CPU's bit for bit."""
+    _need_card()
+    import pyarrow as pa
+    rng = np.random.default_rng(16)
+    n = 1 << 20
+    cents = rng.integers(0, 20_000, n)
+    fact = pa.table({
+        "price": chip_smoke.decimal128_array(cents, 7, 2),
+        "band": chip_smoke.decimal128_array(cents // 100, 7, 0),
+        "profit": chip_smoke.decimal128_array(
+            rng.integers(-10 ** 8, 10 ** 8, n), 7, 2)})
+    dim = pa.table({"p": chip_smoke.decimal128_array(
+        rng.choice(20_000, 3000, replace=False), 7, 2)})
+
+    def run(device):
+        s = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                1 << 19}), device=device)
+        # two partitions of 1<<19 rows: each streams the direct probe's
+        # least capacity (kernels/join.DIRECT_MIN_STREAM)
+        s.create_dataframe(fact, 2).create_or_replace_temp_view("f")
+        s.create_dataframe(dim).create_or_replace_temp_view("d")
+        cuda_ops.reset_launches()
+        agg = s.sql("select band, count(*) c, min(profit) lo, max(profit) "
+                    "hi from f group by band order by band").to_arrow()
+        semi = s.sql("select count(*) c, sum(profit) s from f where price "
+                     "in (select p from d)").to_arrow()
+        return agg, semi, dict(cuda_ops.LAUNCHES)
+    agg, semi, launches = run("cuda")
+    for name in ("hash_partition_ids", "table_reduce", "table_reduce_min",
+                 "direct_probe"):
+        assert launches[name] > 0, name
+    cagg, csemi, _ = run("cpu")
+    assert agg.equals(cagg) and semi.equals(csemi)
+    assert str(agg.schema.field("lo").type) == "decimal128(7, 2)"
+    assert str(semi.schema.field("s").type) == "decimal128(17, 2)"
