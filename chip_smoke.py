@@ -7,7 +7,7 @@ Runs from the repository root:
     python3 chip_smoke.py --device cpu --rows 200000 --sf 0.05 --ds-sf 0.1
                                                # rehearsal on the CPU
     python3 chip_smoke.py --parent DIR         # also time DIR's kernels
-    python3 chip_smoke.py --only 11            # phase 11 (12-14, 16) alone;
+    python3 chip_smoke.py --only 11            # phase 11 (12-14, 16, 17) alone;
                                                # 15: phases 5 and 15 (b)
                                                # (no contract line)
 
@@ -23,7 +23,10 @@ Phases (any failure exits non-zero):
    join probe at q17's and q78's join partitions, at one key, at the star
    joins' four dimensions and at a build past the L2; the direct-address
    probe at the four star dimensions, beside the search at each, and
-   equal to its (lo, counts)), device-timed
+   equal to its (lo, counts); phase 17's ``like_match`` on a batch of
+   o_comment rows with Q13's pattern, ``format_double`` on random
+   doubles and ``parse_double`` on their texts, each row equal),
+   device-timed
    behind a sleep kernel (``time_cuda``) beside its byte bound (3.35
    TB/s), its host cost per call, the plain version and a one-call
    PyTorch yardstick where one exists; the probe's separator table
@@ -159,13 +162,27 @@ Phases (any failure exits non-zero):
    exactly (a value past 18 digits NULL; Q1 prints each group's
    sum_charge margin to 10^18), doubles at 1e-9, (b) also the float
    tables' answers at 1e-9; runs byte-identical; D1-D3 must launch B1,
-   B2 and its min kind, ``direct_probe`` and ``join_probe``.
+   B2 and its min kind, ``direct_probe`` and ``join_probe``;
+17. the string library, general LIKE and the casts to and from STRING
+   (``strings_phase``): (a) TPC-H Q13, Q16 and Q22 (H17_TEXTS, two
+   printed rewrites) over customer, orders, part, partsupp and supplier
+   at scale ``--sf`` with their strings (``make_tpch17``: comments from
+   the spec's text grammar, phones, brands, types, clerks); (b) S1, the
+   string library over orders grouped by a key the library builds, and
+   S2, every cast to and from STRING over 15M rows of random float bit
+   patterns, int64s, DATEs, DECIMALs and junk text (``make_s2``), each
+   row checked against the reference process's answers.  Each runs cold
+   and twice warm; rows equal the reference (``h17_references``), runs
+   byte-identical; Q13, Q16 and S1 must launch ``like_match``, S2
+   ``format_double`` and ``parse_double``, Q16 and S1 B1, Q13 B2, Q13,
+   Q16 and Q22 a join probe.
 From phase 6 on a path passes if it launched either join probe (the
 search or the direct-address one).
 A reference process writes phases 6 and 7's tables while the card runs
 phases 4 and 5 (``write_ds_tables``), then computes phase 7's and 14's
 pyarrow references; from phase 6 on, one more writes phase 16's tables
-and references (``write_decimal_tables``, ``ds16_references``).
+and references (``write_decimal_tables``, ``ds16_references``), and one
+more phase 17's (``write_strings_tables``, ``h17_references``).
 Phases 8-13 run in three processes of their own (PHASE_GROUPS: 8-9,
 10-11, 12-13), each on a session of its own beside
 the main process's phases 6, 7 and 14, each with one more process that
@@ -801,6 +818,8 @@ def query_stage_inputs(rng, n: int, table: int, stage: str):
 
 #: B2's kinds of this slice, each with a kernel line of its own
 NEW_B2_KINDS = ("table_reduce_min", "table_reduce_firstlast")
+#: the kernels of phase 17's string library and casts, on its path alone
+TEXT_KERNELS = ("like_match", "format_double", "parse_double")
 #: the two probes of the join: a path must launch one of them (a join
 #: whose build has one integer key of a narrow range probes directly)
 PROBES = "join_probe|direct_probe"
@@ -927,6 +946,10 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     probe_main = probe(lambda: probe_inputs(rng, 3), " (q17's join)")
     direct_main = lambda: check_direct_probe(
         star_direct_inputs(rng, "date_dim"), " (date_dim star)")
+    # phase 17's kernels at its batches (h17_batch_rows at SF10)
+    like_main = lambda: check_like_match(rng, big)
+    format_main = lambda: check_format_double(rng, big)
+    parse_main = lambda: check_parse_double(rng, big)
     checks = [
         # B1: the split at the main path's shape (a partial table of 4096
         # slots, ~1000 live), at a whole batch, and at the partition limit
@@ -990,6 +1013,7 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
                                   "table_reduce_min"),
         lambda: check_direct_probe(decimal_direct_inputs(rng),
                                    " (D2's DECIMAL key)"),
+        like_main, format_main, parse_main,
     ]
     if parent:
         checks += [
@@ -1003,7 +1027,8 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     for measure in checks:
         entry = measure()
         if measure in (split_main, stage_main, probe_main, min_main,
-                       firstlast_main, direct_main):
+                       firstlast_main, direct_main, like_main, format_main,
+                       parse_main):
             main[entry["name"]] = entry
         print("kernel", json.dumps(entry), flush=True)
     main["join_probe"]["tradeoff"] = {
@@ -1158,7 +1183,9 @@ STAGE_REPLACED_OPS = ("aten::scatter_reduce_", "aten::index_add_",
 #: the kernels of spark_rapids_tpu_torch/csrc, by name
 PORT_KERNELS = ("hash_partition_kernel", "split_hist_kernel",
                 "split_scan_kernel", "split_scatter_kernel",
-                "table_stage_kernel", "join_probe_kernel")
+                "table_stage_kernel", "join_probe_kernel",
+                "direct_probe_kernel", "like_match_kernel",
+                "format_double_kernel", "parse_double_kernel")
 
 
 def profile_query(df) -> set:
@@ -7361,6 +7388,1022 @@ def decimal_phase(args, kernels_used, data_dir: str, ahead=None) -> dict:
     return launches
 
 
+# -- phase 17: the string library, LIKE and the casts to and from STRING -----
+
+#: the words of TPC-H's text grammar (spec 4.2.2.10, dbgen's dists.dss);
+#: the lists are dbgen's words as far as they are known here, each word
+#: drawn with equal weight but those dbgen weighs most, listed twice
+#: (a departure from dbgen's weights)
+H17_NOUNS = ("packages requests accounts deposits foxes ideas theodolites "
+             "pinto-beans instructions dependencies excuses platelets "
+             "asymptotes courts dolphins multipliers sauternes warthogs "
+             "frets dinos attainments somas Tiresias' patterns forges "
+             "braids hockey-players frays warhorses dugouts notornis "
+             "epitaphs pearls tithes waters orbits gifts sheaves depths "
+             "sentiments decoys realms pains grouches escapades "
+             "packages requests accounts deposits").split()
+H17_VERBS = ("sleep wake are cajole haggle nag use boost affix detect "
+             "integrate maintain nod was lose sublate solve thrash promise "
+             "engage hinder print x-ray breach eat grow impress mold poach "
+             "serve run dazzle snooze doze unwind kindle play hang believe "
+             "doubt sleep wake are cajole haggle").split()
+H17_ADJECTIVES = ("special pending unusual express furious sly careful "
+                  "blithe quick fluffy slow quiet ruthless thin close "
+                  "dogged daring brave stealthy permanent enticing idle "
+                  "busy regular final ironic even bold silent "
+                  "special pending unusual express regular final "
+                  "ironic").split()
+H17_ADVERBS = ("sometimes always never furiously slyly carefully blithely "
+               "quickly fluffily slowly quietly ruthlessly thinly closely "
+               "doggedly daringly bravely stealthily permanently "
+               "enticingly idly busily regularly finally ironically "
+               "evenly boldly silently furiously slyly carefully").split()
+H17_PREPOSITIONS = ("about above according-to across after against along "
+                    "alongside-of among around at atop before behind "
+                    "beneath beside besides between beyond by despite "
+                    "during except for from in-place-of inside instead-of "
+                    "into near of on outside over past since through "
+                    "throughout to toward under until up upon without with "
+                    "within").split()
+H17_AUXILIARIES = ("do may might shall will would can could should "
+                   "ought-to must will-have-to shall-have-to could-have-to "
+                   "should-have-to must-have-to need-to try-to").split()
+H17_TERMINATORS = (".", ";", ":", "?", "!", "--")
+H17_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                  "5-LOW")
+H17_TYPES = ("STANDARD SMALL MEDIUM LARGE ECONOMY PROMO".split(),
+             "ANODIZED BURNISHED PLATED POLISHED BRUSHED".split(),
+             "TIN NICKEL BRASS STEEL COPPER".split())
+H17_ORDER_PARTS = 8
+H17_TABLES = ("customer", "orders", "part", "partsupp", "supplier", "s2")
+
+
+def h17_text_pool(seed: int, nbytes: int) -> np.ndarray:
+    """uint8 bytes of sentences of TPC-H's grammar (spec 4.2.2.10): a noun
+    phrase, a verb phrase and optionally a prepositional phrase or a
+    second noun phrase, then a terminator, words joined by spaces (a
+    hyphen in a word list above stands for a space)."""
+    import random
+    r = random.Random(seed)
+    pick = r.choice
+
+    def noun_phrase():
+        k = r.randrange(4)
+        n = pick(H17_NOUNS)
+        if k == 0:
+            return [n]
+        if k == 1:
+            return [pick(H17_ADJECTIVES), n]
+        if k == 2:
+            return [pick(H17_ADJECTIVES) + ",", pick(H17_ADJECTIVES), n]
+        return [pick(H17_ADVERBS), pick(H17_ADJECTIVES), n]
+
+    def verb_phrase():
+        k = r.randrange(4)
+        v = [pick(H17_AUXILIARIES)] if k in (1, 3) else []
+        v.append(pick(H17_VERBS))
+        return v + ([pick(H17_ADVERBS)] if k in (2, 3) else [])
+
+    def prep_phrase():
+        return [pick(H17_PREPOSITIONS), "the"] + noun_phrase()
+    out, size = [], 0
+    while size < nbytes:
+        k = r.randrange(5)
+        words = noun_phrase()
+        if k in (3, 4):
+            words += prep_phrase()
+        words += verb_phrase()
+        if k in (1, 4):
+            words += prep_phrase()
+        elif k in (2, 3):
+            words += noun_phrase()
+        text = " ".join(words).replace("-", " ")
+        text = text.replace("x ray", "x-ray") + pick(H17_TERMINATORS) + " "
+        out.append(text)
+        size += len(text)
+    return np.frombuffer("".join(out).encode(), np.uint8)
+
+
+def pool_strings(r, pool: np.ndarray, n: int, lo: int, hi: int):
+    """n strings of lo..hi bytes, each a random window of the text pool
+    (dbgen's comments): lengths, then offsets, then one byte gather."""
+    import pyarrow as pa
+    lens = r.integers(lo, hi + 1, n)
+    starts = r.integers(0, pool.shape[0] - hi, n)
+    offs = np.zeros(n + 1, np.int64)
+    offs[1:] = np.cumsum(lens)
+    idx = np.repeat(starts - offs[:-1], lens) + np.arange(offs[-1])
+    return pa.Array.from_buffers(pa.string(), n, [
+        None, pa.py_buffer(offs.astype(np.int32)), pa.py_buffer(pool[idx])])
+
+
+def fixed_strings(mat: np.ndarray):
+    """A string array of the rows of a uint8 matrix (one width)."""
+    import pyarrow as pa
+    n, w = mat.shape
+    offs = (np.arange(n + 1, dtype=np.int64) * w).astype(np.int32)
+    return pa.Array.from_buffers(pa.string(), n, [
+        None, pa.py_buffer(offs), pa.py_buffer(np.ascontiguousarray(mat))])
+
+
+def digits_of(v: np.ndarray, width: int) -> np.ndarray:
+    """uint8[n, width]: ASCII digits of v, zero-padded."""
+    p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return (48 + (v[:, None] // p) % 10).astype(np.uint8)
+
+
+def make_tpch17(out_dir: str, sf: float, seed: int) -> dict:
+    """TPC-H's customer, orders, part, partsupp and supplier by spec 4.2.3
+    at scale ``sf``, with the columns Q13, Q16, Q22 and S1 read, as
+    Parquet under ``out_dir``: c_phone ``CC-LLL-LLL-LLLL`` with CC =
+    nationkey + 10 and c_acctbal decimal(15,2) in [-999.99, 9999.99];
+    o_custkey never a multiple of 3, o_comment 19-78 bytes of the text
+    pool, o_orderpriority, o_clerk ``Clerk#%09d``, o_orderstatus,
+    o_totalprice decimal(15,2), o_orderdate; p_brand ``Brand#MN``,
+    p_type of the spec's three syllable lists, p_size 1-50; partsupp's
+    four suppliers of each part; s_comment 25-100 bytes, with
+    ``Customer ... Complaints`` in 5 rows of 10,000 (at least 2) and
+    ``Customer ... Recommends`` in as many.  Returns row counts."""
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+    os.makedirs(out_dir, exist_ok=True)
+    r = np.random.default_rng([seed, 17])
+    n_cust = max(int(150_000 * sf), 300)
+    n_orders = max(int(1_500_000 * sf), 3000)
+    n_part = max(int(200_000 * sf), 400)
+    n_supp = max(int(10_000 * sf), 40)
+    pool = h17_text_pool(seed, max(1 << 20, int(800_000 * sf)))
+
+    def write(name, table, parts=1):
+        path = os.path.join(out_dir, f"{name}.parquet")
+        os.makedirs(path, exist_ok=True)
+        bounds = np.linspace(0, table.num_rows, parts + 1).astype(int)
+        for p in range(parts):
+            papq.write_table(table.slice(bounds[p], bounds[p + 1] -
+                                         bounds[p]),
+                             os.path.join(path, f"part-{p:05d}.parquet"))
+    nation = r.integers(0, 25, n_cust)
+    phone = np.concatenate([
+        digits_of(nation + 10, 2), np.full((n_cust, 1), 45, np.uint8),
+        digits_of(r.integers(100, 1000, n_cust), 3),
+        np.full((n_cust, 1), 45, np.uint8),
+        digits_of(r.integers(100, 1000, n_cust), 3),
+        np.full((n_cust, 1), 45, np.uint8),
+        digits_of(r.integers(1000, 10000, n_cust), 4)], 1)
+    write("customer", pa.table({
+        "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
+        "c_nationkey": nation.astype(np.int32),
+        "c_phone": fixed_strings(phone),
+        "c_acctbal": decimal128_array(r.integers(-99_999, 1_000_000,
+                                                 n_cust), 15, 2)}))
+    bounds = np.linspace(0, n_orders, H17_ORDER_PARTS + 1).astype(np.int64)
+    path = os.path.join(out_dir, "orders.parquet")
+    os.makedirs(path, exist_ok=True)
+    clerks = max(int(1000 * sf), 10)
+    for p in range(H17_ORDER_PARTS):
+        rp = np.random.default_rng([seed, 17, p])
+        i = np.arange(bounds[p], bounds[p + 1], dtype=np.int64)
+        m = i.shape[0]
+        # customers whose key is a multiple of 3 place no order
+        k = rp.integers(0, n_cust - n_cust // 3, m)
+        custkey = 3 * (k // 2) + 1 + k % 2
+        clerk = np.concatenate([np.frombuffer(b"Clerk#" * m, np.uint8)
+                                .reshape(m, 6),
+                                digits_of(rp.integers(1, clerks + 1, m), 9)],
+                               1)
+        papq.write_table(pa.table({
+            "o_orderkey": (i // 8) * 32 + i % 8 + 1,
+            "o_custkey": custkey,
+            "o_orderstatus": pa.array(["F", "O", "P"]).take(
+                rp.choice(3, m, p=[0.487, 0.487, 0.026])),
+            "o_totalprice": decimal128_array(rp.integers(85_000, 55_000_000,
+                                                         m), 15, 2),
+            "o_orderdate": pa.array(rp.integers(8035, 10441, m).astype(
+                np.int32)).cast(pa.date32()),
+            "o_orderpriority": pa.array(H17_PRIORITIES).take(
+                rp.integers(0, 5, m)),
+            "o_clerk": fixed_strings(clerk),
+            "o_comment": pool_strings(rp, pool, m, 19, 78)}),
+            os.path.join(path, f"part-{p:05d}.parquet"))
+    types = [f"{a} {b} {c}" for a in H17_TYPES[0] for b in H17_TYPES[1]
+             for c in H17_TYPES[2]]
+    brands = [f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6)]
+    write("part", pa.table({
+        "p_partkey": np.arange(1, n_part + 1, dtype=np.int64),
+        "p_brand": pa.array(brands).take(r.integers(0, 25, n_part)),
+        "p_type": pa.array(types).take(r.integers(0, len(types), n_part)),
+        "p_size": r.integers(1, 51, n_part).astype(np.int32)}))
+    ps_part = np.repeat(np.arange(1, n_part + 1, dtype=np.int64), 4)
+    write("partsupp", pa.table({
+        "ps_partkey": ps_part,
+        "ps_suppkey": ps_suppkey(ps_part, np.tile(np.arange(4), n_part),
+                                 n_supp),
+        "ps_availqty": r.integers(1, 10_000, 4 * n_part).astype(np.int32)}))
+    comments = pool_strings(r, pool, n_supp, 25, 100).to_pylist()
+    special = max(2, int(5 * sf))
+    rows = r.choice(n_supp, 2 * special, replace=False)
+    for j, row in enumerate(rows):
+        c = comments[row]
+        tail = "Complaints" if j < special else "Recommends"
+        mid = c[:r.integers(0, 12)]
+        at = r.integers(0, max(1, len(c) - len(mid) - 18))
+        comments[row] = (c[:at] + "Customer " + mid + tail + c[at:])[:100]
+    write("supplier", pa.table({
+        "s_suppkey": np.arange(1, n_supp + 1, dtype=np.int64),
+        "s_comment": pa.array(comments)}))
+    return dict(customer=n_cust, orders=n_orders, part=n_part,
+                partsupp=4 * n_part, supplier=n_supp, complaints=special)
+
+
+#: the texts of phase 17 (a): TPC-H Q13, Q16 and Q22 (spec 2.4.13, 2.4.16,
+#: 2.4.22, with the spec's validation parameters), rewritten only where
+#: the port's parser lacks the form (H17_REWRITES)
+H17_TEXTS = {
+    "Q13": "select c_count, count(*) as custdist from (select c_custkey, "
+           "count(o_orderkey) as c_count from customer left outer join "
+           "orders on c_custkey = o_custkey and o_comment not like "
+           "'%special%requests%' group by c_custkey) as c_orders group by "
+           "c_count order by custdist desc, c_count desc",
+    "Q16": "select p_brand, p_type, p_size, count(distinct ps_suppkey) as "
+           "supplier_cnt from partsupp, part where p_partkey = ps_partkey "
+           "and p_brand <> 'Brand#45' and p_type not like 'MEDIUM POLISHED%' "
+           "and p_size in (49, 14, 23, 45, 19, 3, 36, 9) and ps_suppkey not "
+           "in (select s_suppkey from supplier where s_comment like "
+           "'%Customer%Complaints%') group by p_brand, p_type, p_size "
+           "order by supplier_cnt desc, p_brand, p_type, p_size",
+    "Q22": "select cntrycode, count(*) as numcust, sum(c_acctbal) as "
+           "totacctbal from (select substring(c_phone, 1, 2) as cntrycode, "
+           "c_acctbal from customer where substring(c_phone, 1, 2) in "
+           "('13', '31', '23', '29', '30', '18', '17') and c_acctbal > "
+           "(select avg(c_acctbal) from customer where c_acctbal > 0.00 and "
+           "substring(c_phone, 1, 2) in ('13', '31', '23', '29', '30', '18', "
+           "'17')) and not exists (select * from orders where o_custkey = "
+           "c_custkey)) as custsale group by cntrycode order by cntrycode",
+}
+H17_REWRITES = (
+    "Q13: the derived table's column list c_orders (c_custkey, c_count) "
+    "becomes the alias 'count(o_orderkey) as c_count' in its select list",
+    "Q22: substring(c_phone from 1 for 2) becomes substring(c_phone, 1, 2)")
+#: phase 17 (b): S1, the string library over orders, grouped by a key the
+#: library builds (a string key: the sort path behind a B1 exchange); S2,
+#: the casts to and from STRING over the phase's own table ``s2``, each
+#: checked on every row against the reference process's answers stored
+#: beside it (``ex_*``), as one row of mismatch counts
+DS17_OWN = {
+    "S1": "select lpad(substr(o_clerk, 10, 3), 5, '*') as band, count(*) "
+          "as n, sum(length(trim(o_comment))) as trimmed, "
+          "sum(instr(o_comment, 'ly')) as ly_at, sum(locate('the', "
+          "o_comment, 5)) as the_at, max(reverse(o_comment)) as rev, "
+          "max(initcap(o_comment)) as cap, min(replace(o_comment, 'e', "
+          "'EE')) as rep, max(concat_ws('|', o_orderpriority, "
+          "rtrim(o_comment))) as joined, max(rpad(o_orderpriority, 12, "
+          "'.')) as padded, sum(length(repeat(o_orderstatus, 3))) as "
+          "rep_len, max(md5(o_comment)) as digest, "
+          "max(greatest(o_orderpriority, o_clerk)) as top, sum(case when "
+          "o_comment like '%fu_ious%' then 1 else 0 end) as furious, "
+          "sum(case when o_comment like '%ly\\_%' then 1 else 0 end) as "
+          "escaped from orders group by lpad(substr(o_clerk, 10, 3), 5, "
+          "'*') order by band",
+    "S2": "select count(*) as n, "
+          "sum(case when cast(x as string) = ex_sx then 0 else 1 end) as "
+          "bad_sx, sum(case when cast(f as string) = ex_sf then 0 else 1 "
+          "end) as bad_sf, sum(case when cast(i as string) = ex_si then 0 "
+          "else 1 end) as bad_si, sum(case when cast(d as string) = ex_sd "
+          "then 0 else 1 end) as bad_sd, sum(case when cast(m as string) = "
+          "ex_sm then 0 else 1 end) as bad_sm, "
+          "sum(case when cast(cast(x as string) as double) = x then 0 else "
+          "1 end) as bad_rx, sum(case when cast(cast(f as string) as float) "
+          "= f then 0 else 1 end) as bad_rf, sum(case when cast(cast(i as "
+          "string) as bigint) = i then 0 else 1 end) as bad_ri, sum(case "
+          "when cast(cast(d as string) as date) = d then 0 else 1 end) as "
+          "bad_rd, sum(case when cast(cast(m as string) as decimal(15,2)) = "
+          "m then 0 else 1 end) as bad_rm, "
+          "sum(case when cast(x as decimal(12,2)) = ex_c6 or (cast(x as "
+          "decimal(12,2)) is null and ex_c6 is null) then 0 else 1 end) as "
+          "bad_c6, count(ex_c6) as n_c6, "
+          "sum(case when cast(j as int) = ex_ji or (cast(j as int) is null "
+          "and ex_ji is null) then 0 else 1 end) as bad_ji, "
+          "sum(case when cast(j as bigint) = ex_jl or (cast(j as bigint) is "
+          "null and ex_jl is null) then 0 else 1 end) as bad_jl, "
+          "sum(case when cast(j as double) = ex_jd or (isnan(cast(j as "
+          "double)) and isnan(ex_jd)) or (cast(j as double) is null and "
+          "ex_jd is null) then 0 else 1 end) as bad_jd, "
+          "sum(case when cast(j as decimal(10,3)) = ex_jm or (cast(j as "
+          "decimal(10,3)) is null and ex_jm is null) then 0 else 1 end) as "
+          "bad_jm, sum(case when cast(j as date) = ex_jt or (cast(j as "
+          "date) is null and ex_jt is null) then 0 else 1 end) as bad_jt, "
+          "sum(case when cast(j as boolean) = ex_jb or (cast(j as boolean) "
+          "is null and ex_jb is null) then 0 else 1 end) as bad_jb, "
+          "count(ex_ji) as n_ji, count(ex_jd) as n_jd, count(ex_jm) as "
+          "n_jm, count(ex_jt) as n_jt, count(ex_jb) as n_jb from s2",
+}
+#: S2's rows the main process also collects and compares itself, value by
+#: value (the float round trips bit for bit)
+S2_SLICE = ("select id, cast(x as string) sx, cast(f as string) sf, "
+            "cast(cast(x as string) as double) rx, cast(cast(f as string) "
+            "as float) rf, cast(x as decimal(12,2)) c6, cast(j as double) "
+            "jd, cast(j as int) ji, cast(j as date) jt from s2 where id < "
+            "{rows}")
+H17_ORDER = {"Q13": [(1, False), (0, False)],
+             "Q16": [(3, False), (0, True), (1, True), (2, True)],
+             "Q22": [(0, True)], "S1": [(0, True)], "S2": None}
+#: the kernels each text must launch on the card (B1 counts as
+#: hash_partition_ids; either probe as PROBES)
+H17_NEEDS = {"Q13": ("like_match", "table_reduce", PROBES),
+             "Q16": ("like_match", "hash_partition_ids", PROBES),
+             "Q22": (PROBES,), "S1": ("like_match", "hash_partition_ids"),
+             "S2": ("format_double", "parse_double")}
+#: distinct values of S2's float columns (its rows draw from them)
+S2_DISTINCT = 1 << 20
+
+
+def h17_batch_rows(sf: float) -> int:
+    """Phase 17's batchSizeRows: 1<<22 at SF10, with the scale below."""
+    return max(1 << 14, int((1 << 22) * min(sf, 10.0) / 10.0))
+
+
+def strings_dir(data_dir: str) -> str:
+    """Where phase 17's tables are (``write_strings_tables``)."""
+    return os.path.join(data_dir, "strings17")
+
+
+def java_layout(digits: str, e: int, negative: bool) -> str:
+    """Java's ``Double.toString`` layout of ``0.d1d2... x 10^(e + 1)``
+    (``digits`` without leading or trailing zeros)."""
+    s = "-" if negative else ""
+    if -3 <= e < 7:
+        if e >= 0:
+            return s + digits[:e + 1].ljust(e + 1, "0") + "." + \
+                (digits[e + 1:] or "0")
+        return s + "0." + "0" * (-e - 1) + digits
+    return s + digits[0] + "." + (digits[1:] or "0") + "E" + str(e)
+
+
+def _java_text(text: str, negative: bool) -> str:
+    """``java_layout`` of a shortest repr ``d[.ddd][e±n]``."""
+    mant, _, ex = text.partition("e")
+    whole, _, frac = mant.partition(".")
+    ds = whole + frac
+    lead = len(ds) - len(ds.lstrip("0"))
+    e = int(ex or 0) + len(whole) - 1 - lead
+    return java_layout(ds.strip("0") or "0", e, negative)
+
+
+def java_double_text(x: float) -> str:
+    """Java's ``Double.toString(x)`` with the shortest digits
+    (``repr``)."""
+    if x != x:
+        return "NaN"
+    if x in (math.inf, -math.inf):
+        return "Infinity" if x > 0 else "-Infinity"
+    if x == 0:
+        return "-0.0" if math.copysign(1.0, x) < 0 else "0.0"
+    return _java_text(repr(abs(x)), x < 0)
+
+
+def java_float_text(x) -> str:
+    """Java's ``Float.toString(x)`` with the shortest float digits
+    (numpy's float32 repr)."""
+    x = np.float32(x)
+    if np.isnan(x):
+        return "NaN"
+    if np.isinf(x):
+        return "Infinity" if x > 0 else "-Infinity"
+    if x == 0:
+        return "-0.0" if np.signbit(x) else "0.0"
+    text = np.format_float_scientific(abs(x), unique=True, trim="-")
+    return _java_text(text.replace("e+", "e"), bool(np.signbit(x)))
+
+
+_JAVA_FLOAT = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?[dDfF]?",
+                         re.ASCII)
+_BIG_DECIMAL = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?", re.ASCII)
+_SPARK_DATE = re.compile(r"([+-]?)(\d{4,7})(?:-(\d{1,2})(?:-(\d{1,2})"
+                         r"(?:[ T].*)?)?)?", re.DOTALL | re.ASCII)
+
+
+def _spark_trim_all(s: str) -> str:
+    return s.strip("".join(map(chr, range(33))) + "\x7f")
+
+
+def spark_to_long(s: str, bits: int):
+    """Spark's ``UTF8String.toLong`` / ``toInt`` of ``s``, written from
+    its definition (None where Spark answers NULL)."""
+    s = _spark_trim_all(s)
+    if not s:
+        return None
+    neg = s[0] == "-"
+    if s[0] in "+-":
+        if len(s) == 1:
+            return None
+        s = s[1:]
+    whole, dot, frac = s.partition(".")
+    if any(c not in "0123456789" for c in whole + frac):
+        return None
+    v = int(whole or "0")
+    v = -v if neg else v
+    return v if -(1 << (bits - 1)) <= v < (1 << (bits - 1)) else None
+
+
+def spark_to_double(s: str, f32: bool):
+    """Spark's cast of ``s`` to double (or float): Java's ``parseDouble``
+    grammar and Spark's special words; the value by Python's ``float``
+    (a float's by exact rounding from the double, ``_float32_of``)."""
+    t = s.strip("".join(map(chr, range(33))))
+    low = t.lower()
+    sign = -1.0 if low.startswith("-") else 1.0
+    word = low[1:] if low[:1] in "+-" else low
+    if word == "nan":
+        return math.nan
+    if word in ("inf", "infinity"):
+        return sign * math.inf
+    if not _JAVA_FLOAT.fullmatch(t):
+        return None
+    t = t.rstrip("dDfF")
+    if f32:
+        from spark_rapids_tpu_torch.kernels.cuda_ops import _float32_of
+        neg = t.startswith("-")
+        return _float32_of(t.lstrip("+-").encode(), neg)
+    return float(t)
+
+
+def spark_to_decimal(s: str, precision: int, scale: int):
+    """Spark's cast of ``s`` to ``decimal(precision, scale)``: Java's
+    ``new BigDecimal(s.trim())`` rounded HALF_UP, None past the
+    precision."""
+    import decimal
+    t = s.strip("".join(map(chr, range(33))))
+    if not _BIG_DECIMAL.fullmatch(t):
+        return None
+    ctx = decimal.Context(prec=100, Emax=10 ** 6, Emin=-10 ** 6)
+    try:
+        v = decimal.Decimal(t).quantize(decimal.Decimal(1).scaleb(-scale),
+                                        rounding=decimal.ROUND_HALF_UP,
+                                        context=ctx)
+    except decimal.InvalidOperation:
+        return None
+    return v if abs(v.scaleb(scale)) <= 10 ** precision - 1 else None
+
+
+def spark_to_date(s: str):
+    """Spark's ``stringToDate`` of ``s`` as days since 1970-01-01 (any
+    year of 4 to 7 digits, the proleptic Gregorian calendar)."""
+    m = _SPARK_DATE.fullmatch(_spark_trim_all(s))
+    if m is None:
+        return None
+    y = int(m.group(2)) * (-1 if m.group(1) == "-" else 1)
+    mo, d = int(m.group(3) or 1), int(m.group(4) or 1)
+    leap = y % 4 == 0 and (y % 100 != 0 or y % 400 == 0)
+    month_days = [31, 29 if leap else 28, 31, 30, 31, 30, 31, 31, 30, 31,
+                  30, 31]
+    if not (1 <= mo <= 12 and 1 <= d <= month_days[mo - 1]):
+        return None
+    # whole 400-year cycles of 146097 days, then datetime within one
+    cycles, y0 = divmod(y - 1, 400)
+    import datetime
+    days = cycles * 146097 + datetime.date(y0 + 1, mo, d).toordinal() - \
+        datetime.date(1970, 1, 1).toordinal()
+    return days if -(1 << 31) <= days < (1 << 31) else None
+
+
+def spark_to_bool(s: str):
+    t = _spark_trim_all(s).lower()
+    if t in ("t", "true", "y", "yes", "1"):
+        return True
+    if t in ("f", "false", "n", "no", "0"):
+        return False
+    return None
+
+
+def s2_words(r) -> list:
+    """S2's column ``j``: Spark's edge cases for casts from STRING, and
+    padded, signed numbers, decimals, exponents and dates drawn at
+    random."""
+    words = ["  12 ", "-7", "+3", "1.9", "-1.9", "1.", ".5", "-.", "+",
+             "-", "", " ", "1e3", "abc", "2147483647", "2147483648",
+             "-2147483648", "-2147483649", "9223372036854775807",
+             "9223372036854775808", "-9223372036854775808", "1.5e-3",
+             "NaN", "nan", "-inf", "+Infinity", "INF", "0x1F", "1_000",
+             "1.5d", "2.5F", "  true ", "YES", "n", "t", "False", "0",
+             "1", "2020-1-5", "2020-02-30", "2019-02-29", "2000-02-29",
+             "1999-12-31T23:59", "2000-01-01 x", "2020-13-01", "2020",
+             "2020-07", "99-01-01", "12345.6789", "0.0005", "0.0004999",
+             "-0.0005", "99999999.9995", "1e-400", "1e400", "4.9e-324",
+             "\t42\n", "1..2", "--1", "1e", ".e1", "é", "0e99999"]
+    for _ in range(3000):
+        k = r.integers(0, 6)
+        pad = " " * int(r.integers(0, 3))
+        sign = ["", "-", "+"][int(r.integers(0, 3))]
+        if k == 0:
+            w = str(int(r.integers(0, 10 ** int(r.integers(1, 19)))))
+        elif k == 1:
+            frac = str(int(r.integers(0, 10 ** 9)))
+            w = f"{r.integers(0, 10 ** 6)}." + frac[:int(r.integers(1, 10))]
+        elif k == 2:
+            digits = int(r.integers(1, 20))
+            w = f"{r.random():.{digits}g}e{r.integers(-30, 30)}"
+        elif k == 3:
+            w = f"{r.integers(1, 9999):04d}-{r.integers(1, 14)}-" \
+                f"{r.integers(1, 32):02d}"
+        elif k == 4:
+            w = repr(float(r.standard_normal() * 10.0 **
+                           r.integers(-10, 10)))
+        else:
+            w = "".join(r.choice(list("0123456789.-+eE tx"),
+                                 int(r.integers(1, 8))))
+        words.append(pad + sign + w + pad)
+    return words
+
+
+def make_s2(out_dir: str, rows: int, seed: int) -> dict:
+    """S2's table: ``rows`` rows of x (finite doubles of random bit
+    patterns, subnormals and Java's layout edges among them), f (finite
+    float32 patterns), i (full-range int64), d (DATEs 1900-2100), m
+    (decimal(15,2)) and j (``s2_words``), beside the reference's
+    answers: ``ex_sx`` / ``ex_sf`` (Java's text), ``ex_si``, ``ex_sd``,
+    ``ex_sm`` (pyarrow's casts to string), ``ex_c6`` (Python's
+    ``Decimal(repr(x))`` HALF_UP at decimal(12,2)) and Spark's answers
+    for j (``spark_to_*``).  The float columns draw from S2_DISTINCT
+    values each, so that Python formats those once; the rows are
+    ``rows`` all the same."""
+    import decimal
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+    r = np.random.default_rng([seed, 17, 2])
+    t0 = time.perf_counter()
+    xs = r.integers(0, 2 ** 64 - 1, S2_DISTINCT, dtype=np.uint64,
+                    endpoint=True).view(np.float64).copy()
+    xs[~np.isfinite(xs)] = 1.5
+    xs[:64] = [0.0, -0.0, 5e-324, -5e-324, 2.2250738585072014e-308, 1e7,
+               9999999.999999998, 1e-3, 9.999999999999998e-4, 1e16, 1e22,
+               0.285, 1.005, -0.125, 2.675, 123.456, 1e21, 1.7976931348623157e308,
+               0.1, 100.0, 1234567.0, 12345678.0, *range(42)]
+    xs[64:100000] = np.round(r.standard_normal(100000 - 64) * 10.0 **
+                             r.integers(-3, 9, 100000 - 64), 3)
+    fs = r.integers(0, 2 ** 32 - 1, S2_DISTINCT, dtype=np.uint32,
+                    endpoint=True).view(np.float32).copy()
+    fs[~np.isfinite(fs)] = np.float32(1.5)
+    fs[:8] = [0.0, -0.0, 1e-45, 1e7, 1e-3, 0.1, 3.4028235e38, 16777216.0]
+    ex_sx = pa.array([java_double_text(v) for v in xs.tolist()])
+    ex_sf = pa.array([java_float_text(v) for v in fs])
+    c6 = []
+    q = decimal.Decimal("0.01")
+    for v in xs.tolist():
+        d = decimal.Decimal(repr(v)).quantize(q, decimal.ROUND_HALF_UP) \
+            if abs(v) < 1e11 else None
+        c6.append(d if d is not None and abs(d) < decimal.Decimal(10) ** 10
+                  else None)
+    ex_c6 = pa.array(c6, pa.decimal128(12, 2))
+    words = s2_words(r)
+    answers = {
+        "ex_ji": pa.array([spark_to_long(w, 32) for w in words], pa.int32()),
+        "ex_jl": pa.array([spark_to_long(w, 64) for w in words], pa.int64()),
+        "ex_jd": pa.array([spark_to_double(w, False) for w in words],
+                          pa.float64()),
+        "ex_jm": pa.array([spark_to_decimal(w, 10, 3) for w in words],
+                          pa.decimal128(10, 3)),
+        "ex_jt": pa.array([spark_to_date(w) for w in words],
+                          pa.int32()).cast(pa.date32()),
+        "ex_jb": pa.array([spark_to_bool(w) for w in words], pa.bool_())}
+    t1 = time.perf_counter()
+    path = os.path.join(out_dir, "s2.parquet")
+    os.makedirs(path, exist_ok=True)
+    parts = H17_ORDER_PARTS
+    bounds = np.linspace(0, rows, parts + 1).astype(np.int64)
+    wj = pa.array(words)
+    for p in range(parts):
+        rp = np.random.default_rng([seed, 17, 3, p])
+        m = int(bounds[p + 1] - bounds[p])
+        ix = rp.integers(0, S2_DISTINCT, m)
+        if p == 0:
+            ix[:S2_DISTINCT] = np.arange(min(m, S2_DISTINCT))
+        jf = rp.integers(0, S2_DISTINCT, m)
+        jw = rp.integers(0, len(words), m)
+        if p == 0:
+            jw[:len(words)] = np.arange(min(m, len(words)))
+        i = rp.integers(-(1 << 63), (1 << 63) - 1, m, dtype=np.int64,
+                        endpoint=True)
+        d = pa.array(rp.integers(-25567, 47482, m).astype(np.int32)).cast(
+            pa.date32())
+        mv = decimal128_array(rp.integers(-(10 ** 15) + 1, 10 ** 15, m),
+                              15, 2)
+        cols = {"id": np.arange(bounds[p], bounds[p + 1], dtype=np.int64),
+                "x": xs[ix], "f": fs[jf], "i": i, "d": d, "m": mv,
+                "j": wj.take(jw), "ex_sx": ex_sx.take(ix),
+                "ex_sf": ex_sf.take(jf),
+                "ex_si": pa.array(i).cast(pa.string()),
+                "ex_sd": d.cast(pa.string()), "ex_sm": mv.cast(pa.string()),
+                "ex_c6": ex_c6.take(ix)}
+        for k, v in answers.items():
+            cols[k] = v.take(jw)
+        papq.write_table(pa.table(cols),
+                         os.path.join(path, f"part-{p:05d}.parquet"))
+    return dict(rows=rows, words=len(words), format_s=t1 - t0,
+                write_s=time.perf_counter() - t1)
+
+
+def write_strings_tables(data_dir: str, sf: float, seed: int) -> dict:
+    """Phase 17's tables under ``strings_dir(data_dir)`` (``make_tpch17``
+    and ``make_s2`` at 1.5M rows per unit of ``sf``), with their seconds:
+    a reference process writes them while the card runs phases 6-16."""
+    out = strings_dir(data_dir)
+    t0 = time.perf_counter()
+    rows = make_tpch17(out, sf, seed)
+    t1 = time.perf_counter()
+    s2 = make_s2(out, max(int(1_500_000 * sf), 20_000), seed)
+    return dict(rows=rows, s2=s2, tpch_s=t1 - t0,
+                s2_s=time.perf_counter() - t1)
+
+
+def _arrow_parts(arr):
+    """(int64 offsets, uint8 bytes) of a string array."""
+    arr = arr.combine_chunks() if hasattr(arr, "combine_chunks") else arr
+    n = len(arr)
+    offs = np.frombuffer(arr.buffers()[1], np.int32)[
+        arr.offset:arr.offset + n + 1].astype(np.int64)
+    data = np.frombuffer(arr.buffers()[2], np.uint8) \
+        if arr.buffers()[2] is not None else np.zeros(1, np.uint8)
+    return offs, data
+
+
+def np_initcap(arr):
+    """Spark's ``initcap`` (ASCII) of a string array, over its bytes."""
+    import pyarrow as pa
+    offs, data = _arrow_parts(arr)
+    low = np.where((data >= 65) & (data <= 90), data + 32, data) \
+        .astype(np.uint8)
+    head = np.zeros(data.shape[0] + 1, bool)
+    head[offs[:-1][offs[1:] > offs[:-1]]] = True
+    prev = np.concatenate([[32], data[:-1]])
+    up = (head[:-1] | (prev == 32)) & (low >= 97) & (low <= 122)
+    out = np.where(up, low - 32, low).astype(np.uint8)
+    base = offs[0]
+    return pa.Array.from_buffers(pa.string(), len(offs) - 1, [
+        None, pa.py_buffer((offs - base).astype(np.int32)),
+        pa.py_buffer(out[base:offs[-1]].copy())])
+
+
+def _decimal_ints(arr) -> np.ndarray:
+    """The unscaled int64s of a decimal128 array (values within int64)."""
+    arr = arr.combine_chunks()
+    words = np.frombuffer(arr.buffers()[1], np.int64)
+    return words[2 * arr.offset:2 * (arr.offset + len(arr)):2].copy()
+
+
+def h17_references(d17: str) -> dict:
+    """Q13, Q16, Q22 and S1 by pyarrow and numpy over phase 17's tables,
+    written from the spec's definitions (not from the port's operators);
+    S2's answers are columns of its table (``make_s2``)."""
+    import decimal
+    import hashlib
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as papq
+
+    def read(t, cols):
+        return papq.read_table(os.path.join(d17, f"{t}.parquet"),
+                               columns=cols)
+    refs = {}
+    cust = read("customer", ["c_custkey", "c_phone", "c_acctbal"])
+    ck = cust["c_custkey"].to_numpy()
+    orders = read("orders", ["o_custkey", "o_comment", "o_clerk",
+                             "o_orderpriority", "o_orderstatus"])
+    okey = orders["o_custkey"].to_numpy()
+    comment = orders["o_comment"]
+    # Q13: each customer's orders whose comment is not '%special%requests%'
+    keep = pc.invert(pc.match_like(comment, "%special%requests%")) \
+        .to_numpy(zero_copy_only=False)
+    counts = np.bincount(okey[keep], minlength=ck.max() + 1)[ck]
+    vals, freq = np.unique(counts, return_counts=True)
+    refs["Q13"] = [(int(v), int(f)) for v, f in zip(vals, freq)]
+    # Q16
+    part = read("part", ["p_partkey", "p_brand", "p_type", "p_size"])
+    ps = read("partsupp", ["ps_partkey", "ps_suppkey"])
+    sup = read("supplier", ["s_suppkey", "s_comment"])
+    bad = sup["s_suppkey"].filter(pc.match_like(
+        sup["s_comment"], "%Customer%Complaints%")).to_numpy()
+    pmask = (pc.not_equal(part["p_brand"], "Brand#45").to_numpy(
+        zero_copy_only=False) & ~pc.starts_with(
+        part["p_type"], "MEDIUM POLISHED").to_numpy(zero_copy_only=False) &
+        np.isin(part["p_size"].to_numpy(), [49, 14, 23, 45, 19, 3, 36, 9]))
+    pk = ps["ps_partkey"].to_numpy()
+    sk = ps["ps_suppkey"].to_numpy()
+    pos = pk - 1                      # part keys are 1..n in order
+    sel = pmask[pos] & ~np.isin(sk, bad)
+    t16 = pa.table({"b": part["p_brand"].take(pa.array(pos[sel])),
+                    "t": part["p_type"].take(pa.array(pos[sel])),
+                    "s": part["p_size"].take(pa.array(pos[sel])),
+                    "k": sk[sel]})
+    g = t16.group_by(["b", "t", "s"]).aggregate([("k", "count_distinct")])
+    refs["Q16"] = [(r["b"], r["t"], r["s"], r["k_count_distinct"])
+                   for r in g.to_pylist()]
+    refs["Q16_complaints"] = int(bad.shape[0])
+    # Q22
+    code = pc.utf8_slice_codeunits(cust["c_phone"], 0, 2)
+    codes = ["13", "31", "23", "29", "30", "18", "17"]
+    inlist = pc.is_in(code, value_set=pa.array(codes)).to_numpy(
+        zero_copy_only=False)
+    cents = _decimal_ints(cust["c_acctbal"])
+    pos_bal = inlist & (cents > 0)
+    avg = float(np.sum(cents[pos_bal] / 100.0)) / int(pos_bal.sum())
+    has = np.zeros(ck.max() + 1, bool)
+    has[okey] = True
+    chosen = inlist & (cents / 100.0 > avg) & ~has[ck]
+    code_np = np.array(code.to_pylist())
+    rows = []
+    for c in sorted(set(code_np[chosen])):
+        m = chosen & (code_np == c)
+        rows.append((str(c), int(m.sum()),
+                     decimal.Decimal(int(cents[m].sum())).scaleb(-2)))
+    refs["Q22"] = rows
+    # S1: the library, each function by pyarrow (initcap over the bytes,
+    # md5 by hashlib), grouped by the band of the clerk's number
+    prio = orders["o_orderpriority"]
+    clerk = orders["o_clerk"]
+    band = pc.utf8_lpad(pc.utf8_slice_codeunits(clerk, 9, 12), width=5,
+                        padding="*")
+    f = pc.find_substring(pc.utf8_slice_codeunits(comment, 4), "the")
+    offs, data = _arrow_parts(comment)
+    raw = data.tobytes()
+    digests = pa.array([hashlib.md5(raw[a:b]).hexdigest() for a, b in
+                        zip(offs[:-1].tolist(), offs[1:].tolist())])
+    t = pa.table({
+        "band": band,
+        "trimmed": pc.utf8_length(pc.utf8_trim(comment, " ")),
+        "ly_at": pc.add(pc.find_substring(comment, "ly"), 1),
+        "the_at": pc.if_else(pc.greater_equal(f, 0), pc.add(f, 5), 0),
+        "rev": pc.utf8_reverse(comment),
+        "cap": np_initcap(comment),
+        "rep": pc.replace_substring(comment, "e", "EE"),
+        "joined": pc.binary_join_element_wise(
+            prio, pc.utf8_rtrim(comment, " "), "|"),
+        "padded": pc.utf8_slice_codeunits(pc.utf8_rpad(
+            prio, width=12, padding="."), 0, 12),
+        "rep_len": pc.utf8_length(pc.binary_repeat(
+            orders["o_orderstatus"], 3)),
+        "digest": digests,
+        "top": pc.max_element_wise(prio, clerk),
+        "furious": pc.cast(pc.match_like(comment, "%fu_ious%"), pa.int64()),
+        "escaped": pc.cast(pc.match_like(comment, "%ly\\_%"), pa.int64())})
+    g = t.group_by("band").aggregate([
+        ("band", "count"), ("trimmed", "sum"), ("ly_at", "sum"),
+        ("the_at", "sum"), ("rev", "max"), ("cap", "max"), ("rep", "min"),
+        ("joined", "max"), ("padded", "max"), ("rep_len", "sum"),
+        ("digest", "max"), ("top", "max"), ("furious", "sum"),
+        ("escaped", "sum")])
+    names = ["band", "band_count", "trimmed_sum", "ly_at_sum", "the_at_sum",
+             "rev_max", "cap_max", "rep_min", "joined_max", "padded_max",
+             "rep_len_sum", "digest_max", "top_max", "furious_sum",
+             "escaped_sum"]
+    refs["S1"] = [tuple(r[k] for k in names) for r in g.to_pylist()]
+    refs["S1_unescaped"] = int(pc.sum(pc.match_like(
+        comment, "%ly_%")).as_py())
+    return refs
+
+
+def check_s2_slice(session, d17: str, rows: int) -> int:
+    """S2's first ``rows`` rows collected and compared here, value by
+    value, with the reference's columns: texts equal, float round trips
+    bit for bit, C6 and the casts of j equal.  Returns the rows
+    compared."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as papq
+    got = session.sql(S2_SLICE.format(rows=rows)).to_arrow().sort_by("id")
+    want = papq.read_table(os.path.join(d17, "s2.parquet"), columns=[
+        "id", "x", "f", "ex_sx", "ex_sf", "ex_c6", "ex_jd", "ex_ji",
+        "ex_jt"]).filter(pc.less(pc.field("id"), rows)).sort_by("id")
+    check(got.num_rows == want.num_rows == rows,
+          f"S2 slice: {got.num_rows} rows of {want.num_rows}")
+    for a, b in (("sx", "ex_sx"), ("sf", "ex_sf"), ("c6", "ex_c6"),
+                 ("ji", "ex_ji"), ("jt", "ex_jt")):
+        check(got[a].equals(want[b].cast(got[a].type)),
+              f"S2 slice: {a} differs from the reference's {b}")
+    for a, b, view in (("rx", "x", np.int64), ("rf", "f", np.int32)):
+        check(np.array_equal(got[a].to_numpy().view(view),
+                             want[b].to_numpy().view(view)),
+              f"S2 slice: {a} is not {b} bit for bit")
+    jd, ex = got["jd"].to_numpy(zero_copy_only=False), \
+        want["ex_jd"].to_numpy(zero_copy_only=False)
+    check(np.array_equal(np.isnan(jd), np.isnan(ex)) and
+          np.array_equal(jd[~np.isnan(jd)].view(np.int64),
+                         ex[~np.isnan(ex)].view(np.int64)),
+          "S2 slice: jd differs from Spark's answers")
+    return rows
+
+
+def strings_phase(args, kernels_used, data_dir: str, ahead=None) -> dict:
+    """Phase 17: the string library, general LIKE and the casts to and
+    from STRING.  (a) TPC-H Q13, Q16 and Q22 (H17_TEXTS, with the
+    rewrites H17_REWRITES prints) over ``make_tpch17``'s tables at scale
+    ``--sf``; (b) S1 and S2 (DS17_OWN) over orders and ``make_s2``'s
+    table.  Each runs cold and twice warm (``cold_and_warm`` of
+    ``session.sql(text).to_arrow()``); its rows equal the reference
+    process's (``h17_references``: strings, integers and DECIMALs
+    exactly, doubles at 1e-9, ORDER BY kept, ties as a multiset), S2's
+    mismatch counts are 0 on every row, and the three runs give the same
+    bytes; S2's first rows are also compared here (``check_s2_slice``).
+    On the card each text launches its H17_NEEDS.  ``ahead``: the
+    futures of ``write_strings_tables`` and ``h17_references`` (else both
+    run here).  Returns the kernels' launches on this path."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.io.scan_cache import DeviceScanCache
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    from spark_rapids_tpu_torch.kernels import join as join_k
+    from spark_rapids_tpu_torch.plan import overrides
+    on_card = args.device == "cuda"
+    t0 = time.perf_counter()
+    written = ahead[0].result() if ahead else \
+        write_strings_tables(data_dir, args.sf, args.seed)
+    print(f"strings17: tables waited for {time.perf_counter() - t0:.1f}s; "
+          f"{written['rows']} at sf {args.sf} in {written['tpch_s']:.1f}s, "
+          f"s2 {written['s2']} in {written['s2_s']:.1f}s", flush=True)
+    for line in H17_REWRITES:
+        print(f"strings17 rewrite: {line}")
+    d17 = strings_dir(data_dir)
+    session = TpuSession(TpuConf({"spark.rapids.tpu.sql.batchSizeRows":
+                                  h17_batch_rows(args.sf)}),
+                         device=args.device)
+    for t in H17_TABLES:
+        session.read.parquet(os.path.join(d17, f"{t}.parquet")) \
+            .create_or_replace_temp_view(t)
+    refs = None
+    cache = DeviceScanCache.get()
+    launches = {k: 0 for k in cuda_ops.LAUNCHES}
+    saved = overrides.BROADCAST_ROW_THRESHOLD, join_k.DIRECT_MIN_STREAM
+    # below SF10 the broadcast threshold and the direct probe's stream
+    # limit shrink with the scale, so that the plans are SF10's
+    shrink = min(args.sf, 10.0) / 10.0
+    overrides.BROADCAST_ROW_THRESHOLD = max(1, int(saved[0] * shrink))
+    join_k.DIRECT_MIN_STREAM = max(1024, int(saved[1] * shrink))
+    try:
+        for q, text in {**H17_TEXTS, **DS17_OWN}.items():
+            tq = time.perf_counter()
+            check("spark_rapids_tpu" not in sys.modules and
+                  "jax" not in sys.modules,
+                  "phase 17 imported JAX or the JAX package")
+            run = SqlRun(session, text, on_card)
+            cold, cold_s, read_s, upload_s, warm, warm_s, peak = \
+                cold_and_warm(session, run, on_card)
+            got = dict(cuda_ops.LAUNCHES)
+            for name, v in got.items():
+                launches[name] += v
+            if refs is None and q != "S2":
+                tr = time.perf_counter()
+                refs = ahead[1].result() if ahead else h17_references(d17)
+                print(f"strings17: references waited for "
+                      f"{time.perf_counter() - tr:.1f}s", flush=True)
+            note = ""
+            for t in (cold,) + tuple(warm):
+                if q == "S2":
+                    row = t.to_pylist()[0]
+                    bad = {k: v for k, v in row.items()
+                           if k.startswith("bad_") and v != 0}
+                    check(not bad, f"S2: rows that differ {bad}")
+                    check(row["n"] == written["s2"]["rows"] and
+                          all(row[k] > 0 for k in row
+                              if k.startswith("n_")),
+                          f"S2: counts {row}")
+                    note = f"; every row's casts equal the reference ({row})"
+                else:
+                    check_rows(q, t, refs[q], H17_ORDER[q],
+                               limit=len(refs[q]))
+            check(same_bytes(cold, warm[0]) and same_bytes(warm[0], warm[1]),
+                  f"{q}: the three runs are not byte-identical")
+            check(cold.num_rows > 0, f"{q}: no rows")
+            if q == "Q16":
+                note = f"; {refs['Q16_complaints']} suppliers with complaints"
+            if q == "S1":
+                note = (f"; '%ly\\_%' counts {sum(r[-1] for r in refs['S1'])}"
+                        f" rows where '%ly_%' counts "
+                        f"{refs['S1_unescaped']}")
+            for name in H17_NEEDS[q] if on_card else ():
+                check(launched(got, name) > 0,
+                      f"{q}: {name} never launched on its path")
+            if on_card and q in ("S1", "S2"):
+                # one more warm run under the profiler: S1's and S2's
+                # device time by kernel, beside the three runs' launches
+                print(f"strings17 {q} profile:")
+                profile_query(run)
+            first = [tuple(map(str, r.values()))[:4]
+                     for r in cold.slice(0, 2).to_pylist()]
+            print(f"strings17 {q}: {cold.num_rows} rows equal the reference; "
+                  f"cold {cold_s:.4f}s (host read {read_s:.4f}s, upload "
+                  f"{upload_s:.4f}s); warm {warm_s[0]:.4f}s {warm_s[1]:.4f}s;"
+                  f" peak device memory {peak} B; launches (3 runs) "
+                  f"{ {k: v for k, v in got.items() if v} }; byte-identical "
+                  f"runs{note}; first rows {first}; "
+                  f"{time.perf_counter() - tq:.1f}s with the checks",
+                  flush=True)
+        rows = check_s2_slice(session, d17, min(200_000,
+                                                written["s2"]["rows"]))
+        print(f"strings17 S2 slice: {rows} rows compared here value by "
+              f"value, floats bit for bit")
+    finally:
+        overrides.BROADCAST_ROW_THRESHOLD, join_k.DIRECT_MIN_STREAM = saved
+        cache.clear()
+    for name in kernels_used:
+        check(launched(launches, name) > 0,
+              f"{name} never launched on the phase 17 path")
+    print(f"strings17: launches of the phase (3 runs of each query) "
+          f"{launches}")
+    return launches
+
+
+def comment_rows(rng, n: int, device: str = "cuda"):
+    """(offsets int32, data uint8, valid bool) of n o_comment-like rows
+    (19-78 bytes of TPC-H's text pool, 1% null) on ``device``."""
+    import torch
+    pool = h17_text_pool(int(rng.integers(1 << 30)), 1 << 22)
+    arr = pool_strings(rng, pool, n, 19, 78)
+    offs, data = _arrow_parts(arr)
+    valid = rng.random(n) >= 0.01
+    return (torch.from_numpy(offs.astype(np.int32)).to(device),
+            torch.from_numpy(data.copy()).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def _timed_once(fn):
+    """(ms of one call, host included, its result): the plain versions
+    read the host, and the slowest run once."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def check_like_match(rng, n: int) -> dict:
+    """``like_match`` against its plain version on a batch of o_comment
+    rows with Q13's pattern; every row equal."""
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    cols = comment_rows(rng, n)
+    tokens = cuda_ops.like_tokens("%special%requests%")
+    got = cuda_ops.like_match(*cols, tokens)
+    plain_ms, want = _timed_once(
+        lambda: cuda_ops.like_match_plain(*cols, tokens))
+    err = int((got != want).sum())
+    check(err == 0, f"like_match: {err} rows differ from the plain version")
+    timed = time_cuda(lambda: cuda_ops.like_match(*cols, tokens))
+    nbytes = int(cols[0][-1]) + 4 * (n + 1) + n + n
+    return kernel_entry(
+        "like_match", "strings.cu", "spark_rapids_tpu/expr/string_ops.py:202",
+        f"{n} o_comment rows (19-78 bytes, {int(cols[0][-1])} bytes) "
+        f"against '%special%requests%' (Q13), {int(got.sum())} match",
+        float(err), timed, plain_ms, nbytes, None)
+
+
+def check_format_double(rng, n: int) -> dict:
+    """``format_double`` against its plain version (``float.__repr__``)
+    on a batch of random finite doubles (S2's x); every row's digits and
+    exponent equal."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops
+    x = rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64,
+                     endpoint=True).view(np.float64)
+    x[~np.isfinite(x)] = 1.5
+    t = torch.from_numpy(x.copy()).cuda()
+    d, e = cuda_ops.format_double(t)
+    plain_ms, (wd, we) = _timed_once(lambda: cuda_ops.format_double_plain(t))
+    err = int(((d != wd) | (e != we)).sum())
+    check(err == 0, f"format_double: {err} rows differ from repr's digits")
+    timed = time_cuda(lambda: cuda_ops.format_double(t))
+    return kernel_entry(
+        "format_double", "numtext.cu", "spark_rapids_tpu/expr/cast.py:224",
+        f"{n} random finite doubles (S2's x) to shortest digits",
+        float(err), timed, plain_ms, n * (8 + 8 + 4), None)
+
+
+def check_parse_double(rng, n: int) -> dict:
+    """``parse_double`` against its plain version (Python's ``float``)
+    on a batch of the texts S2 parses: the port's own CAST(x AS STRING)
+    of random finite doubles, bit for bit."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_ops, numtext
+    x = rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64,
+                     endpoint=True).view(np.float64)
+    x[~np.isfinite(x)] = 1.5
+    t = torch.from_numpy(x.copy()).cuda()
+    col = numtext.format_float(t, torch.ones(n, dtype=torch.bool,
+                                             device="cuda"))
+    args = (col.offsets.contiguous(), col.data, col.validity)
+    v, ok = cuda_ops.parse_double(*args)
+    plain_ms, (wv, wok) = _timed_once(
+        lambda: cuda_ops.parse_double_plain(*args))
+    err = int(((v.view(torch.int64) != wv.view(torch.int64)) |
+               (ok != wok) | (v.view(torch.int64) != t.view(torch.int64)))
+              .sum())
+    check(err == 0, f"parse_double: {err} rows differ from float()")
+    timed = time_cuda(lambda: cuda_ops.parse_double(*args))
+    nbytes = int(col.offsets[-1]) + 4 * (n + 1) + n + 8 * n + n
+    return kernel_entry(
+        "parse_double", "numtext.cu", "spark_rapids_tpu/expr/cast.py:189",
+        f"{n} texts of random doubles ({int(col.offsets[-1])} bytes, "
+        f"S2's round trip) to doubles", float(err), timed, plain_ms,
+        nbytes, None)
+
+
 def _reference_worker() -> None:
     """A reference process's pyarrow takes half the host's cores; the
     other half serve the processes that drive the card.  It ends with the
@@ -7653,7 +8696,8 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: also time its "
                          "kernels at the raw-row and probe shapes with "
                          "this timer")
-    ap.add_argument("--only", type=int, choices=(11, 12, 13, 14, 15, 16),
+    ap.add_argument("--only", type=int,
+                    choices=(11, 12, 13, 14, 15, 16, 17),
                     default=None,
                     help="after the build, run this phase alone on "
                          "freshly written tables (no contract line)")
@@ -7711,11 +8755,16 @@ def main(argv=None) -> int:
             print("phase 15 alone: no contract result")
             return 0
         with tempfile.TemporaryDirectory(prefix="tpcds_") as data_dir:
-            session = ds_tables_alone(args, data_dir)
+            # phase 17 writes its own tables
+            session = ds_tables_alone(args, data_dir) \
+                if args.only != 17 else None
             phase_done("tables")
             if args.only == 16:
                 session = None
                 decimal_phase(args, used, data_dir)
+            elif args.only == 17:
+                session = None
+                strings_phase(args, used, data_dir)
             elif phase is None:
                 session = None
                 memory_phase(args, used, data_dir)
@@ -7746,8 +8795,8 @@ def main(argv=None) -> int:
             phase_done("4")
             # 5. shuffled joins at TPC-H scale
             results["join"], skew = join_phase(
-                args, [k for k in kernels
-                       if k not in NEW_B2_KINDS + ("direct_probe",)]
+                args, [k for k in kernels if k not in
+                       NEW_B2_KINDS + TEXT_KERNELS + ("direct_probe",)]
                 if args.device == "cuda" else [])
             phase_done("5")
             tables = tables.result()
@@ -7759,6 +8808,13 @@ def main(argv=None) -> int:
             dec_ahead = (dec_pool.submit(write_decimal_tables, data_dir,
                                          args.sf, args.seed),
                          dec_pool.submit(ds16_references, data_dir))
+            # 17's tables and references, in one more process
+            str_pool = ProcessPoolExecutor(1, mp_context=spawn,
+                                           initializer=_reference_worker)
+            str_tables = str_pool.submit(write_strings_tables, data_dir,
+                                         args.sf, args.seed)
+            str_ahead = (str_tables, str_pool.submit(
+                h17_references, strings_dir(data_dir)))
             # 6. the TPC-DS quartet through session.sql over Parquet; 7.
             # the flat TPC-DS queries, on the same session
             results["tpcds"], session = tpcds_phase(args, used, data_dir,
@@ -7783,12 +8839,17 @@ def main(argv=None) -> int:
                                                dec_ahead)
             dec_pool.shutdown()
             phase_done("16")
+            # 17. the string library, LIKE and the casts to and from STRING
+            results["tpcds17"] = strings_phase(args, used, data_dir,
+                                               str_ahead)
+            str_pool.shutdown()
+            phase_done("17")
             # 8. derived tables and CTEs, 9. expression subqueries, 10.
             # set operations, DISTINCT and DATE columns, 11. window
             # functions, 12. CAST, DATE literals, count(DISTINCT) and
             # ROLLUP, 13. the last four texts and the function library
             results.update(join_phase_workers(workers, data_dir))
-            phase_done("4-16")
+            phase_done("4-17")
         except BaseException:
             for p in multiprocessing.active_children():
                 p.terminate()
@@ -7799,8 +8860,10 @@ def main(argv=None) -> int:
         return 0
     for name in kernels:
         by_path = {mode: results[mode][name] for mode in results}
-        # B2's min and first/last kinds run on phase 13's path (F1) alone
-        own = "tpcds13" if name in NEW_B2_KINDS else None
+        # B2's min and first/last kinds run on phase 13's path (F1) alone,
+        # the text kernels on phase 17's
+        own = "tpcds13" if name in NEW_B2_KINDS else \
+            "tpcds17" if name in TEXT_KERNELS else None
         for mode, got in by_path.items():
             if name in PROBES.split("|"):
                 # a path takes one probe or the other, or both

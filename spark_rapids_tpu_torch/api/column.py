@@ -116,8 +116,14 @@ class Col:
 
     eqNullSafe = eq_null_safe
 
-    def like(self, pattern: str) -> "Col":
-        return Col(es.Like(self.expr, ec.Literal(pattern)))
+    def like(self, pattern: str, escape: str = "\\") -> "Col":
+        return Col(es.Like(self.expr, ec.Literal(pattern), escape))
+
+    def substr(self, pos: int, length: int = None) -> "Col":
+        """``substring`` by characters (``functions.substring``)."""
+        return Col(es.Substring(self.expr, ec.Literal(pos),
+                                None if length is None
+                                else ec.Literal(length)))
 
     def startswith(self, s) -> "Col":
         return Col(es.StartsWith(self.expr, _expr(s)))

@@ -1,7 +1,8 @@
 """functions: col, the aggregates (``count_distinct`` and
 ``sum_distinct`` too, ``min``, ``first`` and ``last``), conditionals and
-the null and NaN functions, the math functions, ``hash`` and the ids,
-string functions, DATE functions and window functions.
+the null and NaN functions, the math functions, ``hash``, ``md5``,
+``rand`` and the ids, string functions, DATE functions (``to_date``
+too) and window functions.
 
 Counterpart of ``spark_rapids_tpu/api/functions.py`` (the port's
 subset).
@@ -143,6 +144,39 @@ def concat(*cols) -> Col:
     return Col(es.ConcatStrings(*[_arg(c) for c in cols]))
 
 
+def concat_ws(sep: str, *cols) -> Col:
+    return Col(es.ConcatWs(ec.Literal(sep), *[_arg(c) for c in cols]))
+
+
+def instr(c, substr: str) -> Col:
+    return Col(es.StringLocate(ec.Literal(substr), _arg(c)))
+
+
+def locate(substr: str, c, pos: int = 1) -> Col:
+    return Col(es.StringLocate(ec.Literal(substr), _arg(c),
+                               ec.Literal(pos)))
+
+
+def replace(c, search: str, rep: str = "") -> Col:
+    return Col(es.Replace(_arg(c), ec.Literal(search), ec.Literal(rep)))
+
+
+def repeat(c, n: int) -> Col:
+    return Col(es.StringRepeat(_arg(c), ec.Literal(n)))
+
+
+def lpad(c, length: int, pad: str = " ") -> Col:
+    return Col(es.Lpad(_arg(c), ec.Literal(length), ec.Literal(pad)))
+
+
+def rpad(c, length: int, pad: str = " ") -> Col:
+    return Col(es.Rpad(_arg(c), ec.Literal(length), ec.Literal(pad)))
+
+
+def rand(seed: int = 0) -> Col:
+    return Col(emisc.Rand(seed))
+
+
 def abs(c) -> Col:  # noqa: A001
     return Col(ea.Abs(_arg(c)))
 
@@ -272,3 +306,13 @@ def lead(c, offset: int = 1) -> Col:
 
 def lag(c, offset: int = 1) -> Col:
     return Col(wf.Lag(_arg(c), offset))
+
+
+length = _u(es.Length)
+trim = _u(es.StringTrim)
+ltrim = _u(es.StringTrimLeft)
+rtrim = _u(es.StringTrimRight)
+reverse = _u(es.Reverse)
+initcap = _u(es.InitCap)
+md5 = _u(emisc.Md5)
+to_date = _u(edt.ToDate)

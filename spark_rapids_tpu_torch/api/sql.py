@@ -28,33 +28,40 @@ runs:
   or ``ON`` a non-equi condition) is a nested-loop join;
 - ``WHERE`` with ``AND`` / ``OR`` / ``NOT``, the comparisons ``=``,
   ``<>``, ``!=``, ``<``, ``<=``, ``>``, ``>=``, ``[NOT] BETWEEN``,
-  ``[NOT] IN (literal list)``, ``[NOT] LIKE`` (prefix, suffix,
-  contains and equality patterns), ``IS [NOT] NULL``; conjuncts common
+  ``[NOT] IN (literal list)``, ``[NOT] LIKE 'pattern' [ESCAPE 'c']``
+  (any pattern of ``%``, ``_`` and the escape, backslash by default),
+  ``IS [NOT] NULL``; conjuncts common
   to every arm of an OR are factored out of it (``plan/logical_opt``'s
   ``_factor_or``, for WHERE and ``JOIN ... ON`` alike), so join
   equalities written inside the arms become join keys;
   ``<=>`` is not parsed (``Col.eq_null_safe`` has it);
 - ``+``, ``-``, ``*``, ``/``, ``%``, unary minus, ``||``; ``CAST(x AS
-  t)`` among the numbers, BOOL and DATE (``boolean``, ``int``,
+  t)`` among the numbers, BOOL, DATE and STRING (``boolean``, ``int``,
   ``bigint``, ``float``, ``double``, ``date``, ``decimal(p, s)`` /
-  ``numeric(p, s)`` up to 18 digits; Spark's non-ANSI rules,
-  ``expr/cast.py``); DECIMAL columns (Parquet ``decimal128``) in
+  ``numeric(p, s)`` up to 18 digits, ``string``, ``varchar[(n)]``;
+  Spark's non-ANSI rules, ``expr/cast.py``); DECIMAL columns (Parquet ``decimal128``) in
   arithmetic, comparisons, CASE, the aggregates, keys and windows;
   ``CASE [x] WHEN ... THEN ... [ELSE ...] END`` and ``if(c, a, b)`` with
   numeric, DATE or string values; ``substring`` / ``substr`` with
   literal positions (in characters), ``concat``, ``coalesce`` / ``nvl``
   / ``ifnull`` (numbers, DATEs or strings), ``nullif``, ``isnull`` /
   ``isnotnull``, ``isnan``, ``nanvl``, ``abs``, ``round(x[, d])``
-  (HALF_UP), ``upper`` / ``ucase`` and ``lower`` / ``lcase`` (ASCII
-  letters, as the reference); the math functions of a number ``sqrt``,
+  (HALF_UP), ``upper`` / ``ucase``, ``lower`` / ``lcase`` and
+  ``initcap`` (ASCII letters, as the reference), ``length`` /
+  ``char_length`` / ``character_length``, ``trim`` / ``ltrim`` /
+  ``rtrim``, ``reverse``, ``instr(s, sub)``, ``locate(sub, s[, pos])``,
+  ``concat_ws(sep, ...)``, ``replace(s, search[, rep])``,
+  ``repeat(s, n)``, ``lpad`` / ``rpad(s, n[, pad])`` (literal
+  arguments but the string; by characters), ``md5``, ``rand([seed])``,
+  ``to_date(s)``; the math functions of a number ``sqrt``,
   ``exp``, ``ln`` / ``log`` (one argument), ``log2``, ``log10`` (the
   logarithms NULL at 0 and below, Spark's answer), ``sin``, ``cos``,
   ``tan``, ``asin``, ``acos``, ``atan``, ``degrees``, ``radians``,
   ``floor``, ``ceil`` / ``ceiling`` (a bigint of a double),
   ``sign`` / ``signum``, and of two ``pow`` / ``power``, ``atan2``,
   ``mod`` and ``pmod`` (Spark's, also with a negative divisor);
-  ``greatest`` / ``least`` of numbers or DATEs (a NaN above every
-  number); ``hash(x, ...)`` (``expr/misc.Murmur3Hash``);
+  ``greatest`` / ``least`` of numbers, DATEs or strings (a NaN above
+  every number, strings in byte order); ``hash(x, ...)`` (``expr/misc.Murmur3Hash``);
 - integer, decimal (read as double, as the reference; Spark's is a
   DECIMAL), string and ``NULL`` literals;
   ``DATE 'yyyy-mm-dd'`` literals; DATE columns (date32 in Parquet)
@@ -74,7 +81,8 @@ runs:
   ``last_value`` (Spark's default: NULL rows count), ``avg`` / ``mean``,
   ``stddev`` / ``stddev_samp`` / ``std``, ``stddev_pop``, ``variance`` /
   ``var_samp``, ``var_pop`` (all but ``count``, ``min``, ``max``,
-  ``first`` and ``last`` of numbers only), ``count``, ``sum`` and
+  ``first`` and ``last`` of numbers, or of strings cast to double:
+  Spark's implicit cast, NULL for a word that is no number), ``count``, ``sum`` and
   ``avg`` of ``DISTINCT x`` (one argument shared by every DISTINCT
   call: the reference's two-level rewrite,
   ``build_aggregate``), and expressions over them and over the group
@@ -131,14 +139,12 @@ reference answers NULL at the partition's edge, Spark the default),
 ``first`` / ``last`` with an ``ignoreNulls`` argument (``true`` is no
 literal here; the DataFrame API takes it), a window outside the
 select list and ORDER BY, ``first``, ``last``, ``collect_list`` and the
-moments over a window, ``greatest`` / ``least`` of strings, the string
-functions of the reference's host loops (``replace``, ``lpad``,
-``rpad``, ``repeat``, ``initcap``, ``regexp_*``, ``locate``, ``instr``),
-``md5``, ``rand``, ``to_date``, ``length`` and the trims, a union of
+moments over a window, ``RLIKE`` and ``regexp_*`` (a device regex
+engine is not ported), a string function with a non-literal argument
+other than its string, a union of
 columns with no common type (a string and a number), DISTINCT calls
 of more than one argument, ``DISTINCT`` in another aggregate or over a
-window, a CAST from or to STRING (the
-reference's is a host loop) or TIMESTAMP, or between a DATE
+window, a CAST to or from TIMESTAMP, or between a DATE
 and a number, an ``INTERVAL`` of another unit than days or away from a
 DATE's ``+`` / ``-``, other date arithmetic, ``tinyint`` and
 ``smallint``, a DATE compared with a number or a string, a correlated
@@ -321,6 +327,7 @@ class LikeOp:
     child: Any
     pattern: str
     negated: bool = False
+    escape: str = "\\"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -899,7 +906,16 @@ class _Parser:
                 if t.kind != "str":
                     self._fail("expected a string LIKE pattern")
                 self.advance()
-                e = LikeOp(e, t.text[1:-1].replace("''", "'"), negated)
+                escape = "\\"
+                if self.tok.kind == "id" and self._word() == "escape":
+                    self.advance()
+                    esc = self.tok
+                    if esc.kind != "str" or len(esc.text) != 3:
+                        self._fail("expected one ESCAPE character")
+                    escape = esc.text[1]
+                    self.advance()
+                e = LikeOp(e, t.text[1:-1].replace("''", "'"), negated,
+                           escape)
             elif self.at("is"):
                 self.advance()
                 neg = self.at("not")
@@ -1435,8 +1451,8 @@ class _Lowerer:
         if isinstance(a, LikeOp):
             try:
                 out = es.Like(self.expr(a.child, schema),
-                              ec.Literal(a.pattern))
-            except NotImplementedError as err:
+                              ec.Literal(a.pattern), a.escape)
+            except (NotImplementedError, ValueError) as err:
                 raise SqlError(str(err)) from None
             return ep.Not(out) if a.negated else out
         if isinstance(a, IsNullOp):
@@ -1806,6 +1822,9 @@ class _Lowerer:
                     len(args) == 1 and args[0].dtype() == T.STRING:
                 return (es.Upper if n in ("upper", "ucase") else
                         es.Lower)(args[0])
+            out = self.strings(n, args)
+            if out is not None:
+                return out
             if n == "abs" and len(args) == 1:
                 dt = args[0].dtype()
                 if not dt.is_numeric:
@@ -1846,6 +1865,41 @@ class _Lowerer:
         raise SqlError(f"function {n}() is not supported by the port")
 
     @staticmethod
+    def strings(n: str, args: List[ec.Expression]
+                ) -> Optional[ec.Expression]:
+        """The string functions of the reference's function table, with
+        ``md5``, ``rand`` and ``to_date``, or None for another name or
+        arity.  A string argument of another type is cast to STRING, as
+        Spark's implicit cast does."""
+        def text(e):
+            dt = e.dtype()
+            return e if dt in (T.STRING, T.NULL) else ecast.Cast(e, T.STRING)
+        k = len(args)
+        one = {"length": es.Length, "char_length": es.Length,
+               "character_length": es.Length, "trim": es.StringTrim,
+               "ltrim": es.StringTrimLeft, "rtrim": es.StringTrimRight,
+               "reverse": es.Reverse, "initcap": es.InitCap,
+               "md5": emisc.Md5, "to_date": edt.ToDate}
+        if n in one and k == 1:
+            return one[n](args[0] if n == "to_date" else text(args[0]))
+        if n == "instr" and k == 2:
+            return es.StringLocate(args[1], text(args[0]))
+        if n == "locate" and k in (2, 3):
+            return es.StringLocate(args[0], text(args[1]), *args[2:])
+        if n == "concat_ws" and k >= 1:
+            return es.ConcatWs(args[0], *[text(a) for a in args[1:]])
+        if n == "replace" and k in (2, 3):
+            return es.Replace(text(args[0]), *args[1:])
+        if n == "repeat" and k == 2:
+            return es.StringRepeat(text(args[0]), args[1])
+        if n in ("lpad", "rpad") and k in (2, 3):
+            return (es.Lpad if n == "lpad" else es.Rpad)(text(args[0]),
+                                                         *args[1:])
+        if n == "rand" and k <= 1:
+            return emisc.Rand(_literal_of(args[0]) if args else 0)
+        return None
+
+    @staticmethod
     def library(n: str, args: List[ec.Expression]) -> Optional[ec.Expression]:
         """The numeric, conditional and null functions of the reference's
         function table (``spark_rapids_tpu/api/sql.py``'s ``lower_func``),
@@ -1866,9 +1920,6 @@ class _Lowerer:
             numbers(2)
             return _MATH2[n](*args)
         if n in ("greatest", "least") and len(args) >= 2:
-            if any(a.dtype() == T.STRING for a in args):
-                raise SqlError(f"{n}() of strings is not supported by the "
-                               f"port")
             return (ea.Greatest if n == "greatest" else ea.Least)(*args)
         if n == "nullif" and len(args) == 2:
             return econd.If(_comparison("=", args[0], args[1]),
@@ -1907,10 +1958,11 @@ class _Lowerer:
         # check_window_func refuses the types a window does not take
         any_type = ("count", "max", "min", "first", "first_value", "last",
                     "last_value")
+        if a.name not in any_type and dt == T.STRING:
+            # Spark's implicit cast to double: NULL for a word that is no
+            # number (the reference's engine adds the string's bytes)
+            arg, dt = ecast.Cast(arg, T.FLOAT64), T.FLOAT64
         if a.name not in any_type and not dt.is_numeric and dt != T.NULL:
-            # Spark casts the input to double (null for a word that is no
-            # number); a cast of a string is not ported, and adding a
-            # string's bytes, as the reference's engine does, is no answer
             raise SqlError(f"{a.name}() of a {dt} column is not supported "
                            f"by the port")
         return (_WINDOW_AGGREGATES if window else _AGGREGATES)[a.name](arg)

@@ -415,7 +415,8 @@ class Atan2(BinaryArithmetic):
 
 class Greatest(Expression):
     """The largest non-null argument, in the arguments' common type
-    (null only where every argument is); a NaN is the largest double."""
+    (null only where every argument is); a NaN is the largest double,
+    and strings compare in byte order."""
     take_larger = True
 
     def __init__(self, *children: Expression):
@@ -439,6 +440,14 @@ class Greatest(Expression):
 
     def columnar_eval(self, batch):
         out_t = self.dtype()
+        if out_t == T.STRING:
+            from ..columnar.column import StringColumn, null_column
+            from ..kernels.strings import extreme
+            cols = [eval_as_column(ch, batch) for ch in self.children]
+            return extreme([c if isinstance(c, StringColumn) else
+                            null_column(T.STRING, batch.capacity,
+                                        batch.device) for c in cols],
+                           self.take_larger)
         best = bestv = None
         for ch in self.children:
             c = as_type(eval_as_column(ch, batch), out_t)

@@ -1,4 +1,4 @@
-"""Casts among the numbers (DECIMAL64 included), BOOL and DATE.
+"""Casts among the numbers (DECIMAL64 included), BOOL, DATE and STRING.
 
 Counterpart of ``spark_rapids_tpu/expr/cast.py``'s ``Cast`` with Spark's
 non-ANSI rules (the reference's ``_cast_numeric``):
@@ -12,20 +12,37 @@ non-ANSI rules (the reference's ``_cast_numeric``):
 - a DATE to a DATE, and a bare NULL to any type;
 - to a DECIMAL: a DECIMAL rescales exactly up and HALF_UP down, an
   integer or BOOL multiplies by ``10^scale`` exactly, a float rounds
-  HALF_UP from ``value * 10^scale``; a value that does not fit the
+  its shortest digits HALF_UP (below); a value that does not fit the
   precision is NULL (Spark's answer; the reference's int64 wraps);
-- from a DECIMAL: an integer truncates toward zero and saturates at the
-  type's bounds (the reference's clip), a float is the nearest to
-  ``unscaled / 10^scale``, BOOL is ``x != 0``.
+- from a DECIMAL: an integer truncates toward zero, and an int keeps
+  the low 32 bits of that long (Spark's ``toLong.toInt``, which wraps;
+  the reference clips), a float is the nearest to ``unscaled /
+  10^scale``, BOOL is ``x != 0``;
+- a double to a DECIMAL rounds HALF_UP from the double's shortest
+  decimal digits, those of Java's ``Double.toString`` (Spark's
+  ``Decimal(double)``; the reference rounds ``value * 10^scale``, and
+  ties half to even);
+- to STRING (and VARCHAR): integers in decimal digits, a DECIMAL as
+  plain digits with ``scale`` of them after the point, a DATE as
+  ``yyyy-MM-dd``, BOOL as ``true`` / ``false``, a float as Java's
+  ``Double.toString`` / ``Float.toString`` (its shortest digits from the
+  ``format_double`` kernel);
+- from STRING, trimmed: integers as Spark's ``UTF8String.toLong`` /
+  ``toInt`` (a fraction is dropped, a value past the type is NULL),
+  floats as Java's ``parseDouble`` / ``parseFloat`` and the words NaN,
+  Inf and Infinity in any case (the ``parse_double`` kernel), a DECIMAL
+  from its digits exactly, HALF_UP, a DATE as Spark's ``stringToDate``,
+  BOOL from ``t true y yes 1`` / ``f false n no 0`` in any case; any
+  other text is NULL (``kernels/numtext.py``).
 
 Comparisons, join keys and unions widen their narrower side through the
 same class (``can_widen``: int32 -> int64 -> float32 -> float64).  A
-cast from or to STRING (the reference's is a per-row host loop), from a
-DATE to a number or back, and TIMESTAMP are not ported: ``Cast`` raises
-``NotImplementedError`` naming the cast when it is typed (``dtype()``),
-before any device work.  ``TYPE_NAMES`` are the reference's type names
-(``_TYPE_MAP``) of the types the port carries; ``type_of`` reads them
-and ``decimal(p, s)`` / ``numeric(p, s)`` (the reference's default
+cast from a DATE to a number or back, and TIMESTAMP are not ported:
+``Cast`` raises ``NotImplementedError`` naming the cast when it is typed
+(``dtype()``), before any device work.  ``TYPE_NAMES`` are the
+reference's type names (``_TYPE_MAP``) of the types the port carries;
+``type_of`` reads them, ``varchar(n)`` / ``char(n)`` (a STRING), and
+``decimal(p, s)`` / ``numeric(p, s)`` (the reference's default
 ``decimal(10, 0)`` without them).
 """
 from __future__ import annotations
@@ -35,8 +52,9 @@ import re
 import torch
 
 from ..columnar import dtypes as T
-from ..columnar.column import Column, null_column
+from ..columnar.column import Column, StringColumn, null_column
 from ..kernels import decimal as dk
+from ..kernels import numtext
 from .core import Expression, eval_as_column
 
 #: the largest double below 2^63: every double up to it converts to an
@@ -48,9 +66,12 @@ _NUMBERS = (T.BOOL, T.INT32, T.INT64, T.FLOAT32, T.FLOAT64)
 TYPE_NAMES = {"boolean": T.BOOL, "bool": T.BOOL, "int": T.INT32,
               "integer": T.INT32, "bigint": T.INT64, "long": T.INT64,
               "float": T.FLOAT32, "real": T.FLOAT32, "double": T.FLOAT64,
-              "date": T.DATE}
+              "date": T.DATE, "string": T.STRING, "varchar": T.STRING}
 _DECIMAL_NAME = re.compile(r"(decimal|numeric|dec)\s*(?:\(\s*(\d+)\s*"
                            r"(?:,\s*(\d+)\s*)?\))?")
+_CHAR_NAME = re.compile(r"(var)?char\s*\(\s*\d+\s*\)")
+#: the types a STRING casts to and from
+_TEXT_TYPES = (T.BOOL, T.INT32, T.INT64, T.FLOAT32, T.FLOAT64, T.DATE)
 
 
 def type_of(name: str) -> T.DType:
@@ -61,6 +82,8 @@ def type_of(name: str) -> T.DType:
     name = name.strip().lower()
     if name in TYPE_NAMES:
         return TYPE_NAMES[name]
+    if _CHAR_NAME.fullmatch(name):
+        return T.STRING
     m = _DECIMAL_NAME.fullmatch(name)
     if m is None:
         raise KeyError(name)
@@ -82,6 +105,9 @@ def can_cast(src: T.DType, to: T.DType) -> bool:
     """Whether the port casts ``src`` to ``to``."""
     if src == to or src == T.NULL:
         return True
+    if src == T.STRING or to == T.STRING:
+        other = to if src == T.STRING else src
+        return other in _TEXT_TYPES or other.is_decimal
     return (src in _NUMBERS or src.is_decimal) and \
         (to in _NUMBERS or to.is_decimal)
 
@@ -124,8 +150,39 @@ def _from_decimal(a: torch.Tensor, src: T.DecimalType, to: T.DType):
         return a != 0
     if to.is_fractional:
         return dk.to_double(a, src.scale).to(to.torch_dtype)
-    lo, hi = _INT_BOUNDS[to]
-    return dk.truncate(a, src.scale).clamp(lo, hi).to(to.torch_dtype)
+    # Spark's toLong.toInt: the truncated long fits, an int wraps
+    return dk.truncate(a, src.scale).to(to.torch_dtype)
+
+
+def to_string(c: Column) -> StringColumn:
+    """``c`` as text (``kernels/numtext.py``)."""
+    dt, v = c.dtype, c.validity
+    if dt.is_decimal:
+        return numtext.format_decimal(c.data, v, dt.precision, dt.scale)
+    if dt == T.BOOL:
+        return numtext.format_bool(c.data, v)
+    if dt == T.DATE:
+        return numtext.format_date(c.data, v)
+    if dt.is_fractional:
+        return numtext.format_float(c.data, v)
+    return numtext.format_integer(c.data, v, dt == T.INT64)
+
+
+def from_string(c: StringColumn, to: T.DType) -> Column:
+    """Text read as ``to``, NULL where it is not one
+    (``kernels/numtext.py``)."""
+    if to.is_decimal:
+        data, ok = numtext.parse_decimal(c, to.precision, to.scale)
+    elif to == T.BOOL:
+        data, ok = numtext.parse_bool(c)
+    elif to == T.DATE:
+        data, ok = numtext.parse_date(c)
+    elif to.is_fractional:
+        data, ok = numtext.parse_float(c, to == T.FLOAT32)
+    else:
+        data, ok = numtext.parse_integer(c, to == T.INT64)
+        data = data.to(to.torch_dtype)
+    return Column(to, data, c.validity & ok)
 
 
 def cast_column(c: Column, to: T.DType) -> Column:
@@ -135,6 +192,10 @@ def cast_column(c: Column, to: T.DType) -> Column:
         return c
     if c.dtype == T.NULL:
         return null_column(to, c.capacity, c.device)
+    if to == T.STRING:
+        return to_string(c)
+    if c.dtype == T.STRING:
+        return from_string(c, to)
     if to.is_decimal:
         data, ok = _to_decimal(c.data, c.dtype, to)
         return Column(to, data, c.validity & ok)

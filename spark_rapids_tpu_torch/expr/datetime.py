@@ -15,6 +15,7 @@ import torch
 
 from ..columnar import dtypes as T
 from ..columnar.column import Column
+from .cast import Cast
 from .core import Expression, eval_as_column
 
 
@@ -188,3 +189,14 @@ class DateDiff(Expression):
         return Column(T.INT32, (a.data.to(torch.int64) -
                                 b.data.to(torch.int64)).to(torch.int32),
                       a.validity & b.validity)
+
+
+class ToDate(Cast):
+    """``to_date(str)``: the cast of a STRING (or DATE) to DATE, Spark's
+    ``stringToDate`` (``kernels/numtext.parse_date``)."""
+
+    def __init__(self, child: Expression):
+        super().__init__(child, T.DATE)
+
+    def __repr__(self):
+        return f"to_date({self.children[0]!r})"

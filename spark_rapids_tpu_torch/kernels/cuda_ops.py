@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for Hopper, and their plain torch versions.
 
 Counterpart of ``spark_rapids_tpu/kernels/pallas_ops.py`` (B1, B2), plus
-the join probe, a kernel of the port alone, and the direct-address probe
+the join probe, a kernel of the port alone, the direct-address probe
 (the lookup of the reference's ``_prepare_direct``, which no Pallas kernel
-does).  Each kernel
+does), and the string kernels of the port alone: SQL ``LIKE``
+(``like_match``) and the casts between floats and strings
+(``format_double``, ``parse_double``), which the reference runs in host
+loops.  Each kernel
 lives in ``csrc/`` as CUDA C++ with a plain C interface, is compiled at
 first use with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the
 repository root, and is loaded with ``ctypes``.
@@ -19,6 +22,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,7 +42,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {"hash_partition": "hash_partition.cu",
            "table_reduce": "table_reduce.cu",
-           "join_probe": "join_probe.cu"}
+           "join_probe": "join_probe.cu",
+           "strings": "strings.cu",
+           "numtext": "numtext.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,7 +54,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"hash_partition_ids": 0, "table_reduce": 0,
                             "table_reduce_min": 0,
                             "table_reduce_firstlast": 0, "join_probe": 0,
-                            "direct_probe": 0}
+                            "direct_probe": 0, "like_match": 0,
+                            "format_double": 0, "parse_double": 0}
 _MAX_WORDS = 32
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -144,6 +151,18 @@ class _Plan(ctypes.Structure):
                 ("stride", ctypes.c_int)]
 
 
+#: most tokens of a LIKE pattern (LM_MAX_TOKENS); a byte is a token, and
+#: ``_`` and ``%`` are LIKE_ONE and LIKE_ANY
+LIKE_MAX_TOKENS = 512
+LIKE_ONE, LIKE_ANY = 256, 257
+
+
+class _LikePattern(ctypes.Structure):
+    """``LikePattern`` of csrc/strings.cu."""
+    _fields_ = [("len", ctypes.c_int),
+                ("tok", ctypes.c_short * LIKE_MAX_TOKENS)]
+
+
 _VP, _I, _LL, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_uint64)
 _SIGNATURES = {
@@ -162,6 +181,12 @@ _SIGNATURES = {
         "join_probe_smem": [_I],
         "direct_probe": [_VP, _I, _VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP,
                          _LL, _LL, _LL, _VP, _VP, _I, _VP]},
+    "strings": {
+        "like_match": [_VP, _VP, _VP, _LL, ctypes.POINTER(_LikePattern),
+                       _VP, _I, _VP]},
+    "numtext": {
+        "format_double": [_VP, _I, _LL, _VP, _VP, _VP, _I, _VP],
+        "parse_double": [_VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _I, _VP]},
 }
 
 
@@ -940,3 +965,330 @@ def direct_probe(keys: torch.Tensor, valid: torch.Tensor, rows,
     _raise_on(lib, what, err)
     LAUNCHES[what] += 1
     return lo, counts
+
+
+# -- SQL LIKE ------------------------------------------------------------------
+
+#: threads of a like_match, format_double and parse_double block
+TEXT_THREADS = 256
+
+
+def like_tokens(pattern: str, escape: str = "\\") -> List[int]:
+    """A LIKE pattern as ``like_match``'s tokens: each byte of its UTF-8
+    text, LIKE_ONE for ``_`` and LIKE_ANY for ``%`` (runs of ``%`` kept
+    as one); the escape character makes the next character literal.  A
+    pattern that ends with the escape raises ``ValueError``, as Spark's
+    does."""
+    out: List[int] = []
+    chars = iter(pattern)
+    for ch in chars:
+        if escape and ch == escape:
+            nxt = next(chars, None)
+            if nxt is None:
+                raise ValueError(f"LIKE {pattern!r} ends with its escape "
+                                 f"character")
+            out.extend(nxt.encode("utf-8"))
+        elif ch == "%":
+            if not out or out[-1] != LIKE_ANY:
+                out.append(LIKE_ANY)
+        elif ch == "_":
+            out.append(LIKE_ONE)
+        else:
+            out.extend(ch.encode("utf-8"))
+    return out
+
+
+def _char_bytes(b: torch.Tensor) -> torch.Tensor:
+    """Bytes of the UTF-8 character a lead byte starts (1 for a stray
+    continuation byte), as the kernel counts them."""
+    return torch.where(b < 0xC0, 1, torch.where(b < 0xE0, 2, torch.where(
+        b < 0xF0, 3, 4)))
+
+
+def like_match_plain(offsets: torch.Tensor, data: torch.Tensor,
+                     valid: torch.Tensor, tokens: Sequence[int]
+                     ) -> torch.Tensor:
+    """Plain torch version of ``like_match``: the kernel's greedy match,
+    one step of every row at a time."""
+    dev = valid.device
+    n = valid.shape[0]
+    i = offsets[:-1].to(torch.int64)
+    e = offsets[1:].to(torch.int64)
+    plen = len(tokens)
+    tok = torch.tensor(list(tokens) + [-1], dtype=torch.int64, device=dev)
+    p = torch.zeros(n, dtype=torch.int64, device=dev)
+    star = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    mark = torch.zeros(n, dtype=torch.int64, device=dev)
+    ok = valid.clone()
+    active = ok & (i < e)
+    last = max(data.shape[0] - 1, 0)
+    while bool(active.any()):
+        t = tok[p]
+        byte = data[i.clamp(0, last)].to(torch.int64)
+        one = active & (t == LIKE_ONE)
+        lit = active & (t >= 0) & (t < LIKE_ONE) & (byte == t)
+        any_ = active & (t == LIKE_ANY)
+        rest = active & ~one & ~lit & ~any_
+        back = rest & (star >= 0)
+        ok = ok & ~(rest & (star < 0))
+        moved = torch.minimum(
+            mark + _char_bytes(data[mark.clamp(0, last)].to(torch.int64)), e)
+        i = torch.where(one, torch.minimum(i + _char_bytes(byte), e),
+                        torch.where(lit, i + 1, torch.where(back, moved, i)))
+        mark = torch.where(any_, i, torch.where(back, moved, mark))
+        star = torch.where(any_, p, star)
+        p = torch.where(one | lit | any_, p + 1,
+                        torch.where(back, star + 1, p))
+        active = active & ok & (i < e)
+    for _ in range(plen):
+        p = torch.where(ok & (tok[p] == LIKE_ANY), p + 1, p)
+    return ok & (p == plen)
+
+
+def like_match(offsets: torch.Tensor, data: torch.Tensor,
+               valid: torch.Tensor, tokens: Sequence[int]) -> torch.Tensor:
+    """bool[n]: row i (bytes ``[offsets[i], offsets[i + 1])`` of
+    ``data``) matches the LIKE pattern ``tokens`` (``like_tokens``);
+    False for a null row.  On the card, one launch (csrc/strings.cu),
+    the pattern passed by value."""
+    what = "like_match"
+    n = valid.shape[0]
+    if (offsets.dtype != torch.int32 or offsets.shape != (n + 1,) or
+            data.dtype != torch.uint8 or valid.dtype != torch.bool):
+        raise ValueError(f"{what}: offsets int32[n + 1], data uint8 and "
+                         f"valid bool[n]")
+    if len(tokens) > LIKE_MAX_TOKENS:
+        raise ValueError(f"{what}: a pattern of {len(tokens)} tokens (at "
+                         f"most {LIKE_MAX_TOKENS})")
+    _check_contiguous([offsets, data, valid], what)
+    if _device_kind([offsets, data, valid], what) == "cpu":
+        return like_match_plain(offsets, data, valid, tokens)
+    dev = valid.device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    pat = _LikePattern()
+    pat.len = len(tokens)
+    for k, t in enumerate(tokens):
+        pat.tok[k] = t
+    lib = _load("strings")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.like_match(offsets.data_ptr(), data.data_ptr(),
+                             valid.data_ptr(), n, ctypes.byref(pat),
+                             out.data_ptr(), TEXT_THREADS, stream)
+    _raise_on(lib, what, err)
+    LAUNCHES[what] += 1
+    return out
+
+
+# -- floats to digits and strings to floats ------------------------------------
+
+#: decimal exponents of the power-of-ten table (NT_POW10_MIN, NT_POW10_MAX)
+POW10_MIN, POW10_MAX = -350, 350
+_POW10: Dict[str, torch.Tensor] = {}
+
+
+def pow10_significands() -> List[int]:
+    """g(e) for e in [POW10_MIN, POW10_MAX]: the 128-bit significand of
+    10^e in [2^127, 2^128), rounded up unless it is exact (Schubfach's
+    table), from Python's integers."""
+    out = []
+    for e in range(POW10_MIN, POW10_MAX + 1):
+        if e >= 0:
+            v = 10 ** e
+            s = v.bit_length() - 128
+            g = v << -s if s <= 0 else (v >> s) + (v & ((1 << s) - 1) != 0)
+        else:
+            d = 10 ** -e
+            s = d.bit_length() + 127
+            g = (1 << s) // d
+            if g >= 1 << 128:
+                g = (1 << (s - 1)) // d
+            g += 1
+        out.append(g)
+    return out
+
+
+def pow10_table(device) -> torch.Tensor:
+    """``pow10_significands`` as int64[entries, 2] (low word, high word;
+    bit patterns), built at first use and uploaded once per device."""
+    key = str(device)
+    t = _POW10.get(key)
+    if t is None:
+        words = []
+        for g in pow10_significands():
+            for w in (g & ((1 << 64) - 1), g >> 64):
+                words.append(w - (1 << 64) if w >> 63 else w)
+        t = torch.tensor(words, dtype=torch.int64).reshape(-1, 2).to(device)
+        _POW10[key] = t
+    return t
+
+
+def _repr_digits(text: str):
+    """(digits, exp10) of a shortest repr ``[-]d[.ddd][e±n]``, trailing
+    zeros stripped."""
+    text = text.lstrip("-")
+    mant, _, ex = text.partition("e")
+    whole, _, frac = mant.partition(".")
+    d = int((whole + frac).lstrip("0") or "0")
+    e = int(ex or 0) - len(frac)
+    while d and d % 10 == 0:
+        d //= 10
+        e += 1
+    return d, e
+
+
+def format_double_plain(x: torch.Tensor):
+    """Plain version of ``format_double``: the digits of Python's
+    ``float.__repr__`` (numpy's shortest ``float32`` repr for a float
+    column), which defines the shortest digits that read back to the same
+    value and the closest of them.  A host loop over the rows, for the
+    CPU alone: it never runs when a card is present."""
+    import numpy as np
+    vals = x.cpu().numpy()
+    digits, exps = [], []
+    for v in vals:
+        if not np.isfinite(v) or v == 0:
+            d, e = 0, 0
+        elif vals.dtype == np.float32:
+            d, e = _repr_digits(np.format_float_scientific(
+                v, unique=True, trim="-").replace("e+", "e"))
+        else:
+            d, e = _repr_digits(repr(float(v)))
+        digits.append(d)
+        exps.append(e)
+    return (torch.tensor(digits, dtype=torch.int64, device=x.device),
+            torch.tensor(exps, dtype=torch.int32, device=x.device))
+
+
+def format_double(x: torch.Tensor):
+    """(digits int64[n], exp10 int32[n]) of a float64 or float32 column:
+    the shortest decimal digits that read back to the same value (the
+    closest of them), trailing zeros stripped, with |x| = digits *
+    10^exp10; (0, 0) for 0, NaN and the infinities.  On the card, one
+    launch (csrc/numtext.cu, Schubfach over ``pow10_table``)."""
+    what = "format_double"
+    if x.dtype not in (torch.float64, torch.float32) or x.dim() != 1:
+        raise ValueError(f"{what}: x must be float64[n] or float32[n]")
+    _check_contiguous([x], what)
+    if _device_kind([x], what) == "cpu":
+        return format_double_plain(x)
+    dev = x.device
+    n = x.shape[0]
+    digits = torch.empty(n, dtype=torch.int64, device=dev)
+    exp10 = torch.empty(n, dtype=torch.int32, device=dev)
+    table = pow10_table(dev)
+    lib = _load("numtext")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.format_double(x.data_ptr(), int(x.dtype == torch.float32),
+                                n, table.data_ptr(), digits.data_ptr(),
+                                exp10.data_ptr(), TEXT_THREADS, stream)
+    _raise_on(lib, what, err)
+    LAUNCHES[what] += 1
+    return digits, exp10
+
+
+#: the text ``parse_double`` reads as a number, after the bytes <= 0x20 at
+#: either end are trimmed: Java's decimal ``Double.parseDouble`` (digits
+#: with an optional point, an exponent and a d/D/f/F suffix) and the words
+#: NaN, Inf and Infinity in any case (Spark's special literals), each with
+#: an optional sign
+FLOAT_TEXT = re.compile(rb"([+-]?)(?:(nan|inf|infinity)|((?:\d+\.?\d*|\.\d+)"
+                        rb"(?:[eE][+-]?\d+)?)[dDfF]?)", re.IGNORECASE)
+
+
+def _float32_of(text: bytes, negative: bool) -> float:
+    """The float32 nearest the decimal ``text``, ties to even, as a
+    Python float: the double nearest it, or, where that double lies
+    halfway between two float32s, exact rational arithmetic."""
+    import numpy as np
+    from fractions import Fraction
+    d = float(text)
+    f = np.float32(d)
+    if np.isfinite(f) and float(f) != d:
+        other = np.nextafter(f, np.float32(np.inf if float(f) < d
+                                           else -np.inf))
+        if (float(f) + float(other)) / 2 == d:
+            # the double is the midpoint: the text's side of it decides
+            exact = Fraction(text.decode())
+            if exact != d:
+                f = max(f, other) if exact > d else min(f, other)
+    v = float(f)
+    return -v if negative else v
+
+
+def parse_double_plain(offsets: torch.Tensor, data: torch.Tensor,
+                       valid: torch.Tensor, f32: bool = False):
+    """Plain version of ``parse_double``: the kernel's grammar as a
+    regular expression, and the value from Python's ``float`` (and exact
+    rational arithmetic for a float32 halfway case), which round
+    correctly.  A host loop over the rows, for the CPU alone: it never
+    runs when a card is present."""
+    import math
+    buf = bytes(data.cpu().numpy().tobytes())
+    offs = offsets.cpu().tolist()
+    ok = valid.cpu().tolist()
+    vals = []
+    good = []
+    for r in range(valid.shape[0]):
+        v, g = 0.0, False
+        if ok[r]:
+            text = buf[offs[r]:offs[r + 1]]
+            lo, hi = 0, len(text)
+            while lo < hi and text[lo] <= 32:
+                lo += 1
+            while hi > lo and text[hi - 1] <= 32:
+                hi -= 1
+            m = FLOAT_TEXT.fullmatch(text, lo, hi)
+            if m is not None:
+                g = True
+                neg = m.group(1) == b"-"
+                if m.group(2):
+                    word = m.group(2).lower()
+                    v = math.nan if word == b"nan" else \
+                        (-math.inf if neg else math.inf)
+                elif f32:
+                    v = _float32_of(m.group(3), neg)
+                else:
+                    v = float(m.group(3))
+                    v = -v if neg else v
+        vals.append(v)
+        good.append(g)
+    dt = torch.float32 if f32 else torch.float64
+    return (torch.tensor(vals, dtype=dt, device=valid.device),
+            torch.tensor(good, dtype=torch.bool, device=valid.device))
+
+
+def parse_double(offsets: torch.Tensor, data: torch.Tensor,
+                 valid: torch.Tensor, f32: bool = False):
+    """(value float64[n] or float32[n], ok bool[n]): each row's text
+    (bytes ``[offsets[i], offsets[i + 1])`` of ``data``) read as a
+    number, correctly rounded (ties to even), as Java's
+    ``Double.parseDouble`` / ``Float.parseFloat`` and Spark's special
+    literals read it (``parse_double_plain`` gives the grammar); ``ok``
+    is False for a null row and for text that is no number.  NaN is the
+    canonical NaN.  On the card, one launch (csrc/numtext.cu)."""
+    what = "parse_double"
+    n = valid.shape[0]
+    if (offsets.dtype != torch.int32 or offsets.shape != (n + 1,) or
+            data.dtype != torch.uint8 or valid.dtype != torch.bool):
+        raise ValueError(f"{what}: offsets int32[n + 1], data uint8 and "
+                         f"valid bool[n]")
+    _check_contiguous([offsets, data, valid], what)
+    if _device_kind([offsets, data, valid], what) == "cpu":
+        return parse_double_plain(offsets, data, valid, f32)
+    dev = valid.device
+    out = torch.empty(n, dtype=torch.float32 if f32 else torch.float64,
+                      device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    table = pow10_table(dev)
+    lib = _load("numtext")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.parse_double(offsets.data_ptr(), data.data_ptr(),
+                               valid.data_ptr(), n, int(f32),
+                               table.data_ptr(), out.data_ptr(),
+                               ok.data_ptr(), TEXT_THREADS, stream)
+    _raise_on(lib, what, err)
+    LAUNCHES[what] += 1
+    return out, ok

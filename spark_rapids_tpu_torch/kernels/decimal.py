@@ -98,12 +98,33 @@ def to_double(x: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 def from_double(f: torch.Tensor, scale: int, precision: int):
-    """``(round(f * 10^scale) HALF_UP, whether it is a number that fits
-    precision digits)`` (the reference's float -> decimal)."""
-    y = f.to(torch.float64) * float(10 ** scale)
-    y = torch.sign(y) * torch.floor(y.abs() + 0.5)
-    ok = torch.isfinite(y) & (y.abs() < float(10 ** precision))
-    return torch.where(ok, y, 0.0).to(torch.int64), ok
+    """``(the double's value at scale, whether it is a number that fits
+    precision digits)``: Spark's ``Decimal(double)``, which rounds the
+    digits of ``Double.toString`` HALF_UP, here the shortest digits that
+    read back to the double (``cuda_ops.format_double``), so that 0.285
+    is 0.29 at scale 2 where ``f * 10^scale`` (0.28499999...) gives
+    0.28."""
+    from .cuda_ops import format_double
+    x = f.to(torch.float64).contiguous()
+    digits, exp10 = format_double(x)
+    shift = exp10.to(torch.int64) + scale
+    # up: digits * 10^shift, shift in [0, 18]; down: HALF_UP of the digits
+    # over 10^-shift, shift in [-18, -1] (digits < 10^17: further is 0)
+    p10 = torch.tensor([10 ** k for k in range(19)], dtype=torch.int64,
+                       device=x.device)
+    up = shift >= 0
+    k_up = shift.clamp(0, 18)
+    lim = torch.div(bound(precision), p10[k_up], rounding_mode="floor")
+    fits_up = (shift <= 18) & (digits <= lim)
+    k_dn = (-shift).clamp(1, 18)
+    down = torch.div(digits + p10[k_dn] // 2, p10[k_dn],
+                     rounding_mode="floor")
+    down = torch.where(-shift > 18, 0, down)
+    mag = torch.where(up, torch.where(fits_up, digits, 0) * p10[k_up], down)
+    ok = torch.isfinite(x) & torch.where(up, fits_up,
+                                         mag <= bound(precision))
+    mag = torch.where(ok, mag, 0)
+    return torch.where(torch.signbit(x), -mag, mag), ok
 
 
 def split_halves(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

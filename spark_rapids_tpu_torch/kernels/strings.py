@@ -8,6 +8,15 @@ scatter to compact gathered rows.  Sizing a gather's byte buffer needs no
 host read: a column carries a host bound on its longest string
 (``max_bytes``), and the buffer holds ``rows x max_bytes``.
 
+The string function library (trim, reverse, locate, pad, repeat,
+replace, initcap, concat_ws, greatest / least, LIKE) works on the flat
+byte buffer where it can: each byte finds its row by one search of the
+offsets (``_byte_rows``), and a function whose output sizes depend on the
+data reads the batch's total output bytes from the device once
+(``_assemble``), where the reference runs host loops
+(``_HostStringOp``).  Characters are UTF-8 characters; case mapping is
+ASCII alone, as the reference's.
+
 Key words (sort, group-by, join): ``num_words`` big-endian 64-bit words
 of each string's bytes, zero-padded, then its length, so unsigned
 lexicographic word order is byte order with shorter prefixes first.
@@ -22,7 +31,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .basic import mix64
+from .basic import SIGN64, mix64
 
 #: seed of the partition fold of a string's words
 FOLD_SEED = 0x5851F42D4C957F2D
@@ -355,3 +364,407 @@ def concat(parts, capacity: int, device):
         out.scatter_(0, dst.reshape(-1), src.reshape(-1))
         base = base + torch.where(valid, mb if ln is None else ln, 0)
     return StringColumn(offsets, out[:max(size, 1)], valid, sum(bounds))
+
+
+# -- the string function library ----------------------------------------------
+
+def _bounds(col):
+    """(starts, ends) int64[cap] of each row's bytes."""
+    return col.offsets[:-1].to(torch.int64), col.offsets[1:].to(torch.int64)
+
+
+def _byte_rows(col) -> torch.Tensor:
+    """int64[bytes]: the row each byte of the data buffer lies in (a byte
+    before the first row's start counts to row 0, one past the last row's
+    end to ``cap``; callers test ``starts[row] <= pos < ends[row]``)."""
+    pos = torch.arange(col.data.shape[0], device=col.offsets.device)
+    return torch.searchsorted(col.offsets[1:].to(torch.int64), pos,
+                              right=True)
+
+
+def _in_rows(col):
+    """(pos, row clipped into range, whether the byte lies in its row) of
+    every byte of the buffer."""
+    starts, ends = _bounds(col)
+    pos = torch.arange(col.data.shape[0], device=col.offsets.device)
+    row = _byte_rows(col).clamp(max=max(col.capacity - 1, 0))
+    inside = (pos >= starts[row]) & (pos < ends[row])
+    return pos, row, inside
+
+
+def _assemble(lens: torch.Tensor, valid: torch.Tensor, max_bytes: int,
+              source):
+    """A string column whose row i has ``lens[i]`` bytes (0 where not
+    ``valid``): its offsets by one cumsum, its byte count read from the
+    device once, and byte k of row r copied from ``source(r, k)`` (int64
+    positions of one buffer, returned with it: ``(buffer, positions)``).
+    """
+    from ..columnar.column import StringColumn
+    dev = lens.device
+    n = lens.shape[0]
+    lens = torch.where(valid, lens.to(torch.int64), 0)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(lens, 0)
+    total = int(offsets[-1])                # the one host read
+    j = torch.arange(total, device=dev)
+    r = torch.searchsorted(offsets[1:], j, right=True)
+    k = j - offsets[r]
+    buf, src = source(r, k)
+    data = buf[src] if total else torch.zeros(1, dtype=torch.uint8,
+                                              device=dev)
+    return StringColumn(offsets.to(torch.int32), data, valid, max_bytes)
+
+
+def _pieces(bufs, starts, lens, valid, max_bytes: int):
+    """Each row as the concatenation of P pieces: piece p of row r is
+    ``lens[r, p]`` bytes from ``starts[r, p]`` of the buffers ``bufs``
+    laid end to end (``starts`` count from the first buffer's start)."""
+    buf = torch.cat(bufs) if len(bufs) > 1 else bufs[0]
+    lens = torch.where(valid[:, None], lens.to(torch.int64), 0)
+    ends = torch.cumsum(lens, 1)
+
+    def source(r, k):
+        p = (k[:, None] >= ends[r]).sum(1)
+        begin = ends[r, p] - lens[r, p]
+        return buf, starts[r, p] + (k - begin)
+    return _assemble(lens.sum(1), valid, max_bytes, source)
+
+
+def char_lengths(col) -> torch.Tensor:
+    """int32[cap]: each row's count of UTF-8 characters (Spark's
+    ``length``)."""
+    nchars, _ = _char_positions(col.offsets, col.data)
+    return nchars.to(torch.int32)
+
+
+def _nth_marked(counts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The position of the (k+1)-th marked byte, from ``counts`` (int64
+    [bytes + 1], the marked bytes before each position)."""
+    return torch.searchsorted(counts[1:], k + 1)
+
+
+def _marked_counts(mark: torch.Tensor) -> torch.Tensor:
+    counts = torch.zeros(mark.shape[0] + 1, dtype=torch.int64,
+                         device=mark.device)
+    counts[1:] = torch.cumsum(mark.to(torch.int64), 0)
+    return counts
+
+
+def trim(col, side: str = "both"):
+    """``trim`` / ``ltrim`` / ``rtrim``: the spaces (0x20) at the
+    ``both``, ``leading`` or ``trailing`` end of each row removed.  A
+    row's first and last other bytes are found by a search of the
+    buffer's running count of such bytes, not by a scatter per row."""
+    from ..columnar.column import StringColumn
+    starts, ends = _bounds(col)
+    nb = col.data.shape[0]
+    counts = _marked_counts(col.data != 32)
+    before = counts[starts.clamp(max=nb)]
+    through = counts[ends.clamp(max=nb)]
+    some = through > before
+    first = _nth_marked(counts, before)
+    last = _nth_marked(counts, through - 1)
+    lo = starts if side == "trailing" else torch.where(some, first, ends)
+    hi = ends if side == "leading" else torch.where(some, last + 1, lo)
+    n = torch.where(col.validity, (hi - lo).clamp(min=0), 0)
+    offsets, data = copy_rows(col.data, lo, n.to(torch.int32),
+                              col.max_bytes)
+    return StringColumn(offsets, data, col.validity, col.max_bytes)
+
+
+def _char_starts(col, inside: torch.Tensor, pos: torch.Tensor,
+                 row: torch.Tensor):
+    """bool[bytes]: the byte begins a character of its row: a byte that
+    is no continuation byte (0b10xxxxxx), or one with no other byte of the
+    row among the three before it that is (a stray continuation byte is
+    a character of its own, so that no character is longer than 4)."""
+    d = col.data
+    lead = (d & 0xC0) != 0x80
+    near = torch.zeros_like(lead)
+    starts, _ = _bounds(col)
+    for k in (1, 2, 3):
+        back = pos - k
+        near |= (back >= starts[row]) & lead[back.clamp(min=0)]
+    return inside & (lead | ~near)
+
+
+def reverse(col):
+    """``reverse``: each row's characters in reverse order.  A byte moves
+    to ``start + (end - its character's end) + (its offset in the
+    character)``; the row keeps its offsets."""
+    from ..columnar.column import StringColumn
+    starts, ends = _bounds(col)
+    pos, row, inside = _in_rows(col)
+    first = _char_starts(col, inside, pos, row)
+    nb = col.data.shape[0]
+    s, e = starts[row], ends[row]
+    cs = pos.clone()
+    found = first.clone()
+    for k in (1, 2, 3):
+        back = (pos - k).clamp(min=0)
+        hit = ~found & (pos - k >= s) & first[back]
+        cs = torch.where(hit, pos - k, cs)
+        found |= hit
+    ce = e.clone()
+    done = torch.zeros_like(first)
+    for k in (1, 2, 3, 4):
+        ahead = pos + k
+        hit = ~done & ((ahead >= e) | first[ahead.clamp(max=nb - 1)])
+        ce = torch.where(hit, torch.minimum(ahead, e), ce)
+        done |= hit
+    dst = torch.where(inside, s + (e - ce) + (pos - cs), pos)
+    out = torch.empty_like(col.data).scatter_(0, dst, col.data)
+    return StringColumn(col.offsets, out, col.validity, col.max_bytes)
+
+
+def locate(col, needle: LiteralBytes, start: int = 1) -> torch.Tensor:
+    """int32[cap]: the 1-based character position of the first ``needle``
+    that begins at or after character ``start`` of each row, 0 where
+    there is none or ``start < 1`` (Spark's ``locate``; ``instr`` is
+    ``start`` 1); an empty needle is found at 1."""
+    dev = col.offsets.device
+    cap = col.capacity
+    if start < 1:
+        return torch.zeros(cap, dtype=torch.int32, device=dev)
+    if not needle:
+        return torch.ones(cap, dtype=torch.int32, device=dev)
+    if len(needle) > col.max_bytes:
+        return torch.zeros(cap, dtype=torch.int32, device=dev)
+    starts, ends = _bounds(col)
+    nchars, byte_of = _char_positions(col.offsets, col.data)
+    lead = (col.data & 0xC0) != 0x80
+    cs = torch.zeros(col.data.shape[0] + 1, dtype=torch.int64, device=dev)
+    cs[1:] = torch.cumsum(lead.to(torch.int64), 0)
+    lo = byte_of(torch.full_like(nchars, start - 1))
+    pos, row, inside = _in_rows(col)
+    m = len(needle)
+    nb = col.data.shape[0]
+    hit = inside & (pos + m <= ends[row]) & _match_at(col, pos, needle)
+    # the first occurrence at or after lo: a search of the running count
+    counts = _marked_counts(hit)
+    before = counts[lo.clamp(max=nb)]
+    some = counts[ends.clamp(max=nb)] > before
+    at = torch.where(some, _nth_marked(counts, before), 0).clamp(max=nb)
+    return torch.where(some, cs[at] - cs[starts] + 1, 0).to(torch.int32)
+
+
+def pad(col, length: int, fill: str, left: bool):
+    """``lpad`` / ``rpad``: each row cut to its first ``length``
+    characters, or filled to ``length`` characters with ``fill`` repeated
+    (on the left or the right); an empty ``fill`` leaves a shorter row as
+    it is, and ``length <= 0`` gives the empty string."""
+    dev = col.offsets.device
+    length = max(int(length), 0)
+    nchars, _ = _char_positions(col.offsets, col.data)
+    src, nb = _substring_offsets(col.offsets, col.data, 1, length)
+    chars = list(fill)
+    reps = "".join(chars[k % len(chars)] for k in range(length)) \
+        if chars else ""
+    fb = [0]
+    for ch in reps:
+        fb.append(fb[-1] + len(ch.encode("utf-8")))
+    fill_bytes = torch.tensor(fb, dtype=torch.int64, device=dev)
+    padbuf = LiteralBytes(reps or " ").on(dev)
+    f = (length - nchars).clamp(min=0) if chars else \
+        torch.zeros_like(nchars)
+    flen = fill_bytes[f.clamp(max=len(fb) - 1)]
+    base = col.data.shape[0]
+    pad_start = torch.full_like(src, base)
+    if left:
+        starts = torch.stack([pad_start, src], 1)
+        lens = torch.stack([flen, nb], 1)
+    else:
+        starts = torch.stack([src, pad_start], 1)
+        lens = torch.stack([nb, flen], 1)
+    bound = min(col.max_bytes, 4 * length) + fb[-1]
+    return _pieces([col.data, padbuf], starts, lens, col.validity, bound)
+
+
+def repeat(col, times: int):
+    """``repeat``: each row ``times`` times over (empty for ``times <=
+    0``)."""
+    times = max(int(times), 0)
+    starts, ends = _bounds(col)
+    lens = ends - starts
+
+    def source(r, k):
+        return col.data, starts[r] + k % lens[r].clamp(min=1)
+    return _assemble(lens * times, col.validity, col.max_bytes * times,
+                     source)
+
+
+def _overlaps_itself(raw: bytes) -> bool:
+    """Whether two occurrences of ``raw`` can overlap: a proper suffix of
+    it is also a prefix."""
+    return any(raw[k:] == raw[:len(raw) - k] for k in range(1, len(raw)))
+
+
+def _leftmost_disjoint(hit, row, starts, ends, m: int, max_bytes: int):
+    """The occurrences that a left-to-right scan takes (each the first
+    that begins past the one before it): from each row's first
+    occurrence, every occurrence reachable by ``next(b)``, the first
+    occurrence at or after ``b + m`` in the row; reached by doubling."""
+    nb = hit.shape[0]
+    dev = hit.device
+    pos = torch.arange(nb, device=dev)
+    sink = torch.full((1,), nb, dtype=torch.int64, device=dev)
+    at = torch.where(hit, pos, nb)
+    # the first occurrence at or after each position (nb where none)
+    after = torch.cat([torch.flip(torch.cummin(torch.flip(at, [0]), 0)
+                                  .values, [0]), sink])
+    nxt = after[(pos + m).clamp(max=nb)]
+    jump = torch.cat([torch.where(hit & (nxt < ends[row]), nxt, nb), sink])
+    h64 = hit.to(torch.int64)
+    cum = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    cum[1:] = torch.cumsum(h64, 0)
+    first = hit & (cum[:nb] == cum[starts[row].clamp(max=nb)])
+    mark = torch.cat([first, torch.zeros(1, dtype=torch.bool, device=dev)])
+    jumps = [jump]
+    while (1 << len(jumps)) <= max_bytes:
+        jumps.append(jumps[-1][jumps[-1]])
+    for j in reversed(jumps):
+        reach = torch.zeros(nb + 1, dtype=torch.int32, device=dev) \
+            .scatter_add_(0, j, mark.to(torch.int32))
+        mark = mark | (reach > 0)
+    return mark[:nb] & hit
+
+
+def replace(col, search: LiteralBytes, rep: LiteralBytes):
+    """``replace``: the occurrences of ``search`` that a left-to-right scan
+    finds, each begun past the one before it, replaced by ``rep`` (an
+    empty ``search`` leaves the row as it is)."""
+    m, r = len(search), len(rep)
+    if m == 0 or m > col.max_bytes:
+        return col
+    dev = col.offsets.device
+    cap = col.capacity
+    starts, ends = _bounds(col)
+    pos, row, inside = _in_rows(col)
+    inside = inside & col.validity[row]
+    nb = col.data.shape[0]
+    hit = inside & (pos + m <= ends[row]) & _match_at(col, pos, search)
+    if _overlaps_itself(search.raw):
+        hit = _leftmost_disjoint(hit, row, starts, ends, m,
+                                 col.max_bytes)
+    h64 = hit.to(torch.int64)
+    cover = torch.zeros(nb + m + 1, dtype=torch.int64, device=dev)
+    cover.index_add_(0, pos, h64)
+    cover.index_add_(0, pos + m, -h64)
+    covered = torch.cumsum(cover, 0)[:nb] > 0
+    cum = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    cum[1:] = torch.cumsum(h64, 0)
+    count = cum[ends.clamp(max=nb)] - cum[starts.clamp(max=nb)]
+    lens = torch.where(col.validity, ends - starts + count * (r - m), 0)
+    bound = col.max_bytes if r <= m else col.max_bytes // m * r + \
+        col.max_bytes % m
+    out_off = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    out_off[1:] = torch.cumsum(lens, 0)
+    total = int(out_off[-1])                 # the one host read
+    before = cum[:nb] - cum[starts[row].clamp(max=nb)]
+    dst = out_off[row] + (pos - starts[row]) + (r - m) * before
+    out = torch.zeros(total + 1, dtype=torch.uint8, device=dev)
+    keep = inside & ~covered
+    out.scatter_(0, torch.where(keep, dst, total), col.data)
+    lit = rep.on(dev)
+    for k in range(r):
+        out.scatter_(0, torch.where(hit, dst + k, total),
+                     lit[k].expand(nb))
+    from ..columnar.column import StringColumn
+    return StringColumn(out_off.to(torch.int32), out[:max(total, 1)],
+                        col.validity, bound)
+
+
+def initcap(col):
+    """``initcap``: ASCII letters lower case, but upper case at a row's
+    start and after a space (Spark's ``toLowerCase().toTitleCase()``; a
+    non-ASCII character keeps its bytes, as ``upper`` / ``lower``)."""
+    d = col.data
+    low = torch.where((d >= 65) & (d <= 90), d + 32, d).to(torch.uint8)
+    starts, ends = _bounds(col)
+    nb = d.shape[0]
+    head = torch.zeros(nb + 1, dtype=torch.bool, device=d.device)
+    head[torch.where(ends > starts, starts, nb).clamp(max=nb)] = True
+    prev = torch.cat([torch.full((1,), 32, dtype=torch.uint8,
+                                 device=d.device), d[:-1]])
+    up = (head[:nb] | (prev == 32)) & (low >= 97) & (low <= 122)
+    data = torch.where(up, low - 32, low).to(torch.uint8)
+    return type(col)(col.offsets, data, col.validity, col.max_bytes)
+
+
+def concat_ws(sep: LiteralBytes, parts, capacity: int, device):
+    """``concat_ws(sep, parts...)``: the non-null parts (string columns or
+    LiteralBytes) joined by ``sep``; never null."""
+    bufs, starts, lens, bounds = [], [], [], []
+    seen = torch.zeros(capacity, dtype=torch.bool, device=device)
+    base = 0
+    sep_buf = sep.on(device) if sep else None
+    for i, p in enumerate(parts):
+        if isinstance(p, LiteralBytes):
+            present = torch.ones(capacity, dtype=torch.bool, device=device)
+            own = torch.full((capacity,), len(p), dtype=torch.int64,
+                             device=device)
+            at = torch.full((capacity,), base, dtype=torch.int64,
+                            device=device)
+            buf, bound = p.on(device) if p else None, len(p)
+        else:
+            present = p.validity
+            s, e = _bounds(p)
+            own, at, buf, bound = e - s, s + base, p.data, p.max_bytes
+        if buf is not None:
+            bufs.append(buf)
+            base += int(buf.shape[0])
+        if i and sep:
+            starts.append(torch.full((capacity,), -1, dtype=torch.int64,
+                                     device=device))
+            lens.append(torch.where(present & seen, len(sep), 0))
+            bounds.append(len(sep))
+        starts.append(at)
+        lens.append(torch.where(present, own, 0))
+        bounds.append(bound)
+        seen = seen | present
+    if sep_buf is not None:
+        starts = [torch.where(s < 0, base, s) for s in starts]
+        bufs.append(sep_buf)
+    if not bufs:
+        bufs.append(torch.zeros(1, dtype=torch.uint8, device=device))
+    valid = torch.ones(capacity, dtype=torch.bool, device=device)
+    return _pieces(bufs, torch.stack(starts, 1), torch.stack(lens, 1),
+                   valid, sum(bounds))
+
+
+def _words_less(a: List[torch.Tensor], b: List[torch.Tensor]):
+    """bool[n]: word list ``a`` before ``b`` in unsigned lexicographic
+    order."""
+    less = torch.zeros_like(a[0], dtype=torch.bool)
+    equal = torch.ones_like(less)
+    for x, y in zip(a, b):
+        xs, ys = x ^ SIGN64, y ^ SIGN64
+        less = less | (equal & (xs < ys))
+        equal = equal & (x == y)
+    return less
+
+
+def extreme(cols, largest: bool):
+    """``greatest`` / ``least`` of string columns of one capacity in byte
+    order, the NULLs skipped (NULL where every argument is)."""
+    nw = max(needed_key_words(c) for c in cols)
+    best = torch.zeros(cols[0].capacity, dtype=torch.int64,
+                       device=cols[0].offsets.device)
+    have = cols[0].validity
+    words = string_key_words(cols[0], nw)
+    for j, c in enumerate(cols[1:], 1):
+        w = string_key_words(c, nw)
+        beats = _words_less(words, w) if largest else _words_less(w, words)
+        take = c.validity & (~have | beats)
+        best = torch.where(take, j, best)
+        words = [torch.where(take, y, x) for x, y in zip(words, w)]
+        have = have | c.validity
+    return choose_rows(cols, best, have)
+
+
+def like(col, tokens) -> torch.Tensor:
+    """bool[cap]: each row matches the LIKE pattern ``tokens``
+    (``cuda_ops.like_tokens``), by the ``like_match`` kernel."""
+    from . import cuda_ops
+    return cuda_ops.like_match(col.offsets.contiguous(), col.data,
+                               col.validity.contiguous(), tokens)

@@ -521,6 +521,96 @@ def test_reference_avg_and_divide_read_unscaled_ints():
         .collect()[0][0] == pytest.approx(3.0)
 
 
+# -- C6, C7 and round: Spark's answers by hand -------------------------------
+
+_TIES = [0.285, -0.285, 1.005, -1.005, 0.125, -0.125, 2.675, 999.995,
+         99.995, -999.994, 0.005, 1e-7]
+
+
+def _ties_table():
+    return pa.table({"x": pa.array(_TIES, pa.float64()),
+                     "k": np.arange(len(_TIES))})
+
+
+def test_double_to_decimal_rounds_the_shortest_digits():
+    """C6: a double cast to DECIMAL rounds HALF_UP the digits of Java's
+    ``Double.toString`` (Spark's ``Decimal(double)``), not ``x * 100``:
+    0.285 is 0.29 and 1.005 is 1.01 at decimal(5,2) (worked out by hand
+    from the texts "0.285" and "1.005"), ±0.125 is ±0.13, 2.675 is 2.68,
+    999.995 does not fit and is NULL, 99.995 is 100.00."""
+    df = _port().create_dataframe(_ties_table())
+    got = [r[1] for r in df.select(F.col("k"), F.col("x").cast(
+        "decimal(5,2)").alias("d")).sort("k").collect()]
+    want = ["0.29", "-0.29", "1.01", "-1.01", "0.13", "-0.13", "2.68", None,
+            "100.00", "-999.99", "0.01", "0.00"]
+    assert got == [None if w is None else Decimal(w) for w in want]
+
+
+def test_reference_double_to_decimal_rounds_the_binary_product():
+    """The reference's double -> DECIMAL (``expr/cast.py:141-143``) rounds
+    ``x * 10^scale`` half to even: 0.285 and 1.005 give 0.28 and 1.00
+    (their products lie below the half), ±0.125 gives ±0.12."""
+    def run(session):
+        df = session.create_dataframe(_ties_table())
+        df.create_or_replace_temp_view("t")
+        return session.sql("select k, cast(x as decimal(5,2)) from t "
+                           "where k < 6 order by k").collect()
+    got = [r[1] for r in with_tpu_session(run)]
+    assert got == [Decimal(w) for w in ("0.28", "-0.28", "1.00", "-1.00",
+                                        "0.12", "-0.12")]
+
+
+def test_decimal_to_int_wraps():
+    """C7: a DECIMAL cast to int is Spark's ``toLong.toInt``: the
+    truncated long keeps its low 32 bits, so 3000000000.7 at
+    decimal(12,1) is -1294967296 (3000000000 - 2^32) and -3000000000.7
+    is 1294967296; a bigint keeps the truncated value; a double cast to
+    int still saturates."""
+    t = pa.table({"d": pa.array([Decimal("3000000000.7"),
+                                 Decimal("-3000000000.7"), Decimal("12.9")],
+                                pa.decimal128(12, 1))})
+    rows = _port().create_dataframe(t).select(
+        F.col("d").cast("int"), F.col("d").cast("bigint"),
+        F.col("d").cast("double").cast("int")).collect()
+    assert rows == [(-1294967296, 3000000000, 2147483647),
+                    (1294967296, -3000000000, -2147483648), (12, 12, 12)]
+
+
+def test_reference_decimal_to_int_saturates():
+    """The reference clips a DECIMAL cast to int at the type's bounds
+    (``expr/cast.py:145-153``, ``jnp.clip``): 2147483647 for
+    3000000000.7, where Spark wraps."""
+    from spark_rapids_tpu.api import functions as JF
+    t = pa.table({"d": pa.array([Decimal("3000000000.7")],
+                                pa.decimal128(12, 1))})
+    got = with_tpu_session(lambda s: s.create_dataframe(t).select(
+        JF.col("d").cast("int")).collect())
+    assert got == [(2147483647,)]
+
+
+def test_round_of_a_decimal():
+    """``round`` of a DECIMAL rounds HALF_UP at the requested scale
+    (Spark's answers by hand): round(9.99, 1) is 10.0 and round(-1.25, 1)
+    is -1.3, in the column's scale."""
+    t = pa.table({"d": pa.array([Decimal("9.99"), Decimal("-1.25"),
+                                 Decimal("0.04")], pa.decimal128(5, 2))})
+    rows = _port().create_dataframe(t).select(F.round("d", 1)).collect()
+    assert [r[0] for r in rows] == [Decimal("10.00"), Decimal("-1.30"),
+                                    Decimal("0.00")]
+
+
+def test_reference_round_of_a_decimal_returns_its_input():
+    """Reference fault 22: the JAX engine's ``round`` of a DECIMAL
+    (``expr/arithmetic.py:378-401``) rounds the unscaled int as a double
+    at the requested scale and returns 9.99 and -1.25 unchanged."""
+    from spark_rapids_tpu.api import functions as JF
+    t = pa.table({"d": pa.array([Decimal("9.99"), Decimal("-1.25")],
+                                pa.decimal128(5, 2))})
+    got = with_tpu_session(lambda s: s.create_dataframe(t).select(
+        JF.round("d", 1)).collect())
+    assert [r[0] for r in got] == [Decimal("9.99"), Decimal("-1.25")]
+
+
 # -- overflow: reference fault 20 -----------------------------------------
 
 _BIG = 922337203685477581           # x 20 is 2^64 + 4

@@ -1309,3 +1309,159 @@ def test_decimal_queries_on_card_equal_cpu():
     assert agg.equals(cagg) and semi.equals(csemi)
     assert str(agg.schema.field("lo").type) == "decimal128(7, 2)"
     assert str(semi.schema.field("s").type) == "decimal128(17, 2)"
+
+
+# -- slice 16: LIKE and the casts between floats and strings ------------------
+
+def _text_column(strings, device):
+    """(offsets int32, data uint8, valid bool) of Python strings (None a
+    null row) on ``device``."""
+    raw = [b"" if s is None else s.encode() for s in strings]
+    offs = np.zeros(len(raw) + 1, np.int32)
+    offs[1:] = np.cumsum([len(r) for r in raw])
+    data = np.frombuffer(b"".join(raw) or b"\0", np.uint8).copy()
+    valid = np.array([s is not None for s in strings])
+    return (torch.from_numpy(offs).to(device),
+            torch.from_numpy(data).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def _float_strings(rng, n):
+    """Texts of numbers as casts meet them: shortest reprs of random bit
+    patterns, long digit strings, halfway cases, Java's forms and junk."""
+    bits = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    xs = bits.view(np.float64)
+    out = []
+    for i, x in enumerate(xs.tolist()):
+        k = i % 6
+        if k == 0:
+            out.append(repr(x))
+        elif k == 1:
+            digits = "".join(map(str, rng.integers(0, 10, rng.integers(
+                1, 40))))
+            out.append(f"{digits[:3]}.{digits[3:]}e{rng.integers(-340, 320)}")
+        elif k == 2:
+            # halfway between two doubles, written out in full
+            import decimal
+            decimal.getcontext().prec = 800
+            a = abs(x) if np.isfinite(x) else 1.0
+            b = float(np.nextafter(a, np.inf))
+            h = (decimal.Decimal(a) + decimal.Decimal(b)) / 2
+            out.append(format(h, "e"))
+        elif k == 3:
+            out.append(["NaN", " -Infinity ", "inf", "1.5d", "+.5", "5.",
+                        "1e", "abc", "", "0x10", "1_0", "-0.0"][i % 12])
+        elif k == 4:
+            out.append(repr(float(np.float32(x))) if np.isfinite(
+                np.float32(x)) else "1.0")
+        else:
+            out.append(None if i % 12 == 5 else f" {x:.17g} ")
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f32", [False, True], ids=["double", "float"])
+def test_format_double_kernel_matches_plain(f32):
+    """The shortest digits on the card equal ``float.__repr__``'s (and
+    numpy's float32 repr's) bit for bit, subnormals included."""
+    _need_card()
+    rng = np.random.default_rng(16)
+    n = 200_000
+    if f32:
+        x = rng.integers(0, 2**32 - 1, n, dtype=np.uint32,
+                         endpoint=True).view(np.float32)
+    else:
+        x = rng.integers(0, 2**64 - 1, n, dtype=np.uint64,
+                         endpoint=True).view(np.float64)
+        x[:1000] = np.arange(1, 1001) * 5e-324
+    x[1000:1010] = [0.0, -0.0, np.nan, np.inf, -np.inf, 1e7, 1e16, 0.285,
+                    1.005, 1e-3]
+    t = torch.from_numpy(x.copy())
+    cuda_ops.reset_launches()
+    digits, exp10 = cuda_ops.format_double(t.cuda())
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["format_double"] == 1
+    want_d, want_e = cuda_ops.format_double_plain(t)
+    assert torch.equal(digits.cpu(), want_d)
+    assert torch.equal(exp10.cpu(), want_e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f32", [False, True], ids=["double", "float"])
+def test_parse_double_kernel_matches_plain(f32):
+    """Every text reads to the plain version's value bit for bit (Python's
+    correctly rounded ``float``), the rows past 19 digits and the
+    halfway cases included, and the same rows are numbers."""
+    _need_card()
+    rng = np.random.default_rng(17)
+    strings = _float_strings(rng, 60_000)
+    cols = _text_column(strings, "cpu")
+    cuda_ops.reset_launches()
+    got, ok = cuda_ops.parse_double(*[c.cuda() for c in cols], f32)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["parse_double"] == 1
+    want, want_ok = cuda_ops.parse_double_plain(*cols, f32)
+    assert torch.equal(ok.cpu(), want_ok)
+    view = torch.int32 if f32 else torch.int64
+    g = torch.where(ok.cpu(), got.cpu().view(view), 0)
+    w = torch.where(want_ok, want.view(view), 0)
+    nan = torch.isnan(want)
+    assert torch.equal(g[~nan], w[~nan])
+    assert torch.isnan(got.cpu()[nan & want_ok]).all()
+
+
+@pytest.mark.gpu
+def test_like_match_kernel_matches_plain():
+    """Random patterns of ``%``, ``_``, escapes and multi-byte characters
+    over strings drawn from the same alphabet match as the plain
+    version does."""
+    _need_card()
+    rng = np.random.default_rng(18)
+    alphabet = ["a", "b", "é", "%", "_", "ü", "x"]
+    strings = ["".join(rng.choice(alphabet, rng.integers(0, 12)))
+               if i % 17 else None for i in range(20_000)]
+    cols = _text_column(strings, "cpu")
+    dev = [c.cuda() for c in cols]
+    for _ in range(25):
+        pat = "".join(rng.choice(["a", "b", "é", "%", "_", "\\%", "\\_",
+                                  "x"], rng.integers(0, 7)))
+        tokens = cuda_ops.like_tokens(pat)
+        got = cuda_ops.like_match(*dev, tokens)
+        want = cuda_ops.like_match_plain(*cols, tokens)
+        assert torch.equal(got.cpu(), want), pat
+
+
+@pytest.mark.gpu
+def test_string_functions_on_card_equal_cpu():
+    """The string library, LIKE and the casts to and from STRING through
+    SQL on the card give the CPU's rows, and launch the new kernels."""
+    _need_card()
+    import pyarrow as pa
+    rng = np.random.default_rng(19)
+    n = 50_000
+    words = np.array(["special", "requests", "fur", "furious", "ly", "the",
+                      "é", "  ", "x_y", "12", "-3.5", "2020-01-05"])
+    text = [" ".join(rng.choice(words, rng.integers(1, 6))) for _ in
+            range(n)]
+    t = pa.table({"s": text,
+                  "x": rng.standard_normal(n) * 10.0 ** rng.integers(
+                      -8, 12, n),
+                  "k": rng.integers(0, 50, n)})
+    q = ("select k, count(*) c, sum(length(trim(s))) l, max(reverse(s)) r,"
+         " min(replace(s, 'e', 'EE')) rp, max(lpad(s, 9, '*')) lp, "
+         "sum(instr(s, 'ly')) i, max(md5(s)) m, sum(case when s like "
+         "'%fu_ious%' then 1 else 0 end) lk, max(cast(x as string)) xs, "
+         "sum(cast(cast(x as string) as double)) xd, sum(cast(s as "
+         "double)) sd, max(initcap(s)) ic, max(concat_ws('|', s, 'z')) cw, "
+         "count(cast(s as date)) dt from t group by k order by k")
+
+    def run(device):
+        s = TpuSession(device=device)
+        s.create_dataframe(t, 2).create_or_replace_temp_view("t")
+        cuda_ops.reset_launches()
+        return s.sql(q).to_arrow(), dict(cuda_ops.LAUNCHES)
+    got, launches = run("cuda")
+    for name in ("like_match", "format_double", "parse_double"):
+        assert launches[name] > 0, name
+    want, _ = run("cpu")
+    _close_tables(got, want)

@@ -13,6 +13,8 @@ package's, and the rows must agree (floats within 1e-9 relative; a query
 whose ORDER BY fixes the order compares in order).  A construct outside
 the subset raises ``SqlError`` before any work.
 """
+import re
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -184,11 +186,8 @@ UNSUPPORTED = {
     "select count(distinct k), count(distinct x) from fact": "DISTINCT",
     "select k from fact f1 where k = 1 or d in (select dk from dim where "
     "dv = f1.k)": "must be uncorrelated",
-    "select k from fact where s like 'M_sic'": "LIKE 'M_sic'",
-    "select k from fact where s like '%a%b%'": "LIKE",
     "select k from fact where k = 1 or exists (select k from fact)":
         "EXISTS is supported only as a conjunct",
-    "select cast(s as double) from fact": "CAST",
     "select k, lead(x, 1, 0) over (partition by k order by x) from fact":
         "default value",
     "select k from fact union select s from fact": "no common type",
@@ -197,7 +196,6 @@ UNSUPPORTED = {
     "select k from fact f1 where x > (select avg(x) from fact f2 where "
     "f2.k < f1.k)": "equalities",
     "select case when k > 1 then s else 1 end from fact": "no common type",
-    "select md5(s) from fact": "md5",
     "select date '2000-02-30' from fact": "DATE",
     "select k from fact order by k limit 5 offset 2": "OFFSET",
     "select k from nosuchtable": "not found",
@@ -209,6 +207,43 @@ UNSUPPORTED = {
 def test_unsupported_construct_raises(sql):
     with pytest.raises(SqlError, match=UNSUPPORTED[sql]):
         _port_rows(sql, _tables(2, 50))
+
+
+#: constructs the port refused before its string library and casts to
+#: and from STRING, with a Python computation of Spark's answer per row
+LIFTED = {
+    "select k, s from fact where s like 'M_sic'":
+        lambda s: s is not None and re.fullmatch("M.sic", s) is not None,
+    "select k, s from fact where s like '%a%b%'":
+        lambda s: s is not None and re.fullmatch(".*a.*b.*", s) is not None,
+    "select k, s, cast(s as double) from fact": None,
+    "select k, s, md5(s) from fact": None,
+}
+
+
+@pytest.mark.parametrize("sql", sorted(LIFTED))
+def test_lifted_construct_answers(sql):
+    """What ``test_unsupported_construct_raises`` refused before the
+    string library: general LIKE keeps the rows Python's ``re`` matches,
+    a string's CAST to double is NULL for a word that is no number, and
+    ``md5`` is hashlib's."""
+    import hashlib
+    tables = _tables(2, 50)
+    rows = _port_rows(sql, tables)
+    if LIFTED[sql] is not None:
+        want = [w for w in tables["fact"]["s"].to_pylist() if LIFTED[sql](w)]
+        assert sorted(r[1] for r in rows) == sorted(want)
+    elif "md5" in sql:
+        assert all(r[2] == (None if r[1] is None else
+                            hashlib.md5(r[1].encode()).hexdigest())
+                   for r in rows) and len(rows) == 50
+    else:
+        def number(w):
+            try:
+                return float(w)
+            except (TypeError, ValueError):
+                return None
+        assert all(r[2] == number(r[1]) for r in rows) and len(rows) == 50
 
 
 def test_parse_shapes():

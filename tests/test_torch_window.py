@@ -461,13 +461,11 @@ def test_reference_range_peers_use_first_key():
 
 @pytest.mark.parametrize("sql", [
     "select id, max(s) over (partition by g) m from t",
-    "select id, avg(s) over (partition by g) m from t",
     "select id, first(v) over (partition by g) m from t",
     "select id, last_value(v) over (order by id) m from t",
     "select id from t where rank() over (order by o) < 3",
     "select id, ntile(0) over (order by o) n from t",
     "select id, min(s) over (partition by g) m from t",
-    "select id, sum(s) over (partition by g) m from t",
     "select id, stddev(x) over (partition by g) m from t",
     "select id, sum(v) over (partition by g order by o, id range between "
     "1 preceding and 1 following) m from t",
@@ -481,6 +479,19 @@ def test_reference_range_peers_use_first_key():
 def test_unsupported_windows_raise_sql_error(sql):
     with pytest.raises(SqlError):
         _port_session().sql(sql)
+
+
+@pytest.mark.parametrize("agg", ["avg", "sum"])
+def test_window_aggregate_of_a_string_casts_to_double(agg):
+    """``avg`` / ``sum`` of a string over a window, refused before the
+    casts from STRING: Spark's implicit cast to double, the same rows as
+    the aggregate of ``cast(s as double)``."""
+    s = _port_session()
+    got = s.sql(f"select id, {agg}(s) over (partition by g) m from t "
+                f"order by id").collect()
+    want = s.sql(f"select id, {agg}(cast(s as double)) over (partition by "
+                 f"g) m from t order by id").collect()
+    assert got == want and len(got) > 0
 
 
 def test_grouped_min_raises_through_the_dataframe_api():
