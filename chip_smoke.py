@@ -24,8 +24,11 @@ Phases (any failure exits non-zero):
    joins' four dimensions and at a build past the L2; the direct-address
    probe at the four star dimensions, beside the search at each, and
    equal to its (lo, counts); phase 17's ``like_match`` on a batch of
-   o_comment rows with Q13's pattern, ``format_double`` on random
-   doubles and ``parse_double`` on their texts, each row equal),
+   o_comment rows with Q13's pattern and on s_comment rows with Q16's,
+   ``format_double`` on random doubles and ``parse_double`` on their
+   texts and on random floats' texts, each row equal; with ``--parent``
+   the probe and ``like_match`` beside the parent's kernels, equal and
+   timed in turns),
    device-timed
    behind a sleep kernel (``time_cuda``) beside its byte bound (3.35
    TB/s), its host cost per call, the plain version and a one-call
@@ -946,8 +949,9 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
     probe_main = probe(lambda: probe_inputs(rng, 3), " (q17's join)")
     direct_main = lambda: check_direct_probe(
         star_direct_inputs(rng, "date_dim"), " (date_dim star)")
-    # phase 17's kernels at its batches (h17_batch_rows at SF10)
-    like_main = lambda: check_like_match(rng, big)
+    # phase 17's kernels at its batches (h17_batch_rows at SF10),
+    # like_match beside the parent's kernel under --parent
+    like_main = lambda: check_like_match(rng, big, "q13", old)
     format_main = lambda: check_format_double(rng, big)
     parse_main = lambda: check_parse_double(rng, big)
     checks = [
@@ -1014,6 +1018,11 @@ def kernel_phase(rng, parent: str = None, big: int = 4 << 20) -> dict:
         lambda: check_direct_probe(decimal_direct_inputs(rng),
                                    " (D2's DECIMAL key)"),
         like_main, format_main, parse_main,
+        # Q16's pattern over s_comment rows: SF10's 100,000 suppliers, and
+        # a whole batch; S2's float32 texts
+        lambda: check_like_match(rng, 100_000, "q16", old),
+        lambda: check_like_match(rng, big, "q16", old),
+        lambda: check_parse_double(rng, big, True),
     ]
     if parent:
         checks += [
@@ -8310,16 +8319,26 @@ def strings_phase(args, kernels_used, data_dir: str, ahead=None) -> dict:
     return launches
 
 
-def comment_rows(rng, n: int, device: str = "cuda"):
-    """(offsets int32, data uint8, valid bool) of n o_comment-like rows
-    (19-78 bytes of TPC-H's text pool, 1% null) on ``device``."""
+def comment_rows(rng, n: int, device: str = "cuda", lo: int = 19,
+                 hi: int = 78, plant: str = None):
+    """(offsets int32, data uint8, valid bool) of n comment rows (lo-hi
+    bytes of TPC-H's text pool, 1% null; o_comment's 19-78 by default) on
+    ``device``; with ``plant`` (at most lo bytes), 5 rows of 10,000 (at
+    least 2) get it written over some of their bytes, as make_tpch17
+    writes ``Customer ... Complaints`` into s_comment."""
     import torch
     pool = h17_text_pool(int(rng.integers(1 << 30)), 1 << 22)
-    arr = pool_strings(rng, pool, n, 19, 78)
-    offs, data = _arrow_parts(arr)
+    offs, data = _arrow_parts(pool_strings(rng, pool, n, lo, hi))
+    data = data.copy()
+    if plant is not None:
+        word = np.frombuffer(plant.encode(), np.uint8)
+        for row in rng.choice(n, max(2, n // 2000), replace=False):
+            room = int(offs[row + 1] - offs[row]) - word.shape[0]
+            at = int(offs[row]) + int(rng.integers(0, room + 1))
+            data[at:at + word.shape[0]] = word
     valid = rng.random(n) >= 0.01
     return (torch.from_numpy(offs.astype(np.int32)).to(device),
-            torch.from_numpy(data.copy()).to(device),
+            torch.from_numpy(data).to(device),
             torch.from_numpy(valid).to(device))
 
 
@@ -8334,24 +8353,58 @@ def _timed_once(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def check_like_match(rng, n: int) -> dict:
-    """``like_match`` against its plain version on a batch of o_comment
-    rows with Q13's pattern; every row equal."""
+def timed_in_turns(tree, parent):
+    """The kernel of this tree and the parent's on the same inputs, device
+    ms of each in turns (tree, parent, tree, parent): ((tree ms, host ms),
+    extra keys of the entry).  Without a parent, the tree's ``time_cuda``
+    alone."""
+    if parent is None:
+        return time_cuda(tree), {}
+    turns = {"tree": [], "parent": []}
+    for who in ("tree", "parent", "tree", "parent"):
+        turns[who].append(time_cuda(tree if who == "tree" else parent))
+    ms = [t[0] for t in turns["tree"]]
+    pms = [t[0] for t in turns["parent"]]
+    return ((sum(ms) / 2, turns["tree"][0][1]),
+            {"parent_ms": sum(pms) / 2, "turns_ms": {"tree": ms,
+                                                      "parent": pms},
+             "speedup_over_parent": sum(pms) / sum(ms)})
+
+
+#: phase 3's like_match shapes: (what, rows' lo-hi bytes, pattern, the
+#: substring planted in a few rows); Q13's is the main path's
+LIKE_SHAPES = {"q13": ("o_comment", 19, 78, "%special%requests%", None),
+               "q16": ("s_comment", 25, 100, "%Customer%Complaints%",
+                       "Customer about Complaints")}
+
+
+def check_like_match(rng, n: int, shape: str = "q13", old=None) -> dict:
+    """``like_match`` against its plain version on a batch of comment rows
+    with Q13's (or Q16's) pattern, every row equal; with ``old`` (the
+    parent checkout's ``cuda_ops``) also the parent's kernel, equal and
+    timed in turns."""
     from spark_rapids_tpu_torch.kernels import cuda_ops
-    cols = comment_rows(rng, n)
-    tokens = cuda_ops.like_tokens("%special%requests%")
+    what, lo, hi, pattern, plant = LIKE_SHAPES[shape]
+    cols = comment_rows(rng, n, lo=lo, hi=hi, plant=plant)
+    tokens = cuda_ops.like_tokens(pattern)
     got = cuda_ops.like_match(*cols, tokens)
     plain_ms, want = _timed_once(
         lambda: cuda_ops.like_match_plain(*cols, tokens))
     err = int((got != want).sum())
     check(err == 0, f"like_match: {err} rows differ from the plain version")
-    timed = time_cuda(lambda: cuda_ops.like_match(*cols, tokens))
+    parent = None
+    if old is not None:
+        check(bool((old.like_match(*cols, tokens) == got).all()),
+              f"the parent's like_match differs ({shape})")
+        parent = lambda: old.like_match(*cols, tokens)
+    timed, extra = timed_in_turns(
+        lambda: cuda_ops.like_match(*cols, tokens), parent)
     nbytes = int(cols[0][-1]) + 4 * (n + 1) + n + n
     return kernel_entry(
         "like_match", "strings.cu", "spark_rapids_tpu/expr/string_ops.py:202",
-        f"{n} o_comment rows (19-78 bytes, {int(cols[0][-1])} bytes) "
-        f"against '%special%requests%' (Q13), {int(got.sum())} match",
-        float(err), timed, plain_ms, nbytes, None)
+        f"{n} {what} rows ({lo}-{hi} bytes, {int(cols[0][-1])} bytes) "
+        f"against '{pattern}' ({shape.upper()}), {int(got.sum())} match",
+        float(err), timed, plain_ms, nbytes, None, **extra)
 
 
 def check_format_double(rng, n: int) -> dict:
@@ -8375,33 +8428,42 @@ def check_format_double(rng, n: int) -> dict:
         float(err), timed, plain_ms, n * (8 + 8 + 4), None)
 
 
-def check_parse_double(rng, n: int) -> dict:
+def check_parse_double(rng, n: int, f32: bool = False) -> dict:
     """``parse_double`` against its plain version (Python's ``float``)
     on a batch of the texts S2 parses: the port's own CAST(x AS STRING)
-    of random finite doubles, bit for bit."""
+    of random finite doubles (or, ``f32``, floats), bit for bit and equal
+    to x."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_ops, numtext
-    x = rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64,
-                     endpoint=True).view(np.float64)
-    x[~np.isfinite(x)] = 1.5
+    if f32:
+        x = rng.integers(0, 2 ** 32 - 1, n, dtype=np.uint32,
+                         endpoint=True).view(np.float32)
+        x[~np.isfinite(x)] = np.float32(1.5)
+        bits = torch.int32
+    else:
+        x = rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64,
+                         endpoint=True).view(np.float64)
+        x[~np.isfinite(x)] = 1.5
+        bits = torch.int64
     t = torch.from_numpy(x.copy()).cuda()
     col = numtext.format_float(t, torch.ones(n, dtype=torch.bool,
                                              device="cuda"))
     args = (col.offsets.contiguous(), col.data, col.validity)
-    v, ok = cuda_ops.parse_double(*args)
+    v, ok = cuda_ops.parse_double(*args, f32)
     plain_ms, (wv, wok) = _timed_once(
-        lambda: cuda_ops.parse_double_plain(*args))
-    err = int(((v.view(torch.int64) != wv.view(torch.int64)) |
-               (ok != wok) | (v.view(torch.int64) != t.view(torch.int64)))
-              .sum())
+        lambda: cuda_ops.parse_double_plain(*args, f32))
+    err = int(((v.view(bits) != wv.view(bits)) | (ok != wok) |
+               (v.view(bits) != t.view(bits))).sum())
     check(err == 0, f"parse_double: {err} rows differ from float()")
-    timed = time_cuda(lambda: cuda_ops.parse_double(*args))
-    nbytes = int(col.offsets[-1]) + 4 * (n + 1) + n + 8 * n + n
+    timed = time_cuda(lambda: cuda_ops.parse_double(*args, f32))
+    nbytes = (int(col.offsets[-1]) + 4 * (n + 1) + n +
+              (4 if f32 else 8) * n + n)
+    kind = "floats (S2's f)" if f32 else "doubles (S2's x)"
     return kernel_entry(
         "parse_double", "numtext.cu", "spark_rapids_tpu/expr/cast.py:189",
-        f"{n} texts of random doubles ({int(col.offsets[-1])} bytes, "
-        f"S2's round trip) to doubles", float(err), timed, plain_ms,
-        nbytes, None)
+        f"{n} texts of random {kind} ({int(col.offsets[-1])} bytes, S2's "
+        f"round trip) to {'floats' if f32 else 'doubles'}", float(err),
+        timed, plain_ms, nbytes, None)
 
 
 def _reference_worker() -> None:
@@ -8694,8 +8756,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: also time its "
-                         "kernels at the raw-row and probe shapes with "
-                         "this timer")
+                         "kernels at the raw-row, probe and LIKE shapes "
+                         "with this timer")
     ap.add_argument("--only", type=int,
                     choices=(11, 12, 13, 14, 15, 16, 17),
                     default=None,

@@ -32,12 +32,19 @@
 // words (low, high); kernels/cuda_ops.pow10_table builds it on the host
 // with Python's integers at first use.
 //
-// What bounds them on the H100: format reads 8 bytes and writes 12 a row,
-// parse reads the row's bytes and writes 9; both do a few hundred integer
-// operations a row (three 64x128-bit products, a loop over the row's bytes),
-// which the card's integer rate covers at its memory rate or near it.  The
-// slow rows of parse take thousands of operations each, in a branch that
-// other rows of their warp skip.
+// What bounds them on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): not the
+// bytes.  format moves 20 bytes a value and runs at about 41% of that bound
+// at 3.35 TB/s; parse moves the row's bytes, 4 of offsets, a validity byte
+// in and 9 (or 5) bytes out, and runs at 22-23% of that bound on texts of
+// random doubles, 15-17% on texts of floats (chip_smoke.py's phase 3, at
+// 4,194,304 rows).  Both are held by their integer work, which the card
+// runs as several 32-bit operations for each 64-bit one: three 64x128-bit
+// products a value, and for parse dependent byte loads along the row and a
+// 64-bit multiply-add a digit.  Staging a tile's rows in shared memory
+// (with the digits read four at a time and the undecided rows passed to a
+// second launch) did not beat this design on those texts: the loads were
+// not what held it.  The slow rows of parse take thousands of operations
+// each, in a branch that other rows of their warp skip.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -86,9 +86,12 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Build output for one source, named by a digest of source + flags."""
+    """Build output for one source, named by a digest of the source, the
+    headers beside it and the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers +
+                          " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -155,12 +158,18 @@ class _Plan(ctypes.Structure):
 #: ``_`` and ``%`` are LIKE_ONE and LIKE_ANY
 LIKE_MAX_TOKENS = 512
 LIKE_ONE, LIKE_ANY = 256, 257
+#: most pieces of a pattern (LM_MAX_PIECES): runs of ``%`` are one token,
+#: so a piece is at least one token
+LIKE_MAX_PIECES = LIKE_MAX_TOKENS // 2 + 1
 
 
 class _LikePattern(ctypes.Structure):
     """``LikePattern`` of csrc/strings.cu."""
-    _fields_ = [("len", ctypes.c_int),
-                ("tok", ctypes.c_short * LIKE_MAX_TOKENS)]
+    _fields_ = [("len", ctypes.c_int), ("pieces", ctypes.c_int),
+                ("tok", ctypes.c_short * LIKE_MAX_TOKENS),
+                ("start", ctypes.c_short * LIKE_MAX_PIECES),
+                ("count", ctypes.c_short * LIKE_MAX_PIECES),
+                ("fixed", ctypes.c_ubyte * LIKE_MAX_PIECES)]
 
 
 _VP, _I, _LL, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -183,7 +192,7 @@ _SIGNATURES = {
                          _LL, _LL, _LL, _VP, _VP, _I, _VP]},
     "strings": {
         "like_match": [_VP, _VP, _VP, _LL, ctypes.POINTER(_LikePattern),
-                       _VP, _I, _VP]},
+                       _VP, _VP]},
     "numtext": {
         "format_double": [_VP, _I, _LL, _VP, _VP, _VP, _I, _VP],
         "parse_double": [_VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _I, _VP]},
@@ -969,8 +978,12 @@ def direct_probe(keys: torch.Tensor, valid: torch.Tensor, rows,
 
 # -- SQL LIKE ------------------------------------------------------------------
 
-#: threads of a like_match, format_double and parse_double block
+#: threads of a format_double and parse_double block
 TEXT_THREADS = 256
+#: rows of one like_match tile and the bytes its window stages
+#: (LM_THREADS and LM_BUDGET of csrc/strings.cu)
+LIKE_TILE_ROWS = 256
+LIKE_TILE_BYTES = LIKE_TILE_ROWS * 70
 
 
 def like_tokens(pattern: str, escape: str = "\\") -> List[int]:
@@ -996,6 +1009,34 @@ def like_tokens(pattern: str, escape: str = "\\") -> List[int]:
         else:
             out.extend(ch.encode("utf-8"))
     return out
+
+
+def like_pieces(tokens: Sequence[int]):
+    """The pattern ``tokens`` cut at its ``%``s, as ``like_match``'s kernel
+    reads it: (start, count, fixed) of each piece, the first anchored at
+    the row's start and the last at its end (an empty last piece: the
+    pattern ends with ``%``; an empty first one: it starts with one).
+    ``start`` is the piece's first token, ``count`` its tokens and
+    ``fixed`` whether none is LIKE_ONE (its bytes are its length)."""
+    pieces, start = [], 0
+    for k, t in enumerate(list(tokens) + [LIKE_ANY]):
+        if t == LIKE_ANY:
+            piece = tokens[start:k]
+            pieces.append((start, k - start, LIKE_ONE not in piece))
+            start = k + 1
+    return pieces
+
+
+def _like_pattern(tokens: Sequence[int]) -> _LikePattern:
+    pat = _LikePattern()
+    pat.len = len(tokens)
+    for k, t in enumerate(tokens):
+        pat.tok[k] = t
+    pieces = like_pieces(tokens)
+    pat.pieces = len(pieces)
+    for j, (start, count, fixed) in enumerate(pieces):
+        pat.start[j], pat.count[j], pat.fixed[j] = start, count, fixed
+    return pat
 
 
 def _char_bytes(b: torch.Tensor) -> torch.Tensor:
@@ -1049,8 +1090,9 @@ def like_match(offsets: torch.Tensor, data: torch.Tensor,
                valid: torch.Tensor, tokens: Sequence[int]) -> torch.Tensor:
     """bool[n]: row i (bytes ``[offsets[i], offsets[i + 1])`` of
     ``data``) matches the LIKE pattern ``tokens`` (``like_tokens``);
-    False for a null row.  On the card, one launch (csrc/strings.cu),
-    the pattern passed by value."""
+    False for a null row.  On the card, one launch (csrc/strings.cu) over
+    tiles of rows staged in shared memory, the pattern and its pieces
+    (``like_pieces``) passed by value."""
     what = "like_match"
     n = valid.shape[0]
     if (offsets.dtype != torch.int32 or offsets.shape != (n + 1,) or
@@ -1063,18 +1105,19 @@ def like_match(offsets: torch.Tensor, data: torch.Tensor,
     _check_contiguous([offsets, data, valid], what)
     if _device_kind([offsets, data, valid], what) == "cpu":
         return like_match_plain(offsets, data, valid, tokens)
+    if data.untyped_storage().data_ptr() % 16:
+        # the kernel copies whole 16-byte words around each tile's bytes
+        raise ValueError(f"{what}: the bytes' storage must start at a "
+                         f"16-byte boundary")
     dev = valid.device
     out = torch.empty(n, dtype=torch.bool, device=dev)
-    pat = _LikePattern()
-    pat.len = len(tokens)
-    for k, t in enumerate(tokens):
-        pat.tok[k] = t
+    pat = _like_pattern(tokens)
     lib = _load("strings")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.like_match(offsets.data_ptr(), data.data_ptr(),
                              valid.data_ptr(), n, ctypes.byref(pat),
-                             out.data_ptr(), TEXT_THREADS, stream)
+                             out.data_ptr(), stream)
     _raise_on(lib, what, err)
     LAUNCHES[what] += 1
     return out
@@ -1292,3 +1335,4 @@ def parse_double(offsets: torch.Tensor, data: torch.Tensor,
     _raise_on(lib, what, err)
     LAUNCHES[what] += 1
     return out, ok
+

@@ -1465,3 +1465,237 @@ def test_string_functions_on_card_equal_cpu():
         assert launches[name] > 0, name
     want, _ = run("cpu")
     _close_tables(got, want)
+
+
+# -- slice 17: like_match over row tiles, parse_double on edge rows ---------
+
+def _like_regex(pattern: str) -> str:
+    """A LIKE pattern (escape ``\\``) as a regular expression over the
+    decoded text, ``_`` one character."""
+    import re
+    out, chars = [], iter(pattern)
+    for ch in chars:
+        if ch == "\\":
+            out.append(re.escape(next(chars)))
+        else:
+            out.append({"%": ".*", "_": "."}.get(ch, re.escape(ch)))
+    return "".join(out)
+
+
+def _slice_column(cols, start, stop):
+    """Rows [start, stop) of a text column as views: the offsets no
+    longer start at 0 and the bytes stay whole."""
+    offs, data, valid = cols
+    return offs[start:stop + 1], data, valid[start:stop]
+
+
+def _tile_strings(case, rng, words, fill, tile_rows, tile_bytes):
+    """(strings, sliced rows or None) of one tile case: ``words`` make
+    short rows, ``fill(length)`` a row of exactly ``length`` bytes."""
+    short = lambda: " ".join(rng.choice(words, rng.integers(0, 7)))
+    if case.startswith("n"):
+        return [short() for _ in range(int(case[1:]))], None
+    if case == "straddle":
+        # long rows at every tile's end, so that rows and windows straddle
+        return [fill(int(rng.integers(200, 3000))) if i % tile_rows >
+                tile_rows - 4 else short() for i in range(5 * tile_rows
+                                                          + 37)], None
+    if case == "empty_and_null_tile":
+        rows = [short() for _ in range(4 * tile_rows)]
+        rows[tile_rows:2 * tile_rows] = [None] * tile_rows
+        rows[2 * tile_rows:3 * tile_rows] = [""] * tile_rows
+        rows[3 * tile_rows + 5:3 * tile_rows + 60] = [""] * 55
+        return rows, None
+    if case.startswith("budget"):
+        # a tile whose span is the staging budget less one, equal or one
+        # more, between ordinary tiles
+        delta = {"budget_minus": -1, "budget": 0, "budget_plus": 1}[case]
+        each = tile_bytes // tile_rows
+        big = [fill(each) for _ in range(tile_rows)]
+        big[-1] = fill(each + delta)
+        return ([short() for _ in range(tile_rows)] + big +
+                [short() for _ in range(tile_rows + 9)]), None
+    if case == "sliced":
+        return [short() for _ in range(3 * tile_rows + 11)], (
+            tile_rows // 2 + 3, 3 * tile_rows)
+    raise ValueError(case)
+
+
+TILE_CASES = ["n1", "n255", "n256", "n257", "straddle",
+              "empty_and_null_tile", "budget_minus", "budget",
+              "budget_plus", "sliced"]
+
+#: LIKE patterns for the tile cases: Q13's and Q16's, a piece whose
+#: leftmost match must be passed over, anchored first and last pieces,
+#: multi-byte characters under ``_``, and the two 512-token limits
+LIKE_TILE_PATTERNS = ["%special%requests%", "%Customer%Complaints%",
+                      "a%aab%b", "sp%", "%ts", "sp%_s", "%é_%", "_€%",
+                      "%_é%€", "%", "", "%a%b%", "% %",
+                      "%" + "a%" * 255 + "b", "_" * 512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_like_match_tiles_match_plain(case):
+    """``like_match`` over row tiles staged in shared memory: rows at
+    and across tile ends, spans at the staging budget, empty rows, a null
+    tile, n around one tile and a sliced column give the plain version's
+    answers for every pattern."""
+    _need_card()
+    rng = np.random.default_rng(171)
+    words = np.array(["special", "requests", "Customer", "Complaints",
+                      "aab", "a", "b", "é", "€x", "s", "sp", "ts", "aaab"])
+    # k bytes, the last two one character
+    fill = lambda k: "".join(rng.choice(list("abspt "), k - 2)) + "é"
+    strings, sliced = _tile_strings(case, rng, words, fill,
+                                    cuda_ops.LIKE_TILE_ROWS,
+                                    cuda_ops.LIKE_TILE_BYTES)
+    cols = _text_column(strings, "cpu")
+    if sliced:
+        cols = _slice_column(cols, *sliced)
+    dev = [c.cuda() for c in cols]
+    if sliced:
+        assert int(dev[0][0]) != 0
+    cuda_ops.reset_launches()
+    for pat in LIKE_TILE_PATTERNS:
+        tokens = cuda_ops.like_tokens(pat)
+        got = cuda_ops.like_match(*dev, tokens)
+        want = cuda_ops.like_match_plain(*cols, tokens)
+        assert torch.equal(got.cpu(), want), pat
+    assert cuda_ops.LAUNCHES["like_match"] == len(LIKE_TILE_PATTERNS)
+
+
+@pytest.mark.gpu
+def test_like_match_long_rows_and_passed_over_pieces():
+    """A 1 MB row among short ones (read where it lies, past the staging
+    budget) against ``re``; a piece whose leftmost match must be passed
+    over (``a%aab%b`` on ``aaab...b``), anchored pieces and multi-byte
+    ``_`` against the plain version."""
+    import re
+    _need_card()
+    rng = np.random.default_rng(172)
+    big = "".join(rng.choice(list("ab €é"), 1 << 20))
+    big = "special " + big[:len(big) // 2] + " requests" + big[len(big)
+                                                                // 2:]
+    shorts = ["aaab" + "b" * k for k in range(40)] + [
+        "aab", "aaab", "aaabb", "aabab", "ab", "a", "", "aaaab", "aabb",
+        "é€é", "ééé", "€", "aéb", "a€b", "special requests", "requests",
+        "Customer x Complaints"]
+    strings = shorts[:30] + [big] + shorts[30:] + [big[:300000]]
+    cols = _text_column(strings, "cpu")
+    dev = [c.cuda() for c in cols]
+    long_rows = [i for i, s in enumerate(strings) if len(s) > 1000]
+    small = [s if len(s) <= 1000 else "" for s in strings]
+    small_cols = _text_column(small, "cpu")
+    # patterns Python's re matches in linear time on the 1 MB rows
+    for pat in ["%special%requests%", "a%aab%b", "%aab%", "aa_b%",
+                "%_b", "_é_", "a_b", "%€_é%", "special%", "%requests%b%",
+                "%"]:
+        tokens = cuda_ops.like_tokens(pat)
+        got = cuda_ops.like_match(*dev, tokens).cpu()
+        want = cuda_ops.like_match_plain(*small_cols, tokens)
+        rx = re.compile(_like_regex(pat), re.DOTALL)
+        for i in long_rows:
+            want[i] = rx.fullmatch(strings[i]) is not None
+        assert torch.equal(got, want), pat
+    got = cuda_ops.like_match(*dev, cuda_ops.like_tokens("a%aab%b")).cpu()
+    assert not got[strings.index("aaab")] and not got[strings.index("aabab")]
+    assert got[strings.index("aaabb")]
+
+
+def _halfway_texts(rng, n, f32):
+    """Texts of numbers exactly halfway between two neighbouring doubles
+    (floats), written out in full: every one takes the slow path."""
+    import decimal
+    decimal.getcontext().prec = 1200
+    out = []
+    for k in range(n):
+        if f32:
+            a = float(np.float32(rng.standard_normal() *
+                                 10.0 ** rng.integers(-30, 30)))
+            b = float(np.nextafter(np.float32(a), np.float32(np.inf)))
+        else:
+            a = float(rng.standard_normal() * 10.0 ** rng.integers(-300,
+                                                                   300))
+            b = float(np.nextafter(a, np.inf))
+        h = (decimal.Decimal(a) + decimal.Decimal(b)) / 2
+        out.append(format(h, "e" if k % 2 else "f"))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f32", [False, True], ids=["double", "float"])
+@pytest.mark.parametrize("case", TILE_CASES + ["all_slow", "long_digits"])
+def test_parse_double_edge_rows_match_plain(case, f32):
+    """``parse_double`` on n around one block of rows, long rows among
+    short ones, runs of rows at 48 bytes each, empty and null runs,
+    sliced columns, a block whose every row is a halfway case (the slow
+    path in every thread), texts of 20-1,000 digits with whitespace and
+    d/F suffixes: bit for bit the plain version's values and the same ok
+    rows."""
+    _need_card()
+    rows = cuda_ops.TEXT_THREADS
+    rng = np.random.default_rng(173)
+    words = np.array(["1", "2.5", "-0.125", "7e3", "1e-7", ".5", "5.",
+                      "3d", "4F", "nan", "-inf", "x"])
+    fill = lambda k: ("1." + "".join(map(str, rng.integers(0, 10, k))))[
+        :k - 1].rjust(k - 1) + "d"
+    if case == "all_slow":
+        strings = _halfway_texts(rng, 3 * rows + 5, f32)
+        strings = [[s, f" {s}\t", s + "d", "+" + s + "F"][i % 4]
+                   for i, s in enumerate(strings)]
+        sliced = None
+    elif case == "long_digits":
+        strings = []
+        for k in range(2000):
+            nd = int(rng.integers(20, 1001))
+            digs = "".join(map(str, rng.integers(0, 10, nd)))
+            pt = int(rng.integers(0, nd + 1))
+            text = digs[:pt] + "." + digs[pt:]
+            text += f"e{rng.integers(-400, 400)}" if k % 3 == 0 else ""
+            strings.append([text, f"  {text} ", text + "D", "-" + text +
+                            "f"][k % 4])
+        sliced = None
+    else:
+        strings, sliced = _tile_strings(case, rng, words, fill, rows,
+                                        rows * 48)
+        strings = [None if s is None else s.replace(" ", "") or s
+                   for s in strings]
+    cols = _text_column(strings, "cpu")
+    if sliced:
+        cols = _slice_column(cols, *sliced)
+    cuda_ops.reset_launches()
+    got, ok = cuda_ops.parse_double(*[c.cuda() for c in cols], f32)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["parse_double"] == 1
+    want, want_ok = cuda_ops.parse_double_plain(*cols, f32)
+    assert torch.equal(ok.cpu(), want_ok)
+    view = torch.int32 if f32 else torch.int64
+    g = torch.where(ok.cpu(), got.cpu().view(view), 0)
+    w = torch.where(want_ok, want.view(view), 0)
+    nan = torch.isnan(want)
+    assert torch.equal(g[~nan], w[~nan])
+    assert torch.isnan(got.cpu()[nan & want_ok]).all()
+
+
+@pytest.mark.gpu
+def test_parse_double_megabyte_rows():
+    """Rows of 1 MB, read where they lie: a halfway case padded with a
+    million zeros (ties to even) and with a last 1 past them (above the
+    halfway point, decided by the digits past the 800 kept), among short
+    rows."""
+    import decimal
+    _need_card()
+    decimal.getcontext().prec = 100
+    texts = []
+    for a in (1.0, 1.0000000000000002, 3.0e-200):
+        b = float(np.nextafter(a, np.inf))
+        h = format((decimal.Decimal(a) + decimal.Decimal(b)) / 2, "f")
+        texts += [h + "0" * (1 << 20), h + "0" * (1 << 20) + "1",
+                  " " + h + "0" * 5000 + "1d "]
+    strings = ["1.5", "2"] + texts[:4] + ["-3e3"] * 300 + texts[4:]
+    cols = _text_column(strings, "cpu")
+    got, ok = cuda_ops.parse_double(*[c.cuda() for c in cols])
+    want, want_ok = cuda_ops.parse_double_plain(*cols)
+    assert torch.equal(ok.cpu(), want_ok) and bool(want_ok.all())
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
